@@ -8,8 +8,9 @@ Run from the root of a checkout, on a machine with the card:
 Phases, each of which fails the run on error (no phase catches a failure,
 and nothing falls back to the CPU):
 
-1. Device and build: the card's name and power limit, then nvcc builds the
-   attention kernel from the checkout and prints its ptxas report.
+1. Device and build: the card's name and power limit, then nvcc builds both
+   attention kernels from the checkout at once and prints their ptxas
+   reports.
 2. Kernel vs plain version on the card, at the five RA-LENet stage shapes,
    with and without bias, float32 (tolerance 1e-5, TF32 off for this phase
    only) and bfloat16
@@ -29,15 +30,43 @@ and nothing falls back to the CPU):
    its bound, the plain version's time and scaled_dot_product_attention's
    as a yardstick (the port never calls it). A call from a fresh thread,
    as the HTTP server makes, is timed and profiled by operator.
+6. Backward kernel vs plain versions on the card: the autograd Function's
+   dq, dk, dv and dbias at the five stage shapes, with and without bias,
+   f32 and bf16, B = 256, plus a ragged B = 3 and logits near 200, against
+   autograd through the plain forward (f32) and against the plain flash
+   backward on the kernel forward's own o and lse (f32 and bf16); two calls
+   give bit-identical gradients.
+7. Training step: RA-LENet 'full' at full width and depth, f32, batch 32,
+   one `train_step` on the card against the same step on the CPU (loss
+   1e-5 relative, BN running stats 1e-5, params after Adam 1e-4), with
+   exactly 18 forward and 18 backward kernel launches. Four more identical
+   steps on the card are compared bit for bit with the first, and the
+   state tensors that differ are named (reported, not required).
+7b. Training, the main path: `python -m ecg_denoise_tpu_torch.cli.main`
+   (run in this process through runpy, so the launch counts are readable)
+   trains 10 bf16 epochs on a small dict_data cache written to a temp dir,
+   checkpoints, writes output.txt; the test loss must fall, and
+   `Denoiser.from_checkpoint` serves the checkpoint. The counts are set to
+   0 just before and read just after.
+8. Training times on the card: `train_epoch` windows/s at batch 32 and 256
+   in f32 and bf16 over three whole epochs of the CLI's default length
+   (8,000 windows; each epoch's rate printed), one step's time on the card's clock (CUDA events), a
+   profiler breakdown of one f32 step at 256 (device kernels, idle share,
+   host operators by self CPU time), and per stage shape the backward
+   kernel's time, its bound, the plain backward's and the backward of
+   scaled_dot_product_attention with a grad-requiring mask as a yardstick.
 
-The last lines are one JSON object per kernel, the card's name and power
-limit, and `{"ok": true, "device": {...}}`. Without a card, or outside a
+The last lines are one JSON object listing the kernels, the card's name
+and power limit, and `{"ok": true, "device": {...}}`. Without a card, or outside a
 checkout of the repository, it exits nonzero and prints no result.
 """
 
+import copy
 import io
 import json
 import os
+import re
+import runpy
 import statistics
 import subprocess
 import sys
@@ -45,6 +74,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -62,6 +92,27 @@ F32_TOL = 1e-5
 BF16_TOL_OF_MAX_V = 3 * 2 ** -8
 LARGE_LOGIT_TOL = 1e-4  # an f32 logit near 200 carries a rounding of up to 1.5e-5
 MODEL_TOL = 1e-4
+# Backward, f32: dq, dk, dv to 1e-4 (the JAX package's gradient bar,
+# tests/test_pallas_attention.py:125). dbias sums B = 256 float32 terms, in
+# order here and by a tree in the plain versions, each with about 1e-6 of
+# relative error from its recomputed p: 1e-4 of max|dbias|. With logits
+# near 200 each side's logits and lse carry roundings of up to 1.5e-5, so
+# p is off by up to ~3e-5 relative: 1e-4 of max|grad|.
+GRAD_TOL = 1e-4
+DBIAS_TOL_OF_MAX = 1e-4
+LARGE_LOGIT_GRAD_TOL_OF_MAX = 1e-4
+# bf16, against the flash backward on the same o and lse: both compute in
+# f32 and round once to bf16, at most half a bf16 step (2^-8 of |x|) each.
+BF16_GRAD_TOL_OF_MAX = 2 ** -7
+TRAIN_BATCH = 32  # the CLI's default and the reference's
+REPEAT_STEPS = 4  # identical steps compared bit for bit with the first
+TIMING_BATCH = 256
+EPOCH_WINDOWS = 8000  # the training split of the CLI's default --n_select
+EPOCH_REPEATS = 3
+# Adam step on the card against the CPU (the bars of __graft_entry__.py:120-129).
+LOSS_RTOL = 1e-5
+BN_STATS_TOL = 1e-5
+PARAM_TOL = 1e-4
 BATCH = 1024  # the serving default max_batch: the shapes the main path runs
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): f32 on the CUDA
 # cores (the kernel's arithmetic, also for bf16 operands) and HBM3.
@@ -111,6 +162,19 @@ def operands(B, H, L, with_bias, dtype, gen):
             for t in (q, k, v, bias)]
 
 
+def bwd_bound_terms(B, H, L, with_bias, elt):
+    """(operations, bytes) lower bounds in ms for one backward call: the
+    JAX cost estimate's flops (attention_pallas.py:774) over the f32 peak,
+    and the function's inputs and outputs each moved once over HBM
+    bandwidth: q, k, v, g, o, dq, dk, dv in the operand dtype, lse in f32,
+    and the bias and dbias. c = sum_d g*o is not counted: it comes from g
+    and o, which are."""
+    flops = 2 * B * H * (5 * L * L * 4 + 3 * L * L)
+    rows = B * H * L
+    nbytes = 8 * rows * 4 * elt + rows * 4 + (2 * H * L * L * elt if with_bias else 0)
+    return flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
 def bound_terms(B, H, L, with_bias, elt):
     """(operations, bytes) lower bounds in ms for one call: its flops over
     the f32 peak, and q, k, v, o and the bias, each moved once, over HBM
@@ -126,8 +190,13 @@ def phase_device_and_build():
     from ecg_denoise_tpu_torch.kernels import attention
 
     t0 = time.perf_counter()
-    attention._library()  # nvcc from the checkout's sources, ptxas report
-    log(f"[1] kernel built and loaded in {time.perf_counter() - t0:.1f} s")
+    # nvcc from the checkout's sources, one process per kernel, all at once;
+    # ptxas reports
+    with ThreadPoolExecutor(2) as pool:
+        for future in [pool.submit(attention._library),
+                       pool.submit(attention._bwd_library)]:
+            future.result()
+    log(f"[1] kernels built and loaded in {time.perf_counter() - t0:.1f} s")
     return name
 
 
@@ -253,7 +322,7 @@ def phase_serving(cpu_model):
     thread.start()
     url = f"http://127.0.0.1:{server.server_address[1]}"
     try:
-        fused_attention.launches = 0  # the main path's run starts here
+        fused_attention.launches = fused_attention.bwd_launches = 0  # main path
         with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
             health = json.loads(r.read())
         log(f"[4] /healthz: {health}")
@@ -271,6 +340,7 @@ def phase_serving(cpu_model):
         check(y.shape == record.shape and err <= 1e-6,
               "/denoise_record disagrees with Denoiser")
         launches = fused_attention.launches
+        check(fused_attention.bwd_launches == 0, "serving launched the backward kernel")
     finally:
         server.shutdown()
         server.server_close()
@@ -288,6 +358,16 @@ def _timed(fn, *args):
     return time.perf_counter() - t0
 
 
+def device_kernels(prof, iters):
+    """(ms per iteration, launches per iteration, name) of every device
+    kernel in a torch.profiler run, longest first; user annotations (such
+    as the optimizer's step range) are spans, not kernels, and are left out."""
+    return sorted(((e.self_device_time_total / 1e3 / iters, e.count // iters, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation), reverse=True)
+
+
 def profile_forward(model, x, fwd_ms, card, iters=3):
     """Device time of one forward by kernel name (torch.profiler), and the
     card's busy share of the unprofiled forward time `fwd_ms`."""
@@ -298,10 +378,7 @@ def profile_forward(model, x, fwd_ms, card, iters=3):
         for _ in range(iters):
             model(x)
         torch.cuda.synchronize()
-    kernels = sorted(((e.self_device_time_total / 1e3 / iters, e.count // iters,
-                       e.key) for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
-                     reverse=True)
+    kernels = device_kernels(prof, iters)
     if not kernels:
         log("[5] the profiler recorded no device kernels: breakdown not measured")
         return
@@ -422,6 +499,323 @@ def phase_times(gpu_model, cpu_model, card):
     return totals, by
 
 
+def kernel_grads(q, k, v, bias, g):
+    """fused_attention's gradients on the card through its autograd
+    Function, for q, k, v and (if given) the bias; and the output."""
+    from ecg_denoise_tpu_torch.kernels.attention import fused_attention
+
+    ins = [t.detach().requires_grad_() for t in (q, k, v, bias) if t is not None]
+    out = fused_attention(*ins[:3], ins[3] if bias is not None else None)
+    return out.detach(), torch.autograd.grad(out, ins, g)
+
+
+def plain_autograd_grads(q, k, v, bias, g):
+    from ecg_denoise_tpu_torch.kernels.attention import attention_reference
+
+    ins = [t.detach().requires_grad_() for t in (q, k, v, bias) if t is not None]
+    out = attention_reference(*ins[:3], ins[3] if bias is not None else None)
+    return torch.autograd.grad(out, ins, g)
+
+
+def phase_backward_vs_plain():
+    """The backward kernel, through the autograd Function, against the
+    plain flash backward on the forward kernel's own o and lse and, in
+    float32, against autograd through the plain forward."""
+    from ecg_denoise_tpu_torch import full_float32
+    from ecg_denoise_tpu_torch.kernels import attention
+
+    saved = tf32_flags()
+    full_float32()
+    gen = torch.Generator().manual_seed(5)
+    max_err = 0.0
+    cases = [(TIMING_BATCH, L, H, b, dt, 0.0) for (L, H) in STAGES
+             for b in (True, False) for dt in (torch.float32, torch.bfloat16)]
+    cases += [(3, L, H, True, torch.float32, 0.0) for (L, H) in STAGES]
+    # Trained logits reach 191.5 at the L=16 stage.
+    cases += [(TIMING_BATCH, 16, 32, True, torch.float32, 190.0)]
+    for B, L, H, with_bias, dtype, shift in cases:
+        q, k, v, bias = operands(B, H, L, with_bias, dtype, gen)
+        if shift:
+            bias = bias + shift
+        g = torch.randn(q.shape, generator=gen).to("cuda", dtype)
+        out, grads = kernel_grads(q, k, v, bias, g)
+        _, lse = attention._launch(q, k, v, bias, with_lse=True)
+        refs = {"flash": attention.attention_backward_reference(
+            q, k, v, bias, out, lse, g)}
+        if dtype == torch.float32:
+            refs["autograd"] = plain_autograd_grads(q, k, v, bias, g)
+        torch.cuda.synchronize()
+        check([t.dtype for t in grads] == [dtype] * len(grads)
+              and [t.shape for t in grads] == [q.shape] * 3 + ([bias.shape] if with_bias else []),
+              "backward output shape or dtype")
+        check(all(bool(torch.isfinite(t).all()) for t in grads), "non-finite gradient")
+        errs = []
+        for ref_name, ref in refs.items():
+            for name, a, b in zip(("dq", "dk", "dv", "dbias"), grads, ref):
+                scale = b.float().abs().max().item()
+                err = (a.float() - b.float()).abs().max().item()
+                if shift:
+                    tol = LARGE_LOGIT_GRAD_TOL_OF_MAX * scale
+                elif dtype == torch.bfloat16:
+                    tol = BF16_GRAD_TOL_OF_MAX * scale
+                else:
+                    tol = DBIAS_TOL_OF_MAX * scale if name == "dbias" else GRAD_TOL
+                errs.append(f"{name} vs {ref_name} {err:.2e}/{tol:.2e}")
+                check(err <= tol, f"backward kernel {name} disagrees with the "
+                                  f"plain {ref_name} backward")
+                if dtype == torch.float32 and ref_name == "flash" and not shift:
+                    max_err = max(max_err, err)
+        _, again = kernel_grads(q, k, v, bias, g)
+        same = all(torch.equal(a, b) for a, b in zip(grads, again))
+        log(f"[6] B={B} L={L} H={H} bias={with_bias} {str(dtype)[6:]}"
+            f"{f' logits+{shift:.0f}' if shift else ''}: " + ", ".join(errs)
+            + f"; a second call bit-identical: {same}")
+        check(same, "two backward calls differ")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    return max_err
+
+
+def state_max_diff(model, ref_sd):
+    """Max |difference| of parameters and of BN running stats against a
+    CPU state_dict."""
+    params = stats = 0.0
+    for key, val in model.state_dict().items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        d = (val.float().cpu() - ref_sd[key].float()).abs().max().item()
+        if key.endswith(("running_mean", "running_var")):
+            stats = max(stats, d)
+        else:
+            params = max(params, d)
+    return params, stats
+
+
+def phase_train_step(cpu_model):
+    """One Adam step of RA-LENet 'full' (float32, batch 32) on the card
+    against the same step on the CPU, with 18 + 18 kernel launches."""
+    from ecg_denoise_tpu_torch.kernels.attention import fused_attention
+    from ecg_denoise_tpu_torch.models import build_model
+    from ecg_denoise_tpu_torch.train import create_train_state, train_step
+
+    rng = np.random.default_rng(6)
+    noisy, clean = (torch.from_numpy(rng.standard_normal(
+        (TRAIN_BATCH, 2, 256)).astype(np.float32)) for _ in range(2))
+    cpu_state = create_train_state(copy.deepcopy(cpu_model), device="cpu")
+    gpu_states = []
+    for _ in range(1 + REPEAT_STEPS):
+        model = build_model("ralenet")
+        model.load_state_dict(cpu_model.state_dict())
+        gpu_states.append(create_train_state(model))
+    fused_attention.launches = fused_attention.bwd_launches = 0
+    loss = train_step(gpu_states[0], noisy.cuda(), clean.cuda())[0].item()
+    torch.cuda.synchronize()
+    launches = (fused_attention.launches, fused_attention.bwd_launches)
+    first = gpu_states[0].model.state_dict()
+    differ = {}  # state tensor -> in how many of the repeated steps it differs
+    for state in gpu_states[1:]:
+        train_step(state, noisy.cuda(), clean.cuda())
+        for key, val in state.model.state_dict().items():
+            if not torch.equal(val, first[key]):
+                differ[key] = differ.get(key, 0) + 1
+    ref = train_step(cpu_state, noisy, clean)[0].item()
+    params, stats = state_max_diff(gpu_states[0].model, cpu_state.model.state_dict())
+    log(f"[7] RaleNet 'full' depth 2, float32, batch {TRAIN_BATCH}: one Adam step "
+        f"on the card vs the CPU: loss {loss:.7f} vs {ref:.7f} (rel "
+        f"{abs(loss - ref) / abs(ref):.2e}, tol {LOSS_RTOL:.0e}), BN stats max diff "
+        f"{stats:.2e} (tol {BN_STATS_TOL:.0e}), params max diff {params:.2e} "
+        f"(tol {PARAM_TOL:.0e}); launches forward {launches[0]}, backward "
+        f"{launches[1]}")
+    log(f"[7] {REPEAT_STEPS} more identical steps on the card against the first: "
+        f"{len(differ)} of {len(first)} state tensors differ in some bit, "
+        f"{{tensor: steps that differ}} = {differ}")
+    check(launches == (18, 18), "the training step did not make 18 forward and "
+                                "18 backward kernel launches")
+    check(abs(loss - ref) <= LOSS_RTOL * abs(ref) and stats <= BN_STATS_TOL
+          and params <= PARAM_TOL, "the card's training step disagrees with the CPU's")
+
+
+def write_dict_data(path, n, seed):
+    """A small dict_data cache: clean windows in ecg.npy, the 'bw' noise
+    at -4 dB in m4/bw.npy, each (n, 2, 256) float32."""
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0, 6 * np.pi, 256)
+    clean = np.sin(t + rng.uniform(0, 6, (n, 2, 1))).astype(np.float32)
+    noisy = (clean + 0.5 * rng.standard_normal(clean.shape)
+             + np.linspace(-1, 1, 256) * rng.standard_normal((n, 2, 1))).astype(np.float32)
+    os.makedirs(os.path.join(path, "m4"))
+    np.save(os.path.join(path, "ecg.npy"), clean)
+    np.save(os.path.join(path, "m4", "bw.npy"), noisy)
+
+
+def mse_of(denoiser, noisy, clean):
+    return float(np.mean((denoiser(noisy) - clean) ** 2))
+
+
+def phase_train_cli(card):
+    """The training main path: the port's CLI, as a user runs it."""
+    from ecg_denoise_tpu_torch.data.dataset import load_split_arrays
+    from ecg_denoise_tpu_torch.kernels.attention import fused_attention
+    from ecg_denoise_tpu_torch.models import build_model
+    from ecg_denoise_tpu_torch.serving import Denoiser
+    from ecg_denoise_tpu_torch.utils.seed import random_seed
+
+    epochs, n_select, seed = 10, 1280, 2023
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "dict_data")
+        write_dict_data(data, 1600, seed=7)
+        out_file = os.path.join(tmp, "output.txt")
+        save_dir = os.path.join(tmp, "model_save")
+        argv = ["--model_index", "4", "--noise_type_index", "0",
+                "--intensity_index", "0", "--epochs", str(epochs),
+                "--batch_size", str(TRAIN_BATCH), "--n_select", str(n_select),
+                "--seed", str(seed), "--data_path", data,
+                "--model_save_dir", save_dir, "--output_file", out_file]
+        # The weights the CLI starts from: it seeds, then builds the model.
+        random_seed(seed)
+        initial = Denoiser(build_model("ralenet"), max_batch=256)
+        _, _, te_n, te_c = load_split_arrays("bw", -4, path=data,
+                                             n_select=n_select, seed=seed)
+        log(f"[7b] python -m ecg_denoise_tpu_torch.cli.main {' '.join(argv)}")
+        saved_argv = sys.argv
+        sys.argv = ["ecg_denoise_tpu_torch.cli.main", *argv]
+        t0 = time.perf_counter()
+        fused_attention.launches = fused_attention.bwd_launches = 0  # main path
+        try:
+            runpy.run_module("ecg_denoise_tpu_torch.cli.main", run_name="__main__",
+                             alter_sys=True)
+            torch.cuda.synchronize()
+        finally:
+            sys.argv = saved_argv
+        launches = (fused_attention.launches, fused_attention.bwd_launches)
+        wall = time.perf_counter() - t0
+        with open(out_file) as f:
+            line = f.read()
+        ckpt = os.path.join(save_dir, "ralenet", f"ralenet_{epochs - 1}_bw_intensity-4.pth")
+        check(os.path.exists(ckpt), "the CLI wrote no checkpoint")
+        trained = Denoiser.from_checkpoint("ralenet", ckpt, max_batch=256)
+        before, after = mse_of(initial, te_n, te_c), mse_of(trained, te_n, te_c)
+    n_train = int(0.8 * n_select)
+    steps = epochs * (n_train // TRAIN_BATCH)
+    evals = epochs * -(-(n_select - n_train) // TRAIN_BATCH)
+    log(f"[7b] {card}: {epochs} bf16 epochs of {n_train} windows in {wall:.1f} s "
+        f"(host clock, start-up included); output.txt: {line.strip()}")
+    log(f"[7b] launches on the main path: forward {launches[0]} (18 x {steps} "
+        f"steps + 18 x {evals} eval batches), backward {launches[1]} (18 x {steps})")
+    log(f"[7b] the checkpoint served by Denoiser.from_checkpoint: test MSE "
+        f"{before:.5f} with the initial weights -> {after:.5f} trained")
+    check(re.fullmatch(rf"ralenet_{epochs - 1}_bw_intensity-4:snr:\S+, rmse:\S+\n",
+                       line) is not None, "the output.txt line is malformed")
+    check(launches == (18 * (steps + evals), 18 * steps),
+          "the CLI's training did not go through both kernels")
+    check(np.isfinite(after) and after < before, "the test loss did not fall")
+    return launches
+
+
+def profile_step(step, card, step_ms, iters=3):
+    """Device time of one training step by kernel (torch.profiler), the
+    card's idle share of the unprofiled step time `step_ms`, and where the
+    host's time goes: the operators by self CPU time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            step()
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof, iters)
+    if not kernels:
+        log("[8] the profiler recorded no device kernels: breakdown not measured")
+        return
+    busy = sum(k[0] for k in kernels)
+    log(f"[8] {card}: profiled float32 training step B={TIMING_BATCH} "
+        f"(torch.profiler, mean of {iters}): {sum(k[1] for k in kernels)} launches "
+        f"of {len(kernels)} kernels, device busy {busy:.3f} ms of the unprofiled "
+        f"{step_ms:.3f} ms step (idle {100 * (1 - busy / step_ms):.1f} %)")
+    for ms, n, name in kernels[:15]:
+        log(f"[8]   {ms:8.3f} ms {100 * ms / busy:5.1f} % x{n:<4d} {name[:100]}")
+    ops = sorted((e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CPU),
+                 key=lambda e: e.self_cpu_time_total, reverse=True)
+    host = sum(e.self_cpu_time_total for e in ops) / 1e3 / iters
+    log(f"[8] {card}: the same step's operators' self CPU time {host:.3f} ms "
+        f"(profiled); the top 10:")
+    for e in ops[:10]:
+        log(f"[8]   {e.self_cpu_time_total / 1e3 / iters:8.3f} ms "
+            f"x{e.count // iters:<5d} {e.key[:80]}")
+
+
+def phase_train_times(cpu_model, card):
+    from ecg_denoise_tpu_torch.kernels import attention
+    from ecg_denoise_tpu_torch.models import build_model
+    from ecg_denoise_tpu_torch.train import create_train_state, make_epoch_fns, train_step
+
+    # Whole epochs of the CLI's default length: the training split of
+    # n_select = 10,000 windows, 250 steps at batch 32 and 31 at 256.
+    rng = np.random.default_rng(8)
+    noisy, clean = (torch.from_numpy(rng.standard_normal(
+        (EPOCH_WINDOWS, 2, 256)).astype(np.float32)).cuda() for _ in range(2))
+    for dtype in (torch.float32, torch.bfloat16):
+        for batch in (TRAIN_BATCH, TIMING_BATCH):
+            model = build_model("ralenet", dtype=dtype)
+            model.load_state_dict(cpu_model.state_dict())
+            state = create_train_state(model)
+            train_epoch, _ = make_epoch_fns(state.model, state.optimizer)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            train_epoch(noisy[:4 * batch], clean[:4 * batch], gen, batch)  # warm-up
+            n = EPOCH_WINDOWS // batch * batch
+            walls = [_timed(train_epoch, noisy, clean, gen, batch)
+                     for _ in range(EPOCH_REPEATS)]
+            rates = ", ".join(f"{n / w:.1f}" for w in walls)
+            nb, cb = noisy[:batch], clean[:batch]
+            step_ms = cuda_ms(lambda: train_step(state, nb, cb), 5)
+            log(f"[8] {card}: train_epoch {str(dtype)[6:]} batch {batch}: "
+                f"{n / statistics.median(walls):.1f} windows/s (median of "
+                f"{EPOCH_REPEATS} epochs of {n // batch} steps, host clock ending in "
+                f"the epoch's one fetch; each epoch: {rates}); one step "
+                f"{step_ms:.3f} ms on the card's clock (CUDA events, mean of 5)")
+            if dtype == torch.float32 and batch == TIMING_BATCH:
+                profile_step(lambda: train_step(state, nb, cb), card, step_ms)
+
+    gen = torch.Generator().manual_seed(9)
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    limits = {"operations": 0.0, "bytes": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for (L, H, with_bias), calls in FORWARD_CALLS.items():
+            q, k, v, bias = operands(TIMING_BATCH, H, L, with_bias, dtype, gen)
+            g = torch.randn(q.shape, generator=gen).to("cuda", dtype)
+            o, lse = attention._launch(q, k, v, bias, with_lse=True)
+            ms = cuda_ms(lambda: attention._launch_bwd(
+                q, k, v, bias, o, lse, g, want_dbias=with_bias), 20)
+            plain = cuda_ms(lambda: attention.attention_backward_reference(
+                q, k, v, bias, o, lse, g), 5)
+            ins = [t.detach().requires_grad_() for t in (q, k, v, bias) if t is not None]
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    *ins[:3], attn_mask=ins[3] if with_bias else None, scale=1.0)
+
+            lib_fwd = cuda_ms(sdpa, 20)
+            lib = cuda_ms(lambda: torch.autograd.grad(sdpa(), ins, g), 20) - lib_fwd
+            t_ops, t_bytes = bwd_bound_terms(TIMING_BATCH, H, L, with_bias, q.element_size())
+            bnd = max(t_ops, t_bytes)
+            log(f"[8] {card}: attention_bwd {str(dtype)[6:]} B={TIMING_BATCH} L={L} "
+                f"H={H} dbias={with_bias}: kernel {ms:.4f} ms, bound {bnd:.4f} ms "
+                f"(operations {t_ops:.4f} at the f32 CUDA-core peak, bytes "
+                f"{t_bytes:.4f}), plain {plain:.4f} ms, sdpa backward {lib:.4f} ms "
+                f"((fwd+bwd) - fwd); {calls} calls per step")
+            if dtype == torch.float32:
+                for key, t in (("ms", ms), ("plain_ms", plain),
+                               ("bound_ms", bnd), ("library_ms", lib)):
+                    totals[key] += calls * t
+                limits["operations"] += calls * t_ops
+                limits["bytes"] += calls * t_bytes
+    by = max(limits, key=limits.get)
+    log(f"[8] {card}: attention_bwd float32, one step's 18 calls at "
+        f"B={TIMING_BATCH}: kernel {totals['ms']:.4f} ms, bound {totals['bound_ms']:.4f} ms "
+        f"({by}), plain {totals['plain_ms']:.4f} ms, sdpa backward "
+        f"{totals['library_ms']:.4f} ms")
+    return totals, by
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs an NVIDIA card",
@@ -433,15 +827,20 @@ def main():
     max_err = phase_kernel_vs_plain()
     cpu_model = seeded_model(0)
     gpu_model = phase_model(cpu_model)
-    launches = phase_serving(cpu_model)
+    serve_launches = phase_serving(cpu_model)
     totals, bound_by = phase_times(gpu_model, cpu_model, card)
+    bwd_err = phase_backward_vs_plain()
+    phase_train_step(cpu_model)
+    train_launches = phase_train_cli(card)
+    bwd_totals, bwd_bound_by = phase_train_times(cpu_model, card)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "attention_fwd",
         "route": "cuda",
         "source": "ecg_denoise_tpu_torch/kernels/csrc/attention_fwd.cu",
         "replaces": "ecg_denoise_tpu/kernels/attention_pallas.py:253",
-        "launches": launches,
+        "launches": serve_launches + train_launches[0],
+        "launches_by_path": {"serve": serve_launches, "train": train_launches[0]},
         "max_abs_err": max_err,
         "ms": totals["ms"],
         "plain_ms": totals["plain_ms"],
@@ -449,6 +848,20 @@ def main():
         "bound_by": bound_by,
         "library_ms": totals["library_ms"],
         "times_are": f"one forward's 18 calls, float32, B={BATCH}",
+    }, {
+        "name": "attention_bwd",
+        "route": "cuda",
+        "source": "ecg_denoise_tpu_torch/kernels/csrc/attention_bwd.cu",
+        "replaces": "ecg_denoise_tpu/kernels/attention_pallas.py:333",
+        "launches": train_launches[1],
+        "launches_by_path": {"serve": 0, "train": train_launches[1]},
+        "max_abs_err": bwd_err,
+        "ms": bwd_totals["ms"],
+        "plain_ms": bwd_totals["plain_ms"],
+        "bound_ms": bwd_totals["bound_ms"],
+        "bound_by": bwd_bound_by,
+        "library_ms": bwd_totals["library_ms"],
+        "times_are": f"one training step's 18 calls, float32, B={TIMING_BATCH}",
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,8 @@ length and overlap-add stitches it. GET /healthz returns the model, the
 checkpoint and the inference path. Batches are padded to power-of-two
 buckets (see ecg_denoise_tpu_torch.serving.Denoiser).
 
-Example (the checkpoint is a torch.save'd state_dict of the port's model):
+Example (the checkpoint is a torch.save'd state_dict of the port's model,
+or a checkpoint written by `python -m ecg_denoise_tpu_torch.cli.main`):
     python -m ecg_denoise_tpu_torch.cli.serve --model ralenet \
         --ckpt ralenet.pt &
     python - <<'PY'

@@ -12,8 +12,10 @@ port's module loads, with the layout conversions:
 
 This is the reverse of the JAX package's `interop/torch_weights.py`, kept
 here as a copy of the logic because the port imports nothing of that
-package. Loading a trained JAX `.msgpack` checkpoint waits for the
-checkpoint slice; this maps trees already in memory.
+package. `adam_state_from_optax` maps the optax Adam state the same way,
+so a JAX training state carries over with its weights. Reading a trained
+JAX `.msgpack` checkpoint from disk is not ported yet (ROADMAP A8); these
+map trees already in memory.
 """
 
 from __future__ import annotations
@@ -90,3 +92,28 @@ def ralenet_state_dict(variables: Mapping, variant: str
                          f"rel-pos tables, which variant {variant!r} "
                          f"{'lacks' if has_tables else 'needs'}")
     return state_dict_from_variables(variables, RALENET_RENAMES)
+
+
+def adam_state_from_optax(mu: Mapping, nu: Mapping, count,
+                          model: torch.nn.Module) -> dict:
+    """The optax Adam state of a JAX RaleNet (its first and second moments
+    `mu` and `nu`, trees shaped like "params" with numpy leaves, and its
+    step `count`) as the "state" entry of the state_dict of
+    `torch.optim.Adam(model.parameters())` for the port's RaleNet `model`.
+    The moments get the weights' renames and layout conversions. Load it
+    with:
+
+        sd = optimizer.state_dict()
+        sd["state"] = adam_state_from_optax(mu, nu, count, model)
+        optimizer.load_state_dict(sd)
+    """
+    exp_avg = state_dict_from_variables({"params": mu}, RALENET_RENAMES)
+    exp_avg_sq = state_dict_from_variables({"params": nu}, RALENET_RENAMES)
+    names = [name for name, _ in model.named_parameters()]
+    if set(names) != set(exp_avg) or set(names) != set(exp_avg_sq):
+        raise ValueError("the Adam moments do not cover the model's "
+                         f"parameters: {sorted(set(names) ^ set(exp_avg))}")
+    step = float(np.asarray(count))
+    return {i: {"step": torch.tensor(step), "exp_avg": exp_avg[name],
+                "exp_avg_sq": exp_avg_sq[name]}
+            for i, name in enumerate(names)}

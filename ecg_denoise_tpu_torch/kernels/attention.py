@@ -7,19 +7,25 @@ head_dim D is 4 and L <= 256, and the output has the operands' dtype.
 
 It dispatches on the tensors' device, with no switch and no fallback:
 
-* a CUDA tensor goes to the hand-written Hopper kernel
-  `csrc/attention_fwd.cu` (the port of the TPU kernel `_fwd_kernel`), or
-  the call raises;
+* a CUDA tensor goes to the hand-written Hopper kernels or the call
+  raises. When no gradient is needed, to the forward kernel
+  `csrc/attention_fwd.cu` alone (the port of the TPU kernel `_fwd_kernel`).
+  When one is needed, to `_FusedAttention`, a `torch.autograd.Function`
+  whose forward is that kernel with its log-sum-exp residual and whose
+  backward is `csrc/attention_bwd.cu` (the port of `_bwd_kernel`);
 * a CPU tensor goes to `attention_reference`, the plain PyTorch version of
   the same function (the math of the JAX package's XLA path,
-  ops/attention.py:115-122), which the CPU tests run and the card's checks
-  compare the kernel against.
+  ops/attention.py:115-122), and autograd runs through it.
 
-`fused_attention.launches` counts kernel launches (a plain int; set it to 0
-before a run to show which kernels that run went through).
+`attention_reference(..., return_lse=True)` and
+`attention_backward_reference` are the plain versions of the two kernels,
+which the CPU tests run and the card's checks compare the kernels against;
+nothing on the card's main path calls them.
 
-The kernel is forward-only: its backward (the TPU's `_bwd_kernel`) comes
-with the training slice, so a CUDA call that would need a gradient raises.
+`fused_attention.launches` counts forward-kernel launches and
+`fused_attention.bwd_launches` backward launches, one per backward of one
+attention call (plain ints; set them to 0 before a run to show which
+kernels that run went through).
 """
 
 from __future__ import annotations
@@ -36,19 +42,49 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        bias: Optional[torch.Tensor] = None, *,
+                        return_lse: bool = False):
     """Plain PyTorch softmax(q @ k^T + bias) @ v.
 
     Logits and softmax in float32; the probabilities are rounded to v's
     dtype before the pv product, which accumulates in float32 — as the JAX
-    package's XLA path does.
+    package's XLA path does. With `return_lse`, also the float32 (B, H, L)
+    log-sum-exp of the logits' rows, the forward kernel's residual.
     """
     logits = torch.einsum("bhld,bhmd->bhlm", q.float(), k.float())
     if bias is not None:
         logits = logits + bias.float()
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    out = torch.einsum("bhlm,bhmd->bhld", probs.float(), v.float())
-    return out.to(v.dtype)
+    out = torch.einsum("bhlm,bhmd->bhld", probs.float(), v.float()).to(v.dtype)
+    if return_lse:
+        return out, torch.logsumexp(logits, dim=-1)
+    return out
+
+
+def attention_backward_reference(q, k, v, bias, o, lse, g):
+    """Plain PyTorch backward of `fused_attention`, in the flash form the
+    backward kernel computes: from the forward output `o`, its float32
+    log-sum-exp `lse` and the output gradient `g`,
+
+        p = exp(q·kᵀ + bias − lse),  c = Σ_d g·o,  ds = p ⊙ (g·vᵀ − c),
+        dq = ds·k,  dk = dsᵀ·q,  dv = pᵀ·g,  dbias = Σ_b ds.
+
+    All float32; dq, dk and dv are rounded once to the operand dtype, and
+    dbias (None without a bias) is summed in float32 and cast to the bias
+    dtype.
+    """
+    qf, kf, vf, gf, of = (t.float() for t in (q, k, v, g, o))
+    logits = torch.einsum("bhld,bhmd->bhlm", qf, kf)
+    if bias is not None:
+        logits = logits + bias.float()
+    p = torch.exp(logits - lse[..., None])
+    c = (gf * of).sum(-1, keepdim=True)
+    ds = p * (torch.einsum("bhld,bhmd->bhlm", gf, vf) - c)
+    dq = torch.einsum("bhlm,bhmd->bhld", ds, kf)
+    dk = torch.einsum("bhlm,bhld->bhmd", ds, qf)
+    dv = torch.einsum("bhlm,bhld->bhmd", p, gf)
+    dbias = None if bias is None else ds.sum(0, keepdim=True).to(bias.dtype)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias
 
 
 def _check(q, k, v, bias) -> None:
@@ -75,54 +111,124 @@ def _check(q, k, v, bias) -> None:
         raise ValueError("q, k, v and bias must be on one device")
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    """The built kernel library with its C signatures declared."""
+def _bind(name: str, fn: str, n_pointers: int) -> ctypes.CDLL:
+    """The built library `name` with `fn`'s C signature declared:
+    `n_pointers` pointers, B, H, L, D, dtype, device, then the stream."""
     from ecg_denoise_tpu_torch.kernels.build import load
 
-    lib = load("attention_fwd")
-    lib.ecg_attention_fwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                                      + [ctypes.c_void_p])
-    lib.ecg_attention_fwd.restype = ctypes.c_int
+    lib = load(name)
+    f = getattr(lib, fn)
+    f.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    f.restype = ctypes.c_int
     lib.ecg_cuda_error_string.argtypes = [ctypes.c_int]
     lib.ecg_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(q, k, v, bias) -> torch.Tensor:
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (q, k, v, bias)):
-        raise NotImplementedError(
-            "the attention kernel is forward-only until the backward kernel "
-            "lands; run inference under torch.no_grad()")
-    tensors = (q, k, v) if bias is None else (q, k, v, bias)
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("the attention kernel needs contiguous operands")
-    row_bytes = HEAD_DIM * q.element_size()  # the kernel's vector loads
-    if q.numel() >= 2**31 or any(t.data_ptr() % row_bytes for t in (q, k, v)):
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """The forward kernel's library, built at first use."""
+    return _bind("attention_fwd", "ecg_attention_fwd", 6)
+
+
+@functools.cache
+def _bwd_library() -> ctypes.CDLL:
+    """The backward kernel's library, built at first use."""
+    return _bind("attention_bwd", "ecg_attention_bwd", 12)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _check_launchable(*tensors, bias=None) -> None:
+    """Raise on what the kernels do not take: strided operands, more than
+    2**31 elements, rows not aligned for the kernels' vector loads."""
+    if not all(t.is_contiguous() for t in tensors) or (
+            bias is not None and not bias.is_contiguous()):
+        raise ValueError("the attention kernels need contiguous operands")
+    row_bytes = HEAD_DIM * tensors[0].element_size()  # the kernels' vector loads
+    if tensors[0].numel() >= 2**31 or any(t.data_ptr() % row_bytes for t in tensors):
         raise ValueError(f"operands must hold < 2**31 elements and be "
                          f"{row_bytes}-byte aligned")
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"attention {what} kernel launch failed: "
+                           + lib.ecg_cuda_error_string(err).decode())
+
+
+def _launch(q, k, v, bias, *, with_lse: bool = False):
+    """The forward kernel: o, plus the float32 (B, H, L) lse if asked."""
+    _check_launchable(q, k, v, bias=bias)
     lib = _library()
-    fn = lib.ecg_attention_fwd
     B, H, L, D = q.shape
     o = torch.empty_like(q)
+    lse = (torch.empty(B, H, L, dtype=torch.float32, device=q.device)
+           if with_lse else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             None if bias is None else bias.data_ptr(), o.data_ptr(),
-             B, H, L, D, _DTYPE_CODES[q.dtype], q.device.index, stream)
-    if err:
-        raise RuntimeError("attention kernel launch failed: "
-                           + lib.ecg_cuda_error_string(err).decode())
+    err = lib.ecg_attention_fwd(_ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(o),
+                                _ptr(lse), B, H, L, D, _DTYPE_CODES[q.dtype],
+                                q.device.index, stream)
+    _raise_on(lib, err, "forward")
     fused_attention.launches += 1
-    return o
+    return (o, lse) if with_lse else o
+
+
+def _launch_bwd(q, k, v, bias, o, lse, g, *, want_dbias: bool):
+    """The backward kernel: (dq, dk, dv, dbias), dbias None unless asked."""
+    if g.shape != q.shape or g.dtype != q.dtype:
+        raise ValueError(f"gradient {tuple(g.shape)} {g.dtype} does not match "
+                         f"the output {tuple(q.shape)} {q.dtype}")
+    # MSAttention's transpose(1, 2).reshape hands back a strided gradient.
+    g = g.contiguous()
+    _check_launchable(q, k, v, o, g, bias=bias)
+    lib = _bwd_library()
+    B, H, L, D = q.shape
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    c = torch.empty(B, H, L, dtype=torch.float32, device=q.device)
+    dbias = (torch.empty(1, H, L, L, dtype=torch.float32, device=q.device)
+             if want_dbias and bias is not None else None)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.ecg_attention_bwd(_ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(g),
+                                _ptr(o), _ptr(lse), _ptr(c), _ptr(dq), _ptr(dk),
+                                _ptr(dv), _ptr(dbias), B, H, L, D,
+                                _DTYPE_CODES[q.dtype], q.device.index, stream)
+    _raise_on(lib, err, "backward")
+    fused_attention.bwd_launches += 1
+    if dbias is not None:
+        dbias = dbias.to(bias.dtype)  # summed in float32, cast once
+    return dq, dk, dv, dbias
+
+
+class _FusedAttention(torch.autograd.Function):
+    """The forward kernel with its lse residual, and the backward kernel
+    (JAX counterpart: the custom VJP `_fused_single`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias):
+        o, lse = _launch(q, k, v, bias, with_lse=True)
+        ctx.save_for_backward(q, k, v, bias, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias, o, lse = ctx.saved_tensors
+        # A bias gradient only when the bias asks for one (JAX's want_dbias).
+        return _launch_bwd(q, k, v, bias, o, lse, g,
+                           want_dbias=ctx.needs_input_grad[3])
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """softmax(q @ k^T + bias) @ v; the kernel on the card, the plain
+    """softmax(q @ k^T + bias) @ v; the kernels on the card, the plain
     version on the CPU (see the module docstring)."""
     _check(q, k, v, bias)
     if q.device.type == "cuda":
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in (q, k, v, bias)):
+            return _FusedAttention.apply(q, k, v, bias)
         return _launch(q, k, v, bias)
     if q.device.type == "cpu":
         return attention_reference(q, k, v, bias)
@@ -130,3 +236,4 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 fused_attention.launches = 0
+fused_attention.bwd_launches = 0

@@ -6,7 +6,8 @@ into `_build/<name>-<hash>.so` (the directory is git-ignored). The hash
 covers the source and the flags, so an edited source never loads a stale
 library. Only the sources in this checkout are built; nothing is fetched.
 Each build prints nvcc's `-Xptxas -v` report (registers, shared memory,
-spills) once.
+spills) once. Each source has its own lock, so loads of different sources
+from different threads build at once, one nvcc each.
 
 Building needs nvcc, which only the machine with the card has; the CPU
 paths of the port never call into this module.
@@ -26,7 +27,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _locks
+_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -66,6 +68,8 @@ def _build(name: str) -> Path:
 def load(name: str) -> ctypes.CDLL:
     """The ctypes handle of `csrc/<name>.cu`, built at first use."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(_build(name)))

@@ -17,8 +17,20 @@
 // What bounds it: per (b, h) the work is 2*(2*L*L*D + L*L) flops and L*L
 // exps against (4*L*D + L*L) operand elements, so with D = 4 there is
 // nothing for the tensor cores (a head_dim of 4 is below every MMA shape)
-// and the kernel is bound by CUDA-core f32 arithmetic and exp throughput,
-// not by HBM.
+// and by that count the call is bound by CUDA-core f32 arithmetic at
+// L >= 128 and by HBM below. What sets its time on the card is neither:
+// it is the bias reads (see the last point below). Each thread reads its
+// own bias row, so one warp's 4-byte loads touch 32 rows, each costing a
+// fresh 32-byte sector from L2, and the bias is read again for every batch
+// element; at (L, H) = (256, 2) the call runs 8.8 times faster without
+// the bias (PERF.md, PR 1).
+//
+// Training: when the caller passes `lse`, each thread also writes its
+// row's log-sum-exp, rowmax + log(rowsum), as one float32 per (b, h, l).
+// The backward kernel (attention_bwd.cu) recomputes the probabilities
+// from it as exp(logit - lse). The TPU kernel saves the row sum instead
+// and recomputes the max; one number carries both. Without `lse` the
+// kernel is the serving kernel unchanged.
 //
 // Design (a simple correct first version; none of the TPU layout is kept —
 // no (B, H, D, L) transpose, no lane packing, no ones-row sum fold):
@@ -89,7 +101,8 @@ template <typename T, bool kBias>
 __global__ void __launch_bounds__(kRows)
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ bias,
-                     T* __restrict__ o, int H, int L, int n_rows) {
+                     T* __restrict__ o, float* __restrict__ lse, int H, int L,
+                     int n_rows) {
   extern __shared__ float4 smem[];
   float4* ks = smem;
   float4* vs = smem + key_capacity(L);
@@ -136,12 +149,13 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   store4(o + row * kD,
          make_float4(acc.x / sum, acc.y / sum, acc.z / sum, acc.w / sum));
+  if (lse != nullptr) lse[row] = mx + logf(sum);
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* bias, void* o, int B, int H, int L,
-                   cudaStream_t stream) {
+                   const void* bias, void* o, float* lse, int B, int H,
+                   int L, cudaStream_t stream) {
   const int n_rows = B * H * L;
   const dim3 grid((n_rows + kRows - 1) / kRows);
   const size_t smem = 2 * key_capacity(L) * sizeof(float4);
@@ -152,10 +166,10 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   T* ot = static_cast<T*>(o);
   if (bias != nullptr) {
     attention_fwd_kernel<T, true><<<grid, kRows, smem, stream>>>(
-        qt, kt, vt, bt, ot, H, L, n_rows);
+        qt, kt, vt, bt, ot, lse, H, L, n_rows);
   } else {
     attention_fwd_kernel<T, false><<<grid, kRows, smem, stream>>>(
-        qt, kt, vt, bt, ot, H, L, n_rows);
+        qt, kt, vt, bt, ot, lse, H, L, n_rows);
   }
   return cudaGetLastError();
 }
@@ -163,24 +177,26 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 }  // namespace
 
 // Plain C interface for ctypes. dtype: 0 = float32, 1 = bfloat16. `bias`
-// may be null. Launches on `stream` of card `device`, does not synchronise
+// may be null; `lse` is null, or a float32 (B, H, L) output for the
+// backward. Launches on `stream` of card `device`, does not synchronise
 // and allocates nothing. Returns the launch's cudaError_t (0 = success).
 extern "C" int ecg_attention_fwd(const void* q, const void* k, const void* v,
-                                 const void* bias, void* o, int B, int H,
-                                 int L, int D, int dtype, int device,
-                                 void* stream) {
+                                 const void* bias, void* o, void* lse,
+                                 int B, int H, int L, int D, int dtype,
+                                 int device, void* stream) {
   if (B < 1 || H < 1 || L < 1 || L > kMaxL || D != kD) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse_f = static_cast<float*>(lse);
   switch (dtype) {
     case 0:
-      err = launch<float>(q, k, v, bias, o, B, H, L, s);
+      err = launch<float>(q, k, v, bias, o, lse_f, B, H, L, s);
       break;
     case 1:
-      err = launch<__nv_bfloat16>(q, k, v, bias, o, B, H, L, s);
+      err = launch<__nv_bfloat16>(q, k, v, bias, o, lse_f, B, H, L, s);
       break;
     default:
       err = cudaErrorInvalidValue;

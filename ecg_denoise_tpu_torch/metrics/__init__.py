@@ -1,0 +1,10 @@
+from ecg_denoise_tpu_torch.metrics.denoise import (
+    PRD,
+    RMSE,
+    SNR,
+    second_order_difference_loss,
+    snr_improvement,
+)
+
+__all__ = ["RMSE", "SNR", "snr_improvement", "PRD",
+           "second_order_difference_loss"]

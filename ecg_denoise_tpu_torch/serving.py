@@ -1,8 +1,9 @@
 """Inference/serving layer (JAX counterpart: serving.py `Denoiser`).
 
 * `Denoiser.from_checkpoint` loads a `torch.save`d state_dict of the
-  port's model (the counterpart of the JAX package's msgpack restore) and
-  serves it in eval mode.
+  port's model, or the "model" part of a training checkpoint
+  (`train/checkpoint.py`), the counterpart of the JAX package's
+  `load_variables`, and serves it in eval mode.
 * Requests are padded to power-of-two batch buckets up to `max_batch`, so
   the card sees a handful of batch shapes whatever the request sizes; the
   zero-padded tail lives in persistent per-bucket staging buffers (pinned
@@ -64,11 +65,11 @@ class Denoiser:
                         max_batch: int = 1024,
                         dtype: torch.dtype = torch.float32, device=None):
         """Serve a `torch.save(model.state_dict())` file of the port's
-        model `name_or_index`."""
+        model `name_or_index`, or a training checkpoint's "model" part."""
         device = resolve_device(device)
         model = build_model(name_or_index, dtype=dtype, device=device)
         state = torch.load(ckpt_path, map_location=device, weights_only=True)
-        model.load_state_dict(state)
+        model.load_state_dict(state.get("model", state))
         return cls(model, max_batch, device=device)
 
     def __call__(self, x: np.ndarray) -> np.ndarray:

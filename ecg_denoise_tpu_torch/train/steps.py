@@ -1,0 +1,86 @@
+"""Train and eval steps and whole-epoch functions (JAX counterpart:
+train/steps.py; reference denoise_train.py:36-89).
+
+The splits live on the card; an epoch permutes them there, runs its steps
+back to back and fetches the epoch's metric means to the host once, at the
+end. A step is: forward in train mode (BatchNorm on batch statistics, its
+running stats updated with the unbiased variance, as the JAX layer does),
+mean MSE on the float32 prediction, backward, Adam update, and the batch's
+mean SNR and RMSE from the same forward.
+
+The on-device noise-mixing epoch (`make_augmented_epoch_fn`) needs
+`data/noise.py` and comes with it (ROADMAP A14).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ecg_denoise_tpu_torch.metrics import RMSE, SNR
+from ecg_denoise_tpu_torch.train.state import TrainState
+
+
+def train_step(state: TrainState, noisy: torch.Tensor, clean: torch.Tensor):
+    """One Adam step on a (B, C, L) batch; returns the batch's (loss,
+    mean SNR, mean RMSE) as 0-d tensors on the batch's device."""
+    model, optimizer = state.model, state.optimizer
+    model.train()
+    pred = model(noisy).float()
+    loss = torch.mean((pred - clean) ** 2)
+    optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    optimizer.step()
+    pred = pred.detach()
+    return loss.detach(), SNR(clean, pred).mean(), RMSE(clean, pred).mean()
+
+
+def make_epoch_fns(model: torch.nn.Module, optimizer: torch.optim.Adam):
+    """(train_epoch, eval_epoch) for `model` and `optimizer`.
+
+    train_epoch(noisy, clean, generator, batch_size=32) -> metrics
+        noisy/clean: (N, C, L) on the model's device. Permutes the split
+        there from `generator` (on the same device), drops the ragged tail
+        (N % batch_size) like a drop_last loader, and steps through it.
+    eval_epoch(noisy, clean, batch_size=32) -> metrics
+        Every sample, the tail padded to a full batch with weight 0 (inputs
+        of zeros, targets of ones, so a padded row's SNR stays finite).
+    metrics: {"loss", "snr", "rmse"} as python floats — epoch means of the
+    per-batch values in training, of the per-sample values in eval.
+    """
+    state = TrainState(model, optimizer)
+
+    def train_epoch(noisy, clean, generator: torch.Generator,
+                    batch_size: int = 32) -> dict:
+        n_batches = noisy.shape[0] // batch_size
+        perm = torch.randperm(noisy.shape[0], generator=generator,
+                              device=noisy.device)[:n_batches * batch_size]
+        nb = noisy[perm].reshape(n_batches, batch_size, *noisy.shape[1:])
+        cb = clean[perm].reshape(n_batches, batch_size, *clean.shape[1:])
+        per_batch = torch.stack([torch.stack(train_step(state, nb[i], cb[i]))
+                                 for i in range(n_batches)])
+        loss, snr, rmse = per_batch.mean(0).tolist()  # the one host fetch
+        return {"loss": loss, "snr": snr, "rmse": rmse}
+
+    def eval_epoch(noisy, clean, batch_size: int = 32) -> dict:
+        n = noisy.shape[0]
+        n_batches = -(-n // batch_size)
+        pad = n_batches * batch_size - n
+        noisy_p = torch.cat([noisy, noisy.new_zeros(pad, *noisy.shape[1:])])
+        clean_p = torch.cat([clean, clean.new_ones(pad, *clean.shape[1:])])
+        weights = torch.cat([noisy.new_ones(n), noisy.new_zeros(pad)])
+        sums = torch.zeros(3, device=noisy.device)
+        model.eval()
+        with torch.no_grad():
+            for i in range(n_batches):
+                rows = slice(i * batch_size, (i + 1) * batch_size)
+                target, w = clean_p[rows], weights[rows]
+                pred = model(noisy_p[rows]).float()
+                sums += torch.stack([
+                    torch.sum(w[:, None, None] * (pred - target) ** 2),
+                    torch.sum(SNR(target, pred) * w),
+                    torch.sum(RMSE(target, pred) * w)])
+        loss, snr, rmse = sums.tolist()  # the one host fetch
+        per_elem = noisy.shape[1] * noisy.shape[2]
+        return {"loss": loss / (n * per_elem), "snr": snr / n, "rmse": rmse / n}
+
+    return train_epoch, eval_epoch

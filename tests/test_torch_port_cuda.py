@@ -1,4 +1,4 @@
-"""The Hopper attention kernel against its plain version, on the card.
+"""The Hopper attention kernels against their plain versions, on the card.
 
 Marked `gpu`; each test takes the `cuda` fixture, which skips when no card
 is present (decided at run time, so every pytest-xdist worker collects the
@@ -12,13 +12,24 @@ port's choice, `ecg_denoise_tpu_torch.full_float32`). bfloat16 3 * 2^-8 of max|v
 probabilities to bf16 before the pv product and the kernel does not (up to
 2^-8 of max|v|), and each side rounds its output once to bf16 (up to 2^-8
 of |out| <= max|v| each).
+
+Backward: dq, dk, dv to 1e-4 in float32 (the JAX package's gradient bar,
+tests/test_pallas_attention.py:125); dbias, a sum over the batch of terms
+each carrying about 1e-6 of relative error from its recomputed
+probabilities, to 1e-4 of max|dbias|; with logits near 200 each side's
+logits carry roundings of up to 1.5e-5, so 1e-4 of max|grad|. bfloat16
+against the flash-form plain backward on the kernel's own o and lse: both
+compute in float32 and round once, so they part by at most one bfloat16
+spacing, 2^-7 of max|grad|.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from ecg_denoise_tpu_torch import full_float32
 from ecg_denoise_tpu_torch.kernels.attention import (
+    attention_backward_reference,
     attention_reference,
     fused_attention,
 )
@@ -28,6 +39,10 @@ pytestmark = pytest.mark.gpu
 STAGES = [(256, 2), (128, 4), (64, 8), (32, 16), (16, 32)]
 F32_TOL = 1e-5
 BF16_TOL_OF_MAX_V = 3 * 2 ** -8
+GRAD_TOL = 1e-4
+DBIAS_TOL_OF_MAX = 1e-4
+LARGE_LOGIT_GRAD_TOL_OF_MAX = 1e-4
+BF16_GRAD_TOL_OF_MAX = 2 ** -7
 
 
 @pytest.fixture
@@ -72,11 +87,93 @@ def test_ragged_batch_and_large_logits(cuda):
     assert (out - attention_reference(q, k, v, bias)).abs().max().item() <= 1e-4
 
 
-def test_cuda_call_needing_a_gradient_raises(cuda):
-    q, k, v, _ = _operands(2, 4, 32, False, torch.float32, cuda)
-    q.requires_grad_(True)
-    with pytest.raises(NotImplementedError):
-        fused_attention(q, k, v)
+def _grads(q, k, v, bias, g):
+    """Gradients of fused_attention through autograd, for every operand
+    given (dbias only with a bias)."""
+    ins = [t.detach().requires_grad_() for t in (q, k, v, bias) if t is not None]
+    out = fused_attention(*ins[:3], ins[3] if bias is not None else None)
+    return out, torch.autograd.grad(out, ins, g)
+
+
+@pytest.mark.parametrize("L,H", STAGES)
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernel_matches_plain_versions(cuda, L, H, with_bias, dtype):
+    """The autograd Function (forward kernel with its lse, backward kernel)
+    against the flash-form plain backward on the kernel's own o and lse,
+    and, in float32, against autograd through the plain forward."""
+    full_float32()
+    q, k, v, bias = _operands(8, H, L, with_bias, dtype, cuda)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)).to(cuda, dtype)
+    before = (fused_attention.launches, fused_attention.bwd_launches)
+    out, grads = _grads(q, k, v, bias, g)
+    torch.cuda.synchronize()
+    assert (fused_attention.launches, fused_attention.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert [t.dtype for t in grads] == [dtype] * len(grads)
+    _, lse = attention_reference(q, k, v, bias, return_lse=True)
+    flash = attention_backward_reference(q, k, v, bias, out.detach(), lse, g)
+    refs = [flash]
+    if dtype == torch.float32:
+        ins = [t.detach().requires_grad_() for t in (q, k, v, bias) if t is not None]
+        out_ref = attention_reference(*ins[:3], ins[3] if bias is not None else None)
+        refs.append(torch.autograd.grad(out_ref, ins, g))
+    for ref in refs:
+        for name, a, b in zip("q k v bias".split(), grads, ref):
+            a, b = a.float(), b.float()
+            scale = b.abs().max().item()
+            tol = (BF16_GRAD_TOL_OF_MAX * scale if dtype == torch.bfloat16
+                   else DBIAS_TOL_OF_MAX * scale if name == "bias" else GRAD_TOL)
+            err = (a - b).abs().max().item()
+            assert err <= tol, (name, err, tol)
+    # Every output element is summed by one thread in a fixed order.
+    _, again = _grads(q, k, v, bias, g)
+    for a, b in zip(grads, again):
+        assert torch.equal(a, b)
+
+
+def test_backward_ragged_batch_and_large_logits(cuda):
+    full_float32()
+    q, k, v, bias = _operands(3, 32, 16, True, torch.float32, cuda)
+    bias = bias + 190.0
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(2)).to(cuda)
+    _, grads = _grads(q, k, v, bias, g)
+    ins = [t.detach().requires_grad_() for t in (q, k, v, bias)]
+    ref = torch.autograd.grad(attention_reference(*ins), ins, g)
+    for a, b in zip(grads, ref):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max().item() <= LARGE_LOGIT_GRAD_TOL_OF_MAX * b.abs().max().item()
+
+
+def test_training_step_matches_cpu_with_18_and_18_launches(cuda):
+    """One Adam step of RA-LENet 'full' (depth 2, float32, batch 8) on the
+    card against the same step on the CPU."""
+    from ecg_denoise_tpu_torch.models import build_model
+    from ecg_denoise_tpu_torch.train import create_train_state, train_step
+
+    torch.manual_seed(0)
+    cpu = build_model("ralenet", device="cpu")
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            if "relative_position_bias_table" in name:
+                p.normal_()
+    gpu = build_model("ralenet", device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(0)
+    noisy, clean = (torch.from_numpy(rng.standard_normal((8, 2, 256)).astype(np.float32))
+                    for _ in range(2))
+    cpu_state = create_train_state(cpu, device="cpu")
+    gpu_state = create_train_state(gpu, device=cuda)
+    before = (fused_attention.launches, fused_attention.bwd_launches)
+    loss = train_step(gpu_state, noisy.to(cuda), clean.to(cuda))[0].item()
+    assert (fused_attention.launches - before[0],
+            fused_attention.bwd_launches - before[1]) == (18, 18)
+    ref = train_step(cpu_state, noisy, clean)[0].item()
+    assert abs(loss - ref) <= 1e-5 * abs(ref)
+    ref_sd = cpu.state_dict()
+    for key, val in gpu.state_dict().items():
+        tol = 1e-5 if key.endswith(("running_mean", "running_var")) else 1e-4
+        assert (val.cpu().float() - ref_sd[key].float()).abs().max().item() <= tol, key
 
 
 def test_model_forward_matches_cpu_with_18_launches(cuda):
