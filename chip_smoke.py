@@ -8,8 +8,8 @@ Run from the root of a checkout, on a machine with the card:
 Phases, each of which fails the run on error (no phase catches a failure,
 and nothing falls back to the CPU):
 
-1. Device and build: the card's name and power limit, then nvcc builds both
-   attention kernels from the checkout at once and prints their ptxas
+1. Device and build: the card's name and power limit, then nvcc builds the
+   four attention kernels from the checkout at once and prints their ptxas
    reports.
 2. Kernel vs plain version on the card, at the five RA-LENet stage shapes,
    with and without bias, float32 (tolerance 1e-5, TF32 off for this phase
@@ -55,10 +55,35 @@ and nothing falls back to the CPU):
    host operators by self CPU time), and per stage shape the backward
    kernel's time, its bound, the plain backward's and the backward of
    scaled_dot_product_attention with a grad-requiring mask as a yardstick.
+9. B3 (attention_rpos_fwd.cu) against its plain version at the four
+   biased stage shapes (L, W, H), B = 1024, R peaks at 0, 5, L/2, L - 1 and
+   random ones (windows hanging off both ends), f32 (1e-5) and bf16
+   (3 * 2^-8 of max|v|), plus a ragged B = 3 and logits near 200.
+10. B4 (attention_rpos_bwd.cu) through its autograd Function against the
+   plain flash backward on B3's own o and lse and, in f32, against autograd
+   through the plain forward, B = 256, at the limits of phase 6 (dtoep as
+   dbias); two calls bit-identical.
+11. The r_pos serving path: the model with detected R peaks on the card
+   against the CPU (1e-4), the card's detected positions equal to the
+   CPU's, 14 B3 and 4 B1 launches per forward; then `cli.serve --r_pos
+   detect`'s server answers /healthz, /denoise and /denoise_record equal
+   to its Denoiser called directly, the counts set to 0 just before and
+   read just after.
+12. The r_pos training path: one f32 step with detection on the card
+   against the CPU (the bars of phase 7) with 14 + 4 launches each way;
+   12b: `cli.main --r_pos detect` trains 10 bf16 epochs, the test loss
+   falls, and its checkpoint serves with r_pos="detect".
+13. r_pos times: per stage shape B3 (B = 1024) and B4 (B = 256) beside
+   their bounds, plain versions and scaled_dot_product_attention with the
+   materialised (B, H, L, L) mask (forward, and backward with the mask
+   requiring grad); Denoiser windows/s with and without r_pos, in turns;
+   the r_pos forward's and training step's device breakdown and idle share.
 
-The last lines are one JSON object listing the kernels, the card's name
-and power limit, and `{"ok": true, "device": {...}}`. Without a card, or outside a
-checkout of the repository, it exits nonzero and prints no result.
+The last lines are one JSON object listing the kernels (with their
+launches on each of the four paths: serve, train, serve_rpos, train_rpos),
+the card's name and power limit, and `{"ok": true, "device": {...}}`.
+Without a card, or outside a checkout of the repository, it exits nonzero
+and prints no result.
 """
 
 import copy
@@ -84,6 +109,11 @@ STAGES = [(256, 2), (128, 4), (64, 8), (32, 16), (16, 32)]
 # Attention calls of one RA-LENet 'full' forward, by (L, H, with bias).
 FORWARD_CALLS = {(256, 2, True): 2, (128, 4, True): 4, (64, 8, True): 4,
                  (32, 16, True): 4, (16, 32, False): 4}
+# With per-window R peaks (`--r_pos detect`) the 14 biased calls go to the
+# r-pos kernels, by (L, W, H): each encoder stage's bias, and the decoder
+# stage that reuses it; the 4 bias-free calls at (16, 32) stay on B1.
+RPOS_CALLS = {(256, 32, 2): 2, (128, 16, 4): 4, (64, 8, 8): 4, (32, 4, 16): 4}
+KERNELS = ("attention_fwd", "attention_bwd", "attention_rpos_fwd", "attention_rpos_bwd")
 F32_TOL = 1e-5
 # bf16, as a fraction of max|v|: the plain version rounds the probabilities
 # to bf16 before the pv product and the kernel does not (up to 2^-8 of
@@ -128,6 +158,29 @@ def check(ok, what):
     """Fail the run (an assert would vanish under python -O)."""
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def reset_launches():
+    """Set every kernel's launch count to 0."""
+    from ecg_denoise_tpu_torch.kernels.attention import fused_attention
+    from ecg_denoise_tpu_torch.kernels.attention_rpos import fused_attention_rpos
+
+    fused_attention.launches = fused_attention.bwd_launches = 0
+    fused_attention_rpos.launches = fused_attention_rpos.bwd_launches = 0
+
+
+def read_launches():
+    """Every kernel's launch count, by kernel name."""
+    from ecg_denoise_tpu_torch.kernels.attention import fused_attention
+    from ecg_denoise_tpu_torch.kernels.attention_rpos import fused_attention_rpos
+
+    return dict(zip(KERNELS, (fused_attention.launches, fused_attention.bwd_launches,
+                              fused_attention_rpos.launches,
+                              fused_attention_rpos.bwd_launches)))
+
+
+def expected_launches(fwd=0, bwd=0, rpos_fwd=0, rpos_bwd=0):
+    return dict(zip(KERNELS, (fwd, bwd, rpos_fwd, rpos_bwd)))
 
 
 def smi_name_power():
@@ -189,14 +242,17 @@ def phase_device_and_build():
     log(f"[1] device: {name}; nvidia-smi name, power.limit: {smi_name_power()}")
     from ecg_denoise_tpu_torch.kernels import attention
 
+    from ecg_denoise_tpu_torch.kernels import attention_rpos
+
     t0 = time.perf_counter()
     # nvcc from the checkout's sources, one process per kernel, all at once;
     # ptxas reports
-    with ThreadPoolExecutor(2) as pool:
-        for future in [pool.submit(attention._library),
-                       pool.submit(attention._bwd_library)]:
+    loads = (attention._library, attention._bwd_library,
+             attention_rpos._library, attention_rpos._bwd_library)
+    with ThreadPoolExecutor(len(loads)) as pool:
+        for future in [pool.submit(load) for load in loads]:
             future.result()
-    log(f"[1] kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    log(f"[1] {len(loads)} kernels built and loaded in {time.perf_counter() - t0:.1f} s")
     return name
 
 
@@ -301,7 +357,6 @@ def _post(url, x):
 
 def phase_serving(cpu_model):
     from ecg_denoise_tpu_torch.cli.serve import make_server
-    from ecg_denoise_tpu_torch.kernels.attention import fused_attention
     from ecg_denoise_tpu_torch.serving import Denoiser
 
     rng = np.random.default_rng(2)
@@ -322,7 +377,7 @@ def phase_serving(cpu_model):
     thread.start()
     url = f"http://127.0.0.1:{server.server_address[1]}"
     try:
-        fused_attention.launches = fused_attention.bwd_launches = 0  # main path
+        reset_launches()  # the main path
         with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
             health = json.loads(r.read())
         log(f"[4] /healthz: {health}")
@@ -339,15 +394,15 @@ def phase_serving(cpu_model):
             f"Denoiser={err:.3e}")
         check(y.shape == record.shape and err <= 1e-6,
               "/denoise_record disagrees with Denoiser")
-        launches = fused_attention.launches
-        check(fused_attention.bwd_launches == 0, "serving launched the backward kernel")
+        launches = read_launches()
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=30)
     # 4 forwards (buckets 1, 64, 1024 and the record's 39 windows in 64).
     log(f"[4] kernel launches on the main path: {launches}")
-    check(launches == 4 * 18, "the main path did not go through the kernel")
+    check(launches == expected_launches(fwd=4 * 18),
+          "the main path did not go through the kernel, or through another")
     check(not thread.is_alive(), "the server thread did not stop")
     return launches
 
@@ -368,7 +423,7 @@ def device_kernels(prof, iters):
                    and not e.is_user_annotation), reverse=True)
 
 
-def profile_forward(model, x, fwd_ms, card, iters=3):
+def profile_forward(forward, what, fwd_ms, card, iters=3, tag="5"):
     """Device time of one forward by kernel name (torch.profiler), and the
     card's busy share of the unprofiled forward time `fwd_ms`."""
     from torch.profiler import ProfilerActivity, profile
@@ -376,19 +431,19 @@ def profile_forward(model, x, fwd_ms, card, iters=3):
     with torch.no_grad(), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
-            model(x)
+            forward()
         torch.cuda.synchronize()
     kernels = device_kernels(prof, iters)
     if not kernels:
-        log("[5] the profiler recorded no device kernels: breakdown not measured")
+        log(f"[{tag}] the profiler recorded no device kernels: breakdown not measured")
         return
     busy = sum(k[0] for k in kernels)
-    log(f"[5] {card}: profiled {str(model.dtype)[6:]} forward B={x.shape[0]} (torch.profiler, "
+    log(f"[{tag}] {card}: profiled {what} (torch.profiler, "
         f"mean of {iters}): {sum(k[1] for k in kernels)} launches of "
         f"{len(kernels)} kernels, device busy {busy:.3f} ms of the unprofiled "
         f"{fwd_ms:.3f} ms forward (idle {100 * (1 - busy / fwd_ms):.1f} %)")
     for ms, n, name in kernels[:15]:
-        log(f"[5]   {ms:8.3f} ms {100 * ms / busy:5.1f} % x{n:<4d} {name[:100]}")
+        log(f"[{tag}]   {ms:8.3f} ms {100 * ms / busy:5.1f} % x{n:<4d} {name[:100]}")
 
 
 def profile_fresh_thread(denoiser, x, card):
@@ -447,7 +502,8 @@ def phase_times(gpu_model, cpu_model, card):
                 f"device-resident forward {fwd_ms:.3f} ms = "
                 f"{batch / fwd_ms * 1e3:.1f} windows/s (CUDA events, mean of 10)")
             if batch == BATCH:
-                profile_forward(model, xd, fwd_ms, card)
+                profile_forward(lambda: model(xd), f"{str(dtype)[6:]} forward B={batch}",
+                                fwd_ms, card)
 
     # The HTTP front end calls Denoiser from a new thread per connection:
     # the same request timed on this thread and on fresh threads.
@@ -651,15 +707,15 @@ def mse_of(denoiser, noisy, clean):
     return float(np.mean((denoiser(noisy) - clean) ** 2))
 
 
-def phase_train_cli(card):
-    """The training main path: the port's CLI, as a user runs it."""
+def phase_train_cli(card, r_pos=None, tag="7b"):
+    """The training main path: the port's CLI, as a user runs it (with
+    `--r_pos detect` when r_pos is "detect")."""
     from ecg_denoise_tpu_torch.data.dataset import load_split_arrays
-    from ecg_denoise_tpu_torch.kernels.attention import fused_attention
     from ecg_denoise_tpu_torch.models import build_model
     from ecg_denoise_tpu_torch.serving import Denoiser
     from ecg_denoise_tpu_torch.utils.seed import random_seed
 
-    epochs, n_select, seed = 10, 1280, 2023
+    epochs, n_select, seed = 10, 1280, 2023  # one checkpoint, at the last epoch
     with tempfile.TemporaryDirectory() as tmp:
         data = os.path.join(tmp, "dict_data")
         write_dict_data(data, 1600, seed=7)
@@ -670,48 +726,53 @@ def phase_train_cli(card):
                 "--batch_size", str(TRAIN_BATCH), "--n_select", str(n_select),
                 "--seed", str(seed), "--data_path", data,
                 "--model_save_dir", save_dir, "--output_file", out_file]
+        if r_pos:
+            argv += ["--r_pos", r_pos]
         # The weights the CLI starts from: it seeds, then builds the model.
         random_seed(seed)
-        initial = Denoiser(build_model("ralenet"), max_batch=256)
+        initial = Denoiser(build_model("ralenet"), max_batch=256, r_pos=r_pos)
         _, _, te_n, te_c = load_split_arrays("bw", -4, path=data,
                                              n_select=n_select, seed=seed)
-        log(f"[7b] python -m ecg_denoise_tpu_torch.cli.main {' '.join(argv)}")
+        log(f"[{tag}] python -m ecg_denoise_tpu_torch.cli.main {' '.join(argv)}")
         saved_argv = sys.argv
         sys.argv = ["ecg_denoise_tpu_torch.cli.main", *argv]
         t0 = time.perf_counter()
-        fused_attention.launches = fused_attention.bwd_launches = 0  # main path
+        reset_launches()  # the main path
         try:
             runpy.run_module("ecg_denoise_tpu_torch.cli.main", run_name="__main__",
                              alter_sys=True)
             torch.cuda.synchronize()
         finally:
             sys.argv = saved_argv
-        launches = (fused_attention.launches, fused_attention.bwd_launches)
+        launches = read_launches()
         wall = time.perf_counter() - t0
         with open(out_file) as f:
             line = f.read()
         ckpt = os.path.join(save_dir, "ralenet", f"ralenet_{epochs - 1}_bw_intensity-4.pth")
         check(os.path.exists(ckpt), "the CLI wrote no checkpoint")
-        trained = Denoiser.from_checkpoint("ralenet", ckpt, max_batch=256)
+        trained = Denoiser.from_checkpoint("ralenet", ckpt, max_batch=256, r_pos=r_pos)
         before, after = mse_of(initial, te_n, te_c), mse_of(trained, te_n, te_c)
     n_train = int(0.8 * n_select)
     steps = epochs * (n_train // TRAIN_BATCH)
     evals = epochs * -(-(n_select - n_train) // TRAIN_BATCH)
-    log(f"[7b] {card}: {epochs} bf16 epochs of {n_train} windows in {wall:.1f} s "
+    log(f"[{tag}] {card}: {epochs} bf16 epochs of {n_train} windows in {wall:.1f} s "
         f"(host clock, start-up included); output.txt: {line.strip()}")
-    log(f"[7b] launches on the main path: forward {launches[0]} (18 x {steps} "
-        f"steps + 18 x {evals} eval batches), backward {launches[1]} (18 x {steps})")
-    log(f"[7b] the checkpoint served by Denoiser.from_checkpoint: test MSE "
-        f"{before:.5f} with the initial weights -> {after:.5f} trained")
+    log(f"[{tag}] launches on the main path ({steps} steps, {evals} eval batches): "
+        f"{launches}")
+    log(f"[{tag}] the checkpoint served by Denoiser.from_checkpoint(r_pos={r_pos!r}): "
+        f"test MSE {before:.5f} with the initial weights -> {after:.5f} trained")
     check(re.fullmatch(rf"ralenet_{epochs - 1}_bw_intensity-4:snr:\S+, rmse:\S+\n",
                        line) is not None, "the output.txt line is malformed")
-    check(launches == (18 * (steps + evals), 18 * steps),
-          "the CLI's training did not go through both kernels")
+    forwards = steps + evals
+    want = (expected_launches(fwd=18 * forwards, bwd=18 * steps) if not r_pos else
+            expected_launches(fwd=4 * forwards, bwd=4 * steps,
+                              rpos_fwd=14 * forwards, rpos_bwd=14 * steps))
+    check(launches == want, "the CLI's training did not go through its kernels")
     check(np.isfinite(after) and after < before, "the test loss did not fall")
     return launches
 
 
-def profile_step(step, card, step_ms, iters=3):
+def profile_step(step, card, step_ms, iters=3, tag="8", what="float32 training step"):
     """Device time of one training step by kernel (torch.profiler), the
     card's idle share of the unprofiled step time `step_ms`, and where the
     host's time goes: the operators by self CPU time."""
@@ -723,23 +784,23 @@ def profile_step(step, card, step_ms, iters=3):
         torch.cuda.synchronize()
     kernels = device_kernels(prof, iters)
     if not kernels:
-        log("[8] the profiler recorded no device kernels: breakdown not measured")
+        log(f"[{tag}] the profiler recorded no device kernels: breakdown not measured")
         return
     busy = sum(k[0] for k in kernels)
-    log(f"[8] {card}: profiled float32 training step B={TIMING_BATCH} "
+    log(f"[{tag}] {card}: profiled {what} B={TIMING_BATCH} "
         f"(torch.profiler, mean of {iters}): {sum(k[1] for k in kernels)} launches "
         f"of {len(kernels)} kernels, device busy {busy:.3f} ms of the unprofiled "
         f"{step_ms:.3f} ms step (idle {100 * (1 - busy / step_ms):.1f} %)")
     for ms, n, name in kernels[:15]:
-        log(f"[8]   {ms:8.3f} ms {100 * ms / busy:5.1f} % x{n:<4d} {name[:100]}")
+        log(f"[{tag}]   {ms:8.3f} ms {100 * ms / busy:5.1f} % x{n:<4d} {name[:100]}")
     ops = sorted((e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CPU),
                  key=lambda e: e.self_cpu_time_total, reverse=True)
     host = sum(e.self_cpu_time_total for e in ops) / 1e3 / iters
-    log(f"[8] {card}: the same step's operators' self CPU time {host:.3f} ms "
+    log(f"[{tag}] {card}: the same step's operators' self CPU time {host:.3f} ms "
         f"(profiled); the top 10:")
     for e in ops[:10]:
-        log(f"[8]   {e.self_cpu_time_total / 1e3 / iters:8.3f} ms "
+        log(f"[{tag}]   {e.self_cpu_time_total / 1e3 / iters:8.3f} ms "
             f"x{e.count // iters:<5d} {e.key[:80]}")
 
 
@@ -816,6 +877,401 @@ def phase_train_times(cpu_model, card):
     return totals, by
 
 
+def rpos_operands(B, L, W, H, dtype, gen):
+    """q, k, v, toep (the Toeplitz expansion of a random (2W-1, H) table)
+    on the card in `dtype`, and float32 window starts of R peaks at 0, 5,
+    L/2, L - 1 and random positions, so that windows hang off both ends."""
+    q, k, v = (torch.randn(B, H, L, 4, generator=gen) for _ in range(3))
+    table = torch.randn(2 * W - 1, H, generator=gen)
+    pos = torch.arange(L)
+    rel = pos[:, None] - pos[None, :]
+    toep = (table[(rel + W - 1).clamp(0, 2 * W - 2)]
+            * (rel.abs() < W)[..., None]).permute(2, 0, 1)[None].contiguous()
+    r_pos = torch.randint(0, L, (B,), generator=gen)
+    r_pos[:4] = torch.tensor([0, 5, L // 2, L - 1])[:B]
+    offsets = (r_pos - W // 2).float().cuda()
+    return [t.to("cuda", dtype) for t in (q, k, v, toep)], offsets
+
+
+def toep_reach(offsets, W, L):
+    """How many (l, m) entries of toep some window of the batch reaches:
+    the entries the r-pos kernels must read (per head)."""
+    from ecg_denoise_tpu_torch.kernels.attention_rpos import window_mask
+
+    m = window_mask(offsets, W, L).float()
+    return int(((m.T @ m) > 0).sum().item())
+
+
+def rpos_bound_terms(B, H, L, W, elt, offsets):
+    """(operations, bytes) lower bounds in ms for one B3 call: B1's flops
+    over the f32 peak, and q, k, v, o, the toep entries the windows reach
+    and the offsets, each moved once, over HBM bandwidth."""
+    flops = 2 * B * H * (2 * L * L * 4 + L * L)
+    nbytes = 4 * B * H * L * 4 * elt + H * toep_reach(offsets, W, L) * elt + B * 4
+    return flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def rpos_bwd_bound_terms(B, H, L, W, elt, offsets):
+    """(operations, bytes) lower bounds in ms for one B4 call: B2's flops
+    over the f32 peak, and q, k, v, g, o, dq, dk, dv, lse, the toep entries
+    the windows reach, the offsets and the whole dtoep, each moved once."""
+    flops = 2 * B * H * (5 * L * L * 4 + 3 * L * L)
+    rows = B * H * L
+    nbytes = (8 * rows * 4 * elt + rows * 4 + H * toep_reach(offsets, W, L) * elt
+              + B * 4 + H * L * L * elt)
+    return flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def phase_rpos_kernel_vs_plain():
+    """B3 against its plain version at the four biased stage shapes."""
+    from ecg_denoise_tpu_torch import full_float32
+    from ecg_denoise_tpu_torch.kernels.attention_rpos import (
+        attention_rpos_reference,
+        fused_attention_rpos,
+    )
+
+    saved = tf32_flags()
+    full_float32()
+    gen = torch.Generator().manual_seed(10)
+    max_err = 0.0
+    cases = [(BATCH, L, W, H, dt, 0.0) for (L, W, H) in RPOS_CALLS
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [(3, L, W, H, torch.float32, 0.0) for (L, W, H) in RPOS_CALLS]
+    # Trained logits reach 191.5: a window's bias lifted to about 190.
+    cases += [(BATCH, 32, 4, 16, torch.float32, 190.0)]
+    for B, L, W, H, dtype, shift in cases:
+        (q, k, v, toep), offsets = rpos_operands(B, L, W, H, dtype, gen)
+        toep = toep + shift
+        out = fused_attention_rpos(q, k, v, toep, W, offsets)
+        torch.cuda.synchronize()
+        ref = attention_rpos_reference(q, k, v, toep, W, offsets)
+        err = (out.float() - ref.float()).abs().max().item()
+        if shift:
+            tol = LARGE_LOGIT_TOL
+        elif dtype == torch.float32:
+            tol = F32_TOL
+            max_err = max(max_err, err)
+        else:
+            tol = BF16_TOL_OF_MAX_V * v.float().abs().max().item()
+        log(f"[9] B3 B={B} L={L} W={W} H={H} {str(dtype)[6:]}"
+            f"{f' toep+{shift:.0f}' if shift else ''}: max_abs_err={err:.3e} (tol {tol:.3e})")
+        check(out.shape == q.shape and out.dtype == dtype, "B3 output shape or dtype")
+        check(bool(torch.isfinite(out).all()) and err <= tol,
+              "B3 disagrees with its plain version")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    return max_err
+
+
+def phase_rpos_backward_vs_plain():
+    """B4, through the autograd Function, against the plain flash backward
+    on B3's own o and lse and, in float32, against autograd through the
+    plain forward; two calls bit-identical."""
+    from ecg_denoise_tpu_torch import full_float32
+    from ecg_denoise_tpu_torch.kernels import attention_rpos as ar
+
+    saved = tf32_flags()
+    full_float32()
+    gen = torch.Generator().manual_seed(11)
+    max_err = 0.0
+    cases = [(TIMING_BATCH, L, W, H, dt, 0.0) for (L, W, H) in RPOS_CALLS
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [(3, L, W, H, torch.float32, 0.0) for (L, W, H) in RPOS_CALLS]
+    cases += [(TIMING_BATCH, 32, 4, 16, torch.float32, 190.0)]
+    for B, L, W, H, dtype, shift in cases:
+        ops, offsets = rpos_operands(B, L, W, H, dtype, gen)
+        ops[3] = ops[3] + shift
+        g = torch.randn(ops[0].shape, generator=gen).to("cuda", dtype)
+
+        def grads():
+            ins = [t.detach().requires_grad_() for t in ops]
+            out = ar.fused_attention_rpos(*ins, W, offsets)
+            return out.detach(), torch.autograd.grad(out, ins, g)
+
+        out, got = grads()
+        _, lse = ar._launch(*ops, W, offsets, with_lse=True)
+        refs = {"flash": ar.attention_rpos_backward_reference(*ops, W, offsets, out, lse, g)}
+        if dtype == torch.float32:
+            ins = [t.detach().requires_grad_() for t in ops]
+            refs["autograd"] = torch.autograd.grad(
+                ar.attention_rpos_reference(*ins, W, offsets), ins, g)
+        torch.cuda.synchronize()
+        check([t.dtype for t in got] == [dtype] * 4
+              and [t.shape for t in got] == [t.shape for t in ops],
+              "B4 output shape or dtype")
+        check(all(bool(torch.isfinite(t).all()) for t in got), "non-finite B4 gradient")
+        errs = []
+        for ref_name, ref in refs.items():
+            for name, a, b in zip(("dq", "dk", "dv", "dtoep"), got, ref):
+                scale = b.float().abs().max().item()
+                err = (a.float() - b.float()).abs().max().item()
+                if shift:
+                    tol = LARGE_LOGIT_GRAD_TOL_OF_MAX * scale
+                elif dtype == torch.bfloat16:
+                    tol = BF16_GRAD_TOL_OF_MAX * scale
+                else:
+                    tol = DBIAS_TOL_OF_MAX * scale if name == "dtoep" else GRAD_TOL
+                errs.append(f"{name} vs {ref_name} {err:.2e}/{tol:.2e}")
+                check(err <= tol, f"B4 {name} disagrees with the plain {ref_name} backward")
+                if dtype == torch.float32 and ref_name == "flash" and not shift:
+                    max_err = max(max_err, err)
+        _, again = grads()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        log(f"[10] B4 B={B} L={L} W={W} H={H} {str(dtype)[6:]}"
+            f"{f' toep+{shift:.0f}' if shift else ''}: " + ", ".join(errs)
+            + f"; a second call bit-identical: {same}")
+        check(same, "two B4 calls differ")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    return max_err
+
+
+def beat_windows(n, seed):
+    """(n, 2, 256) float32 windows, each holding one QRS-like beat at a
+    seeded position, with noise and baseline wander."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(256)
+    centres = rng.integers(0, 256, (n, 1, 1))
+    x = (1.5 * np.exp(-0.5 * ((t - centres) / 4.0) ** 2)
+         + 0.2 * rng.standard_normal((n, 2, 256))
+         + np.linspace(-1, 1, 256) * rng.standard_normal((n, 2, 1)))
+    return x.astype(np.float32)
+
+
+def phase_rpos_serving(cpu_model, gpu_model):
+    """The r_pos serving path: the model with detected R peaks on the card
+    against the CPU, then `cli.serve --r_pos detect` answering over HTTP,
+    the counts set to 0 just before and read just after."""
+    from ecg_denoise_tpu_torch.cli.serve import build
+    from ecg_denoise_tpu_torch.data.rpeaks import detect_r_peaks
+
+    x = torch.from_numpy(beat_windows(64, seed=12))
+    r_cpu = detect_r_peaks(x)
+    r_gpu = detect_r_peaks(x.cuda())
+    with torch.no_grad():
+        reset_launches()
+        y = gpu_model(x.cuda(), r_pos=r_gpu)
+        torch.cuda.synchronize()
+        per_forward = read_launches()
+        err = (y.cpu() - cpu_model(x, r_pos=r_cpu)).abs().max().item()
+    same = torch.equal(r_gpu.cpu(), r_cpu)
+    log(f"[11] detected R peaks on the card equal the CPU's: {same} "
+        f"(64 windows, {len(set(r_cpu.tolist()))} distinct positions)")
+    log(f"[11] RaleNet 'full' depth 2, batch 64, float32, r_pos detected: card vs "
+        f"CPU max_abs_err={err:.3e} (tol {MODEL_TOL:.0e}); launches per forward "
+        f"{per_forward}")
+    check(same, "the card's detected R peaks differ from the CPU's")
+    check(bool(torch.isfinite(y).all()) and err <= MODEL_TOL,
+          "the card's r_pos forward disagrees with the CPU's")
+    check(per_forward == expected_launches(fwd=4, rpos_fwd=14),
+          "an r_pos forward did not make 14 B3 and 4 B1 launches")
+
+    rng = np.random.default_rng(13)
+    requests = {n: beat_windows(n, seed=n) for n in (1, 37, BATCH)}
+    record = (np.tile(beat_windows(1, seed=14)[0], (1, 20))[:, :5000]
+              + 0.1 * rng.standard_normal((2, 5000))).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "ralenet.pt")
+        torch.save(cpu_model.state_dict(), ckpt)
+        server, denoiser = build(["--model", "ralenet", "--ckpt", ckpt, "--port", "0",
+                                  "--max_batch", str(BATCH), "--warmup_max", str(BATCH),
+                                  "--r_pos", "detect"])
+    direct = {n: denoiser(x) for n, x in requests.items()}
+    direct_record = denoiser.denoise_record(record, stride=128)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        reset_launches()  # the main path
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        log(f"[11] cli.serve --r_pos detect: /healthz: {health}")
+        check(health["inference_path"] == "torch+attn-cuda+rpos:cuda", "inference path")
+        for n, x in requests.items():
+            y, timing = _post(url + "/denoise", x)
+            err = float(np.abs(y - direct[n]).max())
+            log(f"[11] /denoise N={n}: max_abs_err vs Denoiser={err:.3e}; {timing}")
+            check(y.shape == x.shape and np.isfinite(y).all() and err <= 1e-6,
+                  "/denoise with r_pos disagrees with Denoiser")
+        y, _ = _post(url + "/denoise_record?stride=128", record)
+        err = float(np.abs(y - direct_record).max())
+        log(f"[11] /denoise_record T={record.shape[1]}: max_abs_err vs Denoiser={err:.3e}")
+        check(y.shape == record.shape and err <= 1e-6,
+              "/denoise_record with r_pos disagrees with Denoiser")
+        launches = read_launches()
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    log(f"[11] kernel launches on the r_pos serving path: {launches}")
+    check(launches == expected_launches(fwd=4 * 4, rpos_fwd=4 * 14),
+          "the r_pos serving path did not go through B3 and B1")
+    check(not thread.is_alive(), "the server thread did not stop")
+    return launches
+
+
+def phase_rpos_train_step(cpu_model):
+    """One f32 Adam step with detected R peaks on the card against the same
+    step on the CPU, with 14 + 4 forward and 14 + 4 backward launches."""
+    from ecg_denoise_tpu_torch.data.rpeaks import detect_r_peaks
+    from ecg_denoise_tpu_torch.models import build_model
+    from ecg_denoise_tpu_torch.train import create_train_state, train_step
+
+    noisy = torch.from_numpy(beat_windows(TRAIN_BATCH, seed=15))
+    clean = torch.from_numpy(beat_windows(TRAIN_BATCH, seed=16))
+    cpu_state = create_train_state(copy.deepcopy(cpu_model), device="cpu")
+    model = build_model("ralenet")
+    model.load_state_dict(cpu_model.state_dict())
+    gpu_state = create_train_state(model)
+    reset_launches()
+    nc = noisy.cuda()
+    loss = train_step(gpu_state, nc, clean.cuda(), detect_r_peaks(nc))[0].item()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    ref = train_step(cpu_state, noisy, clean, detect_r_peaks(noisy))[0].item()
+    params, stats = state_max_diff(gpu_state.model, cpu_state.model.state_dict())
+    log(f"[12] RaleNet 'full' depth 2, float32, batch {TRAIN_BATCH}, r_pos detected: "
+        f"one Adam step on the card vs the CPU: loss {loss:.7f} vs {ref:.7f} (rel "
+        f"{abs(loss - ref) / abs(ref):.2e}, tol {LOSS_RTOL:.0e}), BN stats max diff "
+        f"{stats:.2e} (tol {BN_STATS_TOL:.0e}), params max diff {params:.2e} "
+        f"(tol {PARAM_TOL:.0e}); launches {launches}")
+    check(launches == expected_launches(fwd=4, bwd=4, rpos_fwd=14, rpos_bwd=14),
+          "the r_pos training step did not make 14 + 4 launches each way")
+    check(abs(loss - ref) <= LOSS_RTOL * abs(ref) and stats <= BN_STATS_TOL
+          and params <= PARAM_TOL, "the card's r_pos training step disagrees with the CPU's")
+
+
+def serve_rates(denoiser, x, n=5):
+    walls = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        denoiser(x)  # ends in torch.cuda.synchronize
+        walls.append(time.perf_counter() - t0)
+    return walls
+
+
+def phase_rpos_times(gpu_model, cpu_model, card):
+    """Times on the card: B3 and B4 per stage shape beside their bounds,
+    plain versions and SDPA on the materialised mask; Denoiser windows/s
+    with and without r_pos; the r_pos training step and its idle share."""
+    from ecg_denoise_tpu_torch.data.rpeaks import detect_r_peaks
+    from ecg_denoise_tpu_torch.kernels import attention_rpos as ar
+    from ecg_denoise_tpu_torch.kernels.attention import fused_attention
+    from ecg_denoise_tpu_torch.models import build_model
+    from ecg_denoise_tpu_torch.serving import Denoiser
+    from ecg_denoise_tpu_torch.train import create_train_state, train_step
+
+    gen = torch.Generator().manual_seed(17)
+    fwd = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    bwd = dict(fwd)
+    limits = {"fwd": {"operations": 0.0, "bytes": 0.0},
+              "bwd": {"operations": 0.0, "bytes": 0.0}}
+    for dtype in (torch.float32, torch.bfloat16):
+        for (L, W, H), calls in RPOS_CALLS.items():
+            (q, k, v, toep), offsets = rpos_operands(BATCH, L, W, H, dtype, gen)
+            ms = cuda_ms(lambda: ar.fused_attention_rpos(q, k, v, toep, W, offsets), 20)
+            no_bias = cuda_ms(lambda: fused_attention(q, k, v), 20)
+            plain = cuda_ms(lambda: ar.attention_rpos_reference(q, k, v, toep, W, offsets), 5)
+            mask = ar.materialize_rpos_bias(toep, W, offsets)
+            lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, scale=1.0), 20)
+            t_ops, t_bytes = rpos_bound_terms(BATCH, H, L, W, q.element_size(), offsets)
+            bnd = max(t_ops, t_bytes)
+            log(f"[13] {card}: B3 attention_rpos_fwd {str(dtype)[6:]} B={BATCH} L={L} "
+                f"W={W} H={H}: kernel {ms:.4f} ms, bound {bnd:.4f} ms (operations "
+                f"{t_ops:.4f} at the f32 CUDA-core peak, bytes {t_bytes:.4f}), plain "
+                f"{plain:.4f} ms, sdpa with the (B, H, L, L) mask {lib:.4f} ms, B1 "
+                f"without any bias {no_bias:.4f} ms; {calls} calls per forward")
+            if dtype == torch.float32:
+                for key, t in (("ms", ms), ("plain_ms", plain), ("bound_ms", bnd),
+                               ("library_ms", lib)):
+                    fwd[key] += calls * t
+                limits["fwd"]["operations"] += calls * t_ops
+                limits["fwd"]["bytes"] += calls * t_bytes
+            del mask
+
+            B = TIMING_BATCH
+            ops, offsets = rpos_operands(B, L, W, H, dtype, gen)
+            g = torch.randn(ops[0].shape, generator=gen).to("cuda", dtype)
+            o, lse = ar._launch(*ops, W, offsets, with_lse=True)
+            ms = cuda_ms(lambda: ar._launch_bwd(*ops, W, offsets, o, lse, g), 20)
+            plain = cuda_ms(lambda: ar.attention_rpos_backward_reference(
+                *ops, W, offsets, o, lse, g), 5)
+            qkv = [t.detach().requires_grad_() for t in ops[:3]]
+            mask = ar.materialize_rpos_bias(ops[3], W, offsets).requires_grad_()
+
+            def sdpa():
+                return F.scaled_dot_product_attention(*qkv, attn_mask=mask, scale=1.0)
+
+            lib_fwd = cuda_ms(sdpa, 20)
+            lib = cuda_ms(lambda: torch.autograd.grad(sdpa(), qkv + [mask], g), 20) - lib_fwd
+            t_ops, t_bytes = rpos_bwd_bound_terms(B, H, L, W, ops[0].element_size(), offsets)
+            bnd = max(t_ops, t_bytes)
+            log(f"[13] {card}: B4 attention_rpos_bwd {str(dtype)[6:]} B={B} L={L} W={W} "
+                f"H={H}: kernel {ms:.4f} ms, bound {bnd:.4f} ms (operations {t_ops:.4f}, "
+                f"bytes {t_bytes:.4f}), plain {plain:.4f} ms, sdpa backward with a "
+                f"grad-requiring (B, H, L, L) mask {lib:.4f} ms ((fwd+bwd) - fwd); "
+                f"{calls} calls per step")
+            if dtype == torch.float32:
+                for key, t in (("ms", ms), ("plain_ms", plain), ("bound_ms", bnd),
+                               ("library_ms", lib)):
+                    bwd[key] += calls * t
+                limits["bwd"]["operations"] += calls * t_ops
+                limits["bwd"]["bytes"] += calls * t_bytes
+            del mask
+    by = {k: max(v, key=v.get) for k, v in limits.items()}
+    log(f"[13] {card}: B3 float32, one forward's 14 calls at B={BATCH}: kernel "
+        f"{fwd['ms']:.4f} ms, bound {fwd['bound_ms']:.4f} ms ({by['fwd']}), plain "
+        f"{fwd['plain_ms']:.4f} ms, sdpa {fwd['library_ms']:.4f} ms")
+    log(f"[13] {card}: B4 float32, one step's 14 calls at B={TIMING_BATCH}: kernel "
+        f"{bwd['ms']:.4f} ms, bound {bwd['bound_ms']:.4f} ms ({by['bwd']}), plain "
+        f"{bwd['plain_ms']:.4f} ms, sdpa backward {bwd['library_ms']:.4f} ms")
+
+    # Serving, in turns: without r_pos, with, with, without.
+    bf16_model = build_model("ralenet", dtype=torch.bfloat16).eval()
+    bf16_model.load_state_dict(cpu_model.state_dict())
+    for dtype, model in ((torch.float32, gpu_model), (torch.bfloat16, bf16_model)):
+        plain_d = Denoiser(model, max_batch=2048)
+        rpos_d = Denoiser(model, max_batch=2048, r_pos="detect")
+        for batch in (1024, 2048):
+            x = beat_windows(batch, seed=batch)
+            check(np.isfinite(rpos_d(x)).all() and np.isfinite(plain_d(x)).all(),
+                  "non-finite Denoiser output")
+            walls = {"without": [], "with": []}
+            for key in ("without", "with", "with", "without"):
+                walls[key] += serve_rates(plain_d if key == "without" else rpos_d, x)
+            xd = torch.from_numpy(x).cuda()
+
+            def forward():
+                return model(xd, r_pos=detect_r_peaks(xd))
+
+            with torch.no_grad():
+                fwd_ms = cuda_ms(forward, 10)
+            log(f"[13] {card}: Denoiser {str(dtype)[6:]} batch {batch}: r_pos detect "
+                f"{batch / statistics.median(walls['with']):.1f} windows/s, without "
+                f"{batch / statistics.median(walls['without']):.1f} (medians of 10 calls "
+                f"each, in turns, host clock); device-resident forward with detection "
+                f"{fwd_ms:.3f} ms (CUDA events, mean of 10)")
+            if batch == BATCH:
+                profile_forward(forward, f"{str(dtype)[6:]} r_pos forward B={batch} "
+                                "with detection", fwd_ms, card, tag="13")
+
+    # The r_pos training step, f32, B = 256, beside the step without r_pos.
+    model = build_model("ralenet")
+    model.load_state_dict(cpu_model.state_dict())
+    state = create_train_state(model)
+    nb = torch.from_numpy(beat_windows(TIMING_BATCH, seed=18)).cuda()
+    cb = torch.from_numpy(beat_windows(TIMING_BATCH, seed=19)).cuda()
+
+    def step():
+        return train_step(state, nb, cb, detect_r_peaks(nb))
+
+    step_ms = cuda_ms(step, 5)
+    plain_ms = cuda_ms(lambda: train_step(state, nb, cb), 5)
+    log(f"[13] {card}: training step float32 B={TIMING_BATCH}: with r_pos detect "
+        f"{step_ms:.3f} ms, without {plain_ms:.3f} ms (CUDA events, mean of 5)")
+    profile_step(step, card, step_ms, tag="13", what="float32 r_pos training step")
+    return fwd, by["fwd"], bwd, by["bwd"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs an NVIDIA card",
@@ -827,42 +1283,42 @@ def main():
     max_err = phase_kernel_vs_plain()
     cpu_model = seeded_model(0)
     gpu_model = phase_model(cpu_model)
-    serve_launches = phase_serving(cpu_model)
+    launches = {"serve": phase_serving(cpu_model)}
     totals, bound_by = phase_times(gpu_model, cpu_model, card)
     bwd_err = phase_backward_vs_plain()
     phase_train_step(cpu_model)
-    train_launches = phase_train_cli(card)
+    launches["train"] = phase_train_cli(card)
     bwd_totals, bwd_bound_by = phase_train_times(cpu_model, card)
+    rpos_err = phase_rpos_kernel_vs_plain()
+    rpos_bwd_err = phase_rpos_backward_vs_plain()
+    launches["serve_rpos"] = phase_rpos_serving(cpu_model, gpu_model)
+    phase_rpos_train_step(cpu_model)
+    launches["train_rpos"] = phase_train_cli(card, r_pos="detect", tag="12b")
+    rpos_totals, rpos_by, rpos_bwd_totals, rpos_bwd_by = phase_rpos_times(
+        gpu_model, cpu_model, card)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [{
-        "name": "attention_fwd",
-        "route": "cuda",
-        "source": "ecg_denoise_tpu_torch/kernels/csrc/attention_fwd.cu",
-        "replaces": "ecg_denoise_tpu/kernels/attention_pallas.py:253",
-        "launches": serve_launches + train_launches[0],
-        "launches_by_path": {"serve": serve_launches, "train": train_launches[0]},
-        "max_abs_err": max_err,
-        "ms": totals["ms"],
-        "plain_ms": totals["plain_ms"],
-        "bound_ms": totals["bound_ms"],
-        "bound_by": bound_by,
-        "library_ms": totals["library_ms"],
-        "times_are": f"one forward's 18 calls, float32, B={BATCH}",
-    }, {
-        "name": "attention_bwd",
-        "route": "cuda",
-        "source": "ecg_denoise_tpu_torch/kernels/csrc/attention_bwd.cu",
-        "replaces": "ecg_denoise_tpu/kernels/attention_pallas.py:333",
-        "launches": train_launches[1],
-        "launches_by_path": {"serve": 0, "train": train_launches[1]},
-        "max_abs_err": bwd_err,
-        "ms": bwd_totals["ms"],
-        "plain_ms": bwd_totals["plain_ms"],
-        "bound_ms": bwd_totals["bound_ms"],
-        "bound_by": bwd_bound_by,
-        "library_ms": bwd_totals["library_ms"],
-        "times_are": f"one training step's 18 calls, float32, B={TIMING_BATCH}",
-    }]}), flush=True)
+
+    csrc = "ecg_denoise_tpu_torch/kernels/csrc"
+    pallas = "ecg_denoise_tpu/kernels/attention_pallas.py"
+
+    def entry(kernel, replaces, err, times, by, times_are):
+        by_path = {path: counts[kernel] for path, counts in launches.items()}
+        return {"name": kernel, "route": "cuda", "source": f"{csrc}/{kernel}.cu",
+                "replaces": f"{pallas}:{replaces}", "launches": sum(by_path.values()),
+                "launches_by_path": by_path, "max_abs_err": err, "ms": times["ms"],
+                "plain_ms": times["plain_ms"], "bound_ms": times["bound_ms"],
+                "bound_by": by, "library_ms": times["library_ms"], "times_are": times_are}
+
+    print(json.dumps({"kernels": [
+        entry("attention_fwd", 253, max_err, totals, bound_by,
+              f"one forward's 18 calls, float32, B={BATCH}"),
+        entry("attention_bwd", 333, bwd_err, bwd_totals, bwd_bound_by,
+              f"one training step's 18 calls, float32, B={TIMING_BATCH}"),
+        entry("attention_rpos_fwd", 827, rpos_err, rpos_totals, rpos_by,
+              f"one r_pos forward's 14 biased calls, float32, B={BATCH}"),
+        entry("attention_rpos_bwd", 859, rpos_bwd_err, rpos_bwd_totals, rpos_bwd_by,
+              f"one r_pos training step's 14 biased calls, float32, B={TIMING_BATCH}"),
+    ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

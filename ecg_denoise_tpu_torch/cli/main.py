@@ -4,15 +4,21 @@ package's cli/main.py (reference main.py:24-87).
 Seed 2023, (noise type, intensity, model) picked by index, a 10k-window
 subsample of the dict_data cache split 80/20, Adam/MSE training with the
 splits on the card, a checkpoint every 10 epochs and the output.txt result
-line. It runs on the card and raises without one. Example:
+line. It runs on the card and raises without one. `--r_pos detect`
+centres each window's R-wave attention bias on its own detected R peak
+(RaleNet family). Example:
 
     python -m ecg_denoise_tpu_torch.cli.main --model_index 4 \\
-        --noise_type_index 0 --intensity_index 0 --data_path ./data/dict_data
+        --noise_type_index 0 --intensity_index 0 --data_path ./data/dict_data \\
+        --r_pos detect
 """
 
 from __future__ import annotations
 
 import torch
+
+# The models that take r_pos (JAX counterpart: cli/main.py:79).
+_RALE = {"ralenet", "ralenet_mlp", "ralenet_nra"}
 
 
 def main(argv=None) -> None:
@@ -35,12 +41,16 @@ def main(argv=None) -> None:
     random_seed(cfg.seed)  # the model's initial weights
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     model = build_model(cfg.model_index, dtype=dtype, device=device)
+    r_pos_mode = cfg.r_pos
+    if r_pos_mode and cfg.model_name not in _RALE:
+        print(f"--r_pos is RaleNet-family only; ignored for {cfg.model_name}")
+        r_pos_mode = None
     fit(model, tr_n, tr_c, te_n, te_c,
         epochs=cfg.epochs, batch_size=cfg.batch_size, learning_rate=cfg.lr,
         model_name=cfg.model_name, noise_name=cfg.noise_name,
         noise_intensity=cfg.noise_intensity, seed=cfg.seed,
         model_save_dir=cfg.model_save_dir, output_file=cfg.output_file,
-        device=device)
+        r_pos_mode=r_pos_mode, device=device)
 
 
 if __name__ == "__main__":

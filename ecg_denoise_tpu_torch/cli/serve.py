@@ -8,9 +8,11 @@ checkpoint and the inference path. Batches are padded to power-of-two
 buckets (see ecg_denoise_tpu_torch.serving.Denoiser).
 
 Example (the checkpoint is a torch.save'd state_dict of the port's model,
-or a checkpoint written by `python -m ecg_denoise_tpu_torch.cli.main`):
+or a checkpoint written by `python -m ecg_denoise_tpu_torch.cli.main`;
+`--r_pos detect` centres each window's R-wave attention bias on its own
+detected R peak):
     python -m ecg_denoise_tpu_torch.cli.serve --model ralenet \
-        --ckpt ralenet.pt &
+        --ckpt ralenet.pt --r_pos detect &
     python - <<'PY'
     import io, urllib.request, numpy as np
     x = np.random.randn(5, 2, 256).astype(np.float32)
@@ -21,8 +23,8 @@ or a checkpoint written by `python -m ecg_denoise_tpu_torch.cli.main`):
     print(np.load(io.BytesIO(r.read())).shape)
     PY
 
-`--r_pos`, `--n_data` and `--use_pallas` of the JAX CLI come with later
-slices.
+`--n_data` of the JAX CLI comes with a later slice; `--use_pallas` has no
+counterpart, since the kernels always run on the card.
 """
 
 from __future__ import annotations
@@ -125,7 +127,9 @@ def make_server(denoiser, meta: dict, host: str = "127.0.0.1",
     return ThreadingHTTPServer((host, port), Handler)
 
 
-def main(argv=None) -> None:
+def build(argv=None):
+    """Parse the CLI's flags and build its server (not started) and
+    Denoiser: (server, denoiser)."""
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--model", type=str, default="ralenet")
@@ -135,19 +139,31 @@ def main(argv=None) -> None:
     p.add_argument("--max_batch", type=int, default=1024)
     p.add_argument("--warmup_max", type=int, default=0,
                    help="run batch buckets up to this size at start (0 = none)")
+    p.add_argument("--r_pos", type=str, default=None, choices=["detect"],
+                   help="per-window R-peak-centred attention biases "
+                        "(RaleNet-family checkpoints with the rel-pos "
+                        "tables, i.e. ralenet/ralenet_mlp)")
     args = p.parse_args(argv)
 
     from ecg_denoise_tpu_torch.serving import Denoiser
 
+    r_pos = args.r_pos
+    if r_pos and args.model not in ("ralenet", "ralenet_mlp"):
+        print(f"--r_pos needs a rel-pos-bias model; ignored for {args.model}")
+        r_pos = None
     denoiser = Denoiser.from_checkpoint(args.model, args.ckpt,
-                                        max_batch=args.max_batch)
+                                        max_batch=args.max_batch, r_pos=r_pos)
     if args.warmup_max:
         denoiser.warmup(limit=args.warmup_max)
     meta = {"model": args.model, "ckpt": args.ckpt,
             "inference_path": denoiser.inference_path}
-    server = make_server(denoiser, meta, args.host, args.port)
-    print(f"serving {args.model} on http://{args.host}:{server.server_address[1]}",
-          flush=True)
+    return make_server(denoiser, meta, args.host, args.port), denoiser
+
+
+def main(argv=None) -> None:
+    server, _ = build(argv)
+    host, port = server.server_address[:2]
+    print(f"serving on http://{host}:{port}", flush=True)
     try:
         server.serve_forever()
     finally:

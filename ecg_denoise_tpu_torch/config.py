@@ -5,8 +5,8 @@ The same flag names and defaults as the JAX package's CLI (reference
 main.py:31-33 plus the framework's extensions), so an invocation of one
 runs on the other. Two differences: there is no --use_pallas, since the
 attention kernels always run on the card, and the flags of paths not
-ported yet (--n_data, --n_model, --multihost, --r_pos) are parsed and
-raise NotImplementedError naming their ROADMAP item, never ignored.
+ported yet (--n_data, --n_model, --multihost) are parsed and raise
+NotImplementedError naming their ROADMAP item, never ignored.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ class TrainConfig:
     output_file: str = "./output.txt"
     dtype: str = "bfloat16"  # compute dtype; master weights stay float32
     split_file: str | None = None  # pin/export exact train/test indices
+    r_pos: str | None = None  # "detect": per-window R-peak attention bias
 
     @property
     def noise_name(self) -> str:
@@ -77,13 +78,13 @@ def build_argparser(description: str = "") -> argparse.ArgumentParser:
     p.add_argument("--multihost", action="store_true",
                    help="multi-host training: not ported yet (ROADMAP A16)")
     p.add_argument("--r_pos", type=str, default=None, choices=["detect"],
-                   help="R-peak-centred attention bias: not ported yet "
-                        "(ROADMAP A10)")
+                   help="per-window R-peak-centred attention bias: detect "
+                        "each batch's R peaks on the card (RaleNet family)")
     return p
 
 
 _NOT_PORTED = {"n_data": (None, "A16"), "n_model": (1, "A16"),
-               "multihost": (False, "A16"), "r_pos": (None, "A10")}
+               "multihost": (False, "A16")}
 
 
 def config_from_args(args: argparse.Namespace) -> TrainConfig:

@@ -38,7 +38,7 @@ import torch
 
 HEAD_DIM = 4
 MAX_LEN = 256
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -61,17 +61,15 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def attention_backward_reference(q, k, v, bias, o, lse, g):
-    """Plain PyTorch backward of `fused_attention`, in the flash form the
-    backward kernel computes: from the forward output `o`, its float32
-    log-sum-exp `lse` and the output gradient `g`,
+def flash_backward_terms(q, k, v, bias, o, lse, g):
+    """The float32 flash backward from the forward output `o`, its float32
+    log-sum-exp `lse` and the output gradient `g`:
 
         p = exp(q·kᵀ + bias − lse),  c = Σ_d g·o,  ds = p ⊙ (g·vᵀ − c),
-        dq = ds·k,  dk = dsᵀ·q,  dv = pᵀ·g,  dbias = Σ_b ds.
+        dq = ds·k,  dk = dsᵀ·q,  dv = pᵀ·g.
 
-    All float32; dq, dk and dv are rounded once to the operand dtype, and
-    dbias (None without a bias) is summed in float32 and cast to the bias
-    dtype.
+    Returns (dq, dk, dv, ds), all float32; bias is None or broadcasts
+    against the (B, H, L, L) logits.
     """
     qf, kf, vf, gf, of = (t.float() for t in (q, k, v, g, o))
     logits = torch.einsum("bhld,bhmd->bhlm", qf, kf)
@@ -83,11 +81,22 @@ def attention_backward_reference(q, k, v, bias, o, lse, g):
     dq = torch.einsum("bhlm,bhmd->bhld", ds, kf)
     dk = torch.einsum("bhlm,bhld->bhmd", ds, qf)
     dv = torch.einsum("bhlm,bhld->bhmd", p, gf)
+    return dq, dk, dv, ds
+
+
+def attention_backward_reference(q, k, v, bias, o, lse, g):
+    """Plain PyTorch backward of `fused_attention`, in the flash form the
+    backward kernel computes (`flash_backward_terms`), with
+    dbias = Σ_b ds. dq, dk and dv are rounded once to the operand dtype,
+    and dbias (None without a bias) is summed in float32 and cast to the
+    bias dtype.
+    """
+    dq, dk, dv, ds = flash_backward_terms(q, k, v, bias, o, lse, g)
     dbias = None if bias is None else ds.sum(0, keepdim=True).to(bias.dtype)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias
 
 
-def _check(q, k, v, bias) -> None:
+def check_operands(q, k, v, bias) -> None:
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must share one (B, H, L, D) shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -96,7 +105,7 @@ def _check(q, k, v, bias) -> None:
         raise ValueError(f"head_dim must be {HEAD_DIM}, got {D}")
     if L > MAX_LEN:
         raise ValueError(f"sequence length must be <= {MAX_LEN}, got {L}")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must all be float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     tensors = (q, k, v)
@@ -111,14 +120,16 @@ def _check(q, k, v, bias) -> None:
         raise ValueError("q, k, v and bias must be on one device")
 
 
-def _bind(name: str, fn: str, n_pointers: int) -> ctypes.CDLL:
+def bind(name: str, fn: str, n_pointers: int, n_ints: int = 6) -> ctypes.CDLL:
     """The built library `name` with `fn`'s C signature declared:
-    `n_pointers` pointers, B, H, L, D, dtype, device, then the stream."""
+    `n_pointers` pointers, `n_ints` ints (B, H, L, D, [W,] dtype, device),
+    then the stream."""
     from ecg_denoise_tpu_torch.kernels.build import load
 
     lib = load(name)
     f = getattr(lib, fn)
-    f.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    f.argtypes = ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints
+                  + [ctypes.c_void_p])
     f.restype = ctypes.c_int
     lib.ecg_cuda_error_string.argtypes = [ctypes.c_int]
     lib.ecg_cuda_error_string.restype = ctypes.c_char_p
@@ -128,20 +139,20 @@ def _bind(name: str, fn: str, n_pointers: int) -> ctypes.CDLL:
 @functools.cache
 def _library() -> ctypes.CDLL:
     """The forward kernel's library, built at first use."""
-    return _bind("attention_fwd", "ecg_attention_fwd", 6)
+    return bind("attention_fwd", "ecg_attention_fwd", 6)
 
 
 @functools.cache
 def _bwd_library() -> ctypes.CDLL:
     """The backward kernel's library, built at first use."""
-    return _bind("attention_bwd", "ecg_attention_bwd", 12)
+    return bind("attention_bwd", "ecg_attention_bwd", 12)
 
 
-def _ptr(t: Optional[torch.Tensor]):
+def ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _check_launchable(*tensors, bias=None) -> None:
+def check_launchable(*tensors, bias=None) -> None:
     """Raise on what the kernels do not take: strided operands, more than
     2**31 elements, rows not aligned for the kernels' vector loads."""
     if not all(t.is_contiguous() for t in tensors) or (
@@ -153,7 +164,7 @@ def _check_launchable(*tensors, bias=None) -> None:
                          f"{row_bytes}-byte aligned")
 
 
-def _raise_on(lib, err: int, what: str) -> None:
+def raise_on(lib, err: int, what: str) -> None:
     if err:
         raise RuntimeError(f"attention {what} kernel launch failed: "
                            + lib.ecg_cuda_error_string(err).decode())
@@ -161,17 +172,17 @@ def _raise_on(lib, err: int, what: str) -> None:
 
 def _launch(q, k, v, bias, *, with_lse: bool = False):
     """The forward kernel: o, plus the float32 (B, H, L) lse if asked."""
-    _check_launchable(q, k, v, bias=bias)
+    check_launchable(q, k, v, bias=bias)
     lib = _library()
     B, H, L, D = q.shape
     o = torch.empty_like(q)
     lse = (torch.empty(B, H, L, dtype=torch.float32, device=q.device)
            if with_lse else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.ecg_attention_fwd(_ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(o),
-                                _ptr(lse), B, H, L, D, _DTYPE_CODES[q.dtype],
+    err = lib.ecg_attention_fwd(ptr(q), ptr(k), ptr(v), ptr(bias), ptr(o),
+                                ptr(lse), B, H, L, D, DTYPE_CODES[q.dtype],
                                 q.device.index, stream)
-    _raise_on(lib, err, "forward")
+    raise_on(lib, err, "forward")
     fused_attention.launches += 1
     return (o, lse) if with_lse else o
 
@@ -183,7 +194,7 @@ def _launch_bwd(q, k, v, bias, o, lse, g, *, want_dbias: bool):
                          f"the output {tuple(q.shape)} {q.dtype}")
     # MSAttention's transpose(1, 2).reshape hands back a strided gradient.
     g = g.contiguous()
-    _check_launchable(q, k, v, o, g, bias=bias)
+    check_launchable(q, k, v, o, g, bias=bias)
     lib = _bwd_library()
     B, H, L, D = q.shape
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
@@ -191,11 +202,11 @@ def _launch_bwd(q, k, v, bias, o, lse, g, *, want_dbias: bool):
     dbias = (torch.empty(1, H, L, L, dtype=torch.float32, device=q.device)
              if want_dbias and bias is not None else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.ecg_attention_bwd(_ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(g),
-                                _ptr(o), _ptr(lse), _ptr(c), _ptr(dq), _ptr(dk),
-                                _ptr(dv), _ptr(dbias), B, H, L, D,
-                                _DTYPE_CODES[q.dtype], q.device.index, stream)
-    _raise_on(lib, err, "backward")
+    err = lib.ecg_attention_bwd(ptr(q), ptr(k), ptr(v), ptr(bias), ptr(g),
+                                ptr(o), ptr(lse), ptr(c), ptr(dq), ptr(dk),
+                                ptr(dv), ptr(dbias), B, H, L, D,
+                                DTYPE_CODES[q.dtype], q.device.index, stream)
+    raise_on(lib, err, "backward")
     fused_attention.bwd_launches += 1
     if dbias is not None:
         dbias = dbias.to(bias.dtype)  # summed in float32, cast once
@@ -224,7 +235,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """softmax(q @ k^T + bias) @ v; the kernels on the card, the plain
     version on the CPU (see the module docstring)."""
-    _check(q, k, v, bias)
+    check_operands(q, k, v, bias)
     if q.device.type == "cuda":
         if torch.is_grad_enabled() and any(
                 t is not None and t.requires_grad for t in (q, k, v, bias)):

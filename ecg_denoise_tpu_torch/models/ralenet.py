@@ -85,8 +85,10 @@ class RaleNet(nn.Module):
         self.transconv = nn.Sequential(Conv1d(channels[0], 2, 3, padding=1))
 
     def forward(self, x, r_pos=None):
-        """(B, 2, 256) -> (B, 2, 256) in the compute dtype. `r_pos`: None
-        or a scalar R-peak position shared by the batch."""
+        """(B, 2, 256) -> (B, 2, 256) in the compute dtype. `r_pos`: None,
+        a scalar R-peak position shared by the batch, or a (B,) integer
+        tensor of per-window positions (`data.rpeaks.detect_r_peaks`);
+        stage i takes r_pos // 2**i, floor division as in JAX."""
         stem = self.conv1(x.to(self.dtype))  # (B, 8, 256)
 
         attn = [None] * 4

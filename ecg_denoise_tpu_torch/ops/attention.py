@@ -16,22 +16,47 @@ the output:
   bias is embedded at (L-W)//2, or at r_pos - W//2, truncated at the edges
   like the reference's negative F.pad (transformer.py:534-558).
 
-The attention itself goes through `kernels.attention.fused_attention`:
-the Hopper kernel for CUDA tensors, its plain version on the CPU. The
-per-window `RPosBias` (r_pos per window) comes with the r_pos slice.
+The attention itself goes through `kernels.attention.fused_attention`, or,
+for a per-window R-peak bias (`RPosBias`), through
+`kernels.attention_rpos.fused_attention_rpos`: the Hopper kernels for CUDA
+tensors, their plain versions on the CPU.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from dataclasses import dataclass
+from typing import Optional, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ecg_denoise_tpu_torch.kernels.attention import fused_attention
+from ecg_denoise_tpu_torch.kernels.attention_rpos import (
+    fused_attention_rpos,
+    materialize_rpos_bias,
+)
 from ecg_denoise_tpu_torch.ops.layers import LayerNorm, Linear, PartialConv1d
+
+
+@dataclass
+class RPosBias:
+    """Per-window R-peak bias, unmaterialised (JAX counterpart: `RPosBias`).
+
+    The windowed bias factorises as toep[l, m] * in_b[l] * in_b[m] (see
+    `RelativePositionEmbedding.forward`), so it travels as the
+    batch-independent Toeplitz expansion and a float32 window start per
+    window; the (B, H, L, L) tensor is built only by `materialize`.
+    """
+
+    toep: torch.Tensor  # (1, H, L, L) in the compute dtype
+    offsets: torch.Tensor  # (B,) float32 window starts, r_pos - W//2
+    W: int
+
+    def materialize(self) -> torch.Tensor:
+        """The (B, H, L, L) bias, in toep's dtype."""
+        return materialize_rpos_bias(self.toep, self.W, self.offsets)
 
 
 def sinusoidal_pe_table(max_len: int, num_hiddens: int) -> torch.Tensor:
@@ -49,9 +74,11 @@ def sinusoidal_pe_table(max_len: int, num_hiddens: int) -> torch.Tensor:
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         bias: Optional[torch.Tensor]) -> torch.Tensor:
+                         bias: Union[None, torch.Tensor, RPosBias]) -> torch.Tensor:
     """softmax(q @ k^T + bias) @ v over (B, H, L, D) operands; q is
-    pre-scaled, bias is None or a (1, H, L, L) tensor."""
+    pre-scaled, bias is None, a (1, H, L, L) tensor or an `RPosBias`."""
+    if isinstance(bias, RPosBias):
+        return fused_attention_rpos(q, k, v, bias.toep, bias.W, bias.offsets)
     return fused_attention(q, k, v, bias)
 
 
@@ -201,7 +228,8 @@ class RelativePositionEmbedding(nn.Module):
     (H, W, W) local bias and embedded into a (1, H, L, L) bias at window
     start (L-W)//2, or r_pos - W//2 for a scalar R-peak position. A window
     hanging over an edge is truncated (the reference's negative F.pad),
-    not shifted in-bounds.
+    not shifted in-bounds. For a (B,) tensor of per-window R-peak
+    positions it returns an `RPosBias`.
     """
 
     def __init__(self, length: int, whole_length: int, num_heads: int,
@@ -218,14 +246,24 @@ class RelativePositionEmbedding(nn.Module):
 
     def forward(self, r_pos=None):
         W, L, H = self.W, self.L, self.H
+        table = self.relative_position_bias_table
         if r_pos is None:
             offset = (L - W) // 2
         elif torch.as_tensor(r_pos).dim() == 0:
             offset = int(r_pos) - W // 2
         else:
-            raise NotImplementedError(
-                "per-window r_pos (RPosBias) comes with the r_pos slice")
-        table = self.relative_position_bias_table
+            # Per window: for l = off + i and m = off + j inside the window
+            # l - m = i - j, so the placed bias is table[l - m + W - 1]
+            # where both l and m lie in [off, off + W) and 0 elsewhere — a
+            # batch-independent Toeplitz matrix gated by a per-window
+            # interval mask, cut at the edges because l, m only range over
+            # [0, L). The table's gradient flows through this gather.
+            pos = torch.arange(L, device=table.device)
+            rel = pos[:, None] - pos[None, :]
+            toep = table[(rel + W - 1).clamp(0, 2 * W - 2)] * (rel.abs() < W)[..., None]
+            return RPosBias(
+                toep=toep.permute(2, 0, 1)[None].to(self.dtype).contiguous(),
+                offsets=(r_pos - W // 2).to(torch.float32), W=W)
         local = table[self.rel].reshape(W, W, H).permute(2, 0, 1)  # (H, W, W)
         big = table.new_zeros(H, L + 2 * W, L + 2 * W)
         off = min(max(offset + W, 0), L + W)

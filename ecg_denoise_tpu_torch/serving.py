@@ -11,9 +11,12 @@
 * Input and output are numpy (host) arrays: one host-to-device and one
   device-to-host copy per chunk, and each chunk's fetch ends in a
   `torch.cuda.synchronize`.
+* `r_pos="detect"` centres each window's R-wave attention bias on its own
+  detected R peak (the paper's namesake mechanism): `detect_r_peaks` runs
+  on the staged bucket on the model's device, inside the same
+  `inference_mode` forward.
 
-The per-window R-peak path (`r_pos="detect"`), data-parallel serving and
-`StreamingDenoiser` come with later slices.
+Data-parallel serving and `StreamingDenoiser` come with later slices.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import numpy as np
 import torch
 
 from ecg_denoise_tpu_torch import full_float32, resolve_device
+from ecg_denoise_tpu_torch.data.rpeaks import detect_r_peaks
 from ecg_denoise_tpu_torch.models import build_model
 
 WINDOW = 256  # samples per window: RA-LENet's fixed input length
@@ -43,11 +47,15 @@ class Denoiser:
 
     `device` defaults to the card (and raises without one); the model is
     moved there and put in eval mode. On the card, float32 runs in full
-    float32 (`full_float32`).
+    float32 (`full_float32`). `r_pos="detect"` feeds each window's detected
+    R-peak position to the model (RaleNet's `r_pos`).
     """
 
     def __init__(self, model: torch.nn.Module, max_batch: int = 1024,
-                 device=None):
+                 r_pos: Optional[str] = None, device=None):
+        if r_pos not in (None, "detect"):
+            raise ValueError(f"r_pos must be None or 'detect', got {r_pos!r}")
+        self.r_pos = r_pos
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             full_float32()
@@ -58,19 +66,21 @@ class Denoiser:
         # front end is threaded).
         self._lock = threading.Lock()
         attn = "cuda" if self.device.type == "cuda" else "plain"
-        self.inference_path = f"torch+attn-{attn}:{self.device.type}"
+        rpos = "+rpos" if r_pos else ""
+        self.inference_path = f"torch+attn-{attn}{rpos}:{self.device.type}"
 
     @classmethod
     def from_checkpoint(cls, name_or_index, ckpt_path: str,
                         max_batch: int = 1024,
-                        dtype: torch.dtype = torch.float32, device=None):
+                        dtype: torch.dtype = torch.float32,
+                        r_pos: Optional[str] = None, device=None):
         """Serve a `torch.save(model.state_dict())` file of the port's
         model `name_or_index`, or a training checkpoint's "model" part."""
         device = resolve_device(device)
         model = build_model(name_or_index, dtype=dtype, device=device)
         state = torch.load(ckpt_path, map_location=device, weights_only=True)
         model.load_state_dict(state.get("model", state))
-        return cls(model, max_batch, device=device)
+        return cls(model, max_batch, r_pos=r_pos, device=device)
 
     def __call__(self, x: np.ndarray) -> np.ndarray:
         return self.denoise_timed(x)[0]
@@ -110,7 +120,10 @@ class Denoiser:
 
     def _forward(self, batch: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
-            return self.model(batch.to(self.device, non_blocking=True))
+            x = batch.to(self.device, non_blocking=True)
+            if self.r_pos == "detect":
+                return self.model(x, r_pos=detect_r_peaks(x))
+            return self.model(x)
 
     def _fetch(self, y: torch.Tensor) -> np.ndarray:
         y = y.float().cpu()

@@ -12,8 +12,10 @@ so a run resumed from a checkpoint retraces the batches of the run it
 continues: `resume_path` restores the model and optimizer and the loop
 carries on after the checkpoint's last epoch.
 
-Not here yet: the data-parallel `mesh` (ROADMAP A16), the transfer
-`frozen_mask` (A12) and `r_pos_mode="detect"` (A10).
+`r_pos_mode="detect"` detects the R peaks of every batch on the device
+and feeds them to the model's R-wave attention bias (`make_epoch_fns`'s
+`detect_r_pos`). Not here yet: the data-parallel `mesh` (ROADMAP A16) and
+the transfer `frozen_mask` (A12).
 """
 
 from __future__ import annotations
@@ -69,9 +71,8 @@ def fit(
     on `device` (default: the card). `init_variables`: a state_dict loaded
     into the model first. Returns (state, (train_snr_list, test_snr_list,
     train_rmse_list, test_rmse_list))."""
-    if r_pos_mode is not None:
-        raise NotImplementedError(
-            f"r_pos_mode={r_pos_mode!r} comes with the r_pos slice (ROADMAP A10)")
+    if r_pos_mode not in (None, "detect"):
+        raise ValueError(f"r_pos_mode must be None or 'detect', got {r_pos_mode!r}")
     state = create_train_state(model, learning_rate, device)
     device = resolve_device(device)
     if init_variables is not None:
@@ -87,7 +88,8 @@ def fit(
 
     tr_n, tr_c = put(train_noisy), put(train_clean)
     te_n, te_c = put(test_noisy), put(test_clean)
-    train_epoch, eval_epoch = make_epoch_fns(state.model, state.optimizer)
+    train_epoch, eval_epoch = make_epoch_fns(
+        state.model, state.optimizer, detect_r_pos=r_pos_mode == "detect")
 
     train_snr_list, test_snr_list = [], []
     train_rmse_list, test_rmse_list = [], []

@@ -6,7 +6,10 @@ back to back and fetches the epoch's metric means to the host once, at the
 end. A step is: forward in train mode (BatchNorm on batch statistics, its
 running stats updated with the unbiased variance, as the JAX layer does),
 mean MSE on the float32 prediction, backward, Adam update, and the batch's
-mean SNR and RMSE from the same forward.
+mean SNR and RMSE from the same forward. With `detect_r_pos` every input
+batch's R peaks are detected on its device (`data.rpeaks`) and fed to the
+model's R-wave attention bias, as the JAX package's
+`make_epoch_fns(detect_r_pos=True)` does.
 
 The on-device noise-mixing epoch (`make_augmented_epoch_fn`) needs
 `data/noise.py` and comes with it (ROADMAP A14).
@@ -14,18 +17,23 @@ The on-device noise-mixing epoch (`make_augmented_epoch_fn`) needs
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from ecg_denoise_tpu_torch.data.rpeaks import detect_r_peaks
 from ecg_denoise_tpu_torch.metrics import RMSE, SNR
 from ecg_denoise_tpu_torch.train.state import TrainState
 
 
-def train_step(state: TrainState, noisy: torch.Tensor, clean: torch.Tensor):
-    """One Adam step on a (B, C, L) batch; returns the batch's (loss,
-    mean SNR, mean RMSE) as 0-d tensors on the batch's device."""
+def train_step(state: TrainState, noisy: torch.Tensor, clean: torch.Tensor,
+               r_pos: Optional[torch.Tensor] = None):
+    """One Adam step on a (B, C, L) batch, with the model's `r_pos` if
+    given; returns the batch's (loss, mean SNR, mean RMSE) as 0-d tensors
+    on the batch's device."""
     model, optimizer = state.model, state.optimizer
     model.train()
-    pred = model(noisy).float()
+    pred = model(noisy, r_pos=r_pos).float()
     loss = torch.mean((pred - clean) ** 2)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
@@ -34,8 +42,10 @@ def train_step(state: TrainState, noisy: torch.Tensor, clean: torch.Tensor):
     return loss.detach(), SNR(clean, pred).mean(), RMSE(clean, pred).mean()
 
 
-def make_epoch_fns(model: torch.nn.Module, optimizer: torch.optim.Adam):
-    """(train_epoch, eval_epoch) for `model` and `optimizer`.
+def make_epoch_fns(model: torch.nn.Module, optimizer: torch.optim.Adam,
+                   detect_r_pos: bool = False):
+    """(train_epoch, eval_epoch) for `model` and `optimizer`; with
+    `detect_r_pos`, each batch's detected R peaks go to the model.
 
     train_epoch(noisy, clean, generator, batch_size=32) -> metrics
         noisy/clean: (N, C, L) on the model's device. Permutes the split
@@ -49,6 +59,9 @@ def make_epoch_fns(model: torch.nn.Module, optimizer: torch.optim.Adam):
     """
     state = TrainState(model, optimizer)
 
+    def r_pos_of(x):
+        return detect_r_peaks(x) if detect_r_pos else None
+
     def train_epoch(noisy, clean, generator: torch.Generator,
                     batch_size: int = 32) -> dict:
         n_batches = noisy.shape[0] // batch_size
@@ -56,8 +69,9 @@ def make_epoch_fns(model: torch.nn.Module, optimizer: torch.optim.Adam):
                               device=noisy.device)[:n_batches * batch_size]
         nb = noisy[perm].reshape(n_batches, batch_size, *noisy.shape[1:])
         cb = clean[perm].reshape(n_batches, batch_size, *clean.shape[1:])
-        per_batch = torch.stack([torch.stack(train_step(state, nb[i], cb[i]))
-                                 for i in range(n_batches)])
+        per_batch = torch.stack([
+            torch.stack(train_step(state, nb[i], cb[i], r_pos_of(nb[i])))
+            for i in range(n_batches)])
         loss, snr, rmse = per_batch.mean(0).tolist()  # the one host fetch
         return {"loss": loss, "snr": snr, "rmse": rmse}
 
@@ -73,8 +87,8 @@ def make_epoch_fns(model: torch.nn.Module, optimizer: torch.optim.Adam):
         with torch.no_grad():
             for i in range(n_batches):
                 rows = slice(i * batch_size, (i + 1) * batch_size)
-                target, w = clean_p[rows], weights[rows]
-                pred = model(noisy_p[rows]).float()
+                x, target, w = noisy_p[rows], clean_p[rows], weights[rows]
+                pred = model(x, r_pos=r_pos_of(x)).float()
                 sums += torch.stack([
                     torch.sum(w[:, None, None] * (pred - target) ** 2),
                     torch.sum(SNR(target, pred) * w),

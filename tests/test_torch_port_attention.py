@@ -120,5 +120,6 @@ def test_relative_position_embedding(W, L, H, r_pos):
 def test_relative_position_table_starts_at_zero():
     m = patt.RelativePositionEmbedding(4, 32, 16)
     assert not m().any()
-    with pytest.raises(NotImplementedError):
-        m(torch.tensor([3, 5]))
+    per_window = m(torch.tensor([3, 5]))  # the per-window form, RPosBias
+    assert isinstance(per_window, patt.RPosBias) and not per_window.toep.any()
+    assert per_window.offsets.tolist() == [1.0, 3.0]

@@ -13,6 +13,11 @@ probabilities to bf16 before the pv product and the kernel does not (up to
 2^-8 of max|v|), and each side rounds its output once to bf16 (up to 2^-8
 of |out| <= max|v| each).
 
+The r-pos kernels (attention_rpos_fwd.cu, attention_rpos_bwd.cu) are held
+to the same limits against their plain versions, dtoep like dbias, at the
+four biased stage shapes (L, W, H), with R peaks at 0, 5, L/2, L - 1 and
+random ones, so that windows hang off both ends.
+
 Backward: dq, dk, dv to 1e-4 in float32 (the JAX package's gradient bar,
 tests/test_pallas_attention.py:125); dbias, a sum over the batch of terms
 each carrying about 1e-6 of relative error from its recomputed
@@ -33,10 +38,16 @@ from ecg_denoise_tpu_torch.kernels.attention import (
     attention_reference,
     fused_attention,
 )
+from ecg_denoise_tpu_torch.kernels.attention_rpos import (
+    attention_rpos_backward_reference,
+    attention_rpos_reference,
+    fused_attention_rpos,
+)
 
 pytestmark = pytest.mark.gpu
 
 STAGES = [(256, 2), (128, 4), (64, 8), (32, 16), (16, 32)]
+RPOS_STAGES = [(256, 32, 2), (128, 16, 4), (64, 8, 8), (32, 4, 16)]
 F32_TOL = 1e-5
 BF16_TOL_OF_MAX_V = 3 * 2 ** -8
 GRAD_TOL = 1e-4
@@ -145,11 +156,10 @@ def test_backward_ragged_batch_and_large_logits(cuda):
         assert (a - b).abs().max().item() <= LARGE_LOGIT_GRAD_TOL_OF_MAX * b.abs().max().item()
 
 
-def test_training_step_matches_cpu_with_18_and_18_launches(cuda):
-    """One Adam step of RA-LENet 'full' (depth 2, float32, batch 8) on the
-    card against the same step on the CPU."""
+def _seeded_ralenet(device):
+    """RA-LENet 'full' (depth 2) with seeded weights and nonzero rel-pos
+    tables on the CPU, and the same model on `device`."""
     from ecg_denoise_tpu_torch.models import build_model
-    from ecg_denoise_tpu_torch.train import create_train_state, train_step
 
     torch.manual_seed(0)
     cpu = build_model("ralenet", device="cpu")
@@ -157,8 +167,17 @@ def test_training_step_matches_cpu_with_18_and_18_launches(cuda):
         for name, p in cpu.named_parameters():
             if "relative_position_bias_table" in name:
                 p.normal_()
-    gpu = build_model("ralenet", device=cuda)
+    gpu = build_model("ralenet", device=device)
     gpu.load_state_dict(cpu.state_dict())
+    return cpu, gpu
+
+
+def test_training_step_matches_cpu_with_18_and_18_launches(cuda):
+    """One Adam step of RA-LENet 'full' (depth 2, float32, batch 8) on the
+    card against the same step on the CPU."""
+    from ecg_denoise_tpu_torch.train import create_train_state, train_step
+
+    cpu, gpu = _seeded_ralenet(cuda)
     rng = np.random.default_rng(0)
     noisy, clean = (torch.from_numpy(rng.standard_normal((8, 2, 256)).astype(np.float32))
                     for _ in range(2))
@@ -177,16 +196,9 @@ def test_training_step_matches_cpu_with_18_and_18_launches(cuda):
 
 
 def test_model_forward_matches_cpu_with_18_launches(cuda):
-    from ecg_denoise_tpu_torch.models import build_model
-
-    torch.manual_seed(0)
-    cpu = build_model("ralenet", device="cpu").eval()
-    with torch.no_grad():
-        for name, p in cpu.named_parameters():
-            if "relative_position_bias_table" in name:
-                p.normal_()
-    gpu = build_model("ralenet", device=cuda).eval()
-    gpu.load_state_dict(cpu.state_dict())
+    cpu, gpu = _seeded_ralenet(cuda)
+    cpu.eval()
+    gpu.eval()
     # The package, not the caller, turns TF32 off on the card.
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32
@@ -198,3 +210,111 @@ def test_model_forward_matches_cpu_with_18_launches(cuda):
         torch.cuda.synchronize()
         assert fused_attention.launches == before + 18
         assert (y.cpu() - cpu(x)).abs().max().item() <= 1e-4
+
+
+def _rpos_operands(B, L, W, H, dtype, device, seed=0):
+    """q, k, v, a Toeplitz toep from a random table, and float32 offsets of
+    R peaks at 0, 5, L/2, L - 1 and random positions."""
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(B, H, L, 4, generator=g) for _ in range(3))
+    table = torch.randn(2 * W - 1, H, generator=g)
+    pos = torch.arange(L)
+    rel = pos[:, None] - pos[None, :]
+    toep = (table[(rel + W - 1).clamp(0, 2 * W - 2)]
+            * (rel.abs() < W)[..., None]).permute(2, 0, 1)[None].contiguous()
+    r_pos = torch.randint(0, L, (B,), generator=g)
+    r_pos[:4] = torch.tensor([0, 5, L // 2, L - 1])[:B]
+    offsets = (r_pos - W // 2).float()
+    return ([t.to(device, dtype) for t in (q, k, v, toep)], W, offsets.to(device))
+
+
+@pytest.mark.parametrize("L,W,H", RPOS_STAGES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rpos_kernel_matches_plain_version(cuda, L, W, H, dtype):
+    full_float32()
+    (q, k, v, toep), W, offsets = _rpos_operands(8, L, W, H, dtype, cuda)
+    before = fused_attention_rpos.launches
+    out = fused_attention_rpos(q, k, v, toep, W, offsets)
+    torch.cuda.synchronize()
+    assert fused_attention_rpos.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    ref = attention_rpos_reference(q, k, v, toep, W, offsets)
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = (F32_TOL if dtype == torch.float32
+           else BF16_TOL_OF_MAX_V * v.float().abs().max().item())
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize("L,W,H", RPOS_STAGES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rpos_backward_kernel_matches_plain_versions(cuda, L, W, H, dtype):
+    full_float32()
+    ops, W, offsets = _rpos_operands(8, L, W, H, dtype, cuda, seed=1)
+    g = torch.randn(ops[0].shape, generator=torch.Generator().manual_seed(2)).to(cuda, dtype)
+
+    def grads():
+        ins = [t.detach().requires_grad_() for t in ops]
+        out = fused_attention_rpos(*ins, W, offsets)
+        return out.detach(), torch.autograd.grad(out, ins, g)
+
+    before = (fused_attention_rpos.launches, fused_attention_rpos.bwd_launches)
+    out, got = grads()
+    torch.cuda.synchronize()
+    assert (fused_attention_rpos.launches, fused_attention_rpos.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert [t.dtype for t in got] == [dtype] * 4
+    _, lse = attention_rpos_reference(*ops, W, offsets, return_lse=True)
+    refs = [attention_rpos_backward_reference(*ops, W, offsets, out, lse, g)]
+    if dtype == torch.float32:
+        ins = [t.detach().requires_grad_() for t in ops]
+        refs.append(torch.autograd.grad(attention_rpos_reference(*ins, W, offsets), ins, g))
+    for ref in refs:
+        for name, a, b in zip(("dq", "dk", "dv", "dtoep"), got, ref):
+            a, b = a.float(), b.float()
+            scale = b.abs().max().item()
+            tol = (BF16_GRAD_TOL_OF_MAX * scale if dtype == torch.bfloat16
+                   else DBIAS_TOL_OF_MAX * scale if name == "dtoep" else GRAD_TOL)
+            err = (a - b).abs().max().item()
+            assert err <= tol, (name, err, tol)
+    _, again = grads()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+def test_rpos_model_forward_and_step_match_cpu_with_14_and_4_launches(cuda):
+    """RA-LENet 'full' (depth 2, float32, batch 8) with detected R peaks:
+    the forward goes 14 times through B3 and 4 through B1, one training
+    step adds 14 B4 and 4 B2 launches, and both agree with the CPU."""
+    from ecg_denoise_tpu_torch.data.rpeaks import detect_r_peaks
+    from ecg_denoise_tpu_torch.train import create_train_state, train_step
+
+    cpu, gpu = _seeded_ralenet(cuda)
+    rng = np.random.default_rng(0)
+    noisy, clean = (torch.from_numpy(rng.standard_normal((8, 2, 256)).astype(np.float32))
+                    for _ in range(2))
+    r_cpu = detect_r_peaks(noisy)
+    r_gpu = detect_r_peaks(noisy.to(cuda))
+    assert torch.equal(r_gpu.cpu(), r_cpu)
+
+    def counts():
+        return (fused_attention_rpos.launches, fused_attention.launches,
+                fused_attention_rpos.bwd_launches, fused_attention.bwd_launches)
+
+    with torch.no_grad():
+        before = counts()
+        y = gpu.eval()(noisy.to(cuda), r_pos=r_gpu)
+        torch.cuda.synchronize()
+        assert [a - b for a, b in zip(counts(), before)] == [14, 4, 0, 0]
+        assert (y.cpu() - cpu.eval()(noisy, r_pos=r_cpu)).abs().max().item() <= 1e-4
+
+    cpu_state = create_train_state(cpu, device="cpu")
+    gpu_state = create_train_state(gpu, device=cuda)
+    before = counts()
+    loss = train_step(gpu_state, noisy.to(cuda), clean.to(cuda), r_gpu)[0].item()
+    assert [a - b for a, b in zip(counts(), before)] == [14, 4, 14, 4]
+    ref = train_step(cpu_state, noisy, clean, r_cpu)[0].item()
+    assert abs(loss - ref) <= 1e-5 * abs(ref)
+    ref_sd = cpu.state_dict()
+    for key, val in gpu.state_dict().items():
+        tol = 1e-5 if key.endswith(("running_mean", "running_var")) else 1e-4
+        assert (val.cpu().float() - ref_sd[key].float()).abs().max().item() <= tol, key

@@ -64,6 +64,33 @@ def test_forward_matches_jax_pallas_kernel(monkeypatch):
                                atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_per_window_r_pos_forward_matches_jax(monkeypatch, use_pallas):
+    """RaleNet 'full' (depth 1) with a (B,) r_pos — the `--r_pos detect`
+    path — against the JAX model with its Pallas r-pos kernel pair in
+    interpret mode, and against its XLA path (the materialised bias). The
+    positions come from the port's detector, cover both edges, and differ
+    per window; the rel-pos tables are nonzero."""
+    from ecg_denoise_tpu_torch.data.rpeaks import detect_r_peaks
+
+    monkeypatch.setattr(ap, "_INTERPRET", True)
+    x = np.random.default_rng(7).standard_normal((4, 2, 256)).astype(np.float32)
+    r_pos = detect_r_peaks(torch.from_numpy(x))
+    r_pos[:2] = torch.tensor([0, 255])  # windows hanging off both ends
+    assert len(set(r_pos.tolist())) == 4
+    jm = JaxRaleNet(variant="full", depth=1, use_pallas=use_pallas)
+    v = random_variables(jm, jnp.asarray(x), seed=8)
+    pm = RaleNet(variant="full", depth=1)
+    pm.load_state_dict(ralenet_state_dict(v, "full"))
+    with torch.no_grad():
+        y = pm.eval()(torch.from_numpy(x), r_pos=r_pos).numpy()
+        y_centre = pm(torch.from_numpy(x)).numpy()
+    ref = jax.jit(lambda v, x, r: jm.apply(v, x, train=False, r_pos=r))(
+        v, x, jnp.asarray(r_pos.numpy(), jnp.int32))
+    np.testing.assert_allclose(y, np.asarray(ref), atol=ATOL, rtol=0)
+    assert np.abs(y - y_centre).max() > 100 * ATOL  # the positions matter
+
+
 def test_port_weights_read_by_jax_interop():
     """Port module -> the JAX package's ralenet_variables -> JAX model; and
     ralenet_state_dict inverts ralenet_variables exactly."""

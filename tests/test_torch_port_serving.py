@@ -147,3 +147,50 @@ def test_http_server(server):
     with pytest.raises(urllib.error.HTTPError) as e:
         urllib.request.urlopen(url + "/nope", timeout=30)
     assert e.value.code == 404
+
+
+def test_denoiser_with_detected_r_peaks(model):
+    """`r_pos="detect"` equals the model fed the detector's positions of
+    the same rows; the zero-padded rows of a bucket do not touch them."""
+    from ecg_denoise_tpu_torch.data.rpeaks import detect_r_peaks
+
+    d = Denoiser(model, max_batch=8, r_pos="detect", device="cpu")
+    assert d.inference_path == "torch+attn-plain+rpos:cpu"
+    x = _windows(11, seed=6)  # 8, then 3 in the 4-bucket
+    xt = torch.from_numpy(x)
+    with torch.no_grad():
+        ref = model(xt, r_pos=detect_r_peaks(xt)).numpy()
+    np.testing.assert_allclose(d(x), ref, atol=ATOL, rtol=0)
+    assert np.abs(ref - _direct(model, x)).max() > 100 * ATOL
+    with pytest.raises(ValueError, match="r_pos"):
+        Denoiser(model, r_pos="centre", device="cpu")
+
+
+@pytest.mark.parametrize("name,r_pos", [("ralenet", "detect"), ("ralenet_nra", None)])
+def test_serve_cli_builds_with_r_pos_detect(monkeypatch, tmp_path, capsys, name, r_pos):
+    """`cli.serve --r_pos detect` serves detected positions; a model without
+    the rel-pos tables ignores the flag, saying so, as the JAX CLI does."""
+    import ecg_denoise_tpu_torch
+    from ecg_denoise_tpu_torch.cli.serve import build
+    from ecg_denoise_tpu_torch.models import build_model
+
+    monkeypatch.setattr(ecg_denoise_tpu_torch, "default_device",
+                        lambda: torch.device("cpu"))
+    torch.manual_seed(3)
+    path = tmp_path / f"{name}.pt"
+    torch.save(build_model(name, device="cpu").state_dict(), path)
+    server, d = build(["--model", name, "--ckpt", str(path), "--port", "0",
+                       "--max_batch", "4", "--r_pos", "detect"])
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        assert d.r_pos == r_pos and d.device.type == "cpu"
+        assert ("ignored for ralenet_nra" in capsys.readouterr().out) == (r_pos is None)
+        x = _windows(3, seed=7)
+        y, _ = _post(f"http://127.0.0.1:{server.server_address[1]}/denoise", x)
+        np.testing.assert_array_equal(y, d(x))
+    finally:
+        server.shutdown()
+        server.server_close()
+    thread.join(timeout=10)
+    assert not thread.is_alive()

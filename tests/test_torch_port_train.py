@@ -72,6 +72,14 @@ def jax_epochs():
     return jax_epoch_fns(jm, tx, donate=False)
 
 
+@pytest.fixture(scope="module")
+def jax_rpos_epochs():
+    """JAX's float32 epoch functions with on-device R-peak detection."""
+    jm = _jax_model()
+    _, tx = jax_train_state(jm, jax.random.PRNGKey(0), jnp.zeros((2, 2, 256)))
+    return jax_epoch_fns(jm, tx, donate=False, detect_r_pos=True)
+
+
 def _pair(dtype=torch.float32, seed=3):
     """The JAX model's state from random variables, and the port's train
     state: the model with the same weights and a fresh Adam."""
@@ -138,6 +146,43 @@ def test_epochs_match_jax(jax_epochs, epochs):
         _assert_metrics_close(got, ref)
     assert state.step == int(jstate.step) == epochs
     _assert_state_close(state.model, jstate)
+
+
+def _beats(n, seed):
+    """Noisy windows holding one beat each, at a seeded position, and the
+    clean beats."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(256)
+    centres = rng.integers(20, 236, (n, 1, 1))
+    clean = np.exp(-0.5 * ((t - centres) / 4.0) ** 2) * np.ones((1, 2, 1))
+    noisy = clean + 0.2 * rng.standard_normal(clean.shape)
+    return noisy.astype(np.float32), clean.astype(np.float32)
+
+
+def test_epochs_with_r_peak_detection_match_jax(jax_rpos_epochs):
+    """One f32 training epoch (one whole-split step) and one eval epoch
+    with per-batch R-peak detection, against JAX's
+    make_epoch_fns(detect_r_pos=True), at the bars of the file."""
+    from ecg_denoise_tpu.data.rpeaks import detect_r_peaks as jax_detect
+    from ecg_denoise_tpu_torch.data.rpeaks import detect_r_peaks
+
+    jstate, state = _pair(seed=7)
+    noisy, clean = _beats(BATCH, seed=3)
+    r_pos = detect_r_peaks(torch.from_numpy(noisy))
+    np.testing.assert_array_equal(r_pos.numpy(), np.asarray(jax_detect(jnp.asarray(noisy))))
+    assert len(set(r_pos.tolist())) == BATCH
+    j_train, j_eval = jax_rpos_epochs
+    p_train, p_eval = make_epoch_fns(state.model, state.optimizer, detect_r_pos=True)
+    tn, tc = torch.from_numpy(noisy), torch.from_numpy(clean)
+    jstate, ref = j_train(jstate, jnp.asarray(noisy), jnp.asarray(clean),
+                          jax.random.PRNGKey(0), BATCH)
+    got = p_train(tn, tc, torch.Generator().manual_seed(0), BATCH)
+    _assert_metrics_close(got, ref)
+    _assert_state_close(state.model, jstate)
+    eval_noisy, eval_clean = _beats(BATCH + 1, seed=4)  # a ragged tail of 1
+    ref = j_eval(jstate, jnp.asarray(eval_noisy), jnp.asarray(eval_clean), BATCH)
+    got = p_eval(torch.from_numpy(eval_noisy), torch.from_numpy(eval_clean), BATCH)
+    _assert_metrics_close(got, ref)
 
 
 def test_train_epoch_drops_the_ragged_tail():
@@ -309,9 +354,35 @@ def test_fit_resumes_exactly_and_writes_the_result_line(tmp_path):
         "ralenet_1_bw_intensity-4.pth")
 
 
-def test_fit_rejects_r_pos_detect(tmp_path):
-    with pytest.raises(NotImplementedError, match="A10"):
-        _fit(_model(), tmp_path, 1, r_pos_mode="detect")
+def test_fit_with_r_pos_detect_runs_the_detecting_epochs(tmp_path):
+    """fit(r_pos_mode="detect") trains exactly as the detecting epoch
+    functions do, and differs from training without detection."""
+    state, hist = _fit(_model(), tmp_path / "a", 1, r_pos_mode="detect")
+    assert all(np.isfinite(h).all() for h in hist)
+    assert (tmp_path / "a" / "output.txt").exists()
+    plain, _ = _fit(_model(), tmp_path / "b", 1)
+
+    noisy, clean = (torch.from_numpy(a) for a in _data(12, seed=8))
+    by_hand = create_train_state(_model(), device="cpu")
+    train_epoch, eval_epoch = make_epoch_fns(by_hand.model, by_hand.optimizer,
+                                             detect_r_pos=True)
+    from ecg_denoise_tpu_torch.train.loop import epoch_generator
+
+    train_epoch(noisy[:8], clean[:8], epoch_generator(5, 0, "cpu"), BATCH)
+    # The CPU's threaded sums are not bit-reproducible from run to run.
+    np.testing.assert_allclose(eval_epoch(noisy[8:], clean[8:], BATCH)["snr"],
+                               hist[1][0], atol=1e-5)
+    for key, val in state.model.state_dict().items():
+        torch.testing.assert_close(by_hand.model.state_dict()[key], val,
+                                   atol=STATS_TOL, rtol=0, msg=key)
+    table = "rwattn1.relative_position_bias_table"
+    diff = state.model.state_dict()[table] - plain.model.state_dict()[table]
+    assert diff.abs().max() > 100 * STATS_TOL
+
+
+def test_fit_rejects_an_unknown_r_pos_mode(tmp_path):
+    with pytest.raises(ValueError, match="r_pos_mode"):
+        _fit(_model(), tmp_path, 1, r_pos_mode="centre")
 
 
 def test_serving_reads_a_training_checkpoint(tmp_path):
@@ -338,7 +409,6 @@ def test_serving_reads_a_training_checkpoint(tmp_path):
     (["--n_data", "2"], NotImplementedError, "A16"),
     (["--n_model", "2"], NotImplementedError, "A16"),
     (["--multihost"], NotImplementedError, "A16"),
-    (["--r_pos", "detect"], NotImplementedError, "A10"),
 ])
 def test_cli_raises_without_a_card_or_on_flags_not_ported(monkeypatch, argv, error, match):
     from ecg_denoise_tpu_torch.cli.main import main
@@ -346,3 +416,40 @@ def test_cli_raises_without_a_card_or_on_flags_not_ported(monkeypatch, argv, err
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(error, match=match):
         main(argv)
+
+
+def test_config_parses_r_pos_detect():
+    from ecg_denoise_tpu_torch.config import build_argparser, config_from_args
+
+    parse = build_argparser().parse_args
+    assert config_from_args(parse(["--r_pos", "detect"])).r_pos == "detect"
+    assert config_from_args(parse([])).r_pos is None
+    with pytest.raises(SystemExit):
+        parse(["--r_pos", "centre"])
+
+
+def test_cli_trains_with_r_pos_detect(monkeypatch, tmp_path):
+    """`cli.main --r_pos detect`, rehearsed on the CPU: the flag reaches
+    fit as r_pos_mode="detect" and the run writes its checkpoint and
+    result line."""
+    import ecg_denoise_tpu_torch
+    from ecg_denoise_tpu_torch import train
+    from ecg_denoise_tpu_torch.cli.main import main
+
+    monkeypatch.setattr(ecg_denoise_tpu_torch, "default_device",
+                        lambda: torch.device("cpu"))
+    seen = {}
+
+    def spy(*args, **kw):
+        seen.update(kw)
+        return fit(*args, **kw)
+
+    monkeypatch.setattr(train, "fit", spy)
+    _write_cache(tmp_path / "dict_data", 10)
+    main(["--model_index", "4", "--dtype", "float32", "--n_select", "10",
+          "--epochs", "1", "--batch_size", "4", "--r_pos", "detect",
+          "--data_path", str(tmp_path / "dict_data"),
+          "--model_save_dir", str(tmp_path / "model_save"),
+          "--output_file", str(tmp_path / "output.txt")])
+    assert seen["r_pos_mode"] == "detect" and seen["device"].type == "cpu"
+    assert (tmp_path / "output.txt").read_text().startswith("ralenet_0_bw_intensity-4:")
