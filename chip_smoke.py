@@ -9,8 +9,9 @@ Phases, each of which fails the run on error (no phase catches a failure,
 and nothing falls back to the CPU):
 
 1. Device and build: the card's name and power limit, then nvcc builds the
-   four attention kernels from the checkout at once and prints their ptxas
-   reports.
+   six kernels (B1-B5 and the null copy) from the checkout at once and
+   prints their ptxas reports. ECG_ATTN_DENSE is cleared: phases 1-13 drive
+   the default route.
 2. Kernel vs plain version on the card, at the five RA-LENet stage shapes,
    with and without bias, float32 (tolerance 1e-5, TF32 off for this phase
    only) and bfloat16
@@ -79,13 +80,39 @@ and nothing falls back to the CPU):
    requiring grad); Denoiser windows/s with and without r_pos, in turns;
    the r_pos forward's and training step's device breakdown and idle share.
 
-The last lines are one JSON object listing the kernels (with their
-launches on each of the four paths: serve, train, serve_rpos, train_rpos),
-the card's name and power limit, and `{"ok": true, "device": {...}}`.
+14. B5 (attention_dense_fwd.cu) against its plain version and against B1
+   on the same operands: the four stage shapes the dense route takes in
+   RA-LENet and four small ones it admits (L = 2 and 8), with and without
+   bias, B = 1024 and a ragged B = 3; f32 within 1e-5 of both, bf16 within
+   3 * 2^-8 of max|v| of the plain version and one bf16 step of B1; two
+   calls bit-identical; heads whose row maxima sit more than 110 logits
+   apart, and logits near 200, within 1e-4 of attention_reference.
+15. The dense serving path, with ECG_ATTN_DENSE=1: the model on the card
+   against the CPU (1e-4) with 12 B5 and 6 B1 launches per forward, and
+   with detected R peaks 4 B5 and 14 B3; then `cli.serve`'s server
+   answers /denoise and /denoise_record equal to its Denoiser, and
+   `StreamingDenoiser` fed a record in chunks of 1, 100 and 777 samples
+   equals denoise_record, the counts set to 0 just before and read just
+   after.
+16. Dense times: per stage shape B5 (B = 1024) beside B1 without lse, its
+   bound, the plain version and scaled_dot_product_attention; Denoiser
+   windows/s with and without ECG_ATTN_DENSE=1, in turns; the dense
+   forward's device breakdown and idle share.
+17. P2: null_copy equal to clone() bit for bit at 1,024 elements and at a
+   q's; its time at a q's size; then the probes
+   `ecg_denoise_tpu_torch.probes.floor` and `.chain` (the null launch, the
+   dma floor, B1 and B5 by batch, K calls from Python against one CUDA
+   graph), their counts set to 0 just before and read just after.
+
+The last lines are one JSON object listing the six kernels (with their
+launches on each of the six paths: serve, train, serve_rpos, train_rpos,
+serve_dense, probes), the card's name and power limit, and
+`{"ok": true, "device": {...}}`.
 Without a card, or outside a checkout of the repository, it exits nonzero
 and prints no result.
 """
 
+import contextlib
 import copy
 import io
 import json
@@ -113,7 +140,16 @@ FORWARD_CALLS = {(256, 2, True): 2, (128, 4, True): 4, (64, 8, True): 4,
 # r-pos kernels, by (L, W, H): each encoder stage's bias, and the decoder
 # stage that reuses it; the 4 bias-free calls at (16, 32) stay on B1.
 RPOS_CALLS = {(256, 32, 2): 2, (128, 16, 4): 4, (64, 8, 8): 4, (32, 4, 16): 4}
-KERNELS = ("attention_fwd", "attention_bwd", "attention_rpos_fwd", "attention_rpos_bwd")
+# With ECG_ATTN_DENSE=1 the no-grad calls at the packable stages go to B5,
+# by (L, H, with bias); the 6 calls at L = 256 and 128 stay on B1.
+DENSE_CALLS = {(64, 8, True): 4, (32, 16, True): 4, (16, 32, False): 4}
+# The stage shapes the dense route takes in RA-LENet (and (64, 4), RA-LENet
+# with half the heads), then small ones it admits: L = 2 and 8, and 64
+# heads at L = 2, more than one warp's 32.
+DENSE_SHAPES = [(64, 8), (32, 16), (16, 32), (64, 4), (2, 2), (2, 64), (8, 4), (8, 32)]
+HEADS_APART = 110.0  # row maxima of two packed heads at least this far apart
+KERNELS = ("attention_fwd", "attention_bwd", "attention_rpos_fwd", "attention_rpos_bwd",
+           "attention_dense_fwd", "null_copy")
 F32_TOL = 1e-5
 # bf16, as a fraction of max|v|: the plain version rounds the probabilities
 # to bf16 before the pv product and the kernel does not (up to 2^-8 of
@@ -122,6 +158,11 @@ F32_TOL = 1e-5
 BF16_TOL_OF_MAX_V = 3 * 2 ** -8
 LARGE_LOGIT_TOL = 1e-4  # an f32 logit near 200 carries a rounding of up to 1.5e-5
 MODEL_TOL = 1e-4
+# StreamingDenoiser against denoise_record on the card: the same windows
+# and taper, but batched in other buckets, and cuBLAS and cuDNN pick their
+# f32 kernels by shape, so the sums run in other orders; the bar of the
+# card's forward against the CPU's.
+STREAM_TOL = MODEL_TOL
 # Backward, f32: dq, dk, dv to 1e-4 (the JAX package's gradient bar,
 # tests/test_pallas_attention.py:125). dbias sums B = 256 float32 terms, in
 # order here and by a tree in the plain versions, each with about 1e-6 of
@@ -163,24 +204,45 @@ def check(ok, what):
 def reset_launches():
     """Set every kernel's launch count to 0."""
     from ecg_denoise_tpu_torch.kernels.attention import fused_attention
+    from ecg_denoise_tpu_torch.kernels.attention_dense import fused_attention_dense
     from ecg_denoise_tpu_torch.kernels.attention_rpos import fused_attention_rpos
+    from ecg_denoise_tpu_torch.kernels.null_copy import null_copy
 
     fused_attention.launches = fused_attention.bwd_launches = 0
     fused_attention_rpos.launches = fused_attention_rpos.bwd_launches = 0
+    fused_attention_dense.launches = null_copy.launches = 0
 
 
 def read_launches():
     """Every kernel's launch count, by kernel name."""
     from ecg_denoise_tpu_torch.kernels.attention import fused_attention
+    from ecg_denoise_tpu_torch.kernels.attention_dense import fused_attention_dense
     from ecg_denoise_tpu_torch.kernels.attention_rpos import fused_attention_rpos
+    from ecg_denoise_tpu_torch.kernels.null_copy import null_copy
 
     return dict(zip(KERNELS, (fused_attention.launches, fused_attention.bwd_launches,
                               fused_attention_rpos.launches,
-                              fused_attention_rpos.bwd_launches)))
+                              fused_attention_rpos.bwd_launches,
+                              fused_attention_dense.launches, null_copy.launches)))
 
 
-def expected_launches(fwd=0, bwd=0, rpos_fwd=0, rpos_bwd=0):
-    return dict(zip(KERNELS, (fwd, bwd, rpos_fwd, rpos_bwd)))
+def expected_launches(fwd=0, bwd=0, rpos_fwd=0, rpos_bwd=0, dense=0, null=0):
+    return dict(zip(KERNELS, (fwd, bwd, rpos_fwd, rpos_bwd, dense, null)))
+
+
+@contextlib.contextmanager
+def dense_route(on=True):
+    """ECG_ATTN_DENSE=1 (or 0) in the environment for the block, as a user
+    sets it; the previous value is put back after."""
+    saved = os.environ.get("ECG_ATTN_DENSE")
+    os.environ["ECG_ATTN_DENSE"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["ECG_ATTN_DENSE"]
+        else:
+            os.environ["ECG_ATTN_DENSE"] = saved
 
 
 def smi_name_power():
@@ -240,15 +302,21 @@ def bound_terms(B, H, L, with_bias, elt):
 def phase_device_and_build():
     name = torch.cuda.get_device_name(0)
     log(f"[1] device: {name}; nvidia-smi name, power.limit: {smi_name_power()}")
-    from ecg_denoise_tpu_torch.kernels import attention
+    from ecg_denoise_tpu_torch.kernels import (
+        attention,
+        attention_dense,
+        attention_rpos,
+        null_copy,
+    )
 
-    from ecg_denoise_tpu_torch.kernels import attention_rpos
-
+    if os.environ.pop("ECG_ATTN_DENSE", None) is not None:
+        log("[1] ECG_ATTN_DENSE cleared: phases 1-13 drive the default route")
     t0 = time.perf_counter()
     # nvcc from the checkout's sources, one process per kernel, all at once;
     # ptxas reports
     loads = (attention._library, attention._bwd_library,
-             attention_rpos._library, attention_rpos._bwd_library)
+             attention_rpos._library, attention_rpos._bwd_library,
+             attention_dense._library, null_copy._library)
     with ThreadPoolExecutor(len(loads)) as pool:
         for future in [pool.submit(load) for load in loads]:
             future.result()
@@ -1272,6 +1340,302 @@ def phase_rpos_times(gpu_model, cpu_model, card):
     return fwd, by["fwd"], bwd, by["bwd"]
 
 
+def bf16_step(x):
+    """One bfloat16 spacing at the largest magnitude of x."""
+    return 2.0 ** (np.floor(np.log2(x.float().abs().max().item())) - 7)
+
+
+def phase_dense_kernel_vs_plain():
+    """B5 against its plain version and against B1 on the same operands."""
+    from ecg_denoise_tpu_torch import full_float32
+    from ecg_denoise_tpu_torch.kernels import attention
+    from ecg_denoise_tpu_torch.kernels.attention_dense import (
+        attention_dense_reference,
+        fused_attention_dense,
+    )
+
+    saved = tf32_flags()
+    full_float32()
+    gen = torch.Generator().manual_seed(14)
+    max_err = 0.0
+    cases = [(B, L, H, b, dt) for (L, H) in DENSE_SHAPES[:4] for B in (BATCH, 3)
+             for b in (True, False) for dt in (torch.float32, torch.bfloat16)]
+    cases += [(B, L, H, b, torch.float32) for (L, H) in DENSE_SHAPES[4:]
+              for B in (BATCH, 3) for b in (True, False)]
+    for B, L, H, with_bias, dtype in cases:
+        q, k, v, bias = operands(B, H, L, with_bias, dtype, gen)
+        out = fused_attention_dense(q, k, v, bias)
+        again = fused_attention_dense(q, k, v, bias)
+        b1 = attention._launch(q, k, v, bias)
+        torch.cuda.synchronize()
+        err = (out.float() - attention_dense_reference(q, k, v, bias).float()).abs().max().item()
+        err_b1 = (out.float() - b1.float()).abs().max().item()
+        if dtype == torch.float32:
+            tol, tol_b1 = F32_TOL, F32_TOL
+            max_err = max(max_err, err)
+        else:
+            tol = BF16_TOL_OF_MAX_V * v.float().abs().max().item()
+            tol_b1 = bf16_step(b1)
+        same = torch.equal(out, again)
+        log(f"[14] B5 B={B} L={L} H={H} bias={with_bias} {str(dtype)[6:]}: max_abs_err "
+            f"vs plain {err:.3e} (tol {tol:.3e}), vs B1 {err_b1:.3e} (tol {tol_b1:.3e}); "
+            f"a second call bit-identical: {same}")
+        check(out.shape == q.shape and out.dtype == dtype, "B5 output shape or dtype")
+        check(bool(torch.isfinite(out).all()) and err <= tol and err_b1 <= tol_b1,
+              "B5 disagrees with its plain version or with B1")
+        check(same, "two B5 calls differ")
+    # One max per head, not per packed row: head 0 about 130 logits above
+    # head 1 in one packed group of (16, 32); then logits near 200.
+    q, k, v, bias = operands(BATCH, 32, 16, True, torch.float32, gen)
+    apart = bias.clone()
+    apart[0, 0] += 65.0
+    apart[0, 1] -= 65.0
+    for what, b in (("heads apart", apart), ("large logits", bias + 190.0)):
+        logits = torch.einsum("bhld,bhmd->bhlm", q, k) + b
+        row_max = logits.amax(-1)
+        gap = (row_max[:, 0] - row_max[:, 1]).min().item()
+        out = fused_attention_dense(q, k, v, b)
+        torch.cuda.synchronize()
+        err = (out - attention.attention_reference(q, k, v, b)).abs().max().item()
+        log(f"[14] B5 {what} L=16 H=32: head 0's row max minus head 1's at least "
+            f"{gap:.1f}, largest logit {logits.max().item():.1f}; max_abs_err vs "
+            f"attention_reference {err:.3e} (tol {LARGE_LOGIT_TOL:.0e})")
+        check(bool(torch.isfinite(out).all()) and err <= LARGE_LOGIT_TOL,
+              f"B5 fails with {what}")
+        check(gap > HEADS_APART if what == "heads apart" else logits.max().item() > 180,
+              f"the {what} case is not what it claims")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    return max_err
+
+
+def phase_dense_serving(cpu_model, gpu_model, card):
+    """The serving path with ECG_ATTN_DENSE=1: the model on the card against
+    the CPU, then `cli.serve`'s server and `StreamingDenoiser`, the counts
+    set to 0 just before and read just after."""
+    from ecg_denoise_tpu_torch.cli.serve import build
+    from ecg_denoise_tpu_torch.data.rpeaks import detect_r_peaks
+
+    with dense_route():
+        x = torch.from_numpy(np.random.default_rng(22).standard_normal(
+            (8, 2, 256)).astype(np.float32))
+        xb = torch.from_numpy(beat_windows(64, seed=23))
+        with torch.no_grad():
+            reset_launches()
+            y = gpu_model(x.cuda())
+            torch.cuda.synchronize()
+            per_forward = read_launches()
+            err = (y.cpu() - cpu_model(x)).abs().max().item()
+            r_gpu = detect_r_peaks(xb.cuda())
+            reset_launches()
+            y_r = gpu_model(xb.cuda(), r_pos=r_gpu)
+            torch.cuda.synchronize()
+            per_rpos = read_launches()
+            err_r = (y_r.cpu() - cpu_model(xb, r_pos=detect_r_peaks(xb))).abs().max().item()
+        log(f"[15] ECG_ATTN_DENSE=1, RaleNet 'full' depth 2, batch 8, float32: card vs "
+            f"CPU max_abs_err={err:.3e} (tol {MODEL_TOL:.0e}); launches per forward "
+            f"{per_forward}")
+        log(f"[15] with detected R peaks, batch 64: card vs CPU max_abs_err={err_r:.3e}; "
+            f"launches per forward {per_rpos}")
+        check(per_forward == expected_launches(fwd=6, dense=12),
+              "a dense forward did not make 12 B5 and 6 B1 launches")
+        check(per_rpos == expected_launches(rpos_fwd=14, dense=4),
+              "a dense r_pos forward did not make 4 B5 and 14 B3 launches")
+        check(bool(torch.isfinite(y).all()) and err <= MODEL_TOL
+              and bool(torch.isfinite(y_r).all()) and err_r <= MODEL_TOL,
+              "the card's dense forward disagrees with the CPU's")
+
+        rng = np.random.default_rng(24)
+        requests = {n: rng.standard_normal((n, 2, 256)).astype(np.float32)
+                    for n in (1, 37, BATCH)}
+        record = rng.standard_normal((2, 5000)).astype(np.float32)
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt = os.path.join(tmp, "ralenet.pt")
+            torch.save(cpu_model.state_dict(), ckpt)
+            server, denoiser = build(["--model", "ralenet", "--ckpt", ckpt, "--port", "0",
+                                      "--max_batch", str(BATCH), "--warmup_max", str(BATCH)])
+        direct = {n: denoiser(x) for n, x in requests.items()}
+        direct_record = denoiser.denoise_record(record, stride=128)
+        forwards = []  # the Denoiser's forwards in the counted run
+        forward = denoiser._forward
+
+        def counted_forward(batch):
+            forwards.append(batch.shape[0])
+            return forward(batch)
+
+        denoiser._forward = counted_forward
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        try:
+            reset_launches()  # the main path
+            for n, x in requests.items():
+                y, timing = _post(url + "/denoise", x)
+                err = float(np.abs(y - direct[n]).max())
+                log(f"[15] /denoise N={n}: max_abs_err vs Denoiser={err:.3e}; {timing}")
+                check(y.shape == x.shape and np.isfinite(y).all() and err <= 1e-6,
+                      "/denoise on the dense route disagrees with Denoiser")
+            y, _ = _post(url + "/denoise_record?stride=128", record)
+            err = float(np.abs(y - direct_record).max())
+            log(f"[15] /denoise_record T={record.shape[1]}: max_abs_err vs Denoiser={err:.3e}")
+            check(y.shape == record.shape and err <= 1e-6,
+                  "/denoise_record on the dense route disagrees with Denoiser")
+            for chunk in (1, 100, 777):
+                stream = denoiser.streaming(stride=128)
+                t0 = time.perf_counter()
+                pieces = [stream.push(record[:, i:i + chunk])
+                          for i in range(0, record.shape[1], chunk)]
+                out = np.concatenate(pieces + [stream.flush()], axis=1)
+                wall = time.perf_counter() - t0
+                err = float(np.abs(out - direct_record).max())
+                log(f"[15] {card}: StreamingDenoiser, chunks of {chunk}: {len(pieces)} "
+                    f"pushes in {wall:.3f} s (host clock), max_abs_err vs denoise_record "
+                    f"{err:.3e} (tol {STREAM_TOL:.0e})")
+                check(out.shape == record.shape and err <= STREAM_TOL,
+                      "StreamingDenoiser disagrees with denoise_record")
+            launches = read_launches()
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+            denoiser._forward = forward
+    n = len(forwards)
+    log(f"[15] kernel launches on the dense serving path ({n} forwards): {launches}")
+    check(n > 0 and launches == expected_launches(fwd=6 * n, dense=12 * n),
+          "the dense serving path did not go through B5 and B1")
+    check(not thread.is_alive(), "the server thread did not stop")
+    return launches
+
+
+def phase_dense_times(gpu_model, cpu_model, card):
+    """B5 per stage shape beside B1 without lse, its bound, its plain
+    version and SDPA; Denoiser windows/s with and without the dense route;
+    the dense forward's device breakdown."""
+    from ecg_denoise_tpu_torch.kernels import attention
+    from ecg_denoise_tpu_torch.kernels.attention_dense import (
+        attention_dense_reference,
+        fused_attention_dense,
+    )
+    from ecg_denoise_tpu_torch.models import build_model
+    from ecg_denoise_tpu_torch.probes.floor import graph_us
+    from ecg_denoise_tpu_torch.serving import Denoiser
+
+    gen = torch.Generator().manual_seed(25)
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "b1_ms": 0.0}
+    limits = {"operations": 0.0, "bytes": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for (L, H, with_bias), calls in DENSE_CALLS.items():
+            q, k, v, bias = operands(BATCH, H, L, with_bias, dtype, gen)
+
+            def b5():
+                return fused_attention_dense(q, k, v, bias)
+
+            def b1():
+                return attention._launch(q, k, v, bias)
+
+            # The card's time: 20 calls replayed from one CUDA graph; issued
+            # one by one from Python a call this short times the host too.
+            ms, b1_ms = (graph_us(f, 20) / 1e3 for f in (b5, b1))
+            eager, b1_eager = (cuda_ms(f, 20) for f in (b5, b1))
+            plain = cuda_ms(lambda: attention_dense_reference(q, k, v, bias), 5)
+            lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=bias, scale=1.0), 20)
+            t_ops, t_bytes = bound_terms(BATCH, H, L, with_bias, q.element_size())
+            bnd = max(t_ops, t_bytes)
+            log(f"[16] {card}: B5 attention_dense_fwd {str(dtype)[6:]} B={BATCH} L={L} "
+                f"H={H} bias={with_bias}: kernel {ms:.4f} ms, B1 without lse {b1_ms:.4f} ms "
+                f"(graph replays; issued from Python {eager:.4f} and {b1_eager:.4f} ms), "
+                f"bound {bnd:.4f} ms (operations {t_ops:.4f} at the f32 CUDA-core peak, "
+                f"bytes {t_bytes:.4f}), plain {plain:.4f} ms, sdpa {lib:.4f} ms; "
+                f"{calls} calls per forward")
+            if dtype == torch.float32:
+                for key, t in (("ms", ms), ("plain_ms", plain), ("bound_ms", bnd),
+                               ("library_ms", lib), ("b1_ms", b1_ms)):
+                    totals[key] += calls * t
+                limits["operations"] += calls * t_ops
+                limits["bytes"] += calls * t_bytes
+    by = max(limits, key=limits.get)
+    log(f"[16] {card}: B5 float32, one forward's 12 dense-routed calls at B={BATCH}: "
+        f"kernel {totals['ms']:.4f} ms (B1 on the same calls {totals['b1_ms']:.4f} ms), "
+        f"bound {totals['bound_ms']:.4f} ms ({by}), plain {totals['plain_ms']:.4f} ms, "
+        f"sdpa {totals['library_ms']:.4f} ms")
+
+    # Serving, in turns: default route, dense, dense, default.
+    bf16_model = build_model("ralenet", dtype=torch.bfloat16).eval()
+    bf16_model.load_state_dict(cpu_model.state_dict())
+    rng = np.random.default_rng(26)
+    for dtype, model in ((torch.float32, gpu_model), (torch.bfloat16, bf16_model)):
+        denoiser = Denoiser(model, max_batch=2048)
+        for batch in (1024, 2048):
+            x = rng.standard_normal((batch, 2, 256)).astype(np.float32)
+            walls = {"default": [], "dense": []}
+            for key in ("default", "dense", "dense", "default"):
+                with dense_route(key == "dense"):
+                    check(np.isfinite(denoiser(x)).all(), "non-finite Denoiser output")
+                    walls[key] += serve_rates(denoiser, x)
+            xd = torch.from_numpy(x).cuda()
+            fwd_ms = {}
+            with torch.no_grad():
+                for key in ("default", "dense"):
+                    with dense_route(key == "dense"):
+                        fwd_ms[key] = cuda_ms(lambda: model(xd), 10)
+            log(f"[16] {card}: Denoiser {str(dtype)[6:]} batch {batch}: "
+                f"ECG_ATTN_DENSE=1 {batch / statistics.median(walls['dense']):.1f} "
+                f"windows/s, default {batch / statistics.median(walls['default']):.1f} "
+                f"(medians of 10 calls each, in turns, host clock); device-resident "
+                f"forward dense {fwd_ms['dense']:.3f} ms, default {fwd_ms['default']:.3f} ms "
+                f"(CUDA events, mean of 10)")
+            if batch == BATCH:
+                with dense_route():
+                    profile_forward(lambda: model(xd), f"{str(dtype)[6:]} dense forward "
+                                    f"B={batch}", fwd_ms["dense"], card, tag="16")
+    return totals, by
+
+
+def phase_probes(card):
+    """P2: null_copy against clone(), its time at a q's size, then the
+    probes, the counts set to 0 just before and read just after."""
+    from ecg_denoise_tpu_torch.kernels.null_copy import null_copy
+    from ecg_denoise_tpu_torch.probes import chain, floor
+    from ecg_denoise_tpu_torch.probes.floor import cold_copy_us
+
+    gen = torch.Generator().manual_seed(27)
+    max_err = 0.0
+    for shape in ((8, 128), (BATCH, 8, 64, 4)):
+        x = torch.randn(shape, generator=gen).cuda()
+        y = null_copy(x)
+        torch.cuda.synchronize()
+        same = torch.equal(y, x.clone())
+        max_err = max(max_err, (y - x).abs().max().item())
+        log(f"[17] null_copy of {x.numel()} float32 values equals clone() bit for bit: {same}")
+        check(same and y.data_ptr() != x.data_ptr(), "null_copy is not a copy")
+    # Times at the q of a (64, 8) call at B = 1024, the dma floor of B5's
+    # shape, on the card's clock (50 calls replayed from one CUDA graph),
+    # from copies of q that outgrow the L2 into outputs that are kept: the
+    # bytes move to and from HBM.
+    nbytes = 2 * x.numel() * x.element_size()
+    times = {key: cold_copy_us(f, x, 50) / 1e3 for key, f in (
+        ("ms", null_copy), ("plain_ms", torch.clone),
+        ("library_ms", lambda t: torch.empty_like(t).copy_(t)))}
+    times["bound_ms"] = nbytes / PEAK_BYTES * 1e3
+    eager = cuda_ms(lambda: null_copy(x), 50)
+    log(f"[17] {card}: null_copy of q, (L, H) = (64, 8), B={BATCH} ({nbytes / 1e6:.1f} MB "
+        f"read and written): kernel {times['ms']:.4f} ms, bound {times['bound_ms']:.4f} ms "
+        f"(bytes), plain clone() {times['plain_ms']:.4f} ms, copy_ {times['library_ms']:.4f} "
+        f"ms (graph replays, CUDA events); issued from Python {eager:.4f} ms per call")
+    reset_launches()  # the probes' path
+    floor_result = floor.main()
+    chain_result = chain.main()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"[17] kernel launches on the probes' path: {launches}")
+    check(launches["null_copy"] > 0 and launches["attention_dense_fwd"] > 0
+          and launches["attention_fwd"] > 0, "the probes did not launch their kernels")
+    times["max_abs_err"] = max_err
+    times["null_launch_host_us"] = floor_result["null"]["host_us"]
+    times["null_launch_graph_us"] = floor_result["null"]["graph_us"]
+    return launches, times
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs an NVIDIA card",
@@ -1296,6 +1660,12 @@ def main():
     launches["train_rpos"] = phase_train_cli(card, r_pos="detect", tag="12b")
     rpos_totals, rpos_by, rpos_bwd_totals, rpos_bwd_by = phase_rpos_times(
         gpu_model, cpu_model, card)
+    t_dense = time.perf_counter()
+    dense_err = phase_dense_kernel_vs_plain()
+    launches["serve_dense"] = phase_dense_serving(cpu_model, gpu_model, card)
+    dense_totals, dense_by = phase_dense_times(gpu_model, cpu_model, card)
+    launches["probes"], null_times = phase_probes(card)
+    log(f"chip_smoke: phases 14-17 took {time.perf_counter() - t_dense:.1f} s")
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     csrc = "ecg_denoise_tpu_torch/kernels/csrc"
@@ -1304,10 +1674,24 @@ def main():
     def entry(kernel, replaces, err, times, by, times_are):
         by_path = {path: counts[kernel] for path, counts in launches.items()}
         return {"name": kernel, "route": "cuda", "source": f"{csrc}/{kernel}.cu",
-                "replaces": f"{pallas}:{replaces}", "launches": sum(by_path.values()),
+                "replaces": replaces if isinstance(replaces, str) else f"{pallas}:{replaces}",
+                "launches": sum(by_path.values()),
                 "launches_by_path": by_path, "max_abs_err": err, "ms": times["ms"],
                 "plain_ms": times["plain_ms"], "bound_ms": times["bound_ms"],
                 "bound_by": by, "library_ms": times["library_ms"], "times_are": times_are}
+
+    null = entry("null_copy", "scripts/probe_chain.py:58", null_times["max_abs_err"],
+                 null_times, "bytes", f"one copy of a (64, 8) call's q, float32, B={BATCH}, "
+                 "from HBM (copies cycled past the L2), 50 calls replayed from one CUDA "
+                 "graph; library: copy_")
+    null["also_replaces"] = "scripts/probe_floor.py:65"
+    dense = entry("attention_dense_fwd", 449, dense_err, dense_totals, dense_by,
+                  f"one dense forward's 12 B5 calls, float32, B={BATCH}; kernel and "
+                  "b1_ms_same_calls from CUDA graph replays, plain and library issued "
+                  "from Python")
+    dense["b1_ms_same_calls"] = dense_totals["b1_ms"]
+    null["null_launch_us"] = {"host": null_times["null_launch_host_us"],
+                              "graph": null_times["null_launch_graph_us"]}
 
     print(json.dumps({"kernels": [
         entry("attention_fwd", 253, max_err, totals, bound_by,
@@ -1318,6 +1702,8 @@ def main():
               f"one r_pos forward's 14 biased calls, float32, B={BATCH}"),
         entry("attention_rpos_bwd", 859, rpos_bwd_err, rpos_bwd_totals, rpos_bwd_by,
               f"one r_pos training step's 14 biased calls, float32, B={TIMING_BATCH}"),
+        dense,
+        null,
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,12 @@ It dispatches on the tensors' device, with no switch and no fallback:
 
 * a CUDA tensor goes to the hand-written Hopper kernels or the call
   raises. When no gradient is needed, to the forward kernel
-  `csrc/attention_fwd.cu` alone (the port of the TPU kernel `_fwd_kernel`).
-  When one is needed, to `_FusedAttention`, a `torch.autograd.Function`
+  `csrc/attention_fwd.cu` alone (the port of the TPU kernel `_fwd_kernel`)
+  or, with `ECG_ATTN_DENSE=1` in the environment (read at every call) and
+  a lane-packable stage (L < 128 a power of two, `dense_pack_factor` > 1),
+  to the dense forward `csrc/attention_dense_fwd.cu` (the port of
+  `_fwd_dense_kernel`, B5; see `attention_dense.py`). When one is needed,
+  to `_FusedAttention`, a `torch.autograd.Function`
   whose forward is that kernel with its log-sum-exp residual and whose
   backward is `csrc/attention_bwd.cu` (the port of `_bwd_kernel`);
 * a CPU tensor goes to `attention_reference`, the plain PyTorch version of
@@ -122,8 +126,8 @@ def check_operands(q, k, v, bias) -> None:
 
 def bind(name: str, fn: str, n_pointers: int, n_ints: int = 6) -> ctypes.CDLL:
     """The built library `name` with `fn`'s C signature declared:
-    `n_pointers` pointers, `n_ints` ints (B, H, L, D, [W,] dtype, device),
-    then the stream."""
+    `n_pointers` pointers, `n_ints` ints (for the attention kernels B, H,
+    L, D, [W or P,] dtype, device), then the stream."""
     from ecg_denoise_tpu_torch.kernels.build import load
 
     lib = load(name)
@@ -166,7 +170,7 @@ def check_launchable(*tensors, bias=None) -> None:
 
 def raise_on(lib, err: int, what: str) -> None:
     if err:
-        raise RuntimeError(f"attention {what} kernel launch failed: "
+        raise RuntimeError(f"{what} kernel launch failed: "
                            + lib.ecg_cuda_error_string(err).decode())
 
 
@@ -182,7 +186,7 @@ def _launch(q, k, v, bias, *, with_lse: bool = False):
     err = lib.ecg_attention_fwd(ptr(q), ptr(k), ptr(v), ptr(bias), ptr(o),
                                 ptr(lse), B, H, L, D, DTYPE_CODES[q.dtype],
                                 q.device.index, stream)
-    raise_on(lib, err, "forward")
+    raise_on(lib, err, "attention forward")
     fused_attention.launches += 1
     return (o, lse) if with_lse else o
 
@@ -206,7 +210,7 @@ def _launch_bwd(q, k, v, bias, o, lse, g, *, want_dbias: bool):
                                 ptr(o), ptr(lse), ptr(c), ptr(dq), ptr(dk),
                                 ptr(dv), ptr(dbias), B, H, L, D,
                                 DTYPE_CODES[q.dtype], q.device.index, stream)
-    raise_on(lib, err, "backward")
+    raise_on(lib, err, "attention backward")
     fused_attention.bwd_launches += 1
     if dbias is not None:
         dbias = dbias.to(bias.dtype)  # summed in float32, cast once
@@ -240,6 +244,15 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if torch.is_grad_enabled() and any(
                 t is not None and t.requires_grad for t in (q, k, v, bias)):
             return _FusedAttention.apply(q, k, v, bias)
+        # Imported here: attention_dense builds on this module's helpers.
+        from ecg_denoise_tpu_torch.kernels.attention_dense import (
+            dense_pack_factor,
+            dense_wanted,
+            fused_attention_dense,
+        )
+
+        if dense_wanted() and dense_pack_factor(q.shape[1], q.shape[2]) > 1:
+            return fused_attention_dense(q, k, v, bias)
         return _launch(q, k, v, bias)
     if q.device.type == "cpu":
         return attention_reference(q, k, v, bias)

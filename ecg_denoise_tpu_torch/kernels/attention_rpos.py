@@ -131,7 +131,7 @@ def _launch(q, k, v, toep, W, offsets, *, with_lse: bool = False):
     err = lib.ecg_attention_rpos_fwd(
         ptr(q), ptr(k), ptr(v), ptr(toep), ptr(offsets), ptr(o), ptr(lse),
         B, H, L, D, W, DTYPE_CODES[q.dtype], q.device.index, stream)
-    raise_on(lib, err, "r-pos forward")
+    raise_on(lib, err, "attention r-pos forward")
     fused_attention_rpos.launches += 1
     return (o, lse) if with_lse else o
 
@@ -153,7 +153,7 @@ def _launch_bwd(q, k, v, toep, W, offsets, o, lse, g):
         ptr(q), ptr(k), ptr(v), ptr(toep), ptr(offsets), ptr(g), ptr(o),
         ptr(lse), ptr(c), ptr(dq), ptr(dk), ptr(dv), ptr(dtoep),
         B, H, L, D, W, DTYPE_CODES[q.dtype], q.device.index, stream)
-    raise_on(lib, err, "r-pos backward")
+    raise_on(lib, err, "attention r-pos backward")
     fused_attention_rpos.bwd_launches += 1
     return dq, dk, dv, dtoep.to(toep.dtype)  # summed in float32, cast once
 

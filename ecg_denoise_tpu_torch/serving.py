@@ -15,8 +15,11 @@
   detected R peak (the paper's namesake mechanism): `detect_r_peaks` runs
   on the staged bucket on the model's device, inside the same
   `inference_mode` forward.
+* `StreamingDenoiser` (`Denoiser.streaming`) denoises a live sample stream
+  with `denoise_record`'s windows and taper, emitting each sample once it
+  is final.
 
-Data-parallel serving and `StreamingDenoiser` come with later slices.
+Data-parallel serving comes with a later slice.
 """
 
 from __future__ import annotations
@@ -186,6 +189,10 @@ class Denoiser:
             den[s:s + WINDOW] += w
         return num / den
 
+    def streaming(self, stride: int = 128) -> "StreamingDenoiser":
+        """A stateful online denoiser over this Denoiser (live monitors)."""
+        return StreamingDenoiser(self, stride=stride)
+
     def warmup(self, limit: Optional[int] = None) -> None:
         """Run every batch bucket up to `limit` (default: max_batch) once,
         so the first real request of each size finds the kernels built and
@@ -197,3 +204,110 @@ class Denoiser:
             x = torch.zeros(b, self.model.in_channels, WINDOW)
             self._fetch(self._forward(x))
             b *= 2
+
+
+class StreamingDenoiser:
+    """Online (live-feed) denoising with bounded latency (JAX counterpart:
+    serving.py `StreamingDenoiser`).
+
+    `push` takes any number of new samples and returns the samples whose
+    denoising is final — every window that can cover them has been
+    accumulated — so output never changes afterwards. Latency is at most
+    one window (WINDOW samples); in steady state WINDOW - stride plus the
+    wait for the next window start.
+
+    The window placement and Hann-taper overlap-add are `denoise_record`'s:
+    a whole record fed through push() and flush(), in chunks of any size,
+    gives `denoise_record(record, stride)` (the same window starts,
+    including the off-grid tail window, and the same weights), up to how
+    the windows fall into batches.
+    """
+
+    def __init__(self, denoiser: Denoiser, stride: int = 128):
+        if stride < 1 or stride > WINDOW:
+            raise ValueError(f"stride must be in 1..{WINDOW}, got {stride}")
+        self.denoiser = denoiser
+        self.stride = stride
+        self._w = (np.hanning(WINDOW) + 1e-6).astype(np.float32)
+        self._buf = None      # (C, n) inputs from self._anchor onward
+        self._num = None      # weighted-output accumulator, same span
+        self._den = None
+        self._anchor = 0      # absolute sample index of _buf[:, 0]
+        self._next_start = 0  # absolute start of the next grid window
+        self._emitted = 0     # absolute index of the first unemitted sample
+        self._total = 0       # samples received
+        self._flushed = False
+
+    def push(self, samples: np.ndarray) -> np.ndarray:
+        """Feed (C, k) new samples; return the (C, m) samples made final
+        (m is 0 while the first window fills)."""
+        if self._flushed:
+            raise RuntimeError("stream already flushed")
+        x = np.asarray(samples, np.float32)
+        if x.ndim != 2:
+            raise ValueError(f"push wants (C, k), got {x.shape}")
+        if self._buf is None:
+            self._buf = np.zeros((x.shape[0], 0), np.float32)
+            self._num = np.zeros((x.shape[0], 0), np.float32)
+            self._den = np.zeros((0,), np.float32)
+        self._buf = np.concatenate([self._buf, x], axis=1)
+        self._num = np.concatenate([self._num, np.zeros_like(x)], axis=1)
+        self._den = np.concatenate([self._den, np.zeros((x.shape[1],), np.float32)])
+        self._total += x.shape[1]
+
+        starts = []
+        while self._next_start + WINDOW <= self._total:
+            starts.append(self._next_start)
+            self._next_start += self.stride
+        if not starts:
+            return self._buf[:, :0]
+        self._accumulate(starts)
+        # Samples before the last start are final: every later window
+        # begins at or after it. Emit before re-anchoring, which drops them.
+        out = self._emit(starts[-1])
+        self._anchor_to(starts[-1])
+        return out
+
+    def flush(self) -> np.ndarray:
+        """End of stream: add the tail window (denoise_record's last start
+        at T - WINDOW, if off the stride grid) and return every remaining
+        sample. A stream shorter than a window is denoised as
+        denoise_record denoises a short record (reflect-padded)."""
+        if self._flushed:
+            raise RuntimeError("stream already flushed")
+        self._flushed = True
+        if self._buf is None or self._total == 0:
+            return np.zeros((0, 0), np.float32)
+        t = self._total
+        if t < WINDOW:
+            return self.denoiser.denoise_record(self._buf, stride=self.stride)
+        last_grid = self._next_start - self.stride
+        if t - WINDOW > last_grid or last_grid < 0:
+            self._accumulate([t - WINDOW])
+        return self._emit(t)
+
+    def _accumulate(self, starts) -> None:
+        a = self._anchor
+        outs = self.denoiser(np.stack([self._buf[:, s - a:s - a + WINDOW]
+                                       for s in starts]))
+        for s, y in zip(starts, outs):
+            self._num[:, s - a:s - a + WINDOW] += self._w * y
+            self._den[s - a:s - a + WINDOW] += self._w
+
+    def _anchor_to(self, new_anchor: int) -> None:
+        # Everything below the new anchor is emitted already.
+        drop = new_anchor - self._anchor
+        if drop > 0:
+            self._buf = self._buf[:, drop:]
+            self._num = self._num[:, drop:]
+            self._den = self._den[drop:]
+            self._anchor = new_anchor
+
+    def _emit(self, upto: int) -> np.ndarray:
+        a = self._anchor
+        lo, hi = self._emitted - a, upto - a
+        if hi <= lo:
+            return self._buf[:, :0]
+        out = self._num[:, lo:hi] / self._den[lo:hi]
+        self._emitted = upto
+        return out

@@ -13,6 +13,13 @@ probabilities to bf16 before the pv product and the kernel does not (up to
 2^-8 of max|v|), and each side rounds its output once to bf16 (up to 2^-8
 of |out| <= max|v| each).
 
+The dense forward (attention_dense_fwd.cu, B5) is held to the same limits
+against its plain version and, in float32, within 1e-5 of B1 on the same
+operands; in bfloat16 within one bfloat16 step of B1 at the outputs'
+magnitude (both compute in float32 and round once, and rounding is
+monotone, so the two part by at most one step). `null_copy` equals
+`clone()` bit for bit.
+
 The r-pos kernels (attention_rpos_fwd.cu, attention_rpos_bwd.cu) are held
 to the same limits against their plain versions, dtoep like dbias, at the
 four biased stage shapes (L, W, H), with R peaks at 0, 5, L/2, L - 1 and
@@ -33,10 +40,15 @@ import pytest
 import torch
 
 from ecg_denoise_tpu_torch import full_float32
+from ecg_denoise_tpu_torch.kernels import attention
 from ecg_denoise_tpu_torch.kernels.attention import (
     attention_backward_reference,
     attention_reference,
     fused_attention,
+)
+from ecg_denoise_tpu_torch.kernels.attention_dense import (
+    attention_dense_reference,
+    fused_attention_dense,
 )
 from ecg_denoise_tpu_torch.kernels.attention_rpos import (
     attention_rpos_backward_reference,
@@ -48,6 +60,8 @@ pytestmark = pytest.mark.gpu
 
 STAGES = [(256, 2), (128, 4), (64, 8), (32, 16), (16, 32)]
 RPOS_STAGES = [(256, 32, 2), (128, 16, 4), (64, 8, 8), (32, 4, 16)]
+# (L, H) the dense route takes in RA-LENet, then other shapes it admits.
+DENSE_SHAPES = [(64, 8), (32, 16), (16, 32), (64, 4), (2, 2), (8, 4), (8, 6), (2, 64)]
 F32_TOL = 1e-5
 BF16_TOL_OF_MAX_V = 3 * 2 ** -8
 GRAD_TOL = 1e-4
@@ -318,3 +332,98 @@ def test_rpos_model_forward_and_step_match_cpu_with_14_and_4_launches(cuda):
     for key, val in gpu.state_dict().items():
         tol = 1e-5 if key.endswith(("running_mean", "running_var")) else 1e-4
         assert (val.cpu().float() - ref_sd[key].float()).abs().max().item() <= tol, key
+
+
+def bf16_step(x: torch.Tensor) -> float:
+    """One bfloat16 spacing at the largest magnitude of x."""
+    return 2.0 ** (np.floor(np.log2(x.float().abs().max().item())) - 7)
+
+
+@pytest.mark.parametrize("L,H", DENSE_SHAPES)
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_kernel_matches_plain_version_and_b1(cuda, L, H, with_bias, dtype):
+    full_float32()
+    q, k, v, bias = _operands(5, H, L, with_bias, dtype, cuda, seed=3)
+    before = fused_attention_dense.launches
+    out = fused_attention_dense(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert fused_attention_dense.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    plain = attention_dense_reference(q, k, v, bias)
+    b1 = attention._launch(q, k, v, bias)
+    err_plain = (out.float() - plain.float()).abs().max().item()
+    err_b1 = (out.float() - b1.float()).abs().max().item()
+    if dtype == torch.float32:
+        assert err_plain <= F32_TOL and err_b1 <= F32_TOL, (err_plain, err_b1)
+    else:
+        assert err_plain <= BF16_TOL_OF_MAX_V * v.float().abs().max().item(), err_plain
+        assert err_b1 <= bf16_step(b1), err_b1
+    assert torch.equal(fused_attention_dense(q, k, v, bias), out)  # no atomics
+
+
+def test_dense_kernel_heads_far_apart_and_large_logits(cuda):
+    """Head 0 about 130 logits above head 1 in one packed group, and a
+    bias lifted to about 190 (trained logits reach 191.5): each head takes
+    its own max (1e-4: logits near 200 carry roundings of up to 1.5e-5)."""
+    full_float32()
+    q, k, v, bias = _operands(3, 32, 16, True, torch.float32, cuda, seed=4)
+    far = bias.clone()
+    far[0, 0] += 65.0
+    far[0, 1] -= 65.0
+    for b in (far, bias + 190.0):
+        out = fused_attention_dense(q, k, v, b)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all()
+        assert (out - attention_reference(q, k, v, b)).abs().max().item() <= 1e-4
+
+
+def test_dense_route_and_its_refusals(cuda, monkeypatch):
+    """With ECG_ATTN_DENSE=1 a no-grad call at a packable stage goes to B5;
+    a grad-requiring call, or a stage that does not pack, stays on B1."""
+    q, k, v, bias = _operands(4, 8, 64, True, torch.float32, cuda, seed=5)
+    q256, k256, v256, _ = _operands(4, 2, 256, False, torch.float32, cuda, seed=6)
+
+    def counts():
+        return fused_attention_dense.launches, fused_attention.launches
+
+    monkeypatch.setenv("ECG_ATTN_DENSE", "1")
+    before = counts()
+    with torch.no_grad():
+        fused_attention(q, k, v, bias)
+        fused_attention(q256, k256, v256)
+    ins = [t.detach().requires_grad_() for t in (q, k, v)]
+    fused_attention(*ins, bias)
+    assert [a - b for a, b in zip(counts(), before)] == [1, 2]
+    monkeypatch.setenv("ECG_ATTN_DENSE", "0")
+    with torch.no_grad():
+        fused_attention(q, k, v, bias)
+    assert [a - b for a, b in zip(counts(), before)] == [1, 3]
+    with pytest.raises(ValueError, match="no backward"):
+        fused_attention_dense(*ins, bias)
+
+
+def test_dense_model_forward_matches_cpu_with_12_and_6_launches(cuda, monkeypatch):
+    monkeypatch.setenv("ECG_ATTN_DENSE", "1")
+    cpu, gpu = _seeded_ralenet(cuda)
+    x = torch.from_numpy(
+        np.random.default_rng(1).standard_normal((8, 2, 256)).astype(np.float32))
+    with torch.no_grad():
+        before = (fused_attention_dense.launches, fused_attention.launches)
+        y = gpu.eval()(x.to(cuda))
+        torch.cuda.synchronize()
+        assert (fused_attention_dense.launches - before[0],
+                fused_attention.launches - before[1]) == (12, 6)
+        assert (y.cpu() - cpu.eval()(x)).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("n", [1024, 1000, 8 * 64 * 4 * 1024])
+def test_null_copy_is_clone(cuda, n):
+    from ecg_denoise_tpu_torch.kernels.null_copy import null_copy
+
+    x = torch.randn(n, generator=torch.Generator().manual_seed(n)).to(cuda)
+    before = null_copy.launches
+    y = null_copy(x)
+    torch.cuda.synchronize()
+    assert null_copy.launches == before + 1
+    assert torch.equal(y, x.clone()) and y.data_ptr() != x.data_ptr()

@@ -176,3 +176,30 @@ def test_bfloat16_forward():
     ref = np.asarray(_jax_eval(jm)(v, x)).astype(np.float32)
     assert np.abs(ref).max() < 2
     np.testing.assert_allclose(y.float().numpy(), ref, atol=2 ** -5, rtol=0)
+
+
+def test_dense_route_forward_matches_jax_dense_kernel(monkeypatch):
+    """With ECG_ATTN_DENSE=1: the port's RaleNet 'full' on the CPU (the
+    plain attention) against the JAX model whose packable stages go through
+    its dense kernel `_fwd_dense` in interpret mode (6 of the 9 attention
+    calls at depth 1: L = 64, 32 and 16). Depth 1 keeps the JAX compile
+    short; widths are the model's own."""
+    monkeypatch.setattr(ap, "_INTERPRET", True)
+    monkeypatch.setenv("ECG_ATTN_DENSE", "1")
+    calls = []
+    real = ap._fwd_dense
+
+    def counted(*args, **kwargs):
+        calls.append(args[0].shape[1:3])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(ap, "_fwd_dense", counted)
+    x = _x(9)
+    jm = JaxRaleNet(variant="full", depth=1, use_pallas=True)
+    v = random_variables(jm, jnp.asarray(x), seed=10)
+    pm = RaleNet(variant="full", depth=1)
+    pm.load_state_dict(ralenet_state_dict(v, "full"))
+    ref = np.asarray(_jax_eval(jm)(v, x))
+    # Counted per trace, and JAX may trace a call more than once.
+    assert set(calls) == {(8, 64), (16, 32), (32, 16)}
+    np.testing.assert_allclose(_port_eval(pm, x), ref, atol=ATOL, rtol=0)

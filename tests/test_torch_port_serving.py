@@ -1,10 +1,12 @@
 """The port's serving layer and HTTP server, on the CPU.
 
 Bucketing, the zero-padded tail in the staging buffers, chunking beyond
-max_batch, overlap-add records, checkpoint loading and the HTTP surface
-(on port 0, in a thread). A Denoiser's output must equal the model's own
-eval output on the same rows: float32 on one device, so only batch
-composition differs (atol 1e-5).
+max_batch, overlap-add records, checkpoint loading, the HTTP surface (on
+port 0, in a thread) and the streaming denoiser. A Denoiser's output must
+equal the model's own eval output on the same rows: float32 on one device,
+so only batch composition differs (atol 1e-5). The port's
+StreamingDenoiser and the JAX package's, over one numpy stand-in, run the
+same numpy operations in the same order (atol 1e-6).
 """
 
 import io
@@ -19,7 +21,7 @@ import torch
 
 from ecg_denoise_tpu_torch.cli.serve import make_server
 from ecg_denoise_tpu_torch.models.ralenet import RaleNet
-from ecg_denoise_tpu_torch.serving import Denoiser, _bucket
+from ecg_denoise_tpu_torch.serving import Denoiser, StreamingDenoiser, _bucket
 
 ATOL = 1e-5
 
@@ -194,3 +196,76 @@ def test_serve_cli_builds_with_r_pos_detect(monkeypatch, tmp_path, capsys, name,
         server.server_close()
     thread.join(timeout=10)
     assert not thread.is_alive()
+
+
+class _LinearStandIn:
+    """A numpy stand-in for a Denoiser: a fixed linear map of each window's
+    256 samples, and the port's `denoise_record` over it (the streaming
+    denoisers call it for streams shorter than a window; the JAX one passes
+    `length`)."""
+
+    def __init__(self, seed=0):
+        rng = np.random.default_rng(seed)
+        self.map = (np.eye(256) + 0.05 * rng.standard_normal((256, 256))).astype(np.float32)
+
+    def __call__(self, windows):
+        return windows @ self.map
+
+    def denoise_record(self, signal, stride=128, length=256):
+        assert length == 256
+        return Denoiser.denoise_record(self, signal, stride=stride)
+
+
+@pytest.mark.parametrize("t", [1000, 777, 512, 300, 100])
+@pytest.mark.parametrize("stride", [128, 96, 256])
+def test_streaming_matches_jax_streaming(t, stride):
+    """Push by push, the port's StreamingDenoiser emits what the JAX
+    package's emits, over the same stand-in, record and seeded chunk sizes;
+    together the pieces are the stand-in's denoise_record."""
+    from ecg_denoise_tpu.serving import StreamingDenoiser as JaxStreamingDenoiser
+
+    stand_in = _LinearStandIn()
+    rng = np.random.default_rng(t + stride)
+    record = rng.standard_normal((2, t)).astype(np.float32)
+    port = StreamingDenoiser(stand_in, stride=stride)
+    ref = JaxStreamingDenoiser(stand_in, stride=stride, length=256)
+    pieces, i = [], 0
+    while i < t:
+        n = int(rng.integers(1, 300))
+        got, want = port.push(record[:, i:i + n]), ref.push(record[:, i:i + n])
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+        pieces.append(got)
+        i += n
+    got, want = port.flush(), ref.flush()
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+    out = np.concatenate(pieces + [got], axis=1)
+    assert out.shape == record.shape
+    np.testing.assert_allclose(out, stand_in.denoise_record(record, stride=stride),
+                               atol=1e-5, rtol=0)
+
+
+def test_streaming_push_and_flush_equal_denoise_record(model):
+    d = Denoiser(model, max_batch=16, device="cpu")
+    rec = np.random.default_rng(8).standard_normal((2, 700)).astype(np.float32)
+    stream = d.streaming(stride=128)
+    pieces = [stream.push(rec[:, i:i + 150]) for i in range(0, 700, 150)]
+    out = np.concatenate(pieces + [stream.flush()], axis=1)
+    np.testing.assert_allclose(out, d.denoise_record(rec, stride=128), atol=ATOL, rtol=0)
+
+
+def test_streaming_errors():
+    d = Denoiser(_Identity(), device="cpu")
+    for stride in (0, 257):
+        with pytest.raises(ValueError, match="stride"):
+            d.streaming(stride=stride)
+    with pytest.raises(ValueError, match="push wants"):
+        d.streaming().push(np.zeros(5, np.float32))
+    assert d.streaming().flush().shape == (0, 0)  # an empty stream
+    stream = d.streaming()
+    stream.push(np.zeros((2, 10), np.float32))
+    stream.flush()
+    with pytest.raises(RuntimeError, match="flushed"):
+        stream.push(np.zeros((2, 10), np.float32))
+    with pytest.raises(RuntimeError, match="flushed"):
+        stream.flush()
