@@ -9,8 +9,8 @@ Phases, each of which fails the run on error (no phase catches a failure,
 and nothing falls back to the CPU):
 
 1. Device and build: the card's name and power limit, then nvcc builds the
-   six kernels (B1-B5 and the null copy) from the checkout at once and
-   prints their ptxas reports. ECG_ATTN_DENSE is cleared: phases 1-13 drive
+   seven kernel sources (B1-B5, the null copy and the precision probes)
+   from the checkout at once and prints their ptxas reports. ECG_ATTN_DENSE is cleared: phases 1-13 drive
    the default route.
 2. Kernel vs plain version on the card, at the five RA-LENet stage shapes,
    with and without bias, float32 (tolerance 1e-5, TF32 off for this phase
@@ -103,17 +103,28 @@ and nothing falls back to the CPU):
    `ecg_denoise_tpu_torch.probes.floor` and `.chain` (the null launch, the
    dma floor, B1 and B5 by batch, K calls from Python against one CUDA
    graph), their counts set to 0 just before and read just after.
+18. P1, the precision probes (precision_probe.cu): probe_dot at each
+   precision (ieee, tf32, tf32x3, bf16) within c K 2^-24 (|A_r| . |B_r|)
+   of its plain version elementwise, probe_fold at each precision and
+   probe_tree within 1e-5 of max|out|, probe_div bit for bit against
+   torch.div and numpy, at the probe's shapes and ragged ones, two calls
+   bit-identical; then the probe `ecg_denoise_tpu_torch.probes.precision`,
+   the counts set to 0 just before and read just after (the four probe
+   kernels launched, the six others not), its f32-accurate paths within
+   1e-5 of float64; then each kernel's time from CUDA graph replays beside
+   its bound, its plain version and the library call.
 
-The last lines are one JSON object listing the six kernels (with their
-launches on each of the six paths: serve, train, serve_rpos, train_rpos,
-serve_dense, probes), the card's name and power limit, and
-`{"ok": true, "device": {...}}`.
+The last lines are one JSON object listing the ten kernels (with their
+launches on each of the seven paths: serve, train, serve_rpos, train_rpos,
+serve_dense, probes, probes_precision), the card's name and power limit,
+and `{"ok": true, "device": {...}}`.
 Without a card, or outside a checkout of the repository, it exits nonzero
 and prints no result.
 """
 
 import contextlib
 import copy
+import functools
 import io
 import json
 import os
@@ -148,8 +159,9 @@ DENSE_CALLS = {(64, 8, True): 4, (32, 16, True): 4, (16, 32, False): 4}
 # heads at L = 2, more than one warp's 32.
 DENSE_SHAPES = [(64, 8), (32, 16), (16, 32), (64, 4), (2, 2), (2, 64), (8, 4), (8, 32)]
 HEADS_APART = 110.0  # row maxima of two packed heads at least this far apart
+PRECISION_KERNELS = ("probe_dot", "probe_fold", "probe_tree", "probe_div")
 KERNELS = ("attention_fwd", "attention_bwd", "attention_rpos_fwd", "attention_rpos_bwd",
-           "attention_dense_fwd", "null_copy")
+           "attention_dense_fwd", "null_copy") + PRECISION_KERNELS
 F32_TOL = 1e-5
 # bf16, as a fraction of max|v|: the plain version rounds the probabilities
 # to bf16 before the pv product and the kernel does not (up to 2^-8 of
@@ -186,9 +198,24 @@ BN_STATS_TOL = 1e-5
 PARAM_TOL = 1e-4
 BATCH = 1024  # the serving default max_batch: the shapes the main path runs
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): f32 on the CUDA
-# cores (the kernel's arithmetic, also for bf16 operands) and HBM3.
+# cores (the kernel's arithmetic, also for bf16 operands) and HBM3; dense
+# TF32 and bf16 on the tensor cores (the precision probes' mma paths).
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
+# The precision probes (phase 18): (M, K, N) of the dot, (L, D) of the
+# softmax probes and the divide's shape; the probe's own, then ragged ones
+# that fit no mma tile.
+PRECISION_DOT_SHAPES = [(256, 256, 256), (203, 141, 77)]
+PRECISION_SOFTMAX_SHAPES = [(256, 4), (203, 3)]
+PRECISION_DIV_SHAPES = [(8, 256), (203, 77)]
+# fold and tree against their plain versions: both sides take the card's
+# expf on the same f32 logits, and the sums run in other orders.
+SOFTMAX_TOL_OF_MAX = 1e-5
+# The probe's f32-accurate paths (ieee and tf32x3 dot and fold, the tree)
+# against float64: the port's kernel bar.
+PROBE_F32_TOL_OF_MAX = 1e-5
 
 
 def log(msg):
@@ -203,6 +230,7 @@ def check(ok, what):
 
 def reset_launches():
     """Set every kernel's launch count to 0."""
+    from ecg_denoise_tpu_torch.kernels import precision
     from ecg_denoise_tpu_torch.kernels.attention import fused_attention
     from ecg_denoise_tpu_torch.kernels.attention_dense import fused_attention_dense
     from ecg_denoise_tpu_torch.kernels.attention_rpos import fused_attention_rpos
@@ -211,10 +239,13 @@ def reset_launches():
     fused_attention.launches = fused_attention.bwd_launches = 0
     fused_attention_rpos.launches = fused_attention_rpos.bwd_launches = 0
     fused_attention_dense.launches = null_copy.launches = 0
+    for kernel in PRECISION_KERNELS:
+        getattr(precision, kernel).launches = 0
 
 
 def read_launches():
     """Every kernel's launch count, by kernel name."""
+    from ecg_denoise_tpu_torch.kernels import precision
     from ecg_denoise_tpu_torch.kernels.attention import fused_attention
     from ecg_denoise_tpu_torch.kernels.attention_dense import fused_attention_dense
     from ecg_denoise_tpu_torch.kernels.attention_rpos import fused_attention_rpos
@@ -223,11 +254,13 @@ def read_launches():
     return dict(zip(KERNELS, (fused_attention.launches, fused_attention.bwd_launches,
                               fused_attention_rpos.launches,
                               fused_attention_rpos.bwd_launches,
-                              fused_attention_dense.launches, null_copy.launches)))
+                              fused_attention_dense.launches, null_copy.launches,
+                              *(getattr(precision, k).launches for k in PRECISION_KERNELS))))
 
 
 def expected_launches(fwd=0, bwd=0, rpos_fwd=0, rpos_bwd=0, dense=0, null=0):
-    return dict(zip(KERNELS, (fwd, bwd, rpos_fwd, rpos_bwd, dense, null)))
+    """The counts of a path that launches no precision probe."""
+    return dict(zip(KERNELS, (fwd, bwd, rpos_fwd, rpos_bwd, dense, null, 0, 0, 0, 0)))
 
 
 @contextlib.contextmanager
@@ -307,6 +340,7 @@ def phase_device_and_build():
         attention_dense,
         attention_rpos,
         null_copy,
+        precision,
     )
 
     if os.environ.pop("ECG_ATTN_DENSE", None) is not None:
@@ -316,11 +350,11 @@ def phase_device_and_build():
     # ptxas reports
     loads = (attention._library, attention._bwd_library,
              attention_rpos._library, attention_rpos._bwd_library,
-             attention_dense._library, null_copy._library)
+             attention_dense._library, null_copy._library, precision._library)
     with ThreadPoolExecutor(len(loads)) as pool:
         for future in [pool.submit(load) for load in loads]:
             future.result()
-    log(f"[1] {len(loads)} kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    log(f"[1] {len(loads)} kernel sources built and loaded in {time.perf_counter() - t0:.1f} s")
     return name
 
 
@@ -1636,6 +1670,168 @@ def phase_probes(card):
     return launches, times
 
 
+def precision_bound_terms(kernel, precision, shape):
+    """(operations, bytes) lower bounds in ms for one precision-probe call:
+    the products' flops over the peak of the path (f32 CUDA cores for ieee,
+    TF32 or bf16 tensor cores; three TF32 passes for tf32x3) plus the
+    elementwise work (row max, subtract, exp, sum, divide: one operation
+    each) over the f32 peak; each input read once and each output written
+    once, in f32, over HBM bandwidth."""
+    peak = {"ieee": PEAK_F32_FLOPS, "tf32": PEAK_TF32_FLOPS, "tf32x3": PEAK_TF32_FLOPS,
+            "bf16": PEAK_BF16_FLOPS, None: PEAK_F32_FLOPS}[precision]
+    passes = 3 if precision == "tf32x3" else 1
+    if kernel == "probe_dot":
+        M, K, N = shape
+        t_ops = passes * 2 * M * K * N / peak
+        nbytes = 4 * (M * K + K * N + M * N)
+    elif kernel == "probe_fold":
+        L, D = shape
+        t_ops = passes * 2 * (D + 1) * L * L / peak + (3 * L * L + D * L) / PEAK_F32_FLOPS
+        nbytes = 4 * (L * L + 2 * D * L)
+    elif kernel == "probe_tree":
+        L, D = shape
+        t_ops = (5 * L * L + 2 * D * L * L) / PEAK_F32_FLOPS
+        nbytes = 4 * (L * L + 2 * D * L)
+    else:
+        n = shape[0] * shape[1]
+        t_ops, nbytes = n / PEAK_F32_FLOPS, 12 * n
+    return t_ops * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def matmul_tf32(a, b, allow):
+    """torch.matmul with TF32 allowed or not for this call only."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = allow
+    try:
+        return torch.matmul(a, b)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def phase_precision(card):
+    """P1: the precision probes against their plain versions, the probe
+    itself with the counts set to 0 just before and read just after, and
+    each kernel's time beside its bound, plain version and library call."""
+    from ecg_denoise_tpu_torch.kernels import precision as probes
+    from ecg_denoise_tpu_torch.probes import precision as probe
+    from ecg_denoise_tpu_torch.probes.floor import graph_us
+
+    rng = np.random.default_rng(28)
+
+    def on_card(*shapes):
+        return [torch.from_numpy(rng.standard_normal(s, np.float32)).cuda() for s in shapes]
+
+    max_err = dict.fromkeys(PRECISION_KERNELS, 0.0)
+    for M, K, N in PRECISION_DOT_SHAPES:
+        a, b = on_card((M, K), (K, N))
+        for p in probes.PRECISIONS:
+            got, again = probes.probe_dot(a, b, p), probes.probe_dot(a, b, p)
+            torch.cuda.synchronize()
+            err = (got.double() - probes.dot_plain(a, b, p).double()).abs()
+            tol = probes.dot_tolerance(a, b, p)
+            log(f"[18] probe_dot {p} (M, K, N)=({M}, {K}, {N}): max_abs_err={err.max().item():.3e}, "
+                f"at most {(err / tol).max().item():.3e} of its bound c K 2^-24 (|A_r| . |B_r|)")
+            check(got.shape == (M, N) and torch.equal(got, again), "probe_dot calls differ")
+            check(bool((err <= tol).all()), "probe_dot disagrees with its plain version")
+            max_err["probe_dot"] = max(max_err["probe_dot"], err.max().item())
+    for L, D in PRECISION_SOFTMAX_SHAPES:
+        logits, v = on_card((L, L), (D, L))
+        logits = 2.0 * logits
+        cases = [(p, "probe_fold", functools.partial(probes.probe_fold, logits, v, p),
+                  probes.fold_plain(logits, v, p)) for p in probes.PRECISIONS]
+        cases.append(("f32", "probe_tree", functools.partial(probes.probe_tree, logits, v),
+                      probes.tree_plain(logits, v)))
+        for p, kernel, run, ref in cases:
+            got, again = run(), run()
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item()
+            tol = SOFTMAX_TOL_OF_MAX * ref.abs().max().item()
+            log(f"[18] {kernel} {p} (L, D)=({L}, {D}): max_abs_err={err:.3e} (tol {tol:.3e})")
+            check(got.shape == (D, L) and torch.equal(got, again), f"{kernel} calls differ")
+            check(err <= tol, f"{kernel} disagrees with its plain version")
+            max_err[kernel] = max(max_err[kernel], err)
+    for shape in PRECISION_DIV_SHAPES:
+        num = rng.standard_normal(shape).astype(np.float32)
+        den = (0.5 + rng.random(shape)).astype(np.float32)
+        n, d = torch.from_numpy(num).cuda(), torch.from_numpy(den).cuda()
+        got, again = probes.probe_div(n, d), probes.probe_div(n, d)
+        host = got.cpu().numpy()
+        same = (torch.equal(got, torch.div(n, d)) and torch.equal(got, again)
+                and np.array_equal(host.view(np.uint32), (num / den).view(np.uint32)))
+        log(f"[18] probe_div {shape}: bit for bit torch.div, numpy and itself: {same}")
+        check(same, "probe_div is not IEEE division")
+
+    reset_launches()  # the precision probe's path
+    result = probe.main()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"[18] kernel launches on the precision probe's path: {launches}")
+    check(all(launches[k] > 0 for k in PRECISION_KERNELS)
+          and all(n == 0 for k, n in launches.items() if k not in PRECISION_KERNELS),
+          "the precision probe did not launch exactly its four kernels")
+    f32_paths = [result["dot"]["ieee"], result["dot"]["tf32x3"], result["fold"]["ieee"],
+                 result["fold"]["tf32x3"], result["tree"]]
+    numbers = [x for case in [result["host_bf16"], result["tree"], result["div"],
+                              *result["dot"].values(), *result["fold"].values()]
+               for x in (case["max_rel"], case["abs_of_max"])]
+    check(all(np.isfinite(numbers)), "the precision probe printed a non-finite error")
+    check(all(case["abs_of_max"] <= PROBE_F32_TOL_OF_MAX for case in f32_paths),
+          "an f32-accurate path of the probe is off float64")
+    check(result["div"]["bit_exact"], "the probe's divide is not numpy's")
+
+    # Times at the probe's own operands, each from 20 calls replayed from
+    # one CUDA graph (CUDA events): a call this short, issued from Python,
+    # would time the host.
+    ops = {k: torch.from_numpy(x).cuda() for k, x in probe.operands().items()}
+    a, b, logits, v, num, den = (ops[k] for k in ("a", "b", "logits", "v", "num", "den"))
+    abf, bbf = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    exact = a.double() @ b.double()
+    library = {  # tf32x3 has no PyTorch call: cuBLAS's f32 product stands in
+        "ieee": lambda: matmul_tf32(a, b, False), "tf32": lambda: matmul_tf32(a, b, True),
+        "tf32x3": lambda: matmul_tf32(a, b, False), "bf16": lambda: torch.matmul(abf, bbf)}
+    rows = []
+    for p in probes.PRECISIONS:
+        lib_err = ((library[p]().double() - exact).abs().max() / exact.abs().max()).item()
+        log(f"[18] library {p} matmul: max_abs/max|exact|={lib_err:.3e}")
+        rows.append(("probe_dot", p, (probe.L, probe.L, probe.L),
+                     functools.partial(probes.probe_dot, a, b, p),
+                     functools.partial(probes.dot_plain, a, b, p), library[p]))
+    for p in probes.PRECISIONS:
+        rows.append(("probe_fold", p, (probe.L, probe.D),
+                     functools.partial(probes.probe_fold, logits, v, p),
+                     functools.partial(probes.fold_plain, logits, v, p), None))
+    rows.append(("probe_tree", None, (probe.L, probe.D),
+                 functools.partial(probes.probe_tree, logits, v),
+                 functools.partial(probes.tree_plain, logits, v), None))
+    rows.append(("probe_div", None, tuple(num.shape), functools.partial(probes.probe_div, num, den),
+                 functools.partial(probes.div_plain, num, den),
+                 functools.partial(torch.div, num, den)))
+    times = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+                 "operations": 0.0, "bytes": 0.0, "by_precision": {}} for k in PRECISION_KERNELS}
+    for kernel, p, shape, run, plain, lib in rows:
+        t_ops, t_bytes = precision_bound_terms(kernel, p, shape)
+        row = {"ms": graph_us(run, 20) / 1e3, "plain_ms": graph_us(plain, 20) / 1e3,
+               "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops > t_bytes
+               else "bytes", "library_ms": None if lib is None else graph_us(lib, 20) / 1e3}
+        log(f"[18] {card}: {kernel} {p or 'f32'} {shape}: kernel {row['ms']:.5f} ms, bound "
+            f"{row['bound_ms']:.5f} ms ({row['bound_by']}: operations {t_ops:.5f}, bytes "
+            f"{t_bytes:.5f}), plain {row['plain_ms']:.5f} ms, library "
+            + ("none" if lib is None else f"{row['library_ms']:.5f} ms")
+            + " (20 calls replayed from one CUDA graph, CUDA events)")
+        total = times[kernel]
+        for key in ("ms", "plain_ms", "bound_ms"):
+            total[key] += row[key]
+        total["operations"] += t_ops
+        total["bytes"] += t_bytes
+        total["library_ms"] = None if lib is None else total["library_ms"] + row["library_ms"]
+        if p is not None:
+            total["by_precision"][p] = row
+    for kernel, total in times.items():
+        total["bound_by"] = "operations" if total.pop("operations") > total.pop("bytes") else "bytes"
+        total["max_abs_err"] = max_err[kernel]
+    return launches, times
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs an NVIDIA card",
@@ -1666,14 +1862,17 @@ def main():
     dense_totals, dense_by = phase_dense_times(gpu_model, cpu_model, card)
     launches["probes"], null_times = phase_probes(card)
     log(f"chip_smoke: phases 14-17 took {time.perf_counter() - t_dense:.1f} s")
+    t_precision = time.perf_counter()
+    launches["probes_precision"], precision_times = phase_precision(card)
+    log(f"chip_smoke: phase 18 took {time.perf_counter() - t_precision:.1f} s")
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     csrc = "ecg_denoise_tpu_torch/kernels/csrc"
     pallas = "ecg_denoise_tpu/kernels/attention_pallas.py"
 
-    def entry(kernel, replaces, err, times, by, times_are):
+    def entry(kernel, replaces, err, times, by, times_are, source=None):
         by_path = {path: counts[kernel] for path, counts in launches.items()}
-        return {"name": kernel, "route": "cuda", "source": f"{csrc}/{kernel}.cu",
+        return {"name": kernel, "route": "cuda", "source": f"{csrc}/{source or kernel}.cu",
                 "replaces": replaces if isinstance(replaces, str) else f"{pallas}:{replaces}",
                 "launches": sum(by_path.values()),
                 "launches_by_path": by_path, "max_abs_err": err, "ms": times["ms"],
@@ -1692,6 +1891,22 @@ def main():
     dense["b1_ms_same_calls"] = dense_totals["b1_ms"]
     null["null_launch_us"] = {"host": null_times["null_launch_host_us"],
                               "graph": null_times["null_launch_graph_us"]}
+    precision = []
+    for kernel, line, what in (
+            ("probe_dot", 51, "the probe's four (256, 256, 256) dots, one per precision; "
+             "library: torch.matmul with TF32 off (ieee, and tf32x3, which no PyTorch call "
+             "computes) and on (tf32), and on bf16 inputs with a bf16 output (bf16)"),
+            ("probe_fold", 77, "the probe's four (256, 256) folds, one per precision; no "
+             "PyTorch call computes it"),
+            ("probe_tree", 89, "the probe's (256, 256) tree; no PyTorch call computes it"),
+            ("probe_div", 115, "the probe's (8, 256) divide; library: torch.div")):
+        t = precision_times[kernel]
+        e = entry(kernel, f"scripts/probe_precision.py:{line}", t["max_abs_err"], t,
+                  t["bound_by"], f"{what}; every time from 20 calls replayed from one CUDA graph",
+                  source="precision_probe")
+        if t["by_precision"]:
+            e["by_precision"] = t["by_precision"]
+        precision.append(e)
 
     print(json.dumps({"kernels": [
         entry("attention_fwd", 253, max_err, totals, bound_by,
@@ -1704,6 +1919,7 @@ def main():
               f"one r_pos training step's 14 biased calls, float32, B={TIMING_BATCH}"),
         dense,
         null,
+        *precision,
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

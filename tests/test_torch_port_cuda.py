@@ -33,6 +33,15 @@ logits carry roundings of up to 1.5e-5, so 1e-4 of max|grad|. bfloat16
 against the flash-form plain backward on the kernel's own o and lse: both
 compute in float32 and round once, so they part by at most one bfloat16
 spacing, 2^-7 of max|grad|.
+
+The precision probes (precision_probe.cu) against their plain versions at
+the probe's shapes and at a ragged one that fits no mma tile: the dot
+within c K 2^-24 (|A_r| . |B_r|) elementwise (`dot_tolerance`: the
+products of the rounded inputs are exact, so only the f32 accumulation
+order differs; c = 3 for tf32x3's three products), the fold and the tree
+within 1e-5 of max|out| (both sides use the card's expf; the sums differ
+in order), the divide bit for bit against torch.div on the card and numpy
+on the host; two calls bit-identical.
 """
 
 import numpy as np
@@ -427,3 +436,86 @@ def test_null_copy_is_clone(cuda, n):
     torch.cuda.synchronize()
     assert null_copy.launches == before + 1
     assert torch.equal(y, x.clone()) and y.data_ptr() != x.data_ptr()
+
+
+# The precision probes: (M, K, N) of the dot, (L, D) of the softmax probes,
+# the divide's shape; the probe's own, then ragged ones.
+DOT_SHAPES = [(256, 256, 256), (203, 141, 77)]
+SOFTMAX_SHAPES = [(256, 4), (203, 3)]
+DIV_SHAPES = [(8, 256), (203, 77)]
+SOFTMAX_TOL_OF_MAX = 1e-5
+
+
+def _probe_operands(shape, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s, np.float32)) for s in shape]
+
+
+@pytest.mark.parametrize("M,K,N", DOT_SHAPES)
+@pytest.mark.parametrize("precision", ["ieee", "tf32", "tf32x3", "bf16"])
+def test_probe_dot_matches_plain_version(cuda, M, K, N, precision):
+    from ecg_denoise_tpu_torch.kernels.precision import dot_plain, dot_tolerance, probe_dot
+
+    a, b = (t.to(cuda) for t in _probe_operands([(M, K), (K, N)]))
+    before = probe_dot.launches
+    got, again = probe_dot(a, b, precision), probe_dot(a, b, precision)
+    torch.cuda.synchronize()
+    assert probe_dot.launches == before + 2
+    assert got.shape == (M, N) and torch.equal(got, again)
+    err = (got.double() - dot_plain(a, b, precision).double()).abs()
+    assert (err <= dot_tolerance(a, b, precision)).all(), err.max().item()
+
+
+@pytest.mark.parametrize("L,D", SOFTMAX_SHAPES)
+@pytest.mark.parametrize("precision", ["ieee", "tf32", "tf32x3", "bf16", "tree"])
+def test_probe_fold_and_tree_match_plain_versions(cuda, L, D, precision):
+    from ecg_denoise_tpu_torch.kernels import precision as probes
+
+    logits, v = (t.to(cuda) for t in _probe_operands([(L, L), (D, L)]))
+    logits = 2.0 * logits
+    if precision == "tree":
+        kernel, plain = probes.probe_tree, probes.tree_plain
+        run, ref = (lambda: kernel(logits, v)), plain(logits, v)
+    else:
+        kernel = probes.probe_fold
+        run, ref = (lambda: kernel(logits, v, precision)), probes.fold_plain(logits, v, precision)
+    before = kernel.launches
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert got.shape == (D, L) and torch.equal(got, again)
+    err = (got - ref).abs().max().item()
+    assert err <= SOFTMAX_TOL_OF_MAX * ref.abs().max().item(), err
+
+
+@pytest.mark.parametrize("shape", DIV_SHAPES)
+def test_probe_div_is_ieee_division(cuda, shape):
+    from ecg_denoise_tpu_torch.kernels.precision import probe_div
+
+    rng = np.random.default_rng(3)
+    num = rng.standard_normal(shape).astype(np.float32)
+    den = (0.5 + rng.random(shape)).astype(np.float32)
+    n, d = torch.from_numpy(num).to(cuda), torch.from_numpy(den).to(cuda)
+    got = probe_div(n, d)
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.div(n, d)) and torch.equal(got, probe_div(n, d))
+    assert np.array_equal(got.cpu().numpy().view(np.uint32), (num / den).view(np.uint32))
+
+
+def test_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from ecg_denoise_tpu_torch.kernels import precision as probes
+
+    x = torch.randn(16, 16, device=cuda)
+    v = torch.randn(4, 16, device=cuda)
+    before = [f.launches for f in (probes.probe_dot, probes.probe_fold,
+                                   probes.probe_tree, probes.probe_div)]
+    for call in (lambda t: probes.probe_dot(t, x, "tf32"), lambda t: probes.probe_fold(t, v, "bf16"),
+                 lambda t: probes.probe_tree(t, v), lambda t: probes.probe_div(t, x)):
+        with pytest.raises(TypeError):
+            call(x.to(torch.bfloat16))
+        with pytest.raises(ValueError):
+            call(x.T)
+    with pytest.raises(ValueError):
+        probes.probe_dot(x, x, "fp8")
+    assert [f.launches for f in (probes.probe_dot, probes.probe_fold,
+                                 probes.probe_tree, probes.probe_div)] == before
