@@ -10,13 +10,19 @@ and nothing falls back to the CPU):
 
 1. Device and build: the card's name and power limit, then nvcc builds the
    seven kernel sources (B1-B5, the null copy and the precision probes)
-   from the checkout at once and prints their ptxas reports. ECG_ATTN_DENSE is cleared: phases 1-13 drive
-   the default route.
+   from the checkout at once and prints their ptxas reports (registers,
+   shared memory, spills by kernel instantiation). Where the parent
+   commit's tree is unpacked under _archive/parent (by `git archive`; a
+   plain checkout has none), its B1 and P1 are built beside them as timing
+   yardsticks, never on a path. ECG_ATTN_DENSE is cleared: phases 1-13
+   drive the default route.
 2. Kernel vs plain version on the card, at the five RA-LENet stage shapes,
    with and without bias, float32 (tolerance 1e-5, TF32 off for this phase
    only) and bfloat16
-   (3 * 2^-8 of max|v|, see BF16_TOL_OF_MAX_V), plus a ragged batch and
-   logits near 200.
+   (3 * 2^-8 of max|v|, see BF16_TOL_OF_MAX_V), plus a ragged batch, shapes
+   that cut across B1's row tiles and batch groups (RAGGED_B1: L = 203, 7,
+   1; B = 1, 3, 37, 1000) and logits near 200; every case's lse against
+   attention_reference's (LSE_TOL) and a second call bit-identical.
 3. Model: RA-LENet 'full' at full width and depth, seeded weights with
    random nonzero rel-pos tables and BN stats; the card's forward against
    the same model on the CPU (float32, 1e-4) and 18 kernel launches per
@@ -27,9 +33,11 @@ and nothing falls back to the CPU):
    is set to 0 just before and read just after.
 5. Times on the card: Denoiser windows/s at batch 1024 and 2048 in float32
    and bfloat16, the device time of one forward by kernel in each
-   (torch.profiler), and per stage shape the kernel's time (CUDA events),
-   its bound, the plain version's time and scaled_dot_product_attention's
-   as a yardstick (the port never calls it). A call from a fresh thread,
+   (torch.profiler), and per stage shape the kernel's time (CUDA graph
+   replays, and issued from Python), its bound, the plain version's time,
+   scaled_dot_product_attention's and, where its tree is there, the
+   parent's B1 on the same operands in turns (parent, this, this, parent),
+   as yardsticks (the port never calls them). A call from a fresh thread,
    as the HTTP server makes, is timed and profiled by operator.
 6. Backward kernel vs plain versions on the card: the autograd Function's
    dq, dk, dv and dbias at the five stage shapes, with and without bias,
@@ -102,7 +110,8 @@ and nothing falls back to the CPU):
    q's; its time at a q's size; then the probes
    `ecg_denoise_tpu_torch.probes.floor` and `.chain` (the null launch, the
    dma floor, B1 and B5 by batch, K calls from Python against one CUDA
-   graph), their counts set to 0 just before and read just after.
+   graph), their counts set to 0 just before and read just after. P2
+   against copy_ over 20 rounds in turns: medians, min and max.
 18. P1, the precision probes (precision_probe.cu): probe_dot at each
    precision (ieee, tf32, tf32x3, bf16) within c K 2^-24 (|A_r| . |B_r|)
    of its plain version elementwise, probe_fold at each precision and
@@ -111,8 +120,11 @@ and nothing falls back to the CPU):
    bit-identical; then the probe `ecg_denoise_tpu_torch.probes.precision`,
    the counts set to 0 just before and read just after (the four probe
    kernels launched, the six others not), its f32-accurate paths within
-   1e-5 of float64; then each kernel's time from CUDA graph replays beside
-   its bound, its plain version and the library call.
+   1e-5 of float64, and its four dot readings equal to those the dot's
+   first version gave, within 1e-3 relative (PROBE_DOT_READINGS); then each kernel's time from CUDA graph
+   replays beside its bound, its plain version and the library call, the
+   dot in turns with torch.matmul and, where its tree is there, the
+   parent's dot.
 
 The last lines are one JSON object listing the ten kernels (with their
 launches on each of the seven paths: serve, train, serve_rpos, train_rpos,
@@ -207,9 +219,30 @@ PEAK_BF16_FLOPS = 989e12
 # The precision probes (phase 18): (M, K, N) of the dot, (L, D) of the
 # softmax probes and the divide's shape; the probe's own, then ragged ones
 # that fit no mma tile.
-PRECISION_DOT_SHAPES = [(256, 256, 256), (203, 141, 77)]
+PRECISION_DOT_SHAPES = [(256, 256, 256), (203, 141, 77), (1, 8, 1), (65, 264, 33)]
 PRECISION_SOFTMAX_SHAPES = [(256, 4), (203, 3)]
 PRECISION_DIV_SHAPES = [(8, 256), (203, 77)]
+# The probe's dot readings on the card, max|got - exact| / max|exact| and
+# the median elementwise relative error, by precision, as the dot's first
+# version gave them on an H100 (PERF.md): a redesign of the dot must leave
+# them where they were, within 1e-3 relative (they are kept to four digits).
+PROBE_DOT_READINGS = {"ieee": (6.554e-07, 2.362e-07), "tf32": (3.578e-04, 2.956e-04),
+                      "tf32x3": (2.604e-06, 1.764e-06), "bf16": (2.986e-03, 2.366e-03)}
+PROBE_READING_RTOL = 1e-3
+# B1 at shapes that cut across its row tiles (32 rows) and batch groups
+# (16 elements, and 32 / L elements side by side in a warp at L < 32):
+# (B, L, H).
+RAGGED_B1 = [(1, 256, 2), (37, 128, 4), (1000, 64, 8), (3, 203, 2), (37, 203, 1),
+             (1000, 7, 3), (1, 7, 2), (3, 1, 2), (1000, 1, 5), (37, 16, 32)]
+# lse against attention_reference's logsumexp: both take the f32 logits;
+# the kernel's row sum uses __expf and is summed in another order (1e-6
+# relative), and |lse| stays below about 20: 1e-5 of max(1, max|lse|).
+LSE_TOL = 1e-5
+P2_ROUNDS = 20  # rounds of null_copy against copy_, in turns
+# A timing yardstick: the parent commit's tree, unpacked by `git archive`
+# under the git-ignored _archive/ (absent from a plain checkout).
+PARENT_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_archive",
+                           "parent", "ecg_denoise_tpu_torch", "kernels", "csrc")
 # fold and tree against their plain versions: both sides take the card's
 # expf on the same f32 logits, and the sums run in other orders.
 SOFTMAX_TOL_OF_MAX = 1e-5
@@ -332,6 +365,61 @@ def bound_terms(B, H, L, with_bias, elt):
     return flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
+@functools.cache
+def parent_libs():
+    """The parent commit's B1 and P1 libraries, built from its sources
+    under _archive/parent, or None where that tree is not there. Timing
+    yardsticks only: nothing on a path calls them, and no count moves."""
+    if not os.path.isdir(PARENT_CSRC):
+        return None
+    from pathlib import Path
+
+    from ecg_denoise_tpu_torch.kernels.attention import bind
+
+    csrc = Path(PARENT_CSRC)
+    return {"attention_fwd": bind("attention_fwd", "ecg_attention_fwd", 6, csrc=csrc),
+            "precision_probe": bind("precision_probe", "ecg_probe_dot", 3, 5, csrc=csrc)}
+
+
+def parent_b1(q, k, v, bias):
+    """The parent's B1 on the same operands (no lse)."""
+    from ecg_denoise_tpu_torch.kernels.attention import DTYPE_CODES, ptr, raise_on
+
+    lib = parent_libs()["attention_fwd"]
+    B, H, L, D = q.shape
+    o = torch.empty_like(q)
+    err = lib.ecg_attention_fwd(ptr(q), ptr(k), ptr(v), ptr(bias), ptr(o), None, B, H, L, D,
+                                DTYPE_CODES[q.dtype], q.device.index,
+                                torch.cuda.current_stream().cuda_stream)
+    raise_on(lib, err, "the parent's attention forward")
+    return o
+
+
+def parent_dot(a, b, precision):
+    """The parent's P1 dot on the same operands."""
+    from ecg_denoise_tpu_torch.kernels.attention import ptr, raise_on
+    from ecg_denoise_tpu_torch.kernels.precision import PRECISIONS
+
+    lib = parent_libs()["precision_probe"]
+    (M, K), N = a.shape, b.shape[1]
+    c = torch.empty(M, N, device=a.device)
+    err = lib.ecg_probe_dot(ptr(a), ptr(b), ptr(c), M, N, K, PRECISIONS.index(precision),
+                            a.device.index, torch.cuda.current_stream().cuda_stream)
+    raise_on(lib, err, "the parent's precision probe dot")
+    return c
+
+
+def in_turns(first, second, calls=20):
+    """µs per call of two functions from CUDA graph replays, in turns
+    (first, second, second, first): the two readings of each."""
+    from ecg_denoise_tpu_torch.probes.floor import graph_us
+
+    got = {0: [], 1: []}
+    for i in (0, 1, 1, 0):
+        got[i].append(graph_us((first, second)[i], calls))
+    return got[0], got[1]
+
+
 def phase_device_and_build():
     name = torch.cuda.get_device_name(0)
     log(f"[1] device: {name}; nvidia-smi name, power.limit: {smi_name_power()}")
@@ -351,15 +439,20 @@ def phase_device_and_build():
     loads = (attention._library, attention._bwd_library,
              attention_rpos._library, attention_rpos._bwd_library,
              attention_dense._library, null_copy._library, precision._library)
+    if os.path.isdir(PARENT_CSRC):
+        loads += (parent_libs,)
     with ThreadPoolExecutor(len(loads)) as pool:
         for future in [pool.submit(load) for load in loads]:
             future.result()
-    log(f"[1] {len(loads)} kernel sources built and loaded in {time.perf_counter() - t0:.1f} s")
+    log(f"[1] {len(loads)} kernel sources built and loaded in {time.perf_counter() - t0:.1f} s"
+        + ("" if parent_libs() is None else " (the last: the parent's B1 and P1, built "
+           f"from {PARENT_CSRC}, timing yardsticks)"))
     return name
 
 
 def phase_kernel_vs_plain():
     from ecg_denoise_tpu_torch import full_float32
+    from ecg_denoise_tpu_torch.kernels import attention
     from ecg_denoise_tpu_torch.kernels.attention import (
         attention_reference,
         fused_attention,
@@ -374,17 +467,28 @@ def phase_kernel_vs_plain():
     cases = [(BATCH, L, H, b, dt) for (L, H) in STAGES
              for b in (True, False) for dt in (torch.float32, torch.bfloat16)]
     cases += [(3, L, H, True, torch.float32) for (L, H) in STAGES]
+    cases += [(B, L, H, b, dt) for (B, L, H) in RAGGED_B1
+              for b in (True, False) for dt in (torch.float32, torch.bfloat16)]
     for B, L, H, with_bias, dtype in cases:
         q, k, v, bias = operands(B, H, L, with_bias, dtype, gen)
         out = fused_attention(q, k, v, bias)
+        again, lse = attention._launch(q, k, v, bias, with_lse=True)
         torch.cuda.synchronize()
-        err = (out.float() - attention_reference(q, k, v, bias).float()).abs().max().item()
+        ref, ref_lse = attention_reference(q, k, v, bias, return_lse=True)
+        err = (out.float() - ref.float()).abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        lse_tol = LSE_TOL * max(1.0, ref_lse.abs().max().item())
+        same = torch.equal(out, again)
         tol = (F32_TOL if dtype == torch.float32
                else BF16_TOL_OF_MAX_V * v.float().abs().max().item())
         log(f"[2] B={B} L={L} H={H} bias={with_bias} {str(dtype)[6:]}: "
-            f"max_abs_err={err:.3e} (tol {tol:.3e})")
+            f"max_abs_err={err:.3e} (tol {tol:.3e}), lse {lse_err:.3e} (tol "
+            f"{lse_tol:.3e}); a second call, with lse, bit-identical: {same}")
         check(out.shape == q.shape and out.dtype == dtype, "kernel output shape or dtype")
         check(err <= tol, "kernel disagrees with its plain version")
+        check(lse.shape == q.shape[:3] and lse_err <= lse_tol,
+              "the kernel's lse disagrees with the plain version's")
+        check(same, "two forward calls differ")
         max_err[dtype] = max(max_err[dtype], err)
     # Trained logits reach 191.5 at the L=16 stage: without the row max,
     # exp(190) overflows float32.
@@ -578,6 +682,7 @@ def phase_times(gpu_model, cpu_model, card):
         fused_attention,
     )
     from ecg_denoise_tpu_torch.models import build_model
+    from ecg_denoise_tpu_torch.probes.floor import graph_us
     from ecg_denoise_tpu_torch.serving import Denoiser
 
     bf16_model = build_model("ralenet", dtype=torch.bfloat16).eval()
@@ -625,35 +730,58 @@ def phase_times(gpu_model, cpu_model, card):
     profile_fresh_thread(denoiser, x, card)
 
     gen = torch.Generator().manual_seed(4)
-    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+              "eager_ms": 0.0, "parent_ms": 0.0 if parent_libs() else None}
     limits = {"operations": 0.0, "bytes": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         for (L, H, with_bias), calls in FORWARD_CALLS.items():
             q, k, v, bias = operands(BATCH, H, L, with_bias, dtype, gen)
-            ms = cuda_ms(lambda: fused_attention(q, k, v, bias), 20)
+
+            def b1():
+                return fused_attention(q, k, v, bias)
+
+            # The card's time: 20 calls replayed from one CUDA graph, in turns
+            # with the parent's B1 on the same operands where its tree is there.
+            if parent_libs():
+                old, new = in_turns(lambda: parent_b1(q, k, v, bias), b1)
+                ms, parent = statistics.mean(new) / 1e3, statistics.mean(old) / 1e3
+                same = torch.equal(b1(), parent_b1(q, k, v, bias))
+                turns = (f", the parent's B1 {parent:.4f} ms (graph replays in turns, "
+                         f"parent {old[0]:.1f} / {old[1]:.1f} us, this {new[0]:.1f} / "
+                         f"{new[1]:.1f} us; outputs bit-identical: {same})")
+            else:
+                ms, parent = graph_us(b1, 20) / 1e3, None
+                turns = ", the parent's B1 not measured (no tree under _archive/parent)"
+            eager = cuda_ms(b1, 20)
             plain = cuda_ms(lambda: attention_reference(q, k, v, bias), 5)
             lib = cuda_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=bias, scale=1.0), 20)
             t_ops, t_bytes = bound_terms(BATCH, H, L, with_bias, q.element_size())
             bnd = max(t_ops, t_bytes)
-            # What the bias reads cost: the same operands without the bias.
-            no_bias = (f", kernel without the bias {cuda_ms(lambda: fused_attention(q, k, v), 20):.4f} ms"
+            # What the bias costs: the same operands without the bias.
+            no_bias = (f", kernel without the bias {graph_us(lambda: fused_attention(q, k, v), 20) / 1e3:.4f} ms"
                        if with_bias else "")
             log(f"[5] {card}: attention_fwd {str(dtype)[6:]} B={BATCH} L={L} "
-                f"H={H} bias={with_bias}: kernel {ms:.4f} ms, bound {bnd:.4f} ms "
+                f"H={H} bias={with_bias}: kernel {ms:.4f} ms (graph replays; issued "
+                f"from Python {eager:.4f} ms), bound {bnd:.4f} ms "
                 f"(operations {t_ops:.4f} at the f32 CUDA-core peak, bytes "
                 f"{t_bytes:.4f}), plain {plain:.4f} ms, sdpa {lib:.4f} ms"
-                f"{no_bias}; {calls} calls per forward")
+                f"{no_bias}{turns}; {calls} calls per forward")
             if dtype == torch.float32:
-                for key, t in (("ms", ms), ("plain_ms", plain),
-                               ("bound_ms", bnd), ("library_ms", lib)):
-                    totals[key] += calls * t
+                for key, t in (("ms", ms), ("plain_ms", plain), ("bound_ms", bnd),
+                               ("library_ms", lib), ("eager_ms", eager), ("parent_ms", parent)):
+                    if totals[key] is not None:
+                        totals[key] += calls * t
                 limits["operations"] += calls * t_ops
                 limits["bytes"] += calls * t_bytes
     by = max(limits, key=limits.get)
+    parent = ("not measured" if totals["parent_ms"] is None
+              else f"{totals['parent_ms']:.4f} ms")
     log(f"[5] {card}: attention_fwd float32, one forward's 18 calls at "
-        f"B={BATCH}: kernel {totals['ms']:.4f} ms, bound {totals['bound_ms']:.4f} ms, "
-        f"plain {totals['plain_ms']:.4f} ms, sdpa {totals['library_ms']:.4f} ms")
+        f"B={BATCH}: kernel {totals['ms']:.4f} ms (graph replays; issued from Python "
+        f"{totals['eager_ms']:.4f} ms), the parent's B1 {parent}, bound "
+        f"{totals['bound_ms']:.4f} ms ({by}), plain {totals['plain_ms']:.4f} ms, sdpa "
+        f"{totals['library_ms']:.4f} ms")
     return totals, by
 
 
@@ -1656,6 +1784,23 @@ def phase_probes(card):
         f"read and written): kernel {times['ms']:.4f} ms, bound {times['bound_ms']:.4f} ms "
         f"(bytes), plain clone() {times['plain_ms']:.4f} ms, copy_ {times['library_ms']:.4f} "
         f"ms (graph replays, CUDA events); issued from Python {eager:.4f} ms per call")
+    # P2 against copy_, settled: P2_ROUNDS rounds in turns (null_copy,
+    # copy_, copy_, null_copy), each reading 50 replays of one graph.
+    runs = {"null_copy": [], "copy_": []}
+    fns = {"null_copy": null_copy, "copy_": lambda t: torch.empty_like(t).copy_(t)}
+    for _ in range(P2_ROUNDS):
+        for key in ("null_copy", "copy_", "copy_", "null_copy"):
+            runs[key].append(cold_copy_us(fns[key], x, 50))
+    med = {k: statistics.median(v) for k, v in runs.items()}
+    spread = {k: max(v) - min(v) for k, v in runs.items()}
+    slower = med["null_copy"] - med["copy_"] > max(spread.values())
+    log(f"[17] {card}: P2 against copy_ over {P2_ROUNDS} rounds in turns, {2 * P2_ROUNDS} "
+        f"readings each (50 graph replays each): " + "; ".join(
+            f"{k} median {med[k]:.3f} us, min {min(v):.3f}, max {max(v):.3f}"
+            for k, v in runs.items())
+        + f"; null_copy {'slower than copy_ by more than both spreads' if slower else 'level with copy_ (within the spreads)'}")
+    times["settled"] = {"rounds": P2_ROUNDS, "null_copy_median_us": med["null_copy"],
+                        "copy_median_us": med["copy_"], "null_copy_slower": slower}
     reset_launches()  # the probes' path
     floor_result = floor.main()
     chain_result = chain.main()
@@ -1731,6 +1876,9 @@ def phase_precision(card):
             tol = probes.dot_tolerance(a, b, p)
             log(f"[18] probe_dot {p} (M, K, N)=({M}, {K}, {N}): max_abs_err={err.max().item():.3e}, "
                 f"at most {(err / tol).max().item():.3e} of its bound c K 2^-24 (|A_r| . |B_r|)")
+            if parent_libs():
+                log(f"[18] probe_dot {p} (M, K, N)=({M}, {K}, {N}): bit-identical to the "
+                    f"parent's dot: {torch.equal(got, parent_dot(a, b, p))}")
             check(got.shape == (M, N) and torch.equal(got, again), "probe_dot calls differ")
             check(bool((err <= tol).all()), "probe_dot disagrees with its plain version")
             max_err["probe_dot"] = max(max_err["probe_dot"], err.max().item())
@@ -1778,6 +1926,13 @@ def phase_precision(card):
     check(all(case["abs_of_max"] <= PROBE_F32_TOL_OF_MAX for case in f32_paths),
           "an f32-accurate path of the probe is off float64")
     check(result["div"]["bit_exact"], "the probe's divide is not numpy's")
+    for p, want in PROBE_DOT_READINGS.items():
+        got = (result["dot"][p]["abs_of_max"], result["dot"][p]["med_rel"])
+        same = all(abs(g - w) <= PROBE_READING_RTOL * w for g, w in zip(got, want))
+        log(f"[18] the probe's dot {p}: max_abs/max|exact| {got[0]:.4e}, med_rel {got[1]:.4e}; "
+            f"the first version's {want[0]:.3e}, {want[1]:.3e}: equal within {PROBE_READING_RTOL:.0e} "
+            f"relative: {same}")
+        check(same, f"the probe's {p} dot readings moved")
 
     # Times at the probe's own operands, each from 20 calls replayed from
     # one CUDA graph (CUDA events): a call this short, issued from Python,
@@ -1813,11 +1968,26 @@ def phase_precision(card):
         row = {"ms": graph_us(run, 20) / 1e3, "plain_ms": graph_us(plain, 20) / 1e3,
                "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops > t_bytes
                else "bytes", "library_ms": None if lib is None else graph_us(lib, 20) / 1e3}
+        turns = ""
+        if kernel == "probe_dot":
+            # In turns with torch.matmul and, where its tree is there, with
+            # the parent's dot on the same operands.
+            lib_us, new_us = in_turns(lib, run)
+            turns = (f"; in turns: torch.matmul {lib_us[0]:.2f} / {lib_us[1]:.2f} us, "
+                     f"this {new_us[0]:.2f} / {new_us[1]:.2f} us")
+            if parent_libs():
+                old_us, more = in_turns(functools.partial(parent_dot, a, b, p), run)
+                new_us += more
+                row["parent_ms"] = statistics.mean(old_us) / 1e3
+                turns += (f"; the parent's dot {old_us[0]:.2f} / {old_us[1]:.2f} us, this "
+                          f"{more[0]:.2f} / {more[1]:.2f} us")
+            row["ms"] = statistics.mean(new_us) / 1e3
+            row["library_ms"] = statistics.mean(lib_us) / 1e3
         log(f"[18] {card}: {kernel} {p or 'f32'} {shape}: kernel {row['ms']:.5f} ms, bound "
             f"{row['bound_ms']:.5f} ms ({row['bound_by']}: operations {t_ops:.5f}, bytes "
             f"{t_bytes:.5f}), plain {row['plain_ms']:.5f} ms, library "
             + ("none" if lib is None else f"{row['library_ms']:.5f} ms")
-            + " (20 calls replayed from one CUDA graph, CUDA events)")
+            + " (20 calls replayed from one CUDA graph, CUDA events)" + turns)
         total = times[kernel]
         for key in ("ms", "plain_ms", "bound_ms"):
             total[key] += row[key]
@@ -1891,6 +2061,7 @@ def main():
     dense["b1_ms_same_calls"] = dense_totals["b1_ms"]
     null["null_launch_us"] = {"host": null_times["null_launch_host_us"],
                               "graph": null_times["null_launch_graph_us"]}
+    null["against_copy_"] = null_times["settled"]
     precision = []
     for kernel, line, what in (
             ("probe_dot", 51, "the probe's four (256, 256, 256) dots, one per precision; "
@@ -1908,9 +2079,13 @@ def main():
             e["by_precision"] = t["by_precision"]
         precision.append(e)
 
+    b1 = entry("attention_fwd", 253, max_err, totals, bound_by,
+               f"one forward's 18 calls, float32, B={BATCH}, CUDA graph replays; "
+               "plain and library issued from Python")
+    b1["eager_ms"] = totals["eager_ms"]
+    b1["parent_ms_same_calls"] = totals["parent_ms"]
     print(json.dumps({"kernels": [
-        entry("attention_fwd", 253, max_err, totals, bound_by,
-              f"one forward's 18 calls, float32, B={BATCH}"),
+        b1,
         entry("attention_bwd", 333, bwd_err, bwd_totals, bwd_bound_by,
               f"one training step's 18 calls, float32, B={TIMING_BATCH}"),
         entry("attention_rpos_fwd", 827, rpos_err, rpos_totals, rpos_by,

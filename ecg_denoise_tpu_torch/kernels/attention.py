@@ -124,13 +124,15 @@ def check_operands(q, k, v, bias) -> None:
         raise ValueError("q, k, v and bias must be on one device")
 
 
-def bind(name: str, fn: str, n_pointers: int, n_ints: int = 6) -> ctypes.CDLL:
+def bind(name: str, fn: str, n_pointers: int, n_ints: int = 6,
+         csrc=None) -> ctypes.CDLL:
     """The built library `name` with `fn`'s C signature declared:
     `n_pointers` pointers, `n_ints` ints (for the attention kernels B, H,
-    L, D, [W or P,] dtype, device), then the stream."""
-    from ecg_denoise_tpu_torch.kernels.build import load
+    L, D, [W or P,] dtype, device), then the stream. `csrc`: another
+    directory of sources (`build.load`), else the package's."""
+    from ecg_denoise_tpu_torch.kernels.build import CSRC, load
 
-    lib = load(name)
+    lib = load(name, csrc or CSRC)
     f = getattr(lib, fn)
     f.argtypes = ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints
                   + [ctypes.c_void_p])

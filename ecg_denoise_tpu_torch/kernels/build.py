@@ -28,7 +28,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()  # guards _locks
-_locks: dict[str, threading.Lock] = {}
+_locks: dict[str, threading.Lock] = {}  # by source path
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -41,21 +41,21 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+def _target(name: str, csrc: Path) -> Path:
+    src = (csrc / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
-def _build(name: str) -> Path:
-    """Compile `csrc/<name>.cu` unless it is built already; raises with
+def _build(name: str, csrc: Path) -> Path:
+    """Compile `<csrc>/<name>.cu` unless it is built already; raises with
     nvcc's output if the build fails."""
-    out = _target(name)
+    out = _target(name, csrc)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{name}.cu")]
     proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                           text=True, check=False)
     if proc.returncode != 0:
@@ -65,13 +65,16 @@ def _build(name: str) -> Path:
     return out
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The ctypes handle of `csrc/<name>.cu`, built at first use."""
+def load(name: str, csrc: Path = CSRC) -> ctypes.CDLL:
+    """The ctypes handle of `<csrc>/<name>.cu`, built at first use. `csrc`
+    is the package's own sources but for a timing yardstick (an earlier
+    version of a kernel, unpacked elsewhere), which nothing on a path loads."""
+    key = f"{Path(csrc).resolve()}/{name}"
     with _lock:
-        lock = _locks.setdefault(name, threading.Lock())
+        lock = _locks.setdefault(key, threading.Lock())
     with lock:
-        lib = _libs.get(name)
+        lib = _libs.get(key)
         if lib is None:
-            lib = ctypes.CDLL(str(_build(name)))
-            _libs[name] = lib
+            lib = ctypes.CDLL(str(_build(name, Path(csrc))))
+            _libs[key] = lib
         return lib

@@ -13,7 +13,7 @@
 // * div_kernel (:115, launched at :119): an (8, 256) elementwise divide.
 //
 // The dot and the fold take a precision, one path of the card each:
-//   0 ieee    f32 FMAs on the CUDA cores, one thread per output, k in order
+//   0 ieee    f32 FMAs on the CUDA cores, one chain per output, k in order
 //             (the port's attention kernels' own arithmetic; the TPU's HIGHEST)
 //   1 tf32    mma.sync m16n8k8 TF32, inputs rounded by cvt.rna.tf32.f32
 //             (what cuBLAS with allow_tf32 and Triton's default tl.dot give)
@@ -28,9 +28,13 @@
 // What bounds them: nothing that matters to a probe. At (256, 256, 256)
 // the dot moves 0.79 MB and does 33.5 MFLOP (0.24 us of HBM, 0.5 us of
 // the f32 CUDA-core peak, 0.07 us of the TF32 one); the fold, the tree and
-// the divide move under 0.3 MB. Each kernel is the simplest that is right:
-// one warp per 16x8 output tile, operands read straight from global memory
-// (the L2 holds them), so its time is its latency, not a rate.
+// the divide move under 0.3 MB. So their time is latency, not a rate. The
+// fold, the tree and the divide are the simplest kernels that are right
+// (the fold: one warp per 16x8 output tile, operands read straight from
+// global memory, which the L2 holds). The dot is tiled through shared
+// memory, double-buffered, its inputs rounded once as they are staged,
+// with several independent accumulation chains a warp (see its section):
+// its first version, built like the fold, lost 1.6-1.8 times to cuBLAS.
 //
 // The fold pads its D + 1 rows of [v; ones] to the mma's 16 rows with
 // zeros: only row D is the ones row, and it goes through the same rounding
@@ -88,7 +92,8 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 }
 
 // One warp adds A.B over k < K to its 16x8 tile c, on the tensor cores at
-// precision P. a_at(r, k) is A[r][k] and b_at(k, n) is B[k][n] relative to
+// precision P, rounding each input as it loads it (the fold's product; the
+// dot rounds its inputs once, in shared memory, with the same layouts). a_at(r, k) is A[r][k] and b_at(k, n) is B[k][n] relative to
 // the tile, 0 outside the matrices. Fragments (PTX ISA, mma.m16n8k8 .tf32
 // and mma.m16n8k16 .bf16), with g = lane / 4 and t = lane % 4:
 //   tf32 A: a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
@@ -137,44 +142,214 @@ __device__ __forceinline__ void mma_tile(float (&c)[4], int K, LoadA a_at, LoadB
 }
 
 // --- dot: C (M, N) = A (M, K) . B (K, N), all row-major f32 ------------
+//
+// A block of 8 warps owns a 32x32 tile of C. It stages a whole k-panel of
+// A and B, up to 256 wide (the probe's K in one piece), in shared memory
+// with cp.async (16-byte copies where K, resp. N, and the pointer allow,
+// 4-byte ones elsewhere; out of the matrices the copies fill zeros), waits
+// once, and runs its k-loop from shared memory with no barrier inside, so
+// the loads of the next k-steps are in flight while this one computes.
+// (Tiled versions that synchronised on every 32-wide k-tile, with 4 warps,
+// were slower than the first version: a k-tile's compute is short against
+// a barrier and a load's latency, and one warp a scheduler hides neither.)
+// * ieee: each thread keeps a 2x2 register tile of C (4 independent FMA
+//   chains, two warps a scheduler) fed from the raw panel, k in order,
+//   exactly K FMAs per output.
+// * tf32, tf32x3, bf16: the panel is rounded once, in shared memory, after
+//   it lands (TF32 hi in place and lo beside it, by cvt.rna, masked; bf16
+//   pairs RNE), a warp a row of A and a lane a column of B, with no
+//   division in the loops; the fragments are read from the rounded panel.
+//   Each warp holds one 16x8 accumulator tile, so each scheduler
+//   interleaves two mma chains. Per output the sequence of roundings is
+//   the first version's: the same mma.sync, the k-steps in order up to the
+//   last one that holds a k < K, and for tf32x3 lo.hi, hi.lo, hi.hi in
+//   that order.
+// Bank conflicts: A's panels ([m][k]) have a row stride of 260 words
+// (4 mod 32), so the ieee path's A reads (rows 4w, 4w + 2 of a warp) and
+// the A fragments (g * 260 + t = 4g + t) hit distinct banks; B's panels
+// ([k][n], bf16 pairs [k / 2][n]) have a stride of 40 words, so the B
+// fragments (t * 40 + g = 8t + g) do too; packed bf16 A has a stride of
+// 132 words (4g + t again).
 
-constexpr int kDotWarps = 4;  // a block: 16 rows x (4 warps x 8 columns)
+constexpr int kDotTile = 32;     // C rows and columns of a block
+constexpr int kDotPanel = 256;   // the k-panel
+constexpr int kDotWarps = 8;
+constexpr int kDotThreads = 32 * kDotWarps;
+constexpr int kAStride = kDotPanel + 4;     // words; 16-byte aligned rows
+constexpr int kBStride = kDotTile + 8;      // words; 16-byte aligned rows
+constexpr int kBf16AStride = kDotPanel / 2 + 4;
+constexpr int kAWords = kDotTile * kAStride, kBWords = kDotPanel * kBStride;
 
+// Shared memory: the raw panels (rounded to TF32 hi in place), then the lo
+// panels (tf32x3) or the packed bf16 panels.
 template <int P>
-__global__ void __launch_bounds__(32 * kDotWarps)
-probe_dot_mma(const float* __restrict__ A, const float* __restrict__ B,
-              float* __restrict__ C, int M, int N, int K) {
-  const int n0 = (blockIdx.x * kDotWarps + (threadIdx.x >> 5)) * 8;
-  const int m0 = blockIdx.y * 16;
-  if (n0 >= N) return;  // whole warps only: mma.sync needs all 32 lanes
-  float c[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_tile<P>(
-      c, K,
-      [&](int r, int k) {
-        return (m0 + r < M && k < K) ? A[static_cast<size_t>(m0 + r) * K + k] : 0.f;
-      },
-      [&](int k, int n) {
-        return (k < K && n0 + n < N) ? B[static_cast<size_t>(k) * N + n0 + n] : 0.f;
-      });
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + g + (i >> 1) * 8, n = n0 + 2 * t + (i & 1);
-    if (m < M && n < N) C[static_cast<size_t>(m) * N + n] = c[i];
+constexpr int dot_smem_bytes() {
+  return 4 * (kAWords + kBWords +
+              (P == kTf32x3 ? kAWords + kBWords
+                            : P == kBf16 ? kDotTile * kBf16AStride + kDotPanel / 2 * kBStride
+                                         : 0));
+}
+
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src, bool in, bool vec) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (vec) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+                 "r"(in ? 16 : 0));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+                 "r"(in ? 4 : 0));
   }
 }
 
-__global__ void __launch_bounds__(256)
-probe_dot_ieee(const float* __restrict__ A, const float* __restrict__ B,
-               float* __restrict__ C, int M, int N, int K) {
-  const int n = blockIdx.x * 32 + threadIdx.x;
-  const int m = blockIdx.y * 8 + threadIdx.y;
-  if (m >= M || n >= N) return;
-  const float* a = A + static_cast<size_t>(m) * K;
-  float acc = 0.f;
-  for (int k = 0; k < K; ++k) acc = fmaf(a[k], B[static_cast<size_t>(k) * N + n], acc);
-  C[static_cast<size_t>(m) * N + n] = acc;
+template <int P>
+__global__ void __launch_bounds__(kDotThreads)
+probe_dot_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                 float* __restrict__ C, int M, int N, int K, bool a_vec, bool b_vec) {
+  extern __shared__ __align__(16) float dot_smem[];
+  auto a_raw = reinterpret_cast<float(*)[kAStride]>(dot_smem);
+  auto b_raw = reinterpret_cast<float(*)[kBStride]>(dot_smem + kAWords);
+  auto a_hi = reinterpret_cast<uint32_t(*)[kAStride]>(a_raw);  // in place
+  auto b_hi = reinterpret_cast<uint32_t(*)[kBStride]>(b_raw);
+  uint32_t* extra = reinterpret_cast<uint32_t*>(dot_smem + kAWords + kBWords);
+  auto a_lo = reinterpret_cast<uint32_t(*)[kAStride]>(extra);
+  auto b_lo = reinterpret_cast<uint32_t(*)[kBStride]>(extra + kAWords);
+  auto a_bf = reinterpret_cast<uint32_t(*)[kBf16AStride]>(extra);  // pairs along k
+  auto b_bf = reinterpret_cast<uint32_t(*)[kBStride]>(extra + kDotTile * kBf16AStride);
+  const int m0 = blockIdx.y * kDotTile, n0 = blockIdx.x * kDotTile;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // ieee: rows 2ty, 2ty + 1 and columns 2tx, 2tx + 1 of the block's tile.
+  const int ty = tid >> 4, tx = tid & 15;
+  float acc[2][2] = {};
+  // mma: warp w holds the 16x8 tile at rows 16 (w & 1), columns 8 (w >> 1).
+  const int g = lane >> 2, t = lane & 3;
+  const int mt = (warp & 1) * 16, nt = (warp >> 1) * 8;
+  float c[4] = {};
+
+  for (int k0 = 0; k0 < K; k0 += kDotPanel) {
+    const int kn = min(kDotPanel, K - k0);  // the panel's k < K
+    const int kload = min(kDotPanel, (kn + 15) & ~15);  // zero-filled to whole k-steps
+    if (k0 > 0) __syncthreads();  // every thread is done with the last panel
+    // A: a warp a row, lanes along k; B: 8 lanes a row of 32 (16-byte
+    // copies) or 32 (4-byte ones).
+    for (int r = warp; r < kDotTile; r += kDotWarps) {
+      const int m = m0 + r;
+      if (a_vec) {
+        for (int j = 4 * lane; j < kload; j += 128) {
+          const bool in = m < M && k0 + j < K;
+          cp_async_f32(&a_raw[r][j], in ? A + static_cast<size_t>(m) * K + k0 + j : A, in, true);
+        }
+      } else {
+        for (int j = lane; j < kload; j += 32) {
+          const bool in = m < M && k0 + j < K;
+          cp_async_f32(&a_raw[r][j], in ? A + static_cast<size_t>(m) * K + k0 + j : A, in, false);
+        }
+      }
+    }
+    if (b_vec) {
+      for (int r = tid >> 3; r < kload; r += kDotThreads / 8) {
+        const int j = 4 * (lane & 7), k = k0 + r, n = n0 + j;
+        const bool in = k < K && n < N;
+        cp_async_f32(&b_raw[r][j], in ? B + static_cast<size_t>(k) * N + n : B, in, true);
+      }
+    } else {
+      for (int r = warp; r < kload; r += kDotWarps) {
+        const int k = k0 + r, n = n0 + lane;
+        const bool in = k < K && n < N;
+        cp_async_f32(&b_raw[r][lane], in ? B + static_cast<size_t>(k) * N + n : B, in, false);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    __syncthreads();  // the panel is in, for every thread
+
+    if constexpr (P == kIeee) {
+#pragma unroll 8
+      for (int kk = 0; kk < kn; ++kk) {
+        const float a0 = a_raw[2 * ty][kk], a1 = a_raw[2 * ty + 1][kk];
+        const float2 bv = *reinterpret_cast<const float2*>(&b_raw[kk][2 * tx]);
+        acc[0][0] = fmaf(a0, bv.x, acc[0][0]);
+        acc[0][1] = fmaf(a0, bv.y, acc[0][1]);
+        acc[1][0] = fmaf(a1, bv.x, acc[1][0]);
+        acc[1][1] = fmaf(a1, bv.y, acc[1][1]);
+      }
+    } else {
+      // Round the panel once: a warp a row of A, a lane a column of B.
+      if constexpr (P == kBf16) {
+        for (int r = warp; r < kDotTile; r += kDotWarps) {
+#pragma unroll 4
+          for (int j = lane; j < kload / 2; j += 32) {
+            a_bf[r][j] = bf16x2(a_raw[r][2 * j], a_raw[r][2 * j + 1]);
+          }
+        }
+#pragma unroll 4
+        for (int j = warp; j < kload / 2; j += kDotWarps) {
+          b_bf[j][lane] = bf16x2(b_raw[2 * j][lane], b_raw[2 * j + 1][lane]);
+        }
+      } else {
+        for (int r = warp; r < kDotTile; r += kDotWarps) {
+#pragma unroll 4
+          for (int j = lane; j < kload; j += 32) {
+            const float x = a_raw[r][j];
+            const uint32_t xh = tf32_rna(x);
+            a_hi[r][j] = xh;
+            if constexpr (P == kTf32x3) a_lo[r][j] = tf32_rna(x - __uint_as_float(xh));
+          }
+        }
+#pragma unroll 4
+        for (int r = warp; r < kload; r += kDotWarps) {
+          const float y = b_raw[r][lane];
+          const uint32_t yh = tf32_rna(y);
+          b_hi[r][lane] = yh;
+          if constexpr (P == kTf32x3) b_lo[r][lane] = tf32_rna(y - __uint_as_float(yh));
+        }
+      }
+      __syncthreads();
+      const int n = nt + g;
+      if constexpr (P == kBf16) {
+#pragma unroll 4
+        for (int kk = 0; kk < kn; kk += 16) {
+          const int j = kk / 2 + t;
+          const uint32_t a[4] = {a_bf[mt + g][j], a_bf[mt + g + 8][j], a_bf[mt + g][j + 4],
+                                 a_bf[mt + g + 8][j + 4]};
+          const uint32_t b[2] = {b_bf[j][n], b_bf[j + 4][n]};
+          mma_bf16(c, a, b);
+        }
+      } else {
+#pragma unroll 4
+        for (int kk = 0; kk < kn; kk += 8) {
+          const int k = kk + t;
+          const uint32_t ah[4] = {a_hi[mt + g][k], a_hi[mt + g + 8][k], a_hi[mt + g][k + 4],
+                                  a_hi[mt + g + 8][k + 4]};
+          const uint32_t bh[2] = {b_hi[k][n], b_hi[k + 4][n]};
+          if constexpr (P == kTf32x3) {  // the small products go in first
+            const uint32_t al[4] = {a_lo[mt + g][k], a_lo[mt + g + 8][k], a_lo[mt + g][k + 4],
+                                    a_lo[mt + g + 8][k + 4]};
+            const uint32_t bl[2] = {b_lo[k][n], b_lo[k + 4][n]};
+            mma_tf32(c, al, bh);
+            mma_tf32(c, ah, bl);
+          }
+          mma_tf32(c, ah, bh);
+        }
+      }
+    }
+  }
+
+  if constexpr (P == kIeee) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int m = m0 + 2 * ty + i, n = n0 + 2 * tx + j;
+        if (m < M && n < N) C[static_cast<size_t>(m) * N + n] = acc[i][j];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = m0 + mt + g + (i >> 1) * 8, n = n0 + nt + 2 * t + (i & 1);
+      if (m < M && n < N) C[static_cast<size_t>(m) * N + n] = c[i];
+    }
+  }
 }
 
 // --- softmax row max and exp, shared by the fold and the tree ------------
@@ -280,15 +455,18 @@ probe_div(const float* __restrict__ n, const float* __restrict__ d, float* __res
 }
 
 template <int P>
-void launch_dot(const float* a, const float* b, float* c, int M, int N, int K,
-                cudaStream_t stream) {
-  if constexpr (P == kIeee) {
-    probe_dot_ieee<<<dim3((N + 31) / 32, (M + 7) / 8), dim3(32, 8), 0, stream>>>(
-        a, b, c, M, N, K);
-  } else {
-    const dim3 grid((N + 8 * kDotWarps - 1) / (8 * kDotWarps), (M + 15) / 16);
-    probe_dot_mma<P><<<grid, 32 * kDotWarps, 0, stream>>>(a, b, c, M, N, K);
-  }
+cudaError_t launch_dot(const float* a, const float* b, float* c, int M, int N, int K,
+                       cudaStream_t stream) {
+  // Above 48 KB a block's dynamic shared memory must be allowed, once.
+  static const cudaError_t allowed = cudaFuncSetAttribute(
+      probe_dot_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, dot_smem_bytes<P>());
+  if (allowed != cudaSuccess) return allowed;
+  const dim3 grid((N + kDotTile - 1) / kDotTile, (M + kDotTile - 1) / kDotTile);
+  const bool a_vec = K % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0;
+  const bool b_vec = N % 4 == 0 && reinterpret_cast<uintptr_t>(b) % 16 == 0;
+  probe_dot_kernel<P><<<grid, kDotThreads, dot_smem_bytes<P>(), stream>>>(a, b, c, M, N, K,
+                                                                         a_vec, b_vec);
+  return cudaGetLastError();
 }
 
 template <int P>
@@ -308,7 +486,7 @@ void launch_fold(const float* logits, const float* v, float* o, int L, int D,
 // c (M, N) = a (M, K) . b (K, N).
 extern "C" int ecg_probe_dot(const void* a, const void* b, void* c, int M, int N, int K,
                              int precision, int device, void* stream) {
-  if (M < 1 || N < 1 || K < 1 || (M + 7) / 8 > 65535) {
+  if (M < 1 || N < 1 || K < 1 || (M + kDotTile - 1) / kDotTile > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
@@ -318,13 +496,12 @@ extern "C" int ecg_probe_dot(const void* a, const void* b, void* c, int M, int N
   auto* C = static_cast<float*>(c);
   const auto s = static_cast<cudaStream_t>(stream);
   switch (precision) {
-    case kIeee: launch_dot<kIeee>(A, B, C, M, N, K, s); break;
-    case kTf32: launch_dot<kTf32>(A, B, C, M, N, K, s); break;
-    case kTf32x3: launch_dot<kTf32x3>(A, B, C, M, N, K, s); break;
-    case kBf16: launch_dot<kBf16>(A, B, C, M, N, K, s); break;
+    case kIeee: return static_cast<int>(launch_dot<kIeee>(A, B, C, M, N, K, s));
+    case kTf32: return static_cast<int>(launch_dot<kTf32>(A, B, C, M, N, K, s));
+    case kTf32x3: return static_cast<int>(launch_dot<kTf32x3>(A, B, C, M, N, K, s));
+    case kBf16: return static_cast<int>(launch_dot<kBf16>(A, B, C, M, N, K, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // o (D, L) = softmax(logits (L, L)) . v (D, L)^T with the row sum folded

@@ -70,7 +70,11 @@ def fit(
     """Train `model` (already initialised, e.g. after `random_seed(seed)`)
     on `device` (default: the card). `init_variables`: a state_dict loaded
     into the model first. Returns (state, (train_snr_list, test_snr_list,
-    train_rmse_list, test_rmse_list))."""
+    train_rmse_list, test_rmse_list)).
+
+    A resume carries on after the checkpoint's last epoch. A training split
+    shorter than one batch takes no step in any epoch (its train metrics are
+    NaN), so a resume on it starts from epoch 0, as JAX's `fit` always does."""
     if r_pos_mode not in (None, "detect"):
         raise ValueError(f"r_pos_mode must be None or 'detect', got {r_pos_mode!r}")
     state = create_train_state(model, learning_rate, device)
@@ -81,7 +85,7 @@ def fit(
     start = 0
     if resume_path:
         load_checkpoint(resume_path, state)
-        start = state.step // n_batches
+        start = state.step // n_batches if n_batches else 0
 
     def put(a):
         return torch.as_tensor(np.asarray(a, np.float32)).to(device)

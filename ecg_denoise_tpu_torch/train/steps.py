@@ -51,6 +51,7 @@ def make_epoch_fns(model: torch.nn.Module, optimizer: torch.optim.Adam,
         noisy/clean: (N, C, L) on the model's device. Permutes the split
         there from `generator` (on the same device), drops the ragged tail
         (N % batch_size) like a drop_last loader, and steps through it.
+        With N < batch_size it takes no step and returns NaN metrics.
     eval_epoch(noisy, clean, batch_size=32) -> metrics
         Every sample, the tail padded to a full batch with weight 0 (inputs
         of zeros, targets of ones, so a padded row's SNR stays finite).
@@ -65,6 +66,10 @@ def make_epoch_fns(model: torch.nn.Module, optimizer: torch.optim.Adam,
     def train_epoch(noisy, clean, generator: torch.Generator,
                     batch_size: int = 32) -> dict:
         n_batches = noisy.shape[0] // batch_size
+        if n_batches == 0:
+            # A split shorter than one batch: no step, the state untouched,
+            # and NaN means, as JAX's scan over no steps gives.
+            return dict.fromkeys(("loss", "snr", "rmse"), float("nan"))
         perm = torch.randperm(noisy.shape[0], generator=generator,
                               device=noisy.device)[:n_batches * batch_size]
         nb = noisy[perm].reshape(n_batches, batch_size, *noisy.shape[1:])

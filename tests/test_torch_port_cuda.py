@@ -41,7 +41,12 @@ products of the rounded inputs are exact, so only the f32 accumulation
 order differs; c = 3 for tf32x3's three products), the fold and the tree
 within 1e-5 of max|out| (both sides use the card's expf; the sums differ
 in order), the divide bit for bit against torch.div on the card and numpy
-on the host; two calls bit-identical.
+on the host; two calls bit-identical. The probe's own four dot readings
+equal those of its first version within 1e-3 relative.
+
+B1 is also held at shapes that cut across its row tiles and batch groups
+(L = 203, 7, 1; B = 1, 3, 37, 1000), with its lse within 1e-5 of
+max(1, max|lse|) of the plain log-sum-exp and a second call bit-identical.
 """
 
 import numpy as np
@@ -119,6 +124,39 @@ def test_ragged_batch_and_large_logits(cuda):
     assert torch.isfinite(out).all()
     # 1e-4: a float32 logit near 200 carries a rounding of up to 1.5e-5.
     assert (out - attention_reference(q, k, v, bias)).abs().max().item() <= 1e-4
+
+
+# B1 at shapes that cut across its row tiles (32 rows), its batch groups
+# (16 elements) and the elements side by side in a warp at L < 32: (B, L, H).
+RAGGED_B1 = [(1, 256, 2), (37, 128, 4), (1000, 64, 8), (3, 203, 2), (37, 203, 1),
+             (1000, 7, 3), (1, 7, 2), (3, 1, 2), (1000, 1, 5)]
+# lse against attention_reference's logsumexp of the same f32 logits: the
+# kernel's row sum uses __expf and another order (1e-6 relative), |lse|
+# stays below about 20.
+LSE_TOL = 1e-5
+
+
+@pytest.mark.parametrize("B,L,H", RAGGED_B1)
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_at_ragged_shapes_with_lse(cuda, B, L, H, with_bias, dtype):
+    """B1 (bf16 operands with a bf16 bias) against its plain version, its
+    lse against the plain log-sum-exp, and a second call bit-identical."""
+    q, k, v, bias = _operands(B, H, L, with_bias, dtype, cuda, seed=B + L + H)
+    before = fused_attention.launches
+    out = fused_attention(q, k, v, bias)
+    again, lse = attention._launch(q, k, v, bias, with_lse=True)
+    torch.cuda.synchronize()
+    assert fused_attention.launches == before + 2
+    ref, ref_lse = attention_reference(q, k, v, bias, return_lse=True)
+    tol = (F32_TOL if dtype == torch.float32
+           else BF16_TOL_OF_MAX_V * v.float().abs().max().item())
+    assert out.dtype == dtype and out.shape == q.shape
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, L)
+    lse_err = (lse - ref_lse).abs().max().item()
+    assert lse_err <= LSE_TOL * max(1.0, ref_lse.abs().max().item()), lse_err
+    assert torch.equal(out, again)
 
 
 def _grads(q, k, v, bias, g):
@@ -440,7 +478,13 @@ def test_null_copy_is_clone(cuda, n):
 
 # The precision probes: (M, K, N) of the dot, (L, D) of the softmax probes,
 # the divide's shape; the probe's own, then ragged ones.
-DOT_SHAPES = [(256, 256, 256), (203, 141, 77)]
+DOT_SHAPES = [(256, 256, 256), (203, 141, 77), (1, 8, 1), (65, 264, 33)]
+# The probe's dot readings, max|got - exact| / max|exact| and the median
+# elementwise relative error, as the dot's first version gave them on an
+# H100 (PERF.md): the dot's redesign keeps each output's roundings, so they
+# stay within 1e-3 relative (they are kept to four digits).
+PROBE_DOT_READINGS = {"ieee": (6.554e-07, 2.362e-07), "tf32": (3.578e-04, 2.956e-04),
+                      "tf32x3": (2.604e-06, 1.764e-06), "bf16": (2.986e-03, 2.366e-03)}
 SOFTMAX_SHAPES = [(256, 4), (203, 3)]
 DIV_SHAPES = [(8, 256), (203, 77)]
 SOFTMAX_TOL_OF_MAX = 1e-5
@@ -519,3 +563,12 @@ def test_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         probes.probe_dot(x, x, "fp8")
     assert [f.launches for f in (probes.probe_dot, probes.probe_fold,
                                  probes.probe_tree, probes.probe_div)] == before
+
+
+def test_probe_dot_readings_are_unchanged(cuda):
+    from ecg_denoise_tpu_torch.probes import precision as probe
+
+    result = probe.main()
+    for p, want in PROBE_DOT_READINGS.items():
+        got = (result["dot"][p]["abs_of_max"], result["dot"][p]["med_rel"])
+        assert all(abs(g - w) <= 1e-3 * w for g, w in zip(got, want)), (p, got, want)

@@ -194,6 +194,55 @@ def test_train_epoch_drops_the_ragged_tail():
     assert state.step == 1 and np.isfinite(list(got.values())).all()
 
 
+SHORT_SPLIT, SHORT_BATCH = 4, 32  # a training split shorter than one batch
+
+
+def test_train_epoch_on_a_split_shorter_than_a_batch_matches_jax(jax_epochs):
+    """N < batch_size: JAX's scan runs no step and returns NaN means at
+    step 0; the port takes no step, returns NaN, and leaves every
+    parameter, BN buffer and the Adam state as they were."""
+    jstate, state = _pair()
+    noisy, clean = _data(SHORT_SPLIT)
+    j_train, _ = jax_epochs
+    jstate, ref = j_train(jstate, jnp.asarray(noisy), jnp.asarray(clean),
+                          jax.random.PRNGKey(0), SHORT_BATCH)
+    before = {k: v.clone() for k, v in state.model.state_dict().items()}
+    opt_before = repr(state.optimizer.state_dict())
+    p_train, _ = make_epoch_fns(state.model, state.optimizer)
+    got = p_train(torch.from_numpy(noisy), torch.from_numpy(clean),
+                  torch.Generator().manual_seed(0), SHORT_BATCH)
+    assert int(jstate.step) == 0 and state.step == 0
+    for key in ("loss", "snr", "rmse"):
+        assert np.isnan(float(ref[key])) and np.isnan(got[key]), key
+    for key, val in state.model.state_dict().items():
+        assert torch.equal(val, before[key]), key
+    assert repr(state.optimizer.state_dict()) == opt_before
+
+
+@pytest.mark.parametrize("resume", [False, True])
+def test_fit_on_a_split_shorter_than_a_batch(tmp_path, resume):
+    """fit on such a split runs fresh and resumed without raising: no step
+    is taken, the train metrics are NaN and the test metrics finite; a
+    resume starts from epoch 0."""
+    noisy, clean = _data(SHORT_SPLIT + 4, seed=8)
+    kw = dict(epochs=2, batch_size=SHORT_BATCH, model_name="ralenet", seed=5,
+              checkpoint_every=1, verbose=False, device="cpu")
+    resume_path = None
+    if resume:
+        fit(_model(), noisy[:SHORT_SPLIT], clean[:SHORT_SPLIT], noisy[SHORT_SPLIT:],
+            clean[SHORT_SPLIT:], model_save_dir=str(tmp_path / "first"),
+            output_file=str(tmp_path / "first.txt"), **kw)
+        resume_path = find_model(str(tmp_path / "first" / "ralenet"), "ralenet")
+    state, hist = fit(_model(), noisy[:SHORT_SPLIT], clean[:SHORT_SPLIT],
+                      noisy[SHORT_SPLIT:], clean[SHORT_SPLIT:], resume_path=resume_path,
+                      model_save_dir=str(tmp_path / "model_save"),
+                      output_file=str(tmp_path / "output.txt"), **kw)
+    assert state.step == 0
+    assert [len(h) for h in hist] == [2, 2, 2, 2]  # every epoch, from 0
+    assert np.isnan(hist[0]).all() and np.isnan(hist[2]).all()
+    assert np.isfinite(hist[1]).all() and np.isfinite(hist[3]).all()
+
+
 def test_eval_epoch_ragged_tail_matches_jax(jax_epochs):
     jstate, state = _pair()
     noisy, clean = _data(2 * BATCH + 1, seed=1)  # a tail of 1 in 3 batches
