@@ -13,14 +13,14 @@ and nothing falls back to the CPU):
    from the checkout at once and prints their ptxas reports (registers,
    shared memory, spills by kernel instantiation). Where the parent
    commit's tree is unpacked under _archive/parent (by `git archive`; a
-   plain checkout has none), its B1 and P1 are built beside them as timing
+   plain checkout has none), its B1, B2 and P1 are built beside them as
    yardsticks, never on a path. ECG_ATTN_DENSE is cleared: phases 1-13
    drive the default route.
 2. Kernel vs plain version on the card, at the five RA-LENet stage shapes,
    with and without bias, float32 (tolerance 1e-5, TF32 off for this phase
    only) and bfloat16
    (3 * 2^-8 of max|v|, see BF16_TOL_OF_MAX_V), plus a ragged batch, shapes
-   that cut across B1's row tiles and batch groups (RAGGED_B1: L = 203, 7,
+   that cut across B1's row tiles and batch groups (RAGGED: L = 203, 7,
    1; B = 1, 3, 37, 1000) and logits near 200; every case's lse against
    attention_reference's (LSE_TOL) and a second call bit-identical.
 3. Model: RA-LENet 'full' at full width and depth, seeded weights with
@@ -41,10 +41,13 @@ and nothing falls back to the CPU):
    as the HTTP server makes, is timed and profiled by operator.
 6. Backward kernel vs plain versions on the card: the autograd Function's
    dq, dk, dv and dbias at the five stage shapes, with and without bias,
-   f32 and bf16, B = 256, plus a ragged B = 3 and logits near 200, against
-   autograd through the plain forward (f32) and against the plain flash
-   backward on the kernel forward's own o and lse (f32 and bf16); two calls
-   give bit-identical gradients.
+   f32 and bf16, B = 256, plus a ragged B = 3, the ragged shapes of phase 2
+   (RAGGED) and every stage shape with its logits shifted by +190 (f32 and
+   bf16), against autograd through the plain forward (f32) and against the
+   plain flash backward on the kernel forward's own o and lse (f32 and
+   bf16); two calls give bit-identical gradients; and, where the parent's
+   tree is there, dq, dk, dv and the float32 dbias equal the parent's B2
+   bit for bit on the same o, lse and g.
 7. Training step: RA-LENet 'full' at full width and depth, f32, batch 32,
    one `train_step` on the card against the same step on the CPU (loss
    1e-5 relative, BN running stats 1e-5, params after Adam 1e-4), with
@@ -62,8 +65,11 @@ and nothing falls back to the CPU):
    (8,000 windows; each epoch's rate printed), one step's time on the card's clock (CUDA events), a
    profiler breakdown of one f32 step at 256 (device kernels, idle share,
    host operators by self CPU time), and per stage shape the backward
-   kernel's time, its bound, the plain backward's and the backward of
-   scaled_dot_product_attention with a grad-requiring mask as a yardstick.
+   kernel's time (CUDA graph replays, in turns with the parent's B2 where
+   its tree is there, and the wrapper issued from Python), each pass's
+   device time for both (torch.profiler), its bound, the plain backward's
+   and the backward of scaled_dot_product_attention with a grad-requiring
+   mask as a yardstick.
 9. B3 (attention_rpos_fwd.cu) against its plain version at the four
    biased stage shapes (L, W, H), B = 1024, R peaks at 0, 5, L/2, L - 1 and
    random ones (windows hanging off both ends), f32 (1e-5) and bf16
@@ -124,7 +130,8 @@ and nothing falls back to the CPU):
    first version gave, within 1e-3 relative (PROBE_DOT_READINGS); then each kernel's time from CUDA graph
    replays beside its bound, its plain version and the library call, the
    dot in turns with torch.matmul and, where its tree is there, the
-   parent's dot.
+   parent's dot; the divide settled against torch.div over 20 rounds in
+   turns (medians, spreads, and level, slower or faster).
 
 The last lines are one JSON object listing the ten kernels (with their
 launches on each of the seven paths: serve, train, serve_rpos, train_rpos,
@@ -229,16 +236,18 @@ PRECISION_DIV_SHAPES = [(8, 256), (203, 77)]
 PROBE_DOT_READINGS = {"ieee": (6.554e-07, 2.362e-07), "tf32": (3.578e-04, 2.956e-04),
                       "tf32x3": (2.604e-06, 1.764e-06), "bf16": (2.986e-03, 2.366e-03)}
 PROBE_READING_RTOL = 1e-3
-# B1 at shapes that cut across its row tiles (32 rows) and batch groups
-# (16 elements, and 32 / L elements side by side in a warp at L < 32):
-# (B, L, H).
-RAGGED_B1 = [(1, 256, 2), (37, 128, 4), (1000, 64, 8), (3, 203, 2), (37, 203, 1),
+# B1 and B2 at shapes that cut across their row tiles (32 rows), batch
+# groups (16 elements, and 32 / L elements side by side in a warp at
+# L < 32) and B2's dbias tiles (4 to 32 key columns, stages of 16
+# elements): (B, L, H).
+RAGGED = [(1, 256, 2), (37, 128, 4), (1000, 64, 8), (3, 203, 2), (37, 203, 1),
              (1000, 7, 3), (1, 7, 2), (3, 1, 2), (1000, 1, 5), (37, 16, 32)]
 # lse against attention_reference's logsumexp: both take the f32 logits;
 # the kernel's row sum uses __expf and is summed in another order (1e-6
 # relative), and |lse| stays below about 20: 1e-5 of max(1, max|lse|).
 LSE_TOL = 1e-5
-P2_ROUNDS = 20  # rounds of null_copy against copy_, in turns
+# Rounds in turns that settle P2 against copy_ and P1's divide against torch.div.
+SETTLE_ROUNDS = 20
 # A timing yardstick: the parent commit's tree, unpacked by `git archive`
 # under the git-ignored _archive/ (absent from a plain checkout).
 PARENT_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_archive",
@@ -367,7 +376,7 @@ def bound_terms(B, H, L, with_bias, elt):
 
 @functools.cache
 def parent_libs():
-    """The parent commit's B1 and P1 libraries, built from its sources
+    """The parent commit's B1, B2 and P1 libraries, built from its sources
     under _archive/parent, or None where that tree is not there. Timing
     yardsticks only: nothing on a path calls them, and no count moves."""
     if not os.path.isdir(PARENT_CSRC):
@@ -378,6 +387,7 @@ def parent_libs():
 
     csrc = Path(PARENT_CSRC)
     return {"attention_fwd": bind("attention_fwd", "ecg_attention_fwd", 6, csrc=csrc),
+            "attention_bwd": bind("attention_bwd", "ecg_attention_bwd", 12, csrc=csrc),
             "precision_probe": bind("precision_probe", "ecg_probe_dot", 3, 5, csrc=csrc)}
 
 
@@ -393,6 +403,30 @@ def parent_b1(q, k, v, bias):
                                 torch.cuda.current_stream().cuda_stream)
     raise_on(lib, err, "the parent's attention forward")
     return o
+
+
+def b2_call(lib, q, k, v, bias, o, lse, g, want_dbias):
+    """One B2 library's kernels on the same operands, allocated as
+    `_launch_bwd` allocates: (dq, dk, dv, dbias), dbias float32 (not cast
+    to the bias dtype) and None unless asked. No count moves."""
+    from ecg_denoise_tpu_torch.kernels.attention import DTYPE_CODES, ptr, raise_on
+
+    B, H, L, D = q.shape
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    c = torch.empty(B, H, L, dtype=torch.float32, device=q.device)
+    dbias = (torch.empty(1, H, L, L, dtype=torch.float32, device=q.device)
+             if want_dbias and bias is not None else None)
+    err = lib.ecg_attention_bwd(ptr(q), ptr(k), ptr(v), ptr(bias), ptr(g), ptr(o), ptr(lse),
+                                ptr(c), ptr(dq), ptr(dk), ptr(dv), ptr(dbias), B, H, L, D,
+                                DTYPE_CODES[q.dtype], q.device.index,
+                                torch.cuda.current_stream().cuda_stream)
+    raise_on(lib, err, "attention backward (yardstick call)")
+    return dq, dk, dv, dbias
+
+
+def parent_b2(*args):
+    """The parent's B2 on the same operands (`b2_call`'s arguments)."""
+    return b2_call(parent_libs()["attention_bwd"], *args)
 
 
 def parent_dot(a, b, precision):
@@ -445,7 +479,7 @@ def phase_device_and_build():
         for future in [pool.submit(load) for load in loads]:
             future.result()
     log(f"[1] {len(loads)} kernel sources built and loaded in {time.perf_counter() - t0:.1f} s"
-        + ("" if parent_libs() is None else " (the last: the parent's B1 and P1, built "
+        + ("" if parent_libs() is None else " (the last: the parent's B1, B2 and P1, built "
            f"from {PARENT_CSRC}, timing yardsticks)"))
     return name
 
@@ -467,7 +501,7 @@ def phase_kernel_vs_plain():
     cases = [(BATCH, L, H, b, dt) for (L, H) in STAGES
              for b in (True, False) for dt in (torch.float32, torch.bfloat16)]
     cases += [(3, L, H, True, torch.float32) for (L, H) in STAGES]
-    cases += [(B, L, H, b, dt) for (B, L, H) in RAGGED_B1
+    cases += [(B, L, H, b, dt) for (B, L, H) in RAGGED
               for b in (True, False) for dt in (torch.float32, torch.bfloat16)]
     for B, L, H, with_bias, dtype in cases:
         q, k, v, bias = operands(B, H, L, with_bias, dtype, gen)
@@ -806,7 +840,9 @@ def plain_autograd_grads(q, k, v, bias, g):
 def phase_backward_vs_plain():
     """The backward kernel, through the autograd Function, against the
     plain flash backward on the forward kernel's own o and lse and, in
-    float32, against autograd through the plain forward."""
+    float32, against autograd through the plain forward; a second call
+    bit-identical; and, where its tree is there, bit-identical to the
+    parent's B2 on the same o, lse and g."""
     from ecg_denoise_tpu_torch import full_float32
     from ecg_denoise_tpu_torch.kernels import attention
 
@@ -817,8 +853,12 @@ def phase_backward_vs_plain():
     cases = [(TIMING_BATCH, L, H, b, dt, 0.0) for (L, H) in STAGES
              for b in (True, False) for dt in (torch.float32, torch.bfloat16)]
     cases += [(3, L, H, True, torch.float32, 0.0) for (L, H) in STAGES]
-    # Trained logits reach 191.5 at the L=16 stage.
-    cases += [(TIMING_BATCH, 16, 32, True, torch.float32, 190.0)]
+    cases += [(B, L, H, b, dt, 0.0) for (B, L, H) in RAGGED
+              for b in (True, False) for dt in (torch.float32, torch.bfloat16)]
+    # Trained logits reach 191.5 at the L=16 stage: every stage shape with
+    # its logits shifted by +190 through the bias.
+    cases += [(TIMING_BATCH, L, H, True, dt, 190.0) for (L, H) in STAGES
+              for dt in (torch.float32, torch.bfloat16)]
     for B, L, H, with_bias, dtype, shift in cases:
         q, k, v, bias = operands(B, H, L, with_bias, dtype, gen)
         if shift:
@@ -839,11 +879,17 @@ def phase_backward_vs_plain():
         for ref_name, ref in refs.items():
             for name, a, b in zip(("dq", "dk", "dv", "dbias"), grads, ref):
                 scale = b.float().abs().max().item()
+                if L == 1 and name != "dv":
+                    # A softmax over one key is constant: the exact dq, dk
+                    # and dbias are 0 and both sides return the rounding of
+                    # the cancelled g.v - g.o, so their bars are taken of
+                    # max|dv| (= max|g|), the one gradient that does not vanish.
+                    scale = ref[2].float().abs().max().item()
                 err = (a.float() - b.float()).abs().max().item()
-                if shift:
-                    tol = LARGE_LOGIT_GRAD_TOL_OF_MAX * scale
-                elif dtype == torch.bfloat16:
+                if dtype == torch.bfloat16:
                     tol = BF16_GRAD_TOL_OF_MAX * scale
+                elif shift:
+                    tol = LARGE_LOGIT_GRAD_TOL_OF_MAX * scale
                 else:
                     tol = DBIAS_TOL_OF_MAX * scale if name == "dbias" else GRAD_TOL
                 errs.append(f"{name} vs {ref_name} {err:.2e}/{tol:.2e}")
@@ -853,10 +899,21 @@ def phase_backward_vs_plain():
                     max_err = max(max_err, err)
         _, again = kernel_grads(q, k, v, bias, g)
         same = all(torch.equal(a, b) for a, b in zip(grads, again))
+        parent = ""
+        if parent_libs():
+            # The raw kernels' outputs, dbias in float32 before any cast.
+            args = (q, k, v, bias, out, lse, g, with_bias)
+            new, old = b2_call(attention._bwd_library(), *args), parent_b2(*args)
+            equal = [name for name, a, b in zip(("dq", "dk", "dv", "dbias"), new, old)
+                     if a is not None and torch.equal(a, b)]
+            parent = f"; bit-identical to the parent's B2: {', '.join(equal) or 'none'}"
+            check(len(equal) == 3 + with_bias, "B2 is not the parent's B2 bit for bit")
         log(f"[6] B={B} L={L} H={H} bias={with_bias} {str(dtype)[6:]}"
             f"{f' logits+{shift:.0f}' if shift else ''}: " + ", ".join(errs)
-            + f"; a second call bit-identical: {same}")
+            + f"; a second call bit-identical: {same}{parent}")
         check(same, "two backward calls differ")
+    if not parent_libs():
+        log("[6] the parent's B2 not compared (no tree under _archive/parent)")
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
     return max_err
 
@@ -1021,7 +1078,8 @@ def profile_step(step, card, step_ms, iters=3, tag="8", what="float32 training s
         f"(torch.profiler, mean of {iters}): {sum(k[1] for k in kernels)} launches "
         f"of {len(kernels)} kernels, device busy {busy:.3f} ms of the unprofiled "
         f"{step_ms:.3f} ms step (idle {100 * (1 - busy / step_ms):.1f} %)")
-    for ms, n, name in kernels[:15]:
+    # The top 15, and the attention kernels wherever they rank.
+    for ms, n, name in [k for i, k in enumerate(kernels) if i < 15 or "attention_" in k[2]]:
         log(f"[{tag}]   {ms:8.3f} ms {100 * ms / busy:5.1f} % x{n:<4d} {name[:100]}")
     ops = sorted((e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CPU),
@@ -1034,9 +1092,41 @@ def profile_step(step, card, step_ms, iters=3, tag="8", what="float32 training s
             f"x{e.count // iters:<5d} {e.key[:80]}")
 
 
+def pass_ms(fn, iters=5):
+    """Device ms per call of each kernel that fn() launches, by B2's pass
+    name (dq, dkdv, dbias) or kernel name (torch.profiler). A reading in
+    which some kernel was not recorded `iters` times is taken again, up to
+    three readings (on an H100 some readings recorded one call in five);
+    empty (not measured) if all three are short."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [(e.self_device_time_total / 1e3 / iters, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation]
+        if kernels and all(count == iters for _, count, _ in kernels):
+            break
+    else:
+        return {}
+    got = {}
+    for ms, _, name in kernels:
+        key = next((p for p in ("dq", "dkdv", "dbias") if f"attention_bwd_{p}_kernel" in name),
+                   name[:60])
+        got[key] = got.get(key, 0.0) + ms
+    return got
+
+
 def phase_train_times(cpu_model, card):
     from ecg_denoise_tpu_torch.kernels import attention
     from ecg_denoise_tpu_torch.models import build_model
+    from ecg_denoise_tpu_torch.probes.floor import graph_us
     from ecg_denoise_tpu_torch.train import create_train_state, make_epoch_fns, train_step
 
     # Whole epochs of the CLI's default length: the training split of
@@ -1067,14 +1157,31 @@ def phase_train_times(cpu_model, card):
                 profile_step(lambda: train_step(state, nb, cb), card, step_ms)
 
     gen = torch.Generator().manual_seed(9)
-    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+              "eager_ms": 0.0, "parent_ms": 0.0 if parent_libs() else None}
     limits = {"operations": 0.0, "bytes": 0.0}
+    passes = {"this": {}, "parent": {}}  # device ms per step by pass (profiler)
     for dtype in (torch.float32, torch.bfloat16):
         for (L, H, with_bias), calls in FORWARD_CALLS.items():
             q, k, v, bias = operands(TIMING_BATCH, H, L, with_bias, dtype, gen)
             g = torch.randn(q.shape, generator=gen).to("cuda", dtype)
             o, lse = attention._launch(q, k, v, bias, with_lse=True)
-            ms = cuda_ms(lambda: attention._launch_bwd(
+            args = (q, k, v, bias, o, lse, g, with_bias)
+            this = functools.partial(b2_call, attention._bwd_library(), *args)
+            # The card's time: 20 calls replayed from one CUDA graph, in turns
+            # with the parent's B2 on the same operands where its tree is there.
+            kernels = {"this": this}
+            if parent_libs():
+                kernels["parent"] = functools.partial(parent_b2, *args)
+                old, new = in_turns(kernels["parent"], this)
+                ms, parent = statistics.mean(new) / 1e3, statistics.mean(old) / 1e3
+                turns = (f", the parent's B2 {parent:.4f} ms (graph replays in turns, "
+                         f"parent {old[0]:.1f} / {old[1]:.1f} us, this {new[0]:.1f} / "
+                         f"{new[1]:.1f} us)")
+            else:
+                ms, parent = graph_us(this, 20) / 1e3, None
+                turns = ", the parent's B2 not measured (no tree under _archive/parent)"
+            eager = cuda_ms(lambda: attention._launch_bwd(
                 q, k, v, bias, o, lse, g, want_dbias=with_bias), 20)
             plain = cuda_ms(lambda: attention.attention_backward_reference(
                 q, k, v, bias, o, lse, g), 5)
@@ -1088,22 +1195,41 @@ def phase_train_times(cpu_model, card):
             lib = cuda_ms(lambda: torch.autograd.grad(sdpa(), ins, g), 20) - lib_fwd
             t_ops, t_bytes = bwd_bound_terms(TIMING_BATCH, H, L, with_bias, q.element_size())
             bnd = max(t_ops, t_bytes)
+            by_pass = ""
+            if dtype == torch.float32:
+                for who, fn in kernels.items():
+                    got = pass_ms(fn)
+                    by_pass += f"; {who} by pass " + (", ".join(
+                        f"{name} {t:.4f}" for name, t in got.items()) or "not measured")
+                    for name, t in got.items():
+                        passes[who][name] = passes[who].get(name, 0.0) + calls * t
             log(f"[8] {card}: attention_bwd {str(dtype)[6:]} B={TIMING_BATCH} L={L} "
-                f"H={H} dbias={with_bias}: kernel {ms:.4f} ms, bound {bnd:.4f} ms "
+                f"H={H} dbias={with_bias}: kernel {ms:.4f} ms (graph replays; the wrapper "
+                f"issued from Python {eager:.4f} ms), bound {bnd:.4f} ms "
                 f"(operations {t_ops:.4f} at the f32 CUDA-core peak, bytes "
                 f"{t_bytes:.4f}), plain {plain:.4f} ms, sdpa backward {lib:.4f} ms "
-                f"((fwd+bwd) - fwd); {calls} calls per step")
+                f"((fwd+bwd) - fwd){turns}{by_pass} (device ms, torch.profiler); "
+                f"{calls} calls per step")
             if dtype == torch.float32:
-                for key, t in (("ms", ms), ("plain_ms", plain),
-                               ("bound_ms", bnd), ("library_ms", lib)):
-                    totals[key] += calls * t
+                for key, t in (("ms", ms), ("plain_ms", plain), ("bound_ms", bnd),
+                               ("library_ms", lib), ("eager_ms", eager), ("parent_ms", parent)):
+                    if totals[key] is not None:
+                        totals[key] += calls * t
                 limits["operations"] += calls * t_ops
                 limits["bytes"] += calls * t_bytes
     by = max(limits, key=limits.get)
+    parent = ("not measured" if totals["parent_ms"] is None
+              else f"{totals['parent_ms']:.4f} ms")
     log(f"[8] {card}: attention_bwd float32, one step's 18 calls at "
-        f"B={TIMING_BATCH}: kernel {totals['ms']:.4f} ms, bound {totals['bound_ms']:.4f} ms "
-        f"({by}), plain {totals['plain_ms']:.4f} ms, sdpa backward "
-        f"{totals['library_ms']:.4f} ms")
+        f"B={TIMING_BATCH}: kernel {totals['ms']:.4f} ms (graph replays; the wrapper issued "
+        f"from Python {totals['eager_ms']:.4f} ms), the parent's B2 {parent}, bound "
+        f"{totals['bound_ms']:.4f} ms ({by}), plain {totals['plain_ms']:.4f} ms, sdpa "
+        f"backward {totals['library_ms']:.4f} ms")
+    for who, got in passes.items():
+        if got:
+            log(f"[8] {card}: attention_bwd float32, {who}'s device ms per step by pass "
+                f"(torch.profiler): " + ", ".join(f"{n} {t:.4f}" for n, t in got.items()))
+    totals["passes_ms"] = {who: got for who, got in passes.items() if got}
     return totals, by
 
 
@@ -1784,22 +1910,22 @@ def phase_probes(card):
         f"read and written): kernel {times['ms']:.4f} ms, bound {times['bound_ms']:.4f} ms "
         f"(bytes), plain clone() {times['plain_ms']:.4f} ms, copy_ {times['library_ms']:.4f} "
         f"ms (graph replays, CUDA events); issued from Python {eager:.4f} ms per call")
-    # P2 against copy_, settled: P2_ROUNDS rounds in turns (null_copy,
+    # P2 against copy_, settled: SETTLE_ROUNDS rounds in turns (null_copy,
     # copy_, copy_, null_copy), each reading 50 replays of one graph.
     runs = {"null_copy": [], "copy_": []}
     fns = {"null_copy": null_copy, "copy_": lambda t: torch.empty_like(t).copy_(t)}
-    for _ in range(P2_ROUNDS):
+    for _ in range(SETTLE_ROUNDS):
         for key in ("null_copy", "copy_", "copy_", "null_copy"):
             runs[key].append(cold_copy_us(fns[key], x, 50))
     med = {k: statistics.median(v) for k, v in runs.items()}
     spread = {k: max(v) - min(v) for k, v in runs.items()}
     slower = med["null_copy"] - med["copy_"] > max(spread.values())
-    log(f"[17] {card}: P2 against copy_ over {P2_ROUNDS} rounds in turns, {2 * P2_ROUNDS} "
+    log(f"[17] {card}: P2 against copy_ over {SETTLE_ROUNDS} rounds in turns, {2 * SETTLE_ROUNDS} "
         f"readings each (50 graph replays each): " + "; ".join(
             f"{k} median {med[k]:.3f} us, min {min(v):.3f}, max {max(v):.3f}"
             for k, v in runs.items())
         + f"; null_copy {'slower than copy_ by more than both spreads' if slower else 'level with copy_ (within the spreads)'}")
-    times["settled"] = {"rounds": P2_ROUNDS, "null_copy_median_us": med["null_copy"],
+    times["settled"] = {"rounds": SETTLE_ROUNDS, "null_copy_median_us": med["null_copy"],
                         "copy_median_us": med["copy_"], "null_copy_slower": slower}
     reset_launches()  # the probes' path
     floor_result = floor.main()
@@ -1996,6 +2122,31 @@ def phase_precision(card):
         total["library_ms"] = None if lib is None else total["library_ms"] + row["library_ms"]
         if p is not None:
             total["by_precision"][p] = row
+    # P1's divide against torch.div, settled: SETTLE_ROUNDS rounds in turns
+    # (probe_div, torch.div, torch.div, probe_div), each reading 20 replays
+    # of one graph; level where the medians' gap is inside both spreads.
+    fns = {"probe_div": functools.partial(probes.probe_div, num, den),
+           "torch.div": functools.partial(torch.div, num, den)}
+    runs = {key: [] for key in fns}
+    for _ in range(SETTLE_ROUNDS):
+        for key in ("probe_div", "torch.div", "torch.div", "probe_div"):
+            runs[key].append(graph_us(fns[key], 20))
+    med = {key: statistics.median(v) for key, v in runs.items()}
+    spread = {key: max(v) - min(v) for key, v in runs.items()}
+    gap = med["probe_div"] - med["torch.div"]
+    verdict = ("level" if abs(gap) <= min(spread.values()) else
+               "slower" if gap > max(spread.values()) else
+               "faster" if -gap > max(spread.values()) else "unsettled")
+    log(f"[18] {card}: probe_div against torch.div on the probe's {tuple(num.shape)} operands "
+        f"over {SETTLE_ROUNDS} rounds in turns, {2 * SETTLE_ROUNDS} readings each (20 graph "
+        f"replays each): " + "; ".join(
+            f"{key} median {med[key]:.3f} us, min {min(v):.3f}, max {max(v):.3f}, spread "
+            f"{spread[key]:.3f}" for key, v in runs.items())
+        + f"; gap {gap:.3f} us: {verdict} (level: the gap inside both spreads; slower or "
+          "faster: beyond both)")
+    times["probe_div"]["settled"] = {
+        "rounds": SETTLE_ROUNDS, "probe_div_median_us": med["probe_div"],
+        "torch_div_median_us": med["torch.div"], "spreads_us": spread, "verdict": verdict}
     for kernel, total in times.items():
         total["bound_by"] = "operations" if total.pop("operations") > total.pop("bytes") else "bytes"
         total["max_abs_err"] = max_err[kernel]
@@ -2077,6 +2228,8 @@ def main():
                   source="precision_probe")
         if t["by_precision"]:
             e["by_precision"] = t["by_precision"]
+        if "settled" in t:
+            e["against_torch_div"] = t["settled"]
         precision.append(e)
 
     b1 = entry("attention_fwd", 253, max_err, totals, bound_by,
@@ -2084,10 +2237,17 @@ def main():
                "plain and library issued from Python")
     b1["eager_ms"] = totals["eager_ms"]
     b1["parent_ms_same_calls"] = totals["parent_ms"]
+    b2 = entry("attention_bwd", 333, bwd_err, bwd_totals, bwd_bound_by,
+               f"one training step's 18 calls, float32, B={TIMING_BATCH}, the kernels "
+               "from CUDA graph replays in turns with the parent's where its tree is "
+               "there; eager_ms the wrapper issued from Python; plain and library "
+               "issued from Python; passes_ms by torch.profiler")
+    b2["eager_ms"] = bwd_totals["eager_ms"]
+    b2["parent_ms_same_calls"] = bwd_totals["parent_ms"]
+    b2["passes_ms"] = bwd_totals["passes_ms"]
     print(json.dumps({"kernels": [
         b1,
-        entry("attention_bwd", 333, bwd_err, bwd_totals, bwd_bound_by,
-              f"one training step's 18 calls, float32, B={TIMING_BATCH}"),
+        b2,
         entry("attention_rpos_fwd", 827, rpos_err, rpos_totals, rpos_by,
               f"one r_pos forward's 14 biased calls, float32, B={BATCH}"),
         entry("attention_rpos_bwd", 859, rpos_bwd_err, rpos_bwd_totals, rpos_bwd_by,

@@ -6,8 +6,10 @@ into `_build/<name>-<hash>.so` (the directory is git-ignored). The hash
 covers the source and the flags, so an edited source never loads a stale
 library. Only the sources in this checkout are built; nothing is fetched.
 Each build prints nvcc's `-Xptxas -v` report (registers, shared memory,
-spills) once. Each source has its own lock, so loads of different sources
-from different threads build at once, one nvcc each.
+spills) once. Each library (source and flags, by their hash) has its own
+lock, so loads of different sources from different threads build at once,
+one nvcc each, and two directories holding the same source share one
+build and one library.
 
 Building needs nvcc, which only the machine with the card has; the CPU
 paths of the port never call into this module.
@@ -28,8 +30,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()  # guards _locks
-_locks: dict[str, threading.Lock] = {}  # by source path
-_libs: dict[str, ctypes.CDLL] = {}
+_locks: dict[Path, threading.Lock] = {}  # by built library path
+_libs: dict[Path, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -69,12 +71,12 @@ def load(name: str, csrc: Path = CSRC) -> ctypes.CDLL:
     """The ctypes handle of `<csrc>/<name>.cu`, built at first use. `csrc`
     is the package's own sources but for a timing yardstick (an earlier
     version of a kernel, unpacked elsewhere), which nothing on a path loads."""
-    key = f"{Path(csrc).resolve()}/{name}"
+    target = _target(name, Path(csrc))
     with _lock:
-        lock = _locks.setdefault(key, threading.Lock())
+        lock = _locks.setdefault(target, threading.Lock())
     with lock:
-        lib = _libs.get(key)
+        lib = _libs.get(target)
         if lib is None:
             lib = ctypes.CDLL(str(_build(name, Path(csrc))))
-            _libs[key] = lib
+            _libs[target] = lib
         return lib

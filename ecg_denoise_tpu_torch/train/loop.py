@@ -7,10 +7,11 @@ appended to output.txt in the reference's format, and the reference's
 return value (train_snr_list, test_snr_list, train_rmse_list,
 test_rmse_list). The splits are put on the device once.
 
-Epoch e permutes the training split from a generator seeded by (seed, e),
-so a run resumed from a checkpoint retraces the batches of the run it
-continues: `resume_path` restores the model and optimizer and the loop
-carries on after the checkpoint's last epoch.
+Epoch e permutes the training split from a generator seeded by (seed, e).
+`resume_path` restores the model and optimizer, and then, as JAX's `fit`
+does, the loop trains `epochs` epochs counted from 0 again: epoch e takes
+the generator of (seed, e), the checkpoints are named from epoch 0 again,
+and the step count carries on from the checkpoint's.
 
 `r_pos_mode="detect"` detects the R peaks of every batch on the device
 and feeds them to the model's R-wave attention bias (`make_epoch_fns`'s
@@ -72,20 +73,17 @@ def fit(
     into the model first. Returns (state, (train_snr_list, test_snr_list,
     train_rmse_list, test_rmse_list)).
 
-    A resume carries on after the checkpoint's last epoch. A training split
-    shorter than one batch takes no step in any epoch (its train metrics are
-    NaN), so a resume on it starts from epoch 0, as JAX's `fit` always does."""
+    A resume trains `epochs` epochs after the checkpoint, counted from 0, as
+    JAX's `fit` does. A training split shorter than one batch takes no step
+    in any epoch (its train metrics are NaN)."""
     if r_pos_mode not in (None, "detect"):
         raise ValueError(f"r_pos_mode must be None or 'detect', got {r_pos_mode!r}")
     state = create_train_state(model, learning_rate, device)
     device = resolve_device(device)
     if init_variables is not None:
         state.model.load_state_dict(init_variables)
-    n_batches = len(train_noisy) // batch_size
-    start = 0
     if resume_path:
         load_checkpoint(resume_path, state)
-        start = state.step // n_batches if n_batches else 0
 
     def put(a):
         return torch.as_tensor(np.asarray(a, np.float32)).to(device)
@@ -99,7 +97,7 @@ def fit(
     train_rmse_list, test_rmse_list = [], []
     t0 = time.time()
     test_metrics = {"snr": float("nan"), "rmse": float("nan")}
-    for epoch in range(start, epochs):
+    for epoch in range(epochs):
         train_metrics = train_epoch(tr_n, tr_c, epoch_generator(seed, epoch, device),
                                     batch_size)
         test_metrics = eval_epoch(te_n, te_c, batch_size)

@@ -49,6 +49,8 @@ B1 is also held at shapes that cut across its row tiles and batch groups
 max(1, max|lse|) of the plain log-sum-exp and a second call bit-identical.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -215,6 +217,81 @@ def test_backward_ragged_batch_and_large_logits(cuda):
     for a, b in zip(grads, ref):
         assert torch.isfinite(a).all()
         assert (a - b).abs().max().item() <= LARGE_LOGIT_GRAD_TOL_OF_MAX * b.abs().max().item()
+
+
+@pytest.mark.parametrize("B,L,H", RAGGED_B1)
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernel_at_ragged_shapes(cuda, B, L, H, with_bias, dtype):
+    """B2 at shapes that cut across its row tiles, batch groups and dbias
+    tiles, against the flash-form plain backward on the forward kernel's
+    own o and lse; a second call bit-identical."""
+    q, k, v, bias = _operands(B, H, L, with_bias, dtype, cuda, seed=B + L + H)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(3)).to(cuda, dtype)
+    o, lse = attention._launch(q, k, v, bias, with_lse=True)
+    before = fused_attention.bwd_launches
+    got = attention._launch_bwd(q, k, v, bias, o, lse, g, want_dbias=with_bias)
+    again = attention._launch_bwd(q, k, v, bias, o, lse, g, want_dbias=with_bias)
+    torch.cuda.synchronize()
+    assert fused_attention.bwd_launches == before + 2
+    ref = attention_backward_reference(q, k, v, bias, o, lse, g)
+    for name, a, b in zip("q k v bias".split(), got, ref):
+        if b is None:
+            assert a is None
+            continue
+        assert a.dtype == dtype and a.shape == b.shape
+        scale = b.float().abs().max().item()
+        if L == 1 and name != "v":
+            # A softmax over one key is constant: the exact dq, dk and dbias
+            # are 0 and both sides return the rounding of the cancelled
+            # g.v - g.o, so their bars are taken of max|dv| (= max|g|), the
+            # call's one gradient that does not vanish.
+            scale = ref[2].float().abs().max().item()
+        tol = (BF16_GRAD_TOL_OF_MAX * scale if dtype == torch.bfloat16
+               else DBIAS_TOL_OF_MAX * scale if name == "bias" else GRAD_TOL)
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= tol, (name, err, tol)
+    for a, b in zip(got, again):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+# The parent commit's tree, unpacked by `git archive` under the git-ignored
+# _archive/ (absent from a plain checkout): its B2 is the yardstick.
+PARENT_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "_archive", "parent", "ecg_denoise_tpu_torch", "kernels", "csrc")
+
+
+@pytest.mark.parametrize("B,L,H", [(256, L, H) for (L, H) in STAGES] + [(37, 203, 2), (3, 7, 3)])
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernel_equals_the_parent_commits(cuda, B, L, H, with_bias, dtype):
+    """dq, dk, dv and the float32 dbias bit for bit those of the parent
+    commit's B2 on the same o, lse and g: the redesign kept the arithmetic
+    (skipped where the parent's tree is not unpacked)."""
+    if not os.path.isdir(PARENT_CSRC):
+        pytest.skip("the parent commit's tree is not under _archive/parent")
+    from pathlib import Path
+
+    from ecg_denoise_tpu_torch.kernels.attention import DTYPE_CODES, bind, ptr, raise_on
+
+    q, k, v, bias = _operands(B, H, L, with_bias, dtype, cuda, seed=L + H)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(4)).to(cuda, dtype)
+    o, lse = attention._launch(q, k, v, bias, with_lse=True)
+    outs = []
+    for lib in (attention._bwd_library(),
+                bind("attention_bwd", "ecg_attention_bwd", 12, csrc=Path(PARENT_CSRC))):
+        dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+        c = torch.empty(B, H, L, device=cuda)
+        dbias = torch.empty(1, H, L, L, device=cuda) if with_bias else None
+        err = lib.ecg_attention_bwd(ptr(q), ptr(k), ptr(v), ptr(bias), ptr(g), ptr(o),
+                                    ptr(lse), ptr(c), ptr(dq), ptr(dk), ptr(dv), ptr(dbias),
+                                    B, H, L, 4, DTYPE_CODES[dtype], cuda.index or 0,
+                                    torch.cuda.current_stream().cuda_stream)
+        raise_on(lib, err, "attention backward")
+        outs.append((dq, dk, dv, dbias))
+    torch.cuda.synchronize()
+    for name, a, b in zip("q k v bias".split(), *outs):
+        assert (a is None and b is None) or torch.equal(a, b), name
 
 
 def _seeded_ralenet(device):
@@ -543,6 +620,26 @@ def test_probe_div_is_ieee_division(cuda, shape):
     got = probe_div(n, d)
     torch.cuda.synchronize()
     assert torch.equal(got, torch.div(n, d)) and torch.equal(got, probe_div(n, d))
+    assert np.array_equal(got.cpu().numpy().view(np.uint32), (num / den).view(np.uint32))
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_probe_div_at_a_ragged_size_and_offset(cuda, offset):
+    """The divide at 7 x 1029 elements (no multiple of a block or of a
+    vector), its operands 16-byte aligned or 4 bytes off: bit for bit
+    torch.div and numpy."""
+    from ecg_denoise_tpu_torch.kernels.precision import probe_div
+
+    rng = np.random.default_rng(5)
+    shape = (7, 1029)
+    num = rng.standard_normal(shape).astype(np.float32)
+    den = (0.5 + rng.random(shape)).astype(np.float32)
+    n, d = (torch.cat([torch.zeros(offset), torch.from_numpy(x).ravel()]).to(cuda)[offset:]
+            .view(shape) for x in (num, den))
+    assert n.data_ptr() % 16 == 4 * offset
+    got = probe_div(n, d)
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.div(n, d))
     assert np.array_equal(got.cpu().numpy().view(np.uint32), (num / den).view(np.uint32))
 
 

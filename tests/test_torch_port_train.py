@@ -381,9 +381,16 @@ def _fit(model, tmp, epochs, **kw):
 
 
 def test_fit_resumes_exactly_and_writes_the_result_line(tmp_path):
-    """Two epochs straight through, against one epoch, a checkpoint, and a
-    second epoch resumed from it in a new model: the same parameters, bit
-    for bit (the epoch's permutation comes from (seed, epoch))."""
+    """A resume trains `epochs` epochs after the checkpoint, counted from 0
+    as JAX's `fit` does (ecg_denoise_tpu/train/loop.py:75-76,122,140-141):
+    bit for bit `load_checkpoint` followed by `train_epoch` on
+    `epoch_generator(seed, e)` for e = 0, 1, with a history of both epochs,
+    the step count carried on from the checkpoint's and the checkpoints
+    named from epoch 0 again, as JAX names them."""
+    from ecg_denoise_tpu.train.checkpoint import checkpoint_path as jax_checkpoint_path
+    from ecg_denoise_tpu_torch.train import load_checkpoint
+    from ecg_denoise_tpu_torch.train.loop import epoch_generator
+
     straight, hist = _fit(_model(), tmp_path / "a", 2)
     assert [len(h) for h in hist] == [2, 2, 2, 2]
     assert all(np.isfinite(hist[1]))
@@ -393,12 +400,31 @@ def test_fit_resumes_exactly_and_writes_the_result_line(tmp_path):
     _fit(_model(), tmp_path / "b", 1)
     ckpt = find_model(str(tmp_path / "b" / "model_save" / "ralenet"), "ralenet")
     assert ckpt.endswith("ralenet_0_bw_intensity-4.pth")
-    resumed, hist_b = _fit(_model(seed=1), tmp_path / "c", 2, resume_path=ckpt)
-    assert [len(h) for h in hist_b] == [1, 1, 1, 1]  # only the second epoch
-    assert resumed.step == straight.step == 4
-    for key, val in straight.model.state_dict().items():
+    resumed, hist_c = _fit(_model(seed=1), tmp_path / "c", 2, resume_path=ckpt)
+    assert [len(h) for h in hist_c] == [2, 2, 2, 2]  # `epochs` epochs, from 0
+    assert resumed.step == 2 + 2 * 2  # the checkpoint's 2 steps, then 2 epochs of 2
+
+    noisy, clean = (torch.from_numpy(a) for a in _data(12, seed=8))
+    by_hand = create_train_state(_model(seed=2), device="cpu")
+    load_checkpoint(ckpt, by_hand)
+    train_epoch, eval_epoch = make_epoch_fns(by_hand.model, by_hand.optimizer)
+    hist_hand = ([], [], [], [])
+    for epoch in range(2):
+        tr = train_epoch(noisy[:8], clean[:8], epoch_generator(5, epoch, "cpu"), BATCH)
+        te = eval_epoch(noisy[8:], clean[8:], BATCH)
+        for h, x in zip(hist_hand, (tr["snr"], te["snr"], tr["rmse"], te["rmse"])):
+            h.append(x)
+    assert by_hand.step == resumed.step
+    for key, val in by_hand.model.state_dict().items():
         torch.testing.assert_close(resumed.model.state_dict()[key], val, atol=0,
                                    rtol=0, msg=key)
+    assert repr(resumed.optimizer.state_dict()) == repr(by_hand.optimizer.state_dict())
+    np.testing.assert_array_equal(np.asarray(hist_c), np.asarray(hist_hand))
+    names = sorted(os.listdir(tmp_path / "c" / "model_save" / "ralenet"))
+    jax_names = sorted(os.path.basename(jax_checkpoint_path(
+        "d", "ralenet", e, "bw", -4)).replace(".msgpack", ".pth") for e in range(2))
+    assert names == jax_names == ["ralenet_0_bw_intensity-4.pth",
+                                  "ralenet_1_bw_intensity-4.pth"]
     assert find_model(str(tmp_path / "a" / "model_save" / "ralenet")).endswith(
         "ralenet_1_bw_intensity-4.pth")
 
