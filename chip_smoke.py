@@ -13,9 +13,9 @@ and nothing falls back to the CPU):
    from the checkout at once and prints their ptxas reports (registers,
    shared memory, spills by kernel instantiation). Where the parent
    commit's tree is unpacked under _archive/parent (by `git archive`; a
-   plain checkout has none), its B1, B2 and P1 are built beside them as
-   yardsticks, never on a path. ECG_ATTN_DENSE is cleared: phases 1-13
-   drive the default route.
+   plain checkout has none), its B1, B2, B3, B4 and P1 are built beside
+   them as yardsticks, never on a path. ECG_ATTN_DENSE is cleared: phases
+   1-13 drive the default route.
 2. Kernel vs plain version on the card, at the five RA-LENet stage shapes,
    with and without bias, float32 (tolerance 1e-5, TF32 off for this phase
    only) and bfloat16
@@ -73,11 +73,16 @@ and nothing falls back to the CPU):
 9. B3 (attention_rpos_fwd.cu) against its plain version at the four
    biased stage shapes (L, W, H), B = 1024, R peaks at 0, 5, L/2, L - 1 and
    random ones (windows hanging off both ends), f32 (1e-5) and bf16
-   (3 * 2^-8 of max|v|), plus a ragged B = 3 and logits near 200.
+   (3 * 2^-8 of max|v|), plus a ragged B = 3, the ragged shapes of
+   RAGGED_RPOS (B = 1, 17, 37, 1000; L = 203, 7, 1, W cut to fit) and
+   logits near 200; two calls bit-identical; and, where the parent's tree
+   is there, the output and lse equal the parent's B3 bit for bit.
 10. B4 (attention_rpos_bwd.cu) through its autograd Function against the
    plain flash backward on B3's own o and lse and, in f32, against autograd
    through the plain forward, B = 256, at the limits of phase 6 (dtoep as
-   dbias); two calls bit-identical.
+   dbias) and phase 9's cases; two calls bit-identical; and, where the
+   parent's tree is there, dq, dk, dv and the float32 dtoep equal the
+   parent's B4 bit for bit on the same o, lse and g.
 11. The r_pos serving path: the model with detected R peaks on the card
    against the CPU (1e-4), the card's detected positions equal to the
    CPU's, 14 B3 and 4 B1 launches per forward; then `cli.serve --r_pos
@@ -88,11 +93,14 @@ and nothing falls back to the CPU):
    against the CPU (the bars of phase 7) with 14 + 4 launches each way;
    12b: `cli.main --r_pos detect` trains 10 bf16 epochs, the test loss
    falls, and its checkpoint serves with r_pos="detect".
-13. r_pos times: per stage shape B3 (B = 1024) and B4 (B = 256) beside
-   their bounds, plain versions and scaled_dot_product_attention with the
-   materialised (B, H, L, L) mask (forward, and backward with the mask
-   requiring grad); Denoiser windows/s with and without r_pos, in turns;
-   the r_pos forward's and training step's device breakdown and idle share.
+13. r_pos times: per stage shape B3 (B = 1024, no lse) and B4 (B = 256)
+   from CUDA graph replays, in turns with the parent's B3 and B4 where its
+   tree is there, and the wrappers issued from Python; B4's passes' device
+   times for both (torch.profiler); their bounds, plain versions and
+   scaled_dot_product_attention with the materialised (B, H, L, L) mask
+   (forward, and backward with the mask requiring grad); Denoiser
+   windows/s with and without r_pos, in turns; the r_pos forward's and
+   training step's device breakdown and idle share.
 
 14. B5 (attention_dense_fwd.cu) against its plain version and against B1
    on the same operands: the four stage shapes the dense route takes in
@@ -242,6 +250,11 @@ PROBE_READING_RTOL = 1e-3
 # elements): (B, L, H).
 RAGGED = [(1, 256, 2), (37, 128, 4), (1000, 64, 8), (3, 203, 2), (37, 203, 1),
              (1000, 7, 3), (1, 7, 2), (3, 1, 2), (1000, 1, 5), (37, 16, 32)]
+# B3 and B4 at shapes that cut across B3's and B4's blocks (256 rows at
+# even L, 128 at odd L), B4's dtoep stages (16 elements) and lists (512),
+# with W cut to fit: (B, L, W, H).
+RAGGED_RPOS = [(1, 256, 32, 2), (17, 128, 16, 4), (37, 64, 8, 8), (1000, 32, 4, 16),
+               (37, 203, 25, 2), (1000, 7, 3, 3), (17, 1, 1, 2)]
 # lse against attention_reference's logsumexp: both take the f32 logits;
 # the kernel's row sum uses __expf and is summed in another order (1e-6
 # relative), and |lse| stays below about 20: 1e-5 of max(1, max|lse|).
@@ -376,9 +389,10 @@ def bound_terms(B, H, L, with_bias, elt):
 
 @functools.cache
 def parent_libs():
-    """The parent commit's B1, B2 and P1 libraries, built from its sources
-    under _archive/parent, or None where that tree is not there. Timing
-    yardsticks only: nothing on a path calls them, and no count moves."""
+    """The parent commit's B1, B2, B3, B4 and P1 libraries, built at once
+    (one nvcc each) from its sources under _archive/parent, or None where
+    that tree is not there. Timing yardsticks only: nothing on a path calls
+    them, and no count moves."""
     if not os.path.isdir(PARENT_CSRC):
         return None
     from pathlib import Path
@@ -386,9 +400,14 @@ def parent_libs():
     from ecg_denoise_tpu_torch.kernels.attention import bind
 
     csrc = Path(PARENT_CSRC)
-    return {"attention_fwd": bind("attention_fwd", "ecg_attention_fwd", 6, csrc=csrc),
-            "attention_bwd": bind("attention_bwd", "ecg_attention_bwd", 12, csrc=csrc),
-            "precision_probe": bind("precision_probe", "ecg_probe_dot", 3, 5, csrc=csrc)}
+    libs = {"attention_fwd": ("ecg_attention_fwd", 6, 6),
+            "attention_bwd": ("ecg_attention_bwd", 12, 6),
+            "attention_rpos_fwd": ("ecg_attention_rpos_fwd", 7, 7),
+            "attention_rpos_bwd": ("ecg_attention_rpos_bwd", 13, 7),
+            "precision_probe": ("ecg_probe_dot", 3, 5)}
+    with ThreadPoolExecutor(len(libs)) as pool:
+        futures = {name: pool.submit(bind, name, *sig, csrc=csrc) for name, sig in libs.items()}
+        return {name: future.result() for name, future in futures.items()}
 
 
 def parent_b1(q, k, v, bias):
@@ -443,6 +462,39 @@ def parent_dot(a, b, precision):
     return c
 
 
+def b3_call(lib, q, k, v, toep, W, offsets, with_lse=True):
+    """One B3 library's kernel on the same operands: (o, lse), lse float32
+    or None. No count moves."""
+    from ecg_denoise_tpu_torch.kernels.attention import DTYPE_CODES, ptr, raise_on
+
+    B, H, L, D = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty(B, H, L, dtype=torch.float32, device=q.device) if with_lse else None
+    err = lib.ecg_attention_rpos_fwd(ptr(q), ptr(k), ptr(v), ptr(toep), ptr(offsets), ptr(o),
+                                     ptr(lse), B, H, L, D, W, DTYPE_CODES[q.dtype],
+                                     q.device.index, torch.cuda.current_stream().cuda_stream)
+    raise_on(lib, err, "attention r-pos forward (yardstick call)")
+    return o, lse
+
+
+def b4_call(lib, q, k, v, toep, W, offsets, o, lse, g):
+    """One B4 library's kernels on the same operands, allocated as
+    `attention_rpos._launch_bwd` allocates: (dq, dk, dv, dtoep), dtoep
+    float32 (not cast to toep's dtype). No count moves."""
+    from ecg_denoise_tpu_torch.kernels.attention import DTYPE_CODES, ptr, raise_on
+
+    B, H, L, D = q.shape
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    c = torch.empty(B, H, L, dtype=torch.float32, device=q.device)
+    dtoep = torch.empty(1, H, L, L, dtype=torch.float32, device=q.device)
+    err = lib.ecg_attention_rpos_bwd(ptr(q), ptr(k), ptr(v), ptr(toep), ptr(offsets), ptr(g),
+                                     ptr(o), ptr(lse), ptr(c), ptr(dq), ptr(dk), ptr(dv),
+                                     ptr(dtoep), B, H, L, D, W, DTYPE_CODES[q.dtype],
+                                     q.device.index, torch.cuda.current_stream().cuda_stream)
+    raise_on(lib, err, "attention r-pos backward (yardstick call)")
+    return dq, dk, dv, dtoep
+
+
 def in_turns(first, second, calls=20):
     """µs per call of two functions from CUDA graph replays, in turns
     (first, second, second, first): the two readings of each."""
@@ -479,8 +531,8 @@ def phase_device_and_build():
         for future in [pool.submit(load) for load in loads]:
             future.result()
     log(f"[1] {len(loads)} kernel sources built and loaded in {time.perf_counter() - t0:.1f} s"
-        + ("" if parent_libs() is None else " (the last: the parent's B1, B2 and P1, built "
-           f"from {PARENT_CSRC}, timing yardsticks)"))
+        + ("" if parent_libs() is None else " (the last: the parent's B1-B4 and P1, built "
+           f"from {PARENT_CSRC}, yardsticks)"))
     return name
 
 
@@ -1093,8 +1145,8 @@ def profile_step(step, card, step_ms, iters=3, tag="8", what="float32 training s
 
 
 def pass_ms(fn, iters=5):
-    """Device ms per call of each kernel that fn() launches, by B2's pass
-    name (dq, dkdv, dbias) or kernel name (torch.profiler). A reading in
+    """Device ms per call of each kernel that fn() launches, by B2's or
+    B4's pass name (dq, dkdv, dbias, dtoep) or kernel name (torch.profiler). A reading in
     which some kernel was not recorded `iters` times is taken again, up to
     three readings (on an H100 some readings recorded one call in five);
     empty (not measured) if all three are short."""
@@ -1117,7 +1169,7 @@ def pass_ms(fn, iters=5):
         return {}
     got = {}
     for ms, _, name in kernels:
-        key = next((p for p in ("dq", "dkdv", "dbias") if f"attention_bwd_{p}_kernel" in name),
+        key = next((p for p in ("dq", "dkdv", "dbias", "dtoep") if f"_bwd_{p}_kernel" in name),
                    name[:60])
         got[key] = got.get(key, 0.0) + ms
     return got
@@ -1278,29 +1330,35 @@ def rpos_bwd_bound_terms(B, H, L, W, elt, offsets):
     return flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
+def rpos_cases(B_stage):
+    """Phases 9 and 10's cases, (B, L, W, H, dtype, shift): the four biased
+    stage shapes at B_stage in f32 and bf16, a ragged B = 3 at each in f32,
+    the ragged shapes of RAGGED_RPOS in both, and the logits lifted to
+    about 190 (trained logits reach 191.5) at the L = 32 stage."""
+    both = (torch.float32, torch.bfloat16)
+    cases = [(B_stage, L, W, H, dt, 0.0) for (L, W, H) in RPOS_CALLS for dt in both]
+    cases += [(3, L, W, H, torch.float32, 0.0) for (L, W, H) in RPOS_CALLS]
+    cases += [(B, L, W, H, dt, 0.0) for (B, L, W, H) in RAGGED_RPOS for dt in both]
+    return cases + [(B_stage, 32, 4, 16, torch.float32, 190.0)]
+
+
 def phase_rpos_kernel_vs_plain():
-    """B3 against its plain version at the four biased stage shapes."""
+    """B3 against its plain version at the four biased stage shapes and
+    ragged ones; a second call bit-identical; and, where its tree is there,
+    the output and lse bit for bit the parent's B3's."""
     from ecg_denoise_tpu_torch import full_float32
-    from ecg_denoise_tpu_torch.kernels.attention_rpos import (
-        attention_rpos_reference,
-        fused_attention_rpos,
-    )
+    from ecg_denoise_tpu_torch.kernels import attention_rpos as ar
 
     saved = tf32_flags()
     full_float32()
     gen = torch.Generator().manual_seed(10)
     max_err = 0.0
-    cases = [(BATCH, L, W, H, dt, 0.0) for (L, W, H) in RPOS_CALLS
-             for dt in (torch.float32, torch.bfloat16)]
-    cases += [(3, L, W, H, torch.float32, 0.0) for (L, W, H) in RPOS_CALLS]
-    # Trained logits reach 191.5: a window's bias lifted to about 190.
-    cases += [(BATCH, 32, 4, 16, torch.float32, 190.0)]
-    for B, L, W, H, dtype, shift in cases:
+    for B, L, W, H, dtype, shift in rpos_cases(BATCH):
         (q, k, v, toep), offsets = rpos_operands(B, L, W, H, dtype, gen)
         toep = toep + shift
-        out = fused_attention_rpos(q, k, v, toep, W, offsets)
+        out = ar.fused_attention_rpos(q, k, v, toep, W, offsets)
         torch.cuda.synchronize()
-        ref = attention_rpos_reference(q, k, v, toep, W, offsets)
+        ref = ar.attention_rpos_reference(q, k, v, toep, W, offsets)
         err = (out.float() - ref.float()).abs().max().item()
         if shift:
             tol = LARGE_LOGIT_TOL
@@ -1309,11 +1367,26 @@ def phase_rpos_kernel_vs_plain():
             max_err = max(max_err, err)
         else:
             tol = BF16_TOL_OF_MAX_V * v.float().abs().max().item()
+        again = ar.fused_attention_rpos(q, k, v, toep, W, offsets)
+        same = torch.equal(out, again)
+        parent = ""
+        if parent_libs():
+            args = (q, k, v, toep, W, offsets)
+            new, old = b3_call(ar._library(), *args), b3_call(parent_libs()["attention_rpos_fwd"],
+                                                              *args)
+            equal = [name for name, a, b in zip(("o", "lse"), new, old) if torch.equal(a, b)]
+            parent = f"; bit-identical to the parent's B3: {', '.join(equal) or 'none'}"
+            check(len(equal) == 2 and torch.equal(new[0], out),
+                  "B3 is not the parent's B3 bit for bit")
         log(f"[9] B3 B={B} L={L} W={W} H={H} {str(dtype)[6:]}"
-            f"{f' toep+{shift:.0f}' if shift else ''}: max_abs_err={err:.3e} (tol {tol:.3e})")
+            f"{f' toep+{shift:.0f}' if shift else ''}: max_abs_err={err:.3e} (tol {tol:.3e}); "
+            f"a second call bit-identical: {same}{parent}")
         check(out.shape == q.shape and out.dtype == dtype, "B3 output shape or dtype")
         check(bool(torch.isfinite(out).all()) and err <= tol,
               "B3 disagrees with its plain version")
+        check(same, "two B3 calls differ")
+    if not parent_libs():
+        log("[9] the parent's B3 not compared (no tree under _archive/parent)")
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
     return max_err
 
@@ -1321,7 +1394,9 @@ def phase_rpos_kernel_vs_plain():
 def phase_rpos_backward_vs_plain():
     """B4, through the autograd Function, against the plain flash backward
     on B3's own o and lse and, in float32, against autograd through the
-    plain forward; two calls bit-identical."""
+    plain forward; two calls bit-identical; and, where its tree is there,
+    dq, dk, dv and the float32 dtoep bit for bit the parent's B4's on the
+    same o, lse and g."""
     from ecg_denoise_tpu_torch import full_float32
     from ecg_denoise_tpu_torch.kernels import attention_rpos as ar
 
@@ -1329,11 +1404,7 @@ def phase_rpos_backward_vs_plain():
     full_float32()
     gen = torch.Generator().manual_seed(11)
     max_err = 0.0
-    cases = [(TIMING_BATCH, L, W, H, dt, 0.0) for (L, W, H) in RPOS_CALLS
-             for dt in (torch.float32, torch.bfloat16)]
-    cases += [(3, L, W, H, torch.float32, 0.0) for (L, W, H) in RPOS_CALLS]
-    cases += [(TIMING_BATCH, 32, 4, 16, torch.float32, 190.0)]
-    for B, L, W, H, dtype, shift in cases:
+    for B, L, W, H, dtype, shift in rpos_cases(TIMING_BATCH):
         ops, offsets = rpos_operands(B, L, W, H, dtype, gen)
         ops[3] = ops[3] + shift
         g = torch.randn(ops[0].shape, generator=gen).to("cuda", dtype)
@@ -1359,6 +1430,11 @@ def phase_rpos_backward_vs_plain():
         for ref_name, ref in refs.items():
             for name, a, b in zip(("dq", "dk", "dv", "dtoep"), got, ref):
                 scale = b.float().abs().max().item()
+                if L == 1 and name != "dv":
+                    # As in phase 6: over one key the exact dq, dk and dtoep
+                    # are 0, and both sides return the rounding of the
+                    # cancelled g.v - g.o; their bars are taken of max|dv|.
+                    scale = ref[2].float().abs().max().item()
                 err = (a.float() - b.float()).abs().max().item()
                 if shift:
                     tol = LARGE_LOGIT_GRAD_TOL_OF_MAX * scale
@@ -1372,10 +1448,22 @@ def phase_rpos_backward_vs_plain():
                     max_err = max(max_err, err)
         _, again = grads()
         same = all(torch.equal(a, b) for a, b in zip(got, again))
+        parent = ""
+        if parent_libs():
+            # The raw kernels' outputs, dtoep in float32 before any cast.
+            args = (*ops, W, offsets, out, lse, g)
+            new = b4_call(ar._bwd_library(), *args)
+            old = b4_call(parent_libs()["attention_rpos_bwd"], *args)
+            equal = [name for name, a, b in zip(("dq", "dk", "dv", "dtoep"), new, old)
+                     if torch.equal(a, b)]
+            parent = f"; bit-identical to the parent's B4: {', '.join(equal) or 'none'}"
+            check(len(equal) == 4, "B4 is not the parent's B4 bit for bit")
         log(f"[10] B4 B={B} L={L} W={W} H={H} {str(dtype)[6:]}"
             f"{f' toep+{shift:.0f}' if shift else ''}: " + ", ".join(errs)
-            + f"; a second call bit-identical: {same}")
+            + f"; a second call bit-identical: {same}{parent}")
         check(same, "two B4 calls differ")
+    if not parent_libs():
+        log("[10] the parent's B4 not compared (no tree under _archive/parent)")
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
     return max_err
 
@@ -1512,18 +1600,45 @@ def phase_rpos_times(gpu_model, cpu_model, card):
     from ecg_denoise_tpu_torch.kernels import attention_rpos as ar
     from ecg_denoise_tpu_torch.kernels.attention import fused_attention
     from ecg_denoise_tpu_torch.models import build_model
+    from ecg_denoise_tpu_torch.probes.floor import graph_us
     from ecg_denoise_tpu_torch.serving import Denoiser
     from ecg_denoise_tpu_torch.train import create_train_state, train_step
 
     gen = torch.Generator().manual_seed(17)
-    fwd = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    has_parent = parent_libs() is not None
+    fwd = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "eager_ms": 0.0,
+           "parent_ms": 0.0 if has_parent else None}
     bwd = dict(fwd)
     limits = {"fwd": {"operations": 0.0, "bytes": 0.0},
               "bwd": {"operations": 0.0, "bytes": 0.0}}
+    passes = {"this": {}, "parent": {}}  # B4's device ms per step by pass (profiler)
+
+    def kernel_times(name, this, parent):
+        """(this ms, parent ms or None, a note): CUDA graph replays of 20
+        calls, in turns with the parent's kernel where its tree is there."""
+        if parent is None:
+            return graph_us(this, 20) / 1e3, None, (
+                f", the parent's {name} not measured (no tree under _archive/parent)")
+        old, new = in_turns(parent, this)
+        return statistics.mean(new) / 1e3, statistics.mean(old) / 1e3, (
+            f", the parent's {name} {statistics.mean(old) / 1e3:.4f} ms (graph replays in "
+            f"turns, parent {old[0]:.1f} / {old[1]:.1f} us, this {new[0]:.1f} / {new[1]:.1f} us)")
+
+    def add(totals, key_times, calls):
+        for key, t in key_times:
+            if totals[key] is not None:
+                totals[key] += calls * t
+
     for dtype in (torch.float32, torch.bfloat16):
         for (L, W, H), calls in RPOS_CALLS.items():
             (q, k, v, toep), offsets = rpos_operands(BATCH, L, W, H, dtype, gen)
-            ms = cuda_ms(lambda: ar.fused_attention_rpos(q, k, v, toep, W, offsets), 20)
+            args = (q, k, v, toep, W, offsets)
+            # The serving path's call: no lse.
+            ms, parent, turns = kernel_times(
+                "B3", functools.partial(b3_call, ar._library(), *args, with_lse=False),
+                functools.partial(b3_call, parent_libs()["attention_rpos_fwd"], *args,
+                                  with_lse=False) if has_parent else None)
+            eager = cuda_ms(lambda: ar.fused_attention_rpos(q, k, v, toep, W, offsets), 20)
             no_bias = cuda_ms(lambda: fused_attention(q, k, v), 20)
             plain = cuda_ms(lambda: ar.attention_rpos_reference(q, k, v, toep, W, offsets), 5)
             mask = ar.materialize_rpos_bias(toep, W, offsets)
@@ -1532,14 +1647,15 @@ def phase_rpos_times(gpu_model, cpu_model, card):
             t_ops, t_bytes = rpos_bound_terms(BATCH, H, L, W, q.element_size(), offsets)
             bnd = max(t_ops, t_bytes)
             log(f"[13] {card}: B3 attention_rpos_fwd {str(dtype)[6:]} B={BATCH} L={L} "
-                f"W={W} H={H}: kernel {ms:.4f} ms, bound {bnd:.4f} ms (operations "
-                f"{t_ops:.4f} at the f32 CUDA-core peak, bytes {t_bytes:.4f}), plain "
-                f"{plain:.4f} ms, sdpa with the (B, H, L, L) mask {lib:.4f} ms, B1 "
-                f"without any bias {no_bias:.4f} ms; {calls} calls per forward")
+                f"W={W} H={H}: kernel {ms:.4f} ms (graph replays; the wrapper issued from "
+                f"Python {eager:.4f} ms), bound {bnd:.4f} ms (operations {t_ops:.4f} at the "
+                f"f32 CUDA-core peak, bytes {t_bytes:.4f}), plain {plain:.4f} ms, sdpa with "
+                f"the (B, H, L, L) mask {lib:.4f} ms, B1 without any bias {no_bias:.4f} ms"
+                f"{turns}; {calls} calls per forward")
             if dtype == torch.float32:
-                for key, t in (("ms", ms), ("plain_ms", plain), ("bound_ms", bnd),
-                               ("library_ms", lib)):
-                    fwd[key] += calls * t
+                add(fwd, (("ms", ms), ("plain_ms", plain), ("bound_ms", bnd),
+                          ("library_ms", lib), ("eager_ms", eager), ("parent_ms", parent)),
+                    calls)
                 limits["fwd"]["operations"] += calls * t_ops
                 limits["fwd"]["bytes"] += calls * t_bytes
             del mask
@@ -1548,9 +1664,14 @@ def phase_rpos_times(gpu_model, cpu_model, card):
             ops, offsets = rpos_operands(B, L, W, H, dtype, gen)
             g = torch.randn(ops[0].shape, generator=gen).to("cuda", dtype)
             o, lse = ar._launch(*ops, W, offsets, with_lse=True)
-            ms = cuda_ms(lambda: ar._launch_bwd(*ops, W, offsets, o, lse, g), 20)
-            plain = cuda_ms(lambda: ar.attention_rpos_backward_reference(
-                *ops, W, offsets, o, lse, g), 5)
+            args = (*ops, W, offsets, o, lse, g)
+            kernels = {"this": functools.partial(b4_call, ar._bwd_library(), *args)}
+            if has_parent:
+                kernels["parent"] = functools.partial(
+                    b4_call, parent_libs()["attention_rpos_bwd"], *args)
+            ms, parent, turns = kernel_times("B4", kernels["this"], kernels.get("parent"))
+            eager = cuda_ms(lambda: ar._launch_bwd(*args), 20)
+            plain = cuda_ms(lambda: ar.attention_rpos_backward_reference(*args), 5)
             qkv = [t.detach().requires_grad_() for t in ops[:3]]
             mask = ar.materialize_rpos_bias(ops[3], W, offsets).requires_grad_()
 
@@ -1561,25 +1682,43 @@ def phase_rpos_times(gpu_model, cpu_model, card):
             lib = cuda_ms(lambda: torch.autograd.grad(sdpa(), qkv + [mask], g), 20) - lib_fwd
             t_ops, t_bytes = rpos_bwd_bound_terms(B, H, L, W, ops[0].element_size(), offsets)
             bnd = max(t_ops, t_bytes)
-            log(f"[13] {card}: B4 attention_rpos_bwd {str(dtype)[6:]} B={B} L={L} W={W} "
-                f"H={H}: kernel {ms:.4f} ms, bound {bnd:.4f} ms (operations {t_ops:.4f}, "
-                f"bytes {t_bytes:.4f}), plain {plain:.4f} ms, sdpa backward with a "
-                f"grad-requiring (B, H, L, L) mask {lib:.4f} ms ((fwd+bwd) - fwd); "
-                f"{calls} calls per step")
+            by_pass = ""
             if dtype == torch.float32:
-                for key, t in (("ms", ms), ("plain_ms", plain), ("bound_ms", bnd),
-                               ("library_ms", lib)):
-                    bwd[key] += calls * t
+                for who, fn in kernels.items():
+                    got = pass_ms(fn)
+                    by_pass += f"; {who} by pass " + (", ".join(
+                        f"{name} {t:.4f}" for name, t in got.items()) or "not measured")
+                    for name, t in got.items():
+                        passes[who][name] = passes[who].get(name, 0.0) + calls * t
+            log(f"[13] {card}: B4 attention_rpos_bwd {str(dtype)[6:]} B={B} L={L} W={W} "
+                f"H={H}: kernel {ms:.4f} ms (graph replays; the wrapper issued from Python "
+                f"{eager:.4f} ms), bound {bnd:.4f} ms (operations {t_ops:.4f}, bytes "
+                f"{t_bytes:.4f}), plain {plain:.4f} ms, sdpa backward with a grad-requiring "
+                f"(B, H, L, L) mask {lib:.4f} ms ((fwd+bwd) - fwd){turns}{by_pass} (device "
+                f"ms, torch.profiler); {calls} calls per step")
+            if dtype == torch.float32:
+                add(bwd, (("ms", ms), ("plain_ms", plain), ("bound_ms", bnd),
+                          ("library_ms", lib), ("eager_ms", eager), ("parent_ms", parent)),
+                    calls)
                 limits["bwd"]["operations"] += calls * t_ops
                 limits["bwd"]["bytes"] += calls * t_bytes
             del mask
     by = {k: max(v, key=v.get) for k, v in limits.items()}
-    log(f"[13] {card}: B3 float32, one forward's 14 calls at B={BATCH}: kernel "
-        f"{fwd['ms']:.4f} ms, bound {fwd['bound_ms']:.4f} ms ({by['fwd']}), plain "
-        f"{fwd['plain_ms']:.4f} ms, sdpa {fwd['library_ms']:.4f} ms")
-    log(f"[13] {card}: B4 float32, one step's 14 calls at B={TIMING_BATCH}: kernel "
-        f"{bwd['ms']:.4f} ms, bound {bwd['bound_ms']:.4f} ms ({by['bwd']}), plain "
-        f"{bwd['plain_ms']:.4f} ms, sdpa backward {bwd['library_ms']:.4f} ms")
+    for what, t, b, n, lib_name in (("B3", fwd, by["fwd"], f"one forward's 14 calls at B={BATCH}",
+                                     "sdpa"),
+                                    ("B4", bwd, by["bwd"],
+                                     f"one step's 14 calls at B={TIMING_BATCH}", "sdpa backward")):
+        parent = "not measured" if t["parent_ms"] is None else f"{t['parent_ms']:.4f} ms"
+        log(f"[13] {card}: {what} float32, {n}: kernel {t['ms']:.4f} ms (graph replays; the "
+            f"wrapper issued from Python {t['eager_ms']:.4f} ms), the parent's {what} {parent} "
+            f"(in turns), bound {t['bound_ms']:.4f} ms ({b}), plain {t['plain_ms']:.4f} ms, "
+            f"{lib_name} {t['library_ms']:.4f} ms")
+    for who, got in passes.items():
+        if got:
+            overlap = "; the passes run side by side, so these overlap" if who == "this" else ""
+            log(f"[13] {card}: B4 float32, {who}'s device ms per step by pass "
+                f"(torch.profiler{overlap}): " + ", ".join(f"{n} {t:.4f}" for n, t in got.items()))
+    bwd["passes_ms"] = {who: got for who, got in passes.items() if got}
 
     # Serving, in turns: without r_pos, with, with, without.
     bf16_model = build_model("ralenet", dtype=torch.bfloat16).eval()
@@ -2245,13 +2384,24 @@ def main():
     b2["eager_ms"] = bwd_totals["eager_ms"]
     b2["parent_ms_same_calls"] = bwd_totals["parent_ms"]
     b2["passes_ms"] = bwd_totals["passes_ms"]
+    b3 = entry("attention_rpos_fwd", 827, rpos_err, rpos_totals, rpos_by,
+               f"one r_pos forward's 14 biased calls, float32, B={BATCH}, no lse, the kernels "
+               "from CUDA graph replays in turns with the parent's where its tree is there; "
+               "eager_ms the wrapper issued from Python; plain and library issued from Python")
+    b4 = entry("attention_rpos_bwd", 859, rpos_bwd_err, rpos_bwd_totals, rpos_bwd_by,
+               f"one r_pos training step's 14 biased calls, float32, B={TIMING_BATCH}, the "
+               "kernels from CUDA graph replays in turns with the parent's where its tree is "
+               "there; eager_ms the wrapper issued from Python; plain and library issued from "
+               "Python; passes_ms by torch.profiler")
+    for e, t in ((b3, rpos_totals), (b4, rpos_bwd_totals)):
+        e["eager_ms"] = t["eager_ms"]
+        e["parent_ms_same_calls"] = t["parent_ms"]
+    b4["passes_ms"] = rpos_bwd_totals["passes_ms"]
     print(json.dumps({"kernels": [
         b1,
         b2,
-        entry("attention_rpos_fwd", 827, rpos_err, rpos_totals, rpos_by,
-              f"one r_pos forward's 14 biased calls, float32, B={BATCH}"),
-        entry("attention_rpos_bwd", 859, rpos_bwd_err, rpos_bwd_totals, rpos_bwd_by,
-              f"one r_pos training step's 14 biased calls, float32, B={TIMING_BATCH}"),
+        b3,
+        b4,
         dense,
         null,
         *precision,

@@ -27,60 +27,99 @@
 // What bounds it: as for attention_bwd.cu, per (b, h) the work is
 // 2*(5*L*L*D + 3*L*L) flops and L*L exps, with D = 4 below every
 // tensor-core shape, so the products run on the CUDA cores in f32; by
-// bytes it moves q, k, v, g, o, dq, dk, dv, lse, toep, offsets and dtoep
-// once. Operations bound it at L >= 128 and bytes below. The per-window
-// bias is never built in memory; the dtoep pass works only where a window
-// can reach, the band |l - m| < W, and only for the b whose window holds
-// both l and m.
+// bytes it moves q, k, v, g, o, dq, dk, dv, lse, the toep entries the
+// windows reach, offsets and dtoep once. Operations bound it at L >= 128
+// and bytes below. The per-window bias is never built in memory.
 //
-// Design (a simple correct first version, three launches, as
-// attention_bwd.cu; none of the TPU layout is kept — no (B, H, D, L)
-// transpose, no lane packing, no pre-transposed packed toep):
-// * dq pass: one thread per query row, K and V of the block's heads staged
-//   in shared memory. A row inside its window adds toep[h, l, m] for the
-//   keys m of the window only, a row outside it adds nothing (as in the
-//   forward). Each thread also writes its row's c to a float32 (B, H, L)
-//   scratch for the two later passes.
-// * dk/dv pass: one thread per key row m, q, g, lse and c of the block's
-//   heads staged in shared memory. A key inside its window adds
-//   toep[h, l, m] for the query rows l of the window, read by column:
-//   neighbouring threads read neighbouring addresses.
-// * dtoep pass: one thread per (h, l, m). Outside the band |l - m| < W no
-//   window holds both l and m, so the thread writes 0. Inside it, the
-//   thread loops b = 0 .. B-1 in order, skips the b whose window misses l
-//   or m, and adds ds[b, h, l, m] recomputed from q, k, v, g, lse and c.
-//   The TPU walks the batch on a sequential grid with the output block as
-//   accumulator; Hopper's blocks run in no order, so the loop inside one
-//   thread takes its place.
-// Every output element is summed by one thread in one fixed order: no
-// atomics, and a call gives bit-identical results every time.
+// The first version (three launches, a thread a row in the dq and dk/dv
+// passes, a thread per (h, l, m) looping over the batch in the dtoep pass)
+// tested the window on every key of every row, and its dtoep pass, for
+// each of the B elements, recomputed the element's window from offsets[b]
+// and, for the one triple in about 15 that counts, read q, k, v, g, lse
+// and c straight from global memory, one dependent round trip at a time.
+//
+// Design: three passes, launched so that they run side by side; every
+// output element is still summed by one thread, in the first version's
+// order, with its expressions.
+// * dq pass. A thread owns R consecutive rows of one (b, h) (R = 2 when L
+//   is even, so that one shared-memory load of a key feeds both rows; 1
+//   otherwise) and a block kThreads * R rows; K and V of the block's heads
+//   are staged in shared memory as f32. The element's window [lo, hi) is
+//   computed once. The L keys go in three runs: [0, lo) and [hi, L) with
+//   no bias and no test, and [lo, hi), where a row inside the window adds
+//   toep[h, l, m] (a predicated load and add). A warp whose rows all lie
+//   outside their windows makes one bias-free run. In RA-LENet a warp's
+//   rows share one batch element (H * L = 512), so the runs are uniform
+//   across the warp. Each thread writes its rows' c to the float32
+//   (B, H, L) scratch.
+// * dk/dv pass, its transpose: a thread owns R keys, the block stages q,
+//   g and the (lse, c) pairs of its heads, and the L query rows go in the
+//   same three runs; a key inside the window adds toep[h, l, m] read by
+//   column (neighbouring lanes, neighbouring addresses).
+// * dtoep pass. A block owns one head and a tile of 32 rows (a lane a row)
+//   by 4 key columns (a warp a column). A tile wholly outside the
+//   band |l - m| < W, where no window holds both l and m, writes zeros and
+//   stops. Otherwise the block computes the windows of the batch, 512
+//   elements at a time, and lists in order the elements whose window meets
+//   both its rows and its columns (a ballot and a prefix over the block).
+//   It walks that list in stages of 16 elements through a ring of three
+//   cp.async buffers, staging of each listed element only the rows and
+//   columns inside its window. An element adds to the accumulator of
+//   (l, m) only where its window holds both: the row test is a lane's,
+//   the column test the warp's (a branch). Each accumulator still sums its
+//   contributing b in ascending order with fmaf(p, g.v - c, acc) after
+//   __expf(q.k + t - lse).
+// * Side by side. The dk/dv and dtoep passes form c = g . o from g and o
+//   as the dq pass does, so no pass reads another's output. The dtoep pass
+//   (a few microseconds of waiting on memory per call, whatever the shape)
+//   is launched first; the dq and then the dk/dv pass follow by
+//   programmatic dependent launch: each may start as soon as every block
+//   of the one before it has started, on the SMs that one leaves free, and
+//   waits for it to complete only before its own threads exit, so the
+//   three complete in order and a later kernel of the stream sees all of
+//   their writes. At the small stage shapes the three passes' latencies
+//   now overlap instead of adding up.
+// * Arithmetic as the first version: dq, dk, dv and dtoep are its outputs
+//   bit for bit. No atomics, no TF32, no cross-block reduction: a call
+//   gives bit-identical results every time.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+#include <type_traits>
+
 namespace {
 
 constexpr int kD = 4;
-constexpr int kRows = 128;
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxL = 256;
-constexpr int kToepThreads = 256;
+constexpr int kToepElems = 16;    // batch elements of one dtoep stage
+constexpr int kToepDepth = 3;     // dtoep stages in flight: the ring's buffers
+constexpr int kToepCols = kWarps;  // key columns of a dtoep tile: a warp a column
+constexpr int kScan = 512;        // elements one dtoep list covers: 4 a thread
+constexpr int kScanRounds = kScan / kThreads;
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+__device__ __forceinline__ float4 to_float4(float4 x) { return x; }
+
+__device__ __forceinline__ float4 to_float4(uint2 raw) {  // 4 bf16, low first
+  return make_float4(__uint_as_float(raw.x << 16), __uint_as_float(raw.x & 0xffff0000u),
+                     __uint_as_float(raw.y << 16), __uint_as_float(raw.y & 0xffff0000u));
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(p);
-  const float2 a = __bfloat1622float2(p2[0]);
-  const float2 b = __bfloat1622float2(p2[1]);
-  return make_float4(a.x, a.y, b.x, b.y);
+// One (b, h, l) row of 4 operand values, in the dtype's storage type.
+template <typename T> struct Row;
+template <> struct Row<float> { using type = float4; };
+template <> struct Row<__nv_bfloat16> { using type = uint2; };
+
+template <typename T>
+__device__ __forceinline__ float4 load4(const T* p) {
+  return to_float4(*reinterpret_cast<const typename Row<T>::type*>(p));
 }
 
-__device__ __forceinline__ float load1(const float* p) { return *p; }
-
-__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
@@ -108,207 +147,526 @@ __device__ __forceinline__ void fma4(float a, float4 x, float4& acc) {
   acc.w = fmaf(a, x.w, acc.w);
 }
 
-// Rows one block may need to stage: kRows consecutive rows span at most
-// ceil((kRows - 1) / L) + 1 heads of L rows each.
-__host__ __device__ __forceinline__ int head_capacity(int L) {
-  return ((kRows - 1 + L - 1) / L + 1) * L;
+// cp.async of one operand row (16 bytes f32, 8 bytes bf16) or one f32.
+template <typename T>
+__device__ __forceinline__ void cp_async_row(void* dst, const T* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (sizeof(T) == 4) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
+  }
+}
+
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N of this thread's newest commit groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Programmatic dependent launch (sm_90): let the stream's next kernel,
+// launched with programmatic stream serialization, start on the SMs this
+// grid leaves free; and wait until the stream's previous grid has
+// completed and its writes are visible.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wait_previous_grid() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// The dtoep pass's ring: kToepDepth stage buffers, each `rows` operand rows
+// (4 values of T) then `scalars` f32 values; for bf16 one more buffer
+// holding a stage's rows converted to f32 (attention_bwd.cu's Stages).
+template <typename T>
+struct Stages {
+  static constexpr int kRowBytes = kD * sizeof(T);
+  unsigned char* base;
+  int rows, bytes;  // bytes: one stage buffer, 16-byte aligned
+  __host__ __device__ Stages(unsigned char* base_, int rows_, int scalars_)
+      : base(base_), rows(rows_), bytes((rows_ * kRowBytes + scalars_ * 4 + 15) / 16 * 16) {}
+  __host__ __device__ int total() const {
+    return kToepDepth * bytes + (sizeof(T) == 4 ? 0 : rows * 16);
+  }
+  __device__ unsigned char* raw(int s) const { return base + (s % kToepDepth) * bytes; }
+  __device__ float* scal(int s) const {
+    return reinterpret_cast<float*>(raw(s) + rows * kRowBytes);
+  }
+  __device__ const float4* f32(int s) const {
+    return reinterpret_cast<const float4*>(sizeof(T) == 4 ? raw(s)
+                                                          : base + kToepDepth * bytes);
+  }
+  __device__ void row(int s, int i, const T* src) const {
+    cp_async_row(raw(s) + i * kRowBytes, src);
+  }
+  __device__ void scalar(int s, int i, const float* src) const {
+    cp_async_f32(scal(s) + i, src);
+  }
+  // bf16: convert stage s's rows into the f32 buffer (rows not staged
+  // convert to values that are never used). The caller synchronises
+  // before and after.
+  __device__ void convert(int s) const {
+    if constexpr (sizeof(T) != 4) {
+      float4* dst = reinterpret_cast<float4*>(base + kToepDepth * bytes);
+      const unsigned char* src = raw(s);
+      for (int i = threadIdx.x; i < rows; i += kThreads) {
+        dst[i] = load4(reinterpret_cast<const T*>(src + i * kRowBytes));
+      }
+    }
+  }
+};
+
+// Rows one block of the dq or dk/dv pass may need to stage: kThreads * R
+// consecutive rows span at most ceil((kThreads * R - 1) / L) + 1 heads of
+// L rows each.
+__host__ __device__ __forceinline__ int head_capacity(int L, int R) {
+  return ((kThreads * R - 1 + L - 1) / L + 1) * L;
 }
 
 // The integer positions i in [0, L) with off <= i < off + W, as [lo, hi)
 // (the same test as attention_rpos_fwd.cu).
-__device__ __forceinline__ void window(float off, int W, int L, int& lo,
-                                       int& hi) {
+__device__ __forceinline__ void window(float off, int W, int L, int& lo, int& hi) {
   const float fl = static_cast<float>(L);
   lo = static_cast<int>(ceilf(fminf(fmaxf(off, 0.f), fl)));
   hi = static_cast<int>(ceilf(fminf(fmaxf(off + static_cast<float>(W), 0.f), fl)));
   if (hi < lo) hi = lo;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kRows)
+using Plain = std::false_type;
+using Biased = std::true_type;
+
+template <typename T, int R>
+__global__ void __launch_bounds__(kThreads)
 attention_rpos_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                             const T* __restrict__ v,
-                             const T* __restrict__ toep,
+                             const T* __restrict__ v, const T* __restrict__ toep,
                              const float* __restrict__ offsets,
                              const T* __restrict__ g, const T* __restrict__ o,
-                             const float* __restrict__ lse,
-                             float* __restrict__ c, T* __restrict__ dq, int H,
-                             int L, int W, int n_rows) {
-  extern __shared__ float4 smem[];
-  float4* ks = smem;
-  float4* vs = smem + head_capacity(L);
+                             const float* __restrict__ lse, float* __restrict__ c,
+                             T* __restrict__ dq, int H, int L, int W, int n_rows) {
+  launch_dependents();
+  extern __shared__ __align__(16) unsigned char smem[];
+  float4* ks = reinterpret_cast<float4*>(smem);
+  float4* vs = ks + head_capacity(L, R);
 
-  const int row0 = blockIdx.x * kRows;
-  const int row_end = min(row0 + kRows, n_rows);
+  const int row0 = blockIdx.x * (kThreads * R);
+  const int row_end = min(row0 + kThreads * R, n_rows);
   const int key0 = (row0 / L) * L;
   const int n_keys = ((row_end - 1) / L + 1) * L - key0;
-  for (int i = threadIdx.x; i < n_keys; i += kRows) {
-    ks[i] = load4(k + (key0 + i) * kD);
-    vs[i] = load4(v + (key0 + i) * kD);
+  for (int i = threadIdx.x; i < n_keys; i += kThreads) {
+    ks[i] = load4(k + static_cast<size_t>(key0 + i) * kD);
+    vs[i] = load4(v + static_cast<size_t>(key0 + i) * kD);
   }
   __syncthreads();
 
-  const int row = row0 + threadIdx.x;
-  if (row >= n_rows) return;
-  const int bh = row / L;
-  const int l = row - bh * L;
+  // This thread: rows first .. first + R - 1, all of one (b, h) (L % R == 0).
+  const int first = row0 + threadIdx.x * R;
+  if (first >= n_rows) return;
+  const int bh = first / L;
+  const int l0 = first - bh * L;
   const int b = bh / H;
   const int h = bh - b * H;
   const float4* kh = ks + (bh * L - key0);
   const float4* vh = vs + (bh * L - key0);
-  const float4 qr = load4(q + row * kD);
-  const float4 gr = load4(g + row * kD);
-  const float cr = dot4(gr, load4(o + row * kD));
-  const float lr = lse[row];
-  c[row] = cr;
   int lo, hi;
   window(offsets[b], W, L, lo, hi);
-  if (l < lo || l >= hi) hi = lo;  // a row outside the window: no bias
-  const unsigned width = static_cast<unsigned>(hi - lo);
-  const T* trow = toep + (h * L + l) * L;
-
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int m = 0; m < L; ++m) {
-    const float4 km = kh[m];
-    float s = dot4(qr, km);
-    if (static_cast<unsigned>(m - lo) < width) s += load1(trow + m);
-    const float ds = __expf(s - lr) * (dot4(gr, vh[m]) - cr);
-    fma4(ds, km, acc);
+  float4 qr[R], gr[R], acc[R];
+  float cr[R], lr[R];
+  bool in[R];
+  const T* trow[R];
+  bool any_in = false;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const size_t row = static_cast<size_t>(first + i);
+    qr[i] = load4(q + row * kD);
+    gr[i] = load4(g + row * kD);
+    cr[i] = dot4(gr[i], load4(o + row * kD));
+    lr[i] = lse[row];
+    c[row] = cr[i];
+    in[i] = l0 + i >= lo && l0 + i < hi;  // a row outside the window: no bias
+    any_in |= in[i];
+    trow[i] = toep + (static_cast<size_t>(h) * L + l0 + i) * L;
+    acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  store4(dq + row * kD, acc);
+
+  auto run = [&](int m_begin, int m_end, auto biased) {
+#pragma unroll 4
+    for (int m = m_begin; m < m_end; ++m) {
+      const float4 km = kh[m];
+      const float4 vm = vh[m];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        float s = dot4(qr[i], km);
+        if constexpr (decltype(biased)::value) {
+          if (in[i]) s += to_float(trow[i][m]);
+        }
+        const float ds = __expf(s - lr[i]) * (dot4(gr[i], vm) - cr[i]);
+        fma4(ds, km, acc[i]);
+      }
+    }
+  };
+  // The keys in order, in three runs; a warp none of whose rows lies in
+  // its window makes one bias-free run.
+  if (__any_sync(__activemask(), any_in)) {
+    run(0, lo, Plain{});
+    run(lo, hi, Biased{});
+    run(hi, L, Plain{});
+  } else {
+    run(0, L, Plain{});
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) store4(dq + static_cast<size_t>(first + i) * kD, acc[i]);
+  wait_previous_grid();  // this grid completes after the dtoep pass
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kRows)
-attention_rpos_bwd_dkdv_kernel(const T* __restrict__ q,
-                               const T* __restrict__ k,
-                               const T* __restrict__ v,
-                               const T* __restrict__ toep,
+template <typename T, int R>
+__global__ void __launch_bounds__(kThreads)
+attention_rpos_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                               const T* __restrict__ v, const T* __restrict__ toep,
                                const float* __restrict__ offsets,
-                               const T* __restrict__ g,
-                               const float* __restrict__ lse,
-                               const float* __restrict__ c,
-                               T* __restrict__ dk, T* __restrict__ dv, int H,
-                               int L, int W, int n_rows) {
-  extern __shared__ float4 smem[];
-  const int cap = head_capacity(L);
-  float4* qs = smem;
-  float4* gs = smem + cap;
-  float* ls = reinterpret_cast<float*>(smem + 2 * cap);
-  float* cs = ls + cap;
+                               const T* __restrict__ g, const T* __restrict__ o,
+                               const float* __restrict__ lse, T* __restrict__ dk,
+                               T* __restrict__ dv, int H, int L, int W, int n_rows) {
+  launch_dependents();
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int cap = head_capacity(L, R);
+  float4* qs = reinterpret_cast<float4*>(smem);
+  float4* gs = qs + cap;
+  float2* lcs = reinterpret_cast<float2*>(qs + 2 * cap);  // (lse, c)
 
-  const int row0 = blockIdx.x * kRows;  // key rows of the flattened B*H*L
-  const int row_end = min(row0 + kRows, n_rows);
-  const int first = (row0 / L) * L;     // first query row staged
-  const int n_staged = ((row_end - 1) / L + 1) * L - first;
-  for (int i = threadIdx.x; i < n_staged; i += kRows) {
-    qs[i] = load4(q + (first + i) * kD);
-    gs[i] = load4(g + (first + i) * kD);
-    ls[i] = lse[first + i];
-    cs[i] = c[first + i];
+  const int row0 = blockIdx.x * (kThreads * R);  // key rows of the flattened B*H*L
+  const int row_end = min(row0 + kThreads * R, n_rows);
+  const int first_q = (row0 / L) * L;            // first query row staged
+  const int n_staged = ((row_end - 1) / L + 1) * L - first_q;
+  for (int i = threadIdx.x; i < n_staged; i += kThreads) {
+    const size_t row = static_cast<size_t>(first_q + i);
+    const float4 gr = load4(g + row * kD);
+    qs[i] = load4(q + row * kD);
+    gs[i] = gr;
+    lcs[i] = make_float2(lse[row], dot4(gr, load4(o + row * kD)));  // c as the dq pass's
   }
   __syncthreads();
 
-  const int row = row0 + threadIdx.x;
-  if (row >= n_rows) return;
-  const int bh = row / L;
-  const int m = row - bh * L;
+  // This thread: keys first .. first + R - 1, all of one (b, h).
+  const int first = row0 + threadIdx.x * R;
+  if (first >= n_rows) return;
+  const int bh = first / L;
+  const int m0 = first - bh * L;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int off = bh * L - first;
-  const float4 kr = load4(k + row * kD);
-  const float4 vr = load4(v + row * kD);
+  const int off = bh * L - first_q;
   int lo, hi;
   window(offsets[b], W, L, lo, hi);
-  if (m < lo || m >= hi) hi = lo;  // a key outside the window: no bias
-  const unsigned width = static_cast<unsigned>(hi - lo);
-  const T* tcol = toep + h * L * L + m;  // toep[h, l, m] is tcol[l * L]
-
-  float4 dk_acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  float4 dv_acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int l = 0; l < L; ++l) {
-    const float4 ql = qs[off + l];
-    const float4 gl = gs[off + l];
-    float s = dot4(ql, kr);
-    if (static_cast<unsigned>(l - lo) < width) s += load1(tcol + l * L);
-    const float p = __expf(s - ls[off + l]);
-    fma4(p, gl, dv_acc);
-    fma4(p * (dot4(gl, vr) - cs[off + l]), ql, dk_acc);
+  float4 kr[R], vr[R], dk_acc[R], dv_acc[R];
+  bool in[R];
+  const T* tcol[R];  // toep[h, l, m] is tcol[l * L]
+  bool any_in = false;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const size_t row = static_cast<size_t>(first + i);
+    kr[i] = load4(k + row * kD);
+    vr[i] = load4(v + row * kD);
+    in[i] = m0 + i >= lo && m0 + i < hi;  // a key outside the window: no bias
+    any_in |= in[i];
+    tcol[i] = toep + static_cast<size_t>(h) * L * L + m0 + i;
+    dk_acc[i] = dv_acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  store4(dk + row * kD, dk_acc);
-  store4(dv + row * kD, dv_acc);
+
+  auto run = [&](int l_begin, int l_end, auto biased) {
+#pragma unroll 4
+    for (int l = l_begin; l < l_end; ++l) {
+      const float4 ql = qs[off + l];
+      const float4 gl = gs[off + l];
+      const float2 lc = lcs[off + l];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        float s = dot4(ql, kr[i]);
+        if constexpr (decltype(biased)::value) {
+          if (in[i]) s += to_float(tcol[i][static_cast<size_t>(l) * L]);
+        }
+        const float p = __expf(s - lc.x);
+        fma4(p, gl, dv_acc[i]);
+        fma4(p * (dot4(gl, vr[i]) - lc.y), ql, dk_acc[i]);
+      }
+    }
+  };
+  if (__any_sync(__activemask(), any_in)) {
+    run(0, lo, Plain{});
+    run(lo, hi, Biased{});
+    run(hi, L, Plain{});
+  } else {
+    run(0, L, Plain{});
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const size_t row = static_cast<size_t>(first + i);
+    store4(dk + row * kD, dk_acc[i]);
+    store4(dv + row * kD, dv_acc[i]);
+  }
+  wait_previous_grid();  // this grid completes after the dq pass
+}
+
+// The dtoep pass's stage buffer: q, g and o rows of 32 query rows, then k
+// and v rows of kToepCols keys, for each of kToepElems elements; the
+// rows' lse.
+constexpr int kQ = 0, kG = kToepElems * 32, kO = 2 * kToepElems * 32;
+constexpr int kK = 3 * kToepElems * 32;
+constexpr int kV = kK + kToepElems * kToepCols;
+constexpr int kStageRows = kV + kToepElems * kToepCols;
+constexpr int kStageScalars = kToepElems * 32;
+
+// The dtoep pass's shared memory: the ring, then the list of elements (b,
+// then lo | hi << 16) and the scan's per-warp counts.
+template <typename T>
+__host__ __device__ int dtoep_bytes() {
+  return Stages<T>(nullptr, kStageRows, kStageScalars).total() + 2 * kScan * 4 +
+         kScanRounds * kWarps * 4;
+}
+
+// Whether any (l, m) of the tile [l0, l0 + nr) x [m0, m0 + nc) lies in the
+// band |l - m| < W, the only entries a window can reach.
+__device__ __forceinline__ bool in_band(int l0, int nr, int m0, int nc, int W) {
+  const int gap = max(0, max(m0 - (l0 + nr - 1), l0 - (m0 + nc - 1)));
+  return gap < W;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kToepThreads)
-attention_rpos_bwd_dtoep_kernel(const T* __restrict__ q,
-                                const T* __restrict__ k,
-                                const T* __restrict__ v,
-                                const T* __restrict__ toep,
+__global__ void __launch_bounds__(kThreads)
+attention_rpos_bwd_dtoep_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                const T* __restrict__ v, const T* __restrict__ toep,
                                 const float* __restrict__ offsets,
-                                const T* __restrict__ g,
-                                const float* __restrict__ lse,
-                                const float* __restrict__ c,
-                                float* __restrict__ dtoep, int B, int H,
-                                int L, int W) {
-  const int idx = blockIdx.x * kToepThreads + threadIdx.x;  // (h, l, m)
-  if (idx >= H * L * L) return;
-  const int m = idx % L;
-  const int hl = idx / L;
-  const int l = hl % L;
-  const int h = hl / L;
-  float acc = 0.f;
-  if (abs(l - m) < W) {  // outside the band no window holds both l and m
-    const int first = min(l, m);
-    const int last = max(l, m);
-    const float tv = load1(toep + idx);
-    const int stride = H * L;  // rows between consecutive batch elements
-    int qrow = h * L + l;
-    int krow = h * L + m;
-    for (int b = 0; b < B; ++b, qrow += stride, krow += stride) {
-      int lo, hi;
-      window(offsets[b], W, L, lo, hi);
-      if (first < lo || last >= hi) continue;
-      const float p =
-          __expf(dot4(load4(q + qrow * kD), load4(k + krow * kD)) + tv -
-                 lse[qrow]);
-      acc = fmaf(p, dot4(load4(g + qrow * kD), load4(v + krow * kD)) - c[qrow],
-                 acc);
-    }
+                                const T* __restrict__ g, const T* __restrict__ o,
+                                const float* __restrict__ lse, float* __restrict__ dtoep,
+                                int B, int H, int L, int W) {
+  launch_dependents();
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int col_tiles = (L + kToepCols - 1) / kToepCols;
+  const int row_tiles = (L + 31) / 32;
+  const int m0 = (blockIdx.x % col_tiles) * kToepCols;
+  const int l0 = ((blockIdx.x / col_tiles) % row_tiles) * 32;
+  const int h = blockIdx.x / (col_tiles * row_tiles);
+  const int n_rows = min(32, L - l0), n_cols = min(kToepCols, L - m0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int l = l0 + lane;  // this thread: row l and the warp's column m
+  const int m = m0 + warp;
+  const bool out_ok = lane < n_rows && warp < n_cols;
+  const size_t head = static_cast<size_t>(h) * L;
+  float* out = dtoep + (head + l) * L + m;
+  if (!in_band(l0, n_rows, m0, n_cols, W)) {  // no window holds both l and m
+    if (out_ok) *out = 0.f;
+    return;
   }
-  dtoep[idx] = acc;
+
+  const Stages<T> st(smem, kStageRows, kStageScalars);
+  int* list_b = reinterpret_cast<int*>(smem + st.total());
+  int* list_win = list_b + kScan;  // lo | hi << 16
+  int* counts = list_win + kScan;  // [round][warp]
+  const size_t hl = static_cast<size_t>(H) * L;  // rows between batch elements
+  const float tv = out_ok ? to_float(toep[(head + l) * L + m]) : 0.f;
+  float acc = 0.f;
+
+  int n_list = 0;
+  // Issue stage s's listed elements by cp.async, a warp an element: its
+  // rows and columns inside its window only. One commit group (empty past
+  // the list's end, so that the ring's group count stays uniform).
+  auto stage = [&](int s) {
+    const int ne = min(kToepElems, n_list - s * kToepElems);
+    for (int e = warp; e < ne; e += kWarps) {
+      const int idx = s * kToepElems + e;
+      const size_t bb = static_cast<size_t>(list_b[idx]) * hl + head;
+      const int win = list_win[idx];
+      const int lo = win & 0xffff;
+      const unsigned width = static_cast<unsigned>((win >> 16) - lo);
+      if (static_cast<unsigned>(l0 + lane - lo) < width) {
+        const size_t row = bb + l0 + lane;
+        const int at = e * 32 + lane;
+        st.row(s, kQ + at, q + row * kD);
+        st.row(s, kG + at, g + row * kD);
+        st.row(s, kO + at, o + row * kD);
+        st.scalar(s, at, lse + row);
+      }
+      if (lane < kToepCols && static_cast<unsigned>(m0 + lane - lo) < width) {
+        const size_t row = bb + m0 + lane;
+        const int at = e * kToepCols + lane;
+        st.row(s, kK + at, k + row * kD);
+        st.row(s, kV + at, v + row * kD);
+      }
+    }
+    cp_async_commit();
+  };
+
+  for (int base = 0; base < B; base += kScan) {
+    // The elements base .. base + kScan - 1 whose window meets both the
+    // tile's rows and its columns, listed in ascending b.
+    bool hit[kScanRounds];
+    int win[kScanRounds], rank[kScanRounds];
+#pragma unroll
+    for (int r = 0; r < kScanRounds; ++r) {
+      const int b = base + r * kThreads + threadIdx.x;
+      int lo = 0, hi = 0;
+      if (b < B) window(offsets[b], W, L, lo, hi);
+      hit[r] = lo < hi && lo < l0 + n_rows && hi > l0 && lo < m0 + n_cols && hi > m0;
+      win[r] = lo | hi << 16;
+      const unsigned ballot = __ballot_sync(0xffffffffu, hit[r]);
+      rank[r] = __popc(ballot & ((1u << lane) - 1u));
+      if (lane == 0) counts[r * kWarps + warp] = __popc(ballot);
+    }
+    __syncthreads();
+    int total = 0;
+#pragma unroll
+    for (int r = 0; r < kScanRounds; ++r) {
+      for (int w = 0; w < kWarps; ++w) {
+        if (w == warp) rank[r] += total;
+        total += counts[r * kWarps + w];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kScanRounds; ++r) {
+      if (hit[r]) {
+        list_b[rank[r]] = base + r * kThreads + threadIdx.x;
+        list_win[rank[r]] = win[r];
+      }
+    }
+    n_list = total;
+    __syncthreads();
+
+    const int n_stages = (n_list + kToepElems - 1) / kToepElems;
+    for (int s = 0; s < kToepDepth - 1; ++s) stage(s);
+    for (int s = 0; s < n_stages; ++s) {
+      cp_async_wait<kToepDepth - 2>();
+      // Stage s is in for every thread, and every thread is done with the
+      // buffer stage s + kToepDepth - 1 overwrites (read in stage s - 1).
+      __syncthreads();
+      stage(s + kToepDepth - 1);
+      if constexpr (sizeof(T) != 4) {
+        st.convert(s);
+        __syncthreads();
+      }
+      if (!out_ok) continue;
+      const float4* rows = st.f32(s);
+      const float* sc = st.scal(s);
+      const int ne = min(kToepElems, n_list - s * kToepElems);
+      // The listed b in ascending order: the accumulator's chain over the
+      // batch is the first version's.
+      for (int e = 0; e < ne; ++e) {
+        const int win_e = list_win[s * kToepElems + e];
+        const int lo = win_e & 0xffff;
+        const unsigned width = static_cast<unsigned>((win_e >> 16) - lo);
+        // The column test is the warp's (a branch), the row test a lane's.
+        if (static_cast<unsigned>(m - lo) >= width || static_cast<unsigned>(l - lo) >= width) {
+          continue;
+        }
+        const int at = e * 32 + lane;
+        const float4 gl = rows[kG + at];
+        const float cq = dot4(gl, rows[kO + at]);  // c as the dq pass's
+        const float4 km = rows[kK + e * kToepCols + warp];  // a broadcast
+        const float4 vm = rows[kV + e * kToepCols + warp];
+        const float p = __expf(dot4(rows[kQ + at], km) + tv - sc[at]);
+        acc = fmaf(p, dot4(gl, vm) - cq, acc);
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the ring and the list are free for the next elements
+  }
+
+  if (out_ok) *out = acc;
 }
 
+// Above 48 KB a block's dynamic shared memory must be allowed once per
+// kernel instantiation.
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// Launch `kernel` after the stream's previous kernel with programmatic
+// stream serialization: it may start once every block of that kernel has
+// started, and completes only after it (each pass waits for the previous
+// grid before it exits).
+template <typename... Params, typename... Args>
+cudaError_t launch_beside(void (*kernel)(Params...), int grid, size_t smem,
+                          cudaStream_t stream, Args... args) {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+template <typename T>
+cudaError_t launch_dtoep(const T* q, const T* k, const T* v, const T* toep,
+                         const float* offsets, const T* g, const T* o, const float* lse,
+                         float* dtoep, int B, int H, int L, int W, cudaStream_t stream) {
+  static const cudaError_t allowed =
+      allow_smem(attention_rpos_bwd_dtoep_kernel<T>, dtoep_bytes<T>());
+  if (allowed != cudaSuccess) return allowed;
+  const long long blocks =
+      static_cast<long long>(H) * ((L + 31) / 32) * ((L + kToepCols - 1) / kToepCols);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  attention_rpos_bwd_dtoep_kernel<T><<<static_cast<int>(blocks), kThreads, dtoep_bytes<T>(),
+                                       stream>>>(
+      q, k, v, toep, offsets, g, o, lse, dtoep, B, H, L, W);
+  return cudaGetLastError();
+}
+
+template <typename T, int R>
+cudaError_t launch_rows(const T* q, const T* k, const T* v, const T* toep,
+                        const float* offsets, const T* g, const T* o, const float* lse,
+                        float* c, T* dq, T* dk, T* dv, int B, int H, int L, int W,
+                        cudaStream_t stream) {
+  const int n_rows = B * H * L;  // below 2^31: checked by the caller
+  const int grid = (n_rows + kThreads * R - 1) / (kThreads * R);
+  const int cap = head_capacity(L, R);  // at most 766 rows: below 48 KB
+  const size_t smem_dq = 2 * cap * sizeof(float4);
+  const size_t smem_dkdv = cap * (2 * sizeof(float4) + sizeof(float2));
+  cudaError_t err = launch_beside(attention_rpos_bwd_dq_kernel<T, R>, grid, smem_dq, stream,
+                                  q, k, v, toep, offsets, g, o, lse, c, dq, H, L, W, n_rows);
+  if (err != cudaSuccess) return err;
+  return launch_beside(attention_rpos_bwd_dkdv_kernel<T, R>, grid, smem_dkdv, stream,
+                       q, k, v, toep, offsets, g, o, lse, dk, dv, H, L, W, n_rows);
+}
+
+// The dtoep pass first (it waits on memory most), then the dq and dk/dv
+// passes beside it: none reads another's output (the dk/dv and dtoep
+// passes form c from g and o as the dq pass does).
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* toep, const float* offsets, const void* g,
                    const void* o, const float* lse, float* c, void* dq,
                    void* dk, void* dv, float* dtoep, int B, int H, int L,
                    int W, cudaStream_t stream) {
-  const int n_rows = B * H * L;
-  const dim3 grid((n_rows + kRows - 1) / kRows);
-  const int cap = head_capacity(L);
-  const size_t smem_dq = 2 * cap * sizeof(float4);
-  const size_t smem_dkdv = cap * (2 * sizeof(float4) + 2 * sizeof(float));
+  if (static_cast<long long>(B) * H * L > 0x7fffffffLL) return cudaErrorInvalidValue;
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* tt = static_cast<const T*>(toep);
   const T* gt = static_cast<const T*>(g);
-  attention_rpos_bwd_dq_kernel<T><<<grid, kRows, smem_dq, stream>>>(
-      qt, kt, vt, tt, offsets, gt, static_cast<const T*>(o), lse, c,
-      static_cast<T*>(dq), H, L, W, n_rows);
-  cudaError_t err = cudaGetLastError();
+  const T* ot = static_cast<const T*>(o);
+  T* dqt = static_cast<T*>(dq);
+  T* dkt = static_cast<T*>(dk);
+  T* dvt = static_cast<T*>(dv);
+  const cudaError_t err =
+      launch_dtoep<T>(qt, kt, vt, tt, offsets, gt, ot, lse, dtoep, B, H, L, W, stream);
   if (err != cudaSuccess) return err;
-  attention_rpos_bwd_dkdv_kernel<T><<<grid, kRows, smem_dkdv, stream>>>(
-      qt, kt, vt, tt, offsets, gt, lse, c, static_cast<T*>(dk),
-      static_cast<T*>(dv), H, L, W, n_rows);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const dim3 grid_toep((H * L * L + kToepThreads - 1) / kToepThreads);
-  attention_rpos_bwd_dtoep_kernel<T><<<grid_toep, kToepThreads, 0, stream>>>(
-      qt, kt, vt, tt, offsets, gt, lse, c, dtoep, B, H, L, W);
-  return cudaGetLastError();
+  return L % 2 == 0 ? launch_rows<T, 2>(qt, kt, vt, tt, offsets, gt, ot, lse, c, dqt, dkt, dvt,
+                                        B, H, L, W, stream)
+                    : launch_rows<T, 1>(qt, kt, vt, tt, offsets, gt, ot, lse, c, dqt, dkt, dvt,
+                                        B, H, L, W, stream);
 }
 
 }  // namespace

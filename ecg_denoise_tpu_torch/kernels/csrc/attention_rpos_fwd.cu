@@ -26,31 +26,45 @@
 // L >= 128 and HBM below, by that count. The (B, H, L, L) bias is never
 // built in any memory: the kernel forms it from toep and offsets[b].
 //
-// Design (a simple correct first version; none of the TPU layout is kept —
-// no (B, H, D, L) transpose, no lane packing, no packed block-diagonal
-// toep, no ones-row sum fold):
-// * One thread owns one query row; a block owns kRows consecutive rows of
-//   the flattened (B*H*L) row space and stages, converted to f32, the K
-//   and V rows of every (b, h) its rows touch in shared memory, as
-//   attention_fwd.cu does.
-// * Each thread turns offsets[b] into the integer key range [lo, hi) of
-//   the window, cut to [0, L). A row outside its window gets no bias at
-//   all; a row inside it gets toep[h, l, m] for the keys m in [lo, hi)
-//   only. Every other entry of bias_b is zero by the in_b test, so the
-//   thread reads at most W toep values and skips the rest: exact, not an
-//   approximation. Where B1 reads a whole bias row for every row of every
-//   batch element, B3 reads W of them for the W rows of the window.
-// * Two passes over the L keys: the row max (trained logits reach 191.5,
-//   so exp needs it), then exp, the sum and the V-weighted sum. All L <=
-//   256 keys are in shared memory; no online rescaling, no atomics.
+// The first version (a thread a row, 128 consecutive rows of the
+// flattened (B*H*L) row space a block, K and V of the block's heads in
+// shared memory) tested the window on every key of both passes, and each
+// test sat beside a dot4 whose K row was loaded for that one row alone.
+//
+// Design: the same two passes and order of operations, with fewer
+// instructions per (row, key) pair.
+// * A thread owns R consecutive query rows of one (b, h): R = 2 when L is
+//   even, so that one shared-memory load of a key (and, in the second
+//   pass, of its V row) feeds both rows' products; R = 1 otherwise. A
+//   block owns kThreads * R rows and stages, converted to f32, the K and V
+//   rows of every (b, h) they touch.
+// * The element's window [lo, hi) is computed once. The L keys of each
+//   pass go in three runs: [0, lo) and [hi, L) with no bias and no test,
+//   and [lo, hi), where a row inside the window adds toep[h, l, m] (a
+//   predicated load and add; outside its window a row gets no bias at all,
+//   so every other entry of bias_b is skipped, exactly). A warp none of
+//   whose rows lies in its window makes one bias-free run. In RA-LENet a
+//   warp's rows share one batch element (H * L = 512), so the runs are
+//   uniform across the warp; where they are not, each lane still takes
+//   its own element's runs.
+// * Two passes over the keys: the row max (trained logits reach 191.5,
+//   so exp needs it), then exp, the sum and the V-weighted sum, in the
+//   first version's order with its operations: the output and lse are its
+//   bit for bit. No online rescaling, no atomics.
+// About 21.5 instructions per (row, key) pair remain (read from the SASS):
+// a dot4 in each pass, the max, __expf's exact path for tiny results (a
+// compare and two predicated multiplies beside MUFU.EX2), the sum and four
+// FMAs; keeping the first version's bits pins each of them (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kD = 4;
-constexpr int kRows = 128;
+constexpr int kThreads = 128;
 constexpr int kMaxL = 256;
 
 __device__ __forceinline__ float4 load4(const float* p) {
@@ -88,10 +102,10 @@ __device__ __forceinline__ float dot4(float4 a, float4 b) {
   return fmaf(a.w, b.w, s);
 }
 
-// Keys one block may need to stage: kRows consecutive rows span at most
-// ceil((kRows - 1) / L) + 1 heads of L rows each.
-__host__ __device__ __forceinline__ int key_capacity(int L) {
-  return ((kRows - 1 + L - 1) / L + 1) * L;
+// Keys one block may need to stage: kThreads * R consecutive rows span at
+// most ceil((kThreads * R - 1) / L) + 1 heads of L rows each.
+__host__ __device__ __forceinline__ int key_capacity(int L, int R) {
+  return ((kThreads * R - 1 + L - 1) / L + 1) * L;
 }
 
 // The integer positions i in [0, L) with off <= i < off + W, as [lo, hi):
@@ -104,8 +118,11 @@ __device__ __forceinline__ void window(float off, int W, int L, int& lo,
   if (hi < lo) hi = lo;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kRows)
+using Plain = std::false_type;
+using Biased = std::true_type;
+
+template <typename T, int R>
+__global__ void __launch_bounds__(kThreads)
 attention_rpos_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const T* __restrict__ toep,
                           const float* __restrict__ offsets,
@@ -113,56 +130,113 @@ attention_rpos_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           int L, int W, int n_rows) {
   extern __shared__ float4 smem[];
   float4* ks = smem;
-  float4* vs = smem + key_capacity(L);
+  float4* vs = smem + key_capacity(L, R);
 
-  const int row0 = blockIdx.x * kRows;
-  const int row_end = min(row0 + kRows, n_rows);
+  const int row0 = blockIdx.x * (kThreads * R);
+  const int row_end = min(row0 + kThreads * R, n_rows);
   const int key0 = (row0 / L) * L;               // first key row staged
   const int n_keys = ((row_end - 1) / L + 1) * L - key0;
-  for (int i = threadIdx.x; i < n_keys; i += kRows) {
-    ks[i] = load4(k + (key0 + i) * kD);
-    vs[i] = load4(v + (key0 + i) * kD);
+  for (int i = threadIdx.x; i < n_keys; i += kThreads) {
+    ks[i] = load4(k + static_cast<size_t>(key0 + i) * kD);
+    vs[i] = load4(v + static_cast<size_t>(key0 + i) * kD);
   }
   __syncthreads();
 
-  const int row = row0 + threadIdx.x;
-  if (row >= n_rows) return;
-  const int bh = row / L;
-  const int l = row - bh * L;
+  // This thread: rows first .. first + R - 1, all of one (b, h) (L % R == 0).
+  const int first = row0 + threadIdx.x * R;
+  if (first >= n_rows) return;
+  const int bh = first / L;
+  const int l0 = first - bh * L;
   const int b = bh / H;
   const int h = bh - b * H;
   const float4* kh = ks + (bh * L - key0);
   const float4* vh = vs + (bh * L - key0);
-  const float4 qr = load4(q + row * kD);
   int lo, hi;
   window(offsets[b], W, L, lo, hi);
-  if (l < lo || l >= hi) hi = lo;  // a row outside the window: no bias
-  const unsigned width = static_cast<unsigned>(hi - lo);
-  const T* trow = toep + (h * L + l) * L;
-
-  float mx = __int_as_float(0xff800000);  // -inf
-  for (int m = 0; m < L; ++m) {
-    float s = dot4(qr, kh[m]);
-    if (static_cast<unsigned>(m - lo) < width) s += load1(trow + m);
-    mx = fmaxf(mx, s);
+  float4 qr[R], acc[R];
+  float mx[R], sum[R];
+  bool in[R];
+  const T* trow[R];
+  bool any_in = false;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    qr[i] = load4(q + static_cast<size_t>(first + i) * kD);
+    in[i] = l0 + i >= lo && l0 + i < hi;  // a row outside the window: no bias
+    any_in |= in[i];
+    trow[i] = toep + (static_cast<size_t>(h) * L + l0 + i) * L;
+    mx[i] = __int_as_float(0xff800000);  // -inf
+    sum[i] = 0.f;
+    acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 
-  float sum = 0.f;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int m = 0; m < L; ++m) {
-    float s = dot4(qr, kh[m]);
-    if (static_cast<unsigned>(m - lo) < width) s += load1(trow + m);
-    const float e = __expf(s - mx);
-    const float4 vv = vh[m];
-    sum += e;
-    acc.x = fmaf(e, vv.x, acc.x);
-    acc.y = fmaf(e, vv.y, acc.y);
-    acc.z = fmaf(e, vv.z, acc.z);
-    acc.w = fmaf(e, vv.w, acc.w);
+  auto max_run = [&](int m_begin, int m_end, auto biased) {  // the row max
+#pragma unroll 4
+    for (int m = m_begin; m < m_end; ++m) {
+      const float4 km = kh[m];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        float s = dot4(qr[i], km);
+        if constexpr (decltype(biased)::value) {
+          if (in[i]) s += load1(trow[i] + m);
+        }
+        mx[i] = fmaxf(mx[i], s);
+      }
+    }
+  };
+  auto sum_run = [&](int m_begin, int m_end, auto biased) {  // exp, the sums
+#pragma unroll 4
+    for (int m = m_begin; m < m_end; ++m) {
+      const float4 km = kh[m];
+      const float4 vv = vh[m];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        float s = dot4(qr[i], km);
+        if constexpr (decltype(biased)::value) {
+          if (in[i]) s += load1(trow[i] + m);
+        }
+        const float e = __expf(s - mx[i]);
+        sum[i] += e;
+        acc[i].x = fmaf(e, vv.x, acc[i].x);
+        acc[i].y = fmaf(e, vv.y, acc[i].y);
+        acc[i].z = fmaf(e, vv.z, acc[i].z);
+        acc[i].w = fmaf(e, vv.w, acc[i].w);
+      }
+    }
+  };
+  // The keys in order, in three runs; a warp none of whose rows lies in
+  // its window makes one bias-free run.
+  if (__any_sync(__activemask(), any_in)) {
+    max_run(0, lo, Plain{});
+    max_run(lo, hi, Biased{});
+    max_run(hi, L, Plain{});
+    sum_run(0, lo, Plain{});
+    sum_run(lo, hi, Biased{});
+    sum_run(hi, L, Plain{});
+  } else {
+    max_run(0, L, Plain{});
+    sum_run(0, L, Plain{});
   }
-  store4(o + row * kD,
-         make_float4(acc.x / sum, acc.y / sum, acc.z / sum, acc.w / sum));
-  if (lse != nullptr) lse[row] = mx + logf(sum);
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const size_t row = static_cast<size_t>(first + i);
+    const float s = sum[i];
+    store4(o + row * kD,
+           make_float4(acc[i].x / s, acc[i].y / s, acc[i].z / s, acc[i].w / s));
+    if (lse != nullptr) lse[row] = mx[i] + logf(s);
+  }
+}
+
+template <typename T, int R>
+cudaError_t launch_rows(const T* q, const T* k, const T* v, const T* toep,
+                        const float* offsets, T* o, float* lse, int B, int H,
+                        int L, int W, cudaStream_t stream) {
+  const long long n_rows = static_cast<long long>(B) * H * L;
+  if (n_rows > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int grid = static_cast<int>((n_rows + kThreads * R - 1) / (kThreads * R));
+  const size_t smem = 2 * key_capacity(L, R) * sizeof(float4);  // below 48 KB
+  attention_rpos_fwd_kernel<T, R><<<grid, kThreads, smem, stream>>>(
+      q, k, v, toep, offsets, o, lse, H, L, W, static_cast<int>(n_rows));
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -170,14 +244,14 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* toep, const float* offsets, void* o,
                    float* lse, int B, int H, int L, int W,
                    cudaStream_t stream) {
-  const int n_rows = B * H * L;
-  const dim3 grid((n_rows + kRows - 1) / kRows);
-  const size_t smem = 2 * key_capacity(L) * sizeof(float4);
-  attention_rpos_fwd_kernel<T><<<grid, kRows, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(toep), offsets,
-      static_cast<T*>(o), lse, H, L, W, n_rows);
-  return cudaGetLastError();
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* tt = static_cast<const T*>(toep);
+  T* ot = static_cast<T*>(o);
+  return L % 2 == 0
+             ? launch_rows<T, 2>(qt, kt, vt, tt, offsets, ot, lse, B, H, L, W, stream)
+             : launch_rows<T, 1>(qt, kt, vt, tt, offsets, ot, lse, B, H, L, W, stream);
 }
 
 }  // namespace

@@ -22,8 +22,10 @@ monotone, so the two part by at most one step). `null_copy` equals
 
 The r-pos kernels (attention_rpos_fwd.cu, attention_rpos_bwd.cu) are held
 to the same limits against their plain versions, dtoep like dbias, at the
-four biased stage shapes (L, W, H), with R peaks at 0, 5, L/2, L - 1 and
-random ones, so that windows hang off both ends.
+four biased stage shapes (L, W, H) and at ragged batches and lengths
+(RPOS_CASES), with R peaks at 0, 5, L/2, L - 1 and random ones, so that
+windows hang off both ends; and, where the parent commit's tree is
+unpacked under _archive/parent, bit for bit to the parent's kernels.
 
 Backward: dq, dk, dv to 1e-4 in float32 (the JAX package's gradient bar,
 tests/test_pallas_attention.py:125); dbias, a sum over the batch of terms
@@ -366,11 +368,30 @@ def _rpos_operands(B, L, W, H, dtype, device, seed=0):
     return ([t.to(device, dtype) for t in (q, k, v, toep)], W, offsets.to(device))
 
 
-@pytest.mark.parametrize("L,W,H", RPOS_STAGES)
+# The r-pos kernels' cases, (B, L, W, H): the four biased stage shapes at
+# B = 8, then batches at the edges of B4's dtoep stages and lists (1, 17,
+# 37), and ragged L (odd L takes a row a thread, even L two) with W cut to
+# fit. R peaks at 0, 5, L/2 and L - 1 put windows off both ends.
+RPOS_CASES = ([(8, L, W, H) for (L, W, H) in RPOS_STAGES]
+              + [(1, 256, 32, 2), (17, 128, 16, 4), (37, 64, 8, 8), (37, 203, 25, 2),
+                 (17, 7, 3, 3), (3, 1, 1, 2)])
+
+
+def _rpos_grad_scale(name, ref, L):
+    """The bar's scale for one gradient: its max, but at L = 1, where the
+    softmax over one key is constant, the exact dq, dk and dtoep are 0 and
+    both sides return the rounding of the cancelled g.v - g.o, so their
+    bars are taken of max|dv| (= max|g|), as for B2."""
+    if L == 1 and name != "dv":
+        return ref[2].float().abs().max().item()
+    return ref[("dq", "dk", "dv", "dtoep").index(name)].float().abs().max().item()
+
+
+@pytest.mark.parametrize("B,L,W,H", RPOS_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_rpos_kernel_matches_plain_version(cuda, L, W, H, dtype):
+def test_rpos_kernel_matches_plain_version(cuda, B, L, W, H, dtype):
     full_float32()
-    (q, k, v, toep), W, offsets = _rpos_operands(8, L, W, H, dtype, cuda)
+    (q, k, v, toep), W, offsets = _rpos_operands(B, L, W, H, dtype, cuda)
     before = fused_attention_rpos.launches
     out = fused_attention_rpos(q, k, v, toep, W, offsets)
     torch.cuda.synchronize()
@@ -383,11 +404,11 @@ def test_rpos_kernel_matches_plain_version(cuda, L, W, H, dtype):
     assert err <= tol, (err, tol)
 
 
-@pytest.mark.parametrize("L,W,H", RPOS_STAGES)
+@pytest.mark.parametrize("B,L,W,H", RPOS_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_rpos_backward_kernel_matches_plain_versions(cuda, L, W, H, dtype):
+def test_rpos_backward_kernel_matches_plain_versions(cuda, B, L, W, H, dtype):
     full_float32()
-    ops, W, offsets = _rpos_operands(8, L, W, H, dtype, cuda, seed=1)
+    ops, W, offsets = _rpos_operands(B, L, W, H, dtype, cuda, seed=1)
     g = torch.randn(ops[0].shape, generator=torch.Generator().manual_seed(2)).to(cuda, dtype)
 
     def grads():
@@ -409,7 +430,7 @@ def test_rpos_backward_kernel_matches_plain_versions(cuda, L, W, H, dtype):
     for ref in refs:
         for name, a, b in zip(("dq", "dk", "dv", "dtoep"), got, ref):
             a, b = a.float(), b.float()
-            scale = b.abs().max().item()
+            scale = _rpos_grad_scale(name, ref, L)
             tol = (BF16_GRAD_TOL_OF_MAX * scale if dtype == torch.bfloat16
                    else DBIAS_TOL_OF_MAX * scale if name == "dtoep" else GRAD_TOL)
             err = (a - b).abs().max().item()
@@ -417,6 +438,53 @@ def test_rpos_backward_kernel_matches_plain_versions(cuda, L, W, H, dtype):
     _, again = grads()
     for a, b in zip(got, again):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B,L,W,H", RPOS_CASES + [(256, L, W, H) for (L, W, H) in RPOS_STAGES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rpos_kernels_equal_the_parent_commits(cuda, B, L, W, H, dtype):
+    """B3's output and lse, and B4's dq, dk, dv and float32 dtoep, bit for
+    bit those of the parent commit's B3 and B4 on the same operands: the
+    redesigns kept the arithmetic (skipped where the parent's tree is not
+    unpacked)."""
+    if not os.path.isdir(PARENT_CSRC):
+        pytest.skip("the parent commit's tree is not under _archive/parent")
+    from pathlib import Path
+
+    from ecg_denoise_tpu_torch.kernels import attention_rpos
+    from ecg_denoise_tpu_torch.kernels.attention import DTYPE_CODES, bind, ptr, raise_on
+
+    (q, k, v, toep), W, offsets = _rpos_operands(B, L, W, H, dtype, cuda, seed=L + H)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(5)).to(cuda, dtype)
+    stream = torch.cuda.current_stream().cuda_stream
+    fwd_libs = (attention_rpos._library(),
+                bind("attention_rpos_fwd", "ecg_attention_rpos_fwd", 7, 7,
+                     csrc=Path(PARENT_CSRC)))
+    bwd_libs = (attention_rpos._bwd_library(),
+                bind("attention_rpos_bwd", "ecg_attention_rpos_bwd", 13, 7,
+                     csrc=Path(PARENT_CSRC)))
+    outs = []
+    for fwd, bwd in zip(fwd_libs, bwd_libs):
+        o = torch.empty_like(q)
+        lse = torch.empty(B, H, L, device=cuda)
+        err = fwd.ecg_attention_rpos_fwd(ptr(q), ptr(k), ptr(v), ptr(toep), ptr(offsets),
+                                         ptr(o), ptr(lse), B, H, L, 4, W, DTYPE_CODES[dtype],
+                                         cuda.index or 0, stream)
+        raise_on(fwd, err, "attention r-pos forward")
+        dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+        c = torch.empty(B, H, L, device=cuda)
+        dtoep = torch.empty(1, H, L, L, device=cuda)
+        # Both backward kernels on the new forward's o and lse.
+        o_in, lse_in = (o, lse) if not outs else outs[0][:2]
+        err = bwd.ecg_attention_rpos_bwd(ptr(q), ptr(k), ptr(v), ptr(toep), ptr(offsets),
+                                         ptr(g), ptr(o_in), ptr(lse_in), ptr(c), ptr(dq),
+                                         ptr(dk), ptr(dv), ptr(dtoep), B, H, L, 4, W,
+                                         DTYPE_CODES[dtype], cuda.index or 0, stream)
+        raise_on(bwd, err, "attention r-pos backward")
+        outs.append((o, lse, dq, dk, dv, dtoep))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("o", "lse", "dq", "dk", "dv", "dtoep"), *outs):
+        assert torch.equal(a, b), name
 
 
 def test_rpos_model_forward_and_step_match_cpu_with_14_and_4_launches(cuda):
