@@ -13,8 +13,8 @@ and nothing falls back to the CPU):
    from the checkout at once and prints their ptxas reports (registers,
    shared memory, spills by kernel instantiation). Where the parent
    commit's tree is unpacked under _archive/parent (by `git archive`; a
-   plain checkout has none), its B1, B2, B3, B4 and P1 are built beside
-   them as yardsticks, never on a path. ECG_ATTN_DENSE is cleared: phases
+   plain checkout has none), its B1-B5 and P1 are built beside them as
+   yardsticks, never on a path. ECG_ATTN_DENSE is cleared: phases
    1-13 drive the default route.
 2. Kernel vs plain version on the card, at the five RA-LENet stage shapes,
    with and without bias, float32 (tolerance 1e-5, TF32 off for this phase
@@ -102,13 +102,15 @@ and nothing falls back to the CPU):
    windows/s with and without r_pos, in turns; the r_pos forward's and
    training step's device breakdown and idle share.
 
-14. B5 (attention_dense_fwd.cu) against its plain version and against B1
-   on the same operands: the four stage shapes the dense route takes in
-   RA-LENet and four small ones it admits (L = 2 and 8), with and without
-   bias, B = 1024 and a ragged B = 3; f32 within 1e-5 of both, bf16 within
-   3 * 2^-8 of max|v| of the plain version and one bf16 step of B1; two
-   calls bit-identical; heads whose row maxima sit more than 110 logits
-   apart, and logits near 200, within 1e-4 of attention_reference.
+14. B5 (attention_dense_fwd.cu) against B1 and its plain version on the
+   same operands: the four stage shapes the dense route takes in RA-LENet
+   and five small ones it admits (L = 2 and 8, P = 6), with and without
+   bias, f32 and bf16, B = 1024 and batches that cut across B5's groups of
+   elements (B = 3, 1, 17, 37, 1000): equal to B1 without lse bit for bit,
+   within 1e-5 (f32) and 3 * 2^-8 of max|v| (bf16) of the plain version
+   and, where its tree is there, of the parent's B5; two calls
+   bit-identical; heads whose row maxima sit more than 110 logits apart,
+   and logits near 200, within 1e-4 of attention_reference.
 15. The dense serving path, with ECG_ATTN_DENSE=1: the model on the card
    against the CPU (1e-4) with 12 B5 and 6 B1 launches per forward, and
    with detected R peaks 4 B5 and 14 B3; then `cli.serve`'s server
@@ -116,7 +118,11 @@ and nothing falls back to the CPU):
    `StreamingDenoiser` fed a record in chunks of 1, 100 and 777 samples
    equals denoise_record, the counts set to 0 just before and read just
    after.
-16. Dense times: per stage shape B5 (B = 1024) beside B1 without lse, its
+16. Dense times: B5's registers, stack and local memory by kernel
+   instantiation (cuobjdump -res-usage; a spill fails the run) and its
+   shared memory a block; per stage shape, and at (64, 4) (RA-LENet with
+   half the heads), B5 (B = 1024) from CUDA graph replays in turns with
+   the parent's B5 where its tree is there, beside B1 without lse, its
    bound, the plain version and scaled_dot_product_attention; Denoiser
    windows/s with and without ECG_ATTN_DENSE=1, in turns; the dense
    forward's device breakdown and idle share.
@@ -182,9 +188,10 @@ RPOS_CALLS = {(256, 32, 2): 2, (128, 16, 4): 4, (64, 8, 8): 4, (32, 4, 16): 4}
 # by (L, H, with bias); the 6 calls at L = 256 and 128 stay on B1.
 DENSE_CALLS = {(64, 8, True): 4, (32, 16, True): 4, (16, 32, False): 4}
 # The stage shapes the dense route takes in RA-LENet (and (64, 4), RA-LENet
-# with half the heads), then small ones it admits: L = 2 and 8, and 64
-# heads at L = 2, more than one warp's 32.
-DENSE_SHAPES = [(64, 8), (32, 16), (16, 32), (64, 4), (2, 2), (2, 64), (8, 4), (8, 32)]
+# with half the heads), then small ones it admits: L = 2 and 8, 64 heads
+# at L = 2, more than one warp's 32, and (8, 6), a pack factor of 6 that
+# leaves B5's blocks two elements of 48 rows side by side.
+DENSE_SHAPES = [(64, 8), (32, 16), (16, 32), (64, 4), (2, 2), (2, 64), (8, 4), (8, 32), (8, 6)]
 HEADS_APART = 110.0  # row maxima of two packed heads at least this far apart
 PRECISION_KERNELS = ("probe_dot", "probe_fold", "probe_tree", "probe_div")
 KERNELS = ("attention_fwd", "attention_bwd", "attention_rpos_fwd", "attention_rpos_bwd",
@@ -224,6 +231,9 @@ LOSS_RTOL = 1e-5
 BN_STATS_TOL = 1e-5
 PARAM_TOL = 1e-4
 BATCH = 1024  # the serving default max_batch: the shapes the main path runs
+# B5's batches: the serving default, then batches that cut across its
+# blocks' groups of elements (up to 16 a block, fewer at small B).
+DENSE_BATCHES = (BATCH, 3, 1, 17, 37, 1000)
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): f32 on the CUDA
 # cores (the kernel's arithmetic, also for bf16 operands) and HBM3; dense
 # TF32 and bf16 on the tensor cores (the precision probes' mma paths).
@@ -389,7 +399,7 @@ def bound_terms(B, H, L, with_bias, elt):
 
 @functools.cache
 def parent_libs():
-    """The parent commit's B1, B2, B3, B4 and P1 libraries, built at once
+    """The parent commit's B1-B5 and P1 libraries, built at once
     (one nvcc each) from its sources under _archive/parent, or None where
     that tree is not there. Timing yardsticks only: nothing on a path calls
     them, and no count moves."""
@@ -404,6 +414,7 @@ def parent_libs():
             "attention_bwd": ("ecg_attention_bwd", 12, 6),
             "attention_rpos_fwd": ("ecg_attention_rpos_fwd", 7, 7),
             "attention_rpos_bwd": ("ecg_attention_rpos_bwd", 13, 7),
+            "attention_dense_fwd": ("ecg_attention_dense_fwd", 5, 7),
             "precision_probe": ("ecg_probe_dot", 3, 5)}
     with ThreadPoolExecutor(len(libs)) as pool:
         futures = {name: pool.submit(bind, name, *sig, csrc=csrc) for name, sig in libs.items()}
@@ -477,6 +488,21 @@ def b3_call(lib, q, k, v, toep, W, offsets, with_lse=True):
     return o, lse
 
 
+def b5_call(lib, q, k, v, bias):
+    """One B5 library's kernel on the same operands, at the route's pack
+    factor. No count moves."""
+    from ecg_denoise_tpu_torch.kernels.attention import DTYPE_CODES, ptr, raise_on
+    from ecg_denoise_tpu_torch.kernels.attention_dense import dense_pack_factor
+
+    B, H, L, D = q.shape
+    o = torch.empty_like(q)
+    err = lib.ecg_attention_dense_fwd(ptr(q), ptr(k), ptr(v), ptr(bias), ptr(o), B, H, L, D,
+                                      dense_pack_factor(H, L), DTYPE_CODES[q.dtype],
+                                      q.device.index, torch.cuda.current_stream().cuda_stream)
+    raise_on(lib, err, "dense attention forward (yardstick call)")
+    return o
+
+
 def b4_call(lib, q, k, v, toep, W, offsets, o, lse, g):
     """One B4 library's kernels on the same operands, allocated as
     `attention_rpos._launch_bwd` allocates: (dq, dk, dv, dtoep), dtoep
@@ -531,7 +557,7 @@ def phase_device_and_build():
         for future in [pool.submit(load) for load in loads]:
             future.result()
     log(f"[1] {len(loads)} kernel sources built and loaded in {time.perf_counter() - t0:.1f} s"
-        + ("" if parent_libs() is None else " (the last: the parent's B1-B4 and P1, built "
+        + ("" if parent_libs() is None else " (the last: the parent's B1-B5 and P1, built "
            f"from {PARENT_CSRC}, yardsticks)"))
     return name
 
@@ -853,7 +879,7 @@ def phase_times(gpu_model, cpu_model, card):
                 f"(operations {t_ops:.4f} at the f32 CUDA-core peak, bytes "
                 f"{t_bytes:.4f}), plain {plain:.4f} ms, sdpa {lib:.4f} ms"
                 f"{no_bias}{turns}; {calls} calls per forward")
-            if dtype == torch.float32:
+            if dtype == torch.float32 and calls:
                 for key, t in (("ms", ms), ("plain_ms", plain), ("bound_ms", bnd),
                                ("library_ms", lib), ("eager_ms", eager), ("parent_ms", parent)):
                     if totals[key] is not None:
@@ -1262,7 +1288,7 @@ def phase_train_times(cpu_model, card):
                 f"{t_bytes:.4f}), plain {plain:.4f} ms, sdpa backward {lib:.4f} ms "
                 f"((fwd+bwd) - fwd){turns}{by_pass} (device ms, torch.profiler); "
                 f"{calls} calls per step")
-            if dtype == torch.float32:
+            if dtype == torch.float32 and calls:
                 for key, t in (("ms", ms), ("plain_ms", plain), ("bound_ms", bnd),
                                ("library_ms", lib), ("eager_ms", eager), ("parent_ms", parent)):
                     if totals[key] is not None:
@@ -1767,13 +1793,9 @@ def phase_rpos_times(gpu_model, cpu_model, card):
     return fwd, by["fwd"], bwd, by["bwd"]
 
 
-def bf16_step(x):
-    """One bfloat16 spacing at the largest magnitude of x."""
-    return 2.0 ** (np.floor(np.log2(x.float().abs().max().item())) - 7)
-
-
 def phase_dense_kernel_vs_plain():
-    """B5 against its plain version and against B1 on the same operands."""
+    """B5 against B1 without lse (bit for bit), its plain version and, where
+    its tree is there, the parent's B5 on the same operands."""
     from ecg_denoise_tpu_torch import full_float32
     from ecg_denoise_tpu_torch.kernels import attention
     from ecg_denoise_tpu_torch.kernels.attention_dense import (
@@ -1784,32 +1806,34 @@ def phase_dense_kernel_vs_plain():
     saved = tf32_flags()
     full_float32()
     gen = torch.Generator().manual_seed(14)
+    parent = parent_libs()["attention_dense_fwd"] if parent_libs() else None
     max_err = 0.0
-    cases = [(B, L, H, b, dt) for (L, H) in DENSE_SHAPES[:4] for B in (BATCH, 3)
+    cases = [(B, L, H, b, dt) for (L, H) in DENSE_SHAPES for B in DENSE_BATCHES
              for b in (True, False) for dt in (torch.float32, torch.bfloat16)]
-    cases += [(B, L, H, b, torch.float32) for (L, H) in DENSE_SHAPES[4:]
-              for B in (BATCH, 3) for b in (True, False)]
     for B, L, H, with_bias, dtype in cases:
         q, k, v, bias = operands(B, H, L, with_bias, dtype, gen)
         out = fused_attention_dense(q, k, v, bias)
         again = fused_attention_dense(q, k, v, bias)
         b1 = attention._launch(q, k, v, bias)
+        old = None if parent is None else b5_call(parent, q, k, v, bias)
         torch.cuda.synchronize()
         err = (out.float() - attention_dense_reference(q, k, v, bias).float()).abs().max().item()
-        err_b1 = (out.float() - b1.float()).abs().max().item()
+        err_old = None if old is None else (out.float() - old.float()).abs().max().item()
         if dtype == torch.float32:
-            tol, tol_b1 = F32_TOL, F32_TOL
+            tol = F32_TOL
             max_err = max(max_err, err)
         else:
             tol = BF16_TOL_OF_MAX_V * v.float().abs().max().item()
-            tol_b1 = bf16_step(b1)
-        same = torch.equal(out, again)
-        log(f"[14] B5 B={B} L={L} H={H} bias={with_bias} {str(dtype)[6:]}: max_abs_err "
-            f"vs plain {err:.3e} (tol {tol:.3e}), vs B1 {err_b1:.3e} (tol {tol_b1:.3e}); "
-            f"a second call bit-identical: {same}")
+        same, same_b1 = torch.equal(out, again), torch.equal(out, b1)
+        log(f"[14] B5 B={B} L={L} H={H} bias={with_bias} {str(dtype)[6:]}: equal to B1 "
+            f"without lse: {same_b1}; max_abs_err vs plain {err:.3e}, vs the parent's B5 "
+            + ("not measured" if err_old is None else f"{err_old:.3e}")
+            + f" (tol {tol:.3e}); a second call bit-identical: {same}")
         check(out.shape == q.shape and out.dtype == dtype, "B5 output shape or dtype")
-        check(bool(torch.isfinite(out).all()) and err <= tol and err_b1 <= tol_b1,
-              "B5 disagrees with its plain version or with B1")
+        check(same_b1, "B5 differs from B1 without lse")
+        check(bool(torch.isfinite(out).all()) and err <= tol
+              and (err_old is None or err_old <= tol),
+              "B5 disagrees with its plain version or with the parent's B5")
         check(same, "two B5 calls differ")
     # One max per head, not per packed row: head 0 about 130 logits above
     # head 1 in one packed group of (16, 32); then logits near 200.
@@ -1933,6 +1957,46 @@ def phase_dense_serving(cpu_model, gpu_model, card):
     return launches
 
 
+def b5_smem_bytes(L, P, with_bias, elt):
+    """The dynamic shared memory of one B5 block (`smem_bytes` in
+    attention_dense_fwd.cu): the f32 bias tile, its rows L + 4 floats apart
+    at L >= 8, then two buffers of q, K and V rows, then (bf16) K and V in
+    f32."""
+    rows = P * L
+    threads = max(1, 128 // rows) * rows
+    tile = -(-rows * (L + 4 if L >= 8 else L) * 4 // 16) * 16 if with_bias else 0
+    return tile + 2 * 3 * threads * 4 * elt + (2 * threads * 16 if elt == 2 else 0)
+
+
+def log_b5_resources():
+    """B5's resources by kernel instantiation as ptxas left them in the
+    built library (cuobjdump -res-usage: registers, stack, static shared and
+    local memory; a spill shows as stack or local memory), and the dynamic
+    shared memory of a block at the route's shapes. Fails on a spill in an
+    instantiation that RA-LENet's dense calls take (L = 64, 32, 16)."""
+    from ecg_denoise_tpu_torch.kernels.attention_dense import dense_pack_factor
+    from ecg_denoise_tpu_torch.kernels.build import CSRC, _nvcc, _target
+
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-res-usage", str(_target("attention_dense_fwd", CSRC))],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    found = re.findall(r"Function \S*attention_dense_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)"
+                       r"ELb([01])\S*:\s*REG:(\d+) STACK:(\d+) SHARED:(\d+) LOCAL:(\d+)", text)
+    for dt, L, bias, reg, stack, shared, local in sorted(found, key=lambda f: (f[0], int(f[1]))):
+        log(f"[16] B5 ptxas, {'float32' if dt == 'f' else 'bfloat16'} L={L} "
+            f"bias={bias == '1'}: {reg} registers, stack {stack} bytes, local {local} bytes, "
+            f"static shared {shared} bytes")
+    check(len(found) == 2 * 7 * 2, "B5's 28 kernel instantiations not all found")
+    route = {str(L) for (L, _, _) in DENSE_CALLS}
+    check(all(f[4] == "0" and f[6] == "0" for f in found if f[1] in route),
+          "a B5 instantiation of RA-LENet's dense calls spills")
+    for (L, H, with_bias) in DENSE_CALLS:
+        P = dense_pack_factor(H, L)
+        log(f"[16] B5 dynamic shared memory a block at L={L} H={H} (P={P}) bias={with_bias}: "
+            f"{b5_smem_bytes(L, P, with_bias, 4)} bytes float32, "
+            f"{b5_smem_bytes(L, P, with_bias, 2)} bfloat16")
+
+
 def phase_dense_times(gpu_model, cpu_model, card):
     """B5 per stage shape beside B1 without lse, its bound, its plain
     version and SDPA; Denoiser windows/s with and without the dense route;
@@ -1946,11 +2010,17 @@ def phase_dense_times(gpu_model, cpu_model, card):
     from ecg_denoise_tpu_torch.probes.floor import graph_us
     from ecg_denoise_tpu_torch.serving import Denoiser
 
+    log_b5_resources()
     gen = torch.Generator().manual_seed(25)
-    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "b1_ms": 0.0}
+    parent = parent_libs()["attention_dense_fwd"] if parent_libs() else None
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "b1_ms": 0.0,
+              "parent_ms": 0.0 if parent else None}
     limits = {"operations": 0.0, "bytes": 0.0}
+    # The forward's dense calls, then (64, 4), RA-LENet with half the heads
+    # (no call of the forward: timed, not added to its totals).
+    shapes = list(DENSE_CALLS.items()) + [((64, 4, True), 0)]
     for dtype in (torch.float32, torch.bfloat16):
-        for (L, H, with_bias), calls in DENSE_CALLS.items():
+        for (L, H, with_bias), calls in shapes:
             q, k, v, bias = operands(BATCH, H, L, with_bias, dtype, gen)
 
             def b5():
@@ -1959,9 +2029,18 @@ def phase_dense_times(gpu_model, cpu_model, card):
             def b1():
                 return attention._launch(q, k, v, bias)
 
-            # The card's time: 20 calls replayed from one CUDA graph; issued
-            # one by one from Python a call this short times the host too.
-            ms, b1_ms = (graph_us(f, 20) / 1e3 for f in (b5, b1))
+            # The card's time: 20 calls replayed from one CUDA graph, in
+            # turns with the parent's B5 where its tree is there; issued one
+            # by one from Python a call this short times the host too.
+            if parent is None:
+                ms, old_ms = graph_us(b5, 20) / 1e3, None
+                turns = ", the parent's B5 not measured (no tree under _archive/parent)"
+            else:
+                old, new = in_turns(functools.partial(b5_call, parent, q, k, v, bias), b5)
+                ms, old_ms = statistics.mean(new) / 1e3, statistics.mean(old) / 1e3
+                turns = (f", the parent's B5 {old_ms:.4f} ms (graph replays in turns, parent "
+                         f"{old[0]:.1f} / {old[1]:.1f} us, this {new[0]:.1f} / {new[1]:.1f} us)")
+            b1_ms = graph_us(b1, 20) / 1e3
             eager, b1_eager = (cuda_ms(f, 20) for f in (b5, b1))
             plain = cuda_ms(lambda: attention_dense_reference(q, k, v, bias), 5)
             lib = cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -1972,17 +2051,20 @@ def phase_dense_times(gpu_model, cpu_model, card):
                 f"H={H} bias={with_bias}: kernel {ms:.4f} ms, B1 without lse {b1_ms:.4f} ms "
                 f"(graph replays; issued from Python {eager:.4f} and {b1_eager:.4f} ms), "
                 f"bound {bnd:.4f} ms (operations {t_ops:.4f} at the f32 CUDA-core peak, "
-                f"bytes {t_bytes:.4f}), plain {plain:.4f} ms, sdpa {lib:.4f} ms; "
-                f"{calls} calls per forward")
-            if dtype == torch.float32:
+                f"bytes {t_bytes:.4f}), plain {plain:.4f} ms, sdpa {lib:.4f} ms{turns}; "
+                + (f"{calls} calls per forward" if calls else "RA-LENet with half the heads"))
+            if dtype == torch.float32 and calls:
                 for key, t in (("ms", ms), ("plain_ms", plain), ("bound_ms", bnd),
-                               ("library_ms", lib), ("b1_ms", b1_ms)):
-                    totals[key] += calls * t
+                               ("library_ms", lib), ("b1_ms", b1_ms), ("parent_ms", old_ms)):
+                    if totals[key] is not None:
+                        totals[key] += calls * t
                 limits["operations"] += calls * t_ops
                 limits["bytes"] += calls * t_bytes
     by = max(limits, key=limits.get)
     log(f"[16] {card}: B5 float32, one forward's 12 dense-routed calls at B={BATCH}: "
-        f"kernel {totals['ms']:.4f} ms (B1 on the same calls {totals['b1_ms']:.4f} ms), "
+        f"kernel {totals['ms']:.4f} ms (B1 on the same calls {totals['b1_ms']:.4f} ms, the "
+        "parent's B5 in turns " + ("not measured" if parent is None
+                                    else f"{totals['parent_ms']:.4f} ms") + "), "
         f"bound {totals['bound_ms']:.4f} ms ({by}), plain {totals['plain_ms']:.4f} ms, "
         f"sdpa {totals['library_ms']:.4f} ms")
 
@@ -2346,9 +2428,10 @@ def main():
     null["also_replaces"] = "scripts/probe_floor.py:65"
     dense = entry("attention_dense_fwd", 449, dense_err, dense_totals, dense_by,
                   f"one dense forward's 12 B5 calls, float32, B={BATCH}; kernel and "
-                  "b1_ms_same_calls from CUDA graph replays, plain and library issued "
-                  "from Python")
+                  "b1_ms_same_calls from CUDA graph replays, the kernel in turns with the "
+                  "parent's where its tree is there; plain and library issued from Python")
     dense["b1_ms_same_calls"] = dense_totals["b1_ms"]
+    dense["parent_ms_same_calls"] = dense_totals["parent_ms"]
     null["null_launch_us"] = {"host": null_times["null_launch_host_us"],
                               "graph": null_times["null_launch_graph_us"]}
     null["against_copy_"] = null_times["settled"]

@@ -29,57 +29,95 @@
 // at (L, H) = (64, 8), 33.6 MB at (32, 16), 33.5 MB at (16, 32) and 16.8 MB
 // at (64, 4), about 10 us (5 us at (64, 4)) at 3.35 TB/s, against 9.0, 4.5,
 // 2.3 and 4.5 us of f32 arithmetic at 67 TFLOP/s. D = 4 is below every
-// tensor-core shape. What held attention_fwd.cu (B1) far above that bound
-// at these shapes is its bias reads: one thread per query row, so one
-// warp's loads of the bias touch 32 rows and 32 sectors.
+// tensor-core shape. The flop count leaves out the exps, the bias adds, the
+// max and the shared-memory loads: this design issues about 21 instructions
+// per (row, key) pair (its SASS at L = 64 with the bias: 7.3 FFMA, 4 FMUL,
+// 3 FADD, 2.3 LDS, 1.05 FMNMX, 1 FSETP and 1.06 MUFU; __expf's exact path
+// for tiny results is the FSETP and two of the FMULs) where the bound counts
+// 9 flops.
 //
-// Design (the Hopper form of the TPU kernel's dense (L, P*L) tile):
-// * A warp owns one query position l of a group of HP heads of one batch
-//   element b; its 32 lanes cover the group's HP*L (head, key) pairs. HP
-//   is the largest power of two that divides H and is at most min(P, 32),
-//   so each head gets S = 32 / HP lanes, an aligned run of the warp, and
-//   each lane C = ceil(L / S) <= 4 keys m = sub + i*S (HP*L <= P*L <= 128).
-//   At the four shapes above HP = P and HP*L = 128: 4 keys a lane. Where
-//   HP*L < 32 (L <= 8 with few heads) the lanes past L idle.
-// * The block stages the group's K and V rows, converted to f32, in shared
-//   memory (HP*L rows, contiguous in memory, at most 4 KB); its warps take
-//   the L query positions in turn.
-// * For load i, the S lanes of one head read S consecutive bias values of
-//   that head's row l: a warp reads its HP bias rows as HP coalesced runs
-//   where B1 makes 32 scattered reads.
-// * The row max, then the sum and the four V-weighted sums (the TPU's
-//   ones-row sum is a fifth accumulator beside them) are reduced over the
-//   S lanes of a head with butterfly shuffles: offsets below S stay inside
-//   the aligned run, so each head is reduced on its own. Lane sub = 0
-//   writes the output row. No atomics: every output has one fixed order of
-//   sums, so two calls give bit-identical outputs.
+// Design: the TPU's dense (L, P*L) tile, held a row per thread.
+// * Grid. A block owns the P heads that the TPU packs into one 128-lane
+//   row (a head group g) and a group of batch elements; the last group is
+//   ragged. It has one thread per (head, query row), P*L threads: 128 at
+//   the route's four RA-LENet shapes. Where P*L < 128 the block takes
+//   128 / (P*L) elements side by side, so that no block is a few warps.
+//   It walks `iters` rounds of those elements (at most kMaxIters), chosen
+//   at launch so that the grid is about kBlocksPerSM blocks an SM: the
+//   blocks of one call are resident together, in one wave.
+// * Bias, staged once per block. The block copies its P heads' (L x L)
+//   bias rows into shared memory once, as f32, and reuses them over all
+//   its elements: the previous design read each warp's bias rows
+//   from global memory (L2) for every element, B*H*L*L*elt a call (134 MB
+//   at (64, 8), B = 1024, f32, four times the call's byte bound); now
+//   (B / nb)*H*L*L*elt, nb the block's elements. Thread r reads row r 16
+//   bytes at a time (LDS.128): with a row stride of L + 4 floats (L >= 8)
+//   the 8 lanes of a quarter warp start 4 banks apart, conflict-free.
+// * K, V and q. Each element's P*L rows of q, K and V reach shared memory
+//   by cp.async (a thread its own row of each), double-buffered: the next
+//   element is in flight while this one is used. bf16 rows land raw and
+//   are converted to f32 once, in shared memory. A warp's lanes read one
+//   key of one head at a time: a broadcast.
+// * One pass over the keys. L <= 64, so a thread holds its row's L logits
+//   in registers (the kernel is templated on L): each dot4 is computed
+//   once, then the max over the registers, then exp, the sum and the
+//   V-weighted sum. No shuffles, no cross-lane reductions: the previous
+//   design spread a row over 32 / P lanes and reduced it with butterfly
+//   shuffles after dependent global loads, a row after another.
+// * B1's arithmetic, keys in order: x = dot4(q, k), x += bias, the row max
+//   by fmaxf (exact, so its order does not matter), then __expf(x - mx),
+//   sum += ex and fmaf(ex, v, acc) in key order, and acc / sum: the output
+//   equals attention_fwd.cu's without lse bit for bit, f32 and bf16. No
+//   atomics: two calls give bit-identical outputs.
+//
+// Measured (chip_smoke.py phase 16, NVIDIA H100 80GB HBM3, 700.00 W power
+// limit; CUDA graph replays at B = 1024, in turns with this kernel's
+// previous design, a warp per query row): f32 33.8 us at (L, H) = (64, 8)
+// with the bias (the previous design 116.5, attention_fwd.cu without lse
+// 50.7), 19.6 at (32, 16) (59.0, 27.8), 11.4 at (16, 32) without a bias
+// (29.5, 17.4), 18.6 at (64, 4) (59.7, 27.2); bf16 33.3, 19.6, 12.2 and
+// 19.1 us. Tried on the card and dropped, each slower or level at the
+// route's shapes: the f32 bias tile copied by cp.async with the first
+// element's rows; the grid sized by the occupancy calculator; two query
+// rows of one head a thread, so that each K and V load feeds both.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
 constexpr int kD = 4;
-constexpr int kLanes = 32;
-constexpr int kMaxPairs = 128;                    // P*L of the route
-constexpr int kMaxPerLane = kMaxPairs / kLanes;   // keys a lane holds
-constexpr int kWarps = 8;
+constexpr int kMaxPairs = 128;    // P*L of the route: the TPU's 128-lane row
+constexpr int kMaxIters = 16;     // elements a thread walks in one block, at most
+constexpr int kBlocksPerSM = 4;   // the grid this aims at, per SM
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+__device__ __forceinline__ float4 to_float4(uint2 raw) {  // 4 bf16, low first
+  return make_float4(__uint_as_float(raw.x << 16), __uint_as_float(raw.x & 0xffff0000u),
+                     __uint_as_float(raw.y << 16), __uint_as_float(raw.y & 0xffff0000u));
 }
 
+// One (b, h, l) row of 4 bf16 operand values as f32.
 __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(p);
-  const float2 a = __bfloat1622float2(p2[0]);
-  const float2 b = __bfloat1622float2(p2[1]);
-  return make_float4(a.x, a.y, b.x, b.y);
+  return to_float4(*reinterpret_cast<const uint2*>(p));
 }
 
-__device__ __forceinline__ float load1(const float* p) { return *p; }
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
+// 16 bytes of bias as f32 values.
+__device__ __forceinline__ void unpack(uint4 c, float (&out)[4]) {
+  out[0] = __uint_as_float(c.x);
+  out[1] = __uint_as_float(c.y);
+  out[2] = __uint_as_float(c.z);
+  out[3] = __uint_as_float(c.w);
+}
+
+__device__ __forceinline__ void unpack(uint4 c, float (&out)[8]) {
+  const float4 lo = to_float4(make_uint2(c.x, c.y)), hi = to_float4(make_uint2(c.z, c.w));
+  out[0] = lo.x; out[1] = lo.y; out[2] = lo.z; out[3] = lo.w;
+  out[4] = hi.x; out[5] = hi.y; out[6] = hi.z; out[7] = hi.w;
 }
 
 __device__ __forceinline__ void store4(float* p, float4 v) {
@@ -99,117 +137,250 @@ __device__ __forceinline__ float dot4(float4 a, float4 b) {
   return fmaf(a.w, b.w, s);
 }
 
-template <typename T, bool kBias>
-__global__ void __launch_bounds__(kWarps * kLanes)
-attention_dense_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, const T* __restrict__ bias,
-                           T* __restrict__ o, int H, int L, int HP) {
-  __shared__ float4 ks[kMaxPairs];
-  __shared__ float4 vs[kMaxPairs];
-
-  const int groups = H / HP;
-  const int b = blockIdx.x / groups;
-  const int h0 = (blockIdx.x - b * groups) * HP;
-  const long long base = (static_cast<long long>(b) * H + h0) * L;  // (b, h0, 0)
-  const int n_pairs = HP * L;
-  for (int i = threadIdx.x; i < n_pairs; i += blockDim.x) {
-    ks[i] = load4(k + (base + i) * kD);
-    vs[i] = load4(v + (base + i) * kD);
-  }
-  __syncthreads();
-
-  const int lane = threadIdx.x & (kLanes - 1);
-  const int warp = threadIdx.x / kLanes;
-  const int n_warps = blockDim.x / kLanes;
-  const int S = kLanes / HP;         // lanes per head
-  const int hp = lane / S;           // this lane's head in the group
-  const int sub = lane - hp * S;     // its place among the head's lanes
-  const int C = (L + S - 1) / S;     // keys per lane, <= kMaxPerLane
-  const float4* kh = ks + hp * L;
-  const float4* vh = vs + hp * L;
-  const long long head_row0 = base + static_cast<long long>(hp) * L;  // (b, h, 0)
-
-  // Warp-uniform loop: every lane of a warp takes the same positions, so
-  // the full-mask shuffles below are safe.
-  for (int l = warp; l < L; l += n_warps) {
-    const long long row = head_row0 + l;
-    const float4 qr = load4(q + row * kD);
-    const T* brow = nullptr;
-    if (kBias) brow = bias + (static_cast<long long>(h0 + hp) * L + l) * L;
-
-    float s[kMaxPerLane];
-    float mx = __int_as_float(0xff800000);  // -inf
-#pragma unroll
-    for (int i = 0; i < kMaxPerLane; ++i) {
-      const int m = sub + i * S;
-      s[i] = 0.f;
-      if (i < C && m < L) {
-        s[i] = dot4(qr, kh[m]);
-        if (kBias) s[i] += load1(brow + m);
-        mx = fmaxf(mx, s[i]);
-      }
-    }
-    for (int off = S >> 1; off > 0; off >>= 1) {
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    }
-
-    float sum = 0.f;
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-    for (int i = 0; i < kMaxPerLane; ++i) {
-      const int m = sub + i * S;
-      if (i < C && m < L) {
-        const float e = __expf(s[i] - mx);
-        const float4 vv = vh[m];
-        sum += e;
-        acc.x = fmaf(e, vv.x, acc.x);
-        acc.y = fmaf(e, vv.y, acc.y);
-        acc.z = fmaf(e, vv.z, acc.z);
-        acc.w = fmaf(e, vv.w, acc.w);
-      }
-    }
-    for (int off = S >> 1; off > 0; off >>= 1) {
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      acc.x += __shfl_xor_sync(0xffffffffu, acc.x, off);
-      acc.y += __shfl_xor_sync(0xffffffffu, acc.y, off);
-      acc.z += __shfl_xor_sync(0xffffffffu, acc.z, off);
-      acc.w += __shfl_xor_sync(0xffffffffu, acc.w, off);
-    }
-    if (sub == 0) {
-      store4(o + row * kD,
-             make_float4(acc.x / sum, acc.y / sum, acc.z / sum, acc.w / sum));
-    }
+// cp.async of one operand row (16 bytes f32, 8 bytes bf16) into shared memory.
+template <typename T>
+__device__ __forceinline__ void cp_async_row(void* dst, const T* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (sizeof(T) == 4) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
   }
 }
 
-// Heads a warp takes: the largest power of two that divides H and is at
-// most min(P, 32).
-int heads_per_warp(int H, int P) {
-  int hp = 1;
-  while (2 * hp <= P && 2 * hp <= kLanes && H % (2 * hp) == 0) hp *= 2;
-  return hp;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// The tiling of one call, the same on host and device.
+struct Tiling {
+  int rows;     // (head, query row) pairs of one element: P * L
+  int slots;    // elements side by side in a block: 128 / rows, at least 1
+  int threads;  // slots * rows
+  int stride;   // the bias tile's row stride in floats
+  int bias_bytes;  // the bias tile, rounded up to 16 bytes
+  __host__ __device__ Tiling(int L, int P) {
+    rows = P * L;
+    slots = rows < kMaxPairs ? kMaxPairs / rows : 1;
+    threads = slots * rows;
+    stride = L >= 8 ? L + 4 : L;  // L <= 4: one 16-byte row or less, packed
+    bias_bytes = (rows * stride * 4 + 15) / 16 * 16;
+  }
+};
+
+// Shared memory, in bytes: the bias tile (with a bias), then two buffers of
+// q, K and V rows as they arrive, then (bf16) one buffer of K and V in f32.
+template <typename T>
+__host__ __device__ int smem_bytes(int L, int P, bool with_bias) {
+  const Tiling t(L, P);
+  const int staged = 2 * 3 * t.threads * kD * static_cast<int>(sizeof(T));
+  const int converted = sizeof(T) == 4 ? 0 : 2 * t.threads * 16;
+  return (with_bias ? t.bias_bytes : 0) + staged + converted;
+}
+
+// The most any call takes: 128 rows of 64 keys. Below 48 KB, so no launch
+// needs the opt-in to more dynamic shared memory.
+static_assert(128 * 68 * 4 + 2 * 3 * 128 * 16 <= 48 * 1024, "f32 shared memory");
+static_assert(128 * 68 * 4 + 2 * 3 * 128 * 8 + 2 * 128 * 16 <= 48 * 1024, "bf16 shared memory");
+
+template <typename T, int L, bool kBias>
+__global__ void __launch_bounds__(kMaxPairs)
+attention_dense_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, const T* __restrict__ bias,
+                           T* __restrict__ o, int B, int H, int P, int iters,
+                           bool bias_vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Tiling t(L, P);
+  const int groups = H / P;
+  const int g = blockIdx.x % groups;
+  const int elems = iters * t.slots;                 // elements of a full block
+  const int b0 = (blockIdx.x / groups) * elems;
+  const int n_elems = min(elems, B - b0);            // elements of this block
+  const int n_iters = (n_elems + t.slots - 1) / t.slots;
+  const int tid = threadIdx.x;
+  const int slot = tid / t.rows;
+  const int r = tid - slot * t.rows;  // p * L + l: the head group's row
+  const int p = r / L;
+
+  constexpr int kRowBytes = kD * sizeof(T);
+  float* tile = reinterpret_cast<float*>(smem);
+  unsigned char* staged = smem + (kBias ? t.bias_bytes : 0);
+  const int buf_bytes = 3 * t.threads * kRowBytes;  // one buffer: q, K, V rows
+  float4* kvf = reinterpret_cast<float4*>(staged + 2 * buf_bytes);  // bf16 only
+
+  // Start the cp.async copies of element (it * slots + slot)'s rows r of q, K and V.
+  auto stage = [&](int it) {
+    const int e = it * t.slots + slot;
+    if (e < n_elems) {
+      const size_t row = (static_cast<size_t>(b0 + e) * H + static_cast<size_t>(g) * P) * L + r;
+      unsigned char* dst = staged + (it & 1) * buf_bytes + tid * kRowBytes;
+      cp_async_row(dst, q + row * kD);
+      cp_async_row(dst + t.threads * kRowBytes, k + row * kD);
+      cp_async_row(dst + 2 * t.threads * kRowBytes, v + row * kD);
+    }
+    cp_async_commit();
+  };
+
+  stage(0);
+  if (kBias) {  // the group's (P*L x L) rows, once per block, as f32
+    const T* src = bias + static_cast<size_t>(g) * t.rows * L;
+    const int n = t.rows * L;
+    if (bias_vec) {  // 16-byte loads: L * elt and the group's start are 16-aligned
+      constexpr int kVec = 16 / sizeof(T);
+#pragma unroll 4
+      for (int i = tid * kVec; i < n; i += t.threads * kVec) {
+        float vals[kVec];
+        unpack(*reinterpret_cast<const uint4*>(src + i), vals);
+        const int row = i / L, m = i - row * L;  // L % kVec == 0: one row
+        float4* dst = reinterpret_cast<float4*>(tile + row * t.stride + m);
+#pragma unroll
+        for (int j = 0; j < kVec / 4; ++j) {
+          dst[j] = make_float4(vals[4 * j], vals[4 * j + 1], vals[4 * j + 2], vals[4 * j + 3]);
+        }
+      }
+    } else {
+#pragma unroll 4
+      for (int i = tid; i < n; i += t.threads) {
+        const int row = i / L, m = i - row * L;
+        tile[row * t.stride + m] = to_float(src[i]);
+      }
+    }
+  }
+  const float* brow = tile + r * t.stride;
+
+  for (int it = 0; it < n_iters; ++it) {
+    cp_async_wait_all();
+    // This element's rows are in for every thread, and every thread is
+    // done with the buffer that the next element's rows overwrite.
+    __syncthreads();
+    if (it + 1 < n_iters) stage(it + 1);
+    const unsigned char* buf = staged + (it & 1) * buf_bytes;
+    const bool ok = it * t.slots + slot < n_elems;
+    float4 qr = make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4* kh;  // this head's L keys
+    if constexpr (sizeof(T) == 4) {
+      const float4* fb = reinterpret_cast<const float4*>(buf);
+      if (ok) qr = fb[tid];
+      kh = fb + t.threads + slot * t.rows + p * L;
+    } else {  // bf16: convert this thread's rows of K and V once
+      if (ok) {
+        qr = load4(reinterpret_cast<const T*>(buf + tid * kRowBytes));
+        kvf[tid] = load4(reinterpret_cast<const T*>(buf + (t.threads + tid) * kRowBytes));
+        kvf[t.threads + tid] =
+            load4(reinterpret_cast<const T*>(buf + (2 * t.threads + tid) * kRowBytes));
+      }
+      __syncthreads();
+      kh = kvf + slot * t.rows + p * L;
+    }
+    if (!ok) continue;
+    const float4* vh = kh + t.threads;  // V's rows follow K's, the same layout
+
+    float s[L];  // the row's logits, in registers
+    if constexpr (L >= 4) {
+#pragma unroll
+      for (int m = 0; m < L; m += 4) {
+        float4 b4 = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (kBias) b4 = *reinterpret_cast<const float4*>(brow + m);
+        const float bm[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float x = dot4(qr, kh[m + j]);
+          if (kBias) x += bm[j];
+          s[m + j] = x;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int m = 0; m < L; ++m) {
+        float x = dot4(qr, kh[m]);
+        if (kBias) x += brow[m];
+        s[m] = x;
+      }
+    }
+    // The row max: fmaxf is exact, so four interleaved chains give the
+    // same value as one in key order.
+    float mx4[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) mx4[j] = __int_as_float(0xff800000);  // -inf
+#pragma unroll
+    for (int m = 0; m < L; ++m) mx4[m & 3] = fmaxf(mx4[m & 3], s[m]);
+    const float mx = fmaxf(fmaxf(mx4[0], mx4[1]), fmaxf(mx4[2], mx4[3]));
+
+    // exp, the sum and the V-weighted sum, keys in order.
+    float sum = 0.f;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int m = 0; m < L; ++m) {
+      const float ex = __expf(s[m] - mx);
+      const float4 vv = vh[m];
+      sum += ex;
+      acc.x = fmaf(ex, vv.x, acc.x);
+      acc.y = fmaf(ex, vv.y, acc.y);
+      acc.z = fmaf(ex, vv.z, acc.z);
+      acc.w = fmaf(ex, vv.w, acc.w);
+    }
+    const size_t row =
+        (static_cast<size_t>(b0 + it * t.slots + slot) * H + static_cast<size_t>(g) * P) * L + r;
+    store4(o + row * kD,
+           make_float4(acc.x / sum, acc.y / sum, acc.z / sum, acc.w / sum));
+  }
+}
+
+template <typename T, int L>
+cudaError_t launch_l(const T* q, const T* k, const T* v, const T* bias, T* o,
+                     int B, int H, int P, int device, cudaStream_t stream) {
+  const Tiling t(L, P);
+  const int groups = H / P;
+  int sms = 0;
+  const cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  // Elements a thread walks: enough that the grid is about kBlocksPerSM
+  // blocks an SM, all resident at once, and no more than kMaxIters.
+  const long long work = static_cast<long long>((B + t.slots - 1) / t.slots) * groups;
+  const long long want = static_cast<long long>(kBlocksPerSM) * sms;
+  long long iters = (work + want - 1) / want;
+  if (iters < 1) iters = 1;
+  if (iters > kMaxIters) iters = kMaxIters;
+  const long long elems = iters * t.slots;
+  const long long blocks = (B + elems - 1) / elems * groups;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const bool with_bias = bias != nullptr;
+  const bool bias_vec = with_bias && (L * sizeof(T)) % 16 == 0 &&
+                        reinterpret_cast<uintptr_t>(bias) % 16 == 0;
+  const int smem = smem_bytes<T>(L, P, with_bias);
+  if (with_bias) {
+    attention_dense_fwd_kernel<T, L, true><<<static_cast<int>(blocks), t.threads, smem, stream>>>(
+        q, k, v, bias, o, B, H, P, static_cast<int>(iters), bias_vec);
+  } else {
+    attention_dense_fwd_kernel<T, L, false><<<static_cast<int>(blocks), t.threads, smem, stream>>>(
+        q, k, v, bias, o, B, H, P, static_cast<int>(iters), false);
+  }
+  return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* bias, void* o, int B, int H, int L, int P,
-                   cudaStream_t stream) {
-  const int hp = heads_per_warp(H, P);
-  const dim3 grid(static_cast<unsigned>(B) * (H / hp));
-  const dim3 block(kLanes * (L < kWarps ? L : kWarps));
+                   int device, cudaStream_t stream) {
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* bt = static_cast<const T*>(bias);
   T* ot = static_cast<T*>(o);
-  if (bias != nullptr) {
-    attention_dense_fwd_kernel<T, true><<<grid, block, 0, stream>>>(
-        qt, kt, vt, bt, ot, H, L, hp);
-  } else {
-    attention_dense_fwd_kernel<T, false><<<grid, block, 0, stream>>>(
-        qt, kt, vt, bt, ot, H, L, hp);
+  switch (L) {
+    case 1: return launch_l<T, 1>(qt, kt, vt, bt, ot, B, H, P, device, stream);
+    case 2: return launch_l<T, 2>(qt, kt, vt, bt, ot, B, H, P, device, stream);
+    case 4: return launch_l<T, 4>(qt, kt, vt, bt, ot, B, H, P, device, stream);
+    case 8: return launch_l<T, 8>(qt, kt, vt, bt, ot, B, H, P, device, stream);
+    case 16: return launch_l<T, 16>(qt, kt, vt, bt, ot, B, H, P, device, stream);
+    case 32: return launch_l<T, 32>(qt, kt, vt, bt, ot, B, H, P, device, stream);
+    case 64: return launch_l<T, 64>(qt, kt, vt, bt, ot, B, H, P, device, stream);
+    default: return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -234,10 +405,10 @@ extern "C" int ecg_attention_dense_fwd(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      err = launch<float>(q, k, v, bias, o, B, H, L, P, s);
+      err = launch<float>(q, k, v, bias, o, B, H, L, P, device, s);
       break;
     case 1:
-      err = launch<__nv_bfloat16>(q, k, v, bias, o, B, H, L, P, s);
+      err = launch<__nv_bfloat16>(q, k, v, bias, o, B, H, L, P, device, s);
       break;
     default:
       err = cudaErrorInvalidValue;

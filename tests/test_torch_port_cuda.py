@@ -14,11 +14,11 @@ probabilities to bf16 before the pv product and the kernel does not (up to
 of |out| <= max|v| each).
 
 The dense forward (attention_dense_fwd.cu, B5) is held to the same limits
-against its plain version and, in float32, within 1e-5 of B1 on the same
-operands; in bfloat16 within one bfloat16 step of B1 at the outputs'
-magnitude (both compute in float32 and round once, and rounding is
-monotone, so the two part by at most one step). `null_copy` equals
-`clone()` bit for bit.
+against its plain version, and equals B1 without lse bit for bit (it
+computes B1's f32 expressions with the keys in B1's order), at batches
+that cut across its blocks' groups of elements; where the parent commit's
+tree is unpacked, it is within the same limits of the parent's B5.
+`null_copy` equals `clone()` bit for bit.
 
 The r-pos kernels (attention_rpos_fwd.cu, attention_rpos_bwd.cu) are held
 to the same limits against their plain versions, dtoep like dbias, at the
@@ -58,7 +58,7 @@ import pytest
 import torch
 
 from ecg_denoise_tpu_torch import full_float32
-from ecg_denoise_tpu_torch.kernels import attention
+from ecg_denoise_tpu_torch.kernels import attention, attention_dense
 from ecg_denoise_tpu_torch.kernels.attention import (
     attention_backward_reference,
     attention_reference,
@@ -80,6 +80,8 @@ STAGES = [(256, 2), (128, 4), (64, 8), (32, 16), (16, 32)]
 RPOS_STAGES = [(256, 32, 2), (128, 16, 4), (64, 8, 8), (32, 4, 16)]
 # (L, H) the dense route takes in RA-LENet, then other shapes it admits.
 DENSE_SHAPES = [(64, 8), (32, 16), (16, 32), (64, 4), (2, 2), (8, 4), (8, 6), (2, 64)]
+# B5's batches: batches that cut across its blocks' groups of elements.
+DENSE_BATCHES = [5, 1, 17, 37, 1000]
 F32_TOL = 1e-5
 BF16_TOL_OF_MAX_V = 3 * 2 ** -8
 GRAD_TOL = 1e-4
@@ -526,32 +528,56 @@ def test_rpos_model_forward_and_step_match_cpu_with_14_and_4_launches(cuda):
         assert (val.cpu().float() - ref_sd[key].float()).abs().max().item() <= tol, key
 
 
-def bf16_step(x: torch.Tensor) -> float:
-    """One bfloat16 spacing at the largest magnitude of x."""
-    return 2.0 ** (np.floor(np.log2(x.float().abs().max().item())) - 7)
-
-
+@pytest.mark.parametrize("B", DENSE_BATCHES)
 @pytest.mark.parametrize("L,H", DENSE_SHAPES)
 @pytest.mark.parametrize("with_bias", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_dense_kernel_matches_plain_version_and_b1(cuda, L, H, with_bias, dtype):
+def test_dense_kernel_matches_plain_version_and_b1(cuda, B, L, H, with_bias, dtype):
+    """B5 equals B1 without lse bit for bit (the same f32 expressions, keys
+    in order) and is within the bars of its plain version, at batches that
+    cut across its blocks' groups of elements."""
     full_float32()
-    q, k, v, bias = _operands(5, H, L, with_bias, dtype, cuda, seed=3)
+    q, k, v, bias = _operands(B, H, L, with_bias, dtype, cuda, seed=3)
     before = fused_attention_dense.launches
     out = fused_attention_dense(q, k, v, bias)
     torch.cuda.synchronize()
     assert fused_attention_dense.launches == before + 1
     assert out.dtype == dtype and out.shape == q.shape
-    plain = attention_dense_reference(q, k, v, bias)
-    b1 = attention._launch(q, k, v, bias)
-    err_plain = (out.float() - plain.float()).abs().max().item()
-    err_b1 = (out.float() - b1.float()).abs().max().item()
-    if dtype == torch.float32:
-        assert err_plain <= F32_TOL and err_b1 <= F32_TOL, (err_plain, err_b1)
-    else:
-        assert err_plain <= BF16_TOL_OF_MAX_V * v.float().abs().max().item(), err_plain
-        assert err_b1 <= bf16_step(b1), err_b1
+    err_plain = (out.float() - attention_dense_reference(q, k, v, bias).float()).abs().max().item()
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL_OF_MAX_V * v.float().abs().max().item()
+    assert err_plain <= tol, err_plain
+    assert torch.equal(out, attention._launch(q, k, v, bias))
     assert torch.equal(fused_attention_dense(q, k, v, bias), out)  # no atomics
+
+
+@pytest.mark.parametrize("B", DENSE_BATCHES)
+@pytest.mark.parametrize("L,H", DENSE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_kernel_matches_the_parent_commits(cuda, B, L, H, dtype):
+    """B5 within the bars of the parent commit's B5 on the same operands
+    (skipped where the parent's tree is not unpacked)."""
+    if not os.path.isdir(PARENT_CSRC):
+        pytest.skip("the parent commit's tree is not under _archive/parent")
+    from pathlib import Path
+
+    from ecg_denoise_tpu_torch.kernels.attention import DTYPE_CODES, bind, ptr, raise_on
+    from ecg_denoise_tpu_torch.kernels.attention_dense import dense_pack_factor
+
+    q, k, v, bias = _operands(B, H, L, True, dtype, cuda, seed=L + H)
+    outs = []
+    for lib in (attention_dense._library(),
+                bind("attention_dense_fwd", "ecg_attention_dense_fwd", 5, 7,
+                     csrc=Path(PARENT_CSRC))):
+        o = torch.empty_like(q)
+        err = lib.ecg_attention_dense_fwd(ptr(q), ptr(k), ptr(v), ptr(bias), ptr(o), B, H, L,
+                                          4, dense_pack_factor(H, L), DTYPE_CODES[dtype],
+                                          cuda.index or 0,
+                                          torch.cuda.current_stream().cuda_stream)
+        raise_on(lib, err, "dense attention forward")
+        outs.append(o)
+    torch.cuda.synchronize()
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL_OF_MAX_V * v.float().abs().max().item()
+    assert (outs[0].float() - outs[1].float()).abs().max().item() <= tol
 
 
 def test_dense_kernel_heads_far_apart_and_large_logits(cuda):
