@@ -136,16 +136,23 @@ and nothing falls back to the CPU):
    precision (ieee, tf32, tf32x3, bf16) within c K 2^-24 (|A_r| . |B_r|)
    of its plain version elementwise, probe_fold at each precision and
    probe_tree within 1e-5 of max|out|, probe_div bit for bit against
-   torch.div and numpy, at the probe's shapes and ragged ones, two calls
-   bit-identical; then the probe `ecg_denoise_tpu_torch.probes.precision`,
+   torch.div and numpy, at the probe's shapes and ragged ones (the
+   softmax probes also at shapes that cut across their blocks: L = 1, 7,
+   129, 1024), two calls bit-identical, and, where the parent's tree is
+   there, the dot, the fold and the tree bit for bit the parent's; SDPA
+   with zero q and k and the logits as its mask (the fold's and the tree's
+   library call) within 1e-5 of max|out| of tree_plain, and the backend it
+   took; then the probe `ecg_denoise_tpu_torch.probes.precision`,
    the counts set to 0 just before and read just after (the four probe
    kernels launched, the six others not), its f32-accurate paths within
-   1e-5 of float64, and its four dot readings equal to those the dot's
-   first version gave, within 1e-3 relative (PROBE_DOT_READINGS); then each kernel's time from CUDA graph
-   replays beside its bound, its plain version and the library call, the
-   dot in turns with torch.matmul and, where its tree is there, the
-   parent's dot; the divide settled against torch.div over 20 rounds in
-   turns (medians, spreads, and level, slower or faster).
+   1e-5 of float64, and its four dot and four fold readings equal to those
+   of the first versions, within 1e-3 relative (PROBE_DOT_READINGS,
+   PROBE_FOLD_READINGS); then each kernel's time from CUDA graph replays
+   beside its bound, its plain version and the library call, the dot in
+   turns with torch.matmul, the fold and the tree with SDPA, and, where
+   its tree is there, each with the parent's; the divide settled against
+   torch.div over 20 rounds in turns (medians, spreads, and level, slower
+   or faster).
 
 The last lines are one JSON object listing the ten kernels (with their
 launches on each of the seven paths: serve, train, serve_rpos, train_rpos,
@@ -245,7 +252,10 @@ PEAK_BF16_FLOPS = 989e12
 # softmax probes and the divide's shape; the probe's own, then ragged ones
 # that fit no mma tile.
 PRECISION_DOT_SHAPES = [(256, 256, 256), (203, 141, 77), (1, 8, 1), (65, 264, 33)]
-PRECISION_SOFTMAX_SHAPES = [(256, 4), (203, 3)]
+# The softmax probes also at shapes that cut across their blocks (8 query
+# rows), their row buckets (L <= 64, 256, 1024), their k-steps (8, 16) and
+# 16-byte loads (L % 4), and at the largest L and D they take.
+PRECISION_SOFTMAX_SHAPES = [(256, 4), (203, 3), (1, 1), (7, 2), (1024, 15), (129, 5)]
 PRECISION_DIV_SHAPES = [(8, 256), (203, 77)]
 # The probe's dot readings on the card, max|got - exact| / max|exact| and
 # the median elementwise relative error, by precision, as the dot's first
@@ -253,6 +263,12 @@ PRECISION_DIV_SHAPES = [(8, 256), (203, 77)]
 # them where they were, within 1e-3 relative (they are kept to four digits).
 PROBE_DOT_READINGS = {"ieee": (6.554e-07, 2.362e-07), "tf32": (3.578e-04, 2.956e-04),
                       "tf32x3": (2.604e-06, 1.764e-06), "bf16": (2.986e-03, 2.366e-03)}
+# The same for the fold, as its first version gave them on an H100
+# (max_abs/max|exact| as PERF.md records them; med_rel as that version
+# gave them beside its redesign): the redesign keeps each output's
+# roundings.
+PROBE_FOLD_READINGS = {"ieee": (6.636e-07, 3.058e-07), "tf32": (2.817e-04, 2.175e-04),
+                       "tf32x3": (1.942e-06, 9.898e-07), "bf16": (2.121e-03, 1.677e-03)}
 PROBE_READING_RTOL = 1e-3
 # B1 and B2 at shapes that cut across their row tiles (32 rows), batch
 # groups (16 elements, and 32 / L elements side by side in a warp at
@@ -278,6 +294,9 @@ PARENT_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_archive
 # fold and tree against their plain versions: both sides take the card's
 # expf on the same f32 logits, and the sums run in other orders.
 SOFTMAX_TOL_OF_MAX = 1e-5
+# The head dim of SDPA's zero q and k (softmax_pv_sdpa): a multiple of 8,
+# which PyTorch's fused attention kernels take.
+SDPA_QK_DIM = 8
 # The probe's f32-accurate paths (ieee and tf32x3 dot and fold, the tree)
 # against float64: the port's kernel bar.
 PROBE_F32_TOL_OF_MAX = 1e-5
@@ -418,7 +437,10 @@ def parent_libs():
             "precision_probe": ("ecg_probe_dot", 3, 5)}
     with ThreadPoolExecutor(len(libs)) as pool:
         futures = {name: pool.submit(bind, name, *sig, csrc=csrc) for name, sig in libs.items()}
-        return {name: future.result() for name, future in futures.items()}
+        built = {name: future.result() for name, future in futures.items()}
+    bind("precision_probe", "ecg_probe_fold", 3, 4, csrc=csrc)  # L, D, precision, device
+    bind("precision_probe", "ecg_probe_tree", 3, 3, csrc=csrc)  # L, D, device
+    return built
 
 
 def parent_b1(q, k, v, bias):
@@ -471,6 +493,45 @@ def parent_dot(a, b, precision):
                             a.device.index, torch.cuda.current_stream().cuda_stream)
     raise_on(lib, err, "the parent's precision probe dot")
     return c
+
+
+def parent_fold(logits, v, precision):
+    """The parent's P1 fold on the same operands."""
+    from ecg_denoise_tpu_torch.kernels.attention import ptr, raise_on
+    from ecg_denoise_tpu_torch.kernels.precision import PRECISIONS
+
+    lib = parent_libs()["precision_probe"]
+    D, L = v.shape
+    o = torch.empty(D, L, device=v.device)
+    err = lib.ecg_probe_fold(ptr(logits), ptr(v), ptr(o), L, D, PRECISIONS.index(precision),
+                             v.device.index, torch.cuda.current_stream().cuda_stream)
+    raise_on(lib, err, "the parent's precision probe fold")
+    return o
+
+
+def parent_tree(logits, v):
+    """The parent's P1 tree on the same operands."""
+    from ecg_denoise_tpu_torch.kernels.attention import ptr, raise_on
+
+    lib = parent_libs()["precision_probe"]
+    D, L = v.shape
+    o = torch.empty(D, L, device=v.device)
+    err = lib.ecg_probe_tree(ptr(logits), ptr(v), ptr(o), L, D, v.device.index,
+                             torch.cuda.current_stream().cuda_stream)
+    raise_on(lib, err, "the parent's precision probe tree")
+    return o
+
+
+def softmax_pv_sdpa(logits, v):
+    """A function computing (D, L) softmax(logits) . v^T by one PyTorch
+    call, the fold's and the tree's library yardstick:
+    scaled_dot_product_attention with zero q and k (so q . k^T = 0), the
+    (L, L) logits as its additive mask and v^T, laid out once as the call
+    takes it, as its values. The port never calls it."""
+    D, L = v.shape
+    z = torch.zeros(1, 1, L, SDPA_QK_DIM, device=v.device)
+    vt = v.T.contiguous()[None, None]
+    return lambda: F.scaled_dot_product_attention(z, z, vt, attn_mask=logits)[0, 0].T
 
 
 def b3_call(lib, q, k, v, toep, W, offsets, with_lse=True):
@@ -2190,6 +2251,30 @@ def precision_bound_terms(kernel, precision, shape):
     return t_ops * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
+def sdpa_backend(sdpa):
+    """The SDPA backends that take the call `sdpa` and give the default
+    call's output bit for bit: the one PyTorch's dispatch chose is among
+    them."""
+    import warnings
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    want = sdpa()
+    same = []
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel(backend), warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # why each other backend declines
+                got = sdpa()
+        except RuntimeError:  # the backend does not take these operands
+            continue
+        if torch.equal(got, want):
+            same.append(backend.name)
+    check(len(same) > 0, "no SDPA backend gives the default call's output")
+    return same
+
+
 def matmul_tf32(a, b, allow):
     """torch.matmul with TF32 allowed or not for this call only."""
     saved = torch.backends.cuda.matmul.allow_tf32
@@ -2233,18 +2318,31 @@ def phase_precision(card):
         logits, v = on_card((L, L), (D, L))
         logits = 2.0 * logits
         cases = [(p, "probe_fold", functools.partial(probes.probe_fold, logits, v, p),
-                  probes.fold_plain(logits, v, p)) for p in probes.PRECISIONS]
+                  probes.fold_plain(logits, v, p),
+                  parent_libs() and functools.partial(parent_fold, logits, v, p))
+                 for p in probes.PRECISIONS]
         cases.append(("f32", "probe_tree", functools.partial(probes.probe_tree, logits, v),
-                      probes.tree_plain(logits, v)))
-        for p, kernel, run, ref in cases:
+                      probes.tree_plain(logits, v),
+                      parent_libs() and functools.partial(parent_tree, logits, v)))
+        for p, kernel, run, ref, parent in cases:
             got, again = run(), run()
             torch.cuda.synchronize()
             err = (got - ref).abs().max().item()
             tol = SOFTMAX_TOL_OF_MAX * ref.abs().max().item()
-            log(f"[18] {kernel} {p} (L, D)=({L}, {D}): max_abs_err={err:.3e} (tol {tol:.3e})")
+            identical = parent and torch.equal(got, parent())
+            log(f"[18] {kernel} {p} (L, D)=({L}, {D}): max_abs_err={err:.3e} (tol {tol:.3e})"
+                + (f"; bit-identical to the parent's: {identical}" if parent else ""))
             check(got.shape == (D, L) and torch.equal(got, again), f"{kernel} calls differ")
             check(err <= tol, f"{kernel} disagrees with its plain version")
+            check(identical is not False, f"{kernel} is not the parent's bit for bit")
             max_err[kernel] = max(max_err[kernel], err)
+        # The fold's and the tree's library call, against tree_plain.
+        ref = probes.tree_plain(logits, v)
+        err = (softmax_pv_sdpa(logits, v)() - ref).abs().max().item()
+        tol = SOFTMAX_TOL_OF_MAX * ref.abs().max().item()
+        log(f"[18] SDPA (zero q and k, the logits as its mask) (L, D)=({L}, {D}): "
+            f"max_abs_err against tree_plain {err:.3e} (tol {tol:.3e})")
+        check(err <= tol, "SDPA with zero q and k is not softmax(logits) . v^T")
     for shape in PRECISION_DIV_SHAPES:
         num = rng.standard_normal(shape).astype(np.float32)
         den = (0.5 + rng.random(shape)).astype(np.float32)
@@ -2273,13 +2371,14 @@ def phase_precision(card):
     check(all(case["abs_of_max"] <= PROBE_F32_TOL_OF_MAX for case in f32_paths),
           "an f32-accurate path of the probe is off float64")
     check(result["div"]["bit_exact"], "the probe's divide is not numpy's")
-    for p, want in PROBE_DOT_READINGS.items():
-        got = (result["dot"][p]["abs_of_max"], result["dot"][p]["med_rel"])
-        same = all(abs(g - w) <= PROBE_READING_RTOL * w for g, w in zip(got, want))
-        log(f"[18] the probe's dot {p}: max_abs/max|exact| {got[0]:.4e}, med_rel {got[1]:.4e}; "
-            f"the first version's {want[0]:.3e}, {want[1]:.3e}: equal within {PROBE_READING_RTOL:.0e} "
-            f"relative: {same}")
-        check(same, f"the probe's {p} dot readings moved")
+    for case, readings in (("dot", PROBE_DOT_READINGS), ("fold", PROBE_FOLD_READINGS)):
+        for p, want in readings.items():
+            got = (result[case][p]["abs_of_max"], result[case][p]["med_rel"])
+            same = all(abs(g - w) <= PROBE_READING_RTOL * w for g, w in zip(got, want))
+            log(f"[18] the probe's {case} {p}: max_abs/max|exact| {got[0]:.4e}, med_rel "
+                f"{got[1]:.4e}; the first version's {want[0]:.3e}, {want[1]:.3e}: equal within "
+                f"{PROBE_READING_RTOL:.0e} relative: {same}")
+            check(same, f"the probe's {p} {case} readings moved")
 
     # Times at the probe's own operands, each from 20 calls replayed from
     # one CUDA graph (CUDA events): a call this short, issued from Python,
@@ -2298,13 +2397,19 @@ def phase_precision(card):
         rows.append(("probe_dot", p, (probe.L, probe.L, probe.L),
                      functools.partial(probes.probe_dot, a, b, p),
                      functools.partial(probes.dot_plain, a, b, p), library[p]))
+    sdpa = softmax_pv_sdpa(logits, v)
+    log(f"[18] SDPA at the probe's operands: the backends that give its output bit for bit: "
+        f"{', '.join(sdpa_backend(sdpa))}")
     for p in probes.PRECISIONS:
         rows.append(("probe_fold", p, (probe.L, probe.D),
                      functools.partial(probes.probe_fold, logits, v, p),
-                     functools.partial(probes.fold_plain, logits, v, p), None))
+                     functools.partial(probes.fold_plain, logits, v, p), sdpa))
     rows.append(("probe_tree", None, (probe.L, probe.D),
                  functools.partial(probes.probe_tree, logits, v),
-                 functools.partial(probes.tree_plain, logits, v), None))
+                 functools.partial(probes.tree_plain, logits, v), sdpa))
+    parents = {"probe_dot": lambda p: functools.partial(parent_dot, a, b, p),
+               "probe_fold": lambda p: functools.partial(parent_fold, logits, v, p),
+               "probe_tree": lambda p: functools.partial(parent_tree, logits, v)}
     rows.append(("probe_div", None, tuple(num.shape), functools.partial(probes.probe_div, num, den),
                  functools.partial(probes.div_plain, num, den),
                  functools.partial(torch.div, num, den)))
@@ -2316,18 +2421,19 @@ def phase_precision(card):
                "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops > t_bytes
                else "bytes", "library_ms": None if lib is None else graph_us(lib, 20) / 1e3}
         turns = ""
-        if kernel == "probe_dot":
-            # In turns with torch.matmul and, where its tree is there, with
-            # the parent's dot on the same operands.
+        if kernel in parents:
+            # In turns with the library call (torch.matmul, SDPA) and, where
+            # its tree is there, with the parent's kernel on the same operands.
             lib_us, new_us = in_turns(lib, run)
-            turns = (f"; in turns: torch.matmul {lib_us[0]:.2f} / {lib_us[1]:.2f} us, "
-                     f"this {new_us[0]:.2f} / {new_us[1]:.2f} us")
+            turns = (f"; in turns: {'torch.matmul' if kernel == 'probe_dot' else 'SDPA'} "
+                     f"{lib_us[0]:.2f} / {lib_us[1]:.2f} us, this {new_us[0]:.2f} / "
+                     f"{new_us[1]:.2f} us")
             if parent_libs():
-                old_us, more = in_turns(functools.partial(parent_dot, a, b, p), run)
+                old_us, more = in_turns(parents[kernel](p), run)
                 new_us += more
                 row["parent_ms"] = statistics.mean(old_us) / 1e3
-                turns += (f"; the parent's dot {old_us[0]:.2f} / {old_us[1]:.2f} us, this "
-                          f"{more[0]:.2f} / {more[1]:.2f} us")
+                turns += (f"; the parent's {kernel[6:]} {old_us[0]:.2f} / {old_us[1]:.2f} us, "
+                          f"this {more[0]:.2f} / {more[1]:.2f} us")
             row["ms"] = statistics.mean(new_us) / 1e3
             row["library_ms"] = statistics.mean(lib_us) / 1e3
         log(f"[18] {card}: {kernel} {p or 'f32'} {shape}: kernel {row['ms']:.5f} ms, bound "
@@ -2440,9 +2546,11 @@ def main():
             ("probe_dot", 51, "the probe's four (256, 256, 256) dots, one per precision; "
              "library: torch.matmul with TF32 off (ieee, and tf32x3, which no PyTorch call "
              "computes) and on (tf32), and on bf16 inputs with a bf16 output (bf16)"),
-            ("probe_fold", 77, "the probe's four (256, 256) folds, one per precision; no "
-             "PyTorch call computes it"),
-            ("probe_tree", 89, "the probe's (256, 256) tree; no PyTorch call computes it"),
+            ("probe_fold", 77, "the probe's four (256, 256) folds, one per precision, in "
+             "turns with the parent's where its tree is there; library: "
+             "scaled_dot_product_attention with zero q and k and the logits as its mask"),
+            ("probe_tree", 89, "the probe's (256, 256) tree, in turns with the parent's where "
+             "its tree is there; library: the same SDPA call"),
             ("probe_div", 115, "the probe's (8, 256) divide; library: torch.div")):
         t = precision_times[kernel]
         e = entry(kernel, f"scripts/probe_precision.py:{line}", t["max_abs_err"], t,

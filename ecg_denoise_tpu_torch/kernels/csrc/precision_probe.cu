@@ -29,12 +29,15 @@
 // the dot moves 0.79 MB and does 33.5 MFLOP (0.24 us of HBM, 0.5 us of
 // the f32 CUDA-core peak, 0.07 us of the TF32 one); the fold, the tree and
 // the divide move under 0.3 MB. So their time is latency, not a rate. The
-// fold, the tree and the divide are the simplest kernels that are right
-// (the fold: one warp per 16x8 output tile, operands read straight from
-// global memory, which the L2 holds). The dot is tiled through shared
-// memory, double-buffered, its inputs rounded once as they are staged,
-// with several independent accumulation chains a warp (see its section):
-// its first version, built like the fold, lost 1.6-1.8 times to cuBLAS.
+// dot is tiled through shared memory, its inputs rounded once as they are
+// staged, with several independent accumulation chains a warp (see its
+// section): its first version, which read and rounded its operands from
+// global memory inside the chain, lost 1.6-1.8 times to cuBLAS. The fold
+// and the tree (see their section) keep one pinned chain per output, so
+// each is built to reach it after one memory latency: a logits row read
+// once into registers, v copied by cp.async behind the softmax and rounded
+// once in shared memory, and the chain fed from conflict-free shared
+// memory. The divide is the simplest kernel that is right.
 //
 // The fold pads its D + 1 rows of [v; ones] to the mma's 16 rows with
 // zeros: only row D is the ones row, and it goes through the same rounding
@@ -52,6 +55,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -59,7 +63,6 @@ enum Precision { kIeee = 0, kTf32 = 1, kTf32x3 = 2, kBf16 = 3 };
 
 constexpr int kMaxL = 1024;     // softmax row length the shared buffers hold
 constexpr int kMaxD = 15;       // D + 1 rows of [v; ones] fit one mma tile
-constexpr int kSoftmaxRows = 8;  // query rows per block: the mma's n = 8
 
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
   uint32_t r;
@@ -73,6 +76,13 @@ __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
          static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16;
 }
 
+// Fragments of the mma.sync tiles (PTX ISA, mma.m16n8k8 .tf32 and
+// mma.m16n8k16 .bf16), with g = lane / 4 and t = lane % 4:
+//   tf32 A: a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
+//        B: b0 (t, g), b1 (t+4, g)
+//   bf16 A: a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..), a3 (g+8, 2t+8..)
+//        B: b0 (2t..2t+1, g), b1 (2t+8..2t+9, g), lower k in the low half
+//   C: c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1)
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
   asm volatile(
@@ -89,56 +99,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// One warp adds A.B over k < K to its 16x8 tile c, on the tensor cores at
-// precision P, rounding each input as it loads it (the fold's product; the
-// dot rounds its inputs once, in shared memory, with the same layouts). a_at(r, k) is A[r][k] and b_at(k, n) is B[k][n] relative to
-// the tile, 0 outside the matrices. Fragments (PTX ISA, mma.m16n8k8 .tf32
-// and mma.m16n8k16 .bf16), with g = lane / 4 and t = lane % 4:
-//   tf32 A: a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
-//        B: b0 (t, g), b1 (t+4, g)
-//   bf16 A: a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..), a3 (g+8, 2t+8..)
-//        B: b0 (2t..2t+1, g), b1 (2t+8..2t+9, g), lower k in the low half
-//   C: c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1)
-template <int P, class LoadA, class LoadB>
-__device__ __forceinline__ void mma_tile(float (&c)[4], int K, LoadA a_at, LoadB b_at) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  if constexpr (P == kBf16) {
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      const int k = k0 + 2 * t;
-      const uint32_t a[4] = {bf16x2(a_at(g, k), a_at(g, k + 1)),
-                             bf16x2(a_at(g + 8, k), a_at(g + 8, k + 1)),
-                             bf16x2(a_at(g, k + 8), a_at(g, k + 9)),
-                             bf16x2(a_at(g + 8, k + 8), a_at(g + 8, k + 9))};
-      const uint32_t b[2] = {bf16x2(b_at(k, g), b_at(k + 1, g)),
-                             bf16x2(b_at(k + 8, g), b_at(k + 9, g))};
-      mma_bf16(c, a, b);
-    }
-  } else {
-    for (int k0 = 0; k0 < K; k0 += 8) {
-      const int k = k0 + t;
-      const float af[4] = {a_at(g, k), a_at(g + 8, k), a_at(g, k + 4), a_at(g + 8, k + 4)};
-      const float bf[2] = {b_at(k, g), b_at(k + 4, g)};
-      uint32_t ah[4], bh[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ah[i] = tf32_rna(af[i]);
-#pragma unroll
-      for (int i = 0; i < 2; ++i) bh[i] = tf32_rna(bf[i]);
-      if constexpr (P == kTf32x3) {
-        // x - hi is exact in f32; the small products go in first.
-        uint32_t al[4], bl[2];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) al[i] = tf32_rna(af[i] - __uint_as_float(ah[i]));
-#pragma unroll
-        for (int i = 0; i < 2; ++i) bl[i] = tf32_rna(bf[i] - __uint_as_float(bh[i]));
-        mma_tf32(c, al, bh);
-        mma_tf32(c, ah, bl);
-      }
-      mma_tf32(c, ah, bh);
-    }
-  }
 }
 
 // --- dot: C (M, N) = A (M, K) . B (K, N), all row-major f32 ------------
@@ -352,7 +312,19 @@ probe_dot_kernel(const float* __restrict__ A, const float* __restrict__ B,
   }
 }
 
-// --- softmax row max and exp, shared by the fold and the tree ------------
+// --- softmax rows, shared by the fold and the tree -----------------------
+//
+// Both kernels stage what the sums read in shared memory before they start
+// and run each pinned chain from there:
+// * A warp takes a logits row: each lane issues all its loads at once
+//   (j = lane + 32 m, m < NPL, NPL a compile-time bucket of L) and keeps
+//   them in registers for the max and the exp, so the row is read once.
+// * v is copied by cp.async, issued before the softmax, so its latency
+//   hides behind the row's; each thread rounds the elements it copied
+//   itself once they land (no extra barrier).
+// * Row strides are odd multiples of 4 words, so 16-byte rows, and the 8
+//   rows read at one k (the ieee fold's en[n][k], the mma fragments
+//   g * stride + t) fall in 8 different banks.
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -366,83 +338,310 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// One warp writes exp(row - max(row)) of logits row i into e[0..L), 0 for
-// a row past L; returns this lane's sum of its own entries, in order.
-__device__ __forceinline__ float row_exp(const float* __restrict__ logits, int i, int L,
-                                         float* e) {
+// One warp's exp(row - max(row)) of logits row i: e[m] for j = lane + 32 m,
+// 0 for j >= L and for a row past L. 32 NPL >= L.
+template <int NPL>
+__device__ __forceinline__ void row_exp(const float* __restrict__ logits, int i, int L,
+                                        float (&e)[NPL]) {
   const int lane = threadIdx.x & 31;
-  float part = 0.f;
-  if (i >= L) {
-    for (int j = lane; j < L; j += 32) e[j] = 0.f;
-    return part;
+  if (i >= L) {  // warp-uniform
+#pragma unroll
+    for (int m = 0; m < NPL; ++m) e[m] = 0.f;
+    return;
   }
   const float* row = logits + static_cast<size_t>(i) * L;
-  float mx = __int_as_float(0xff800000);  // -inf
-  for (int j = lane; j < L; j += 32) mx = fmaxf(mx, row[j]);
+  const float neg_inf = __int_as_float(0xff800000);
+#pragma unroll
+  for (int m = 0; m < NPL; ++m) e[m] = lane + 32 * m < L ? row[lane + 32 * m] : neg_inf;
+  float mx = neg_inf;
+#pragma unroll
+  for (int m = 0; m < NPL; ++m) mx = fmaxf(mx, e[m]);
   mx = warp_max(mx);
-  for (int j = lane; j < L; j += 32) {
-    const float x = expf(row[j] - mx);
-    e[j] = x;
-    part += x;
-  }
-  return part;
+#pragma unroll
+  for (int m = 0; m < NPL; ++m) e[m] = lane + 32 * m < L ? expf(e[m] - mx) : 0.f;
 }
 
+// acc = fmaf(a[k], b[k], acc) for k = 0 .. n - 1 in order, from shared
+// memory: 16 elements of each operand a group, by 16-byte loads (a and b
+// 16-byte aligned), the next group's loads in flight while this one's 16
+// FMAs run (64 cycles against a load's 30 or so), so the chain waits on
+// the FMAs alone.
+__device__ __forceinline__ float fma_chain(const float* a, const float* b, int n) {
+  const float4* a4 = reinterpret_cast<const float4*>(a);
+  const float4* b4 = reinterpret_cast<const float4*>(b);
+  const int groups = n / 16;
+  float4 x[4], y[4];
+  if (groups > 0) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      x[u] = a4[u];
+      y[u] = b4[u];
+    }
+  }
+  float acc = 0.f;
+  for (int q = 0; q < groups; ++q) {
+    const int next = 4 * min(q + 1, groups - 1);  // the last group loads itself again
+    float4 nx[4], ny[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      nx[u] = a4[next + u];
+      ny[u] = b4[next + u];
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      acc = fmaf(x[u].x, y[u].x, acc);
+      acc = fmaf(x[u].y, y[u].y, acc);
+      acc = fmaf(x[u].z, y[u].z, acc);
+      acc = fmaf(x[u].w, y[u].w, acc);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      x[u] = nx[u];
+      y[u] = ny[u];
+    }
+  }
+  for (int k = 16 * groups; k < n; ++k) acc = fmaf(a[k], b[k], acc);
+  return acc;
+}
+
+// The row buckets the kernels are built for: L <= 32 NPL.
+template <class Launch>
+cudaError_t by_bucket(int L, Launch launch) {
+  if (L <= 64) return launch(std::integral_constant<int, 2>{});
+  if (L <= 256) return launch(std::integral_constant<int, 8>{});
+  return launch(std::integral_constant<int, 32>{});
+}
+
+// A row stride of words that is an odd multiple of 4 and holds n words.
+__host__ __device__ constexpr int odd_quad_stride(int n) { return 8 * ((n + 7) / 8) + 4; }
+
 // --- fold: o (D, L) = of[:D] / of[D], of = [v; ones] . en^T --------------
+//
+// A block owns 8 query rows (the mma's n), a warp a row's softmax. The k
+// extent is padded to whole bf16 k-steps, kpad = L rounded up to 16, with
+// zeros (rows past D of [v; ones] and columns past L), as the fragments
+// of the first version read them. Shared memory, in words, stride
+// sw = odd_quad_stride(kpad) (sb = odd_quad_stride(kpad / 2) for packed
+// bf16 pairs):
+//   vs  [16][sw]  raw [v; ones]: f32 (ieee), TF32 hi in place (tf32, tf32x3)
+//   en  [8][sw]   exp rows: f32 (ieee), TF32 hi (tf32, tf32x3)
+//   tf32x3: vlo [16][sw], enlo [8][sw]; bf16: vb [16][sb], enb [8][sb]
+// * ieee: thread (r, n) for r <= D runs its fmaf chain over k in order
+//   (fma_chain).
+// * tf32, tf32x3, bf16: warp 0 walks the k-steps of its 16x8 tile in order
+//   on the staged, rounded fragments, each step's loaded during the step
+//   before; the chain waits only on mma.sync.
+
+constexpr int kFoldRows = 8;
+
+__host__ __device__ constexpr int fold_kpad(int L) { return (L + 15) & ~15; }
 
 template <int P>
-__global__ void __launch_bounds__(32 * kSoftmaxRows)
+__host__ __device__ constexpr int fold_smem_words(int L) {
+  const int sw = odd_quad_stride(fold_kpad(L)), sb = odd_quad_stride(fold_kpad(L) / 2);
+  return P == kTf32x3 ? 48 * sw : P == kBf16 ? 16 * sw + 24 * sb : 24 * sw;
+}
+
+template <int P, int NPL>
+__global__ void __launch_bounds__(32 * kFoldRows, 1)
 probe_fold(const float* __restrict__ logits, const float* __restrict__ v,
            float* __restrict__ o, int L, int D) {
-  __shared__ float en[kSoftmaxRows][kMaxL];
-  __shared__ float of[16][kSoftmaxRows];
-  const int warp = threadIdx.x >> 5;
-  const int i0 = blockIdx.x * kSoftmaxRows;
-  row_exp(logits, i0 + warp, L, en[warp]);
-  __syncthreads();
-  // vx = [v; ones], rows past D zero (never ones), columns past L zero.
-  auto vx = [&](int r, int k) {
-    return (k >= L || r > D) ? 0.f : (r == D ? 1.f : v[static_cast<size_t>(r) * L + k]);
-  };
-  if constexpr (P == kIeee) {
-    const int r = threadIdx.x / kSoftmaxRows, n = threadIdx.x % kSoftmaxRows;
-    if (r <= D) {
-      float acc = 0.f;
-      for (int k = 0; k < L; ++k) acc = fmaf(vx(r, k), en[n][k], acc);
-      of[r][n] = acc;
+  extern __shared__ __align__(16) float fold_smem[];
+  __shared__ float of[16][kFoldRows];
+  const int kpad = fold_kpad(L), sw = odd_quad_stride(kpad), sb = odd_quad_stride(kpad / 2);
+  float* vs = fold_smem;
+  float* en = vs + 16 * sw;
+  uint32_t* vlo = reinterpret_cast<uint32_t*>(en + kFoldRows * sw);  // tf32x3
+  uint32_t* enlo = vlo + 16 * sw;
+  uint32_t* vb = reinterpret_cast<uint32_t*>(en);  // bf16: en holds no f32 rows
+  uint32_t* enb = vb + 16 * sb;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int i0 = blockIdx.x * kFoldRows;
+
+  // v's rows into vs, raw, a warp two rows, a lane pairs (k, k + 1); zeros
+  // past L.
+  for (int r = warp; r < D; r += kFoldRows) {
+    for (int k = 2 * lane; k < kpad; k += 64) {
+      const float* src = v + static_cast<size_t>(r) * L + k;
+      cp_async_f32(&vs[r * sw + k], k < L ? src : v, k < L, false);
+      cp_async_f32(&vs[r * sw + k + 1], k + 1 < L ? src + 1 : v, k + 1 < L, false);
     }
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+
+  float e[NPL];
+  row_exp<NPL>(logits, i0 + warp, L, e);
+#pragma unroll
+  for (int m = 0; m < NPL; ++m) {
+    const int k = lane + 32 * m;
+    if constexpr (P == kBf16) {
+      const float next = __shfl_down_sync(0xffffffffu, e[m], 1);
+      if (k < kpad && !(lane & 1)) enb[warp * sb + k / 2] = bf16x2(e[m], next);
+    } else if (k < kpad) {
+      if constexpr (P == kIeee) {
+        en[warp * sw + k] = e[m];
+      } else {
+        const uint32_t h = tf32_rna(e[m]);
+        reinterpret_cast<uint32_t*>(en)[warp * sw + k] = h;
+        if constexpr (P == kTf32x3) enlo[warp * sw + k] = tf32_rna(e[m] - __uint_as_float(h));
+      }
+    }
+  }
+
+  // [v; ones] in the path's form: ieee takes the raw rows and the ones;
+  // the others round the pairs this thread copied and write the ones row
+  // and the zero rows.
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  if constexpr (P == kIeee) {
+    if (warp == 0) {
+      for (int k = lane; k < L; k += 32) vs[D * sw + k] = 1.f;
+    }
+  } else {
+    for (int r = warp; r < 16; r += kFoldRows) {
+      for (int k = 2 * lane; k < kpad; k += 64) {
+        float x0 = r == D && k < L ? 1.f : 0.f, x1 = r == D && k + 1 < L ? 1.f : 0.f;
+        if (r < D) {
+          x0 = vs[r * sw + k];
+          x1 = vs[r * sw + k + 1];
+        }
+        if constexpr (P == kBf16) {
+          vb[r * sb + k / 2] = bf16x2(x0, x1);
+        } else {
+          const uint32_t h0 = tf32_rna(x0), h1 = tf32_rna(x1);
+          reinterpret_cast<uint32_t*>(vs)[r * sw + k] = h0;
+          reinterpret_cast<uint32_t*>(vs)[r * sw + k + 1] = h1;
+          if constexpr (P == kTf32x3) {
+            vlo[r * sw + k] = tf32_rna(x0 - __uint_as_float(h0));
+            vlo[r * sw + k + 1] = tf32_rna(x1 - __uint_as_float(h1));
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  if constexpr (P == kIeee) {
+    const int r = threadIdx.x / kFoldRows, n = threadIdx.x % kFoldRows;
+    if (r <= D) of[r][n] = fma_chain(vs + r * sw, en + n * sw, L);
   } else if (warp == 0) {
+    const int g = lane >> 2, t = lane & 3;
     float c[4] = {0.f, 0.f, 0.f, 0.f};
-    mma_tile<P>(c, L, vx, [&](int k, int n) { return k < L ? en[n][k] : 0.f; });
-    const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+    // Each k-step's fragments are loaded during the step before (the last
+    // step loads its own again).
+    if constexpr (P == kBf16) {
+      const uint32_t* a0 = vb + g * sb + t;
+      const uint32_t* a1 = a0 + 8 * sb;
+      const uint32_t* b0 = enb + g * sb + t;
+      const int last = (L - 1) / 16 * 8;  // the last k-step's word
+      uint32_t a[4] = {a0[0], a1[0], a0[4], a1[4]}, b[2] = {b0[0], b0[4]};
+      for (int k0 = 0; k0 < L; k0 += 16) {
+        const int j = min(k0 / 2 + 8, last);
+        const uint32_t na[4] = {a0[j], a1[j], a0[j + 4], a1[j + 4]};
+        const uint32_t nb[2] = {b0[j], b0[j + 4]};
+        mma_bf16(c, a, b);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) a[u] = na[u];
+        b[0] = nb[0];
+        b[1] = nb[1];
+      }
+    } else {
+      constexpr int kParts = P == kTf32x3 ? 2 : 1;  // hi, and lo for tf32x3
+      const uint32_t* a0[2] = {reinterpret_cast<const uint32_t*>(vs) + g * sw + t,
+                               vlo + g * sw + t};
+      const uint32_t* b0[2] = {reinterpret_cast<const uint32_t*>(en) + g * sw + t,
+                               enlo + g * sw + t};
+      uint32_t a[2][4], b[2][2];
+#pragma unroll
+      for (int h = 0; h < kParts; ++h) {
+        a[h][0] = a0[h][0];
+        a[h][1] = a0[h][8 * sw];
+        a[h][2] = a0[h][4];
+        a[h][3] = a0[h][8 * sw + 4];
+        b[h][0] = b0[h][0];
+        b[h][1] = b0[h][4];
+      }
+      const int last = (L - 1) / 8 * 8;  // the last k-step
+      for (int k0 = 0; k0 < L; k0 += 8) {
+        const int k = min(k0 + 8, last);
+        uint32_t na[2][4], nb[2][2];
+#pragma unroll
+        for (int h = 0; h < kParts; ++h) {
+          na[h][0] = a0[h][k];
+          na[h][1] = a0[h][8 * sw + k];
+          na[h][2] = a0[h][k + 4];
+          na[h][3] = a0[h][8 * sw + k + 4];
+          nb[h][0] = b0[h][k];
+          nb[h][1] = b0[h][k + 4];
+        }
+        if constexpr (P == kTf32x3) {  // the small products go in first
+          mma_tf32(c, a[1], b[0]);
+          mma_tf32(c, a[0], b[1]);
+        }
+        mma_tf32(c, a[0], b[0]);
+#pragma unroll
+        for (int h = 0; h < kParts; ++h) {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) a[h][u] = na[h][u];
+          b[h][0] = nb[h][0];
+          b[h][1] = nb[h][1];
+        }
+      }
+    }
     of[g][2 * t] = c[0];
     of[g][2 * t + 1] = c[1];
     of[g + 8][2 * t] = c[2];
     of[g + 8][2 * t + 1] = c[3];
   }
   __syncthreads();
-  const int r = threadIdx.x / kSoftmaxRows, n = threadIdx.x % kSoftmaxRows;
+  const int r = threadIdx.x / kFoldRows, n = threadIdx.x % kFoldRows;
   if (r < D && i0 + n < L) o[static_cast<size_t>(r) * L + i0 + n] = of[r][n] / of[D][n];
 }
 
 // --- tree: p = e / tree_sum(e), o (D, L) = v . p^T on the CUDA cores -----
+//
+// A warp owns a query row: each lane sums its own exps in order (j = lane,
+// lane + 32, ...), the butterfly sums the lanes, p = e / sum goes to shared
+// memory, and lanes d < D run their fmaf chain over j in order (fma_chain)
+// on v, staged by cp.async before the softmax, and p. Four rows a block:
+// on an H100 eight were 0.8 us slower a call, two level (PERF.md, PR 10).
+// Shared memory, in words, stride sw = odd_quad_stride(L): vs [D][sw],
+// then p [kTreeRows][sw].
 
-__global__ void __launch_bounds__(32 * kSoftmaxRows)
+constexpr int kTreeRows = 4;
+
+template <int NPL>
+__global__ void __launch_bounds__(32 * kTreeRows)
 probe_tree(const float* __restrict__ logits, const float* __restrict__ v,
            float* __restrict__ o, int L, int D) {
-  __shared__ float p[kSoftmaxRows][kMaxL];
+  extern __shared__ __align__(16) float tree_smem[];
+  const int sw = odd_quad_stride(L);
+  float* vs = tree_smem;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int i = blockIdx.x * kSoftmaxRows + warp;
-  if (i >= L) return;  // whole warps; no block-wide barrier follows
-  const float sum = warp_sum(row_exp(logits, i, L, p[warp]));
-  for (int j = lane; j < L; j += 32) p[warp][j] /= sum;
-  __syncwarp();
-  if (lane < D) {
-    const float* vr = v + static_cast<size_t>(lane) * L;
-    float acc = 0.f;
-    for (int j = 0; j < L; ++j) acc = fmaf(vr[j], p[warp][j], acc);
-    o[static_cast<size_t>(lane) * L + i] = acc;
+  float* p = tree_smem + (D + warp) * sw;
+  const int i = blockIdx.x * kTreeRows + warp;
+  for (int r = warp; r < D; r += kTreeRows) {
+    for (int k = lane; k < L; k += 32) {
+      cp_async_f32(&vs[r * sw + k], v + static_cast<size_t>(r) * L + k, true, false);
+    }
   }
+  asm volatile("cp.async.commit_group;\n" ::);
+  float e[NPL];
+  row_exp<NPL>(logits, i, L, e);
+  if (i < L) {  // warp-uniform
+    float part = 0.f;
+#pragma unroll
+    for (int m = 0; m < NPL; ++m) {
+      if (lane + 32 * m < L) part += e[m];
+    }
+    const float sum = warp_sum(part);
+#pragma unroll
+    for (int m = 0; m < NPL; ++m) {
+      if (lane + 32 * m < L) p[lane + 32 * m] = e[m] / sum;
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+  if (i < L && lane < D) o[static_cast<size_t>(lane) * L + i] = fma_chain(vs + lane * sw, p, L);
 }
 
 // --- divide ----------------------------------------------------------------
@@ -469,11 +668,35 @@ cudaError_t launch_dot(const float* a, const float* b, float* c, int M, int N, i
   return cudaGetLastError();
 }
 
+// Above 48 KB a block's dynamic shared memory must be allowed, once per
+// kernel, for the largest L of its bucket.
 template <int P>
-void launch_fold(const float* logits, const float* v, float* o, int L, int D,
-                 cudaStream_t stream) {
-  probe_fold<P><<<(L + kSoftmaxRows - 1) / kSoftmaxRows, 32 * kSoftmaxRows, 0, stream>>>(
-      logits, v, o, L, D);
+cudaError_t launch_fold(const float* logits, const float* v, float* o, int L, int D,
+                        cudaStream_t stream) {
+  return by_bucket(L, [&](auto bucket) {
+    constexpr int NPL = decltype(bucket)::value;
+    static const cudaError_t allowed =
+        cudaFuncSetAttribute(probe_fold<P, NPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             4 * fold_smem_words<P>(32 * NPL));
+    if (allowed != cudaSuccess) return allowed;
+    probe_fold<P, NPL><<<(L + kFoldRows - 1) / kFoldRows, 32 * kFoldRows,
+                         4 * fold_smem_words<P>(L), stream>>>(logits, v, o, L, D);
+    return cudaGetLastError();
+  });
+}
+
+cudaError_t launch_tree(const float* logits, const float* v, float* o, int L, int D,
+                        cudaStream_t stream) {
+  return by_bucket(L, [&](auto bucket) {
+    constexpr int NPL = decltype(bucket)::value;
+    static const cudaError_t allowed =
+        cudaFuncSetAttribute(probe_tree<NPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             4 * (kMaxD + kTreeRows) * odd_quad_stride(32 * NPL));
+    if (allowed != cudaSuccess) return allowed;
+    probe_tree<NPL><<<(L + kTreeRows - 1) / kTreeRows, 32 * kTreeRows,
+                      4 * (D + kTreeRows) * odd_quad_stride(L), stream>>>(logits, v, o, L, D);
+    return cudaGetLastError();
+  });
 }
 
 }  // namespace
@@ -516,13 +739,12 @@ extern "C" int ecg_probe_fold(const void* logits, const void* v, void* o, int L,
   auto* out = static_cast<float*>(o);
   const auto s = static_cast<cudaStream_t>(stream);
   switch (precision) {
-    case kIeee: launch_fold<kIeee>(lg, vv, out, L, D, s); break;
-    case kTf32: launch_fold<kTf32>(lg, vv, out, L, D, s); break;
-    case kTf32x3: launch_fold<kTf32x3>(lg, vv, out, L, D, s); break;
-    case kBf16: launch_fold<kBf16>(lg, vv, out, L, D, s); break;
+    case kIeee: return static_cast<int>(launch_fold<kIeee>(lg, vv, out, L, D, s));
+    case kTf32: return static_cast<int>(launch_fold<kTf32>(lg, vv, out, L, D, s));
+    case kTf32x3: return static_cast<int>(launch_fold<kTf32x3>(lg, vv, out, L, D, s));
+    case kBf16: return static_cast<int>(launch_fold<kBf16>(lg, vv, out, L, D, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // o (D, L) = (e / tree_sum(e)) . v^T, e = exp(logits - row max), in f32 on
@@ -532,11 +754,9 @@ extern "C" int ecg_probe_tree(const void* logits, const void* v, void* o, int L,
   if (L < 1 || L > kMaxL || D < 1 || D > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  probe_tree<<<(L + kSoftmaxRows - 1) / kSoftmaxRows, 32 * kSoftmaxRows, 0,
-               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(logits), static_cast<const float*>(v),
-      static_cast<float*>(o), L, D);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_tree(static_cast<const float*>(logits),
+                                      static_cast<const float*>(v), static_cast<float*>(o), L,
+                                      D, static_cast<cudaStream_t>(stream)));
 }
 
 // o = n / d elementwise over `count` >= 1 values.

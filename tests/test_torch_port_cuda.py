@@ -37,14 +37,16 @@ compute in float32 and round once, so they part by at most one bfloat16
 spacing, 2^-7 of max|grad|.
 
 The precision probes (precision_probe.cu) against their plain versions at
-the probe's shapes and at a ragged one that fits no mma tile: the dot
+the probe's shapes and at ragged ones that fit no mma tile: the dot
 within c K 2^-24 (|A_r| . |B_r|) elementwise (`dot_tolerance`: the
 products of the rounded inputs are exact, so only the f32 accumulation
 order differs; c = 3 for tf32x3's three products), the fold and the tree
 within 1e-5 of max|out| (both sides use the card's expf; the sums differ
 in order), the divide bit for bit against torch.div on the card and numpy
-on the host; two calls bit-identical. The probe's own four dot readings
-equal those of its first version within 1e-3 relative.
+on the host; two calls bit-identical; and, where the parent commit's tree
+is unpacked, the fold and the tree bit for bit the parent's. The probe's
+own four dot readings equal those of its first version within 1e-3
+relative.
 
 B1 is also held at shapes that cut across its row tiles and batch groups
 (L = 203, 7, 1; B = 1, 3, 37, 1000), with its lse within 1e-5 of
@@ -656,7 +658,14 @@ DOT_SHAPES = [(256, 256, 256), (203, 141, 77), (1, 8, 1), (65, 264, 33)]
 # stay within 1e-3 relative (they are kept to four digits).
 PROBE_DOT_READINGS = {"ieee": (6.554e-07, 2.362e-07), "tf32": (3.578e-04, 2.956e-04),
                       "tf32x3": (2.604e-06, 1.764e-06), "bf16": (2.986e-03, 2.366e-03)}
-SOFTMAX_SHAPES = [(256, 4), (203, 3)]
+# The fold's, as its first version gave them beside its redesign, which
+# keeps each output's roundings.
+PROBE_FOLD_READINGS = {"ieee": (6.636e-07, 3.058e-07), "tf32": (2.817e-04, 2.175e-04),
+                       "tf32x3": (1.942e-06, 9.898e-07), "bf16": (2.121e-03, 1.677e-03)}
+# The probe's, then shapes that cut across the softmax kernels' blocks (8
+# query rows), row buckets, k-steps and 16-byte loads, up to L = 1024 and
+# D = 15.
+SOFTMAX_SHAPES = [(256, 4), (203, 3), (1, 1), (7, 2), (1024, 15), (129, 5)]
 DIV_SHAPES = [(8, 256), (203, 77)]
 SOFTMAX_TOL_OF_MAX = 1e-5
 
@@ -701,6 +710,38 @@ def test_probe_fold_and_tree_match_plain_versions(cuda, L, D, precision):
     assert got.shape == (D, L) and torch.equal(got, again)
     err = (got - ref).abs().max().item()
     assert err <= SOFTMAX_TOL_OF_MAX * ref.abs().max().item(), err
+
+
+@pytest.mark.parametrize("L,D", SOFTMAX_SHAPES)
+@pytest.mark.parametrize("precision", ["ieee", "tf32", "tf32x3", "bf16", "tree"])
+def test_probe_fold_and_tree_equal_the_parent_commits(cuda, L, D, precision):
+    """The fold and the tree bit for bit the parent commit's on the same
+    operands (skipped where the parent's tree is not unpacked): a redesign
+    keeps every rounding of the first version."""
+    if not os.path.isdir(PARENT_CSRC):
+        pytest.skip("the parent commit's tree is not under _archive/parent")
+    from pathlib import Path
+
+    from ecg_denoise_tpu_torch.kernels import precision as probes
+    from ecg_denoise_tpu_torch.kernels.attention import bind, ptr, raise_on
+
+    logits, v = (t.to(cuda) for t in _probe_operands([(L, L), (D, L)], seed=L + D))
+    logits = 2.0 * logits
+    stream = torch.cuda.current_stream().cuda_stream
+    parent = Path(PARENT_CSRC)
+    o = torch.empty(D, L, device=cuda)
+    if precision == "tree":
+        got = probes.probe_tree(logits, v)
+        lib = bind("precision_probe", "ecg_probe_tree", 3, 3, csrc=parent)
+        err = lib.ecg_probe_tree(ptr(logits), ptr(v), ptr(o), L, D, cuda.index or 0, stream)
+    else:
+        got = probes.probe_fold(logits, v, precision)
+        lib = bind("precision_probe", "ecg_probe_fold", 3, 4, csrc=parent)
+        err = lib.ecg_probe_fold(ptr(logits), ptr(v), ptr(o), L, D,
+                                 probes.PRECISIONS.index(precision), cuda.index or 0, stream)
+    raise_on(lib, err, "the parent's precision probe")
+    torch.cuda.synchronize()
+    assert torch.equal(got, o)
 
 
 @pytest.mark.parametrize("shape", DIV_SHAPES)
@@ -762,4 +803,13 @@ def test_probe_dot_readings_are_unchanged(cuda):
     result = probe.main()
     for p, want in PROBE_DOT_READINGS.items():
         got = (result["dot"][p]["abs_of_max"], result["dot"][p]["med_rel"])
+        assert all(abs(g - w) <= 1e-3 * w for g, w in zip(got, want)), (p, got, want)
+
+
+def test_probe_fold_readings_are_unchanged(cuda):
+    from ecg_denoise_tpu_torch.probes import precision as probe
+
+    result = probe.main()
+    for p, want in PROBE_FOLD_READINGS.items():
+        got = (result["fold"][p]["abs_of_max"], result["fold"][p]["med_rel"])
         assert all(abs(g - w) <= 1e-3 * w for g, w in zip(got, want)), (p, got, want)

@@ -17,6 +17,8 @@ Tolerances:
 * the fold (ieee) and the tree: within 1e-5 of max|out| (exp and the sums
   differ in order and by an ulp or two between XLA and PyTorch);
 * the divide: bit for bit (IEEE division on both sides);
+* chip_smoke.py's SDPA yardstick for the fold and the tree: within 1e-5
+  of max|out| of JAX's tree_kernel (and of tree_plain at ragged shapes);
 * the bf16 dot: the script's host prediction `abf @ bbf` rounded once to
   f32 (2^-24 of |prediction|, plus 1e-12 of (|a| . |b|) for float64 sums in
   another order);
@@ -101,6 +103,27 @@ def test_fold_and_tree_match_jax_kernels(script, prec):
         got = probes.probe_fold(_t(logits), _t(v), "ieee").numpy()
     assert got.shape == (4, 256)
     assert np.abs(got - jx).max() <= SOFTMAX_TOL_OF_MAX * np.abs(jx).max()
+
+
+@pytest.mark.parametrize("shape", ["script", (1, 1), (7, 2), (129, 5)], ids=str)
+def test_sdpa_yardstick_computes_the_tree_kernels_function(script, shape):
+    """chip_smoke.py's library call for the fold and the tree (SDPA with
+    zero q and k, the logits as its mask) is softmax(logits) . v^T: JAX's
+    tree_kernel on the script's operands, tree_plain at ragged shapes."""
+    import chip_smoke
+
+    if shape == "script":
+        logits, v = script["logits"], script["v"]
+        ref = _run(script["tree_kernel"], (4, 256), logits, v)
+    else:
+        L, D = shape
+        rng = np.random.default_rng(L)
+        logits = 2.0 * rng.standard_normal((L, L), np.float32)
+        v = rng.standard_normal((D, L), np.float32)
+        ref = probes.tree_plain(_t(logits), _t(v)).numpy()
+    got = chip_smoke.softmax_pv_sdpa(_t(logits), _t(v))().numpy()
+    assert got.shape == ref.shape
+    assert np.abs(got - ref).max() <= SOFTMAX_TOL_OF_MAX * np.abs(ref).max()
 
 
 def test_divide_is_bit_exact_against_jax(script):
