@@ -13,7 +13,7 @@ and nothing falls back to the CPU):
    from the checkout at once and prints their ptxas reports (registers,
    shared memory, spills by kernel instantiation). Where the parent
    commit's tree is unpacked under _archive/parent (by `git archive`; a
-   plain checkout has none), its B1-B5 and P1 are built beside them as
+   plain checkout has none), its B1-B5, P1 and P2 are built beside them as
    yardsticks, never on a path. ECG_ATTN_DENSE is cleared: phases
    1-13 drive the default route.
 2. Kernel vs plain version on the card, at the five RA-LENet stage shapes,
@@ -126,17 +126,21 @@ and nothing falls back to the CPU):
    bound, the plain version and scaled_dot_product_attention; Denoiser
    windows/s with and without ECG_ATTN_DENSE=1, in turns; the dense
    forward's device breakdown and idle share.
-17. P2: null_copy equal to clone() bit for bit at 1,024 elements and at a
-   q's; its time at a q's size; then the probes
-   `ecg_denoise_tpu_torch.probes.floor` and `.chain` (the null launch, the
-   dma floor, B1 and B5 by batch, K calls from Python against one CUDA
-   graph), their counts set to 0 just before and read just after. P2
-   against copy_ over 20 rounds in turns: medians, min and max.
+17. P2: null_copy and, where its tree is there, the parent's P2 equal to
+   clone() bit for bit at 1, 3, 1,023, 1,024, 1,025 values and a q's, each
+   aligned and as a view 4 bytes off; its time at a (64, 8) call's q at
+   B = 1024 from HBM, settled (`settle`: 20 rounds in turns, level, slower,
+   faster or unsettled) against copy_ and the parent's, the parent's also at the dma floor's batches (256, 1024, 2048) and the
+   null tile; then the probes `ecg_denoise_tpu_torch.probes.floor` and
+   `.chain` (the null launch, the dma floor, B1 and B5 by batch, K calls
+   from Python against one CUDA graph), their counts set to 0 just before
+   and read just after.
 18. P1, the precision probes (precision_probe.cu): probe_dot at each
    precision (ieee, tf32, tf32x3, bf16) within c K 2^-24 (|A_r| . |B_r|)
    of its plain version elementwise, probe_fold at each precision and
    probe_tree within 1e-5 of max|out|, probe_div bit for bit against
-   torch.div and numpy, at the probe's shapes and ragged ones (the
+   torch.div, numpy and, where its tree is there, the parent's, its operands aligned and off by 1-4 values, alike and not
+   (PRECISION_DIV_OFFSETS), at the probe's shapes and ragged ones (the
    softmax probes also at shapes that cut across their blocks: L = 1, 7,
    129, 1024), two calls bit-identical, and, where the parent's tree is
    there, the dot, the fold and the tree bit for bit the parent's; SDPA
@@ -151,8 +155,8 @@ and nothing falls back to the CPU):
    beside its bound, its plain version and the library call, the dot in
    turns with torch.matmul, the fold and the tree with SDPA, and, where
    its tree is there, each with the parent's; the divide settled against
-   torch.div over 20 rounds in turns (medians, spreads, and level, slower
-   or faster).
+   torch.div and the parent's divide (`settle`, as
+   P2 in phase 17, at LAUNCH_FLOOR_CALLS calls a reading).
 
 The last lines are one JSON object listing the ten kernels (with their
 launches on each of the seven paths: serve, train, serve_rpos, train_rpos,
@@ -285,8 +289,22 @@ RAGGED_RPOS = [(1, 256, 32, 2), (17, 128, 16, 4), (37, 64, 8, 8), (1000, 32, 4, 
 # the kernel's row sum uses __expf and is summed in another order (1e-6
 # relative), and |lse| stays below about 20: 1e-5 of max(1, max|lse|).
 LSE_TOL = 1e-5
-# Rounds in turns that settle P2 against copy_ and P1's divide against torch.div.
+# Rounds in turns that settle two timings (`settle`): P2 against copy_ and
+# the parent's, P1's divide against torch.div and the parent's.
 SETTLE_ROUNDS = 20
+# P2 against clone(): one value, three, one vector short of the null tile,
+# the tile, one over, and a (64, 8) call's q at B = 1024; each also 4 bytes
+# past a 16-byte boundary (a view base[1:]).
+NULL_COPY_SIZES = (1, 3, 1023, 1024, 1025, BATCH * 8 * 64 * 4)
+# Calls a reading replays from one graph where a call sits at the launch
+# floor (P1's divide): at 20 the graph's own start, spread over the calls,
+# adds 0.3-0.7 us a call, and spreads of 0.3 us and more hide a 0.1 us
+# difference; at 200 the spreads fall to 0.05-0.3 us.
+LAUNCH_FLOOR_CALLS = 200
+# P1's divide at (numerator, denominator) offsets in values from a 16-byte
+# boundary: all aligned (16-byte accesses), one operand off, both off alike,
+# and 4 values (16 bytes) off.
+PRECISION_DIV_OFFSETS = [(0, 0), (1, 0), (0, 3), (2, 2), (4, 0)]
 # A timing yardstick: the parent commit's tree, unpacked by `git archive`
 # under the git-ignored _archive/ (absent from a plain checkout).
 PARENT_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_archive",
@@ -418,7 +436,7 @@ def bound_terms(B, H, L, with_bias, elt):
 
 @functools.cache
 def parent_libs():
-    """The parent commit's B1-B5 and P1 libraries, built at once
+    """The parent commit's B1-B5, P1 and P2 libraries, built at once
     (one nvcc each) from its sources under _archive/parent, or None where
     that tree is not there. Timing yardsticks only: nothing on a path calls
     them, and no count moves."""
@@ -434,12 +452,14 @@ def parent_libs():
             "attention_rpos_fwd": ("ecg_attention_rpos_fwd", 7, 7),
             "attention_rpos_bwd": ("ecg_attention_rpos_bwd", 13, 7),
             "attention_dense_fwd": ("ecg_attention_dense_fwd", 5, 7),
-            "precision_probe": ("ecg_probe_dot", 3, 5)}
+            "precision_probe": ("ecg_probe_dot", 3, 5),
+            "null_copy": ("ecg_null_copy", 2, 2)}
     with ThreadPoolExecutor(len(libs)) as pool:
         futures = {name: pool.submit(bind, name, *sig, csrc=csrc) for name, sig in libs.items()}
         built = {name: future.result() for name, future in futures.items()}
     bind("precision_probe", "ecg_probe_fold", 3, 4, csrc=csrc)  # L, D, precision, device
     bind("precision_probe", "ecg_probe_tree", 3, 3, csrc=csrc)  # L, D, device
+    bind("precision_probe", "ecg_probe_div", 3, 2, csrc=csrc)  # count, device
     return built
 
 
@@ -522,6 +542,30 @@ def parent_tree(logits, v):
     return o
 
 
+def parent_div(n, d):
+    """The parent's P1 divide on the same operands."""
+    from ecg_denoise_tpu_torch.kernels.attention import ptr, raise_on
+
+    lib = parent_libs()["precision_probe"]
+    o = torch.empty_like(n)
+    err = lib.ecg_probe_div(ptr(n), ptr(d), ptr(o), n.numel(), n.device.index,
+                            torch.cuda.current_stream().cuda_stream)
+    raise_on(lib, err, "the parent's precision probe divide")
+    return o
+
+
+def parent_null_copy(x):
+    """The parent's P2 on the same operand."""
+    from ecg_denoise_tpu_torch.kernels.attention import ptr, raise_on
+
+    lib = parent_libs()["null_copy"]
+    o = torch.empty_like(x)
+    err = lib.ecg_null_copy(ptr(x), ptr(o), x.numel(), x.device.index,
+                            torch.cuda.current_stream().cuda_stream)
+    raise_on(lib, err, "the parent's null copy")
+    return o
+
+
 def softmax_pv_sdpa(logits, v):
     """A function computing (D, L) softmax(logits) . v^T by one PyTorch
     call, the fold's and the tree's library yardstick:
@@ -593,6 +637,46 @@ def in_turns(first, second, calls=20):
     return got[0], got[1]
 
 
+def settle_verdict(first_us, second_us):
+    """The first of two functions against the second from their readings
+    (µs per call): their medians and spreads (max - min), the gap of the
+    medians, and the verdict: level where the gap is inside both spreads,
+    slower or faster where it is beyond both, else unsettled."""
+    med = [statistics.median(first_us), statistics.median(second_us)]
+    spread = [max(first_us) - min(first_us), max(second_us) - min(second_us)]
+    gap = med[0] - med[1]
+    verdict = ("level" if abs(gap) <= min(spread) else
+               "slower" if gap > max(spread) else
+               "faster" if -gap > max(spread) else "unsettled")
+    return {"median_us": med, "min_us": [min(first_us), min(second_us)],
+            "max_us": [max(first_us), max(second_us)], "spread_us": spread, "gap_us": gap,
+            "verdict": verdict}
+
+
+def settle(first, second, reading, rounds=SETTLE_ROUNDS):
+    """Two (name, fn) settled over `rounds` rounds in turns (first, second,
+    second, first), each reading `reading(fn)` µs per call: settle_verdict
+    of the first against the second, with the names and the rounds."""
+    runs = {0: [], 1: []}
+    for _ in range(rounds):
+        for i in (0, 1, 1, 0):
+            runs[i].append(reading((first, second)[i][1]))
+    return {"names": [first[0], second[0]], "rounds": rounds,
+            **settle_verdict(runs[0], runs[1])}
+
+
+def settled_text(got, what):
+    """One log line's worth of a `settle` result."""
+    names = got["names"]
+    return (f"{names[0]} against {names[1]} {what} over {got['rounds']} rounds in turns, "
+            f"{2 * got['rounds']} readings each: " + "; ".join(
+                f"{names[i]} median {got['median_us'][i]:.3f} us, min {got['min_us'][i]:.3f}, "
+                f"max {got['max_us'][i]:.3f}, spread {got['spread_us'][i]:.3f}"
+                for i in (0, 1))
+            + f"; gap {got['gap_us']:.3f} us: {got['verdict']} (level: the gap inside both "
+              "spreads; slower or faster: beyond both)")
+
+
 def phase_device_and_build():
     name = torch.cuda.get_device_name(0)
     log(f"[1] device: {name}; nvidia-smi name, power.limit: {smi_name_power()}")
@@ -618,7 +702,7 @@ def phase_device_and_build():
         for future in [pool.submit(load) for load in loads]:
             future.result()
     log(f"[1] {len(loads)} kernel sources built and loaded in {time.perf_counter() - t0:.1f} s"
-        + ("" if parent_libs() is None else " (the last: the parent's B1-B5 and P1, built "
+        + ("" if parent_libs() is None else " (the last: the parent's B1-B5, P1 and P2, built "
            f"from {PARENT_CSRC}, yardsticks)"))
     return name
 
@@ -2162,53 +2246,72 @@ def phase_dense_times(gpu_model, cpu_model, card):
 
 
 def phase_probes(card):
-    """P2: null_copy against clone(), its time at a q's size, then the
-    probes, the counts set to 0 just before and read just after."""
+    """P2: null_copy and, where its tree is there, the parent's P2 equal to
+    clone() bit for bit at NULL_COPY_SIZES, aligned and 4 bytes off; its
+    times at a q's size settled against copy_ and the parent's (also at the
+    dma floor's batches and the null tile); then the probes, the counts set
+    to 0 just before and read just after."""
     from ecg_denoise_tpu_torch.kernels.null_copy import null_copy
     from ecg_denoise_tpu_torch.probes import chain, floor
-    from ecg_denoise_tpu_torch.probes.floor import cold_copy_us
+    from ecg_denoise_tpu_torch.probes.floor import cold_copy_us, graph_us
 
     gen = torch.Generator().manual_seed(27)
     max_err = 0.0
-    for shape in ((8, 128), (BATCH, 8, 64, 4)):
-        x = torch.randn(shape, generator=gen).cuda()
-        y = null_copy(x)
-        torch.cuda.synchronize()
-        same = torch.equal(y, x.clone())
-        max_err = max(max_err, (y - x).abs().max().item())
-        log(f"[17] null_copy of {x.numel()} float32 values equals clone() bit for bit: {same}")
-        check(same and y.data_ptr() != x.data_ptr(), "null_copy is not a copy")
+    yardsticks = {"parent": parent_null_copy} if parent_libs() else {}
+    for n in NULL_COPY_SIZES:
+        for offset in (0, 1):
+            x = torch.randn(n + offset, generator=gen).cuda()[offset:]
+            want = x.clone()
+            got = {"null_copy": null_copy(x), **{k: f(x) for k, f in yardsticks.items()}}
+            torch.cuda.synchronize()
+            same = {k: torch.equal(y, want) and y.data_ptr() != x.data_ptr()
+                    for k, y in got.items()}
+            max_err = max(max_err, (got["null_copy"] - want).abs().max().item())
+            log(f"[17] {n} float32 values, {x.data_ptr() % 16} bytes past a 16-byte boundary, "
+                "equal to clone() bit for bit: " + ", ".join(f"{k} {v}" for k, v in same.items()))
+            check(all(same.values()), f"a copy of {n} values is not clone()")
+
     # Times at the q of a (64, 8) call at B = 1024, the dma floor of B5's
-    # shape, on the card's clock (50 calls replayed from one CUDA graph),
-    # from copies of q that outgrow the L2 into outputs that are kept: the
-    # bytes move to and from HBM.
-    nbytes = 2 * x.numel() * x.element_size()
-    times = {key: cold_copy_us(f, x, 50) / 1e3 for key, f in (
-        ("ms", null_copy), ("plain_ms", torch.clone),
-        ("library_ms", lambda t: torch.empty_like(t).copy_(t)))}
-    times["bound_ms"] = nbytes / PEAK_BYTES * 1e3
-    eager = cuda_ms(lambda: null_copy(x), 50)
-    log(f"[17] {card}: null_copy of q, (L, H) = (64, 8), B={BATCH} ({nbytes / 1e6:.1f} MB "
-        f"read and written): kernel {times['ms']:.4f} ms, bound {times['bound_ms']:.4f} ms "
-        f"(bytes), plain clone() {times['plain_ms']:.4f} ms, copy_ {times['library_ms']:.4f} "
-        f"ms (graph replays, CUDA events); issued from Python {eager:.4f} ms per call")
-    # P2 against copy_, settled: SETTLE_ROUNDS rounds in turns (null_copy,
-    # copy_, copy_, null_copy), each reading 50 replays of one graph.
-    runs = {"null_copy": [], "copy_": []}
-    fns = {"null_copy": null_copy, "copy_": lambda t: torch.empty_like(t).copy_(t)}
-    for _ in range(SETTLE_ROUNDS):
-        for key in ("null_copy", "copy_", "copy_", "null_copy"):
-            runs[key].append(cold_copy_us(fns[key], x, 50))
-    med = {k: statistics.median(v) for k, v in runs.items()}
-    spread = {k: max(v) - min(v) for k, v in runs.items()}
-    slower = med["null_copy"] - med["copy_"] > max(spread.values())
-    log(f"[17] {card}: P2 against copy_ over {SETTLE_ROUNDS} rounds in turns, {2 * SETTLE_ROUNDS} "
-        f"readings each (50 graph replays each): " + "; ".join(
-            f"{k} median {med[k]:.3f} us, min {min(v):.3f}, max {max(v):.3f}"
-            for k, v in runs.items())
-        + f"; null_copy {'slower than copy_ by more than both spreads' if slower else 'level with copy_ (within the spreads)'}")
-    times["settled"] = {"rounds": SETTLE_ROUNDS, "null_copy_median_us": med["null_copy"],
-                        "copy_median_us": med["copy_"], "null_copy_slower": slower}
+    # shape, on the card's clock (50 calls replayed from one CUDA graph a
+    # reading), from copies of q that outgrow the L2 into outputs that are
+    # kept: the bytes move to and from HBM. Each comparison is settled over
+    # SETTLE_ROUNDS rounds in turns.
+    def cold(x):
+        return lambda f: cold_copy_us(f, x, 50)
+
+    def copy_(t):
+        return torch.empty_like(t).copy_(t)
+
+    q = torch.randn(BATCH, 8, 64, 4, generator=gen).cuda()
+    nbytes = 2 * q.numel() * q.element_size()
+    settled = {"copy_": settle(("null_copy", null_copy), ("copy_", copy_), cold(q))}
+    what = (f"at a (64, 8) call's q, B={BATCH} ({nbytes / 1e6:.1f} MB read and written; 50 "
+            "graph replays a reading, copies cycled past the L2)")
+    log(f"[17] {card}: " + settled_text(settled["copy_"], what))
+    if parent_libs():
+        # The parent's P2 in turns at the dma floor's q (probes.floor's
+        # (256, 2) stage at each batch; B = 1024 is the q above) and at the
+        # null tile (NULL_CALLS replays a reading).
+        for B in floor.BATCHES:
+            x = torch.randn(B, 2, 256, 4, generator=gen).cuda()
+            settled[f"parent_B{B}"] = got = settle(
+                ("null_copy", null_copy), ("parent", parent_null_copy), cold(x))
+            log(f"[17] {card}: " + settled_text(
+                got, f"at the dma floor's q, (L, H) = (256, 2), B={B} ({x.numel()} values)"))
+        tile = torch.ones(8, 128, device="cuda")
+        settled["parent_null_tile"] = got = settle(
+            ("null_copy", null_copy), ("parent", parent_null_copy),
+            lambda f: graph_us(lambda: f(tile), floor.NULL_CALLS))
+        log(f"[17] {card}: " + settled_text(
+            got, f"at the null tile, (8, 128) ({floor.NULL_CALLS} graph replays a reading)"))
+    times = {"ms": settled["copy_"]["median_us"][0] / 1e3,
+             "plain_ms": cold_copy_us(torch.clone, q, 50) / 1e3,
+             "library_ms": settled["copy_"]["median_us"][1] / 1e3,
+             "bound_ms": nbytes / PEAK_BYTES * 1e3, "settled": settled}
+    eager = cuda_ms(lambda: null_copy(q), 50)
+    log(f"[17] {card}: null_copy {what}: kernel {times['ms']:.5f} ms (median), bound "
+        f"{times['bound_ms']:.5f} ms (bytes), plain clone() {times['plain_ms']:.5f} ms, copy_ "
+        f"{times['library_ms']:.5f} ms (median); issued from Python {eager:.4f} ms per call")
     reset_launches()  # the probes' path
     floor_result = floor.main()
     chain_result = chain.main()
@@ -2220,6 +2323,8 @@ def phase_probes(card):
     times["max_abs_err"] = max_err
     times["null_launch_host_us"] = floor_result["null"]["host_us"]
     times["null_launch_graph_us"] = floor_result["null"]["graph_us"]
+    times["dma_floor_us"] = {f"L{r['L']}_H{r['H']}_B{r['batch']}": r["dma_us"]
+                             for r in floor_result["rows"]}
     return launches, times
 
 
@@ -2346,13 +2451,19 @@ def phase_precision(card):
     for shape in PRECISION_DIV_SHAPES:
         num = rng.standard_normal(shape).astype(np.float32)
         den = (0.5 + rng.random(shape)).astype(np.float32)
-        n, d = torch.from_numpy(num).cuda(), torch.from_numpy(den).cuda()
-        got, again = probes.probe_div(n, d), probes.probe_div(n, d)
-        host = got.cpu().numpy()
-        same = (torch.equal(got, torch.div(n, d)) and torch.equal(got, again)
-                and np.array_equal(host.view(np.uint32), (num / den).view(np.uint32)))
-        log(f"[18] probe_div {shape}: bit for bit torch.div, numpy and itself: {same}")
-        check(same, "probe_div is not IEEE division")
+        for offsets in PRECISION_DIV_OFFSETS:
+            n, d = (torch.from_numpy(np.concatenate([np.zeros(off, np.float32), x.ravel()]))
+                    .cuda()[off:].view(shape) for x, off in zip((num, den), offsets))
+            got, again = probes.probe_div(n, d), probes.probe_div(n, d)
+            host = got.cpu().numpy()
+            same = (torch.equal(got, torch.div(n, d)) and torch.equal(got, again)
+                    and np.array_equal(host.view(np.uint32), (num / den).view(np.uint32)))
+            parent = parent_libs() and torch.equal(got, parent_div(n, d))
+            log(f"[18] probe_div {shape}, operands {n.data_ptr() % 16} and {d.data_ptr() % 16} "
+                f"bytes past a 16-byte boundary: bit for bit torch.div, numpy and itself: {same}"
+                + ("" if parent is None else f"; bit-identical to the parent's: {parent}"))
+            check(same, "probe_div is not IEEE division")
+            check(parent is not False, "probe_div is not the parent's bit for bit")
 
     reset_launches()  # the precision probe's path
     result = probe.main()
@@ -2449,31 +2560,22 @@ def phase_precision(card):
         total["library_ms"] = None if lib is None else total["library_ms"] + row["library_ms"]
         if p is not None:
             total["by_precision"][p] = row
-    # P1's divide against torch.div, settled: SETTLE_ROUNDS rounds in turns
-    # (probe_div, torch.div, torch.div, probe_div), each reading 20 replays
-    # of one graph; level where the medians' gap is inside both spreads.
-    fns = {"probe_div": functools.partial(probes.probe_div, num, den),
-           "torch.div": functools.partial(torch.div, num, den)}
-    runs = {key: [] for key in fns}
-    for _ in range(SETTLE_ROUNDS):
-        for key in ("probe_div", "torch.div", "torch.div", "probe_div"):
-            runs[key].append(graph_us(fns[key], 20))
-    med = {key: statistics.median(v) for key, v in runs.items()}
-    spread = {key: max(v) - min(v) for key, v in runs.items()}
-    gap = med["probe_div"] - med["torch.div"]
-    verdict = ("level" if abs(gap) <= min(spread.values()) else
-               "slower" if gap > max(spread.values()) else
-               "faster" if -gap > max(spread.values()) else "unsettled")
-    log(f"[18] {card}: probe_div against torch.div on the probe's {tuple(num.shape)} operands "
-        f"over {SETTLE_ROUNDS} rounds in turns, {2 * SETTLE_ROUNDS} readings each (20 graph "
-        f"replays each): " + "; ".join(
-            f"{key} median {med[key]:.3f} us, min {min(v):.3f}, max {max(v):.3f}, spread "
-            f"{spread[key]:.3f}" for key, v in runs.items())
-        + f"; gap {gap:.3f} us: {verdict} (level: the gap inside both spreads; slower or "
-          "faster: beyond both)")
-    times["probe_div"]["settled"] = {
-        "rounds": SETTLE_ROUNDS, "probe_div_median_us": med["probe_div"],
-        "torch_div_median_us": med["torch.div"], "spreads_us": spread, "verdict": verdict}
+    # P1's divide settled against torch.div and, where its tree is there,
+    # the parent's divide, each reading LAUNCH_FLOOR_CALLS replays of one
+    # graph.
+    div = ("probe_div", functools.partial(probes.probe_div, num, den))
+    others = {"torch.div": functools.partial(torch.div, num, den)}
+    if parent_libs():
+        others["parent"] = functools.partial(parent_div, num, den)
+    settled = {key: settle(div, (key, f), lambda f: graph_us(f, LAUNCH_FLOOR_CALLS))
+               for key, f in others.items()}
+    for got in settled.values():
+        log(f"[18] {card}: " + settled_text(
+            got, f"on the probe's {tuple(num.shape)} operands ({LAUNCH_FLOOR_CALLS} graph "
+                 "replays a reading)"))
+    times["probe_div"].update(ms=settled["torch.div"]["median_us"][0] / 1e3,
+                              library_ms=settled["torch.div"]["median_us"][1] / 1e3,
+                              settled=settled)
     for kernel, total in times.items():
         total["bound_by"] = "operations" if total.pop("operations") > total.pop("bytes") else "bytes"
         total["max_abs_err"] = max_err[kernel]
@@ -2530,7 +2632,8 @@ def main():
     null = entry("null_copy", "scripts/probe_chain.py:58", null_times["max_abs_err"],
                  null_times, "bytes", f"one copy of a (64, 8) call's q, float32, B={BATCH}, "
                  "from HBM (copies cycled past the L2), 50 calls replayed from one CUDA "
-                 "graph; library: copy_")
+                 f"graph a reading; ms and library_ms (copy_) the medians of {SETTLE_ROUNDS} "
+                 "rounds in turns, plain_ms one reading")
     null["also_replaces"] = "scripts/probe_floor.py:65"
     dense = entry("attention_dense_fwd", 449, dense_err, dense_totals, dense_by,
                   f"one dense forward's 12 B5 calls, float32, B={BATCH}; kernel and "
@@ -2540,7 +2643,9 @@ def main():
     dense["parent_ms_same_calls"] = dense_totals["parent_ms"]
     null["null_launch_us"] = {"host": null_times["null_launch_host_us"],
                               "graph": null_times["null_launch_graph_us"]}
-    null["against_copy_"] = null_times["settled"]
+    null["dma_floor_us"] = null_times["dma_floor_us"]
+    null["against_copy_"] = null_times["settled"].pop("copy_")
+    null["against"] = null_times["settled"]
     precision = []
     for kernel, line, what in (
             ("probe_dot", 51, "the probe's four (256, 256, 256) dots, one per precision; "
@@ -2551,15 +2656,19 @@ def main():
              "scaled_dot_product_attention with zero q and k and the logits as its mask"),
             ("probe_tree", 89, "the probe's (256, 256) tree, in turns with the parent's where "
              "its tree is there; library: the same SDPA call"),
-            ("probe_div", 115, "the probe's (8, 256) divide; library: torch.div")):
+            ("probe_div", 115, "the probe's (8, 256) divide; library: torch.div; ms and "
+             f"library_ms the medians of {SETTLE_ROUNDS} rounds in turns at "
+             f"{LAUNCH_FLOOR_CALLS} calls a reading")):
         t = precision_times[kernel]
         e = entry(kernel, f"scripts/probe_precision.py:{line}", t["max_abs_err"], t,
-                  t["bound_by"], f"{what}; every time from 20 calls replayed from one CUDA graph",
+                  t["bound_by"], f"{what}; {'plain_ms' if 'settled' in t else 'every time'} "
+                  "from 20 calls replayed from one CUDA graph",
                   source="precision_probe")
         if t["by_precision"]:
             e["by_precision"] = t["by_precision"]
         if "settled" in t:
-            e["against_torch_div"] = t["settled"]
+            e["against_torch_div"] = t["settled"].pop("torch.div")
+            e["against"] = t["settled"]
         precision.append(e)
 
     b1 = entry("attention_fwd", 253, max_err, totals, bound_by,

@@ -37,7 +37,7 @@
 // each is built to reach it after one memory latency: a logits row read
 // once into registers, v copied by cp.async behind the softmax and rounded
 // once in shared memory, and the chain fed from conflict-free shared
-// memory. The divide is the simplest kernel that is right.
+// memory. The divide is one block of 16-byte accesses (see its section).
 //
 // The fold pads its D + 1 rows of [v; ones] to the mma's 16 rows with
 // zeros: only row D is the ones row, and it goes through the same rounding
@@ -48,8 +48,7 @@
 // row, and divides once at the end. Both softmax kernels take the row max
 // first and use expf, PyTorch's exp on the card: an exp one ulp apart can
 // round to another TF32 or bf16 value, which the fold's product would show.
-// The divide is `/` under the port's nvcc flags (no --use_fast_math), IEEE
-// division rounded to nearest.
+// The divide is __fdiv_rn, IEEE division rounded to nearest.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -645,12 +644,41 @@ probe_tree(const float* __restrict__ logits, const float* __restrict__ v,
 }
 
 // --- divide ----------------------------------------------------------------
+//
+// The probe's (8, 256) divide is 2,048 values, 24 KB moved: its time is the
+// launch. Each __fdiv_rn is IEEE division rounded to nearest whatever the
+// compiler's flags, as torch.div on the card and numpy on the host. Where
+// all three operands are 16-byte aligned, probe_div_vector takes
+// kDivVectorThreads threads a block, each loading one 16-byte vector of n
+// and of d and storing one of o: the probe's 2,048 values are one block,
+// a quarter of the scalar design's memory instructions. Its cost: each
+// __fdiv_rn compiles to a reciprocal, a range check and a branch to a slow
+// path, so a thread's four divides run one after another. Otherwise
+// probe_div, one value a thread, kDivThreads a block.
 
-__global__ void __launch_bounds__(256)
+constexpr int kDivThreads = 256;
+constexpr int kDivVectorThreads = 512;
+
+__global__ void __launch_bounds__(kDivThreads)
 probe_div(const float* __restrict__ n, const float* __restrict__ d, float* __restrict__ o,
           int count) {
-  const int i = blockIdx.x * 256 + threadIdx.x;
-  if (i < count) o[i] = n[i] / d[i];
+  const int i = blockIdx.x * kDivThreads + threadIdx.x;
+  if (i < count) o[i] = __fdiv_rn(n[i], d[i]);
+}
+
+__global__ void __launch_bounds__(kDivVectorThreads)
+probe_div_vector(const float* __restrict__ n, const float* __restrict__ d,
+                 float* __restrict__ o, int count) {
+  const int count4 = count / 4;
+  const int j = blockIdx.x * kDivVectorThreads + threadIdx.x;
+  if (j < count4) {
+    const float4 a = reinterpret_cast<const float4*>(n)[j];
+    const float4 b = reinterpret_cast<const float4*>(d)[j];
+    reinterpret_cast<float4*>(o)[j] = make_float4(__fdiv_rn(a.x, b.x), __fdiv_rn(a.y, b.y),
+                                                  __fdiv_rn(a.z, b.z), __fdiv_rn(a.w, b.w));
+  }
+  const int k = 4 * count4 + threadIdx.x;  // the last 0-3 values
+  if (blockIdx.x == 0 && k < count) o[k] = __fdiv_rn(n[k], d[k]);
 }
 
 template <int P>
@@ -765,9 +793,18 @@ extern "C" int ecg_probe_div(const void* n, const void* d, void* o, int count, i
   if (count < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  probe_div<<<(count + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(n), static_cast<const float*>(d), static_cast<float*>(o),
-      count);
+  const auto* nn = static_cast<const float*>(n);
+  const auto* dd = static_cast<const float*>(d);
+  auto* oo = static_cast<float*>(o);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if ((reinterpret_cast<uintptr_t>(n) | reinterpret_cast<uintptr_t>(d) |
+       reinterpret_cast<uintptr_t>(o)) % 16 == 0) {
+    const int values = 4 * kDivVectorThreads;
+    probe_div_vector<<<(count + values - 1) / values, kDivVectorThreads, 0, s>>>(nn, dd, oo,
+                                                                                 count);
+  } else {
+    probe_div<<<(count + kDivThreads - 1) / kDivThreads, kDivThreads, 0, s>>>(nn, dd, oo, count);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

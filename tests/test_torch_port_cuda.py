@@ -4,7 +4,7 @@ Marked `gpu`; each test takes the `cuda` fixture, which skips when no card
 is present (decided at run time, so every pytest-xdist worker collects the
 same tests). Run on a machine with the card:
 
-    python -m pytest tests/test_torch_port_cuda.py -q -m gpu
+    python -m pytest --noconftest tests/test_torch_port_cuda.py -q -m gpu
 
 Tolerances: float32 1e-5 (both sides compute float32 logits and softmax;
 the plain version's matmuls run in full float32, PyTorch's default and the
@@ -18,7 +18,8 @@ against its plain version, and equals B1 without lse bit for bit (it
 computes B1's f32 expressions with the keys in B1's order), at batches
 that cut across its blocks' groups of elements; where the parent commit's
 tree is unpacked, it is within the same limits of the parent's B5.
-`null_copy` equals `clone()` bit for bit.
+`null_copy` equals `clone()` bit for bit at ragged sizes, aligned and as a
+view 4 bytes off.
 
 The r-pos kernels (attention_rpos_fwd.cu, attention_rpos_bwd.cu) are held
 to the same limits against their plain versions, dtoep like dbias, at the
@@ -43,8 +44,9 @@ products of the rounded inputs are exact, so only the f32 accumulation
 order differs; c = 3 for tf32x3's three products), the fold and the tree
 within 1e-5 of max|out| (both sides use the card's expf; the sums differ
 in order), the divide bit for bit against torch.div on the card and numpy
-on the host; two calls bit-identical; and, where the parent commit's tree
-is unpacked, the fold and the tree bit for bit the parent's. The probe's
+on the host, its operands aligned or not, alike or not; two calls
+bit-identical; and, where the parent commit's tree is unpacked, the fold,
+the tree, the divide and `null_copy` bit for bit the parent's. The probe's
 own four dot readings equal those of its first version within 1e-3
 relative.
 
@@ -637,11 +639,27 @@ def test_dense_model_forward_matches_cpu_with_12_and_6_launches(cuda, monkeypatc
         assert (y.cpu() - cpu.eval()(x)).abs().max().item() <= 1e-4
 
 
-@pytest.mark.parametrize("n", [1024, 1000, 8 * 64 * 4 * 1024])
-def test_null_copy_is_clone(cuda, n):
+# null_copy's sizes: one value, three, a vector short of the null tile, the
+# tile, one over, 1000, and a (64, 8) call's q at B = 1024.
+NULL_COPY_SIZES = [1, 3, 1000, 1023, 1024, 1025, 8 * 64 * 4 * 1024]
+
+
+def _offset_view(values, offset, device):
+    """`values` on `device` as a view `offset` floats past a 16-byte
+    boundary (a fresh allocation is aligned)."""
+    base = torch.cat([torch.zeros(offset), values.ravel()]).to(device)
+    return base[offset:].view(values.shape)
+
+
+@pytest.mark.parametrize("n", NULL_COPY_SIZES)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_null_copy_is_clone(cuda, n, offset):
+    """Bit for bit clone(), aligned (16-byte accesses and a scalar tail)
+    and as a view 4 bytes off (4-byte accesses)."""
     from ecg_denoise_tpu_torch.kernels.null_copy import null_copy
 
-    x = torch.randn(n, generator=torch.Generator().manual_seed(n)).to(cuda)
+    x = _offset_view(torch.randn(n, generator=torch.Generator().manual_seed(n)), offset, cuda)
+    assert x.data_ptr() % 16 == 4 * offset
     before = null_copy.launches
     y = null_copy(x)
     torch.cuda.synchronize()
@@ -776,6 +794,58 @@ def test_probe_div_at_a_ragged_size_and_offset(cuda, offset):
     torch.cuda.synchronize()
     assert torch.equal(got, torch.div(n, d))
     assert np.array_equal(got.cpu().numpy().view(np.uint32), (num / den).view(np.uint32))
+
+
+@pytest.mark.parametrize("shape", DIV_SHAPES)
+@pytest.mark.parametrize("offsets", [(1, 0), (0, 3), (2, 2), (4, 0), (4, 1)])
+def test_probe_div_with_mixed_alignments(cuda, shape, offsets):
+    """The divide with its numerator and denominator at other offsets (in
+    values) from a 16-byte boundary: one off, both off alike, both 16-byte
+    aligned at another offset: bit for bit torch.div and numpy."""
+    from ecg_denoise_tpu_torch.kernels.precision import probe_div
+
+    rng = np.random.default_rng(7)
+    num = rng.standard_normal(shape).astype(np.float32)
+    den = (0.5 + rng.random(shape)).astype(np.float32)
+    n, d = (_offset_view(torch.from_numpy(x), off, cuda) for x, off in zip((num, den), offsets))
+    assert (n.data_ptr() % 16, d.data_ptr() % 16) == tuple(4 * (o % 4) for o in offsets)
+    got = probe_div(n, d)
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.div(n, d))
+    assert np.array_equal(got.cpu().numpy().view(np.uint32), (num / den).view(np.uint32))
+
+
+@pytest.mark.parametrize("kernel,shape,offset", [
+    ("null_copy", (n,), offset) for n in NULL_COPY_SIZES for offset in (0, 1)] + [
+    ("probe_div", shape, offset) for shape in DIV_SHAPES for offset in (0, 1)])
+def test_null_copy_and_probe_div_equal_the_parent_commits(cuda, kernel, shape, offset):
+    """P2 and P1's divide bit for bit the parent commit's on the same
+    operands, aligned and 4 bytes off (skipped where the parent's tree is
+    not unpacked)."""
+    if not os.path.isdir(PARENT_CSRC):
+        pytest.skip("the parent commit's tree is not under _archive/parent")
+    from pathlib import Path
+
+    from ecg_denoise_tpu_torch.kernels.attention import bind, ptr, raise_on
+    from ecg_denoise_tpu_torch.kernels.null_copy import null_copy
+    from ecg_denoise_tpu_torch.kernels.precision import probe_div
+
+    rng = np.random.default_rng(len(shape) + offset)
+    x, y = (_offset_view(torch.from_numpy(rng.standard_normal(shape).astype(np.float32) + 2.0),
+                         offset, cuda) for _ in range(2))
+    stream = torch.cuda.current_stream().cuda_stream
+    o = torch.empty_like(x)
+    if kernel == "null_copy":
+        got = null_copy(x)
+        lib = bind("null_copy", "ecg_null_copy", 2, 2, csrc=Path(PARENT_CSRC))
+        err = lib.ecg_null_copy(ptr(x), ptr(o), x.numel(), cuda.index or 0, stream)
+    else:
+        got = probe_div(x, y)
+        lib = bind("precision_probe", "ecg_probe_div", 3, 2, csrc=Path(PARENT_CSRC))
+        err = lib.ecg_probe_div(ptr(x), ptr(y), ptr(o), x.numel(), cuda.index or 0, stream)
+    raise_on(lib, err, f"the parent's {kernel}")
+    torch.cuda.synchronize()
+    assert torch.equal(got, o)
 
 
 def test_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):

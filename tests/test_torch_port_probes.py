@@ -3,9 +3,13 @@
 `null_copy` on a CPU tensor is its plain version, `clone()`, and launches
 nothing. `chain_fit` is the JAX probe's two-point fit
 (scripts/probe_chain.py:138-142). The probes measure the card only: without
-one their `main()` raises and prints no table.
+one their `main()` raises and prints no table. chip_smoke.py's `settle`,
+which times two kernels in turns and gives the verdict its phases 17 and 18
+report, reads in turns and is two-sided. On views off a 16-byte boundary
+`null_copy` and `probe_div` take their plain versions too.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -54,3 +58,55 @@ def test_probes_raise_without_a_card(monkeypatch, capsys, run):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run()
     assert capsys.readouterr().out == ""
+
+
+@pytest.mark.parametrize("gap,verdict", [(0.125, "level"), (-0.125, "level"),
+                                         (0.375, "unsettled"), (-0.375, "unsettled"),
+                                         (0.75, "slower"), (-0.75, "faster")])
+def test_settle_verdict_is_two_sided(gap, verdict):
+    """Level where the medians' gap is inside both spreads (0.25 and 0.5
+    here), slower or faster beyond both, unsettled between."""
+    import chip_smoke
+
+    first = [10.0 + gap + d for d in (-0.125, 0.0, 0.125)]
+    second = [10.0 + d for d in (-0.25, 0.0, 0.25)]
+    got = chip_smoke.settle_verdict(first, second)
+    assert got["verdict"] == verdict
+    assert got["median_us"] == [10.0 + gap, 10.0] and got["spread_us"] == [0.25, 0.5]
+    assert got["gap_us"] == gap
+
+
+def test_settle_reads_in_turns():
+    """Each round reads first, second, second, first."""
+    import chip_smoke
+
+    order = []
+    readings = iter([3.0, 1.0, 1.5, 4.0, 3.5, 2.0, 1.0, 3.0])
+
+    def reading(fn):
+        order.append(fn())
+        return next(readings)
+
+    got = chip_smoke.settle(("a", lambda: "a"), ("b", lambda: "b"), reading, rounds=2)
+    assert order == list("abbaabba")
+    assert got["names"] == ["a", "b"] and got["rounds"] == 2
+    assert got["median_us"] == [3.25, 1.25] and got["spread_us"] == [1.0, 1.0]
+    assert got["verdict"] == "slower"
+
+
+@pytest.mark.parametrize("kernel", ["null_copy", "probe_div"])
+def test_cpu_views_off_a_16_byte_boundary_take_the_plain_version(kernel):
+    """On CPU views 4 bytes past a 16-byte boundary (the card's scalar
+    path) the wrappers return a copy and IEEE division, bit for bit numpy,
+    and launch nothing."""
+    from ecg_denoise_tpu_torch.kernels.precision import probe_div
+
+    base = torch.randn(2049, generator=torch.Generator().manual_seed(5)) + 2.0
+    n, d = base[1:1025].view(4, 256), base[1025:].view(4, 256)
+    assert n.data_ptr() % 16 == 4
+    fn, args, want = ((null_copy, (n,), n.numpy()) if kernel == "null_copy" else
+                      (probe_div, (n, d), n.numpy() / d.numpy()))
+    before = fn.launches
+    got = fn(*args)
+    assert np.array_equal(got.numpy().view(np.uint32), want.view(np.uint32))
+    assert got.data_ptr() not in (n.data_ptr(), d.data_ptr()) and fn.launches == before
