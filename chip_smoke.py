@@ -27,10 +27,12 @@ and nothing falls back to the CPU):
    random nonzero rel-pos tables and BN stats; the card's forward against
    the same model on the CPU (float32, 1e-4) and 18 kernel launches per
    forward. The package, not this script, turns TF32 off for the model.
-4. Serving, the main path: the port's HTTP server in a thread answers
-   /healthz, /denoise for 1, 37 and 1024 windows and /denoise_record,
-   each answer equal to Denoiser called directly. The kernel's launch count
-   is set to 0 just before and read just after.
+4. Serving, the main path: `cli.serve --model ralenet`'s HTTP server
+   (built by the CLI's own `build`, run in a thread) answers /healthz,
+   naming the path torch+attn-cuda:cuda, /denoise for 1, 37 and 1024
+   windows and /denoise_record, each answer equal to its Denoiser called
+   directly. The kernel's launch count is set to 0 just before and read
+   just after.
 5. Times on the card: Denoiser windows/s at batch 1024 and 2048 in float32
    and bfloat16, the device time of one forward by kernel in each
    (torch.profiler), and per stage shape the kernel's time (CUDA graph
@@ -158,10 +160,48 @@ and nothing falls back to the CPU):
    torch.div and the parent's divide (`settle`, as
    P2 in phase 17, at LAUNCH_FLOOR_CALLS calls a reading).
 
+19. The denoiser families without attention: UNet, DANet (Seq2Seq2) and
+   ACDAE at their own widths, seeded weights with nonzero BN affine
+   parameters and stats. For each: the card's f32 forward against the CPU
+   (1e-4) with no kernel launch; `cli.serve --model <name>`'s server (built
+   by the CLI's own flag parser) answers /healthz, naming the path
+   torch:cuda, /denoise for 1, 37 and 1024 windows and /denoise_record,
+   each equal to its Denoiser; one f32 step at batch 32 against the CPU at
+   the bars of phase 7, and each tensor's gradients to 1e-4 of its largest
+   against the same step in float64 on the CPU, except where that gradient
+   is at the rounding floor, 1e-6 of the largest: there the gradient is
+   held to the floor and the parameter not at all (`step_bars`: Adam's
+   first step moves such an element, a bias before a training-mode
+   BatchNorm, by lr times a rounding's sign; only a bias may sit at the
+   floor whole); `cli.main` (no --model_index for UNet, the CLI's default;
+   1 and 5) trains 10 bf16 epochs as in 7b, the test loss falls and the
+   checkpoint serves; then Denoiser windows/s at batch 1024 and train_epoch
+   windows/s at 256, f32 and bf16, and the f32 forward's device breakdown
+   and idle share. The counts of the serving and training paths
+   (serve_families, train_families) are all 0.
+20. 12-lead transfer: NewRale with a seeded RA-LENet core. The forward on
+   the card against the CPU (1e-4) with 18 B1 launches; one f32 step with
+   the core frozen against the CPU (loss 1e-5, adapters as `step_bars`
+   holds phase 19's, the core's parameters and BN stats unchanged bit for
+   bit on both sides) with 18 B1 and 18 B2 launches; B2 with a bias and no
+   dbias (the frozen core's case) at the four biased stage shapes, f32 and
+   bf16, B = 256, against the plain flash backward (the bars of phase 6),
+   dq, dk, dv bit for bit the same call's with dbias, and its time beside
+   the call with dbias (graph replays in turns); `python -m
+   ecg_denoise_tpu_torch.cli.transfer_learning` trains 10 bf16 epochs on a
+   synthetic 12-lead cache with phase 7b's checkpoint as --core_ckpt: the
+   test loss falls and the core comes out bit for bit as it went in
+   (train_newrale: 18 B1 a forward, 18 B2 a step); `cli.serve --model
+   newrale` serves (N, 12, 256) equal to its Denoiser, /healthz naming
+   torch+attn-cuda:cuda (serve_newrale: 72 B1); windows/s served and
+   trained, and the forward's breakdown.
+
 The last lines are one JSON object listing the ten kernels (with their
-launches on each of the seven paths: serve, train, serve_rpos, train_rpos,
-serve_dense, probes, probes_precision), the card's name and power limit,
-and `{"ok": true, "device": {...}}`.
+launches on each of the eleven paths: serve, train, serve_rpos,
+train_rpos, serve_dense, probes, probes_precision, serve_families,
+train_families, train_newrale, serve_newrale; B2's entry also holds its
+frozen-bias case), the card's name and power limit, and
+`{"ok": true, "device": {...}}`.
 Without a card, or outside a checkout of the repository, it exits nonzero
 and prints no result.
 """
@@ -174,6 +214,7 @@ import json
 import os
 import re
 import runpy
+import shutil
 import statistics
 import subprocess
 import sys
@@ -237,6 +278,23 @@ REPEAT_STEPS = 4  # identical steps compared bit for bit with the first
 TIMING_BATCH = 256
 EPOCH_WINDOWS = 8000  # the training split of the CLI's default --n_select
 EPOCH_REPEATS = 3
+# Phases 19-20: the denoiser families without attention, and 12-lead transfer.
+FAMILIES = ("unet", "DANet", "ACDAE")
+# A family's step on the card (`step_bars`): each tensor's gradients within
+# 1e-4 of its largest reference gradient (the kernels' gradient bar,
+# relative). The reference is the same step in float64 on the CPU where the
+# model computes in float64 (`float64_grads`): a float32 step is a
+# different sum wherever a pre-activation within its rounding of 0 takes
+# the other branch of a clamp, a ReLU or a max, and the CPU's own float32
+# gradients then lie further from exact than the bar (phase 19 logs how
+# far). An element whose reference gradient is at most 1e-6 of the largest
+# is at the rounding floor, where its parameter is not held: a float32
+# gradient that is 0 in exact arithmetic (a bias before a training-mode
+# BatchNorm) comes out far below that floor, and above it Adam's first
+# step resolves a rounding of up to the floor itself within PARAM_TOL (lr
+# eps / g^2 times it, at lr 1e-3 and eps 1e-8).
+STEP_GRAD_TOL_OF_MAX = 1e-4
+GRAD_FLOOR_OF_MAX = 1e-6
 # Adam step on the card against the CPU (the bars of __graft_entry__.py:120-129).
 LOSS_RTOL = 1e-5
 BN_STATS_TOL = 1e-5
@@ -763,50 +821,27 @@ def phase_kernel_vs_plain():
     return max_err[torch.float32]
 
 
-def seeded_model(seed):
-    """RA-LENet 'full' on the CPU from a seed, with random nonzero rel-pos
-    tables, BN affine parameters and BN running stats."""
+def seeded_model(seed, name="ralenet"):
+    """Model `name` on the CPU from a seed, with random nonzero BN affine
+    parameters and running stats in every BatchNorm and, where it has them,
+    random rel-pos tables."""
     from ecg_denoise_tpu_torch.models import build_model
     from ecg_denoise_tpu_torch.utils.seed import random_seed
 
     gen = random_seed(seed)
-    model = build_model("ralenet", device="cpu").eval()
+    model = build_model(name, device="cpu").eval()
     with torch.no_grad():
-        for name, p in model.named_parameters():
-            if "relative_position_bias_table" in name:
+        for pname, p in model.named_parameters():
+            if "relative_position_bias_table" in pname:
                 p.copy_(torch.randn(p.shape, generator=gen))
-        bn = model.conv1[2]
-        bn.weight.copy_(1 + 0.1 * torch.randn(bn.weight.shape, generator=gen))
-        bn.bias.copy_(0.1 * torch.randn(bn.bias.shape, generator=gen))
-        bn.running_mean.copy_(0.1 * torch.randn(bn.running_mean.shape, generator=gen))
-        bn.running_var.copy_(0.5 + torch.rand(bn.running_var.shape, generator=gen))
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm1d):
+                n = m.num_features
+                m.weight.copy_(1 + 0.1 * torch.randn(n, generator=gen))
+                m.bias.copy_(0.1 * torch.randn(n, generator=gen))
+                m.running_mean.copy_(0.1 * torch.randn(n, generator=gen))
+                m.running_var.copy_(0.5 + torch.rand(n, generator=gen))
     return model
-
-
-def phase_model(cpu_model):
-    from ecg_denoise_tpu_torch.kernels.attention import fused_attention
-    from ecg_denoise_tpu_torch.models import build_model
-
-    before = tf32_flags()
-    gpu_model = build_model("ralenet").eval()  # default device: the card
-    log(f"[3] TF32 (matmul, cuDNN) before build_model: {before}, after: {tf32_flags()}")
-    check(tf32_flags() == (False, False), "the package left TF32 on for the card")
-    gpu_model.load_state_dict(cpu_model.state_dict())
-    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
-        (8, 2, 256)).astype(np.float32))
-    with torch.no_grad():
-        fused_attention.launches = 0
-        y = gpu_model(x.cuda())
-        torch.cuda.synchronize()
-        launches = fused_attention.launches
-        err = (y.cpu() - cpu_model(x)).abs().max().item()
-    log(f"[3] RaleNet 'full' depth 2, batch 8, float32: card vs CPU "
-        f"max_abs_err={err:.3e} (tol {MODEL_TOL:.0e}); kernel launches per "
-        f"forward={launches}")
-    check(launches == 18, "the forward did not go through the kernel 18 times")
-    check(bool(torch.isfinite(y).all()) and err <= MODEL_TOL,
-          "the card's forward disagrees with the CPU's")
-    return gpu_model
 
 
 def _post(url, x):
@@ -816,58 +851,6 @@ def _post(url, x):
                                 timeout=300) as r:
         return np.load(io.BytesIO(r.read())), json.loads(
             r.headers.get("X-Denoise-Timing", "{}"))
-
-
-def phase_serving(cpu_model):
-    from ecg_denoise_tpu_torch.cli.serve import make_server
-    from ecg_denoise_tpu_torch.serving import Denoiser
-
-    rng = np.random.default_rng(2)
-    requests = {n: rng.standard_normal((n, 2, 256)).astype(np.float32)
-                for n in (1, 37, BATCH)}
-    record = rng.standard_normal((2, 5000)).astype(np.float32)
-    with tempfile.TemporaryDirectory() as tmp:
-        ckpt = os.path.join(tmp, "ralenet.pt")
-        torch.save(cpu_model.state_dict(), ckpt)
-        denoiser = Denoiser.from_checkpoint("ralenet", ckpt, max_batch=BATCH)
-    denoiser.warmup(limit=BATCH)
-    direct = {n: denoiser(x) for n, x in requests.items()}
-    direct_record = denoiser.denoise_record(record, stride=128)
-    meta = {"model": "ralenet", "ckpt": "ralenet.pt",
-            "inference_path": denoiser.inference_path}
-    server = make_server(denoiser, meta, port=0)
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
-    url = f"http://127.0.0.1:{server.server_address[1]}"
-    try:
-        reset_launches()  # the main path
-        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
-            health = json.loads(r.read())
-        log(f"[4] /healthz: {health}")
-        check(health["inference_path"] == "torch+attn-cuda:cuda", "inference path")
-        for n, x in requests.items():
-            y, timing = _post(url + "/denoise", x)
-            err = float(np.abs(y - direct[n]).max())
-            log(f"[4] /denoise N={n}: max_abs_err vs Denoiser={err:.3e}; {timing}")
-            check(y.shape == x.shape and np.isfinite(y).all() and err <= 1e-6,
-                  "/denoise disagrees with Denoiser")
-        y, _ = _post(url + "/denoise_record?stride=128", record)
-        err = float(np.abs(y - direct_record).max())
-        log(f"[4] /denoise_record T={record.shape[1]}: max_abs_err vs "
-            f"Denoiser={err:.3e}")
-        check(y.shape == record.shape and err <= 1e-6,
-              "/denoise_record disagrees with Denoiser")
-        launches = read_launches()
-    finally:
-        server.shutdown()
-        server.server_close()
-        thread.join(timeout=30)
-    # 4 forwards (buckets 1, 64, 1024 and the record's 39 windows in 64).
-    log(f"[4] kernel launches on the main path: {launches}")
-    check(launches == expected_launches(fwd=4 * 18),
-          "the main path did not go through the kernel, or through another")
-    check(not thread.is_alive(), "the server thread did not stop")
-    return launches
 
 
 def _timed(fn, *args):
@@ -1200,14 +1183,16 @@ def phase_train_step(cpu_model):
           and params <= PARAM_TOL, "the card's training step disagrees with the CPU's")
 
 
-def write_dict_data(path, n, seed):
+def write_dict_data(path, n, seed, channels=2):
     """A small dict_data cache: clean windows in ecg.npy, the 'bw' noise
-    at -4 dB in m4/bw.npy, each (n, 2, 256) float32."""
+    at -4 dB in m4/bw.npy, each (n, channels, 256) float32 (12 channels:
+    the 12-lead ExternalData layout)."""
     rng = np.random.default_rng(seed)
     t = np.linspace(0, 6 * np.pi, 256)
-    clean = np.sin(t + rng.uniform(0, 6, (n, 2, 1))).astype(np.float32)
+    clean = np.sin(t + rng.uniform(0, 6, (n, channels, 1))).astype(np.float32)
     noisy = (clean + 0.5 * rng.standard_normal(clean.shape)
-             + np.linspace(-1, 1, 256) * rng.standard_normal((n, 2, 1))).astype(np.float32)
+             + np.linspace(-1, 1, 256) * rng.standard_normal((n, channels, 1))
+             ).astype(np.float32)
     os.makedirs(os.path.join(path, "m4"))
     np.save(os.path.join(path, "ecg.npy"), clean)
     np.save(os.path.join(path, "m4", "bw.npy"), noisy)
@@ -1217,9 +1202,12 @@ def mse_of(denoiser, noisy, clean):
     return float(np.mean((denoiser(noisy) - clean) ** 2))
 
 
-def phase_train_cli(card, r_pos=None, tag="7b"):
+def phase_train_cli(card, r_pos=None, tag="7b", name="ralenet", keep=None):
     """The training main path: the port's CLI, as a user runs it (with
-    `--r_pos detect` when r_pos is "detect")."""
+    `--r_pos detect` when r_pos is "detect"), training model `name` (UNet
+    with no --model_index, the CLI's default). `keep`: a path to copy the
+    checkpoint to."""
+    from ecg_denoise_tpu_torch import MODEL_NAMES
     from ecg_denoise_tpu_torch.data.dataset import load_split_arrays
     from ecg_denoise_tpu_torch.models import build_model
     from ecg_denoise_tpu_torch.serving import Denoiser
@@ -1231,16 +1219,16 @@ def phase_train_cli(card, r_pos=None, tag="7b"):
         write_dict_data(data, 1600, seed=7)
         out_file = os.path.join(tmp, "output.txt")
         save_dir = os.path.join(tmp, "model_save")
-        argv = ["--model_index", "4", "--noise_type_index", "0",
-                "--intensity_index", "0", "--epochs", str(epochs),
-                "--batch_size", str(TRAIN_BATCH), "--n_select", str(n_select),
-                "--seed", str(seed), "--data_path", data,
-                "--model_save_dir", save_dir, "--output_file", out_file]
+        argv = [] if name == "unet" else ["--model_index", str(MODEL_NAMES.index(name))]
+        argv += ["--noise_type_index", "0", "--intensity_index", "0",
+                 "--epochs", str(epochs), "--batch_size", str(TRAIN_BATCH),
+                 "--n_select", str(n_select), "--seed", str(seed), "--data_path", data,
+                 "--model_save_dir", save_dir, "--output_file", out_file]
         if r_pos:
             argv += ["--r_pos", r_pos]
         # The weights the CLI starts from: it seeds, then builds the model.
         random_seed(seed)
-        initial = Denoiser(build_model("ralenet"), max_batch=256, r_pos=r_pos)
+        initial = Denoiser(build_model(name), max_batch=256, r_pos=r_pos)
         _, _, te_n, te_c = load_split_arrays("bw", -4, path=data,
                                              n_select=n_select, seed=seed)
         log(f"[{tag}] python -m ecg_denoise_tpu_torch.cli.main {' '.join(argv)}")
@@ -1258,23 +1246,26 @@ def phase_train_cli(card, r_pos=None, tag="7b"):
         wall = time.perf_counter() - t0
         with open(out_file) as f:
             line = f.read()
-        ckpt = os.path.join(save_dir, "ralenet", f"ralenet_{epochs - 1}_bw_intensity-4.pth")
+        ckpt = os.path.join(save_dir, name, f"{name}_{epochs - 1}_bw_intensity-4.pth")
         check(os.path.exists(ckpt), "the CLI wrote no checkpoint")
-        trained = Denoiser.from_checkpoint("ralenet", ckpt, max_batch=256, r_pos=r_pos)
+        trained = Denoiser.from_checkpoint(name, ckpt, max_batch=256, r_pos=r_pos)
         before, after = mse_of(initial, te_n, te_c), mse_of(trained, te_n, te_c)
+        if keep:
+            shutil.copy(ckpt, keep)
     n_train = int(0.8 * n_select)
     steps = epochs * (n_train // TRAIN_BATCH)
     evals = epochs * -(-(n_select - n_train) // TRAIN_BATCH)
-    log(f"[{tag}] {card}: {epochs} bf16 epochs of {n_train} windows in {wall:.1f} s "
+    log(f"[{tag}] {card}: {name}, {epochs} bf16 epochs of {n_train} windows in {wall:.1f} s "
         f"(host clock, start-up included); output.txt: {line.strip()}")
     log(f"[{tag}] launches on the main path ({steps} steps, {evals} eval batches): "
         f"{launches}")
     log(f"[{tag}] the checkpoint served by Denoiser.from_checkpoint(r_pos={r_pos!r}): "
         f"test MSE {before:.5f} with the initial weights -> {after:.5f} trained")
-    check(re.fullmatch(rf"ralenet_{epochs - 1}_bw_intensity-4:snr:\S+, rmse:\S+\n",
+    check(re.fullmatch(rf"{name}_{epochs - 1}_bw_intensity-4:snr:\S+, rmse:\S+\n",
                        line) is not None, "the output.txt line is malformed")
     forwards = steps + evals
-    want = (expected_launches(fwd=18 * forwards, bwd=18 * steps) if not r_pos else
+    want = (expected_launches() if name in FAMILIES else
+            expected_launches(fwd=18 * forwards, bwd=18 * steps) if not r_pos else
             expected_launches(fwd=4 * forwards, bwd=4 * steps,
                               rpos_fwd=14 * forwards, rpos_bwd=14 * steps))
     check(launches == want, "the CLI's training did not go through its kernels")
@@ -2582,6 +2573,462 @@ def phase_precision(card):
     return launches, times
 
 
+def phase_family_model(name, cpu_model, tag, want):
+    """The model's f32 forward on the card against the CPU (MODEL_TOL),
+    with the kernel launches `want`."""
+    from ecg_denoise_tpu_torch.models import build_model
+
+    before = tf32_flags()
+    gpu_model = build_model(name).eval()  # default device: the card
+    log(f"[{tag}] TF32 (matmul, cuDNN) before build_model: {before}, after: {tf32_flags()}")
+    check(tf32_flags() == (False, False), "the package left TF32 on for the card")
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (8, cpu_model.in_channels, 256)).astype(np.float32))
+    reset_launches()
+    with torch.no_grad():
+        y = gpu_model(x.cuda())
+        torch.cuda.synchronize()
+        launches = read_launches()
+        err = (y.cpu() - cpu_model(x)).abs().max().item()
+    log(f"[{tag}] {name}, batch 8, float32: card vs CPU max_abs_err={err:.3e} (tol "
+        f"{MODEL_TOL:.0e}); kernel launches per forward "
+        f"{ {k: n for k, n in launches.items() if n} or 'none'}")
+    check(launches == want, f"{name}'s forward launched other kernels than {want}")
+    check(bool(torch.isfinite(y).all()) and err <= MODEL_TOL,
+          f"{name}'s forward on the card disagrees with the CPU's")
+    return gpu_model
+
+
+def phase_serve_cli(name, cpu_model, tag, want, path):
+    """`cli.serve --model name`'s server (built by the CLI's own `build`
+    from a checkpoint of `cpu_model`) answers /healthz, naming the
+    inference path `path`, /denoise for 1, 37 and BATCH windows and
+    /denoise_record, each answer equal to its Denoiser called directly; the
+    counts set to 0 just before and read just after must be `want`."""
+    from ecg_denoise_tpu_torch.cli.serve import build
+
+    c = cpu_model.in_channels
+    rng = np.random.default_rng(2)
+    requests = {n: rng.standard_normal((n, c, 256)).astype(np.float32)
+                for n in (1, 37, BATCH)}
+    record = rng.standard_normal((c, 5000)).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, f"{name}.pt")
+        torch.save(cpu_model.state_dict(), ckpt)
+        server, denoiser = build(["--model", name, "--ckpt", ckpt, "--port", "0",
+                                  "--max_batch", str(BATCH), "--warmup_max", str(BATCH)])
+    direct = {n: denoiser(x) for n, x in requests.items()}
+    direct_record = denoiser.denoise_record(record, stride=128)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        reset_launches()  # the main path
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        log(f"[{tag}] /healthz: {health}")
+        check(health["model"] == name and denoiser.channels == c, "the served model")
+        check(health["inference_path"] == denoiser.inference_path == path,
+              f"inference path: {health['inference_path']!r}, not {path!r}")
+        for n, x in requests.items():
+            y, timing = _post(url + "/denoise", x)
+            err = float(np.abs(y - direct[n]).max())
+            log(f"[{tag}] {name} /denoise N={n}: max_abs_err vs Denoiser={err:.3e}; {timing}")
+            check(y.shape == x.shape and np.isfinite(y).all() and err <= 1e-6,
+                  "/denoise disagrees with Denoiser")
+        y, _ = _post(url + "/denoise_record?stride=128", record)
+        err = float(np.abs(y - direct_record).max())
+        log(f"[{tag}] {name} /denoise_record {record.shape}: max_abs_err vs Denoiser={err:.3e}")
+        check(y.shape == record.shape and err <= 1e-6,
+              "/denoise_record disagrees with Denoiser")
+        launches = read_launches()
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    log(f"[{tag}] {name}: kernel launches on the serving path: {launches}")
+    check(launches == want, f"{name}'s serving path launched other kernels than {want}")
+    check(not thread.is_alive(), "the server thread did not stop")
+    return launches
+
+
+def phase_family_step(name, cpu_model, tag, want, frozen=()):
+    """One f32 Adam step at TRAIN_BATCH on the card against the same step
+    on the CPU, with the kernel launches `want`: the loss (LOSS_RTOL), the
+    BN running stats (BN_STATS_TOL), and, as `step_bars` holds them, the
+    gradients against the same step in float64 (the CPU's, for NewRale) and
+    the parameters against the CPU's; the parameters named in `frozen`
+    and their modules' BN stats stay as they were, bit for bit, on both
+    sides."""
+    from ecg_denoise_tpu_torch.models import build_model
+    from ecg_denoise_tpu_torch.train import create_train_state, train_step
+
+    rng = np.random.default_rng(6)
+    noisy, clean = (torch.from_numpy(rng.standard_normal(
+        (TRAIN_BATCH, cpu_model.in_channels, 256)).astype(np.float32)) for _ in range(2))
+    before = {k: t.clone() for k, t in cpu_model.state_dict().items()}
+    cpu_state = create_train_state(copy.deepcopy(cpu_model), device="cpu", frozen=frozen)
+    model = build_model(name)
+    model.load_state_dict(cpu_model.state_dict())
+    state = create_train_state(model, frozen=frozen)
+    reset_launches()
+    loss = train_step(state, noisy.cuda(), clean.cuda())[0].item()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    ref = train_step(cpu_state, noisy, clean)[0].item()
+    cpu_params = dict(cpu_state.model.named_parameters())
+    trained = {k: p for k, p in state.model.named_parameters() if p.grad is not None}
+    # The card's gradients against the exact (float64) ones where the model
+    # computes in float64; NewRale's core runs the attention kernels, which
+    # take float32 and bfloat16 only, so its adapters' are held against the
+    # CPU's.
+    cpu_grads = {k: cpu_params[k].grad for k in trained}
+    if name in FAMILIES:
+        ref_grads = float64_grads(cpu_model, noisy, clean)
+        cpu_reading = step_bars(cpu_grads, ref_grads, before, before)["grads"]
+        against = (f"float64 on the CPU (the CPU's float32 gradients: at most "
+                   f"{cpu_reading:.3f} of the same bars)")
+    else:
+        ref_grads, against = cpu_grads, "the CPU's"
+    bars = step_bars({k: p.grad.cpu() for k, p in trained.items()}, ref_grads,
+                     {k: p.detach().cpu() for k, p in trained.items()},
+                     {k: cpu_params[k].detach() for k in trained})
+    cpu_sd = cpu_state.model.state_dict()
+    stats = max([(val.cpu() - cpu_sd[key]).abs().max().item()
+                 for key, val in state.model.state_dict().items()
+                 if key.endswith(("running_mean", "running_var"))], default=0.0)
+    frozen_prefixes = tuple(n.rsplit(".", 1)[0] + "." for n in frozen)
+    n_frozen = 0
+    for key, val in state.model.state_dict().items():
+        if key.startswith(frozen_prefixes):
+            n_frozen += 1
+            check(torch.equal(val.cpu(), before[key])
+                  and torch.equal(cpu_sd[key], before[key]),
+                  f"the frozen {key} changed")
+    log(f"[{tag}] {name}, float32, batch {TRAIN_BATCH}: one Adam step on the card vs the "
+        f"CPU: loss {loss:.7f} vs {ref:.7f} (rel {abs(loss - ref) / abs(ref):.2e}, tol "
+        f"{LOSS_RTOL:.0e}), BN stats max diff {stats:.2e} (tol {BN_STATS_TOL:.0e}), "
+        f"gradients against {against}; {describe_bars(bars)}; {n_frozen} frozen state "
+        f"tensors unchanged bit for bit on both sides; launches "
+        f"{ {k: n for k, n in launches.items() if n} or 'none'}")
+    check(launches == want, f"{name}'s step launched other kernels than {want}")
+    check(abs(loss - ref) <= LOSS_RTOL * abs(ref) and stats <= BN_STATS_TOL and bars["ok"],
+          f"{name}'s training step on the card disagrees with the CPU's")
+    check(bool(frozen) == (n_frozen > 0), "the frozen parameters were not found")
+
+
+def step_bars(grads, ref_grads, params, ref_params):
+    """One Adam step's gradients and parameters (dicts of host tensors by
+    parameter name, over the names of `grads`) against a reference's
+    gradients and parameters.
+
+    The gradients are held per tensor: within STEP_GRAD_TOL_OF_MAX of the
+    tensor's largest reference gradient (`grads` is the worst ratio of an
+    error to that bar). An element is at the rounding floor when its
+    reference gradient is at most GRAD_FLOOR_OF_MAX of the largest
+    reference gradient, `floor`; the reference alone decides it. There the
+    gradient's bar is `floor` where that is larger, and the parameter is
+    not held: Adam's first step moves it by lr g / (|g| + eps), lr times
+    the sign of a rounding error where the exact gradient is 0 (a bias
+    before a training-mode BatchNorm). Every other element's parameter is
+    held to PARAM_TOL (`params`). A tensor may sit at the floor whole only
+    if it is a bias (`whole`); `at_floor` counts the elements at the floor
+    per tensor. `ok` says whether every bar held."""
+    scale = max(g.abs().max().item() for g in ref_grads.values())
+    out = {"floor": GRAD_FLOOR_OF_MAX * scale, "grad_scale": scale, "grads": 0.0,
+           "params": 0.0, "kept": 0, "at_floor": {}, "whole": []}
+    for key, g in grads.items():
+        g_ref = ref_grads[key]
+        err = (g.to(g_ref.dtype) - g_ref).abs()
+        bar = STEP_GRAD_TOL_OF_MAX * g_ref.abs().max().item()
+        low = g_ref.abs() <= out["floor"]
+        if low.all():
+            out["whole"].append(key)
+        if low.any():
+            out["at_floor"][key] = int(low.sum())
+            out["grads"] = max(out["grads"], err[low].max().item() / max(bar, out["floor"]))
+        if not low.all():
+            kept = ~low
+            out["kept"] += int(kept.sum())
+            out["grads"] = max(out["grads"], err[kept].max().item() / bar)
+            out["params"] = max(out["params"], (
+                params[key] - ref_params[key])[kept].abs().max().item())
+    out["ok"] = (out["grads"] <= 1 and out["params"] <= PARAM_TOL
+                 and all(k.endswith("bias") for k in out["whole"]))
+    return out
+
+
+def describe_bars(bars):
+    """`step_bars`' reading in one line."""
+    partial = {k: n for k, n in bars["at_floor"].items() if k not in bars["whole"]}
+    return (f"gradients at most {bars['grads']:.3f} of their bars ({STEP_GRAD_TOL_OF_MAX:.0e} "
+            f"of each tensor's largest), params max diff {bars['params']:.2e} (tol "
+            f"{PARAM_TOL:.0e}) over {bars['kept']} elements; at the rounding floor "
+            f"({GRAD_FLOOR_OF_MAX:.0e} of max|grad| {bars['grad_scale']:.3e} = "
+            f"{bars['floor']:.2e}): {sum(bars['at_floor'].values())} elements, the whole of "
+            f"{len(bars['whole'])} biases ({sum(bars['at_floor'][k] for k in bars['whole'])} "
+            f"elements) and {sum(partial.values())} in {len(partial)} other tensors "
+            f"{partial or ''}")
+
+
+def float64_grads(model, noisy, clean):
+    """The gradients of one step's loss, as `train_step` computes it, for a
+    float64 copy of `model` on the CPU: exact, to float32's eye. The port
+    computes its norms and means in float32 by `.float()` and casts its
+    input to a module's `dtype`; here `.float()` leaves a float64 tensor
+    as it is and every such `dtype` is float64."""
+    from ecg_denoise_tpu_torch.models import apply
+
+    m = copy.deepcopy(model).double().train()
+    for mod in m.modules():
+        if getattr(mod, "dtype", None) == torch.float32:
+            mod.dtype = torch.float64
+    real = torch.Tensor.float
+    torch.Tensor.float = lambda t, *a, **k: t if t.dtype == torch.float64 else real(t, *a, **k)
+    try:
+        pred = apply(m, noisy.double())
+        torch.mean((pred - clean.double()) ** 2).backward()
+    finally:
+        torch.Tensor.float = real
+    check(pred.dtype == torch.float64, "the float64 step computed in another dtype")
+    return {k: p.grad for k, p in m.named_parameters()}
+
+
+def phase_family_times(name, cpu_model, card, tag, frozen=(), repeats=EPOCH_REPEATS):
+    """Denoiser windows/s at BATCH and train_epoch windows/s at
+    TIMING_BATCH, f32 and bf16, over EPOCH_WINDOWS-window epochs; the
+    device-resident forward's and a step's time on the card's clock; the
+    f32 forward's device breakdown and idle share."""
+    from ecg_denoise_tpu_torch.models import build_model
+    from ecg_denoise_tpu_torch.serving import Denoiser
+    from ecg_denoise_tpu_torch.train import create_train_state, make_epoch_fns, train_step
+
+    c = cpu_model.in_channels
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((BATCH, c, 256)).astype(np.float32)
+    noisy, clean = (torch.from_numpy(rng.standard_normal(
+        (EPOCH_WINDOWS, c, 256)).astype(np.float32)).cuda() for _ in range(2))
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype)[6:]
+        model = build_model(name, dtype=dtype).eval()
+        model.load_state_dict(cpu_model.state_dict())
+        denoiser = Denoiser(model, max_batch=BATCH)
+        check(np.isfinite(denoiser(x)).all(), "non-finite Denoiser output")
+        walls = [_timed(denoiser, x) for _ in range(10)]
+        xd = torch.from_numpy(x).cuda()
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: model(xd), 10)
+        log(f"[{tag}] {card}: {name} Denoiser {dt} batch {BATCH}: "
+            f"{BATCH / statistics.median(walls):.1f} windows/s (median of 10 calls, host "
+            f"clock, min {BATCH / max(walls):.1f} max {BATCH / min(walls):.1f}); "
+            f"device-resident forward {fwd_ms:.3f} ms = {BATCH / fwd_ms * 1e3:.1f} "
+            f"windows/s (CUDA events, mean of 10)")
+        if dtype == torch.float32:
+            profile_forward(lambda: model(xd), f"{name} {dt} forward B={BATCH}", fwd_ms,
+                            card, tag=tag)
+        model = build_model(name, dtype=dtype)
+        model.load_state_dict(cpu_model.state_dict())
+        state = create_train_state(model, frozen=frozen)
+        train_epoch, _ = make_epoch_fns(state.model, state.optimizer)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        b = TIMING_BATCH
+        train_epoch(noisy[:4 * b], clean[:4 * b], gen, b)  # warm-up
+        n = EPOCH_WINDOWS // b * b
+        walls = [_timed(train_epoch, noisy, clean, gen, b) for _ in range(repeats)]
+        step_ms = cuda_ms(lambda: train_step(state, noisy[:b], clean[:b]), 5)
+        log(f"[{tag}] {card}: {name} train_epoch {dt} batch {b}: "
+            f"{n / statistics.median(walls):.1f} windows/s (median of {repeats} epochs of "
+            f"{n // b} steps, host clock ending in the epoch's one fetch; each epoch: "
+            + ", ".join(f"{n / w:.1f}" for w in walls) + f"); one step {step_ms:.3f} ms on "
+            "the card's clock (CUDA events, mean of 5)")
+
+
+def phase_frozen_bias_backward(card):
+    """B2 with a bias and no dbias (the frozen core of 12-lead transfer: its
+    rel-pos tables do not require grad) at the five stage shapes, f32 and
+    bf16, B = TIMING_BATCH: through the autograd Function and through the
+    wrapper with want_dbias=False, dq, dk and dv against the plain flash
+    backward on the forward kernel's own o and lse (GRAD_TOL; bf16
+    BF16_GRAD_TOL_OF_MAX of max|grad|) and bit for bit those of the same
+    call with dbias; then, in f32, the kernel's time without dbias beside
+    its time with it (graph replays in turns). Returns the f32 max error
+    and one step's 14 biased calls' times both ways."""
+    from ecg_denoise_tpu_torch import full_float32
+    from ecg_denoise_tpu_torch.kernels import attention
+    from ecg_denoise_tpu_torch.kernels.attention import fused_attention
+
+    saved = tf32_flags()
+    full_float32()
+    gen = torch.Generator().manual_seed(13)
+    max_err = 0.0
+    totals = {"without_dbias_ms": 0.0, "with_dbias_ms": 0.0}
+    for (L, H, with_bias), calls in FORWARD_CALLS.items():
+        if not with_bias:
+            continue
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, bias = operands(TIMING_BATCH, H, L, True, dtype, gen)
+            g = torch.randn(q.shape, generator=gen).to("cuda", dtype)
+            ins = [t.detach().requires_grad_() for t in (q, k, v)]
+            before = fused_attention.bwd_launches
+            grads = torch.autograd.grad(fused_attention(*ins, bias), ins, g)
+            torch.cuda.synchronize()
+            check(fused_attention.bwd_launches == before + 1, "the backward kernel did not run")
+            o, lse = attention._launch(q, k, v, bias, with_lse=True)
+            bare = attention._launch_bwd(q, k, v, bias, o, lse, g, want_dbias=False)
+            full = attention._launch_bwd(q, k, v, bias, o, lse, g, want_dbias=True)
+            ref = attention.attention_backward_reference(q, k, v, bias, o, lse, g)
+            check(bare[3] is None and full[3] is not None, "dbias where none was asked")
+            same = all(torch.equal(a, b) and torch.equal(a, c)
+                       for a, b, c in zip(grads, bare, full))
+            errs = []
+            for name, a, b in zip(("dq", "dk", "dv"), grads, ref):
+                scale = b.float().abs().max().item()
+                tol = BF16_GRAD_TOL_OF_MAX * scale if dtype == torch.bfloat16 else GRAD_TOL
+                err = (a.float() - b.float()).abs().max().item()
+                errs.append(f"{name} {err:.2e}/{tol:.2e}")
+                check(err <= tol, f"B2 without dbias: {name} disagrees with the plain backward")
+                if dtype == torch.float32:
+                    max_err = max(max_err, err)
+            timing = ""
+            if dtype == torch.float32:
+                lib = attention._bwd_library()
+                args = (q, k, v, bias, o, lse, g)
+                without, with_ = in_turns(lambda: b2_call(lib, *args, False),
+                                          lambda: b2_call(lib, *args, True))
+                ms = statistics.mean(without) / 1e3, statistics.mean(with_) / 1e3
+                totals["without_dbias_ms"] += calls * ms[0]
+                totals["with_dbias_ms"] += calls * ms[1]
+                timing = (f"; {card}: without dbias {ms[0]:.4f} ms, with dbias {ms[1]:.4f} ms "
+                          f"(graph replays in turns: without {without[0]:.1f} / "
+                          f"{without[1]:.1f} us, with {with_[0]:.1f} / {with_[1]:.1f} us)")
+            log(f"[20] B2 with a frozen bias, B={TIMING_BATCH} L={L} H={H} {str(dtype)[6:]}: "
+                + ", ".join(errs) + f" against the plain flash backward; dq, dk, dv of "
+                f"autograd, of want_dbias=False and of want_dbias=True bit-identical: "
+                f"{same}{timing}")
+            check(same, "B2's dq, dk, dv differ with and without dbias")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    log(f"[20] {card}: B2, one NewRale step's 14 biased calls at B={TIMING_BATCH}, f32: "
+        f"without dbias {totals['without_dbias_ms']:.4f} ms, with dbias "
+        f"{totals['with_dbias_ms']:.4f} ms (graph replays in turns)")
+    return max_err, totals
+
+
+def phase_transfer_cli(card, core_ckpt):
+    """The 12-lead training path: `python -m
+    ecg_denoise_tpu_torch.cli.transfer_learning` (through runpy, as phase
+    7b runs cli.main) for 10 bf16 epochs on a synthetic 12-lead cache, the
+    core from `core_ckpt`: the test loss falls, the trained checkpoint's
+    core is the core checkpoint's bit for bit, and the counts set to 0
+    just before and read just after are 18 B1 launches a forward and 18 B2
+    a step."""
+    from ecg_denoise_tpu_torch.models import build_model
+    from ecg_denoise_tpu_torch.serving import Denoiser
+    from ecg_denoise_tpu_torch.train import load_model_weights
+    from ecg_denoise_tpu_torch.utils.seed import random_seed
+
+    epochs, n, seed = 10, 400, 2023
+    n_train = int(0.8 * n)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "ExternalData", "dict_data")
+        write_dict_data(data, n, seed=9, channels=12)
+        out_file = os.path.join(tmp, "output.txt")
+        save_dir = os.path.join(tmp, "model_save")
+        argv = ["--noise_type_index", "0", "--intensity_index", "0", "--epochs", str(epochs),
+                "--batch_size", str(TRAIN_BATCH), "--seed", str(seed),
+                "--external_path", data, "--core_ckpt", core_ckpt,
+                "--model_save_dir", save_dir, "--output_file", out_file]
+        # The weights the CLI starts from: it seeds, builds, loads the core.
+        random_seed(seed)
+        start = build_model("newrale")
+        load_model_weights(core_ckpt, start.rale)
+        initial = Denoiser(start, max_batch=256)
+        te = np.random.default_rng(seed).permutation(n)[n_train:]
+        te_n = np.load(os.path.join(data, "m4", "bw.npy"))[te]
+        te_c = np.load(os.path.join(data, "ecg.npy"))[te]
+        log(f"[20] python -m ecg_denoise_tpu_torch.cli.transfer_learning {' '.join(argv)}")
+        saved_argv = sys.argv
+        sys.argv = ["ecg_denoise_tpu_torch.cli.transfer_learning", *argv]
+        t0 = time.perf_counter()
+        reset_launches()  # the main path
+        try:
+            runpy.run_module("ecg_denoise_tpu_torch.cli.transfer_learning",
+                             run_name="__main__", alter_sys=True)
+            torch.cuda.synchronize()
+        finally:
+            sys.argv = saved_argv
+        launches = read_launches()
+        wall = time.perf_counter() - t0
+        with open(out_file) as f:
+            line = f.read()
+        ckpt = os.path.join(save_dir, "newrale", f"newrale_{epochs - 1}_bw_intensity-4.pth")
+        check(os.path.exists(ckpt), "the transfer CLI wrote no checkpoint")
+        trained = Denoiser.from_checkpoint("newrale", ckpt, max_batch=256)
+        before, after = mse_of(initial, te_n, te_c), mse_of(trained, te_n, te_c)
+        core = torch.load(core_ckpt, map_location="cpu", weights_only=True)["model"]
+        got = torch.load(ckpt, map_location="cpu", weights_only=True)["model"]
+        same_core = all(torch.equal(got[f"rale.{k}"], t) for k, t in core.items())
+    steps = epochs * (n_train // TRAIN_BATCH)
+    evals = epochs * -(-(n - n_train) // TRAIN_BATCH)
+    log(f"[20] {card}: newrale, {epochs} bf16 epochs of {n_train} 12-lead windows in "
+        f"{wall:.1f} s (host clock, start-up included); output.txt: {line.strip()}")
+    log(f"[20] launches on the transfer path ({steps} steps, {evals} eval batches): "
+        f"{launches}")
+    log(f"[20] the checkpoint served by Denoiser.from_checkpoint('newrale'): test MSE "
+        f"{before:.5f} with the initial adapters -> {after:.5f} trained; its core equals "
+        f"the core checkpoint bit for bit: {same_core}")
+    check(re.fullmatch(rf"newrale_{epochs - 1}_bw_intensity-4:snr:\S+, rmse:\S+\n",
+                       line) is not None, "the output.txt line is malformed")
+    forwards = steps + evals
+    check(launches == expected_launches(fwd=18 * forwards, bwd=18 * steps),
+          "the transfer CLI's training did not go through its kernels")
+    check(same_core, "the frozen core changed in training")
+    check(np.isfinite(after) and after < before, "the test loss did not fall")
+    return launches
+
+
+def phase_families(card):
+    """Phase 19: UNet, DANet and ACDAE at their own widths, each through
+    the forward, the serving CLI, a training step, the training CLI and
+    its times; no attention kernel on any of their paths."""
+    t0 = time.perf_counter()
+    launches = {"serve_families": expected_launches(),
+                "train_families": expected_launches()}
+    for i, name in enumerate(FAMILIES):
+        cpu_model = seeded_model(20 + i, name)
+        phase_family_model(name, cpu_model, "19", expected_launches())
+        served = phase_serve_cli(name, cpu_model, "19", expected_launches(), "torch:cuda")
+        phase_family_step(name, cpu_model, "19", expected_launches())
+        trained = phase_train_cli(card, tag="19", name=name)
+        for path, got in (("serve_families", served), ("train_families", trained)):
+            launches[path] = {k: launches[path][k] + n for k, n in got.items()}
+        phase_family_times(name, cpu_model, card, "19")
+    log(f"chip_smoke: phase 19 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def phase_newrale(card, core_ckpt):
+    """Phase 20: NewRale (12 leads) on a seeded RA-LENet core, its frozen
+    step, B2 with a frozen bias, the transfer CLI with phase 7b's RA-LENet
+    checkpoint as its core, the serving CLI, and times."""
+    t0 = time.perf_counter()
+    cpu_model = seeded_model(31, "newrale")  # the adapters, and a seeded core
+    cpu_model.rale.load_state_dict(seeded_model(30).state_dict())
+    phase_family_model("newrale", cpu_model, "20", expected_launches(fwd=18))
+    phase_family_step("newrale", cpu_model, "20", expected_launches(fwd=18, bwd=18),
+                      frozen=cpu_model.frozen_parameters())
+    err, frozen_ms = phase_frozen_bias_backward(card)
+    launches = {"train_newrale": phase_transfer_cli(card, core_ckpt)}
+    # 4 forwards (buckets 1, 64, 1024 and the record's 39 windows in 64).
+    launches["serve_newrale"] = phase_serve_cli("newrale", cpu_model, "20",
+                                                expected_launches(fwd=4 * 18),
+                                                "torch+attn-cuda:cuda")
+    phase_family_times("newrale", cpu_model, card, "20",
+                       frozen=cpu_model.frozen_parameters(), repeats=2)
+    log(f"chip_smoke: phase 20 took {time.perf_counter() - t0:.1f} s")
+    return launches, err, frozen_ms
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs an NVIDIA card",
@@ -2592,12 +3039,18 @@ def main():
     card = smi_name_power()
     max_err = phase_kernel_vs_plain()
     cpu_model = seeded_model(0)
-    gpu_model = phase_model(cpu_model)
-    launches = {"serve": phase_serving(cpu_model)}
+    gpu_model = phase_family_model("ralenet", cpu_model, "3", expected_launches(fwd=18))
+    # 4 forwards (buckets 1, 64, 1024 and the record's 39 windows in 64).
+    launches = {"serve": phase_serve_cli("ralenet", cpu_model, "4",
+                                         expected_launches(fwd=4 * 18),
+                                         "torch+attn-cuda:cuda")}
     totals, bound_by = phase_times(gpu_model, cpu_model, card)
     bwd_err = phase_backward_vs_plain()
     phase_train_step(cpu_model)
-    launches["train"] = phase_train_cli(card)
+    # Phase 7b's RA-LENet checkpoint is kept as phase 20's pretrained core.
+    work = tempfile.TemporaryDirectory()
+    core_ckpt = os.path.join(work.name, "ralenet_core.pth")
+    launches["train"] = phase_train_cli(card, keep=core_ckpt)
     bwd_totals, bwd_bound_by = phase_train_times(cpu_model, card)
     rpos_err = phase_rpos_kernel_vs_plain()
     rpos_bwd_err = phase_rpos_backward_vs_plain()
@@ -2615,6 +3068,10 @@ def main():
     t_precision = time.perf_counter()
     launches["probes_precision"], precision_times = phase_precision(card)
     log(f"chip_smoke: phase 18 took {time.perf_counter() - t_precision:.1f} s")
+    launches.update(phase_families(card))
+    newrale_launches, frozen_err, frozen_ms = phase_newrale(card, core_ckpt)
+    launches.update(newrale_launches)
+    work.cleanup()
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     csrc = "ecg_denoise_tpu_torch/kernels/csrc"
@@ -2684,6 +3141,11 @@ def main():
     b2["eager_ms"] = bwd_totals["eager_ms"]
     b2["parent_ms_same_calls"] = bwd_totals["parent_ms"]
     b2["passes_ms"] = bwd_totals["passes_ms"]
+    b2["frozen_bias"] = {
+        "max_abs_err": frozen_err, **frozen_ms,
+        "times_are": f"one NewRale step's 14 biased calls, float32, B={TIMING_BATCH}, "
+                     "bias without dbias (the frozen core) and with it, CUDA graph "
+                     "replays in turns"}
     b3 = entry("attention_rpos_fwd", 827, rpos_err, rpos_totals, rpos_by,
                f"one r_pos forward's 14 biased calls, float32, B={BATCH}, no lse, the kernels "
                "from CUDA graph replays in turns with the parent's where its tree is there; "

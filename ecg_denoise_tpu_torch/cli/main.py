@@ -4,9 +4,11 @@ package's cli/main.py (reference main.py:24-87).
 Seed 2023, (noise type, intensity, model) picked by index, a 10k-window
 subsample of the dict_data cache split 80/20, Adam/MSE training with the
 splits on the card, a checkpoint every 10 epochs and the output.txt result
-line. It runs on the card and raises without one. `--r_pos detect`
-centres each window's R-wave attention bias on its own detected R peak
-(RaleNet family). Example:
+line. It runs on the card and raises without one. Every --model_index
+trains (0 unet, the default; 1 DANet; 2-4 the RA-LENet family; 5 ACDAE).
+`--r_pos detect` centres each window's R-wave attention bias on its own
+detected R peak (RaleNet family; printed and ignored for the others).
+Example:
 
     python -m ecg_denoise_tpu_torch.cli.main --model_index 4 \\
         --noise_type_index 0 --intensity_index 0 --data_path ./data/dict_data \\

@@ -1,11 +1,14 @@
 """Minimal HTTP denoising service (stdlib only; JAX counterpart: cli/serve.py).
 
-POST /denoise with a raw .npy payload of shape (N, 2, 256) float32 returns
+POST /denoise with a raw .npy payload of shape (N, C, 256) float32 returns
 the denoised .npy, with the host timing breakdown in the X-Denoise-Timing
-header. POST /denoise_record?stride=K takes one (2, T) record of any
-length and overlap-add stitches it. GET /healthz returns the model, the
-checkpoint and the inference path. Batches are padded to power-of-two
-buckets (see ecg_denoise_tpu_torch.serving.Denoiser).
+header; C is 2, or 12 for `--model newrale` (the 12-lead transfer model).
+POST /denoise_record?stride=K takes one (C, T) record of any length and
+overlap-add stitches it. GET /healthz returns the model, the checkpoint
+and the inference path. Batches are padded to power-of-two buckets (see
+ecg_denoise_tpu_torch.serving.Denoiser). `--model` takes any name of
+`models.build_model`: unet, DANet, ralenet_nra, ralenet_mlp, ralenet,
+ACDAE, newrale.
 
 Example (the checkpoint is a torch.save'd state_dict of the port's model,
 or a checkpoint written by `python -m ecg_denoise_tpu_torch.cli.main`;

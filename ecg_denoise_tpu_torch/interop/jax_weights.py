@@ -6,9 +6,16 @@ port's module loads, with the layout conversions:
 
 * Dense kernel (in, out)      -> Linear weight (out, in)
 * Conv kernel HIO (k, in, out) -> Conv1d weight (out, in, k)
+* ConvTranspose kernel (k, in, out) -> ConvTranspose1d weight (in, out, k)
 * LayerNorm / BatchNorm scale, bias -> weight, bias
 * BatchNorm batch_stats mean, var   -> running_mean, running_var
 * the rel-pos table, as it is.
+
+A 3-D kernel alone does not say whether it is a conv's or a transpose
+conv's, so each model's map names its transpose convs. There is one map a
+model family: `ralenet_state_dict`, `unet_state_dict`,
+`seq2seq2_state_dict` (DANet; DAM's shared FCN fills both `fcn1.*` and
+`fcn2.*`), `acdae_state_dict` and `newrale_state_dict`.
 
 This is the reverse of the JAX package's `interop/torch_weights.py`, kept
 here as a copy of the logic because the port imports nothing of that
@@ -59,22 +66,26 @@ def _module_path(path, renames) -> str:
     return ".".join(segs)
 
 
-def _leaf(name: str, value):
+def _leaf(name: str, value, transposed: bool = False):
     a = np.asarray(value, np.float32)
     if name == "kernel":
-        return "weight", a.T if a.ndim == 2 else a.transpose(2, 1, 0)
+        if a.ndim == 2:
+            return "weight", a.T
+        return "weight", a.transpose(1, 2, 0) if transposed else a.transpose(2, 1, 0)
     return _LEAF_NAMES[name], a
 
 
-def state_dict_from_variables(variables: Mapping, renames: Mapping = None
+def state_dict_from_variables(variables: Mapping, renames: Mapping = None,
+                              transposed=lambda path: False
                               ) -> dict[str, torch.Tensor]:
     """Map any JAX {"params", "batch_stats"} tree to state_dict keys,
-    renaming module path segments by `renames`."""
+    renaming module path segments by `renames`; `transposed(path)` is true
+    for the JAX module paths (tuples of names) of transpose convs."""
     renames = renames or {}
     sd = {}
     for collection in ("params", "batch_stats"):
         for path, value in _flatten(variables.get(collection, {})):
-            name, a = _leaf(path[-1], value)
+            name, a = _leaf(path[-1], value, transposed(path[:-1]))
             module = _module_path(path[:-1], renames)
             prefix = f"{module}." if module else ""
             sd[prefix + name] = torch.tensor(a)  # a copy: JAX arrays convert read-only
@@ -91,6 +102,57 @@ def ralenet_state_dict(variables: Mapping, variant: str
         raise ValueError(f"variables {'have' if has_tables else 'lack'} the "
                          f"rel-pos tables, which variant {variant!r} "
                          f"{'lacks' if has_tables else 'needs'}")
+    return state_dict_from_variables(variables, RALENET_RENAMES)
+
+
+UNET_RENAMES = {
+    **{f"enc{i}": f"EncList.{i}" for i in range(4)},
+    **{f"dec{i}": f"DecList.{i}" for i in range(4)},
+    "bottleneck_conv0": "bottleneck.0", "bottleneck_bn0": "bottleneck.2",
+    "bottleneck_conv1": "bottleneck.3", "bottleneck_bn1": "bottleneck.5",
+    "bottleneck_conv2": "bottleneck.6",
+}
+SEQ2SEQ2_RENAMES = {
+    **{f"enc{i}": f"enc.EncoderList.{i}" for i in range(4)},
+    **{f"dec{i}": f"dec.DecoderList.{i}" for i in range(4)},
+    "aprelu": "activate",
+    "fc1": "fcn.0", "bn1": "fcn.1", "fc2": "fcn.3", "bn2": "fcn.4",
+    "fcn_fc1": "fcn1.0", "fcn_bn1": "fcn1.1", "fcn_fc2": "fcn1.3", "fcn_bn2": "fcn1.4",
+}
+ACDAE_RENAMES = {
+    **{f"enc{i}_conv": f"EncList.{i}.conv" for i in range(4)},
+    **{f"dec{i}_conv": f"DecList.{i}.conv" for i in range(4)},
+    **{f"dec{i}_eca": f"DecList.{i}.ECA" for i in range(4)},
+}
+
+
+def unet_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
+    """JAX UNet variables -> the port's UNet state_dict."""
+    return state_dict_from_variables(
+        variables, UNET_RENAMES,
+        lambda path: path[0].startswith("dec") and path[-1] == "conv")
+
+
+def seq2seq2_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
+    """JAX Seq2Seq2 (DANet) variables -> the port's Seq2Seq2 state_dict;
+    DAM's one FCN under both of its names."""
+    sd = state_dict_from_variables(variables, SEQ2SEQ2_RENAMES,
+                                   lambda path: path[-1] == "deconv")
+    for key in [k for k in sd if ".dam.fcn1." in k]:
+        sd[key.replace(".dam.fcn1.", ".dam.fcn2.")] = sd[key].clone()
+    return sd
+
+
+def acdae_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
+    """JAX ACDAE variables -> the port's ACDAE state_dict."""
+    return state_dict_from_variables(
+        variables, ACDAE_RENAMES,
+        lambda path: path[-1].startswith("dec") and path[-1].endswith("_conv"))
+
+
+def newrale_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
+    """JAX NewRale variables (the 'full' core under "rale") -> the port's
+    NewRale state_dict."""
     return state_dict_from_variables(variables, RALENET_RENAMES)
 
 

@@ -9,12 +9,15 @@ do (a fused bias would round once and differ in the last bit). At float32
 every layer here is exactly its torch.nn base class.
 
 Torch-compat facts the JAX package reproduces and this port gets for free:
-Conv1d is cross-correlation with torch padding; BatchNorm1d has eps 1e-5,
-momentum 0.1, and uses its running stats in eval mode; LayerNorm eps is
-1e-5; GELU is the exact erf form (`F.gelu`'s default).
+Conv1d is cross-correlation with torch padding; ConvTranspose1d is torch's
+own, weight (in, out, k); BatchNorm1d has eps 1e-5, momentum 0.1, and uses
+its running stats in eval mode; LayerNorm eps is 1e-5; GELU is the exact
+erf form (`F.gelu`'s default).
 
-EcaLayer1d, ConvTranspose1d, the pools and linear_upsample2x are not on
-RA-LENet's path and come with the UNet and ACDAE slices.
+The pools and `linear_upsample2x` (UNet, DANet, ACDAE) are functions, as
+in the JAX package; a mean computes in float32 and returns the input
+dtype, as `jnp.mean` does. `EcaLayer1d` is on no model's path (only
+`use_eca`, which no model sets, reaches it) and is not ported.
 """
 
 from __future__ import annotations
@@ -44,6 +47,18 @@ class Conv1d(nn.Conv1d):
         return y if self.bias is None else y + self.bias.to(x.dtype)[:, None]
 
 
+class ConvTranspose1d(nn.ConvTranspose1d):
+    """nn.ConvTranspose1d on (B, C, L), computing in the input's dtype."""
+
+    def forward(self, x):
+        if x.dtype == torch.float32:
+            return super().forward(x)
+        y = F.conv_transpose1d(x, self.weight.to(x.dtype), None, self.stride,
+                               self.padding, self.output_padding, self.groups,
+                               self.dilation)
+        return y if self.bias is None else y + self.bias.to(x.dtype)[:, None]
+
+
 class LayerNorm(nn.LayerNorm):
     """LayerNorm over the last axis, eps 1e-5, computed in float32."""
 
@@ -55,10 +70,29 @@ class LayerNorm(nn.LayerNorm):
 
 
 class BatchNorm1d(nn.BatchNorm1d):
-    """BatchNorm1d on (B, C, L), computed in float32 (eval: running stats)."""
+    """BatchNorm1d on (B, C, L) or (B, C), computed in float32 (eval:
+    running stats).
+
+    In training, a batch of one value per channel (DANet's gates at batch
+    1) is normalised as the JAX layer does it, with variance 0, where
+    torch.nn raises: the output is the bias, the running mean moves toward
+    the value and the running variance toward 0.
+    """
 
     def forward(self, x):
+        if self.training and x.numel() == x.shape[1]:
+            return self._one_value_per_channel(x.float()).to(x.dtype)
         return super().forward(x.float()).to(x.dtype)
+
+    def _one_value_per_channel(self, x):
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        mean = x.reshape(-1)
+        with torch.no_grad():
+            self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
+            self.running_var.mul_(1 - self.momentum)  # the unbiased variance is 0
+            self.num_batches_tracked += 1
+        y = (x - mean.reshape(shape)) * self.eps ** -0.5
+        return y * self.weight.reshape(shape) + self.bias.reshape(shape)
 
 
 class PartialConv1d(nn.Module):
@@ -78,3 +112,31 @@ class PartialConv1d(nn.Module):
     def forward(self, x):
         x1 = self.partial_conv3(x[:, :self.dim_conv])
         return torch.cat([x1, x[:, self.dim_conv:]], dim=1)
+
+
+def max_pool1d(x, window: int = 2, stride: int | None = None):
+    """torch.nn.MaxPool1d on (B, C, L): windows that fit, no padding."""
+    return F.max_pool1d(x, window, stride or window)
+
+
+def mean_f32(x, dim, keepdim: bool = False):
+    """The mean over `dim` summed in float32, in x's dtype (`jnp.mean`)."""
+    return x.float().mean(dim, keepdim=keepdim).to(x.dtype)
+
+
+def adaptive_avg_pool1d(x):
+    """AdaptiveAvgPool1d(1) on (B, C, L) -> (B, C, 1), summed in float32."""
+    return mean_f32(x, -1, keepdim=True)
+
+
+def linear_upsample2x(x):
+    """nn.Upsample(scale_factor=2, mode='linear', align_corners=False) on
+    (B, C, L) -> (B, C, 2L), written as the JAX package writes it: gather
+    the two neighbours, then interpolate with float32 weights, so a
+    bfloat16 input comes back float32, as it does there."""
+    L = x.shape[-1]
+    src = (torch.arange(2 * L, dtype=torch.float32, device=x.device) + 0.5) / 2.0 - 0.5
+    lo = torch.clamp(torch.floor(src), 0, L - 1).long()
+    hi = torch.clamp(lo + 1, 0, L - 1)
+    w = torch.clamp(src - lo.float(), 0.0, 1.0)
+    return x[..., lo] * (1.0 - w) + x[..., hi] * w

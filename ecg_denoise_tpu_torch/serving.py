@@ -11,6 +11,11 @@
 * Input and output are numpy (host) arrays: one host-to-device and one
   device-to-host copy per chunk, and each chunk's fetch ends in a
   `torch.cuda.synchronize`.
+* Any denoiser of `models.build_model` serves: the 2-lead families take
+  (N, 2, L) and `newrale` (N, 12, L), its `in_channels`. L is 256 unless
+  the caller passes another `length` to `denoise_record`, `streaming` and
+  `warmup`; the conv families take any multiple of 16, and a length a
+  model cannot take raises (RA-LENet's rel-pos biases are built for 256).
 * `r_pos="detect"` centres each window's R-wave attention bias on its own
   detected R peak (the paper's namesake mechanism): `detect_r_peaks` runs
   on the staged bucket on the model's device, inside the same
@@ -33,9 +38,10 @@ import torch
 
 from ecg_denoise_tpu_torch import full_float32, resolve_device
 from ecg_denoise_tpu_torch.data.rpeaks import detect_r_peaks
-from ecg_denoise_tpu_torch.models import build_model
+from ecg_denoise_tpu_torch.models import apply, build_model
+from ecg_denoise_tpu_torch.ops.attention import MSAttention
 
-WINDOW = 256  # samples per window: RA-LENet's fixed input length
+WINDOW = 256  # samples per window by default: RA-LENet's fixed input length
 
 
 def _bucket(n: int, max_batch: int, floor: int = 1) -> int:
@@ -51,7 +57,9 @@ class Denoiser:
     `device` defaults to the card (and raises without one); the model is
     moved there and put in eval mode. On the card, float32 runs in full
     float32 (`full_float32`). `r_pos="detect"` feeds each window's detected
-    R-peak position to the model (RaleNet's `r_pos`).
+    R-peak position to the model (RaleNet's `r_pos`). `channels`, the
+    served window's channel count, is the model's `in_channels` (12 for
+    newrale; 2 for a module that names none, as in JAX's Denoiser).
     """
 
     def __init__(self, model: torch.nn.Module, max_batch: int = 1024,
@@ -63,14 +71,17 @@ class Denoiser:
         if self.device.type == "cuda":
             full_float32()
         self.model = model.to(self.device).eval()
+        self.channels = getattr(model, "in_channels", 2)
         self.max_batch = max_batch
         self._staging = {}  # per-bucket persistent padding buffers
         # Shared staging buffers on one card: serialise calls (the HTTP
         # front end is threaded).
         self._lock = threading.Lock()
-        attn = "cuda" if self.device.type == "cuda" else "plain"
+        # The attention's route, for the models that have one.
+        attn = ("" if not any(isinstance(m, MSAttention) for m in model.modules())
+                else "+attn-cuda" if self.device.type == "cuda" else "+attn-plain")
         rpos = "+rpos" if r_pos else ""
-        self.inference_path = f"torch+attn-{attn}{rpos}:{self.device.type}"
+        self.inference_path = f"torch{attn}{rpos}:{self.device.type}"
 
     @classmethod
     def from_checkpoint(cls, name_or_index, ckpt_path: str,
@@ -124,9 +135,8 @@ class Denoiser:
     def _forward(self, batch: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
             x = batch.to(self.device, non_blocking=True)
-            if self.r_pos == "detect":
-                return self.model(x, r_pos=detect_r_peaks(x))
-            return self.model(x)
+            return apply(self.model, x,
+                         detect_r_peaks(x) if self.r_pos == "detect" else None)
 
     def _fetch(self, y: torch.Tensor) -> np.ndarray:
         y = y.float().cpu()
@@ -155,11 +165,12 @@ class Denoiser:
             t["fetch_ms"] += (t3 - t2) * 1e3
             i += m
 
-    def denoise_record(self, signal: np.ndarray, stride: int = 128) -> np.ndarray:
+    def denoise_record(self, signal: np.ndarray, stride: int = 128,
+                       length: int = WINDOW) -> np.ndarray:
         """Denoise an arbitrary-length (C, T) record by overlap-add.
 
-        Slides a WINDOW-sample window every `stride` samples (plus a final
-        window at T - WINDOW so the tail is covered), denoises all windows
+        Slides a `length`-sample window every `stride` samples (plus a
+        final window at T - length so the tail is covered), denoises all windows
         in one batched call, and blends the overlaps with a Hann taper
         normalised by the accumulated weight. Positions only one window
         covers reproduce that window's output exactly. Records shorter
@@ -170,39 +181,39 @@ class Denoiser:
         if sig.ndim != 2:
             raise ValueError(f"denoise_record wants (C, T), got {sig.shape}")
         c, t = sig.shape
-        if t < WINDOW:
-            pad = WINDOW - t
+        if t < length:
+            pad = length - t
             padded = np.pad(sig, ((0, 0), (0, pad)),
                             mode="reflect" if t > 1 else "edge")
             return self(padded[None])[0][:, :t]
-        if stride < 1 or stride > WINDOW:
-            raise ValueError(f"stride must be in 1..{WINDOW}, got {stride}")
-        starts = list(range(0, t - WINDOW + 1, stride))
-        if starts[-1] != t - WINDOW:
-            starts.append(t - WINDOW)
-        denoised = self(np.stack([sig[:, s:s + WINDOW] for s in starts]))
-        w = (np.hanning(WINDOW) + 1e-6).astype(np.float32)
+        if stride < 1 or stride > length:
+            raise ValueError(f"stride must be in 1..{length}, got {stride}")
+        starts = list(range(0, t - length + 1, stride))
+        if starts[-1] != t - length:
+            starts.append(t - length)
+        denoised = self(np.stack([sig[:, s:s + length] for s in starts]))
+        w = (np.hanning(length) + 1e-6).astype(np.float32)
         num = np.zeros((c, t), np.float32)
         den = np.zeros((t,), np.float32)
         for s, y in zip(starts, denoised):
-            num[:, s:s + WINDOW] += w * y
-            den[s:s + WINDOW] += w
+            num[:, s:s + length] += w * y
+            den[s:s + length] += w
         return num / den
 
-    def streaming(self, stride: int = 128) -> "StreamingDenoiser":
+    def streaming(self, stride: int = 128, length: int = WINDOW) -> "StreamingDenoiser":
         """A stateful online denoiser over this Denoiser (live monitors)."""
-        return StreamingDenoiser(self, stride=stride)
+        return StreamingDenoiser(self, stride=stride, length=length)
 
-    def warmup(self, limit: Optional[int] = None) -> None:
-        """Run every batch bucket up to `limit` (default: max_batch) once,
-        so the first real request of each size finds the kernels built and
-        the allocator's pools sized. `limit` rounds up to its bucket."""
+    def warmup(self, length: int = WINDOW, limit: Optional[int] = None) -> None:
+        """Run every batch bucket up to `limit` (default: max_batch) once
+        at the served channel count and `length`, so the first real request
+        of each size finds the kernels built and the allocator's pools
+        sized. `limit` rounds up to its bucket."""
         limit = min(_bucket(limit or self.max_batch, self.max_batch),
                     self.max_batch)
         b = 1
         while b <= limit:
-            x = torch.zeros(b, self.model.in_channels, WINDOW)
-            self._fetch(self._forward(x))
+            self._fetch(self._forward(torch.zeros(b, self.channels, length)))
             b *= 2
 
 
@@ -213,8 +224,8 @@ class StreamingDenoiser:
     `push` takes any number of new samples and returns the samples whose
     denoising is final — every window that can cover them has been
     accumulated — so output never changes afterwards. Latency is at most
-    one window (WINDOW samples); in steady state WINDOW - stride plus the
-    wait for the next window start.
+    one window (`length` samples); in steady state length - stride plus
+    the wait for the next window start.
 
     The window placement and Hann-taper overlap-add are `denoise_record`'s:
     a whole record fed through push() and flush(), in chunks of any size,
@@ -223,12 +234,13 @@ class StreamingDenoiser:
     the windows fall into batches.
     """
 
-    def __init__(self, denoiser: Denoiser, stride: int = 128):
-        if stride < 1 or stride > WINDOW:
-            raise ValueError(f"stride must be in 1..{WINDOW}, got {stride}")
+    def __init__(self, denoiser: Denoiser, stride: int = 128, length: int = WINDOW):
+        if stride < 1 or stride > length:
+            raise ValueError(f"stride must be in 1..{length}, got {stride}")
         self.denoiser = denoiser
         self.stride = stride
-        self._w = (np.hanning(WINDOW) + 1e-6).astype(np.float32)
+        self.length = length
+        self._w = (np.hanning(length) + 1e-6).astype(np.float32)
         self._buf = None      # (C, n) inputs from self._anchor onward
         self._num = None      # weighted-output accumulator, same span
         self._den = None
@@ -256,7 +268,7 @@ class StreamingDenoiser:
         self._total += x.shape[1]
 
         starts = []
-        while self._next_start + WINDOW <= self._total:
+        while self._next_start + self.length <= self._total:
             starts.append(self._next_start)
             self._next_start += self.stride
         if not starts:
@@ -270,7 +282,7 @@ class StreamingDenoiser:
 
     def flush(self) -> np.ndarray:
         """End of stream: add the tail window (denoise_record's last start
-        at T - WINDOW, if off the stride grid) and return every remaining
+        at T - length, if off the stride grid) and return every remaining
         sample. A stream shorter than a window is denoised as
         denoise_record denoises a short record (reflect-padded)."""
         if self._flushed:
@@ -279,20 +291,21 @@ class StreamingDenoiser:
         if self._buf is None or self._total == 0:
             return np.zeros((0, 0), np.float32)
         t = self._total
-        if t < WINDOW:
-            return self.denoiser.denoise_record(self._buf, stride=self.stride)
+        if t < self.length:
+            return self.denoiser.denoise_record(self._buf, stride=self.stride,
+                                                length=self.length)
         last_grid = self._next_start - self.stride
-        if t - WINDOW > last_grid or last_grid < 0:
-            self._accumulate([t - WINDOW])
+        if t - self.length > last_grid or last_grid < 0:
+            self._accumulate([t - self.length])
         return self._emit(t)
 
     def _accumulate(self, starts) -> None:
         a = self._anchor
-        outs = self.denoiser(np.stack([self._buf[:, s - a:s - a + WINDOW]
-                                       for s in starts]))
+        n = self.length
+        outs = self.denoiser(np.stack([self._buf[:, s - a:s - a + n] for s in starts]))
         for s, y in zip(starts, outs):
-            self._num[:, s - a:s - a + WINDOW] += self._w * y
-            self._den[s - a:s - a + WINDOW] += self._w
+            self._num[:, s - a:s - a + n] += self._w * y
+            self._den[s - a:s - a + n] += self._w
 
     def _anchor_to(self, new_anchor: int) -> None:
         # Everything below the new anchor is emitted already.

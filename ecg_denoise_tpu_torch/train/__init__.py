@@ -1,6 +1,7 @@
 from ecg_denoise_tpu_torch.train.checkpoint import (
     find_model,
     load_checkpoint,
+    load_model_weights,
     save_checkpoint,
 )
 from ecg_denoise_tpu_torch.train.loop import fit
@@ -8,4 +9,5 @@ from ecg_denoise_tpu_torch.train.state import TrainState, create_train_state
 from ecg_denoise_tpu_torch.train.steps import make_epoch_fns, train_step
 
 __all__ = ["TrainState", "create_train_state", "make_epoch_fns", "train_step",
-           "fit", "save_checkpoint", "load_checkpoint", "find_model"]
+           "fit", "save_checkpoint", "load_checkpoint", "load_model_weights",
+           "find_model"]

@@ -5,8 +5,10 @@ train/checkpoint.py; reference denoise_train.py:90-94).
 names its files. The reference saves a bare state_dict; this file holds the
 full training state, {"model": state_dict, "optimizer": Adam state_dict},
 so a resume is exact, as the JAX package's is; the step count is Adam's
-own (`TrainState.step`). Serving reads
-the "model" part (`serving.Denoiser.from_checkpoint`).
+own (`TrainState.step`). `load_model_weights` reads the "model" part, or
+a bare state_dict, into a module: 12-lead transfer loads a RA-LENet
+checkpoint into `NewRale.rale` with it (serving's
+`Denoiser.from_checkpoint` reads the same two layouts).
 
 `find_model` mirrors the reference's checkpoint discovery
 (local_utils/local_utils.py:700-715).
@@ -48,6 +50,15 @@ def load_checkpoint(path: str, state: TrainState) -> TrainState:
     state.model.load_state_dict(ckpt["model"])
     state.optimizer.load_state_dict(ckpt["optimizer"])
     return state
+
+
+def load_model_weights(path: str, module: torch.nn.Module) -> torch.nn.Module:
+    """Load the "model" part of a checkpoint of `save_checkpoint`, or a
+    bare `torch.save`d state_dict, into `module` (read onto the host and
+    copied to the module's device)."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    module.load_state_dict(state.get("model", state))
+    return module
 
 
 def find_model(model_path: str, model_name: Optional[str] = None,

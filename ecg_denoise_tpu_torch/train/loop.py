@@ -15,14 +15,16 @@ and the step count carries on from the checkpoint's.
 
 `r_pos_mode="detect"` detects the R peaks of every batch on the device
 and feeds them to the model's R-wave attention bias (`make_epoch_fns`'s
-`detect_r_pos`). Not here yet: the data-parallel `mesh` (ROADMAP A16) and
-the transfer `frozen_mask` (A12).
+`detect_r_pos`). `frozen_mask` names parameters that stay frozen (12-lead
+transfer's core, `NewRale.frozen_parameters()`; `create_train_state`'s
+`frozen`). Not here yet: the data-parallel `mesh` (ROADMAP A16).
 """
 
 from __future__ import annotations
 
 import os
 import time
+from collections.abc import Iterable
 from typing import Optional
 
 import numpy as np
@@ -66,6 +68,7 @@ def fit(
     log_every: int = 1,
     verbose: bool = True,
     r_pos_mode: Optional[str] = None,
+    frozen_mask: Iterable[str] = (),
     device=None,
 ):
     """Train `model` (already initialised, e.g. after `random_seed(seed)`)
@@ -78,7 +81,7 @@ def fit(
     in any epoch (its train metrics are NaN)."""
     if r_pos_mode not in (None, "detect"):
         raise ValueError(f"r_pos_mode must be None or 'detect', got {r_pos_mode!r}")
-    state = create_train_state(model, learning_rate, device)
+    state = create_train_state(model, learning_rate, device, frozen=frozen_mask)
     device = resolve_device(device)
     if init_variables is not None:
         state.model.load_state_dict(init_variables)

@@ -6,12 +6,15 @@ torch's Adam (eps 1e-8, bias-corrected, no eps inside the root) computes
 the update of optax's `adam` (eps_root 0): lr·m̂ / (sqrt(v̂) + eps). The step
 count is the optimizer's own, so a checkpoint of the optimizer carries it.
 
-The frozen-parameter mask of 12-lead transfer (`frozen_mask`) comes with
-that slice (ROADMAP A12).
+`frozen` names parameters that stay as they are (12-lead transfer's core,
+`NewRale.frozen_parameters()`): they stop requiring grad and stay out of
+Adam, which gives the update of JAX's optax `set_to_zero` under
+`multi_transform` for them and plain Adam for the rest.
 """
 
 from __future__ import annotations
 
+from collections.abc import Iterable
 from dataclasses import dataclass
 
 import torch
@@ -33,12 +36,20 @@ class TrainState:
 
 
 def create_train_state(model: torch.nn.Module, learning_rate: float = 1e-3,
-                       device=None) -> TrainState:
+                       device=None, frozen: Iterable[str] = ()) -> TrainState:
     """`model` moved to `device` (default: the card; raises without one)
-    with a fresh Adam(lr=learning_rate) over its parameters. On the card,
-    float32 runs in full float32 (`full_float32`)."""
+    with a fresh Adam(lr=learning_rate) over its parameters but those named
+    in `frozen`, which stop requiring grad. On the card, float32 runs in
+    full float32 (`full_float32`)."""
     device = resolve_device(device)
     if device.type == "cuda":
         full_float32()
     model = model.to(device)
-    return TrainState(model, torch.optim.Adam(model.parameters(), lr=learning_rate))
+    params = dict(model.named_parameters())
+    frozen = set(frozen)
+    if frozen - params.keys():
+        raise ValueError(f"no parameters named {sorted(frozen - params.keys())}")
+    for name in frozen:
+        params[name].requires_grad_(False)
+    trained = [p for name, p in params.items() if name not in frozen]
+    return TrainState(model, torch.optim.Adam(trained, lr=learning_rate))

@@ -6,7 +6,9 @@ back to back and fetches the epoch's metric means to the host once, at the
 end. A step is: forward in train mode (BatchNorm on batch statistics, its
 running stats updated with the unbiased variance, as the JAX layer does),
 mean MSE on the float32 prediction, backward, Adam update, and the batch's
-mean SNR and RMSE from the same forward. With `detect_r_pos` every input
+mean SNR and RMSE from the same forward. A model gets `r_pos` only when
+there is one (`models.apply`), so the families without R-wave attention train
+through the same steps. With `detect_r_pos` every input
 batch's R peaks are detected on its device (`data.rpeaks`) and fed to the
 model's R-wave attention bias, as the JAX package's
 `make_epoch_fns(detect_r_pos=True)` does.
@@ -23,6 +25,7 @@ import torch
 
 from ecg_denoise_tpu_torch.data.rpeaks import detect_r_peaks
 from ecg_denoise_tpu_torch.metrics import RMSE, SNR
+from ecg_denoise_tpu_torch.models import apply
 from ecg_denoise_tpu_torch.train.state import TrainState
 
 
@@ -33,7 +36,7 @@ def train_step(state: TrainState, noisy: torch.Tensor, clean: torch.Tensor,
     on the batch's device."""
     model, optimizer = state.model, state.optimizer
     model.train()
-    pred = model(noisy, r_pos=r_pos).float()
+    pred = apply(model, noisy, r_pos).float()
     loss = torch.mean((pred - clean) ** 2)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
@@ -93,7 +96,7 @@ def make_epoch_fns(model: torch.nn.Module, optimizer: torch.optim.Adam,
             for i in range(n_batches):
                 rows = slice(i * batch_size, (i + 1) * batch_size)
                 x, target, w = noisy_p[rows], clean_p[rows], weights[rows]
-                pred = model(x, r_pos=r_pos_of(x)).float()
+                pred = apply(model, x, r_pos_of(x)).float()
                 sums += torch.stack([
                     torch.sum(w[:, None, None] * (pred - target) ** 2),
                     torch.sum(SNR(target, pred) * w),

@@ -50,6 +50,10 @@ the tree, the divide and `null_copy` bit for bit the parent's. The probe's
 own four dot readings equal those of its first version within 1e-3
 relative.
 
+B2 is also held with a bias whose gradient nobody wants (12-lead
+transfer's frozen core): dq, dk and dv as above, and bit for bit those of
+the same call with dbias.
+
 B1 is also held at shapes that cut across its row tiles and batch groups
 (L = 203, 7, 1; B = 1, 3, 37, 1000), with its lse within 1e-5 of
 max(1, max|lse|) of the plain log-sum-exp and a second call bit-identical.
@@ -261,6 +265,35 @@ def test_backward_kernel_at_ragged_shapes(cuda, B, L, H, with_bias, dtype):
         assert err <= tol, (name, err, tol)
     for a, b in zip(got, again):
         assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B,L,H", [(32, L, H) for (L, H) in STAGES] + [(37, 203, 2), (3, 7, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_with_a_frozen_bias(cuda, B, L, H, dtype):
+    """B2 with a bias whose gradient nobody wants (12-lead transfer's
+    frozen core: the rel-pos tables do not require grad), through the
+    autograd Function: no dbias; dq, dk and dv within the bars of the
+    plain flash backward on the forward kernel's own o and lse, and bit
+    for bit those of the same call with dbias."""
+    q, k, v, bias = _operands(B, H, L, True, dtype, cuda, seed=L + H + 7)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(5)).to(cuda, dtype)
+    ins = [t.detach().requires_grad_() for t in (q, k, v)]
+    before = fused_attention.bwd_launches
+    out = fused_attention(*ins, bias)
+    grads = torch.autograd.grad(out, ins, g)
+    torch.cuda.synchronize()
+    assert fused_attention.bwd_launches == before + 1
+    o, lse = attention._launch(q, k, v, bias, with_lse=True)
+    with_dbias = attention._launch_bwd(q, k, v, bias, o, lse, g, want_dbias=True)
+    assert with_dbias[3] is not None
+    ref = attention_backward_reference(q, k, v, bias, o, lse, g)
+    for name, a, b, full in zip("q k v".split(), grads, ref, with_dbias):
+        assert a.dtype == dtype and a.shape == q.shape
+        assert torch.equal(a, full), name
+        scale = b.float().abs().max().item()
+        tol = BF16_GRAD_TOL_OF_MAX * scale if dtype == torch.bfloat16 else GRAD_TOL
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= tol, (name, err, tol)
 
 
 # The parent commit's tree, unpacked by `git archive` under the git-ignored

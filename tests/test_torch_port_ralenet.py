@@ -144,10 +144,20 @@ def test_build_model(name, variant):
     assert next(m.parameters()).device.type == "cpu"
 
 
-@pytest.mark.parametrize("name", ["unet", "DANet", "ACDAE", 0, 5, "newrale"])
-def test_models_not_ported_yet_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(name, device="cpu")
+@pytest.mark.parametrize("name,cls,in_channels", [
+    ("unet", "UNet", 2), ("DANet", "Seq2Seq2", 2), ("ralenet_nra", "RaleNet", 2),
+    ("ralenet_mlp", "RaleNet", 2), ("ralenet", "RaleNet", 2), ("ACDAE", "ACDAE", 2),
+    ("newrale", "NewRale", 12),
+])
+def test_build_model_builds_every_name(monkeypatch, name, cls, in_channels):
+    """Every name of MODEL_NAMES and "newrale": on the CPU when asked, on
+    the card by default (which raises without one)."""
+    m = build_model(name, device="cpu")
+    assert type(m).__name__ == cls and m.in_channels == in_channels
+    assert all(p.device.type == "cpu" for p in m.parameters())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(name)
 
 
 def test_bfloat16_forward():
