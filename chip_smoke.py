@@ -195,13 +195,39 @@ and nothing falls back to the CPU):
    newrale` serves (N, 12, 256) equal to its Denoiser, /healthz naming
    torch+attn-cuda:cuda (serve_newrale: 72 B1); windows/s served and
    trained, and the forward's breakdown.
+21. The data path: `python -m ecg_denoise_tpu_torch.cli.build_data`
+   (through runpy) builds four caches from the checkout, each build's wall
+   seconds printed: dict_data from the WFDB fixture tests/data/mini_physionet
+   (128 windows), a synthetic dict_data from 1 record (2,528 windows of
+   (2, 256)), `--cls` at its defaults (2,048 + 512 beats a class) and
+   `--external`, the 12-lead cache, at 1 record; each loads through
+   `EcgDataset` / `load_cls_arrays` with its shapes. `snr_noise_add` on the
+   card equals `snr_noise_add_at` on the CPU at the same offsets within 1e-6
+   of max|out|, each window within 1e-3 dB of its target at -4, 0 and 4 dB.
+   `make_augmented_epoch_fn` trains RA-LENet 'full' (f32, batch 32) for 3
+   epochs on the synthetic cache's clean windows, mixing a synthetic 'bw'
+   record (650,000 x 2, f32) on the card at 0 dB: the loss falls, with
+   exactly 18 B1 and 18 B2 launches a step (train_augmented); `cli.main
+   --model_index 4` trains 10 bf16 epochs on the port-built synthetic cache,
+   the test loss falls and the checkpoint serves (build_train). Times: the
+   augmented epoch against `train_epoch` on the cache's pre-mixed windows,
+   f32, batch 256, in turns, in windows/s, and the mixer's device time a
+   batch.
+22. The DWT baseline: `wavelet_denoise_device` on the card within 1e-4 of
+   the numpy `wavelet_denoise` at 4,096 rows of 256 and 512 rows of a
+   ragged L = 203, TF32 off, a second call bit-identical; `python -m
+   ecg_denoise_tpu_torch.cli.dwt_dn` on the synthetic cache writes its line
+   on the card and with `--host`, the two SNRs within 1e-3 dB, no port
+   kernel launched (baseline_dwt); rows/s on the card and on the host at
+   4,096 and 65,536 rows, and the device pyramid's launches and idle share
+   (torch.profiler).
 
 The last lines are one JSON object listing the ten kernels (with their
-launches on each of the eleven paths: serve, train, serve_rpos,
+launches on each of the fourteen paths: serve, train, serve_rpos,
 train_rpos, serve_dense, probes, probes_precision, serve_families,
-train_families, train_newrale, serve_newrale; B2's entry also holds its
-frozen-bias case), the card's name and power limit, and
-`{"ok": true, "device": {...}}`.
+train_families, train_newrale, serve_newrale, train_augmented,
+build_train, baseline_dwt; B2's entry also holds its frozen-bias case),
+the card's name and power limit, and `{"ok": true, "device": {...}}`.
 Without a card, or outside a checkout of the repository, it exits nonzero
 and prints no result.
 """
@@ -303,6 +329,23 @@ BATCH = 1024  # the serving default max_batch: the shapes the main path runs
 # B5's batches: the serving default, then batches that cut across its
 # blocks' groups of elements (up to 16 a block, fewer at small B).
 DENSE_BATCHES = (BATCH, 3, 1, 17, 37, 1000)
+# Phases 21-22: the data path and the DWT baseline. The WFDB fixture the
+# data path builds from; the windows of one synthetic record's cache.
+MINI_PHYSIONET = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                              "mini_physionet")
+CACHE_WINDOWS = 2528
+AUG_EPOCHS = 3
+# The mixer on the card against the CPU at the same offsets: a gather and
+# two means over 512 values, summed in other orders.
+MIX_RTOL = 1e-6
+SNR_TARGETS = (-4.0, 0.0, 4.0)
+SNR_DB_TOL = 1e-3
+# The DWT on the card against the numpy path (tests/test_dwt.py:101-110),
+# at the rows the rates are read at and at a ragged length of 203.
+DWT_TOL = 1e-4
+DWT_ROWS = (4096, 65536)
+DWT_RAGGED_ROWS = 512
+DWT_DN_SNR_TOL = 1e-3
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): f32 on the CUDA
 # cores (the kernel's arithmetic, also for bf16 operands) and HBM3; dense
 # TF32 and bf16 on the tensor cores (the precision probes' mma paths).
@@ -1202,11 +1245,28 @@ def mse_of(denoiser, noisy, clean):
     return float(np.mean((denoiser(noisy) - clean) ** 2))
 
 
-def phase_train_cli(card, r_pos=None, tag="7b", name="ralenet", keep=None):
+def run_module(module, argv, tag):
+    """`python -m module argv`, run in this process through runpy (so the
+    launch counts stay readable) and synchronised; its wall seconds on the
+    host clock."""
+    log(f"[{tag}] python -m {module} {' '.join(argv)}")
+    saved = sys.argv
+    sys.argv = [module, *argv]
+    t0 = time.perf_counter()
+    try:
+        runpy.run_module(module, run_name="__main__", alter_sys=True)
+        torch.cuda.synchronize()
+    finally:
+        sys.argv = saved
+    return time.perf_counter() - t0
+
+
+def phase_train_cli(card, r_pos=None, tag="7b", name="ralenet", keep=None, data=None):
     """The training main path: the port's CLI, as a user runs it (with
     `--r_pos detect` when r_pos is "detect"), training model `name` (UNet
     with no --model_index, the CLI's default). `keep`: a path to copy the
-    checkpoint to."""
+    checkpoint to; `data`: the dict_data cache to train on (default: a small
+    one written by `write_dict_data`)."""
     from ecg_denoise_tpu_torch import MODEL_NAMES
     from ecg_denoise_tpu_torch.data.dataset import load_split_arrays
     from ecg_denoise_tpu_torch.models import build_model
@@ -1215,8 +1275,9 @@ def phase_train_cli(card, r_pos=None, tag="7b", name="ralenet", keep=None):
 
     epochs, n_select, seed = 10, 1280, 2023  # one checkpoint, at the last epoch
     with tempfile.TemporaryDirectory() as tmp:
-        data = os.path.join(tmp, "dict_data")
-        write_dict_data(data, 1600, seed=7)
+        if data is None:
+            data = os.path.join(tmp, "dict_data")
+            write_dict_data(data, 1600, seed=7)
         out_file = os.path.join(tmp, "output.txt")
         save_dir = os.path.join(tmp, "model_save")
         argv = [] if name == "unet" else ["--model_index", str(MODEL_NAMES.index(name))]
@@ -1231,19 +1292,9 @@ def phase_train_cli(card, r_pos=None, tag="7b", name="ralenet", keep=None):
         initial = Denoiser(build_model(name), max_batch=256, r_pos=r_pos)
         _, _, te_n, te_c = load_split_arrays("bw", -4, path=data,
                                              n_select=n_select, seed=seed)
-        log(f"[{tag}] python -m ecg_denoise_tpu_torch.cli.main {' '.join(argv)}")
-        saved_argv = sys.argv
-        sys.argv = ["ecg_denoise_tpu_torch.cli.main", *argv]
-        t0 = time.perf_counter()
         reset_launches()  # the main path
-        try:
-            runpy.run_module("ecg_denoise_tpu_torch.cli.main", run_name="__main__",
-                             alter_sys=True)
-            torch.cuda.synchronize()
-        finally:
-            sys.argv = saved_argv
+        wall = run_module("ecg_denoise_tpu_torch.cli.main", argv, tag)
         launches = read_launches()
-        wall = time.perf_counter() - t0
         with open(out_file) as f:
             line = f.read()
         ckpt = os.path.join(save_dir, name, f"{name}_{epochs - 1}_bw_intensity-4.pth")
@@ -2946,19 +2997,9 @@ def phase_transfer_cli(card, core_ckpt):
         te = np.random.default_rng(seed).permutation(n)[n_train:]
         te_n = np.load(os.path.join(data, "m4", "bw.npy"))[te]
         te_c = np.load(os.path.join(data, "ecg.npy"))[te]
-        log(f"[20] python -m ecg_denoise_tpu_torch.cli.transfer_learning {' '.join(argv)}")
-        saved_argv = sys.argv
-        sys.argv = ["ecg_denoise_tpu_torch.cli.transfer_learning", *argv]
-        t0 = time.perf_counter()
         reset_launches()  # the main path
-        try:
-            runpy.run_module("ecg_denoise_tpu_torch.cli.transfer_learning",
-                             run_name="__main__", alter_sys=True)
-            torch.cuda.synchronize()
-        finally:
-            sys.argv = saved_argv
+        wall = run_module("ecg_denoise_tpu_torch.cli.transfer_learning", argv, "20")
         launches = read_launches()
-        wall = time.perf_counter() - t0
         with open(out_file) as f:
             line = f.read()
         ckpt = os.path.join(save_dir, "newrale", f"newrale_{epochs - 1}_bw_intensity-4.pth")
@@ -3029,6 +3070,228 @@ def phase_newrale(card, core_ckpt):
     return launches, err, frozen_ms
 
 
+
+def phase_build_caches(card, work):
+    """Phase 21's builds: `cli.build_data` makes the WFDB, synthetic, cls
+    and 12-lead caches from the checkout; each loads with its shapes."""
+    from ecg_denoise_tpu_torch import NOISE_INTENSITIES, NOISE_TYPES
+    from ecg_denoise_tpu_torch.data.cls_cache import load_cls_arrays
+    from ecg_denoise_tpu_torch.data.dataset import EcgDataset
+
+    no_records = os.path.join(work, "no_records")  # the synthetic fallback
+    paths = {k: os.path.join(work, k) for k in ("wfdb", "synthetic", "cls", "external")}
+    builds = {"wfdb": ["--data_root", MINI_PHYSIONET],
+              "synthetic": ["--data_root", no_records, "--n_synth_records", "1"],
+              "cls": ["--cls", "--data_root", no_records],
+              "external": ["--external", "--n_synth_records", "1"]}
+    for kind, argv in builds.items():
+        wall = run_module("ecg_denoise_tpu_torch.cli.build_data",
+                          ["--out", paths[kind], *argv], "21")
+        log(f"[21] {card}: built the {kind} cache in {wall:.2f} s (host clock; numpy "
+            "on the host, no device work)")
+    for kind, n, c in (("wfdb", 128, 2), ("synthetic", CACHE_WINDOWS, 2),
+                       ("external", CACHE_WINDOWS, 12)):
+        for k in NOISE_INTENSITIES:
+            ds = EcgDataset(NOISE_TYPES, k, path=paths[kind])
+            want = (len(NOISE_TYPES) * n, c, 256)
+            check(ds.data.shape == ds.ground_data.shape == want
+                  and ds.data.dtype == np.float32 and np.isfinite(ds.data).all(),
+                  f"the {kind} cache at {k} dB holds {ds.data.shape}, not {want}")
+    for train, n in ((True, 2048), (False, 512)):
+        for noised in (False, True):
+            x, label = load_cls_arrays(train, noised, path=paths["cls"])
+            check(x.shape == (2 * n, 2, 256) and np.isfinite(x).all()
+                  and (label == 0).sum() == (label == 1).sum() == n,
+                  f"the cls cache's {'train' if train else 'test'} split holds {x.shape}")
+    log(f"[21] caches load: wfdb 128, synthetic and 12-lead {CACHE_WINDOWS} windows at "
+        "every intensity and noise type, cls 2048 + 512 beats a class, clean and noised")
+    return paths
+
+
+def phase_mixer(card, clean, record):
+    """Phase 21's mixer: `snr_noise_add` on the card against
+    `snr_noise_add_at` on the CPU at the same offsets, each window at its
+    target SNR; then its device time per batch."""
+    from ecg_denoise_tpu_torch.data.noise import snr_noise_add, snr_noise_add_at
+
+    x, rec = clean[:TIMING_BATCH], record
+    L, n = x.shape[-1], rec.shape[0]
+    worst_rel = worst_db = 0.0
+    for snr in SNR_TARGETS:
+        got = snr_noise_add(x, rec, snr, torch.Generator(device="cuda").manual_seed(3))
+        starts = torch.randint(0, n - L - 1, (x.shape[0],),
+                               generator=torch.Generator(device="cuda").manual_seed(3),
+                               device="cuda")
+        ref = snr_noise_add_at(x.cpu(), rec.cpu(), snr, starts.cpu())
+        rel = ((got.cpu() - ref).abs().max() / ref.abs().max()).item()
+        xd, noise = x.double(), got.double() - x.double()
+        db = 10 * torch.log10((xd ** 2).mean((1, 2)) / (noise ** 2).mean((1, 2)))
+        off = (db - snr).abs().max().item()
+        check(rel <= MIX_RTOL, f"the card's mix differs from the CPU's by {rel:.2e} relative")
+        check(off <= SNR_DB_TOL, f"a window's SNR is {off:.2e} dB off its {snr} dB target")
+        worst_rel, worst_db = max(worst_rel, rel), max(worst_db, off)
+    log(f"[21] snr_noise_add on the card against snr_noise_add_at on the CPU at its offsets, "
+        f"B={x.shape[0]}, record {tuple(rec.shape)}: within {worst_rel:.2e} of max|out| (bar "
+        f"{MIX_RTOL:.0e}); every window within {worst_db:.2e} dB of its target at "
+        f"{', '.join(f'{t:g}' for t in SNR_TARGETS)} dB (bar {SNR_DB_TOL:.0e})")
+    starts = torch.randint(0, n - L - 1, (x.shape[0],), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    at_ms = cuda_ms(lambda: snr_noise_add_at(x, rec, 0.0, starts), 50)
+    gen_ms = cuda_ms(lambda: snr_noise_add(x, rec, 0.0, gen), 50)
+    log(f"[21] {card}: the mixer at B={x.shape[0]}, f32: snr_noise_add_at {at_ms:.4f} ms, "
+        f"snr_noise_add (with the offsets' draw) {gen_ms:.4f} ms a batch (CUDA events, "
+        "mean of 50)")
+    return at_ms
+
+
+def phase_augmented(card, paths):
+    """Phase 21's training: the augmented epoch trains RA-LENet on the
+    synthetic cache's clean windows with a synthetic 'bw' record on the
+    card; `cli.main` trains on the port-built cache; then the augmented
+    epoch against train_epoch on pre-mixed windows, in turns."""
+    from ecg_denoise_tpu_torch.data.synth import synth_noise_record
+    from ecg_denoise_tpu_torch.models import build_model
+    from ecg_denoise_tpu_torch.train import (
+        create_train_state,
+        make_augmented_epoch_fn,
+        make_epoch_fns,
+    )
+    from ecg_denoise_tpu_torch.utils.seed import random_seed
+
+    clean = torch.from_numpy(np.load(os.path.join(paths["synthetic"], "ecg.npy"))).cuda()
+    record = torch.from_numpy(synth_noise_record("bw", 3023).astype(np.float32)).cuda()
+    check(tuple(record.shape) == (650_000, 2), f"the noise record is {tuple(record.shape)}")
+    mix_ms = phase_mixer(card, clean, record)
+
+    random_seed(0)
+    state = create_train_state(build_model("ralenet"))
+    train_epoch = make_augmented_epoch_fn(state.model, state.optimizer, record, 0.0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    steps = AUG_EPOCHS * (clean.shape[0] // TRAIN_BATCH)
+    t0 = time.perf_counter()
+    reset_launches()  # the augmented path
+    losses = [train_epoch(clean, gen, TRAIN_BATCH)["loss"] for _ in range(AUG_EPOCHS)]
+    torch.cuda.synchronize()
+    launches = {"train_augmented": read_launches()}
+    wall = time.perf_counter() - t0
+    log(f"[21] {card}: make_augmented_epoch_fn, RA-LENet 'full' f32, batch {TRAIN_BATCH}, "
+        f"{AUG_EPOCHS} epochs of {clean.shape[0]} clean windows at 0 dB in {wall:.1f} s "
+        f"(host clock): losses {', '.join(f'{v:.5f}' for v in losses)}; launches "
+        f"({steps} steps) {launches['train_augmented']}")
+    check(launches["train_augmented"] == expected_launches(fwd=18 * steps, bwd=18 * steps),
+          "the augmented epoch did not take 18 B1 and 18 B2 launches a step")
+    check(np.isfinite(losses).all() and losses[-1] < losses[0], "the loss did not fall")
+
+    launches["build_train"] = phase_train_cli(card, tag="21", data=paths["synthetic"])
+
+    # Time: the augmented epoch against train_epoch on the cache's pre-mixed
+    # windows (0 dB, 'bw'), f32, batch 256, in turns.
+    noisy = torch.from_numpy(np.load(os.path.join(paths["synthetic"], "0", "bw.npy"))).cuda()
+    b = TIMING_BATCH
+    n = clean.shape[0] // b * b
+    fns = []
+    for augmented in (True, False):
+        random_seed(0)
+        st = create_train_state(build_model("ralenet"))
+        g = torch.Generator(device="cuda").manual_seed(1)
+        if augmented:
+            fn = make_augmented_epoch_fn(st.model, st.optimizer, record, 0.0)
+            fns.append(functools.partial(fn, clean, g, b))
+        else:
+            fn, _ = make_epoch_fns(st.model, st.optimizer)
+            fns.append(functools.partial(fn, noisy, clean, g, b))
+        fns[-1]()  # warm-up
+    rates = {0: [], 1: []}
+    for _ in range(2):
+        for i in (0, 1, 1, 0):
+            rates[i].append(n / _timed(fns[i]))
+    log(f"[21] {card}: training windows/s, RA-LENet 'full' f32, batch {b}, epochs of {n} "
+        f"windows in turns (augmented, pre-mixed, pre-mixed, augmented) x 2, host clock "
+        f"ending in the epoch's one fetch: augmented (mixing on the card) median "
+        f"{statistics.median(rates[0]):.1f} (" + ", ".join(f"{r:.1f}" for r in rates[0])
+        + f"); train_epoch on pre-mixed windows median {statistics.median(rates[1]):.1f} ("
+        + ", ".join(f"{r:.1f}" for r in rates[1]) + f"); the mix {mix_ms:.4f} ms a batch")
+    return launches
+
+
+def phase_data(card, work):
+    """Phase 21: the data path, from raw records to training on the card."""
+    t0 = time.perf_counter()
+    paths = phase_build_caches(card, work)
+    launches = phase_augmented(card, paths)
+    log(f"chip_smoke: phase 21 took {time.perf_counter() - t0:.1f} s")
+    return launches, paths
+
+
+def phase_baseline(card, paths):
+    """Phase 22: the DWT baseline on the card against the numpy path, the
+    CLI on the card and on the host, and rows/s."""
+    from ecg_denoise_tpu_torch.baselines.dwt import wavelet_denoise
+    from ecg_denoise_tpu_torch.kernels.dwt import wavelet_denoise_device
+
+    t0 = time.perf_counter()
+    noisy = np.load(os.path.join(paths["synthetic"], "0", "emb.npy"))
+    rows = noisy.reshape(-1, 256)
+    check(rows.shape[0] >= DWT_ROWS[0], f"the cache holds {rows.shape[0]} rows")
+    host_s = {}
+    for x in (rows[:DWT_ROWS[0]], np.ascontiguousarray(rows[:DWT_RAGGED_ROWS, :203])):
+        L = x.shape[-1]
+        xd = torch.from_numpy(x).cuda()
+        got = wavelet_denoise_device(xd)
+        again = wavelet_denoise_device(xd)
+        torch.cuda.synchronize()
+        check(tf32_flags() == (False, False), "TF32 is on for the DWT's convolutions")
+        t = time.perf_counter()
+        ref = wavelet_denoise(x.astype(np.float64))[:, :L]
+        host_s[x.shape] = time.perf_counter() - t
+        err = float(np.abs(got.cpu().numpy() - ref).max())
+        check(got.shape == x.shape and err <= DWT_TOL,
+              f"wavelet_denoise_device at {x.shape} is {err:.2e} off the numpy path")
+        check(torch.equal(got, again), "a second DWT call is not bit-identical")
+        log(f"[22] wavelet_denoise_device on the card at {x.shape}: within {err:.2e} of the "
+            f"numpy wavelet_denoise (bar {DWT_TOL:.0e}), a second call bit-identical, TF32 off")
+
+    snrs = {}
+    for extra in ([], ["--host"]):
+        out = os.path.join(paths["synthetic"], f"dwt_dn{'_host' if extra else ''}.txt")
+        reset_launches()  # the baseline's path
+        wall = run_module("ecg_denoise_tpu_torch.cli.dwt_dn",
+                          ["--noise_type_index", "0", "--intensity_index", "2",
+                           "--data_path", paths["synthetic"], "--result_file", out, *extra],
+                          "22")
+        if not extra:
+            launches = read_launches()
+        with open(out) as f:
+            line = f.read()
+        m = re.fullmatch(r"dwt_bw_intensity0: snr:(\S+), rmse:(\S+)\n", line)
+        check(m is not None, f"cli.dwt_dn wrote {line!r}")
+        snrs["host" if extra else "card"] = float(m.group(1))
+        log(f"[22] {card}: cli.dwt_dn {'--host' if extra else 'on the card'} in {wall:.2f} s "
+            f"(host clock, loading included): {line.strip()}")
+    gap = abs(snrs["card"] - snrs["host"])
+    check(gap <= DWT_DN_SNR_TOL, f"cli.dwt_dn's SNRs differ by {gap:.2e} dB")
+    log(f"[22] cli.dwt_dn on the card and with --host: SNRs {gap:.2e} dB apart (bar "
+        f"{DWT_DN_SNR_TOL:.0e}); launches on the card's run {launches}")
+    check(launches == expected_launches(), "the DWT baseline launched a port kernel")
+
+    for n in DWT_ROWS:
+        x = np.ascontiguousarray(np.resize(rows, (n, 256)))  # the cache's rows, repeated
+        xd = torch.from_numpy(x).cuda()
+        dev_ms = cuda_ms(lambda: wavelet_denoise_device(xd), 10)
+        walls = [_timed(lambda: wavelet_denoise_device(torch.from_numpy(x).cuda()).cpu())
+                 for _ in range(5)]
+        host = host_s.get(x.shape) or _timed(lambda: wavelet_denoise(x.astype(np.float64)))
+        log(f"[22] {card}: DWT baseline at {n} rows of 256: the card {n / dev_ms * 1e3:.1f} "
+            f"rows/s device-resident ({dev_ms:.3f} ms, CUDA events, mean of 10), "
+            f"{n / statistics.median(walls):.1f} rows/s numpy in and out (host clock, median "
+            f"of 5); the host's numpy path {n / host:.1f} rows/s ({host:.2f} s, one call)")
+        if n == DWT_ROWS[0]:
+            profile_forward(lambda: wavelet_denoise_device(xd),
+                            f"wavelet_denoise_device at {n} rows", dev_ms, card, tag="22")
+    log(f"chip_smoke: phase 22 took {time.perf_counter() - t0:.1f} s")
+    return {"baseline_dwt": launches}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs an NVIDIA card",
@@ -3071,6 +3334,9 @@ def main():
     launches.update(phase_families(card))
     newrale_launches, frozen_err, frozen_ms = phase_newrale(card, core_ckpt)
     launches.update(newrale_launches)
+    data_launches, paths = phase_data(card, work.name)
+    launches.update(data_launches)
+    launches.update(phase_baseline(card, paths))
     work.cleanup()
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 

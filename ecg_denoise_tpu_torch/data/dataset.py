@@ -37,8 +37,8 @@ class EcgDataset:
             path = "./data/dict_data/"
         if not os.path.exists(path):
             raise FileNotFoundError(
-                "dict_data cache not found; build it with the JAX package's "
-                "`python cli/build_data.py`, or pass --data_path")
+                "dict_data cache not found; build it with `python -m "
+                "ecg_denoise_tpu_torch.cli.build_data`, or pass --data_path")
         self.data = np.concatenate([
             np.load(os.path.join(path, INTENSITY_DIRS[noise_intensity], n + ".npy"))
             for n in noise_name], axis=0)

@@ -6,8 +6,14 @@ from ecg_denoise_tpu_torch.train.checkpoint import (
 )
 from ecg_denoise_tpu_torch.train.loop import fit
 from ecg_denoise_tpu_torch.train.state import TrainState, create_train_state
-from ecg_denoise_tpu_torch.train.steps import make_epoch_fns, train_step
+from ecg_denoise_tpu_torch.train.steps import (
+    augmented_epoch,
+    make_augmented_epoch_fn,
+    make_epoch_fns,
+    train_step,
+)
 
 __all__ = ["TrainState", "create_train_state", "make_epoch_fns", "train_step",
+           "make_augmented_epoch_fn", "augmented_epoch",
            "fit", "save_checkpoint", "load_checkpoint", "load_model_weights",
            "find_model"]

@@ -13,8 +13,9 @@ batch's R peaks are detected on its device (`data.rpeaks`) and fed to the
 model's R-wave attention bias, as the JAX package's
 `make_epoch_fns(detect_r_pos=True)` does.
 
-The on-device noise-mixing epoch (`make_augmented_epoch_fn`) needs
-`data/noise.py` and comes with it (ROADMAP A14).
+`make_augmented_epoch_fn` trains on clean windows alone: each step mixes
+its batch with a fresh slice of a long noise record on the card
+(`data.noise.snr_noise_add_at`) and takes the same `train_step`.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from ecg_denoise_tpu_torch.data.noise import snr_noise_add_at
 from ecg_denoise_tpu_torch.data.rpeaks import detect_r_peaks
 from ecg_denoise_tpu_torch.metrics import RMSE, SNR
 from ecg_denoise_tpu_torch.models import apply
@@ -106,3 +108,52 @@ def make_epoch_fns(model: torch.nn.Module, optimizer: torch.optim.Adam,
         return {"loss": loss / (n * per_elem), "snr": snr / n, "rmse": rmse / n}
 
     return train_epoch, eval_epoch
+
+
+def augmented_epoch(state: TrainState, clean: torch.Tensor, noise_record: torch.Tensor,
+                    snr_db, perm: torch.Tensor, starts: torch.Tensor) -> dict:
+    """One epoch of `make_augmented_epoch_fn` at a given permutation and
+    noise offsets: step i trains on the windows `clean[perm]` holds at
+    batch i, each mixed at `snr_db` with the slice of `noise_record` that
+    starts at its entry of `starts` (n_batches, batch_size). Returns the
+    epoch's mean metrics, fetched to the host once."""
+    n_batches, batch_size = starts.shape
+    if n_batches == 0:
+        return dict.fromkeys(("loss", "snr", "rmse"), float("nan"))
+    cb = clean[perm].reshape(n_batches, batch_size, *clean.shape[1:])
+    per_batch = torch.stack([
+        torch.stack(train_step(state, snr_noise_add_at(cb[i], noise_record, snr_db,
+                                                       starts[i]), cb[i]))
+        for i in range(n_batches)])
+    loss, snr, rmse = per_batch.mean(0).tolist()  # the one host fetch
+    return {"loss": loss, "snr": snr, "rmse": rmse}
+
+
+def make_augmented_epoch_fn(model: torch.nn.Module, optimizer: torch.optim.Adam,
+                            noise_record, snr_db: float):
+    """train_epoch(clean, generator, batch_size=32) -> metrics, an epoch
+    that mixes its noise on the card (JAX counterpart:
+    `make_augmented_epoch_fn`; no reference counterpart: the reference
+    trains on a fixed pre-mixed cache).
+
+    `noise_record` (N, C) goes to the model's device as float32 once.
+    Each epoch permutes `clean` (N, C, L, on that device) from `generator`
+    (on the same device), drops the ragged tail like `make_epoch_fns`'
+    train_epoch, draws every step's noise offsets from the same generator
+    in [0, N - L - 1), and runs `augmented_epoch`: every window gets a
+    fresh noise slice each epoch.
+    """
+    state = TrainState(model, optimizer)
+    device = next(model.parameters()).device
+    noise_record = torch.as_tensor(noise_record, dtype=torch.float32, device=device)
+
+    def train_epoch(clean, generator: torch.Generator, batch_size: int = 32) -> dict:
+        n_batches = clean.shape[0] // batch_size
+        perm = torch.randperm(clean.shape[0], generator=generator,
+                              device=clean.device)[:n_batches * batch_size]
+        starts = torch.randint(0, noise_record.shape[0] - clean.shape[-1] - 1,
+                               (n_batches, batch_size), generator=generator,
+                               device=clean.device)
+        return augmented_epoch(state, clean, noise_record, snr_db, perm, starts)
+
+    return train_epoch
