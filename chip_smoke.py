@@ -22,7 +22,16 @@ and nothing falls back to the CPU):
    (3 * 2^-8 of max|v|, see BF16_TOL_OF_MAX_V), plus a ragged batch, shapes
    that cut across B1's row tiles and batch groups (RAGGED: L = 203, 7,
    1; B = 1, 3, 37, 1000) and logits near 200; every case's lse against
-   attention_reference's (LSE_TOL) and a second call bit-identical.
+   attention_reference's (LSE_TOL) and a second call bit-identical; and,
+   where the parent's tree is there, every case's output equal to the
+   parent's B1 bit for bit (the D = 4 kernel is unchanged beside D = 32).
+2b. B1 at head_dim 32 (Transformer1d's heads) against its plain version,
+   at Transformer1d's four stage shapes (L, H) = (256, 4), (128, 8),
+   (64, 16), (32, 32) at B = 64 and a ragged (B, L) = (3, 203), with and
+   without bias, f32 and bf16, q scaled by 32^-1/2 as the model scales it,
+   at phase 2's bars, with the lse and a second call bit-identical; then
+   the first stage with q unscaled (logits up to about 35) at
+   LARGE_LOGIT_TOL.
 3. Model: RA-LENet 'full' at full width and depth, seeded weights with
    random nonzero rel-pos tables and BN stats; the card's forward against
    the same model on the CPU (float32, 1e-4) and 18 kernel launches per
@@ -50,6 +59,10 @@ and nothing falls back to the CPU):
    bf16); two calls give bit-identical gradients; and, where the parent's
    tree is there, dq, dk, dv and the float32 dbias equal the parent's B2
    bit for bit on the same o, lse and g.
+6b. B2 at head_dim 32 at phase 2b's cases through the autograd Function,
+   against the plain flash backward on B1's own o and lse and, in f32,
+   autograd through the plain forward: each gradient within 1e-4 of its
+   max (f32; bf16 2^-7 of it), dbias too; a second call bit-identical.
 7. Training step: RA-LENet 'full' at full width and depth, f32, batch 32,
    one `train_step` on the card against the same step on the CPU (loss
    1e-5 relative, BN running stats 1e-5, params after Adam 1e-4), with
@@ -222,11 +235,34 @@ and nothing falls back to the CPU):
    4,096 and 65,536 rows, and the device pyramid's launches and idle share
    (torch.profiler).
 
+23. The beat classifier: ResNetCls (seeded, nonzero BN stats) on the card
+   against the CPU (1e-4); `python -m ecg_denoise_tpu_torch.cli.train_cls`
+   trains 3 epochs on phase 21's cls cache (train accuracy rises, the
+   checkpoint loads, no port kernel: train_cls); `python -m
+   ecg_denoise_tpu_torch.cli.test_cls` with that classifier and phase 7b's
+   RA-LENet checkpoint prints every condition (clean, noisy, the six
+   denoisers, five skipped, dwt, fft), the ralenet condition with 18 B1
+   launches a batch of 128 and nothing else (test_cls); then ResNetCls
+   windows/s trained at 32 and 256 and evaluated at 1,024, f32 and bf16,
+   and the f32 step's breakdown and idle share at 256.
+24. Transformer1d at its defaults (47,478,153 parameters, every head 32
+   wide), 256-sample inputs, seeded weights: the forward on the card
+   against the CPU at B = 8 (1e-4) with 12 B1 launches; one f32 step
+   through `cls_epoch` at B = 4 against the CPU's (loss 1e-5, `step_bars`)
+   with 12 B1 and 12 B2; served at 256 (serve_transformer1d: 12 B1) and
+   two steps at 64 through `make_cls_epoch_fns` (train_transformer1d: 24 +
+   24), windows/s served and step ms, f32 and bf16, the f32 step's
+   breakdown; per stage shape B1 (B = 256) and B2 (B = 64) from CUDA graph
+   replays beside their bounds, plain versions and
+   scaled_dot_product_attention (no mask).
+
 The last lines are one JSON object listing the ten kernels (with their
-launches on each of the fourteen paths: serve, train, serve_rpos,
+launches on each of the eighteen paths: serve, train, serve_rpos,
 train_rpos, serve_dense, probes, probes_precision, serve_families,
 train_families, train_newrale, serve_newrale, train_augmented,
-build_train, baseline_dwt; B2's entry also holds its frozen-bias case),
+build_train, baseline_dwt, train_cls, test_cls, serve_transformer1d,
+train_transformer1d; B1's and B2's entries also hold their head_dim 32
+case under "d32", B2's its frozen-bias case),
 the card's name and power limit, and `{"ok": true, "device": {...}}`.
 Without a card, or outside a checkout of the repository, it exits nonzero
 and prints no result.
@@ -386,6 +422,33 @@ RAGGED = [(1, 256, 2), (37, 128, 4), (1000, 64, 8), (3, 203, 2), (37, 203, 1),
 # with W cut to fit: (B, L, W, H).
 RAGGED_RPOS = [(1, 256, 32, 2), (17, 128, 16, 4), (37, 64, 8, 8), (1000, 32, 4, 16),
                (37, 203, 25, 2), (1000, 7, 3, 3), (17, 1, 1, 2)]
+# B1 and B2 at head_dim 32 (phases 2b, 6b, 24): Transformer1d's (L, H) at a
+# 256-sample input, the calls of one forward by stage (its depths, 2, 2, 6,
+# 2), the batch of phases 2b and 6b, and a ragged batch and length that cut
+# across the D = 32 kernels' 64-row tiles and 32-key chunks.
+D32_STAGES = [(256, 4), (128, 8), (64, 16), (32, 32)]
+D32_CALLS = dict(zip(D32_STAGES, (2, 2, 6, 2)))
+D32_BATCH = 64
+D32_RAGGED = [(3, 203, 2)]
+# q arrives scaled by head_dim^-1/2, as MSAttention scales it: logits of
+# unit spread, as at D = 4. Unscaled (logits up to about 35) the f32
+# roundings of the logits reach 1e-5 of the output on both sides: that case
+# is held at LARGE_LOGIT_TOL.
+D32_Q_SCALE = 32 ** -0.5
+# At D = 32 dq, dk and dv sum 32 products a term: f32 gradients to 1e-4
+# of their max.
+D32_GRAD_TOL_OF_MAX = 1e-4
+# Phases 23-24: the classifier and Transformer1d. ResNetCls trains 3 epochs
+# (the CLI's default is 20) on phase 21's cls cache; test_cls denoises the
+# test split (2 x 512 beats) in batches of 128, 18 B1 calls a batch through
+# RA-LENet; Transformer1d (47,478,153 parameters) is served at 256 and
+# trains at 64, its step against the CPU's at 4.
+CLS_EPOCHS = 3
+CLS_TEST_BEATS = 1024
+CLS_EVAL_BATCH = 128
+T1D_SERVE_BATCH = 256
+T1D_TRAIN_BATCH = 64
+T1D_CHECK_BATCH = 4
 # lse against attention_reference's logsumexp: both take the f32 logits;
 # the kernel's row sum uses __expf and is summed in another order (1e-6
 # relative), and |lse| stays below about 20: 1e-5 of max(1, max|lse|).
@@ -506,32 +569,34 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def operands(B, H, L, with_bias, dtype, gen):
-    q, k, v = (torch.randn(B, H, L, 4, generator=gen) for _ in range(3))
+def operands(B, H, L, with_bias, dtype, gen, D=4, q_scale=1.0):
+    """q (times q_scale), k, v and the bias on the card, standard normal."""
+    q, k, v = (torch.randn(B, H, L, D, generator=gen) for _ in range(3))
+    q = q * q_scale
     bias = torch.randn(1, H, L, L, generator=gen) if with_bias else None
     return [None if t is None else t.to("cuda", dtype)
             for t in (q, k, v, bias)]
 
 
-def bwd_bound_terms(B, H, L, with_bias, elt):
+def bwd_bound_terms(B, H, L, with_bias, elt, D=4):
     """(operations, bytes) lower bounds in ms for one backward call: the
     JAX cost estimate's flops (attention_pallas.py:774) over the f32 peak,
     and the function's inputs and outputs each moved once over HBM
     bandwidth: q, k, v, g, o, dq, dk, dv in the operand dtype, lse in f32,
     and the bias and dbias. c = sum_d g*o is not counted: it comes from g
     and o, which are."""
-    flops = 2 * B * H * (5 * L * L * 4 + 3 * L * L)
+    flops = 2 * B * H * (5 * L * L * D + 3 * L * L)
     rows = B * H * L
-    nbytes = 8 * rows * 4 * elt + rows * 4 + (2 * H * L * L * elt if with_bias else 0)
+    nbytes = 8 * rows * D * elt + rows * 4 + (2 * H * L * L * elt if with_bias else 0)
     return flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
-def bound_terms(B, H, L, with_bias, elt):
+def bound_terms(B, H, L, with_bias, elt, D=4):
     """(operations, bytes) lower bounds in ms for one call: its flops over
     the f32 peak, and q, k, v, o and the bias, each moved once, over HBM
     bandwidth. The call's bound is the larger."""
-    flops = 2 * B * H * (2 * L * L * 4 + L * L)
-    nbytes = (4 * B * H * L * 4 + (H * L * L if with_bias else 0)) * elt
+    flops = 2 * B * H * (2 * L * L * D + L * L)
+    nbytes = (4 * B * H * L * D + (H * L * L if with_bias else 0)) * elt
     return flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
@@ -839,15 +904,23 @@ def phase_kernel_vs_plain():
         same = torch.equal(out, again)
         tol = (F32_TOL if dtype == torch.float32
                else BF16_TOL_OF_MAX_V * v.float().abs().max().item())
+        parent = ""
+        if parent_libs():
+            # The D = 4 kernel is unchanged beside the D = 32 one.
+            as_parent = torch.equal(out, parent_b1(q, k, v, bias))
+            parent = f"; bit-identical to the parent's B1: {as_parent}"
+            check(as_parent, "B1 at D = 4 is not the parent's B1 bit for bit")
         log(f"[2] B={B} L={L} H={H} bias={with_bias} {str(dtype)[6:]}: "
             f"max_abs_err={err:.3e} (tol {tol:.3e}), lse {lse_err:.3e} (tol "
-            f"{lse_tol:.3e}); a second call, with lse, bit-identical: {same}")
+            f"{lse_tol:.3e}); a second call, with lse, bit-identical: {same}{parent}")
         check(out.shape == q.shape and out.dtype == dtype, "kernel output shape or dtype")
         check(err <= tol, "kernel disagrees with its plain version")
         check(lse.shape == q.shape[:3] and lse_err <= lse_tol,
               "the kernel's lse disagrees with the plain version's")
         check(same, "two forward calls differ")
         max_err[dtype] = max(max_err[dtype], err)
+    if not parent_libs():
+        log("[2] the parent's B1 not compared (no tree under _archive/parent)")
     # Trained logits reach 191.5 at the L=16 stage: without the row max,
     # exp(190) overflows float32.
     q, k, v, bias = operands(BATCH, 32, 16, True, torch.float32, gen)
@@ -872,7 +945,12 @@ def seeded_model(seed, name="ralenet"):
     from ecg_denoise_tpu_torch.utils.seed import random_seed
 
     gen = random_seed(seed)
-    model = build_model(name, device="cpu").eval()
+    return seed_module(build_model(name, device="cpu").eval(), gen)
+
+
+def seed_module(model, gen):
+    """`model` with random nonzero BN affine parameters and running stats
+    in every BatchNorm and random rel-pos tables, drawn from `gen`."""
     with torch.no_grad():
         for pname, p in model.named_parameters():
             if "relative_position_bias_table" in pname:
@@ -1245,16 +1323,17 @@ def mse_of(denoiser, noisy, clean):
     return float(np.mean((denoiser(noisy) - clean) ** 2))
 
 
-def run_module(module, argv, tag):
+def run_module(module, argv, tag, out=None):
     """`python -m module argv`, run in this process through runpy (so the
     launch counts stay readable) and synchronised; its wall seconds on the
-    host clock."""
+    host clock. `out`: a stream that takes the module's standard output."""
     log(f"[{tag}] python -m {module} {' '.join(argv)}")
     saved = sys.argv
     sys.argv = [module, *argv]
     t0 = time.perf_counter()
     try:
-        runpy.run_module(module, run_name="__main__", alter_sys=True)
+        with contextlib.redirect_stdout(out) if out else contextlib.nullcontext():
+            runpy.run_module(module, run_name="__main__", alter_sys=True)
         torch.cuda.synchronize()
     finally:
         sys.argv = saved
@@ -1324,7 +1403,8 @@ def phase_train_cli(card, r_pos=None, tag="7b", name="ralenet", keep=None, data=
     return launches
 
 
-def profile_step(step, card, step_ms, iters=3, tag="8", what="float32 training step"):
+def profile_step(step, card, step_ms, iters=3, tag="8", what="float32 training step",
+                 batch=TIMING_BATCH):
     """Device time of one training step by kernel (torch.profiler), the
     card's idle share of the unprofiled step time `step_ms`, and where the
     host's time goes: the operators by self CPU time."""
@@ -1339,7 +1419,7 @@ def profile_step(step, card, step_ms, iters=3, tag="8", what="float32 training s
         log(f"[{tag}] the profiler recorded no device kernels: breakdown not measured")
         return
     busy = sum(k[0] for k in kernels)
-    log(f"[{tag}] {card}: profiled {what} B={TIMING_BATCH} "
+    log(f"[{tag}] {card}: profiled {what} B={batch} "
         f"(torch.profiler, mean of {iters}): {sum(k[1] for k in kernels)} launches "
         f"of {len(kernels)} kernels, device busy {busy:.3f} ms of the unprofiled "
         f"{step_ms:.3f} ms step (idle {100 * (1 - busy / step_ms):.1f} %)")
@@ -3292,6 +3372,368 @@ def phase_baseline(card, paths):
     return {"baseline_dwt": launches}
 
 
+def d32_cases():
+    """Phases 2b and 6b: (B, L, H, with bias, dtype, q scale) at
+    Transformer1d's stage shapes and the ragged ones, then its first stage
+    with q unscaled (wide logits), f32."""
+    return [(B, L, H, b, dt, D32_Q_SCALE) for B, L, H in
+            [(D32_BATCH, L, H) for L, H in D32_STAGES] + D32_RAGGED
+            for b in (True, False) for dt in (torch.float32, torch.bfloat16)] + [
+        (D32_BATCH, *D32_STAGES[0], b, torch.float32, 1.0) for b in (True, False)]
+
+
+def phase_d32_kernel_vs_plain():
+    """Phase 2b: B1 at head_dim 32 against its plain version, with its lse,
+    and a second call bit-identical; the bars of phase 2."""
+    from ecg_denoise_tpu_torch import full_float32
+    from ecg_denoise_tpu_torch.kernels import attention
+
+    saved = tf32_flags()
+    full_float32()
+    gen = torch.Generator().manual_seed(14)
+    max_err = 0.0
+    for B, L, H, with_bias, dtype, q_scale in d32_cases():
+        q, k, v, bias = operands(B, H, L, with_bias, dtype, gen, D=32, q_scale=q_scale)
+        out = attention.fused_attention(q, k, v, bias)
+        again, lse = attention._launch(q, k, v, bias, with_lse=True)
+        torch.cuda.synchronize()
+        ref, ref_lse = attention.attention_reference(q, k, v, bias, return_lse=True)
+        err = (out.float() - ref.float()).abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        lse_tol = LSE_TOL * max(1.0, ref_lse.abs().max().item())
+        tol = (BF16_TOL_OF_MAX_V * v.float().abs().max().item() if dtype == torch.bfloat16
+               else F32_TOL if q_scale != 1.0 else LARGE_LOGIT_TOL)
+        same = torch.equal(out, again)
+        log(f"[2b] D=32 B={B} L={L} H={H} bias={with_bias} {str(dtype)[6:]} q "
+            f"{'scaled' if q_scale != 1.0 else 'unscaled'}: "
+            f"max_abs_err={err:.3e} (tol {tol:.3e}), lse {lse_err:.3e} (tol {lse_tol:.3e}); "
+            f"a second call, with lse, bit-identical: {same}")
+        check(out.shape == q.shape and out.dtype == dtype, "D = 32 output shape or dtype")
+        check(err <= tol, "B1 at D = 32 disagrees with its plain version")
+        check(lse_err <= lse_tol, "B1's lse at D = 32 disagrees with the plain version's")
+        check(same, "two D = 32 forward calls differ")
+        if dtype == torch.float32 and q_scale != 1.0:
+            max_err = max(max_err, err)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    return max_err
+
+
+def phase_d32_backward_vs_plain():
+    """Phase 6b: B2 at head_dim 32 through the autograd Function against
+    the plain flash backward on the forward kernel's own o and lse and, in
+    f32, against autograd through the plain forward (1e-4 of each
+    gradient's max; bf16 2^-7 of it); a second call bit-identical."""
+    from ecg_denoise_tpu_torch import full_float32
+    from ecg_denoise_tpu_torch.kernels import attention
+
+    saved = tf32_flags()
+    full_float32()
+    gen = torch.Generator().manual_seed(15)
+    max_err = 0.0
+    for B, L, H, with_bias, dtype, q_scale in d32_cases():
+        q, k, v, bias = operands(B, H, L, with_bias, dtype, gen, D=32, q_scale=q_scale)
+        g = torch.randn(q.shape, generator=gen).to("cuda", dtype)
+        out, grads = kernel_grads(q, k, v, bias, g)
+        _, again = kernel_grads(q, k, v, bias, g)
+        _, lse = attention._launch(q, k, v, bias, with_lse=True)
+        refs = {"flash": attention.attention_backward_reference(q, k, v, bias, out, lse, g)}
+        if dtype == torch.float32:
+            refs["autograd"] = plain_autograd_grads(q, k, v, bias, g)
+        torch.cuda.synchronize()
+        check([t.dtype for t in grads] == [dtype] * len(grads), "D = 32 gradient dtype")
+        errs = []
+        for ref_name, ref in refs.items():
+            for name, a, b in zip(("dq", "dk", "dv", "dbias"), grads, ref):
+                scale = b.float().abs().max().item()
+                err = (a.float() - b.float()).abs().max().item()
+                tol = (BF16_GRAD_TOL_OF_MAX if dtype == torch.bfloat16
+                       else D32_GRAD_TOL_OF_MAX) * scale
+                errs.append(f"{name} vs {ref_name} {err:.2e}/{tol:.2e}")
+                check(err <= tol, f"B2 at D = 32: {name} disagrees with the plain {ref_name}")
+                if dtype == torch.float32 and ref_name == "flash" and q_scale != 1.0:
+                    max_err = max(max_err, err)
+        same = all(torch.equal(a, b) for a, b in zip(grads, again))
+        log(f"[6b] D=32 B={B} L={L} H={H} bias={with_bias} {str(dtype)[6:]} q "
+            f"{'scaled' if q_scale != 1.0 else 'unscaled'}: "
+            + ", ".join(errs) + f"; a second call bit-identical: {same}")
+        check(same, "two D = 32 backward calls differ")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    return max_err
+
+
+def run_module_lines(module, argv, tag):
+    """`run_module`, with the module's standard output captured and logged:
+    (its lines, its wall seconds)."""
+    buf = io.StringIO()
+    wall = run_module(module, argv, tag, out=buf)
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"[{tag}]   {line}")
+    return lines, wall
+
+
+def phase_classifier(card, cls_cache, core_ckpt):
+    """Phase 23: ResNetCls on the card against the CPU, `cli.train_cls` on
+    phase 21's cls cache, `cli.test_cls` with that classifier and phase 7b's
+    RA-LENet checkpoint, then the classifier's rates."""
+    from ecg_denoise_tpu_torch import MODEL_NAMES
+    from ecg_denoise_tpu_torch.data.cls_cache import load_cls_arrays
+    from ecg_denoise_tpu_torch.models import ResNetCls
+    from ecg_denoise_tpu_torch.train import (
+        cls_step,
+        create_train_state,
+        load_checkpoint,
+        make_cls_epoch_fns,
+    )
+    from ecg_denoise_tpu_torch.utils.seed import random_seed
+
+    t0 = time.perf_counter()
+    launches = {}
+    cpu_model = seed_module(ResNetCls().eval(), random_seed(23))
+    gpu_model = create_train_state(copy.deepcopy(cpu_model)).model.eval()
+    x = torch.from_numpy(np.random.default_rng(23).standard_normal(
+        (8, 2, 256)).astype(np.float32))
+    with torch.no_grad():
+        err = (gpu_model(x.cuda()).cpu() - cpu_model(x)).abs().max().item()
+    log(f"[23] ResNetCls (445,122 parameters), batch 8, float32: card vs CPU "
+        f"max_abs_err={err:.3e} (tol {MODEL_TOL:.0e})")
+    check(err <= MODEL_TOL, "ResNetCls on the card disagrees with the CPU")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        save = os.path.join(tmp, "cls_model.pth")
+        reset_launches()  # the classifier's training path
+        lines, wall = run_module_lines(
+            "ecg_denoise_tpu_torch.cli.train_cls",
+            ["--epochs", str(CLS_EPOCHS), "--data_path", cls_cache, "--save", save], "23")
+        launches["train_cls"] = read_launches()
+        accs = [float(m.group(1)) for m in map(re.compile(r".* train_acc=(\S+) ").match, lines)
+                if m]
+        log(f"[23] {card}: cli.train_cls, {CLS_EPOCHS} epochs in {wall:.1f} s (host clock, "
+            f"start-up included); train accuracy by epoch {accs}; launches "
+            f"{launches['train_cls']}")
+        check(len(accs) == CLS_EPOCHS and accs[-1] > accs[0], "train accuracy did not rise")
+        check(launches["train_cls"] == expected_launches(), "train_cls launched a kernel")
+        state = load_checkpoint(save, create_train_state(ResNetCls()))
+        check(state.step > 0, "the classifier checkpoint did not load its training state")
+
+        model_dir = os.path.join(tmp, "model_save")
+        os.makedirs(os.path.join(model_dir, "ralenet"))
+        shutil.copy(core_ckpt, os.path.join(model_dir, "ralenet",
+                                            "ralenet_9_emb_intensity-4.pth"))
+        reset_launches()  # the downstream-utility benchmark
+        lines, wall = run_module_lines(
+            "ecg_denoise_tpu_torch.cli.test_cls",
+            ["--cls_ckpt", save, "--model_save_dir", model_dir, "--data_path", cls_cache],
+            "23")
+        launches["test_cls"] = read_launches()
+    batches = -(-CLS_TEST_BEATS // CLS_EVAL_BATCH)
+    log(f"[23] {card}: cli.test_cls in {wall:.1f} s (host clock); launches "
+        f"{launches['test_cls']} (ralenet: {batches} batches of {CLS_EVAL_BATCH})")
+    names = [line.split()[0] for line in lines]
+    check(names == ["clean", "noisy", *MODEL_NAMES, "dwt", "fft"],
+          f"test_cls reported {names}")
+    check(all("acc=" in line for line in lines
+              if line.split()[0] not in MODEL_NAMES or line.startswith("ralenet ")),
+          "a condition's line has no metrics")
+    check(launches["test_cls"] == expected_launches(fwd=18 * batches),
+          "the ralenet condition did not take 18 B1 launches a batch, and nothing else")
+
+    # Rates: training windows/s over one epoch of the cls train split, at
+    # batch 32 and 256, f32 and bf16; one f32 step's breakdown; eval at 1024.
+    tr_x, tr_y = (torch.from_numpy(a).cuda() for a in load_cls_arrays(True, path=cls_cache))
+    te_x, te_y = (torch.from_numpy(a).cuda() for a in load_cls_arrays(False, path=cls_cache))
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype)[6:]
+        for batch in (TRAIN_BATCH, TIMING_BATCH):
+            state = create_train_state(seed_module(ResNetCls(dtype=dtype), random_seed(24)))
+            train_epoch, eval_epoch = make_cls_epoch_fns(state.model, state.optimizer)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            train_epoch(tr_x[:4 * batch], tr_y[:4 * batch], gen, batch)  # warm-up
+            n = tr_x.shape[0] // batch * batch
+            walls = [_timed(train_epoch, tr_x, tr_y, gen, batch) for _ in range(2)]
+            xb, yb = tr_x[:batch], tr_y[:batch].long()
+            step_ms = cuda_ms(lambda: cls_step(state, xb, yb), 5)
+            log(f"[23] {card}: ResNetCls train_epoch {dt} batch {batch}: "
+                f"{n / statistics.median(walls):.1f} windows/s (median of 2 epochs of "
+                f"{n // batch} steps, host clock ending in the epoch's one fetch); one step "
+                f"{step_ms:.3f} ms on the card's clock (CUDA events, mean of 5)")
+            if dtype == torch.float32 and batch == TIMING_BATCH:
+                profile_step(lambda: cls_step(state, xb, yb), card, step_ms, tag="23",
+                             what="ResNetCls float32 step")
+        eval_epoch(te_x, te_y, CLS_TEST_BEATS)  # warm-up
+        walls = [_timed(eval_epoch, te_x, te_y, CLS_TEST_BEATS) for _ in range(10)]
+        log(f"[23] {card}: ResNetCls eval_epoch {dt}, {CLS_TEST_BEATS} beats in one batch: "
+            f"{CLS_TEST_BEATS / statistics.median(walls):.1f} windows/s (median of 10, host "
+            "clock ending in the one fetch)")
+    log(f"chip_smoke: phase 23 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def d32_kernel_times(card):
+    """Phase 24's kernel rows: per Transformer1d stage shape, B1 at the
+    served batch and B2 at the training batch, f32, from CUDA graph
+    replays, beside the bound, the plain versions and SDPA (no mask);
+    summed over one forward's and one step's 12 calls."""
+    from ecg_denoise_tpu_torch.kernels import attention
+    from ecg_denoise_tpu_torch.probes.floor import graph_us
+
+    gen = torch.Generator().manual_seed(24)
+    totals = {w: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+              for w in ("fwd", "bwd")}
+    limits = {w: {"operations": 0.0, "bytes": 0.0} for w in ("fwd", "bwd")}
+    for (L, H), calls in D32_CALLS.items():
+        for what, B in (("fwd", T1D_SERVE_BATCH), ("bwd", T1D_TRAIN_BATCH)):
+            q, k, v, _ = operands(B, H, L, False, torch.float32, gen, D=32,
+                                  q_scale=D32_Q_SCALE)
+            if what == "fwd":
+                ms = graph_us(lambda: attention.fused_attention(q, k, v), 20) / 1e3
+                plain = cuda_ms(lambda: attention.attention_reference(q, k, v), 5)
+                lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0), 20)
+                t_ops, t_bytes = bound_terms(B, H, L, False, 4, D=32)
+            else:
+                g = torch.randn(q.shape, generator=gen).cuda()
+                o, lse = attention._launch(q, k, v, None, with_lse=True)
+                ms = graph_us(lambda: attention._launch_bwd(
+                    q, k, v, None, o, lse, g, want_dbias=False), 20) / 1e3
+                plain = cuda_ms(lambda: attention.attention_backward_reference(
+                    q, k, v, None, o, lse, g), 5)
+                ins = [t.detach().requires_grad_() for t in (q, k, v)]
+
+                def sdpa():
+                    return F.scaled_dot_product_attention(*ins, scale=1.0)
+
+                lib = cuda_ms(lambda: torch.autograd.grad(sdpa(), ins, g), 20) - cuda_ms(sdpa, 20)
+                t_ops, t_bytes = bwd_bound_terms(B, H, L, False, 4, D=32)
+            bnd = max(t_ops, t_bytes)
+            log(f"[24] {card}: attention_{what} D=32 float32 B={B} L={L} H={H}: kernel "
+                f"{ms:.4f} ms (graph replays), bound {bnd:.4f} ms (operations {t_ops:.4f} at "
+                f"the f32 CUDA-core peak, bytes {t_bytes:.4f}), plain {plain:.4f} ms, sdpa"
+                f"{' backward ((fwd+bwd) - fwd)' if what == 'bwd' else ''} {lib:.4f} ms; "
+                f"{calls} calls per {'forward' if what == 'fwd' else 'step'}")
+            for key, t in (("ms", ms), ("plain_ms", plain), ("bound_ms", bnd),
+                           ("library_ms", lib)):
+                totals[what][key] += calls * t
+            limits[what]["operations"] += calls * t_ops
+            limits[what]["bytes"] += calls * t_bytes
+    for what, t in totals.items():
+        t["bound_by"] = max(limits[what], key=limits[what].get)
+        log(f"[24] {card}: attention_{what} D=32 float32, the 12 calls of one "
+            f"{'forward' if what == 'fwd' else 'step'}: kernel {t['ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}), plain {t['plain_ms']:.4f} ms, sdpa "
+            f"{t['library_ms']:.4f} ms")
+    return totals
+
+
+def phase_transformer1d(card):
+    """Phase 24: Transformer1d at its defaults (embed 128, depths 2/2/6/2,
+    heads 4-32, every head 32 wide) on 256-sample inputs, seeded weights:
+    the forward on the card against the CPU with 12 B1 launches, one step
+    against the CPU's at `step_bars` with 12 + 12, served and trained on
+    the card with the counts of those paths, rates and the kernel rows."""
+    from ecg_denoise_tpu_torch.models import Transformer1d
+    from ecg_denoise_tpu_torch.train import cls_epoch, create_train_state, make_cls_epoch_fns
+    from ecg_denoise_tpu_torch.utils.seed import random_seed
+
+    t0 = time.perf_counter()
+    random_seed(24)
+    cpu_model = Transformer1d().eval()
+    n_params = sum(p.numel() for p in cpu_model.parameters())
+    rng = np.random.default_rng(24)
+    x = torch.from_numpy(rng.standard_normal((8, 32, 256)).astype(np.float32))
+    gpu_model = create_train_state(copy.deepcopy(cpu_model)).model.eval()
+    reset_launches()
+    with torch.no_grad():
+        y = gpu_model(x.cuda())
+        torch.cuda.synchronize()
+        fwd_launches = read_launches()
+        err = (y.cpu() - cpu_model(x)).abs().max().item()
+    log(f"[24] Transformer1d ({n_params:,} parameters), batch 8, float32: card vs CPU "
+        f"max_abs_err={err:.3e} (tol {MODEL_TOL:.0e}); launches per forward "
+        f"{ {k: n for k, n in fwd_launches.items() if n} }")
+    check(err <= MODEL_TOL and bool(torch.isfinite(y).all()),
+          "Transformer1d on the card disagrees with the CPU")
+    check(fwd_launches == expected_launches(fwd=12), "the forward did not take 12 B1 launches")
+
+    # One step on the card against the same step on the CPU.
+    b = T1D_CHECK_BATCH
+    xs, ys = x[:b], torch.from_numpy(rng.integers(0, 9, b))
+    states = {dev: create_train_state(copy.deepcopy(cpu_model), device=dev)
+              for dev in ("cuda", "cpu")}
+    reset_launches()
+    losses = {dev: cls_epoch(st, xs.to(dev), ys.to(dev), torch.arange(b, device=dev), b)["loss"]
+              for dev, st in states.items()}
+    step_launches = read_launches()
+    params = {dev: dict(st.model.named_parameters()) for dev, st in states.items()}
+    bars = step_bars({k: p.grad.cpu() for k, p in params["cuda"].items()},
+                     {k: p.grad for k, p in params["cpu"].items()},
+                     {k: p.detach().cpu() for k, p in params["cuda"].items()},
+                     {k: p.detach() for k, p in params["cpu"].items()})
+    rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    log(f"[24] Transformer1d, float32, batch {b}: one Adam step through cls_epoch on the "
+        f"card vs the CPU: loss {losses['cuda']:.7f} vs {losses['cpu']:.7f} (rel {rel:.2e}, "
+        f"tol {LOSS_RTOL:.0e}), gradients against the CPU's: {describe_bars(bars)}; launches "
+        f"{ {k: n for k, n in step_launches.items() if n} }")
+    check(rel <= LOSS_RTOL and bars["ok"], "Transformer1d's step disagrees with the CPU's")
+    check(step_launches == expected_launches(fwd=12, bwd=12),
+          "the step did not take 12 B1 and 12 B2 launches")
+
+    # Served and trained on the card: the paths' counts, then the rates.
+    launches = {}
+    xs = torch.from_numpy(rng.standard_normal(
+        (T1D_SERVE_BATCH, 32, 256)).astype(np.float32)).cuda()
+    ys = torch.from_numpy(rng.integers(0, 9, T1D_SERVE_BATCH)).cuda()
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype)[6:]
+        random_seed(24)
+        state = create_train_state(Transformer1d(dtype=dtype))
+        model = state.model.eval()
+        with torch.no_grad():
+            model(xs)  # warm-up
+            torch.cuda.synchronize()
+            if dtype == torch.float32:
+                reset_launches()  # the served forward
+                model(xs)
+                torch.cuda.synchronize()
+                launches["serve_transformer1d"] = read_launches()
+            walls = []
+            for _ in range(5):
+                t1 = time.perf_counter()
+                model(xs)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t1)
+            fwd_ms = cuda_ms(lambda: model(xs), 5)
+        log(f"[24] {card}: Transformer1d served {dt} batch {T1D_SERVE_BATCH}: "
+            f"{T1D_SERVE_BATCH / statistics.median(walls):.1f} windows/s (median of 5 "
+            f"forwards, host clock ending in a synchronize); forward {fwd_ms:.3f} ms on the "
+            "card's clock (CUDA events, mean of 5)")
+        train_epoch, _ = make_cls_epoch_fns(state.model, state.optimizer)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        tb = T1D_TRAIN_BATCH
+        train_epoch(xs[:tb], ys[:tb], gen, tb)  # warm-up
+        torch.cuda.synchronize()
+        if dtype == torch.float32:
+            reset_launches()  # two training steps through train_epoch
+            got = train_epoch(xs[:2 * tb], ys[:2 * tb], gen, tb)
+            launches["train_transformer1d"] = read_launches()
+            check(np.isfinite(got["loss"]), "non-finite Transformer1d training loss")
+        step_ms = cuda_ms(lambda: train_epoch(xs[:tb], ys[:tb], gen, tb), 3)
+        log(f"[24] {card}: Transformer1d {dt} training step at batch {tb}: {step_ms:.3f} ms "
+            f"(CUDA events around train_epoch of one step, mean of 3) = "
+            f"{tb / step_ms * 1e3:.1f} windows/s")
+        if dtype == torch.float32:
+            profile_step(lambda: train_epoch(xs[:tb], ys[:tb], gen, tb), card, step_ms,
+                         tag="24", what="Transformer1d float32 step", batch=tb)
+    log(f"[24] launches: serve_transformer1d {launches['serve_transformer1d']}, "
+        f"train_transformer1d {launches['train_transformer1d']}")
+    check(launches["serve_transformer1d"] == expected_launches(fwd=12),
+          "the served forward did not take 12 B1 launches")
+    check(launches["train_transformer1d"] == expected_launches(fwd=24, bwd=24),
+          "two training steps did not take 24 B1 and 24 B2 launches")
+    times = d32_kernel_times(card)
+    log(f"chip_smoke: phase 24 took {time.perf_counter() - t0:.1f} s")
+    return launches, times
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs an NVIDIA card",
@@ -3301,6 +3743,7 @@ def main():
     name = phase_device_and_build()
     card = smi_name_power()
     max_err = phase_kernel_vs_plain()
+    d32_err = phase_d32_kernel_vs_plain()
     cpu_model = seeded_model(0)
     gpu_model = phase_family_model("ralenet", cpu_model, "3", expected_launches(fwd=18))
     # 4 forwards (buckets 1, 64, 1024 and the record's 39 windows in 64).
@@ -3309,6 +3752,7 @@ def main():
                                          "torch+attn-cuda:cuda")}
     totals, bound_by = phase_times(gpu_model, cpu_model, card)
     bwd_err = phase_backward_vs_plain()
+    d32_bwd_err = phase_d32_backward_vs_plain()
     phase_train_step(cpu_model)
     # Phase 7b's RA-LENet checkpoint is kept as phase 20's pretrained core.
     work = tempfile.TemporaryDirectory()
@@ -3337,6 +3781,9 @@ def main():
     data_launches, paths = phase_data(card, work.name)
     launches.update(data_launches)
     launches.update(phase_baseline(card, paths))
+    launches.update(phase_classifier(card, paths["cls"], core_ckpt))
+    t1d_launches, d32_times = phase_transformer1d(card)
+    launches.update(t1d_launches)
     work.cleanup()
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
@@ -3407,6 +3854,18 @@ def main():
     b2["eager_ms"] = bwd_totals["eager_ms"]
     b2["parent_ms_same_calls"] = bwd_totals["parent_ms"]
     b2["passes_ms"] = bwd_totals["passes_ms"]
+    for e, what, err, t in (
+            (b1, f"one Transformer1d forward's 12 calls, float32, B={T1D_SERVE_BATCH}",
+             d32_err, d32_times["fwd"]),
+            (b2, f"one Transformer1d step's 12 calls, float32, B={T1D_TRAIN_BATCH}",
+             d32_bwd_err, d32_times["bwd"])):
+        e["d32"] = {"head_dim": 32, "max_abs_err": err, **t,
+                    "times_are": f"{what}, no bias, the kernel from CUDA graph replays; plain "
+                                 "and library (scaled_dot_product_attention, no mask) issued "
+                                 "from Python",
+                    # Transformer1d's paths: every launch on them is at D = 32.
+                    "launches_by_path": {path: launches[path][e["name"]] for path in (
+                        "serve_transformer1d", "train_transformer1d")}}
     b2["frozen_bias"] = {
         "max_abs_err": frozen_err, **frozen_ms,
         "times_are": f"one NewRale step's 14 biased calls, float32, B={TIMING_BATCH}, "

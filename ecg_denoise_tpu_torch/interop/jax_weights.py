@@ -15,7 +15,9 @@ A 3-D kernel alone does not say whether it is a conv's or a transpose
 conv's, so each model's map names its transpose convs. There is one map a
 model family: `ralenet_state_dict`, `unet_state_dict`,
 `seq2seq2_state_dict` (DANet; DAM's shared FCN fills both `fcn1.*` and
-`fcn2.*`), `acdae_state_dict` and `newrale_state_dict`.
+`fcn2.*`), `acdae_state_dict` and `newrale_state_dict`, and one for each
+classifier, `resnet_cls_state_dict` and `transformer1d_state_dict` (both
+without renames: those modules keep the JAX module names).
 
 This is the reverse of the JAX package's `interop/torch_weights.py`, kept
 here as a copy of the logic because the port imports nothing of that
@@ -154,6 +156,17 @@ def newrale_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
     """JAX NewRale variables (the 'full' core under "rale") -> the port's
     NewRale state_dict."""
     return state_dict_from_variables(variables, RALENET_RENAMES)
+
+
+def resnet_cls_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
+    """JAX ResNetCls variables -> the port's ResNetCls state_dict."""
+    return state_dict_from_variables(variables)
+
+
+def transformer1d_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
+    """JAX Transformer1d variables -> the port's Transformer1d state_dict
+    (`blocks_{j}` -> `blocks.{j}`, as for RaleNet's layers)."""
+    return state_dict_from_variables(variables)
 
 
 def adam_state_from_optax(mu: Mapping, nu: Mapping, count,

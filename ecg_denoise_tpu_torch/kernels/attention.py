@@ -3,20 +3,27 @@
 `fused_attention(q, k, v, bias)` computes softmax(q @ k^T + bias) @ v over
 (B, H, L, D) operands, with the contract of the JAX package's
 `fused_attention`: q arrives pre-scaled, bias is (1, H, L, L) or None,
-head_dim D is 4 and L <= 256, and the output has the operands' dtype.
+head_dim D is 4 (RA-LENet's heads) or 32 (Transformer1d's), L <= 256, and
+the output has the operands' dtype. The JAX kernels take any D and any L
+their VMEM holds; the cap of 256 is the port's.
 
 It dispatches on the tensors' device, with no switch and no fallback:
 
 * a CUDA tensor goes to the hand-written Hopper kernels or the call
   raises. When no gradient is needed, to the forward kernel
   `csrc/attention_fwd.cu` alone (the port of the TPU kernel `_fwd_kernel`)
-  or, with `ECG_ATTN_DENSE=1` in the environment (read at every call) and
-  a lane-packable stage (L < 128 a power of two, `dense_pack_factor` > 1),
-  to the dense forward `csrc/attention_dense_fwd.cu` (the port of
-  `_fwd_dense_kernel`, B5; see `attention_dense.py`). When one is needed,
+  or, with `ECG_ATTN_DENSE=1` in the environment (read at every call), D
+  = 4 and a lane-packable stage (L < 128 a power of two,
+  `dense_pack_factor` > 1), to the dense forward
+  `csrc/attention_dense_fwd.cu` (the port of `_fwd_dense_kernel`, B5; see
+  `attention_dense.py`). B5 is written for D = 4 only, so a D = 32 call
+  stays on B1 whatever the switch says, where JAX's `_fwd`
+  (attention_pallas.py:621) would pack it. When one is needed,
   to `_FusedAttention`, a `torch.autograd.Function`
   whose forward is that kernel with its log-sum-exp residual and whose
-  backward is `csrc/attention_bwd.cu` (the port of `_bwd_kernel`);
+  backward is `csrc/attention_bwd.cu` (the port of `_bwd_kernel`). Each
+  source holds the D = 4 kernels and, beside them, the D = 32 ones; its C
+  entry point picks by D;
 * a CPU tensor goes to `attention_reference`, the plain PyTorch version of
   the same function (the math of the JAX package's XLA path,
   ops/attention.py:115-122), and autograd runs through it.
@@ -40,7 +47,8 @@ from typing import Optional
 
 import torch
 
-HEAD_DIM = 4
+HEAD_DIM = 4  # RA-LENet's; the only one B3-B5 take
+HEAD_DIMS = (HEAD_DIM, 32)  # what B1 and B2 take; 32 is Transformer1d's
 MAX_LEN = 256
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -100,13 +108,15 @@ def attention_backward_reference(q, k, v, bias, o, lse, g):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias
 
 
-def check_operands(q, k, v, bias) -> None:
+def check_operands(q, k, v, bias, head_dims=(HEAD_DIM,)) -> None:
+    """Raise on operands outside the kernels' contract; `head_dims`: the
+    head dims the caller's kernels take."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must share one (B, H, L, D) shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     B, H, L, D = q.shape
-    if D != HEAD_DIM:
-        raise ValueError(f"head_dim must be {HEAD_DIM}, got {D}")
+    if D not in head_dims:
+        raise ValueError(f"head_dim must be one of {head_dims}, got {D}")
     if L > MAX_LEN:
         raise ValueError(f"sequence length must be <= {MAX_LEN}, got {L}")
     if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -160,11 +170,12 @@ def ptr(t: Optional[torch.Tensor]):
 
 def check_launchable(*tensors, bias=None) -> None:
     """Raise on what the kernels do not take: strided operands, more than
-    2**31 elements, rows not aligned for the kernels' vector loads."""
+    2**31 elements, rows not aligned for the kernels' vector loads (a row
+    of 4 values at D = 4, 16 bytes at D = 32)."""
     if not all(t.is_contiguous() for t in tensors) or (
             bias is not None and not bias.is_contiguous()):
         raise ValueError("the attention kernels need contiguous operands")
-    row_bytes = HEAD_DIM * tensors[0].element_size()  # the kernels' vector loads
+    row_bytes = min(16, tensors[0].shape[-1] * tensors[0].element_size())
     if tensors[0].numel() >= 2**31 or any(t.data_ptr() % row_bytes for t in tensors):
         raise ValueError(f"operands must hold < 2**31 elements and be "
                          f"{row_bytes}-byte aligned")
@@ -241,19 +252,18 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """softmax(q @ k^T + bias) @ v; the kernels on the card, the plain
     version on the CPU (see the module docstring)."""
-    check_operands(q, k, v, bias)
+    check_operands(q, k, v, bias, HEAD_DIMS)
     if q.device.type == "cuda":
         if torch.is_grad_enabled() and any(
                 t is not None and t.requires_grad for t in (q, k, v, bias)):
             return _FusedAttention.apply(q, k, v, bias)
         # Imported here: attention_dense builds on this module's helpers.
         from ecg_denoise_tpu_torch.kernels.attention_dense import (
-            dense_pack_factor,
-            dense_wanted,
+            dense_route,
             fused_attention_dense,
         )
 
-        if dense_wanted() and dense_pack_factor(q.shape[1], q.shape[2]) > 1:
+        if dense_route(q.shape):
             return fused_attention_dense(q, k, v, bias)
         return _launch(q, k, v, bias)
     if q.device.type == "cpu":

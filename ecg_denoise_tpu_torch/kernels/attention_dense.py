@@ -14,8 +14,9 @@ dispatches on the tensors' device with no switch and no fallback:
 * a CPU tensor goes to `attention_dense_reference`, the plain version.
 
 `fused_attention` routes a no-grad call on the card here when
-`dense_wanted()` (ECG_ATTN_DENSE=1, read at every call, as JAX reads it at
-every trace) and the stage packs; otherwise it keeps B1.
+`dense_route` says so: `dense_wanted()` (ECG_ATTN_DENSE=1, read at every
+call, as JAX reads it at every trace), the stage packs and D = 4;
+otherwise it keeps B1.
 
 `attention_dense_reference` is written in the TPU kernel's own form, so
 that the CPU tests hold its layout against JAX's kernel: q packed to
@@ -39,6 +40,7 @@ import torch
 
 from ecg_denoise_tpu_torch.kernels.attention import (
     DTYPE_CODES,
+    HEAD_DIM,
     bind,
     check_launchable,
     check_operands,
@@ -65,6 +67,16 @@ def dense_wanted() -> bool:
     """ECG_ATTN_DENSE=1 routes packable stages of a no-grad call on the
     card through B5 (JAX's `_dense_wanted`), read at call time."""
     return os.environ.get("ECG_ATTN_DENSE", "0") == "1"
+
+
+def dense_route(shape) -> bool:
+    """Whether `fused_attention` sends a no-grad call of this (B, H, L, D)
+    shape on the card to B5: ECG_ATTN_DENSE=1, a lane-packable stage and D
+    = 4, the only head dim B5 is written for. A D = 32 call (Transformer1d)
+    stays on B1, where JAX's `_fwd` (attention_pallas.py:621) packs it
+    (ROADMAP queue B)."""
+    _, H, L, D = shape
+    return dense_wanted() and D == HEAD_DIM and dense_pack_factor(H, L) > 1
 
 
 def attention_dense_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -15,7 +15,8 @@
 //   dv[m]   = sum_l p[l,m] * g[l]
 //   dbias[h,l,m] = sum_b ds[b,h,l,m]          (float32)
 // q arrives pre-scaled. Operands are contiguous (B, H, L, D) with D = 4 and
-// L <= 256; bias is a contiguous (1, H, L, L) array shared by the batch,
+// L <= 256 (D = 32, Transformer1d's heads: the second set of kernels, at
+// the end of this file, with the same contract); bias is a contiguous (1, H, L, L) array shared by the batch,
 // or absent. float32 and bfloat16 operands; every product, exp and sum is
 // float32, dq, dk and dv are rounded once to the operand dtype, and dbias
 // is written in float32 (the caller casts it to the bias dtype). The TPU
@@ -698,9 +699,380 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   }
 }
 
+// ---------------------------------------------------------------------------
+// head_dim 32: Transformer1d's heads. The D = 4 kernels above are left as
+// they are, bit for bit.
+//
+// What bounds it. Per (b, h) the work is 8*L*L*D flops (q.k, g.v, ds.k,
+// ds.q, p.g) against 8*L*D operand elements: at (L, H, B) = (256, 4, 64),
+// 4.3 GFLOP in f32 on the CUDA cores, 0.064 ms at 67 TFLOP/s, against 17
+// MB, 0.005 ms at 3.35 TB/s: operations bound it. This first version
+// stays in f32 on the CUDA cores, as the D = 4 kernels do.
+//
+// Design, simple first: the flash backward in three passes, as at D = 4,
+// each thread a row with its 32-wide operands and f32 accumulators in
+// registers, and what a block reuses staged in shared memory as f32.
+// * dq pass. A block owns one (b, h) and 64 query rows (32 at L <= 32).
+//   Each thread takes c = g.o of its row (written to the f32 (B, H, L)
+//   scratch for the next passes), then sweeps the keys in chunks of 32 K
+//   and V rows (broadcast reads): p = exp(q.k + bias - lse), ds = p (g.v -
+//   c), dq += ds k. With a bias, its (rows x chunk) tile is staged per
+//   chunk with an odd row stride (33): conflict-free.
+// * dk/dv pass, its transpose. A block owns one (b, h) and 64 key rows;
+//   q, g and the rows' lse and c stream through in chunks of 32 query
+//   rows; dk += ds q, dv += p g, summed over l in order. The bias tile
+//   (chunk x keys) is stored key-fastest: the lanes read consecutive banks.
+// * dbias pass, only when dbias is asked for. A block owns one head and a
+//   32 x 32 tile of (l, m), a thread four pairs (one row, four keys 8
+//   apart), and walks the batch in order, b = 0 .. B - 1, staging each
+//   element's q and g rows and k and v rows of its tile (stride 33:
+//   conflict-free) and the rows' lse and c; each (l, m) sum is one
+//   thread's, in order.
+// No atomics, no cross-block reduction: a call gives bit-identical results
+// every time.
+
+constexpr int kD32 = 32;
+constexpr int kRows32 = 64;                  // rows of a block (dq, dk/dv), a thread each
+constexpr int kChunk32 = 32;                 // rows staged at a time
+constexpr int kStride32 = kChunk32 + 1;      // odd: a lane a bank
+constexpr int kTile32 = 32;                  // the dbias tile's rows and keys
+constexpr int kBiasThreads32 = 256;          // dbias: a thread 4 (l, m) pairs
+constexpr int kPairs32 = kTile32 * kTile32 / kBiasThreads32;
+
+// The rows a block owns at length L: 64, or 32 (one warp) at L <= 32.
+__host__ __device__ inline int rows32(int L) { return L <= 32 ? 32 : kRows32; }
+
+// n contiguous operand values (n a multiple of 8, src 16-byte aligned)
+// into shared memory as f32, 16 bytes a load.
+__device__ __forceinline__ void stage_f32(float* dst, const float* src, int n) {
+  for (int i = threadIdx.x * 4; i < n; i += blockDim.x * 4) {
+    *reinterpret_cast<float4*>(dst + i) = *reinterpret_cast<const float4*>(src + i);
+  }
+}
+
+__device__ __forceinline__ void stage_f32(float* dst, const __nv_bfloat16* src, int n) {
+  for (int i = threadIdx.x * 8; i < n; i += blockDim.x * 8) {
+    float vals[8];
+    unpack(*reinterpret_cast<const uint4*>(src + i), vals);
+    float4* d = reinterpret_cast<float4*>(dst + i);
+    d[0] = make_float4(vals[0], vals[1], vals[2], vals[3]);
+    d[1] = make_float4(vals[4], vals[5], vals[6], vals[7]);
+  }
+}
+
+// One 32-value operand row into registers as f32.
+__device__ __forceinline__ void load_row32(const float* p, float (&r)[kD32]) {
+#pragma unroll
+  for (int i = 0; i < kD32 / 4; ++i) {
+    const float4 x = reinterpret_cast<const float4*>(p)[i];
+    r[4 * i] = x.x; r[4 * i + 1] = x.y; r[4 * i + 2] = x.z; r[4 * i + 3] = x.w;
+  }
+}
+
+__device__ __forceinline__ void load_row32(const __nv_bfloat16* p, float (&r)[kD32]) {
+#pragma unroll
+  for (int i = 0; i < kD32 / 8; ++i) {
+    float vals[8];
+    unpack(reinterpret_cast<const uint4*>(p)[i], vals);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) r[8 * i + j] = vals[j];
+  }
+}
+
+// A row of f32 sums, rounded once to the operand dtype.
+__device__ __forceinline__ void store_row32(float* p, const float (&r)[kD32]) {
+#pragma unroll
+  for (int i = 0; i < kD32 / 4; ++i) {
+    reinterpret_cast<float4*>(p)[i] =
+        make_float4(r[4 * i], r[4 * i + 1], r[4 * i + 2], r[4 * i + 3]);
+  }
+}
+
+__device__ __forceinline__ void store_row32(__nv_bfloat16* p, const float (&r)[kD32]) {
+  __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(p);
+#pragma unroll
+  for (int i = 0; i < kD32 / 2; ++i) p2[i] = __floats2bfloat162_rn(r[2 * i], r[2 * i + 1]);
+}
+
+// a . b for a row in registers and one in shared memory, in four
+// interleaved chains: the forward kernel's order, so the logits recomputed
+// here are the ones its lse was taken over.
+__device__ __forceinline__ float dot32(const float (&a)[kD32], const float* b) {
+  const float4* b4 = reinterpret_cast<const float4*>(b);
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+#pragma unroll
+  for (int i = 0; i < kD32 / 4; ++i) {
+    const float4 x = b4[i];
+    s0 = fmaf(a[4 * i], x.x, s0);
+    s1 = fmaf(a[4 * i + 1], x.y, s1);
+    s2 = fmaf(a[4 * i + 2], x.z, s2);
+    s3 = fmaf(a[4 * i + 3], x.w, s3);
+  }
+  return (s0 + s1) + (s2 + s3);
+}
+
+// acc += a * b for a row b in shared memory.
+__device__ __forceinline__ void axpy32(float a, const float* b, float (&acc)[kD32]) {
+  const float4* b4 = reinterpret_cast<const float4*>(b);
+#pragma unroll
+  for (int i = 0; i < kD32 / 4; ++i) {
+    const float4 x = b4[i];
+    acc[4 * i] = fmaf(a, x.x, acc[4 * i]);
+    acc[4 * i + 1] = fmaf(a, x.y, acc[4 * i + 1]);
+    acc[4 * i + 2] = fmaf(a, x.z, acc[4 * i + 2]);
+    acc[4 * i + 3] = fmaf(a, x.w, acc[4 * i + 3]);
+  }
+}
+
+// Where a block of the dq and dk/dv passes sits: its (b, h), the head h and
+// its tile's first row.
+struct Tile32 {
+  long long bh;
+  int h, row0, n_rows;
+  __device__ Tile32(int H, int L) {
+    const int rows = rows32(L);
+    const int tiles = (L + rows - 1) / rows;
+    bh = blockIdx.x / tiles;
+    h = static_cast<int>(bh % H);
+    row0 = (blockIdx.x % tiles) * rows;
+    n_rows = min(rows, L - row0);
+  }
+};
+
+template <typename T, bool kBias>
+__global__ void __launch_bounds__(kRows32)
+attention_bwd_dq_d32_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v, const T* __restrict__ bias,
+                            const T* __restrict__ g, const T* __restrict__ o,
+                            const float* __restrict__ lse, float* __restrict__ c,
+                            T* __restrict__ dq, int H, int L) {
+  __shared__ __align__(16) float ks[kChunk32 * kD32];
+  __shared__ __align__(16) float vs[kChunk32 * kD32];
+  __shared__ float bs[kBias ? kRows32 * kStride32 : 1];
+  const Tile32 t(H, L);
+  const int r = threadIdx.x;
+  const bool row_ok = r < t.n_rows;
+  const size_t base = static_cast<size_t>(t.bh) * L;  // the head's first row
+  const size_t row = base + t.row0 + r;
+
+  float qr[kD32], gr[kD32], acc[kD32];
+  float cr = 0.f, lr = 0.f;
+#pragma unroll
+  for (int d = 0; d < kD32; ++d) qr[d] = gr[d] = acc[d] = 0.f;
+  if (row_ok) {
+    load_row32(q + row * kD32, qr);
+    load_row32(g + row * kD32, gr);
+    load_row32(o + row * kD32, acc);  // o, for c = g . o, then the dq sums
+#pragma unroll
+    for (int d = 0; d < kD32; ++d) {
+      cr = fmaf(gr[d], acc[d], cr);
+      acc[d] = 0.f;
+    }
+    lr = lse[row];
+    c[row] = cr;
+  }
+
+  for (int m0 = 0; m0 < L; m0 += kChunk32) {
+    const int cn = min(kChunk32, L - m0);
+    __syncthreads();  // every thread is done with the last chunk
+    stage_f32(ks, k + (base + m0) * kD32, cn * kD32);
+    stage_f32(vs, v + (base + m0) * kD32, cn * kD32);
+    if constexpr (kBias) {
+      const T* src = bias + (static_cast<size_t>(t.h) * L + t.row0) * L + m0;
+      for (int i = threadIdx.x; i < t.n_rows * cn; i += blockDim.x) {
+        const int rr = i / cn, j = i - rr * cn;
+        bs[rr * kStride32 + j] = to_float(src[static_cast<size_t>(rr) * L + j]);
+      }
+    }
+    __syncthreads();
+    if (!row_ok) continue;
+    for (int j = 0; j < cn; ++j) {
+      float x = dot32(qr, ks + j * kD32);
+      if constexpr (kBias) x += bs[r * kStride32 + j];
+      const float ds = __expf(x - lr) * (dot32(gr, vs + j * kD32) - cr);
+      axpy32(ds, ks + j * kD32, acc);
+    }
+  }
+  if (row_ok) store_row32(dq + row * kD32, acc);
+}
+
+template <typename T, bool kBias>
+__global__ void __launch_bounds__(kRows32)
+attention_bwd_dkdv_d32_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                              const T* __restrict__ v, const T* __restrict__ bias,
+                              const T* __restrict__ g, const float* __restrict__ lse,
+                              const float* __restrict__ c, T* __restrict__ dk,
+                              T* __restrict__ dv, int H, int L) {
+  __shared__ __align__(16) float qs[kChunk32 * kD32];
+  __shared__ __align__(16) float gs[kChunk32 * kD32];
+  __shared__ float ls[kChunk32], cs[kChunk32];
+  __shared__ float bs[kBias ? kChunk32 * kRows32 : 1];
+  const Tile32 t(H, L);  // here the tile's rows are keys
+  const int r = threadIdx.x;
+  const bool row_ok = r < t.n_rows;
+  const size_t base = static_cast<size_t>(t.bh) * L;
+  const size_t row = base + t.row0 + r;
+
+  float kr[kD32], vr[kD32], dk_acc[kD32], dv_acc[kD32];
+#pragma unroll
+  for (int d = 0; d < kD32; ++d) kr[d] = vr[d] = dk_acc[d] = dv_acc[d] = 0.f;
+  if (row_ok) {
+    load_row32(k + row * kD32, kr);
+    load_row32(v + row * kD32, vr);
+  }
+
+  for (int l0 = 0; l0 < L; l0 += kChunk32) {
+    const int cn = min(kChunk32, L - l0);
+    __syncthreads();  // every thread is done with the last chunk
+    stage_f32(qs, q + (base + l0) * kD32, cn * kD32);
+    stage_f32(gs, g + (base + l0) * kD32, cn * kD32);
+    for (int i = threadIdx.x; i < cn; i += blockDim.x) {
+      ls[i] = lse[base + l0 + i];
+      cs[i] = c[base + l0 + i];
+    }
+    if constexpr (kBias) {  // bias[h, l0 + i, row0 + key], key fastest
+      const T* src = bias + (static_cast<size_t>(t.h) * L + l0) * L + t.row0;
+      for (int i = threadIdx.x; i < cn * t.n_rows; i += blockDim.x) {
+        const int li = i / t.n_rows, key = i - li * t.n_rows;
+        bs[li * kRows32 + key] = to_float(src[static_cast<size_t>(li) * L + key]);
+      }
+    }
+    __syncthreads();
+    if (!row_ok) continue;
+    for (int i = 0; i < cn; ++i) {
+      float x = dot32(kr, qs + i * kD32);
+      if constexpr (kBias) x += bs[i * kRows32 + r];
+      const float p = __expf(x - ls[i]);
+      const float ds = p * (dot32(vr, gs + i * kD32) - cs[i]);
+      axpy32(ds, qs + i * kD32, dk_acc);
+      axpy32(p, gs + i * kD32, dv_acc);
+    }
+  }
+  if (row_ok) {
+    store_row32(dk + row * kD32, dk_acc);
+    store_row32(dv + row * kD32, dv_acc);
+  }
+}
+
+// Rows [first, first + n) of one (b, h) head into a 32 x 33 tile as f32.
+template <typename T>
+__device__ __forceinline__ void stage_tile32(float* dst, const T* src, int n) {
+  for (int i = threadIdx.x; i < n * kD32; i += blockDim.x) {
+    dst[(i / kD32) * kStride32 + i % kD32] = to_float(src[i]);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBiasThreads32)
+attention_bwd_dbias_d32_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                               const T* __restrict__ v, const T* __restrict__ bias,
+                               const T* __restrict__ g, const float* __restrict__ lse,
+                               const float* __restrict__ c, float* __restrict__ dbias,
+                               int B, int H, int L) {
+  __shared__ float qs[kTile32 * kStride32], gs[kTile32 * kStride32];
+  __shared__ float ks[kTile32 * kStride32], vs[kTile32 * kStride32];
+  __shared__ float ls[kTile32], cs[kTile32];
+  const int tiles = (L + kTile32 - 1) / kTile32;
+  const int h = blockIdx.x / (tiles * tiles);
+  const int l0 = (blockIdx.x / tiles) % tiles * kTile32;
+  const int m0 = blockIdx.x % tiles * kTile32;
+  const int n_l = min(kTile32, L - l0), n_m = min(kTile32, L - m0);
+  constexpr int kColStep = kTile32 / kPairs32;  // 8 threads a row
+  const int r = threadIdx.x / kColStep;    // this thread's row of the tile
+  const int col = threadIdx.x % kColStep;  // and its keys col + 8 j
+
+  float bv[kPairs32], acc[kPairs32];
+#pragma unroll
+  for (int j = 0; j < kPairs32; ++j) {
+    const int m = col + kColStep * j;
+    bv[j] = r < n_l && m < n_m
+        ? to_float(bias[(static_cast<size_t>(h) * L + l0 + r) * L + m0 + m]) : 0.f;
+    acc[j] = 0.f;
+  }
+  for (int b = 0; b < B; ++b) {
+    const size_t base = (static_cast<size_t>(b) * H + h) * L;
+    __syncthreads();  // every thread is done with the last element
+    stage_tile32(qs, q + (base + l0) * kD32, n_l);
+    stage_tile32(gs, g + (base + l0) * kD32, n_l);
+    stage_tile32(ks, k + (base + m0) * kD32, n_m);
+    stage_tile32(vs, v + (base + m0) * kD32, n_m);
+    if (threadIdx.x < n_l) {
+      ls[threadIdx.x] = lse[base + l0 + threadIdx.x];
+      cs[threadIdx.x] = c[base + l0 + threadIdx.x];
+    }
+    __syncthreads();
+    if (r >= n_l) continue;
+    float s[kPairs32] = {}, dp[kPairs32] = {};
+#pragma unroll 8
+    for (int d = 0; d < kD32; ++d) {
+      const float qd = qs[r * kStride32 + d], gd = gs[r * kStride32 + d];
+#pragma unroll
+      for (int j = 0; j < kPairs32; ++j) {
+        const int m = min(col + kColStep * j, n_m - 1);  // a key of the tile
+        s[j] = fmaf(qd, ks[m * kStride32 + d], s[j]);
+        dp[j] = fmaf(gd, vs[m * kStride32 + d], dp[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kPairs32; ++j) {
+      acc[j] = fmaf(__expf(s[j] + bv[j] - ls[r]), dp[j] - cs[r], acc[j]);
+    }
+  }
+  if (r >= n_l) return;
+#pragma unroll
+  for (int j = 0; j < kPairs32; ++j) {
+    const int m = col + kColStep * j;
+    if (m < n_m) dbias[(static_cast<size_t>(h) * L + l0 + r) * L + m0 + m] = acc[j];
+  }
+}
+
+template <typename T, bool kBias>
+cudaError_t launch_d32_passes(const T* q, const T* k, const T* v, const T* bias, const T* g,
+                              const T* o, const float* lse, float* c, T* dq, T* dk, T* dv,
+                              int B, int H, int L, cudaStream_t stream) {
+  const int rows = rows32(L);
+  const long long blocks = static_cast<long long>(B) * H * ((L + rows - 1) / rows);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  attention_bwd_dq_d32_kernel<T, kBias><<<static_cast<int>(blocks), rows, 0, stream>>>(
+      q, k, v, bias, g, o, lse, c, dq, H, L);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attention_bwd_dkdv_d32_kernel<T, kBias><<<static_cast<int>(blocks), rows, 0, stream>>>(
+      q, k, v, bias, g, lse, c, dk, dv, H, L);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_d32(const void* q, const void* k, const void* v,
+                       const void* bias, const void* g, const void* o,
+                       const float* lse, float* c, void* dq, void* dk, void* dv,
+                       float* dbias, int B, int H, int L, cudaStream_t stream) {
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* bt = static_cast<const T*>(bias);
+  const T* gt = static_cast<const T*>(g);
+  const T* ot = static_cast<const T*>(o);
+  T* dqt = static_cast<T*>(dq);
+  T* dkt = static_cast<T*>(dk);
+  T* dvt = static_cast<T*>(dv);
+  cudaError_t err =
+      bias != nullptr
+          ? launch_d32_passes<T, true>(qt, kt, vt, bt, gt, ot, lse, c, dqt, dkt, dvt, B, H, L,
+                                       stream)
+          : launch_d32_passes<T, false>(qt, kt, vt, bt, gt, ot, lse, c, dqt, dkt, dvt, B, H, L,
+                                        stream);
+  if (err != cudaSuccess || dbias == nullptr) return err;
+  const int tiles = (L + kTile32 - 1) / kTile32;
+  attention_bwd_dbias_d32_kernel<T><<<H * tiles * tiles, kBiasThreads32, 0, stream>>>(
+      qt, kt, vt, bt, gt, lse, c, dbias, B, H, L);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// Plain C interface for ctypes. dtype: 0 = float32, 1 = bfloat16. `bias`
+// Plain C interface for ctypes. D: 4 (the kernels above) or 32 (the D = 32
+// kernels). dtype: 0 = float32, 1 = bfloat16. `bias`
 // may be null; `dbias` is null, or (with a bias) a float32 (1, H, L, L)
 // output. `lse` is the forward's float32 (B, H, L) residual and `c` a
 // float32 (B, H, L) scratch the call fills. Launches on `stream` of card
@@ -712,7 +1084,7 @@ extern "C" int ecg_attention_bwd(const void* q, const void* k, const void* v,
                                  void* dq, void* dk, void* dv, void* dbias,
                                  int B, int H, int L, int D, int dtype,
                                  int device, void* stream) {
-  if (B < 1 || H < 1 || L < 1 || L > kMaxL || D != kD ||
+  if (B < 1 || H < 1 || L < 1 || L > kMaxL || (D != kD && D != kD32) ||
       (dbias != nullptr && bias == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -724,12 +1096,16 @@ extern "C" int ecg_attention_bwd(const void* q, const void* k, const void* v,
   float* dbias_f = static_cast<float*>(dbias);
   switch (dtype) {
     case 0:
-      err = launch<float>(q, k, v, bias, g, o, lse_f, c_f, dq, dk, dv, dbias_f,
-                          B, H, L, s);
+      err = D == kD ? launch<float>(q, k, v, bias, g, o, lse_f, c_f, dq, dk, dv, dbias_f,
+                                    B, H, L, s)
+                    : launch_d32<float>(q, k, v, bias, g, o, lse_f, c_f, dq, dk, dv,
+                                        dbias_f, B, H, L, s);
       break;
     case 1:
-      err = launch<__nv_bfloat16>(q, k, v, bias, g, o, lse_f, c_f, dq, dk, dv,
-                                  dbias_f, B, H, L, s);
+      err = D == kD ? launch<__nv_bfloat16>(q, k, v, bias, g, o, lse_f, c_f, dq, dk, dv,
+                                            dbias_f, B, H, L, s)
+                    : launch_d32<__nv_bfloat16>(q, k, v, bias, g, o, lse_f, c_f, dq, dk,
+                                                dv, dbias_f, B, H, L, s);
       break;
     default:
       err = cudaErrorInvalidValue;

@@ -8,7 +8,8 @@
 //   out[b,h,l,:] = sum_m p[l,m] * v[b,h,m,:]
 //   p[l,:]       = softmax_m(q[b,h,l,:] . k[b,h,m,:] + bias[0,h,l,m])
 // q arrives pre-scaled. Operands are contiguous (B, H, L, D) with D = 4 and
-// L <= 256; bias is a contiguous (1, H, L, L) array shared by the batch, or
+// L <= 256 (D = 32, Transformer1d's heads: the second kernel, at the end of
+// this file, with the same contract); bias is a contiguous (1, H, L, L) array shared by the batch, or
 // absent. float32 and bfloat16 operands; logits, the row max, exp, the sums
 // and the weighted sum are float32, and the output is rounded once to the
 // operand dtype. (The TPU kernel rounds the unnormalised probabilities to
@@ -386,17 +387,226 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return launch_one<T, false>(qt, kt, vt, bt, ot, lse, B, H, L, stream);
 }
 
+// ---------------------------------------------------------------------------
+// head_dim 32: Transformer1d's heads (embed 128 * 2^i over 4 * 2^i heads at
+// L = 256 / 2^i). The D = 4 kernel above is left as it is, bit for bit.
+//
+// What bounds it. Per (b, h) the work is 4*L*L*D flops (q.k and p.v, at D
+// = 32 sixteen times the exps' count) against 4*L*D operand elements: at
+// (L, H, B) = (256, 4, 256), 8.6 GFLOP in f32 on the CUDA cores, 0.128 ms
+// at 67 TFLOP/s, against 34 MB, 0.010 ms at 3.35 TB/s: operations bound
+// it. (The tensor cores would take it at D = 32; this first version stays
+// in f32 on the CUDA cores, as the D = 4 kernel does, so that the float32
+// bar against the plain version holds: a later redesign's work.)
+//
+// Design, simple first. A block owns one (b, h) and a tile of 64 query rows
+// (32 at L <= 32), a thread a row, with its 32-wide q row and its f32
+// output accumulator in registers. K and V stream through shared memory in
+// chunks of 32 keys (4 KB each as f32; bf16 rows are converted once, as
+// they land), read by the warp as broadcasts. The softmax is online in
+// f32: per chunk each thread computes its 32 logits, takes the chunk's
+// max, rescales its running sum and accumulator by exp(old max - new max)
+// and adds the chunk's exp(logit - max) terms, so every exp is of a value
+// <= 0 (RA-LENet's logits reach 191.5; the same rule holds here). With a
+// bias, its (rows x chunk) tile is staged in shared memory per chunk with
+// coalesced loads and an odd row stride (33), so the 32 lanes' reads at one
+// key fall in 32 banks. The lse (max + log(sum)) is written for the
+// backward. No atomics: a call gives bit-identical results every time.
+
+constexpr int kD32 = 32;
+constexpr int kRows32 = 64;                  // query rows of a block, a thread each
+constexpr int kChunk32 = 32;                 // keys staged at a time
+constexpr int kBiasStride32 = kChunk32 + 1;  // odd: a lane a bank
+
+// The rows a block owns at length L: 64, or 32 (one warp) at L <= 32.
+__host__ __device__ inline int rows32(int L) { return L <= 32 ? 32 : kRows32; }
+
+// n contiguous operand values (n a multiple of 8, src 16-byte aligned)
+// into shared memory as f32, 16 bytes a load.
+__device__ __forceinline__ void stage_f32(float* dst, const float* src, int n) {
+  for (int i = threadIdx.x * 4; i < n; i += blockDim.x * 4) {
+    *reinterpret_cast<float4*>(dst + i) = *reinterpret_cast<const float4*>(src + i);
+  }
+}
+
+__device__ __forceinline__ void stage_f32(float* dst, const __nv_bfloat16* src, int n) {
+  for (int i = threadIdx.x * 8; i < n; i += blockDim.x * 8) {
+    float vals[8];
+    unpack(*reinterpret_cast<const uint4*>(src + i), vals);
+    float4* d = reinterpret_cast<float4*>(dst + i);
+    d[0] = make_float4(vals[0], vals[1], vals[2], vals[3]);
+    d[1] = make_float4(vals[4], vals[5], vals[6], vals[7]);
+  }
+}
+
+// One 32-value operand row into registers as f32.
+__device__ __forceinline__ void load_row32(const float* p, float (&r)[kD32]) {
+#pragma unroll
+  for (int i = 0; i < kD32 / 4; ++i) {
+    const float4 x = reinterpret_cast<const float4*>(p)[i];
+    r[4 * i] = x.x; r[4 * i + 1] = x.y; r[4 * i + 2] = x.z; r[4 * i + 3] = x.w;
+  }
+}
+
+__device__ __forceinline__ void load_row32(const __nv_bfloat16* p, float (&r)[kD32]) {
+#pragma unroll
+  for (int i = 0; i < kD32 / 8; ++i) {
+    float vals[8];
+    unpack(reinterpret_cast<const uint4*>(p)[i], vals);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) r[8 * i + j] = vals[j];
+  }
+}
+
+// r / div, rounded once to the operand dtype.
+__device__ __forceinline__ void store_row32(float* p, const float (&r)[kD32], float div) {
+#pragma unroll
+  for (int i = 0; i < kD32 / 4; ++i) {
+    reinterpret_cast<float4*>(p)[i] = make_float4(r[4 * i] / div, r[4 * i + 1] / div,
+                                                  r[4 * i + 2] / div, r[4 * i + 3] / div);
+  }
+}
+
+__device__ __forceinline__ void store_row32(__nv_bfloat16* p, const float (&r)[kD32],
+                                            float div) {
+  __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(p);
+#pragma unroll
+  for (int i = 0; i < kD32 / 2; ++i) {
+    p2[i] = __floats2bfloat162_rn(r[2 * i] / div, r[2 * i + 1] / div);
+  }
+}
+
+// a . b for a row in registers and one in shared memory (a broadcast),
+// in four interleaved chains.
+__device__ __forceinline__ float dot32(const float (&a)[kD32], const float* b) {
+  const float4* b4 = reinterpret_cast<const float4*>(b);
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+#pragma unroll
+  for (int i = 0; i < kD32 / 4; ++i) {
+    const float4 x = b4[i];
+    s0 = fmaf(a[4 * i], x.x, s0);
+    s1 = fmaf(a[4 * i + 1], x.y, s1);
+    s2 = fmaf(a[4 * i + 2], x.z, s2);
+    s3 = fmaf(a[4 * i + 3], x.w, s3);
+  }
+  return (s0 + s1) + (s2 + s3);
+}
+
+template <typename T, bool kBias>
+__global__ void __launch_bounds__(kRows32)
+attention_fwd_d32_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ bias,
+                         T* __restrict__ o, float* __restrict__ lse, int H, int L) {
+  __shared__ __align__(16) float ks[kChunk32 * kD32];
+  __shared__ __align__(16) float vs[kChunk32 * kD32];
+  __shared__ float bs[kBias ? kRows32 * kBiasStride32 : 1];
+  const int rows = rows32(L);
+  const int tiles = (L + rows - 1) / rows;
+  const long long bh = blockIdx.x / tiles;  // b * H + h
+  const int h = static_cast<int>(bh % H);
+  const int row0 = (blockIdx.x % tiles) * rows;
+  const int n_rows = min(rows, L - row0);
+  const int r = threadIdx.x;
+  const bool row_ok = r < n_rows;
+  const size_t base = static_cast<size_t>(bh) * L;  // the (b, h) head's first row
+
+  float qr[kD32], acc[kD32];
+#pragma unroll
+  for (int d = 0; d < kD32; ++d) qr[d] = acc[d] = 0.f;
+  if (row_ok) load_row32(q + (base + row0 + r) * kD32, qr);
+  float mx = __int_as_float(0xff800000), sum = 0.f;  // -inf, 0
+
+  for (int m0 = 0; m0 < L; m0 += kChunk32) {
+    const int cn = min(kChunk32, L - m0);
+    __syncthreads();  // every thread is done with the last chunk
+    stage_f32(ks, k + (base + m0) * kD32, cn * kD32);
+    stage_f32(vs, v + (base + m0) * kD32, cn * kD32);
+    if constexpr (kBias) {
+      const T* src = bias + (static_cast<size_t>(h) * L + row0) * L + m0;
+      for (int i = threadIdx.x; i < n_rows * cn; i += blockDim.x) {
+        const int rr = i / cn, j = i - rr * cn;
+        bs[rr * kBiasStride32 + j] = to_float(src[static_cast<size_t>(rr) * L + j]);
+      }
+    }
+    __syncthreads();
+    if (!row_ok) continue;
+    float s[kChunk32];
+    float cmax = __int_as_float(0xff800000);
+#pragma unroll
+    for (int j = 0; j < kChunk32; ++j) {
+      if (j < cn) {
+        float x = dot32(qr, ks + j * kD32);
+        if constexpr (kBias) x += bs[r * kBiasStride32 + j];
+        s[j] = x;
+        cmax = fmaxf(cmax, x);
+      }
+    }
+    const float mnew = fmaxf(mx, cmax);
+    const float scale = __expf(mx - mnew);  // 0 at the first chunk, 1 if the max holds
+    mx = mnew;
+    sum *= scale;
+#pragma unroll
+    for (int d = 0; d < kD32; ++d) acc[d] *= scale;
+#pragma unroll
+    for (int j = 0; j < kChunk32; ++j) {
+      if (j < cn) {
+        const float e = __expf(s[j] - mx);
+        const float4* vr = reinterpret_cast<const float4*>(vs + j * kD32);
+        sum += e;
+#pragma unroll
+        for (int i = 0; i < kD32 / 4; ++i) {
+          const float4 x = vr[i];
+          acc[4 * i] = fmaf(e, x.x, acc[4 * i]);
+          acc[4 * i + 1] = fmaf(e, x.y, acc[4 * i + 1]);
+          acc[4 * i + 2] = fmaf(e, x.z, acc[4 * i + 2]);
+          acc[4 * i + 3] = fmaf(e, x.w, acc[4 * i + 3]);
+        }
+      }
+    }
+  }
+
+  if (!row_ok) return;
+  const size_t row = base + row0 + r;
+  store_row32(o + row * kD32, acc, sum);
+  if (lse != nullptr) lse[row] = mx + logf(sum);
+}
+
+template <typename T, bool kBias>
+cudaError_t launch_d32_one(const T* q, const T* k, const T* v, const T* bias, T* o,
+                           float* lse, int B, int H, int L, cudaStream_t stream) {
+  const int rows = rows32(L);
+  const long long blocks = static_cast<long long>(B) * H * ((L + rows - 1) / rows);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  attention_fwd_d32_kernel<T, kBias><<<static_cast<int>(blocks), rows, 0, stream>>>(
+      q, k, v, bias, o, lse, H, L);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_d32(const void* q, const void* k, const void* v,
+                       const void* bias, void* o, float* lse, int B, int H,
+                       int L, cudaStream_t stream) {
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* bt = static_cast<const T*>(bias);
+  T* ot = static_cast<T*>(o);
+  if (bias != nullptr) return launch_d32_one<T, true>(qt, kt, vt, bt, ot, lse, B, H, L, stream);
+  return launch_d32_one<T, false>(qt, kt, vt, bt, ot, lse, B, H, L, stream);
+}
+
 }  // namespace
 
-// Plain C interface for ctypes. dtype: 0 = float32, 1 = bfloat16. `bias`
-// may be null; `lse` is null, or a float32 (B, H, L) output for the
-// backward. Launches on `stream` of card `device`, does not synchronise
-// and allocates nothing. Returns the launch's cudaError_t (0 = success).
+// Plain C interface for ctypes. D: 4 (the kernel above) or 32 (the D = 32
+// kernel). dtype: 0 = float32, 1 = bfloat16. `bias` may be null; `lse` is
+// null, or a float32 (B, H, L) output for the backward. Launches on
+// `stream` of card `device`, does not synchronise and allocates nothing.
+// Returns the launch's cudaError_t (0 = success).
 extern "C" int ecg_attention_fwd(const void* q, const void* k, const void* v,
                                  const void* bias, void* o, void* lse,
                                  int B, int H, int L, int D, int dtype,
                                  int device, void* stream) {
-  if (B < 1 || H < 1 || L < 1 || L > kMaxL || D != kD) {
+  if (B < 1 || H < 1 || L < 1 || L > kMaxL || (D != kD && D != kD32)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
@@ -405,10 +615,12 @@ extern "C" int ecg_attention_fwd(const void* q, const void* k, const void* v,
   float* lse_f = static_cast<float*>(lse);
   switch (dtype) {
     case 0:
-      err = launch<float>(q, k, v, bias, o, lse_f, B, H, L, s);
+      err = D == kD ? launch<float>(q, k, v, bias, o, lse_f, B, H, L, s)
+                    : launch_d32<float>(q, k, v, bias, o, lse_f, B, H, L, s);
       break;
     case 1:
-      err = launch<__nv_bfloat16>(q, k, v, bias, o, lse_f, B, H, L, s);
+      err = D == kD ? launch<__nv_bfloat16>(q, k, v, bias, o, lse_f, B, H, L, s)
+                    : launch_d32<__nv_bfloat16>(q, k, v, bias, o, lse_f, B, H, L, s);
       break;
     default:
       err = cudaErrorInvalidValue;

@@ -1,3 +1,4 @@
+from ecg_denoise_tpu_torch.metrics.cls import accuracy, f1_score, precision
 from ecg_denoise_tpu_torch.metrics.denoise import (
     PRD,
     RMSE,
@@ -7,4 +8,4 @@ from ecg_denoise_tpu_torch.metrics.denoise import (
 )
 
 __all__ = ["RMSE", "SNR", "snr_improvement", "PRD",
-           "second_order_difference_loss"]
+           "second_order_difference_loss", "accuracy", "precision", "f1_score"]

@@ -8,6 +8,10 @@ main.py:28,63-80). Every denoiser of the JAX package:
     index 4: 'ralenet'      -> RaleNet(variant='full')
     index 5: 'ACDAE'        -> ACDAE
     'newrale' (no index)    -> NewRale, the 12-lead transfer wrapper
+
+The classifiers `ResNetCls` (the beat classifier of the downstream-utility
+benchmark) and `Transformer1d` are exported beside them and, as in the JAX
+package, stay out of `build_model`.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ from ecg_denoise_tpu_torch.models.acdae import ACDAE
 from ecg_denoise_tpu_torch.models.dam import Seq2Seq2
 from ecg_denoise_tpu_torch.models.ralenet import RaleNet
 from ecg_denoise_tpu_torch.models.ralenet_12leads import NewRale
+from ecg_denoise_tpu_torch.models.resnet_cls import Bottleneck1d, ResNetCls
+from ecg_denoise_tpu_torch.models.transformer1d import Transformer1d
 from ecg_denoise_tpu_torch.models.unet import UNet
 
 _BUILDERS = {
@@ -59,5 +65,5 @@ def build_model(name_or_index, *, dtype: torch.dtype = torch.float32,
     return _BUILDERS[name](dtype=dtype).to(device)
 
 
-__all__ = ["UNet", "Seq2Seq2", "RaleNet", "ACDAE", "NewRale", "MODEL_NAMES",
-           "apply", "build_model"]
+__all__ = ["UNet", "Seq2Seq2", "RaleNet", "ACDAE", "NewRale", "ResNetCls",
+           "Bottleneck1d", "Transformer1d", "MODEL_NAMES", "apply", "build_model"]

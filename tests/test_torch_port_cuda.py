@@ -57,8 +57,16 @@ the same call with dbias.
 B1 is also held at shapes that cut across its row tiles and batch groups
 (L = 203, 7, 1; B = 1, 3, 37, 1000), with its lse within 1e-5 of
 max(1, max|lse|) of the plain log-sum-exp and a second call bit-identical.
+
+B1 and B2 at head_dim 32 (Transformer1d's heads) are held to the same
+bars, the f32 gradients to 1e-4 of their max, at Transformer1d's four stage shapes and at shapes that cut across
+their 64-row tiles and 32-key chunks, with and without a bias; with
+ECG_ATTN_DENSE=1 a D = 32 call stays on B1; a small Transformer1d on the
+card equals the CPU's within 1e-4 with one B1 launch a block forward and
+one B2 a block backward.
 """
 
+import copy
 import os
 
 import numpy as np
@@ -105,9 +113,13 @@ def cuda():
     return torch.device("cuda")
 
 
-def _operands(B, H, L, with_bias, dtype, device, seed=0):
+def _operands(B, H, L, with_bias, dtype, device, seed=0, D=4):
+    """q, k, v and the bias; at D = 32 q is scaled by D^-1/2, as the model
+    scales it, so the logits spread as at D = 4."""
     g = torch.Generator().manual_seed(seed)
-    q, k, v = (torch.randn(B, H, L, 4, generator=g) for _ in range(3))
+    q, k, v = (torch.randn(B, H, L, D, generator=g) for _ in range(3))
+    if D != 4:
+        q = q * D ** -0.5
     bias = torch.randn(1, H, L, L, generator=g) if with_bias else None
     return [None if t is None else t.to(device, dtype)
             for t in (q, k, v, bias)]
@@ -916,3 +928,119 @@ def test_probe_fold_readings_are_unchanged(cuda):
     for p, want in PROBE_FOLD_READINGS.items():
         got = (result["fold"][p]["abs_of_max"], result["fold"][p]["med_rel"])
         assert all(abs(g - w) <= 1e-3 * w for g, w in zip(got, want)), (p, got, want)
+
+
+# At D = 32 dq, dk and dv sum 32 products a term: each gradient is held to
+# 1e-4 of its max, in f32, dbias too.
+D32_GRAD_TOL_OF_MAX = 1e-4
+# B1 and B2 at head_dim 32: Transformer1d's four stage shapes (L, H) at a
+# 256-sample input, at B = 8, then shapes that cut across the D = 32
+# kernels' 64-row tiles and 32-key chunks: (B, L, H).
+D32_CASES = ([(8, L, H) for L, H in [(256, 4), (128, 8), (64, 16), (32, 32)]]
+             + [(3, 203, 2), (2, 33, 3), (5, 7, 2), (4, 1, 1), (1, 65, 1)])
+
+
+@pytest.mark.parametrize("B,L,H", D32_CASES)
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_d32_kernel_matches_plain_version_with_lse(cuda, B, L, H, with_bias, dtype):
+    """B1 at D = 32 against its plain version, its lse against the plain
+    log-sum-exp, and a second call bit-identical."""
+    full_float32()
+    q, k, v, bias = _operands(B, H, L, with_bias, dtype, cuda, seed=B + L + H, D=32)
+    before = fused_attention.launches
+    out = fused_attention(q, k, v, bias)
+    again, lse = attention._launch(q, k, v, bias, with_lse=True)
+    torch.cuda.synchronize()
+    assert fused_attention.launches == before + 2
+    ref, ref_lse = attention_reference(q, k, v, bias, return_lse=True)
+    tol = (F32_TOL if dtype == torch.float32
+           else BF16_TOL_OF_MAX_V * v.float().abs().max().item())
+    assert out.dtype == dtype and out.shape == q.shape
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    lse_err = (lse - ref_lse).abs().max().item()
+    assert lse_err <= LSE_TOL * max(1.0, ref_lse.abs().max().item()), lse_err
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("B,L,H", D32_CASES)
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_d32_backward_kernel_matches_plain_versions(cuda, B, L, H, with_bias, dtype):
+    """B2 at D = 32 through the autograd Function against the flash-form
+    plain backward on the forward kernel's own o and lse and, in float32,
+    against autograd through the plain forward; a second call
+    bit-identical."""
+    full_float32()
+    q, k, v, bias = _operands(B, H, L, with_bias, dtype, cuda, seed=B + L + H, D=32)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(3)).to(cuda, dtype)
+    before = fused_attention.bwd_launches
+    out, grads = _grads(q, k, v, bias, g)
+    _, again = _grads(q, k, v, bias, g)
+    _, lse = attention._launch(q, k, v, bias, with_lse=True)
+    torch.cuda.synchronize()
+    assert fused_attention.bwd_launches == before + 2
+    refs = [attention_backward_reference(q, k, v, bias, out.detach(), lse, g)]
+    if dtype == torch.float32:
+        ins = [t.detach().requires_grad_() for t in (q, k, v, bias) if t is not None]
+        out_ref = attention_reference(*ins[:3], ins[3] if bias is not None else None)
+        refs.append(torch.autograd.grad(out_ref, ins, g))
+    for ref in refs:
+        for name, a, b in zip("q k v bias".split(), grads, ref):
+            assert a.dtype == dtype and a.shape == b.shape
+            a, b = a.float(), b.float()
+            # At L = 1 the exact dq, dk and dbias are 0 (see the D = 4 case).
+            scale = (ref[2] if L == 1 and name != "v" else b).float().abs().max().item()
+            tol = (BF16_GRAD_TOL_OF_MAX if dtype == torch.bfloat16
+                   else D32_GRAD_TOL_OF_MAX) * scale
+            err = (a - b).abs().max().item()
+            assert err <= tol, (name, err, tol)
+    for a, b in zip(grads, again):
+        assert torch.equal(a, b)
+
+
+def test_d32_calls_stay_on_b1_on_the_dense_route(cuda, monkeypatch):
+    """B5 takes D = 4 only: with ECG_ATTN_DENSE=1 a no-grad D = 32 call at a
+    stage B5 would pack at D = 4 goes to B1."""
+    monkeypatch.setenv("ECG_ATTN_DENSE", "1")
+    q, k, v, _ = _operands(8, 16, 64, False, torch.float32, cuda, D=32)
+    before = (fused_attention.launches, fused_attention_dense.launches)
+    with torch.no_grad():
+        fused_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert (fused_attention.launches, fused_attention_dense.launches) == (
+        before[0] + 1, before[1])
+
+
+def test_transformer1d_matches_cpu_with_its_launches(cuda):
+    """A small Transformer1d (head_dim 32, one block a stage) on the card
+    against the CPU within 1e-4, eval and one training step's loss, with
+    one B1 launch a block forward and one B2 a block backward."""
+    from ecg_denoise_tpu_torch.models import Transformer1d
+    from ecg_denoise_tpu_torch.train import create_train_state, make_cls_epoch_fns
+
+    torch.manual_seed(0)
+    cpu = Transformer1d(num_class=3, in_channels=4, embed_dim=64, depths=(1, 1),
+                        num_heads=(2, 4)).eval()
+    x = torch.randn(8, 4, 64)
+    label = torch.randint(0, 3, (8,))
+    gpu = create_train_state(copy.deepcopy(cpu)).model.eval()
+    before = fused_attention.launches
+    with torch.no_grad():
+        y = gpu(x.to(cuda))
+    torch.cuda.synchronize()
+    assert fused_attention.launches == before + 2
+    with torch.no_grad():
+        assert (y.cpu() - cpu(x)).abs().max().item() <= 1e-4
+    got = []
+    for model, device in ((gpu, cuda), (cpu, torch.device("cpu"))):
+        state = create_train_state(model, device=device)
+        train_epoch, _ = make_cls_epoch_fns(state.model, state.optimizer)
+        counts = (fused_attention.launches, fused_attention.bwd_launches)
+        gen = torch.Generator(device=device).manual_seed(0)
+        got.append(train_epoch(x.to(device), label.to(device), gen, 8)["loss"])
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            assert (fused_attention.launches - counts[0],
+                    fused_attention.bwd_launches - counts[1]) == (2, 2)
+    assert abs(got[0] - got[1]) <= 1e-5 * abs(got[1])

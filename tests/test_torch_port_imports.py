@@ -62,7 +62,11 @@ def import_results():
 def test_the_package_has_its_modules():
     for name in ("ecg_denoise_tpu_torch.cli.main", "ecg_denoise_tpu_torch.train.loop",
                  "ecg_denoise_tpu_torch.kernels.attention",
-                 "ecg_denoise_tpu_torch.data.dataset", "ecg_denoise_tpu_torch.serving"):
+                 "ecg_denoise_tpu_torch.data.dataset", "ecg_denoise_tpu_torch.serving",
+                 "ecg_denoise_tpu_torch.models.resnet_cls",
+                 "ecg_denoise_tpu_torch.models.transformer1d",
+                 "ecg_denoise_tpu_torch.metrics.cls", "ecg_denoise_tpu_torch.train.cls_steps",
+                 "ecg_denoise_tpu_torch.cli.train_cls", "ecg_denoise_tpu_torch.cli.test_cls"):
         assert name in MODULES
 
 

@@ -1,0 +1,142 @@
+"""The port's Transformer1d and its head_dim-32 attention against the JAX
+package's, on the CPU.
+
+`attention_reference` and `attention_backward_reference` at D = 32 (the
+plain versions of B1 and B2 at Transformer1d's head width) against JAX's
+`fused_attention` with its Pallas kernel pair (`_fwd_kernel`,
+`_bwd_kernel`) run in interpret mode, as tests/test_pallas_attention.py
+runs it, q pre-scaled by D^-1/2 as the model scales it, with and without
+the bias: the forward within 1e-5, the gradients within 1e-4 (the JAX
+package's kernel bars, tests/test_pallas_attention.py:85,125).
+
+`Transformer1d` at embed 32, depths (1, 1), heads (1, 2) (every head 32
+wide, the slice's shape), L = 64, with random variables through
+`transformer1d_state_dict`: the forward within 1e-4 of JAX's with
+`use_pallas=True` (interpret mode) and `False`, every parameter's gradient
+within 1e-4 of its tensor's largest, and an odd L through PatchMerging's
+pad. With ECG_ATTN_DENSE=1 a D = 32 call stays on B1's path, where JAX's
+`_fwd` would pack it.
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+import ecg_denoise_tpu.kernels.attention_pallas as ap
+from ecg_denoise_tpu.models import Transformer1d as JaxTransformer1d
+from ecg_denoise_tpu_torch.interop.jax_weights import transformer1d_state_dict
+from ecg_denoise_tpu_torch.kernels.attention import (
+    attention_backward_reference,
+    attention_reference,
+)
+from ecg_denoise_tpu_torch.kernels.attention_dense import dense_route
+from ecg_denoise_tpu_torch.models import Transformer1d
+from test_torch_port_layers import random_variables
+
+D = 32
+FWD_ATOL = 1e-5
+GRAD_ATOL = 1e-4
+MODEL_ATOL = 1e-4
+GRAD_TOL_OF_MAX = 1e-4
+# The slice's model shape at CPU size: every head 32 wide.
+SMALL = dict(num_class=9, in_channels=32, embed_dim=32, depths=(1, 1), num_heads=(1, 2))
+
+
+@pytest.fixture(autouse=True)
+def _interpret_mode(monkeypatch):
+    monkeypatch.setattr(ap, "_INTERPRET", True)
+
+
+def _operands(B, H, L, with_bias, seed=0):
+    """q (pre-scaled), k, v, bias and the output gradient g, numpy float32."""
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (rng.standard_normal((B, H, L, D)).astype(np.float32) for _ in range(4))
+    bias = rng.standard_normal((1, H, L, L)).astype(np.float32) if with_bias else None
+    return (q * D ** -0.5).astype(np.float32), k, v, bias, g
+
+
+@pytest.mark.parametrize("B,H,L", [(2, 2, 64), (3, 1, 33)])
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_plain_attention_at_d32_matches_pallas_interpret(B, H, L, with_bias):
+    q, k, v, bias, g = _operands(B, H, L, with_bias, seed=L + H)
+    args = tuple(map(jnp.asarray, (q, k, v) + ((bias,) if with_bias else ())))
+    f = ((lambda q, k, v, b: ap.fused_attention(q, k, v, b)) if with_bias
+         else (lambda q, k, v: ap.fused_attention(q, k, v)))
+    ref_out, vjp = jax.vjp(f, *args)
+    ref_grads = vjp(jnp.asarray(g))
+
+    t = [torch.from_numpy(a) for a in (q, k, v)] + (
+        [torch.from_numpy(bias)] if with_bias else [None])
+    out, lse = attention_reference(*t, return_lse=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_out), atol=FWD_ATOL, rtol=0)
+    grads = attention_backward_reference(*t, out, lse, torch.from_numpy(g))
+    ins = [a.clone().requires_grad_() for a in t if a is not None]
+    autograd = torch.autograd.grad(
+        attention_reference(*ins[:3], ins[3] if with_bias else None), ins,
+        torch.from_numpy(g))
+    for name, ref, flash, auto in zip("q k v bias".split(), ref_grads, grads, autograd):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(flash.numpy(), ref, atol=GRAD_ATOL, rtol=0, err_msg=name)
+        np.testing.assert_allclose(auto.numpy(), ref, atol=GRAD_ATOL, rtol=0, err_msg=name)
+
+
+def _pair(use_pallas, seed=0, length=64):
+    """JAX Transformer1d (SMALL), random variables, and the port's with them."""
+    jm = JaxTransformer1d(**SMALL, use_pallas=use_pallas)
+    v = random_variables(jm, jnp.zeros((2, SMALL["in_channels"], length)), seed=seed)
+    pm = Transformer1d(**SMALL)
+    pm.load_state_dict(transformer1d_state_dict(v))
+    return jm, v, pm
+
+
+def _x(B, L, seed=1):
+    return np.random.default_rng(seed).standard_normal(
+        (B, SMALL["in_channels"], L)).astype(np.float32)
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_transformer1d_forward_and_gradients_match_jax(use_pallas):
+    jm, v, pm = _pair(use_pallas)
+    x = _x(2, 64)
+    w = np.random.default_rng(2).standard_normal((2, SMALL["num_class"])).astype(np.float32)
+
+    def loss(params):
+        y = jm.apply({"params": params}, jnp.asarray(x))
+        return jnp.sum(y * w), y
+
+    (_, ref), ref_grads = jax.value_and_grad(loss, has_aux=True)(v["params"])
+    y = pm(torch.from_numpy(x))
+    assert y.shape == (2, SMALL["num_class"]) and y.dtype == torch.float32
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(ref), atol=MODEL_ATOL, rtol=0)
+    (y * torch.from_numpy(w)).sum().backward()
+    ref_grads = transformer1d_state_dict({"params": ref_grads})
+    params = dict(pm.named_parameters())
+    assert params.keys() == ref_grads.keys()
+    for name, p in params.items():
+        bar = GRAD_TOL_OF_MAX * ref_grads[name].abs().max().item()
+        err = (p.grad - ref_grads[name]).abs().max().item()
+        assert err <= bar, (name, err, bar)
+
+
+def test_odd_length_goes_through_patch_merging_pad():
+    """L = 63: the first PatchMerging pads one zero row, as JAX's does."""
+    jm, v, pm = _pair(False, seed=3, length=63)
+    x = _x(3, 63, seed=4)
+    ref = np.asarray(jax.jit(lambda v, x: jm.apply(v, x))(v, x))
+    with torch.no_grad():
+        y = pm(torch.from_numpy(x))
+    np.testing.assert_allclose(y.numpy(), ref, atol=MODEL_ATOL, rtol=0)
+
+
+def test_dense_route_leaves_d32_calls_to_b1(monkeypatch):
+    """With ECG_ATTN_DENSE=1, B5 takes the D = 4 call of a packable stage
+    and not the D = 32 call of the same stage, which JAX's `_fwd` packs."""
+    monkeypatch.setenv("ECG_ATTN_DENSE", "1")
+    B, H, L = 8, 16, 64  # Transformer1d's third stage
+    assert ap._dense_wanted() and ap._pack_factor(B, H, L) > 1
+    assert dense_route((B, H, L, 4))
+    assert not dense_route((B, H, L, D))
+    monkeypatch.setenv("ECG_ATTN_DENSE", "0")
+    assert not dense_route((B, H, L, 4))
