@@ -25,13 +25,14 @@ and nothing falls back to the CPU):
    attention_reference's (LSE_TOL) and a second call bit-identical; and,
    where the parent's tree is there, every case's output equal to the
    parent's B1 bit for bit (the D = 4 kernel is unchanged beside D = 32).
-2b. B1 at head_dim 32 (Transformer1d's heads) against its plain version,
-   at Transformer1d's four stage shapes (L, H) = (256, 4), (128, 8),
-   (64, 16), (32, 32) at B = 64 and a ragged (B, L) = (3, 203), with and
-   without bias, f32 and bf16, q scaled by 32^-1/2 as the model scales it,
-   at phase 2's bars, with the lse and a second call bit-identical; then
-   the first stage with q unscaled (logits up to about 35) at
-   LARGE_LOGIT_TOL.
+2b. Within phase 2's loop, B1 at head_dim 32 (Transformer1d's heads)
+   against its plain version, at Transformer1d's four stage shapes
+   (L, H) = (256, 4), (128, 8), (64, 16), (32, 32) at B = 256 (the served
+   batch of phase 24) and B = 64 (its training batch) and a ragged
+   (B, L) = (3, 203), with and without bias, f32 and bf16, q scaled by
+   32^-1/2 as the model scales it, at phase 2's bars, with the lse and a
+   second call bit-identical; then the first stage at B = 64 with q
+   unscaled (logits up to about 35) at LARGE_LOGIT_TOL.
 3. Model: RA-LENet 'full' at full width and depth, seeded weights with
    random nonzero rel-pos tables and BN stats; the card's forward against
    the same model on the CPU (float32, 1e-4) and 18 kernel launches per
@@ -59,7 +60,8 @@ and nothing falls back to the CPU):
    bf16); two calls give bit-identical gradients; and, where the parent's
    tree is there, dq, dk, dv and the float32 dbias equal the parent's B2
    bit for bit on the same o, lse and g.
-6b. B2 at head_dim 32 at phase 2b's cases through the autograd Function,
+6b. Within phase 6's loop, B2 at head_dim 32 at phase 2b's B = 64 and
+   ragged cases through the autograd Function,
    against the plain flash backward on B1's own o and lse and, in f32,
    autograd through the plain forward: each gradient within 1e-4 of its
    max (f32; bf16 2^-7 of it), dbias too; a second call bit-identical.
@@ -424,8 +426,9 @@ RAGGED_RPOS = [(1, 256, 32, 2), (17, 128, 16, 4), (37, 64, 8, 8), (1000, 32, 4, 
                (37, 203, 25, 2), (1000, 7, 3, 3), (17, 1, 1, 2)]
 # B1 and B2 at head_dim 32 (phases 2b, 6b, 24): Transformer1d's (L, H) at a
 # 256-sample input, the calls of one forward by stage (its depths, 2, 2, 6,
-# 2), the batch of phases 2b and 6b, and a ragged batch and length that cut
-# across the D = 32 kernels' 64-row tiles and 32-key chunks.
+# 2), the training batch (phases 2b and 6b; phase 2b also runs the stages
+# at T1D_SERVE_BATCH, the served batch), and a ragged batch and length that
+# cut across the D = 32 kernels' 64-row tiles and 32-key chunks.
 D32_STAGES = [(256, 4), (128, 8), (64, 16), (32, 32)]
 D32_CALLS = dict(zip(D32_STAGES, (2, 2, 6, 2)))
 D32_BATCH = 64
@@ -886,14 +889,18 @@ def phase_kernel_vs_plain():
     saved = tf32_flags()
     full_float32()
     gen = torch.Generator().manual_seed(0)
-    max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    cases = [(BATCH, L, H, b, dt) for (L, H) in STAGES
+    max_err = {4: 0.0, 32: 0.0}
+    cases = [(BATCH, L, H, b, dt, 4, 1.0) for (L, H) in STAGES
              for b in (True, False) for dt in (torch.float32, torch.bfloat16)]
-    cases += [(3, L, H, True, torch.float32) for (L, H) in STAGES]
-    cases += [(B, L, H, b, dt) for (B, L, H) in RAGGED
+    cases += [(3, L, H, True, torch.float32, 4, 1.0) for (L, H) in STAGES]
+    cases += [(B, L, H, b, dt, 4, 1.0) for (B, L, H) in RAGGED
               for b in (True, False) for dt in (torch.float32, torch.bfloat16)]
-    for B, L, H, with_bias, dtype in cases:
-        q, k, v, bias = operands(B, H, L, with_bias, dtype, gen)
+    # Phase 2b: head_dim 32 at Transformer1d's served batch, then d32_cases.
+    cases += [(T1D_SERVE_BATCH, L, H, b, dt, 32, D32_Q_SCALE) for (L, H) in D32_STAGES
+              for b in (True, False) for dt in (torch.float32, torch.bfloat16)]
+    cases += d32_cases()
+    for B, L, H, with_bias, dtype, D, q_scale in cases:
+        q, k, v, bias = operands(B, H, L, with_bias, dtype, gen, D=D, q_scale=q_scale)
         out = fused_attention(q, k, v, bias)
         again, lse = attention._launch(q, k, v, bias, with_lse=True)
         torch.cuda.synchronize()
@@ -902,23 +909,28 @@ def phase_kernel_vs_plain():
         lse_err = (lse - ref_lse).abs().max().item()
         lse_tol = LSE_TOL * max(1.0, ref_lse.abs().max().item())
         same = torch.equal(out, again)
-        tol = (F32_TOL if dtype == torch.float32
-               else BF16_TOL_OF_MAX_V * v.float().abs().max().item())
+        wide = D == 32 and q_scale == 1.0  # unscaled q: logits up to about 35
+        tol = (BF16_TOL_OF_MAX_V * v.float().abs().max().item() if dtype == torch.bfloat16
+               else LARGE_LOGIT_TOL if wide else F32_TOL)
         parent = ""
-        if parent_libs():
+        if D == 4 and parent_libs():
             # The D = 4 kernel is unchanged beside the D = 32 one.
             as_parent = torch.equal(out, parent_b1(q, k, v, bias))
             parent = f"; bit-identical to the parent's B1: {as_parent}"
             check(as_parent, "B1 at D = 4 is not the parent's B1 bit for bit")
-        log(f"[2] B={B} L={L} H={H} bias={with_bias} {str(dtype)[6:]}: "
-            f"max_abs_err={err:.3e} (tol {tol:.3e}), lse {lse_err:.3e} (tol "
+        shape = (f"[2] B={B}" if D == 4 else
+                 f"[2b] D=32 B={B}") + f" L={L} H={H} bias={with_bias} {str(dtype)[6:]}"
+        if D == 32:
+            shape += f" q {'unscaled' if wide else 'scaled'}"
+        log(f"{shape}: max_abs_err={err:.3e} (tol {tol:.3e}), lse {lse_err:.3e} (tol "
             f"{lse_tol:.3e}); a second call, with lse, bit-identical: {same}{parent}")
         check(out.shape == q.shape and out.dtype == dtype, "kernel output shape or dtype")
-        check(err <= tol, "kernel disagrees with its plain version")
+        check(err <= tol, f"B1 at D = {D} disagrees with its plain version")
         check(lse.shape == q.shape[:3] and lse_err <= lse_tol,
-              "the kernel's lse disagrees with the plain version's")
+              f"B1's lse at D = {D} disagrees with the plain version's")
         check(same, "two forward calls differ")
-        max_err[dtype] = max(max_err[dtype], err)
+        if dtype == torch.float32 and not wide:
+            max_err[D] = max(max_err[D], err)
     if not parent_libs():
         log("[2] the parent's B1 not compared (no tree under _archive/parent)")
     # Trained logits reach 191.5 at the L=16 stage: without the row max,
@@ -934,7 +946,7 @@ def phase_kernel_vs_plain():
     check(peak > 180 and bool(torch.isfinite(out).all()) and err <= LARGE_LOGIT_TOL,
           "kernel fails at large logits")
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
-    return max_err[torch.float32]
+    return max_err
 
 
 def seeded_model(seed, name="ralenet"):
@@ -1176,20 +1188,24 @@ def phase_backward_vs_plain():
     saved = tf32_flags()
     full_float32()
     gen = torch.Generator().manual_seed(5)
-    max_err = 0.0
-    cases = [(TIMING_BATCH, L, H, b, dt, 0.0) for (L, H) in STAGES
+    max_err = {4: 0.0, 32: 0.0}
+    cases = [(TIMING_BATCH, L, H, b, dt, 0.0, 4, 1.0) for (L, H) in STAGES
              for b in (True, False) for dt in (torch.float32, torch.bfloat16)]
-    cases += [(3, L, H, True, torch.float32, 0.0) for (L, H) in STAGES]
-    cases += [(B, L, H, b, dt, 0.0) for (B, L, H) in RAGGED
+    cases += [(3, L, H, True, torch.float32, 0.0, 4, 1.0) for (L, H) in STAGES]
+    cases += [(B, L, H, b, dt, 0.0, 4, 1.0) for (B, L, H) in RAGGED
               for b in (True, False) for dt in (torch.float32, torch.bfloat16)]
     # Trained logits reach 191.5 at the L=16 stage: every stage shape with
     # its logits shifted by +190 through the bias.
-    cases += [(TIMING_BATCH, L, H, True, dt, 190.0) for (L, H) in STAGES
+    cases += [(TIMING_BATCH, L, H, True, dt, 190.0, 4, 1.0) for (L, H) in STAGES
               for dt in (torch.float32, torch.bfloat16)]
-    for B, L, H, with_bias, dtype, shift in cases:
-        q, k, v, bias = operands(B, H, L, with_bias, dtype, gen)
+    # Phase 6b: head_dim 32 at the training batch.
+    cases += [(B, L, H, b, dt, 0.0, 32, q_scale)
+              for B, L, H, b, dt, _, q_scale in d32_cases()]
+    for B, L, H, with_bias, dtype, shift, D, q_scale in cases:
+        q, k, v, bias = operands(B, H, L, with_bias, dtype, gen, D=D, q_scale=q_scale)
         if shift:
             bias = bias + shift
+        wide = D == 32 and q_scale == 1.0
         g = torch.randn(q.shape, generator=gen).to("cuda", dtype)
         out, grads = kernel_grads(q, k, v, bias, g)
         _, lse = attention._launch(q, k, v, bias, with_lse=True)
@@ -1217,17 +1233,19 @@ def phase_backward_vs_plain():
                     tol = BF16_GRAD_TOL_OF_MAX * scale
                 elif shift:
                     tol = LARGE_LOGIT_GRAD_TOL_OF_MAX * scale
+                elif D == 32:
+                    tol = D32_GRAD_TOL_OF_MAX * scale
                 else:
                     tol = DBIAS_TOL_OF_MAX * scale if name == "dbias" else GRAD_TOL
                 errs.append(f"{name} vs {ref_name} {err:.2e}/{tol:.2e}")
-                check(err <= tol, f"backward kernel {name} disagrees with the "
+                check(err <= tol, f"B2 at D = {D}: {name} disagrees with the "
                                   f"plain {ref_name} backward")
-                if dtype == torch.float32 and ref_name == "flash" and not shift:
-                    max_err = max(max_err, err)
+                if dtype == torch.float32 and ref_name == "flash" and not (shift or wide):
+                    max_err[D] = max(max_err[D], err)
         _, again = kernel_grads(q, k, v, bias, g)
         same = all(torch.equal(a, b) for a, b in zip(grads, again))
         parent = ""
-        if parent_libs():
+        if D == 4 and parent_libs():
             # The raw kernels' outputs, dbias in float32 before any cast.
             args = (q, k, v, bias, out, lse, g, with_bias)
             new, old = b2_call(attention._bwd_library(), *args), parent_b2(*args)
@@ -1235,8 +1253,11 @@ def phase_backward_vs_plain():
                      if a is not None and torch.equal(a, b)]
             parent = f"; bit-identical to the parent's B2: {', '.join(equal) or 'none'}"
             check(len(equal) == 3 + with_bias, "B2 is not the parent's B2 bit for bit")
-        log(f"[6] B={B} L={L} H={H} bias={with_bias} {str(dtype)[6:]}"
-            f"{f' logits+{shift:.0f}' if shift else ''}: " + ", ".join(errs)
+        shape = (f"[6] B={B}" if D == 4 else
+                 f"[6b] D=32 B={B}") + f" L={L} H={H} bias={with_bias} {str(dtype)[6:]}"
+        if D == 32:
+            shape += f" q {'unscaled' if wide else 'scaled'}"
+        log(f"{shape}{f' logits+{shift:.0f}' if shift else ''}: " + ", ".join(errs)
             + f"; a second call bit-identical: {same}{parent}")
         check(same, "two backward calls differ")
     if not parent_libs():
@@ -3373,92 +3394,13 @@ def phase_baseline(card, paths):
 
 
 def d32_cases():
-    """Phases 2b and 6b: (B, L, H, with bias, dtype, q scale) at
-    Transformer1d's stage shapes and the ragged ones, then its first stage
-    with q unscaled (wide logits), f32."""
-    return [(B, L, H, b, dt, D32_Q_SCALE) for B, L, H in
+    """Phases 2b and 6b: (B, L, H, with bias, dtype, D, q scale) at
+    Transformer1d's stage shapes at the training batch and the ragged
+    ones, then its first stage with q unscaled (wide logits), f32."""
+    return [(B, L, H, b, dt, 32, D32_Q_SCALE) for B, L, H in
             [(D32_BATCH, L, H) for L, H in D32_STAGES] + D32_RAGGED
             for b in (True, False) for dt in (torch.float32, torch.bfloat16)] + [
-        (D32_BATCH, *D32_STAGES[0], b, torch.float32, 1.0) for b in (True, False)]
-
-
-def phase_d32_kernel_vs_plain():
-    """Phase 2b: B1 at head_dim 32 against its plain version, with its lse,
-    and a second call bit-identical; the bars of phase 2."""
-    from ecg_denoise_tpu_torch import full_float32
-    from ecg_denoise_tpu_torch.kernels import attention
-
-    saved = tf32_flags()
-    full_float32()
-    gen = torch.Generator().manual_seed(14)
-    max_err = 0.0
-    for B, L, H, with_bias, dtype, q_scale in d32_cases():
-        q, k, v, bias = operands(B, H, L, with_bias, dtype, gen, D=32, q_scale=q_scale)
-        out = attention.fused_attention(q, k, v, bias)
-        again, lse = attention._launch(q, k, v, bias, with_lse=True)
-        torch.cuda.synchronize()
-        ref, ref_lse = attention.attention_reference(q, k, v, bias, return_lse=True)
-        err = (out.float() - ref.float()).abs().max().item()
-        lse_err = (lse - ref_lse).abs().max().item()
-        lse_tol = LSE_TOL * max(1.0, ref_lse.abs().max().item())
-        tol = (BF16_TOL_OF_MAX_V * v.float().abs().max().item() if dtype == torch.bfloat16
-               else F32_TOL if q_scale != 1.0 else LARGE_LOGIT_TOL)
-        same = torch.equal(out, again)
-        log(f"[2b] D=32 B={B} L={L} H={H} bias={with_bias} {str(dtype)[6:]} q "
-            f"{'scaled' if q_scale != 1.0 else 'unscaled'}: "
-            f"max_abs_err={err:.3e} (tol {tol:.3e}), lse {lse_err:.3e} (tol {lse_tol:.3e}); "
-            f"a second call, with lse, bit-identical: {same}")
-        check(out.shape == q.shape and out.dtype == dtype, "D = 32 output shape or dtype")
-        check(err <= tol, "B1 at D = 32 disagrees with its plain version")
-        check(lse_err <= lse_tol, "B1's lse at D = 32 disagrees with the plain version's")
-        check(same, "two D = 32 forward calls differ")
-        if dtype == torch.float32 and q_scale != 1.0:
-            max_err = max(max_err, err)
-    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
-    return max_err
-
-
-def phase_d32_backward_vs_plain():
-    """Phase 6b: B2 at head_dim 32 through the autograd Function against
-    the plain flash backward on the forward kernel's own o and lse and, in
-    f32, against autograd through the plain forward (1e-4 of each
-    gradient's max; bf16 2^-7 of it); a second call bit-identical."""
-    from ecg_denoise_tpu_torch import full_float32
-    from ecg_denoise_tpu_torch.kernels import attention
-
-    saved = tf32_flags()
-    full_float32()
-    gen = torch.Generator().manual_seed(15)
-    max_err = 0.0
-    for B, L, H, with_bias, dtype, q_scale in d32_cases():
-        q, k, v, bias = operands(B, H, L, with_bias, dtype, gen, D=32, q_scale=q_scale)
-        g = torch.randn(q.shape, generator=gen).to("cuda", dtype)
-        out, grads = kernel_grads(q, k, v, bias, g)
-        _, again = kernel_grads(q, k, v, bias, g)
-        _, lse = attention._launch(q, k, v, bias, with_lse=True)
-        refs = {"flash": attention.attention_backward_reference(q, k, v, bias, out, lse, g)}
-        if dtype == torch.float32:
-            refs["autograd"] = plain_autograd_grads(q, k, v, bias, g)
-        torch.cuda.synchronize()
-        check([t.dtype for t in grads] == [dtype] * len(grads), "D = 32 gradient dtype")
-        errs = []
-        for ref_name, ref in refs.items():
-            for name, a, b in zip(("dq", "dk", "dv", "dbias"), grads, ref):
-                scale = b.float().abs().max().item()
-                err = (a.float() - b.float()).abs().max().item()
-                tol = (BF16_GRAD_TOL_OF_MAX if dtype == torch.bfloat16
-                       else D32_GRAD_TOL_OF_MAX) * scale
-                errs.append(f"{name} vs {ref_name} {err:.2e}/{tol:.2e}")
-                check(err <= tol, f"B2 at D = 32: {name} disagrees with the plain {ref_name}")
-                if dtype == torch.float32 and ref_name == "flash" and q_scale != 1.0:
-                    max_err = max(max_err, err)
-        same = all(torch.equal(a, b) for a, b in zip(grads, again))
-        log(f"[6b] D=32 B={B} L={L} H={H} bias={with_bias} {str(dtype)[6:]} q "
-            f"{'scaled' if q_scale != 1.0 else 'unscaled'}: "
-            + ", ".join(errs) + f"; a second call bit-identical: {same}")
-        check(same, "two D = 32 backward calls differ")
-    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
-    return max_err
+        (D32_BATCH, *D32_STAGES[0], b, torch.float32, 32, 1.0) for b in (True, False)]
 
 
 def run_module_lines(module, argv, tag):
@@ -3743,7 +3685,6 @@ def main():
     name = phase_device_and_build()
     card = smi_name_power()
     max_err = phase_kernel_vs_plain()
-    d32_err = phase_d32_kernel_vs_plain()
     cpu_model = seeded_model(0)
     gpu_model = phase_family_model("ralenet", cpu_model, "3", expected_launches(fwd=18))
     # 4 forwards (buckets 1, 64, 1024 and the record's 39 windows in 64).
@@ -3752,7 +3693,6 @@ def main():
                                          "torch+attn-cuda:cuda")}
     totals, bound_by = phase_times(gpu_model, cpu_model, card)
     bwd_err = phase_backward_vs_plain()
-    d32_bwd_err = phase_d32_backward_vs_plain()
     phase_train_step(cpu_model)
     # Phase 7b's RA-LENet checkpoint is kept as phase 20's pretrained core.
     work = tempfile.TemporaryDirectory()
@@ -3841,12 +3781,12 @@ def main():
             e["against"] = t["settled"]
         precision.append(e)
 
-    b1 = entry("attention_fwd", 253, max_err, totals, bound_by,
+    b1 = entry("attention_fwd", 253, max_err[4], totals, bound_by,
                f"one forward's 18 calls, float32, B={BATCH}, CUDA graph replays; "
                "plain and library issued from Python")
     b1["eager_ms"] = totals["eager_ms"]
     b1["parent_ms_same_calls"] = totals["parent_ms"]
-    b2 = entry("attention_bwd", 333, bwd_err, bwd_totals, bwd_bound_by,
+    b2 = entry("attention_bwd", 333, bwd_err[4], bwd_totals, bwd_bound_by,
                f"one training step's 18 calls, float32, B={TIMING_BATCH}, the kernels "
                "from CUDA graph replays in turns with the parent's where its tree is "
                "there; eager_ms the wrapper issued from Python; plain and library "
@@ -3856,9 +3796,9 @@ def main():
     b2["passes_ms"] = bwd_totals["passes_ms"]
     for e, what, err, t in (
             (b1, f"one Transformer1d forward's 12 calls, float32, B={T1D_SERVE_BATCH}",
-             d32_err, d32_times["fwd"]),
+             max_err[32], d32_times["fwd"]),
             (b2, f"one Transformer1d step's 12 calls, float32, B={T1D_TRAIN_BATCH}",
-             d32_bwd_err, d32_times["bwd"])):
+             bwd_err[32], d32_times["bwd"])):
         e["d32"] = {"head_dim": 32, "max_abs_err": err, **t,
                     "times_are": f"{what}, no bias, the kernel from CUDA graph replays; plain "
                                  "and library (scaled_dot_product_attention, no mask) issued "

@@ -156,19 +156,27 @@ def test_ragged_batch_and_large_logits(cuda):
 # (16 elements) and the elements side by side in a warp at L < 32: (B, L, H).
 RAGGED_B1 = [(1, 256, 2), (37, 128, 4), (1000, 64, 8), (3, 203, 2), (37, 203, 1),
              (1000, 7, 3), (1, 7, 2), (3, 1, 2), (1000, 1, 5)]
+# B1 and B2 at head_dim 32: Transformer1d's four stage shapes (L, H) at a
+# 256-sample input, at B = 8, then shapes that cut across the D = 32
+# kernels' 64-row tiles and 32-key chunks: (B, L, H).
+D32_CASES = ([(8, L, H) for L, H in [(256, 4), (128, 8), (64, 16), (32, 32)]]
+             + [(3, 203, 2), (2, 33, 3), (5, 7, 2), (4, 1, 1), (1, 65, 1)])
 # lse against attention_reference's logsumexp of the same f32 logits: the
 # kernel's row sum uses __expf and another order (1e-6 relative), |lse|
 # stays below about 20.
 LSE_TOL = 1e-5
 
 
-@pytest.mark.parametrize("B,L,H", RAGGED_B1)
+@pytest.mark.parametrize("D,B,L,H", [(4, *c) for c in RAGGED_B1] + [(32, *c) for c in D32_CASES])
 @pytest.mark.parametrize("with_bias", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernel_at_ragged_shapes_with_lse(cuda, B, L, H, with_bias, dtype):
+def test_kernel_at_ragged_shapes_with_lse(cuda, D, B, L, H, with_bias, dtype):
     """B1 (bf16 operands with a bf16 bias) against its plain version, its
-    lse against the plain log-sum-exp, and a second call bit-identical."""
-    q, k, v, bias = _operands(B, H, L, with_bias, dtype, cuda, seed=B + L + H)
+    lse against the plain log-sum-exp, and a second call bit-identical; at
+    head_dim 4 at ragged shapes, at head_dim 32 at Transformer1d's stage
+    shapes too."""
+    full_float32()
+    q, k, v, bias = _operands(B, H, L, with_bias, dtype, cuda, seed=B + L + H, D=D)
     before = fused_attention.launches
     out = fused_attention(q, k, v, bias)
     again, lse = attention._launch(q, k, v, bias, with_lse=True)
@@ -193,15 +201,23 @@ def _grads(q, k, v, bias, g):
     return out, torch.autograd.grad(out, ins, g)
 
 
-@pytest.mark.parametrize("L,H", STAGES)
+# At D = 32 dq, dk and dv sum 32 products a term: each gradient is held to
+# 1e-4 of its max, in f32, dbias too.
+D32_GRAD_TOL_OF_MAX = 1e-4
+
+
+@pytest.mark.parametrize("D,B,L,H", [(4, 8, L, H) for L, H in STAGES]
+                         + [(32, *c) for c in D32_CASES])
 @pytest.mark.parametrize("with_bias", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_backward_kernel_matches_plain_versions(cuda, L, H, with_bias, dtype):
+def test_backward_kernel_matches_plain_versions(cuda, D, B, L, H, with_bias, dtype):
     """The autograd Function (forward kernel with its lse, backward kernel)
     against the flash-form plain backward on the kernel's own o and lse,
-    and, in float32, against autograd through the plain forward."""
+    and, in float32, against autograd through the plain forward; at head_dim
+    4 at RA-LENet's stage shapes, at head_dim 32 at Transformer1d's and at
+    ragged ones."""
     full_float32()
-    q, k, v, bias = _operands(8, H, L, with_bias, dtype, cuda)
+    q, k, v, bias = _operands(B, H, L, with_bias, dtype, cuda, D=D)
     g = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)).to(cuda, dtype)
     before = (fused_attention.launches, fused_attention.bwd_launches)
     out, grads = _grads(q, k, v, bias, g)
@@ -218,9 +234,13 @@ def test_backward_kernel_matches_plain_versions(cuda, L, H, with_bias, dtype):
         refs.append(torch.autograd.grad(out_ref, ins, g))
     for ref in refs:
         for name, a, b in zip("q k v bias".split(), grads, ref):
+            assert a.shape == b.shape
             a, b = a.float(), b.float()
-            scale = b.abs().max().item()
+            # At L = 1 the exact dq, dk and dbias are 0: their bars are
+            # taken of max|dv| (see test_backward_kernel_at_ragged_shapes).
+            scale = (ref[2] if L == 1 and name != "v" else b).float().abs().max().item()
             tol = (BF16_GRAD_TOL_OF_MAX * scale if dtype == torch.bfloat16
+                   else D32_GRAD_TOL_OF_MAX * scale if D == 32
                    else DBIAS_TOL_OF_MAX * scale if name == "bias" else GRAD_TOL)
             err = (a - b).abs().max().item()
             assert err <= tol, (name, err, tol)
@@ -928,75 +948,6 @@ def test_probe_fold_readings_are_unchanged(cuda):
     for p, want in PROBE_FOLD_READINGS.items():
         got = (result["fold"][p]["abs_of_max"], result["fold"][p]["med_rel"])
         assert all(abs(g - w) <= 1e-3 * w for g, w in zip(got, want)), (p, got, want)
-
-
-# At D = 32 dq, dk and dv sum 32 products a term: each gradient is held to
-# 1e-4 of its max, in f32, dbias too.
-D32_GRAD_TOL_OF_MAX = 1e-4
-# B1 and B2 at head_dim 32: Transformer1d's four stage shapes (L, H) at a
-# 256-sample input, at B = 8, then shapes that cut across the D = 32
-# kernels' 64-row tiles and 32-key chunks: (B, L, H).
-D32_CASES = ([(8, L, H) for L, H in [(256, 4), (128, 8), (64, 16), (32, 32)]]
-             + [(3, 203, 2), (2, 33, 3), (5, 7, 2), (4, 1, 1), (1, 65, 1)])
-
-
-@pytest.mark.parametrize("B,L,H", D32_CASES)
-@pytest.mark.parametrize("with_bias", [True, False])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_d32_kernel_matches_plain_version_with_lse(cuda, B, L, H, with_bias, dtype):
-    """B1 at D = 32 against its plain version, its lse against the plain
-    log-sum-exp, and a second call bit-identical."""
-    full_float32()
-    q, k, v, bias = _operands(B, H, L, with_bias, dtype, cuda, seed=B + L + H, D=32)
-    before = fused_attention.launches
-    out = fused_attention(q, k, v, bias)
-    again, lse = attention._launch(q, k, v, bias, with_lse=True)
-    torch.cuda.synchronize()
-    assert fused_attention.launches == before + 2
-    ref, ref_lse = attention_reference(q, k, v, bias, return_lse=True)
-    tol = (F32_TOL if dtype == torch.float32
-           else BF16_TOL_OF_MAX_V * v.float().abs().max().item())
-    assert out.dtype == dtype and out.shape == q.shape
-    assert (out.float() - ref.float()).abs().max().item() <= tol
-    lse_err = (lse - ref_lse).abs().max().item()
-    assert lse_err <= LSE_TOL * max(1.0, ref_lse.abs().max().item()), lse_err
-    assert torch.equal(out, again)
-
-
-@pytest.mark.parametrize("B,L,H", D32_CASES)
-@pytest.mark.parametrize("with_bias", [True, False])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_d32_backward_kernel_matches_plain_versions(cuda, B, L, H, with_bias, dtype):
-    """B2 at D = 32 through the autograd Function against the flash-form
-    plain backward on the forward kernel's own o and lse and, in float32,
-    against autograd through the plain forward; a second call
-    bit-identical."""
-    full_float32()
-    q, k, v, bias = _operands(B, H, L, with_bias, dtype, cuda, seed=B + L + H, D=32)
-    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(3)).to(cuda, dtype)
-    before = fused_attention.bwd_launches
-    out, grads = _grads(q, k, v, bias, g)
-    _, again = _grads(q, k, v, bias, g)
-    _, lse = attention._launch(q, k, v, bias, with_lse=True)
-    torch.cuda.synchronize()
-    assert fused_attention.bwd_launches == before + 2
-    refs = [attention_backward_reference(q, k, v, bias, out.detach(), lse, g)]
-    if dtype == torch.float32:
-        ins = [t.detach().requires_grad_() for t in (q, k, v, bias) if t is not None]
-        out_ref = attention_reference(*ins[:3], ins[3] if bias is not None else None)
-        refs.append(torch.autograd.grad(out_ref, ins, g))
-    for ref in refs:
-        for name, a, b in zip("q k v bias".split(), grads, ref):
-            assert a.dtype == dtype and a.shape == b.shape
-            a, b = a.float(), b.float()
-            # At L = 1 the exact dq, dk and dbias are 0 (see the D = 4 case).
-            scale = (ref[2] if L == 1 and name != "v" else b).float().abs().max().item()
-            tol = (BF16_GRAD_TOL_OF_MAX if dtype == torch.bfloat16
-                   else D32_GRAD_TOL_OF_MAX) * scale
-            err = (a - b).abs().max().item()
-            assert err <= tol, (name, err, tol)
-    for a, b in zip(grads, again):
-        assert torch.equal(a, b)
 
 
 def test_d32_calls_stay_on_b1_on_the_dense_route(cuda, monkeypatch):
