@@ -257,14 +257,45 @@ and nothing falls back to the CPU):
    breakdown; per stage shape B1 (B = 256) and B2 (B = 64) from CUDA graph
    replays beside their bounds, plain versions and
    scaled_dot_product_attention (no mask).
+25. B5 at head_dim 32 (attention_dense_fwd.cu's second kernel): its
+   registers and spills by instantiation (cuobjdump; a spill fails the
+   run) and its shared memory a block; against its plain version and B1 at
+   D = 32 without lse at Transformer1d's packable stages (L, H) = (64, 16)
+   and (32, 32), B = 256 and 37, with and without bias, f32 (1e-5) and bf16
+   (3 * 2^-8 of max|v|), q scaled by 32^-1/2, a second call
+   bit-identical, and equal to B1 without lse bit for bit; Transformer1d at its
+   defaults served at 256 with ECG_ATTN_DENSE=1 (serve_transformer1d_dense:
+   4 B1 and 8 B5), its first 8 windows within 1e-4 of the CPU; the 8 dense
+   calls' times, B5 in turns with B1 from CUDA graph replays, beside the
+   bound, the plain version and SDPA; served windows/s dense and default,
+   in turns.
+26. B1 and B2 at head_dim 32 past 256 keys, (B, L, H) = (4, 1000, 4) and
+   (4, 500, 8), with and without bias, f32 and bf16, at the bars of phases
+   2b and 6b (the lse too; B2 against the plain flash backward and, in f32,
+   autograd through the plain forward); Transformer1d at its defaults on
+   1,000-sample inputs (stages at L = 1000, 500, 250, 125): the forward at
+   4 within 1e-4 of the CPU with 12 B1, one step at 2 against the CPU's at
+   `step_bars` (train_transformer1d_long: 12 + 12), served at 32
+   (serve_transformer1d_long: 12 B1), windows/s f32 and bf16; per stage B1
+   and B2 at B = 32 from CUDA graph replays beside their bounds, plain
+   versions and SDPA.
+27. A JAX checkpoint: the UNet TrainState the JAX package wrote
+   (tests/data/jax_ckpt) served by `Denoiser.from_checkpoint` on the card
+   within 1e-4 of JAX's committed output, by `cli.serve --model unet
+   --ckpt` (serve_jax_ckpt: one POST equal to its Denoiser, no launch),
+   and resumed by `load_checkpoint` (Adam at step 1) for one finite step
+   on the card (train_jax_ckpt, no launch).
 
 The last lines are one JSON object listing the ten kernels (with their
-launches on each of the eighteen paths: serve, train, serve_rpos,
+launches on each of the twenty-three paths: serve, train, serve_rpos,
 train_rpos, serve_dense, probes, probes_precision, serve_families,
 train_families, train_newrale, serve_newrale, train_augmented,
 build_train, baseline_dwt, train_cls, test_cls, serve_transformer1d,
-train_transformer1d; B1's and B2's entries also hold their head_dim 32
-case under "d32", B2's its frozen-bias case),
+train_transformer1d, serve_transformer1d_dense, train_transformer1d_long,
+serve_transformer1d_long, serve_jax_ckpt, train_jax_ckpt; B1's and B2's
+entries also hold their head_dim 32 case under "d32" and its 1,000-sample
+case under "d32_long", B5's its head_dim 32 case under "d32", B2's its
+frozen-bias case),
 the card's name and power limit, and `{"ok": true, "device": {...}}`.
 Without a card, or outside a checkout of the repository, it exits nonzero
 and prints no result.
@@ -452,6 +483,32 @@ CLS_EVAL_BATCH = 128
 T1D_SERVE_BATCH = 256
 T1D_TRAIN_BATCH = 64
 T1D_CHECK_BATCH = 4
+# Phase 25: Transformer1d's lane-packable stages at 256 samples, (L, H),
+# with their calls in one forward: B5 at D = 32 takes them with
+# ECG_ATTN_DENSE=1 (8 of the 12), B1 the other 4. Its checks at the served
+# batch and a ragged one.
+T1D_DENSE_CALLS = {(64, 16): 6, (32, 32): 2}
+DENSE_D32_BATCHES = (T1D_SERVE_BATCH, 37)
+# Phase 26: Transformer1d at its defaults on 10-second records at PTB-XL's
+# 100 Hz; its stages run at (L, H) = (1000, 4), (500, 8), (250, 16), (125,
+# 32), three of them ragged against the 64-row tiles and 32-key chunks. The
+# model's forward is checked against the CPU at batch 4, one step at 2, and
+# it is served and its kernels timed at 32. B1 and B2 at D = 32 are held
+# against their plain versions at every stage and each of those batches
+# (D32_LONG).
+T1D_LONG = 1000
+T1D_LONG_CALLS = dict(zip([(1000, 4), (500, 8), (250, 16), (125, 32)], (2, 2, 6, 2)))
+T1D_LONG_CHECK_BATCH = 4
+T1D_LONG_STEP_BATCH = 2
+T1D_LONG_SERVE_BATCH = 32
+D32_LONG = [(B, L, H) for (L, H) in T1D_LONG_CALLS
+            for B in (T1D_LONG_STEP_BATCH, T1D_LONG_CHECK_BATCH, T1D_LONG_SERVE_BATCH)]
+# Phase 27: a UNet TrainState the JAX package wrote after one Adam step, and
+# JAX's eval output on 8 seeded windows (tests/test_torch_port_msgpack.py).
+JAX_CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                            "jax_ckpt")
+JAX_CKPT = os.path.join(JAX_CKPT_DIR, "unet", "unet_1_bw_intensity-4.msgpack")
+JAX_EVAL = os.path.join(JAX_CKPT_DIR, "unet_eval.npz")
 # lse against attention_reference's logsumexp: both take the f32 logits;
 # the kernel's row sum uses __expf and is summed in another order (1e-6
 # relative), and |lse| stays below about 20: 1e-5 of max(1, max|lse|).
@@ -2245,24 +2302,13 @@ def phase_dense_serving(cpu_model, gpu_model, card):
     return launches
 
 
-def b5_smem_bytes(L, P, with_bias, elt):
-    """The dynamic shared memory of one B5 block (`smem_bytes` in
-    attention_dense_fwd.cu): the f32 bias tile, its rows L + 4 floats apart
-    at L >= 8, then two buffers of q, K and V rows, then (bf16) K and V in
-    f32."""
-    rows = P * L
-    threads = max(1, 128 // rows) * rows
-    tile = -(-rows * (L + 4 if L >= 8 else L) * 4 // 16) * 16 if with_bias else 0
-    return tile + 2 * 3 * threads * 4 * elt + (2 * threads * 16 if elt == 2 else 0)
-
-
 def log_b5_resources():
     """B5's resources by kernel instantiation as ptxas left them in the
     built library (cuobjdump -res-usage: registers, stack, static shared and
     local memory; a spill shows as stack or local memory), and the dynamic
     shared memory of a block at the route's shapes. Fails on a spill in an
     instantiation that RA-LENet's dense calls take (L = 64, 32, 16)."""
-    from ecg_denoise_tpu_torch.kernels.attention_dense import dense_pack_factor
+    from ecg_denoise_tpu_torch.kernels.attention_dense import dense_pack_factor, smem_bytes
     from ecg_denoise_tpu_torch.kernels.build import CSRC, _nvcc, _target
 
     tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
@@ -2281,8 +2327,8 @@ def log_b5_resources():
     for (L, H, with_bias) in DENSE_CALLS:
         P = dense_pack_factor(H, L)
         log(f"[16] B5 dynamic shared memory a block at L={L} H={H} (P={P}) bias={with_bias}: "
-            f"{b5_smem_bytes(L, P, with_bias, 4)} bytes float32, "
-            f"{b5_smem_bytes(L, P, with_bias, 2)} bfloat16")
+            f"{smem_bytes(L, 4, P, torch.float32, with_bias)} bytes float32, "
+            f"{smem_bytes(L, 4, P, torch.bfloat16, with_bias)} bfloat16 (from the library)")
 
 
 def phase_dense_times(gpu_model, cpu_model, card):
@@ -3511,11 +3557,13 @@ def phase_classifier(card, cls_cache, core_ckpt):
     return launches
 
 
-def d32_kernel_times(card):
-    """Phase 24's kernel rows: per Transformer1d stage shape, B1 at the
-    served batch and B2 at the training batch, f32, from CUDA graph
-    replays, beside the bound, the plain versions and SDPA (no mask);
-    summed over one forward's and one step's 12 calls."""
+def d32_kernel_times(card, stage_calls=D32_CALLS, fwd_batch=T1D_SERVE_BATCH,
+                     bwd_batch=T1D_TRAIN_BATCH, tag="24"):
+    """Phase 24's kernel rows (and phase 26's, at its length): per
+    Transformer1d stage shape, B1 at the served batch and B2 at the
+    training batch, f32, from CUDA graph replays, beside the bound, the
+    plain versions and SDPA (no mask); summed over one forward's and one
+    step's 12 calls."""
     from ecg_denoise_tpu_torch.kernels import attention
     from ecg_denoise_tpu_torch.probes.floor import graph_us
 
@@ -3523,8 +3571,8 @@ def d32_kernel_times(card):
     totals = {w: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
               for w in ("fwd", "bwd")}
     limits = {w: {"operations": 0.0, "bytes": 0.0} for w in ("fwd", "bwd")}
-    for (L, H), calls in D32_CALLS.items():
-        for what, B in (("fwd", T1D_SERVE_BATCH), ("bwd", T1D_TRAIN_BATCH)):
+    for (L, H), calls in stage_calls.items():
+        for what, B in (("fwd", fwd_batch), ("bwd", bwd_batch)):
             q, k, v, _ = operands(B, H, L, False, torch.float32, gen, D=32,
                                   q_scale=D32_Q_SCALE)
             if what == "fwd":
@@ -3547,7 +3595,7 @@ def d32_kernel_times(card):
                 lib = cuda_ms(lambda: torch.autograd.grad(sdpa(), ins, g), 20) - cuda_ms(sdpa, 20)
                 t_ops, t_bytes = bwd_bound_terms(B, H, L, False, 4, D=32)
             bnd = max(t_ops, t_bytes)
-            log(f"[24] {card}: attention_{what} D=32 float32 B={B} L={L} H={H}: kernel "
+            log(f"[{tag}] {card}: attention_{what} D=32 float32 B={B} L={L} H={H}: kernel "
                 f"{ms:.4f} ms (graph replays), bound {bnd:.4f} ms (operations {t_ops:.4f} at "
                 f"the f32 CUDA-core peak, bytes {t_bytes:.4f}), plain {plain:.4f} ms, sdpa"
                 f"{' backward ((fwd+bwd) - fwd)' if what == 'bwd' else ''} {lib:.4f} ms; "
@@ -3559,11 +3607,43 @@ def d32_kernel_times(card):
             limits[what]["bytes"] += calls * t_bytes
     for what, t in totals.items():
         t["bound_by"] = max(limits[what], key=limits[what].get)
-        log(f"[24] {card}: attention_{what} D=32 float32, the 12 calls of one "
+        log(f"[{tag}] {card}: attention_{what} D=32 float32, the 12 calls of one "
             f"{'forward' if what == 'fwd' else 'step'}: kernel {t['ms']:.4f} ms, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}), plain {t['plain_ms']:.4f} ms, sdpa "
             f"{t['library_ms']:.4f} ms")
     return totals
+
+
+def transformer1d_step_vs_cpu(cpu_model, xs, ys, tag, what):
+    """One f32 Adam step of Transformer1d through `cls_epoch` on the card
+    against the same step on the CPU (loss LOSS_RTOL, `step_bars`), with 12
+    B1 and 12 B2 launches on the card: the card's launches."""
+    from ecg_denoise_tpu_torch.train import cls_epoch, create_train_state
+
+    b = len(xs)
+    states = {dev: create_train_state(copy.deepcopy(cpu_model), device=dev)
+              for dev in ("cuda", "cpu")}
+    losses = {}
+    for dev, st in states.items():
+        reset_launches()  # one training step
+        losses[dev] = cls_epoch(st, xs.to(dev), ys.to(dev), torch.arange(b, device=dev),
+                                b)["loss"]
+        if dev == "cuda":
+            launches = read_launches()
+    params = {dev: dict(st.model.named_parameters()) for dev, st in states.items()}
+    bars = step_bars({k: p.grad.cpu() for k, p in params["cuda"].items()},
+                     {k: p.grad for k, p in params["cpu"].items()},
+                     {k: p.detach().cpu() for k, p in params["cuda"].items()},
+                     {k: p.detach() for k, p in params["cpu"].items()})
+    rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    log(f"[{tag}] Transformer1d{what}, float32, batch {b}: one Adam step through cls_epoch "
+        f"on the card vs the CPU: loss {losses['cuda']:.7f} vs {losses['cpu']:.7f} (rel "
+        f"{rel:.2e}, tol {LOSS_RTOL:.0e}), gradients against the CPU's: "
+        f"{describe_bars(bars)}; launches { {k: n for k, n in launches.items() if n} }")
+    check(rel <= LOSS_RTOL and bars["ok"], f"Transformer1d's step{what} disagrees with the CPU's")
+    check(launches == expected_launches(fwd=12, bwd=12),
+          f"the step{what} did not take 12 B1 and 12 B2 launches")
+    return launches
 
 
 def phase_transformer1d(card):
@@ -3573,7 +3653,7 @@ def phase_transformer1d(card):
     against the CPU's at `step_bars` with 12 + 12, served and trained on
     the card with the counts of those paths, rates and the kernel rows."""
     from ecg_denoise_tpu_torch.models import Transformer1d
-    from ecg_denoise_tpu_torch.train import cls_epoch, create_train_state, make_cls_epoch_fns
+    from ecg_denoise_tpu_torch.train import create_train_state, make_cls_epoch_fns
     from ecg_denoise_tpu_torch.utils.seed import random_seed
 
     t0 = time.perf_counter()
@@ -3598,26 +3678,8 @@ def phase_transformer1d(card):
 
     # One step on the card against the same step on the CPU.
     b = T1D_CHECK_BATCH
-    xs, ys = x[:b], torch.from_numpy(rng.integers(0, 9, b))
-    states = {dev: create_train_state(copy.deepcopy(cpu_model), device=dev)
-              for dev in ("cuda", "cpu")}
-    reset_launches()
-    losses = {dev: cls_epoch(st, xs.to(dev), ys.to(dev), torch.arange(b, device=dev), b)["loss"]
-              for dev, st in states.items()}
-    step_launches = read_launches()
-    params = {dev: dict(st.model.named_parameters()) for dev, st in states.items()}
-    bars = step_bars({k: p.grad.cpu() for k, p in params["cuda"].items()},
-                     {k: p.grad for k, p in params["cpu"].items()},
-                     {k: p.detach().cpu() for k, p in params["cuda"].items()},
-                     {k: p.detach() for k, p in params["cpu"].items()})
-    rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
-    log(f"[24] Transformer1d, float32, batch {b}: one Adam step through cls_epoch on the "
-        f"card vs the CPU: loss {losses['cuda']:.7f} vs {losses['cpu']:.7f} (rel {rel:.2e}, "
-        f"tol {LOSS_RTOL:.0e}), gradients against the CPU's: {describe_bars(bars)}; launches "
-        f"{ {k: n for k, n in step_launches.items() if n} }")
-    check(rel <= LOSS_RTOL and bars["ok"], "Transformer1d's step disagrees with the CPU's")
-    check(step_launches == expected_launches(fwd=12, bwd=12),
-          "the step did not take 12 B1 and 12 B2 launches")
+    transformer1d_step_vs_cpu(cpu_model, x[:b], torch.from_numpy(rng.integers(0, 9, b)),
+                              "24", "")
 
     # Served and trained on the card: the paths' counts, then the rates.
     launches = {}
@@ -3673,7 +3735,351 @@ def phase_transformer1d(card):
           "two training steps did not take 24 B1 and 24 B2 launches")
     times = d32_kernel_times(card)
     log(f"chip_smoke: phase 24 took {time.perf_counter() - t0:.1f} s")
-    return launches, times
+    return launches, times, cpu_model
+
+
+def log_b5_d32_resources():
+    """B5 at D = 32's resources by kernel instantiation as ptxas left them
+    (cuobjdump -res-usage; a spill fails the run) and its dynamic shared
+    memory a block at Transformer1d's two packable stages."""
+    from ecg_denoise_tpu_torch.kernels.attention_dense import dense_pack_factor, smem_bytes
+    from ecg_denoise_tpu_torch.kernels.build import CSRC, _nvcc, _target
+
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-res-usage", str(_target("attention_dense_fwd", CSRC))],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    found = re.findall(r"Function \S*attention_dense_fwd_d32_kernelI(f|13__nv_bfloat16)"
+                       r"Lb([01])\S*:\s*REG:(\d+) STACK:(\d+) SHARED:(\d+) LOCAL:(\d+)", text)
+    for dt, bias, reg, stack, shared, local in sorted(found):
+        log(f"[25] B5 D=32 ptxas, {'float32' if dt == 'f' else 'bfloat16'} "
+            f"bias={bias == '1'}: {reg} registers, stack {stack} bytes, local {local} bytes, "
+            f"static shared {shared} bytes")
+    check(len(found) == 4, "B5 D=32's 4 kernel instantiations not all found")
+    check(all(f[3] == "0" and f[5] == "0" for f in found), "a B5 D=32 instantiation spills")
+    for L, H in T1D_DENSE_CALLS:
+        P = dense_pack_factor(H, L)
+        sizes = {(dt, b): smem_bytes(L, 32, P, dt, b) for dt in (torch.float32, torch.bfloat16)
+                 for b in (False, True)}
+        log(f"[25] B5 D=32 dynamic shared memory a block at L={L} H={H} (P={P}), from the "
+            f"library: float32 {sizes[torch.float32, False]} bytes without a bias, "
+            f"{sizes[torch.float32, True]} with one; bfloat16 {sizes[torch.bfloat16, False]} "
+            f"and {sizes[torch.bfloat16, True]}")
+
+
+def phase_dense_d32(card, cpu_model):
+    """Phase 25: B5 at head_dim 32 against its plain version and B1 at D =
+    32 without lse; Transformer1d served with ECG_ATTN_DENSE=1 (4 B1 and 8
+    B5 a forward) against the CPU; the 8 dense calls' times in turns with
+    B1's; served windows/s dense and default, in turns."""
+    from ecg_denoise_tpu_torch import full_float32
+    from ecg_denoise_tpu_torch.kernels import attention
+    from ecg_denoise_tpu_torch.kernels.attention_dense import (
+        attention_dense_reference,
+        fused_attention_dense,
+    )
+    from ecg_denoise_tpu_torch.train import create_train_state
+
+    t0 = time.perf_counter()
+    log_b5_d32_resources()
+    saved = tf32_flags()
+    full_float32()
+    gen = torch.Generator().manual_seed(25)
+    max_err, b1_equal = 0.0, True
+    cases = [(B, L, H, b, dt) for (L, H) in T1D_DENSE_CALLS for B in DENSE_D32_BATCHES
+             for b in (True, False) for dt in (torch.float32, torch.bfloat16)]
+    for B, L, H, with_bias, dtype in cases:
+        q, k, v, bias = operands(B, H, L, with_bias, dtype, gen, D=32, q_scale=D32_Q_SCALE)
+        out = fused_attention_dense(q, k, v, bias)
+        again = fused_attention_dense(q, k, v, bias)
+        b1 = attention._launch(q, k, v, bias)
+        torch.cuda.synchronize()
+        err = (out.float() - attention_dense_reference(q, k, v, bias).float()).abs().max().item()
+        err_b1 = (out.float() - b1.float()).abs().max().item()
+        tol = (F32_TOL if dtype == torch.float32
+               else BF16_TOL_OF_MAX_V * v.float().abs().max().item())
+        if dtype == torch.float32:
+            max_err = max(max_err, err)
+        same, same_b1 = torch.equal(out, again), torch.equal(out, b1)
+        b1_equal &= same_b1
+        log(f"[25] B5 D=32 B={B} L={L} H={H} bias={with_bias} {str(dtype)[6:]}: max_abs_err "
+            f"vs plain {err:.3e}, vs B1 without lse {err_b1:.3e} (tol {tol:.3e}); equal to B1 "
+            f"bit for bit: {same_b1}; a second call bit-identical: {same}")
+        check(out.shape == q.shape and out.dtype == dtype, "B5 D=32 output shape or dtype")
+        check(bool(torch.isfinite(out).all()) and err <= tol and err_b1 <= tol,
+              "B5 at D = 32 disagrees with its plain version or with B1")
+        check(same, "two B5 D=32 calls differ")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    log(f"[25] B5 at D = 32 equals B1 at D = 32 without lse bit for bit in every case: "
+        f"{b1_equal}")
+    # The two make the same f32 operations in the same order (B1's 32-key
+    # chunks); the compiler's contraction into FMAs is the only freedom left.
+    check(b1_equal, "B5 at D = 32 differs from B1 at D = 32 without lse")
+
+    # Transformer1d at its defaults, served at T1D_SERVE_BATCH with the dense
+    # route; the first 8 windows against the CPU (eval: windows independent).
+    rng = np.random.default_rng(25)
+    xs = torch.from_numpy(rng.standard_normal(
+        (T1D_SERVE_BATCH, 32, 256)).astype(np.float32)).cuda()
+    model = create_train_state(copy.deepcopy(cpu_model)).model.eval()
+    with torch.no_grad(), dense_route():
+        model(xs)  # warm-up
+        torch.cuda.synchronize()
+        reset_launches()  # the dense served forward
+        y = model(xs)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        err = (y[:8].cpu() - cpu_model(xs[:8].cpu())).abs().max().item()
+    log(f"[25] Transformer1d served with ECG_ATTN_DENSE=1, batch {T1D_SERVE_BATCH}, float32: "
+        f"the first 8 windows vs the CPU max_abs_err={err:.3e} (tol {MODEL_TOL:.0e}); "
+        f"launches per forward { {k: n for k, n in launches.items() if n} }")
+    check(bool(torch.isfinite(y).all()) and err <= MODEL_TOL,
+          "the dense Transformer1d forward disagrees with the CPU")
+    check(launches == expected_launches(fwd=4, dense=8),
+          "the dense Transformer1d forward did not make 4 B1 and 8 B5 launches")
+
+    times = dense_d32_times(card)
+    # Served windows/s, in turns: default, dense, dense, default.
+    walls = {"default": [], "dense": []}
+    fwd_ms = {}
+    with torch.no_grad():
+        for key in ("default", "dense", "dense", "default"):
+            with dense_route(key == "dense"):
+                model(xs)
+                torch.cuda.synchronize()
+                for _ in range(5):
+                    t1 = time.perf_counter()
+                    model(xs)
+                    torch.cuda.synchronize()
+                    walls[key].append(time.perf_counter() - t1)
+                fwd_ms.setdefault(key, []).append(cuda_ms(lambda: model(xs), 5))
+    log(f"[25] {card}: Transformer1d served float32 batch {T1D_SERVE_BATCH}: ECG_ATTN_DENSE=1 "
+        f"{T1D_SERVE_BATCH / statistics.median(walls['dense']):.1f} windows/s, default "
+        f"{T1D_SERVE_BATCH / statistics.median(walls['default']):.1f} (medians of 10 forwards "
+        f"each, in turns, host clock ending in a synchronize); forward dense "
+        f"{statistics.mean(fwd_ms['dense']):.3f} ms, default "
+        f"{statistics.mean(fwd_ms['default']):.3f} ms (CUDA events, mean of 2 x 5)")
+    log(f"chip_smoke: phase 25 took {time.perf_counter() - t0:.1f} s")
+    return {"serve_transformer1d_dense": launches}, max_err, times, b1_equal
+
+
+def dense_d32_times(card):
+    """Phase 25's kernel rows: per packable Transformer1d stage, B5 at D =
+    32 (B = T1D_SERVE_BATCH, f32, no bias) in turns with B1 without lse
+    (CUDA graph replays), its bound, plain version and SDPA; summed over a
+    forward's 8 dense calls."""
+    from ecg_denoise_tpu_torch.kernels import attention
+    from ecg_denoise_tpu_torch.kernels.attention_dense import (
+        attention_dense_reference,
+        fused_attention_dense,
+    )
+
+    gen = torch.Generator().manual_seed(26)
+    B = T1D_SERVE_BATCH
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "b1_ms": 0.0}
+    limits = {"operations": 0.0, "bytes": 0.0}
+    for (L, H), calls in T1D_DENSE_CALLS.items():
+        q, k, v, _ = operands(B, H, L, False, torch.float32, gen, D=32, q_scale=D32_Q_SCALE)
+        b1_us, b5_us = in_turns(lambda: attention._launch(q, k, v, None),
+                                lambda: fused_attention_dense(q, k, v))
+        ms, b1_ms = statistics.mean(b5_us) / 1e3, statistics.mean(b1_us) / 1e3
+        plain = cuda_ms(lambda: attention_dense_reference(q, k, v), 5)
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0), 20)
+        t_ops, t_bytes = bound_terms(B, H, L, False, 4, D=32)
+        bnd = max(t_ops, t_bytes)
+        log(f"[25] {card}: B5 attention_dense_fwd D=32 float32 B={B} L={L} H={H}: kernel "
+            f"{ms:.4f} ms, B1 without lse {b1_ms:.4f} ms (graph replays in turns, B1 "
+            f"{b1_us[0]:.1f} / {b1_us[1]:.1f} us, B5 {b5_us[0]:.1f} / {b5_us[1]:.1f} us), bound "
+            f"{bnd:.4f} ms (operations {t_ops:.4f} at the f32 CUDA-core peak, bytes "
+            f"{t_bytes:.4f}), plain {plain:.4f} ms, sdpa {lib:.4f} ms; {calls} calls per forward")
+        for key, t in (("ms", ms), ("plain_ms", plain), ("bound_ms", bnd),
+                       ("library_ms", lib), ("b1_ms", b1_ms)):
+            totals[key] += calls * t
+        limits["operations"] += calls * t_ops
+        limits["bytes"] += calls * t_bytes
+    totals["bound_by"] = max(limits, key=limits.get)
+    log(f"[25] {card}: B5 D=32 float32, the 8 dense calls of one Transformer1d forward at "
+        f"B={B}: kernel {totals['ms']:.4f} ms (B1 on the same calls {totals['b1_ms']:.4f} ms), "
+        f"bound {totals['bound_ms']:.4f} ms ({totals['bound_by']}), plain "
+        f"{totals['plain_ms']:.4f} ms, sdpa {totals['library_ms']:.4f} ms")
+    return totals
+
+
+def phase_long(card, cpu_model):
+    """Phase 26: B1 and B2 at D = 32 past 256 keys against their plain
+    versions at every stage and batch below (D32_LONG); Transformer1d on
+    T1D_LONG-sample inputs against the CPU (forward and one step); served
+    windows/s; per-stage B1 and B2 times. The errors returned are the f32
+    ones at the timed batch, T1D_LONG_SERVE_BATCH."""
+    from ecg_denoise_tpu_torch import full_float32
+    from ecg_denoise_tpu_torch.kernels import attention
+    from ecg_denoise_tpu_torch.models import Transformer1d
+    from ecg_denoise_tpu_torch.train import create_train_state
+    from ecg_denoise_tpu_torch.utils.seed import random_seed
+
+    t0 = time.perf_counter()
+    saved = tf32_flags()
+    full_float32()
+    gen = torch.Generator().manual_seed(27)
+    max_err = {"fwd": 0.0, "bwd": 0.0}
+    for B, L, H in D32_LONG:
+        for with_bias in (True, False):
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v, bias = operands(B, H, L, with_bias, dtype, gen, D=32,
+                                         q_scale=D32_Q_SCALE)
+                out, lse = attention._launch(q, k, v, bias, with_lse=True)
+                again, _ = attention._launch(q, k, v, bias, with_lse=True)
+                ref, ref_lse = attention.attention_reference(q, k, v, bias, return_lse=True)
+                g = torch.randn(q.shape, generator=gen).to("cuda", dtype)
+                o2, grads = kernel_grads(q, k, v, bias, g)
+                _, grads2 = kernel_grads(q, k, v, bias, g)
+                same = torch.equal(out, again) and all(
+                    torch.equal(a, b) for a, b in zip(grads, grads2))
+                refs = {"flash": attention.attention_backward_reference(
+                    q, k, v, bias, o2, lse, g)}
+                if dtype == torch.float32:
+                    refs["autograd"] = plain_autograd_grads(q, k, v, bias, g)
+                torch.cuda.synchronize()
+                f32 = dtype == torch.float32
+                timed = f32 and B == T1D_LONG_SERVE_BATCH
+                err = (out.float() - ref.float()).abs().max().item()
+                tol = F32_TOL if f32 else BF16_TOL_OF_MAX_V * v.float().abs().max().item()
+                lse_err = (lse - ref_lse).abs().max().item()
+                lse_tol = LSE_TOL * max(1.0, ref_lse.abs().max().item())
+                errs = []
+                for ref_name, gref in refs.items():
+                    for name, a, b in zip(("dq", "dk", "dv", "dbias"), grads, gref):
+                        bar = (D32_GRAD_TOL_OF_MAX if f32 else BF16_GRAD_TOL_OF_MAX) * \
+                            b.float().abs().max().item()
+                        e = (a.float() - b.float()).abs().max().item()
+                        errs.append(f"{name} vs {ref_name} {e:.2e}/{bar:.2e}")
+                        check(e <= bar, f"B2 at D = 32, L = {L}: {name} disagrees with the "
+                                        f"plain {ref_name} backward")
+                        if timed and ref_name == "flash":
+                            max_err["bwd"] = max(max_err["bwd"], e)
+                if timed:
+                    max_err["fwd"] = max(max_err["fwd"], err)
+                log(f"[26] D=32 B={B} L={L} H={H} bias={with_bias} {str(dtype)[6:]}: B1 "
+                    f"max_abs_err={err:.3e} (tol {tol:.3e}), lse {lse_err:.3e} (tol "
+                    f"{lse_tol:.3e}); B2 " + ", ".join(errs) + "; a second call of each "
+                    f"bit-identical: {same}")
+                check(out.shape == q.shape and out.dtype == dtype, "B1 output shape or dtype")
+                check(bool(torch.isfinite(out).all()) and err <= tol and lse_err <= lse_tol,
+                      f"B1 at D = 32, L = {L} disagrees with its plain version")
+                check(same, f"two calls of B1 or B2 at D = 32, L = {L} differ")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+    # Transformer1d at its defaults on T1D_LONG samples: stages at L = 1000,
+    # 500, 250, 125.
+    rng = np.random.default_rng(26)
+    x = torch.from_numpy(rng.standard_normal((T1D_LONG_CHECK_BATCH, 32, T1D_LONG)).astype(
+        np.float32))
+    launches = {}
+    gpu_model = create_train_state(copy.deepcopy(cpu_model)).model.eval()
+    with torch.no_grad():
+        reset_launches()
+        y = gpu_model(x.cuda())
+        torch.cuda.synchronize()
+        fwd_launches = read_launches()
+        err = (y.cpu() - cpu_model(x)).abs().max().item()
+    log(f"[26] Transformer1d, {T1D_LONG} samples, batch {T1D_LONG_CHECK_BATCH}, float32: card "
+        f"vs CPU max_abs_err={err:.3e} (tol {MODEL_TOL:.0e}); launches per forward "
+        f"{ {k: n for k, n in fwd_launches.items() if n} }")
+    check(bool(torch.isfinite(y).all()) and err <= MODEL_TOL,
+          f"Transformer1d at {T1D_LONG} samples disagrees with the CPU")
+    check(fwd_launches == expected_launches(fwd=12), "the long forward did not take 12 B1")
+    b = T1D_LONG_STEP_BATCH
+    launches["train_transformer1d_long"] = transformer1d_step_vs_cpu(
+        cpu_model, x[:b], torch.from_numpy(rng.integers(0, 9, b)), "26",
+        f" at {T1D_LONG} samples")
+
+    # Served windows/s at T1D_LONG_SERVE_BATCH, f32 and bf16.
+    xs = torch.from_numpy(rng.standard_normal(
+        (T1D_LONG_SERVE_BATCH, 32, T1D_LONG)).astype(np.float32)).cuda()
+    for dtype in (torch.float32, torch.bfloat16):
+        random_seed(26)
+        model = create_train_state(Transformer1d(dtype=dtype)).model.eval()
+        with torch.no_grad():
+            model(xs)  # warm-up
+            torch.cuda.synchronize()
+            if dtype == torch.float32:
+                reset_launches()  # the served forward at T1D_LONG samples
+                model(xs)
+                torch.cuda.synchronize()
+                launches["serve_transformer1d_long"] = read_launches()
+            walls = []
+            for _ in range(5):
+                t1 = time.perf_counter()
+                model(xs)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t1)
+            fwd_ms = cuda_ms(lambda: model(xs), 5)
+        log(f"[26] {card}: Transformer1d served {str(dtype)[6:]} batch {T1D_LONG_SERVE_BATCH} "
+            f"at {T1D_LONG} samples: {T1D_LONG_SERVE_BATCH / statistics.median(walls):.1f} "
+            f"windows/s (median of 5 forwards, host clock ending in a synchronize); forward "
+            f"{fwd_ms:.3f} ms on the card's clock (CUDA events, mean of 5)")
+    check(launches["serve_transformer1d_long"] == expected_launches(fwd=12),
+          "the long served forward did not take 12 B1 launches")
+    times = d32_kernel_times(card, T1D_LONG_CALLS, T1D_LONG_SERVE_BATCH,
+                             T1D_LONG_SERVE_BATCH, "26")
+    log(f"chip_smoke: phase 26 took {time.perf_counter() - t0:.1f} s")
+    return launches, max_err, times
+
+
+def phase_jax_checkpoint(card):
+    """Phase 27: the JAX package's UNet checkpoint (tests/data/jax_ckpt),
+    served by `Denoiser.from_checkpoint` and `cli.serve --ckpt` on the card
+    against JAX's committed output, and resumed for one training step."""
+    from ecg_denoise_tpu_torch.cli.serve import build
+    from ecg_denoise_tpu_torch.models import build_model
+    from ecg_denoise_tpu_torch.serving import Denoiser
+    from ecg_denoise_tpu_torch.train import create_train_state, load_checkpoint, make_epoch_fns
+
+    t0 = time.perf_counter()
+    launches = {}
+    ev = np.load(JAX_EVAL)
+    denoiser = Denoiser.from_checkpoint("unet", JAX_CKPT, max_batch=BATCH)
+    y = denoiser(ev["x"])
+    err = float(np.abs(y - ev["y"]).max())
+    log(f"[27] Denoiser.from_checkpoint('unet', {os.path.relpath(JAX_CKPT)}) on the card: "
+        f"{len(ev['x'])} windows vs JAX's committed output max_abs_err={err:.3e} (tol "
+        f"{MODEL_TOL:.0e})")
+    check(np.isfinite(y).all() and err <= MODEL_TOL,
+          "the JAX checkpoint served on the card disagrees with JAX's output")
+
+    server, cli_denoiser = build(["--model", "unet", "--ckpt", JAX_CKPT, "--port", "0"])
+    direct = cli_denoiser(ev["x"])
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        reset_launches()  # the CLI's server on a JAX checkpoint
+        got, timing = _post(f"http://127.0.0.1:{server.server_address[1]}/denoise", ev["x"])
+        launches["serve_jax_ckpt"] = read_launches()
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    err_cli = float(np.abs(got - direct).max())
+    log(f"[27] cli.serve --model unet --ckpt <the JAX checkpoint>: /denoise N={len(ev['x'])} "
+        f"max_abs_err vs its Denoiser {err_cli:.3e}, vs Denoiser.from_checkpoint "
+        f"{float(np.abs(got - y).max()):.3e}; {timing}; launches {launches['serve_jax_ckpt']}")
+    check(got.shape == y.shape and err_cli <= 1e-6, "cli.serve disagrees with its Denoiser")
+    check(launches["serve_jax_ckpt"] == expected_launches(), "UNet's serving launched a kernel")
+    check(not thread.is_alive(), "the server thread did not stop")
+
+    state = load_checkpoint(JAX_CKPT, create_train_state(build_model("unet")))
+    step0 = state.step
+    train_epoch, _ = make_epoch_fns(state.model, state.optimizer)
+    noisy = torch.from_numpy(ev["x"][:4]).cuda()
+    reset_launches()  # one training step resumed from the JAX checkpoint
+    got = train_epoch(noisy, 0.5 * noisy, torch.Generator(device="cuda").manual_seed(0), 4)
+    launches["train_jax_ckpt"] = read_launches()
+    log(f"[27] load_checkpoint of the JAX TrainState: Adam step {step0} -> {state.step} after "
+        f"one step on the card, loss {got['loss']:.6f}; launches {launches['train_jax_ckpt']}")
+    check(step0 == 1 and state.step == 2 and np.isfinite(got["loss"]),
+          "the resumed JAX checkpoint did not take one finite step")
+    check(launches["train_jax_ckpt"] == expected_launches(), "UNet's step launched a kernel")
+    log(f"chip_smoke: phase 27 took {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def main():
@@ -3722,8 +4128,14 @@ def main():
     launches.update(data_launches)
     launches.update(phase_baseline(card, paths))
     launches.update(phase_classifier(card, paths["cls"], core_ckpt))
-    t1d_launches, d32_times = phase_transformer1d(card)
+    t1d_launches, d32_times, t1d_cpu = phase_transformer1d(card)
     launches.update(t1d_launches)
+    dense_launches, dense_d32_err, dense_d32_times, dense_d32_b1_equal = phase_dense_d32(
+        card, t1d_cpu)
+    launches.update(dense_launches)
+    long_launches, long_err, long_times = phase_long(card, t1d_cpu)
+    launches.update(long_launches)
+    launches.update(phase_jax_checkpoint(card))
     work.cleanup()
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
@@ -3751,6 +4163,19 @@ def main():
                   "parent's where its tree is there; plain and library issued from Python")
     dense["b1_ms_same_calls"] = dense_totals["b1_ms"]
     dense["parent_ms_same_calls"] = dense_totals["parent_ms"]
+    dense["d32"] = {
+        "head_dim": 32, "max_abs_err": dense_d32_err,
+        **{k: dense_d32_times[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                           "library_ms")},
+        "b1_ms_same_calls": dense_d32_times["b1_ms"],
+        "equal_to_b1_bit_for_bit": dense_d32_b1_equal,
+        "times_are": f"one Transformer1d forward's 8 dense-routed calls, float32, "
+                     f"B={T1D_SERVE_BATCH}, no bias; kernel and b1_ms_same_calls (B1 without "
+                     "lse) from CUDA graph replays in turns; plain and library "
+                     "(scaled_dot_product_attention, no mask) issued from Python",
+        # The dense Transformer1d path: every B5 launch on it is at D = 32.
+        "launches_by_path": {"serve_transformer1d_dense":
+                             launches["serve_transformer1d_dense"]["attention_dense_fwd"]}}
     null["null_launch_us"] = {"host": null_times["null_launch_host_us"],
                               "graph": null_times["null_launch_graph_us"]}
     null["dma_floor_us"] = null_times["dma_floor_us"]
@@ -3806,6 +4231,20 @@ def main():
                     # Transformer1d's paths: every launch on them is at D = 32.
                     "launches_by_path": {path: launches[path][e["name"]] for path in (
                         "serve_transformer1d", "train_transformer1d")}}
+    for e, what, err, t, paths in (
+            (b1, f"one forward's 12 calls at {T1D_LONG} samples", long_err["fwd"],
+             long_times["fwd"], ("serve_transformer1d_long", "train_transformer1d_long")),
+            (b2, f"one step's 12 calls at {T1D_LONG} samples", long_err["bwd"],
+             long_times["bwd"], ("train_transformer1d_long",))):
+        e["d32_long"] = {
+            "head_dim": 32, "length": T1D_LONG, "max_abs_err": err, **t,
+            "max_abs_err_is": f"float32 at B={T1D_LONG_SERVE_BATCH}, the four stages, with "
+                              "and without bias, against the plain version (B2: the plain "
+                              "flash backward)",
+            "times_are": f"Transformer1d, {what}, float32, B={T1D_LONG_SERVE_BATCH}, no bias, "
+                         "the kernel from CUDA graph replays; plain and library "
+                         "(scaled_dot_product_attention, no mask) issued from Python",
+            "launches_by_path": {path: launches[path][e["name"]] for path in paths}}
     b2["frozen_bias"] = {
         "max_abs_err": frozen_err, **frozen_ms,
         "times_are": f"one NewRale step's 14 biased calls, float32, B={TIMING_BATCH}, "

@@ -11,7 +11,8 @@ ecg_denoise_tpu_torch.serving.Denoiser). `--model` takes any name of
 ACDAE, newrale.
 
 Example (the checkpoint is a torch.save'd state_dict of the port's model,
-or a checkpoint written by `python -m ecg_denoise_tpu_torch.cli.main`;
+a checkpoint written by `python -m ecg_denoise_tpu_torch.cli.main`, or one
+the JAX package wrote, `<name>_<epoch>_<noise>_intensity<k>.msgpack`;
 `--r_pos detect` centres each window's R-wave attention bias on its own
 detected R peak):
     python -m ecg_denoise_tpu_torch.cli.serve --model ralenet \
@@ -136,7 +137,8 @@ def build(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--model", type=str, default="ralenet")
-    p.add_argument("--ckpt", type=str, required=True)
+    p.add_argument("--ckpt", type=str, required=True,
+                   help="a .pth of the port or a .msgpack of the JAX package")
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--port", type=int, default=8787)
     p.add_argument("--max_batch", type=int, default=1024)

@@ -4,9 +4,9 @@ of the JAX package's cli/test_cls.py (reference test_cls.py:106-255).
 The frozen beat classifier (--cls_ckpt, from `cli.train_cls`) classifies
 the cls cache's test beats under each condition, in the JAX CLI's order:
 clean beats, the noised beats, each denoiser of `MODEL_NAMES` whose
-checkpoint `find_model` finds under --model_save_dir/<name>/ applied to
-the noised beats (on the card, through `build_model` and
-`load_model_weights`), and the DWT (`kernels.dwt.wavelet_denoise_device`)
+checkpoint `find_model` finds under --model_save_dir/<name>/ (a `.pth` of
+the port's or a `.msgpack` of the JAX package's) applied to the noised
+beats (on the card, through `build_model` and `load_model_weights`), and the DWT (`kernels.dwt.wavelet_denoise_device`)
 and FFT (`baselines.fft`) baselines. One line a condition: accuracy,
 precision and F1, class 1 (V) positive. A denoiser without a checkpoint
 is skipped with a notice; a missing classifier checkpoint leaves the

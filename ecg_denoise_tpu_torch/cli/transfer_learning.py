@@ -8,8 +8,9 @@ seeded 80/20 split, the core's parameters out of Adam and its BatchNorms
 in eval mode.
 
 The core's checkpoint is the latest under --model_save_dir/ralenet (as
-`python -m ecg_denoise_tpu_torch.cli.main --model_index 4` writes it);
---core_ckpt names another. With none, the core starts from its seeded
+`python -m ecg_denoise_tpu_torch.cli.main --model_index 4` writes it, or a
+`.msgpack` of the JAX package's); --core_ckpt names another, of either
+kind. With none, the core starts from its seeded
 initial weights, with a printed warning: the adapters still train. It runs
 on the card and raises without one. Example:
 

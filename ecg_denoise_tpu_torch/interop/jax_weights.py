@@ -19,12 +19,13 @@ model family: `ralenet_state_dict`, `unet_state_dict`,
 classifier, `resnet_cls_state_dict` and `transformer1d_state_dict` (both
 without renames: those modules keep the JAX module names).
 
-This is the reverse of the JAX package's `interop/torch_weights.py`, kept
-here as a copy of the logic because the port imports nothing of that
+`state_dict_for(model, variables)` picks the map by the port module's
+family. This is the reverse of the JAX package's `interop/torch_weights.py`,
+kept here as a copy of the logic because the port imports nothing of that
 package. `adam_state_from_optax` maps the optax Adam state the same way,
-so a JAX training state carries over with its weights. Reading a trained
-JAX `.msgpack` checkpoint from disk is not ported yet (ROADMAP A8); these
-map trees already in memory.
+so a JAX training state carries over with its weights. The trees come from
+memory or, read from a JAX `.msgpack` checkpoint by `interop.flax_msgpack`,
+from disk (`train.checkpoint`).
 """
 
 from __future__ import annotations
@@ -169,25 +170,57 @@ def transformer1d_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
     return state_dict_from_variables(variables)
 
 
+def state_dict_for(model: torch.nn.Module, variables: Mapping
+                   ) -> dict[str, torch.Tensor]:
+    """JAX variables -> the state_dict of the port's `model`, through the
+    map of its family (a RaleNet's with its variant)."""
+    from ecg_denoise_tpu_torch.models import (
+        ACDAE,
+        NewRale,
+        RaleNet,
+        ResNetCls,
+        Seq2Seq2,
+        Transformer1d,
+        UNet,
+    )
+
+    if isinstance(model, RaleNet):
+        return ralenet_state_dict(variables, model.variant)
+    maps = ((UNet, unet_state_dict), (Seq2Seq2, seq2seq2_state_dict),
+            (ACDAE, acdae_state_dict), (NewRale, newrale_state_dict),
+            (ResNetCls, resnet_cls_state_dict), (Transformer1d, transformer1d_state_dict))
+    for cls, to_port in maps:
+        if isinstance(model, cls):
+            return to_port(variables)
+    raise TypeError(f"no map from JAX variables to a {type(model).__name__}")
+
+
 def adam_state_from_optax(mu: Mapping, nu: Mapping, count,
                           model: torch.nn.Module) -> dict:
-    """The optax Adam state of a JAX RaleNet (its first and second moments
+    """The optax Adam state of a JAX model (its first and second moments
     `mu` and `nu`, trees shaped like "params" with numpy leaves, and its
     step `count`) as the "state" entry of the state_dict of
-    `torch.optim.Adam(model.parameters())` for the port's RaleNet `model`.
-    The moments get the weights' renames and layout conversions. Load it
-    with:
+    `torch.optim.Adam(model.parameters())` for the port's `model`. The
+    moments get the weights' renames and layout conversions, by the map of
+    the model's family (`state_dict_for`). Load it with:
 
         sd = optimizer.state_dict()
         sd["state"] = adam_state_from_optax(mu, nu, count, model)
         optimizer.load_state_dict(sd)
     """
-    exp_avg = state_dict_from_variables({"params": mu}, RALENET_RENAMES)
-    exp_avg_sq = state_dict_from_variables({"params": nu}, RALENET_RENAMES)
+    try:
+        exp_avg = state_dict_for(model, {"params": mu})
+        exp_avg_sq = state_dict_for(model, {"params": nu})
+    except ValueError as e:  # a family's map refuses the trees
+        raise ValueError(f"the Adam moments do not match the model: {e}") from e
     names = [name for name, _ in model.named_parameters()]
-    if set(names) != set(exp_avg) or set(names) != set(exp_avg_sq):
-        raise ValueError("the Adam moments do not cover the model's "
-                         f"parameters: {sorted(set(names) ^ set(exp_avg))}")
+    # A map may fill a module's second name (DANet's shared FCN): such
+    # keys are in the state_dict but not among the parameters.
+    keys = set(model.state_dict())
+    for moments in (exp_avg, exp_avg_sq):
+        if not set(names) <= set(moments) <= keys:
+            raise ValueError("the Adam moments do not match the model's parameters: "
+                             f"{sorted(set(names) ^ set(moments))}")
     step = float(np.asarray(count))
     return {i: {"step": torch.tensor(step), "exp_avg": exp_avg[name],
                 "exp_avg_sq": exp_avg_sq[name]}

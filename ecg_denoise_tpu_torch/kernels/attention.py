@@ -3,22 +3,24 @@
 `fused_attention(q, k, v, bias)` computes softmax(q @ k^T + bias) @ v over
 (B, H, L, D) operands, with the contract of the JAX package's
 `fused_attention`: q arrives pre-scaled, bias is (1, H, L, L) or None,
-head_dim D is 4 (RA-LENet's heads) or 32 (Transformer1d's), L <= 256, and
-the output has the operands' dtype. The JAX kernels take any D and any L
-their VMEM holds; the cap of 256 is the port's.
+head_dim D is 4 (RA-LENet's heads) or 32 (Transformer1d's), and the
+output has the operands' dtype. At D = 4 L <= 256: the D = 4 kernels hold a
+row's logits in registers and size their shared memory for it, and RA-LENet,
+the only model with 4-wide heads, is built for 256 samples. At D = 32 L is
+any length (the kernels stream the keys in chunks). The JAX kernels take any
+D and any L their VMEM holds.
 
 It dispatches on the tensors' device, with no switch and no fallback:
 
 * a CUDA tensor goes to the hand-written Hopper kernels or the call
   raises. When no gradient is needed, to the forward kernel
   `csrc/attention_fwd.cu` alone (the port of the TPU kernel `_fwd_kernel`)
-  or, with `ECG_ATTN_DENSE=1` in the environment (read at every call), D
-  = 4 and a lane-packable stage (L < 128 a power of two,
+  or, with `ECG_ATTN_DENSE=1` in the environment (read at every call) and
+  a lane-packable stage (L < 128 a power of two,
   `dense_pack_factor` > 1), to the dense forward
   `csrc/attention_dense_fwd.cu` (the port of `_fwd_dense_kernel`, B5; see
-  `attention_dense.py`). B5 is written for D = 4 only, so a D = 32 call
-  stays on B1 whatever the switch says, where JAX's `_fwd`
-  (attention_pallas.py:621) would pack it. When one is needed,
+  `attention_dense.py`), at D = 4 and D = 32 alike, as JAX's `_fwd`
+  (attention_pallas.py:621) packs either. When one is needed,
   to `_FusedAttention`, a `torch.autograd.Function`
   whose forward is that kernel with its log-sum-exp residual and whose
   backward is `csrc/attention_bwd.cu` (the port of `_bwd_kernel`). Each
@@ -49,7 +51,7 @@ import torch
 
 HEAD_DIM = 4  # RA-LENet's; the only one B3-B5 take
 HEAD_DIMS = (HEAD_DIM, 32)  # what B1 and B2 take; 32 is Transformer1d's
-MAX_LEN = 256
+MAX_LEN = 256  # at HEAD_DIM only; D = 32 takes any L
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -117,8 +119,9 @@ def check_operands(q, k, v, bias, head_dims=(HEAD_DIM,)) -> None:
     B, H, L, D = q.shape
     if D not in head_dims:
         raise ValueError(f"head_dim must be one of {head_dims}, got {D}")
-    if L > MAX_LEN:
-        raise ValueError(f"sequence length must be <= {MAX_LEN}, got {L}")
+    if D == HEAD_DIM and L > MAX_LEN:
+        raise ValueError(f"sequence length must be <= {MAX_LEN} at head_dim "
+                         f"{HEAD_DIM}, got {L}")
     if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must all be float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")

@@ -3,20 +3,23 @@ kernels/attention_pallas.py `_fwd_dense`, `_dense_wanted`, `_pack_factor`).
 
 `fused_attention_dense(q, k, v, bias)` computes `fused_attention`'s
 function, softmax(q @ k^T + bias) @ v over (B, H, L, D) operands with q
-pre-scaled, D = 4 and bias (1, H, L, L) or None, as an eval forward: no
-log-sum-exp is written and no gradient flows. It takes only the stages the
-TPU packs, L < 128 a power of two with `dense_pack_factor(H, L)` > 1, and
-dispatches on the tensors' device with no switch and no fallback:
+pre-scaled, D = 4 (RA-LENet's heads) or 32 (Transformer1d's) and bias (1,
+H, L, L) or None, as an eval forward: no log-sum-exp is written and no
+gradient flows. It takes only the stages the TPU packs, L < 128 a power of
+two with `dense_pack_factor(H, L)` > 1, and dispatches on the tensors'
+device with no switch and no fallback:
 
 * a CUDA tensor goes to the hand-written Hopper kernel
   `csrc/attention_dense_fwd.cu` (the port of the TPU kernel
-  `_fwd_dense_kernel`) or the call raises;
+  `_fwd_dense_kernel`; its C entry point picks the D = 4 or the D = 32
+  kernel) or the call raises;
 * a CPU tensor goes to `attention_dense_reference`, the plain version.
 
 `fused_attention` routes a no-grad call on the card here when
 `dense_route` says so: `dense_wanted()` (ECG_ATTN_DENSE=1, read at every
-call, as JAX reads it at every trace), the stage packs and D = 4;
-otherwise it keeps B1.
+call, as JAX reads it at every trace) and the stage packs, at either head
+dim, as JAX's `_fwd` (attention_pallas.py:621) packs; otherwise it keeps
+B1.
 
 `attention_dense_reference` is written in the TPU kernel's own form, so
 that the CPU tests hold its layout against JAX's kernel: q packed to
@@ -32,6 +35,7 @@ section C). All float32; the output is rounded once.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import os
 from typing import Optional
@@ -40,7 +44,7 @@ import torch
 
 from ecg_denoise_tpu_torch.kernels.attention import (
     DTYPE_CODES,
-    HEAD_DIM,
+    HEAD_DIMS,
     bind,
     check_launchable,
     check_operands,
@@ -71,12 +75,11 @@ def dense_wanted() -> bool:
 
 def dense_route(shape) -> bool:
     """Whether `fused_attention` sends a no-grad call of this (B, H, L, D)
-    shape on the card to B5: ECG_ATTN_DENSE=1, a lane-packable stage and D
-    = 4, the only head dim B5 is written for. A D = 32 call (Transformer1d)
-    stays on B1, where JAX's `_fwd` (attention_pallas.py:621) packs it
-    (ROADMAP queue B)."""
+    shape on the card to B5: ECG_ATTN_DENSE=1, a lane-packable stage and a
+    head dim B5 is written for (4 or 32), the calls JAX's `_fwd`
+    (attention_pallas.py:621) packs."""
     _, H, L, D = shape
-    return dense_wanted() and D == HEAD_DIM and dense_pack_factor(H, L) > 1
+    return dense_wanted() and D in HEAD_DIMS and dense_pack_factor(H, L) > 1
 
 
 def attention_dense_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -113,6 +116,19 @@ def _library():
     return bind("attention_dense_fwd", "ecg_attention_dense_fwd", 5, 7)
 
 
+def smem_bytes(L: int, D: int, P: int, dtype: torch.dtype, with_bias: bool) -> int:
+    """The dynamic shared memory one block of B5 asks for at this call
+    shape, as the library computes it (builds the library; for logging)."""
+    lib = _library()
+    f = lib.ecg_attention_dense_smem_bytes
+    f.argtypes = [ctypes.c_int] * 5
+    f.restype = ctypes.c_int
+    n = f(L, D, P, DTYPE_CODES[dtype], int(with_bias))
+    if n < 0:
+        raise ValueError(f"B5 takes no call at L={L} D={D} P={P}")
+    return n
+
+
 def _launch(q, k, v, bias, P: int):
     check_launchable(q, k, v, bias=bias)
     lib = _library()
@@ -132,7 +148,7 @@ def fused_attention_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """B5 on the card, the plain version on the CPU (see the module
     docstring); raises on a stage the TPU does not pack and, on the card,
     on operands that need a gradient (B5 has no backward)."""
-    check_operands(q, k, v, bias)
+    check_operands(q, k, v, bias, HEAD_DIMS)
     H, L = q.shape[1], q.shape[2]
     P = dense_pack_factor(H, L)
     if P < 2:

@@ -16,7 +16,7 @@
 //   dbias[h,l,m] = sum_b ds[b,h,l,m]          (float32)
 // q arrives pre-scaled. Operands are contiguous (B, H, L, D) with D = 4 and
 // L <= 256 (D = 32, Transformer1d's heads: the second set of kernels, at
-// the end of this file, with the same contract); bias is a contiguous (1, H, L, L) array shared by the batch,
+// the end of this file, with the same contract but any L); bias is a contiguous (1, H, L, L) array shared by the batch,
 // or absent. float32 and bfloat16 operands; every product, exp and sum is
 // float32, dq, dk and dv are rounded once to the operand dtype, and dbias
 // is written in float32 (the caller casts it to the bias dtype). The TPU
@@ -1063,18 +1063,20 @@ cudaError_t launch_d32(const void* q, const void* k, const void* v,
           : launch_d32_passes<T, false>(qt, kt, vt, bt, gt, ot, lse, c, dqt, dkt, dvt, B, H, L,
                                         stream);
   if (err != cudaSuccess || dbias == nullptr) return err;
-  const int tiles = (L + kTile32 - 1) / kTile32;
-  attention_bwd_dbias_d32_kernel<T><<<H * tiles * tiles, kBiasThreads32, 0, stream>>>(
+  const long long tiles = (L + kTile32 - 1) / kTile32;
+  const long long blocks = H * tiles * tiles;  // then tiles * tiles fits an int too
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  attention_bwd_dbias_d32_kernel<T><<<static_cast<int>(blocks), kBiasThreads32, 0, stream>>>(
       qt, kt, vt, bt, gt, lse, c, dbias, B, H, L);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C interface for ctypes. D: 4 (the kernels above) or 32 (the D = 32
-// kernels). dtype: 0 = float32, 1 = bfloat16. `bias`
-// may be null; `dbias` is null, or (with a bias) a float32 (1, H, L, L)
-// output. `lse` is the forward's float32 (B, H, L) residual and `c` a
+// Plain C interface for ctypes. D: 4 (the kernels above, L <= kMaxL) or 32
+// (the D = 32 kernels, any L whose grids fit an int). dtype: 0 = float32,
+// 1 = bfloat16. `bias` may be null; `dbias` is null, or (with a bias) a
+// float32 (1, H, L, L) output. `lse` is the forward's float32 (B, H, L) residual and `c` a
 // float32 (B, H, L) scratch the call fills. Launches on `stream` of card
 // `device`, does not synchronise and allocates nothing. Returns the first
 // failing launch's cudaError_t (0 = success).
@@ -1084,7 +1086,7 @@ extern "C" int ecg_attention_bwd(const void* q, const void* k, const void* v,
                                  void* dq, void* dk, void* dv, void* dbias,
                                  int B, int H, int L, int D, int dtype,
                                  int device, void* stream) {
-  if (B < 1 || H < 1 || L < 1 || L > kMaxL || (D != kD && D != kD32) ||
+  if (B < 1 || H < 1 || L < 1 || (D == kD && L > kMaxL) || (D != kD && D != kD32) ||
       (dbias != nullptr && bias == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,5 +1,7 @@
 // Dense-packed attention forward (B5) — RA-LENet's short-sequence attention
-// stages on Hopper (sm_90a), the eval forward with ECG_ATTN_DENSE=1.
+// stages on Hopper (sm_90a), the eval forward with ECG_ATTN_DENSE=1; and, at
+// head_dim 32, Transformer1d's (the second kernel, at the end of this file,
+// behind the same C entry point).
 //
 // Replaces the TPU kernel ecg_denoise_tpu/kernels/attention_pallas.py
 // _fwd_dense_kernel (:449), launched through _fwd_dense (:524-559, the
@@ -383,21 +385,274 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   }
 }
 
+// ---------------------------------------------------------------------------
+// head_dim 32: Transformer1d's lane-packable stages. At its defaults on 256
+// samples those are (L, H) = (64, 16), P = 2, and (32, 32), P = 4: 6 and 2
+// of the 12 attention calls of one forward. The D = 4 kernel above is left
+// as it is, bit for bit.
+//
+// Computes the same function at D = 32: softmax(q.k^T + bias).v over
+// contiguous (B, H, L, 32) operands, q pre-scaled, bias (1, H, L, L) or
+// absent, f32 or bf16, no lse. Every head subtracts its own row max, where
+// the TPU kernel subtracts one max over the packed row of P heads (see
+// above).
+//
+// What bounds it. Per (b, h) the work is 2*(2*L*L*D + L*L) flops against
+// 4*L*D operand elements: at the two stages and B = 256, f32, 2.18 and
+// 1.09 GFLOP a call, 33 and 16 us at 67 TFLOP/s, against 134 MB of q, k, v
+// and o, 40 us at 3.35 TB/s: the bytes bound it, by a little at (64, 16).
+// This first version stays in f32 on the CUDA cores, as B1 at D = 32 does.
+//
+// Design, simple first: the TPU packs P heads into one (L, P*L) row of
+// logits; here a block owns the same P heads (a head group g) of one
+// element and has one thread per (head, query row), P*L threads (128 at
+// both Transformer1d stages). The block's P heads are contiguous in the
+// (B, H, L, D) layout, so their K and V rows, P*L rows of 32 (16 KB each
+// as f32), are staged once per element into shared memory with 16-byte
+// loads (bf16 converted as it lands) and read by a warp as broadcasts.
+// Each thread keeps its q row and its f32 output accumulator in registers
+// and makes B1 at D = 32's pass over its head's L keys, in chunks of 32
+// keys with an online softmax, with the same operations in the same order:
+// the output equals attention_fwd.cu's D = 32 kernel without lse, given the
+// same contraction into FMAs by the compiler (chip_smoke.py phase 25
+// checks it). With a bias, the group's (P*L x L) tile is staged once per
+// block as f32 (row stride L | 1, odd: the lanes' reads at one key fall in
+// distinct banks), and the block walks `elems` elements so that it is
+// reused; without one, a block is one element. No atomics: a call gives
+// bit-identical results every time.
+//
+// Measured (chip_smoke.py phase 25, NVIDIA H100 80GB HBM3, 700.00 W power
+// limit; CUDA graph replays at B = 256, f32, no bias, in turns with B1 at
+// D = 32 without lse): 166.8 us at (64, 16) (B1 165.9), 123.3 us at (32,
+// 32) (B1 128.2); 1.248 ms over a forward's 8 calls against B1's 1.251, 3.9
+// times the bound. Equal to B1 bit for bit at every case checked. 151-154
+// registers, no spills.
+
+constexpr int kD32 = 32;
+constexpr int kChunk32 = 32;  // keys of one online-softmax step
+
+// Dynamic shared memory, in bytes: K and V of the group as f32, then the
+// bias tile.
+__host__ __device__ inline int smem_bytes_d32(int L, int P, bool with_bias) {
+  return 2 * P * L * kD32 * 4 + (with_bias ? P * L * (L | 1) * 4 : 0);
+}
+
+// stage_f32, load_row32, store_row32 and dot32 below are copies of the
+// helpers of the same names in attention_fwd.cu (each library is built from
+// one source). Keep them identical: this kernel equals B1 at D = 32 bit for
+// bit only while they do the same operations in the same order.
+
+// n contiguous operand values (n a multiple of 8, src 16-byte aligned)
+// into shared memory as f32, 16 bytes a load.
+__device__ __forceinline__ void stage_f32(float* dst, const float* src, int n) {
+  for (int i = threadIdx.x * 4; i < n; i += blockDim.x * 4) {
+    *reinterpret_cast<float4*>(dst + i) = *reinterpret_cast<const float4*>(src + i);
+  }
+}
+
+__device__ __forceinline__ void stage_f32(float* dst, const __nv_bfloat16* src, int n) {
+  for (int i = threadIdx.x * 8; i < n; i += blockDim.x * 8) {
+    float vals[8];
+    unpack(*reinterpret_cast<const uint4*>(src + i), vals);
+    float4* d = reinterpret_cast<float4*>(dst + i);
+    d[0] = make_float4(vals[0], vals[1], vals[2], vals[3]);
+    d[1] = make_float4(vals[4], vals[5], vals[6], vals[7]);
+  }
+}
+
+// One 32-value operand row into registers as f32.
+__device__ __forceinline__ void load_row32(const float* p, float (&r)[kD32]) {
+#pragma unroll
+  for (int i = 0; i < kD32 / 4; ++i) {
+    const float4 x = reinterpret_cast<const float4*>(p)[i];
+    r[4 * i] = x.x; r[4 * i + 1] = x.y; r[4 * i + 2] = x.z; r[4 * i + 3] = x.w;
+  }
+}
+
+__device__ __forceinline__ void load_row32(const __nv_bfloat16* p, float (&r)[kD32]) {
+#pragma unroll
+  for (int i = 0; i < kD32 / 8; ++i) {
+    float vals[8];
+    unpack(reinterpret_cast<const uint4*>(p)[i], vals);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) r[8 * i + j] = vals[j];
+  }
+}
+
+// r / div, rounded once to the operand dtype.
+__device__ __forceinline__ void store_row32(float* p, const float (&r)[kD32], float div) {
+#pragma unroll
+  for (int i = 0; i < kD32 / 4; ++i) {
+    reinterpret_cast<float4*>(p)[i] = make_float4(r[4 * i] / div, r[4 * i + 1] / div,
+                                                  r[4 * i + 2] / div, r[4 * i + 3] / div);
+  }
+}
+
+__device__ __forceinline__ void store_row32(__nv_bfloat16* p, const float (&r)[kD32],
+                                            float div) {
+  __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(p);
+#pragma unroll
+  for (int i = 0; i < kD32 / 2; ++i) {
+    p2[i] = __floats2bfloat162_rn(r[2 * i] / div, r[2 * i + 1] / div);
+  }
+}
+
+// a . b for a row in registers and one in shared memory (a broadcast), in
+// four interleaved chains: B1 at D = 32's order.
+__device__ __forceinline__ float dot32(const float (&a)[kD32], const float* b) {
+  const float4* b4 = reinterpret_cast<const float4*>(b);
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+#pragma unroll
+  for (int i = 0; i < kD32 / 4; ++i) {
+    const float4 x = b4[i];
+    s0 = fmaf(a[4 * i], x.x, s0);
+    s1 = fmaf(a[4 * i + 1], x.y, s1);
+    s2 = fmaf(a[4 * i + 2], x.z, s2);
+    s3 = fmaf(a[4 * i + 3], x.w, s3);
+  }
+  return (s0 + s1) + (s2 + s3);
+}
+
+template <typename T, bool kBias>
+__global__ void __launch_bounds__(kMaxPairs)
+attention_dense_fwd_d32_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                               const T* __restrict__ v, const T* __restrict__ bias,
+                               T* __restrict__ o, int B, int H, int L, int P, int elems) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int rows = P * L;  // the group's (head, query row) pairs: blockDim.x
+  const int groups = H / P;
+  const int g = blockIdx.x % groups;
+  const int b0 = (blockIdx.x / groups) * elems;
+  const int n_elems = min(elems, B - b0);
+  const int stride = L | 1;
+  float* ks = reinterpret_cast<float*>(smem);
+  float* vs = ks + rows * kD32;
+  float* bs = vs + rows * kD32;
+  const int r = threadIdx.x;  // p * L + l
+  const float* kh = ks + (r / L) * L * kD32;  // this thread's head's L keys
+  const float* vh = vs + (r / L) * L * kD32;
+
+  if constexpr (kBias) {  // the group's rows, contiguous in (1, H, L, L)
+    const T* src = bias + static_cast<size_t>(g) * rows * L;
+    for (int i = threadIdx.x; i < rows * L; i += blockDim.x) {
+      const int rr = i / L, m = i - rr * L;
+      bs[rr * stride + m] = to_float(src[i]);
+    }
+  }
+  const float* brow = bs + r * stride;
+
+  for (int e = 0; e < n_elems; ++e) {
+    // The group's first row: its P heads' rows follow it.
+    const size_t base = (static_cast<size_t>(b0 + e) * H + static_cast<size_t>(g) * P) * L;
+    __syncthreads();  // every thread is done with the last element's K and V
+    stage_f32(ks, k + base * kD32, rows * kD32);
+    stage_f32(vs, v + base * kD32, rows * kD32);
+    __syncthreads();
+
+    float qr[kD32], acc[kD32];
+#pragma unroll
+    for (int d = 0; d < kD32; ++d) acc[d] = 0.f;
+    load_row32(q + (base + r) * kD32, qr);
+    float mx = __int_as_float(0xff800000), sum = 0.f;  // -inf, 0
+
+    for (int m0 = 0; m0 < L; m0 += kChunk32) {
+      const int cn = min(kChunk32, L - m0);
+      float s[kChunk32];
+      float cmax = __int_as_float(0xff800000);
+#pragma unroll
+      for (int j = 0; j < kChunk32; ++j) {
+        if (j < cn) {
+          float x = dot32(qr, kh + (m0 + j) * kD32);
+          if constexpr (kBias) x += brow[m0 + j];
+          s[j] = x;
+          cmax = fmaxf(cmax, x);
+        }
+      }
+      const float mnew = fmaxf(mx, cmax);
+      const float scale = __expf(mx - mnew);  // 0 at the first chunk, 1 if the max holds
+      mx = mnew;
+      sum *= scale;
+#pragma unroll
+      for (int d = 0; d < kD32; ++d) acc[d] *= scale;
+#pragma unroll
+      for (int j = 0; j < kChunk32; ++j) {
+        if (j < cn) {
+          const float ex = __expf(s[j] - mx);
+          const float4* vr = reinterpret_cast<const float4*>(vh + (m0 + j) * kD32);
+          sum += ex;
+#pragma unroll
+          for (int i = 0; i < kD32 / 4; ++i) {
+            const float4 x = vr[i];
+            acc[4 * i] = fmaf(ex, x.x, acc[4 * i]);
+            acc[4 * i + 1] = fmaf(ex, x.y, acc[4 * i + 1]);
+            acc[4 * i + 2] = fmaf(ex, x.z, acc[4 * i + 2]);
+            acc[4 * i + 3] = fmaf(ex, x.w, acc[4 * i + 3]);
+          }
+        }
+      }
+    }
+    store_row32(o + (base + r) * kD32, acc, sum);
+  }
+}
+
+template <typename T, bool kBias>
+cudaError_t launch_d32_one(const T* q, const T* k, const T* v, const T* bias, T* o,
+                           int B, int H, int L, int P, int device, cudaStream_t stream) {
+  // Above 48 KB a block's dynamic shared memory must be allowed once per
+  // instantiation: the most any call takes, P * L = 128 rows at L = 64.
+  static const cudaError_t allowed = cudaFuncSetAttribute(
+      attention_dense_fwd_d32_kernel<T, kBias>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes_d32(64, 2, kBias));
+  if (allowed != cudaSuccess) return allowed;
+  const int groups = H / P;
+  long long elems = 1;
+  if (kBias) {  // enough elements a block that the grid is about kBlocksPerSM an SM
+    int sms = 0;
+    const cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    const long long want = static_cast<long long>(kBlocksPerSM) * sms;
+    elems = (static_cast<long long>(B) * groups + want - 1) / want;
+    if (elems < 1) elems = 1;
+    if (elems > kMaxIters) elems = kMaxIters;
+  }
+  const long long blocks = (B + elems - 1) / elems * groups;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  attention_dense_fwd_d32_kernel<T, kBias><<<static_cast<int>(blocks), P * L,
+                                             smem_bytes_d32(L, P, kBias), stream>>>(
+      q, k, v, bias, o, B, H, L, P, static_cast<int>(elems));
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_d32(const void* q, const void* k, const void* v,
+                       const void* bias, void* o, int B, int H, int L, int P,
+                       int device, cudaStream_t stream) {
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* bt = static_cast<const T*>(bias);
+  T* ot = static_cast<T*>(o);
+  if (bias != nullptr) {
+    return launch_d32_one<T, true>(qt, kt, vt, bt, ot, B, H, L, P, device, stream);
+  }
+  return launch_d32_one<T, false>(qt, kt, vt, bt, ot, B, H, L, P, device, stream);
+}
+
 }  // namespace
 
-// Plain C interface for ctypes. dtype: 0 = float32, 1 = bfloat16. `bias`
-// may be null. P is the route's pack factor (dense_pack_factor in
-// attention_dense.py): the call is refused unless L < 128 is a power of
-// two, P > 1 divides H and P*L <= 128. Launches on `stream` of card
-// `device`, does not synchronise and allocates nothing. Returns the
-// launch's cudaError_t (0 = success).
+// Plain C interface for ctypes. D: 4 (the first kernel) or 32 (the D = 32
+// kernel). dtype: 0 = float32, 1 = bfloat16. `bias` may be null. P is the
+// route's pack factor (dense_pack_factor in attention_dense.py): the call
+// is refused unless L < 128 is a power of two, P > 1 divides H and P*L <=
+// 128. Launches on `stream` of card `device`, does not synchronise and
+// allocates nothing. Returns the launch's cudaError_t (0 = success).
 extern "C" int ecg_attention_dense_fwd(const void* q, const void* k,
                                        const void* v, const void* bias,
                                        void* o, int B, int H, int L, int D,
                                        int P, int dtype, int device,
                                        void* stream) {
   if (B < 1 || H < 1 || L < 1 || L >= kMaxPairs || (L & (L - 1)) != 0 ||
-      D != kD || P < 2 || H % P != 0 || P * L > kMaxPairs) {
+      (D != kD && D != kD32) || P < 2 || H % P != 0 || P * L > kMaxPairs) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
@@ -405,15 +660,32 @@ extern "C" int ecg_attention_dense_fwd(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      err = launch<float>(q, k, v, bias, o, B, H, L, P, device, s);
+      err = D == kD ? launch<float>(q, k, v, bias, o, B, H, L, P, device, s)
+                    : launch_d32<float>(q, k, v, bias, o, B, H, L, P, device, s);
       break;
     case 1:
-      err = launch<__nv_bfloat16>(q, k, v, bias, o, B, H, L, P, device, s);
+      err = D == kD ? launch<__nv_bfloat16>(q, k, v, bias, o, B, H, L, P, device, s)
+                    : launch_d32<__nv_bfloat16>(q, k, v, bias, o, B, H, L, P, device, s);
       break;
     default:
       err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// The dynamic shared memory, in bytes, that one block of a call asks for:
+// the first kernel's at D = 4, the D = 32 kernel's at D = 32; -1 for what
+// ecg_attention_dense_fwd refuses. For logging; launches nothing.
+extern "C" int ecg_attention_dense_smem_bytes(int L, int D, int P, int dtype,
+                                              int with_bias) {
+  if (L < 1 || L >= kMaxPairs || (L & (L - 1)) != 0 || P < 2 || P * L > kMaxPairs ||
+      (dtype != 0 && dtype != 1)) {
+    return -1;
+  }
+  if (D == kD32) return smem_bytes_d32(L, P, with_bias != 0);
+  if (D != kD) return -1;
+  return dtype == 0 ? smem_bytes<float>(L, P, with_bias != 0)
+                    : smem_bytes<__nv_bfloat16>(L, P, with_bias != 0);
 }
 
 extern "C" const char* ecg_cuda_error_string(int err) {

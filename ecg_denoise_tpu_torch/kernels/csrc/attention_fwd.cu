@@ -9,7 +9,7 @@
 //   p[l,:]       = softmax_m(q[b,h,l,:] . k[b,h,m,:] + bias[0,h,l,m])
 // q arrives pre-scaled. Operands are contiguous (B, H, L, D) with D = 4 and
 // L <= 256 (D = 32, Transformer1d's heads: the second kernel, at the end of
-// this file, with the same contract); bias is a contiguous (1, H, L, L) array shared by the batch, or
+// this file, with the same contract but any L); bias is a contiguous (1, H, L, L) array shared by the batch, or
 // absent. float32 and bfloat16 operands; logits, the row max, exp, the sums
 // and the weighted sum are float32, and the output is rounded once to the
 // operand dtype. (The TPU kernel rounds the unnormalised probabilities to
@@ -597,16 +597,17 @@ cudaError_t launch_d32(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// Plain C interface for ctypes. D: 4 (the kernel above) or 32 (the D = 32
-// kernel). dtype: 0 = float32, 1 = bfloat16. `bias` may be null; `lse` is
-// null, or a float32 (B, H, L) output for the backward. Launches on
-// `stream` of card `device`, does not synchronise and allocates nothing.
-// Returns the launch's cudaError_t (0 = success).
+// Plain C interface for ctypes. D: 4 (the kernel above, L <= kMaxL) or 32
+// (the D = 32 kernel, any L whose grid fits an int). dtype: 0 = float32,
+// 1 = bfloat16. `bias` may be null; `lse` is null, or a float32 (B, H, L)
+// output for the backward. Launches on `stream` of card `device`, does not
+// synchronise and allocates nothing. Returns the launch's cudaError_t (0 =
+// success).
 extern "C" int ecg_attention_fwd(const void* q, const void* k, const void* v,
                                  const void* bias, void* o, void* lse,
                                  int B, int H, int L, int D, int dtype,
                                  int device, void* stream) {
-  if (B < 1 || H < 1 || L < 1 || L > kMaxL || (D != kD && D != kD32)) {
+  if (B < 1 || H < 1 || L < 1 || (D == kD && L > kMaxL) || (D != kD && D != kD32)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);

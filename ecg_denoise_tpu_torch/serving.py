@@ -1,9 +1,10 @@
 """Inference/serving layer (JAX counterpart: serving.py `Denoiser`).
 
 * `Denoiser.from_checkpoint` loads a `torch.save`d state_dict of the
-  port's model, or the "model" part of a training checkpoint
-  (`train/checkpoint.py`), the counterpart of the JAX package's
-  `load_variables`, and serves it in eval mode.
+  port's model, the "model" part of a training checkpoint, or the weights
+  of a JAX `.msgpack` checkpoint (`train/checkpoint.py`'s
+  `load_model_weights`, the counterpart of the JAX package's
+  `load_variables`), and serves it in eval mode.
 * Requests are padded to power-of-two batch buckets up to `max_batch`, so
   the card sees a handful of batch shapes whatever the request sizes; the
   zero-padded tail lives in persistent per-bucket staging buffers (pinned
@@ -89,11 +90,13 @@ class Denoiser:
                         dtype: torch.dtype = torch.float32,
                         r_pos: Optional[str] = None, device=None):
         """Serve a `torch.save(model.state_dict())` file of the port's
-        model `name_or_index`, or a training checkpoint's "model" part."""
+        model `name_or_index`, a training checkpoint's "model" part, or the
+        weights of a JAX `.msgpack` checkpoint (`load_model_weights`)."""
+        from ecg_denoise_tpu_torch.train.checkpoint import load_model_weights
+
         device = resolve_device(device)
         model = build_model(name_or_index, dtype=dtype, device=device)
-        state = torch.load(ckpt_path, map_location=device, weights_only=True)
-        model.load_state_dict(state.get("model", state))
+        load_model_weights(ckpt_path, model)
         return cls(model, max_batch, r_pos=r_pos, device=device)
 
     def __call__(self, x: np.ndarray) -> np.ndarray:

@@ -60,10 +60,13 @@ max(1, max|lse|) of the plain log-sum-exp and a second call bit-identical.
 
 B1 and B2 at head_dim 32 (Transformer1d's heads) are held to the same
 bars, the f32 gradients to 1e-4 of their max, at Transformer1d's four stage shapes and at shapes that cut across
-their 64-row tiles and 32-key chunks, with and without a bias; with
-ECG_ATTN_DENSE=1 a D = 32 call stays on B1; a small Transformer1d on the
-card equals the CPU's within 1e-4 with one B1 launch a block forward and
-one B2 a block backward.
+their 64-row tiles and 32-key chunks, with and without a bias, and past
+256 keys (L = 300, 500, 1000); a small Transformer1d on the card equals the
+CPU's within 1e-4 with one B1 launch a block forward and one B2 a block
+backward. With ECG_ATTN_DENSE=1 a D = 32 call at a packable stage goes to
+B5 at D = 32, held to the bars above against its plain version and equal
+to B1 at D = 32 without lse bit for bit, and a small Transformer1d whose
+stages pack makes one B5 launch a block.
 """
 
 import copy
@@ -950,17 +953,108 @@ def test_probe_fold_readings_are_unchanged(cuda):
         assert all(abs(g - w) <= 1e-3 * w for g, w in zip(got, want)), (p, got, want)
 
 
-def test_d32_calls_stay_on_b1_on_the_dense_route(cuda, monkeypatch):
-    """B5 takes D = 4 only: with ECG_ATTN_DENSE=1 a no-grad D = 32 call at a
-    stage B5 would pack at D = 4 goes to B1."""
+def test_dense_route_launches_b5_for_d32_at_a_packable_stage(cuda, monkeypatch):
+    """With ECG_ATTN_DENSE=1 a no-grad D = 32 call at a packable stage,
+    (L, H) = (64, 16), is one B5 launch, and one at a stage that does not
+    pack, (256, 4), stays on B1."""
     monkeypatch.setenv("ECG_ATTN_DENSE", "1")
     q, k, v, _ = _operands(8, 16, 64, False, torch.float32, cuda, D=32)
+    q256, k256, v256, _ = _operands(8, 4, 256, False, torch.float32, cuda, D=32)
     before = (fused_attention.launches, fused_attention_dense.launches)
     with torch.no_grad():
-        fused_attention(q, k, v)
+        out = fused_attention(q, k, v)
     torch.cuda.synchronize()
     assert (fused_attention.launches, fused_attention_dense.launches) == (
-        before[0] + 1, before[1])
+        before[0], before[1] + 1)
+    assert (out - attention_reference(q, k, v)).abs().max().item() <= F32_TOL
+    with torch.no_grad():
+        fused_attention(q256, k256, v256)
+    torch.cuda.synchronize()
+    assert (fused_attention.launches, fused_attention_dense.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+# B5 at head_dim 32: Transformer1d's packable stages, then other shapes
+# the route admits (P = 2 with one chunk of keys, P = 16 and 64), at
+# batches that cut across its blocks' groups of elements.
+DENSE_D32_SHAPES = [(64, 16), (32, 32), (64, 2), (16, 8), (8, 16), (2, 64)]
+
+
+@pytest.mark.parametrize("B", [1, 5, 37])
+@pytest.mark.parametrize("L,H", DENSE_D32_SHAPES)
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_d32_kernel_matches_plain_version_and_b1(cuda, B, L, H, with_bias, dtype):
+    """B5 at D = 32 within the bars of its plain version and equal to B1
+    at D = 32 without lse bit for bit (the same f32 operations, B1's chunks
+    of 32 keys in order); a second call bit-identical."""
+    full_float32()
+    q, k, v, bias = _operands(B, H, L, with_bias, dtype, cuda, seed=L + H, D=32)
+    before = fused_attention_dense.launches
+    out = fused_attention_dense(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert fused_attention_dense.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL_OF_MAX_V * v.float().abs().max().item()
+    assert (out.float() - attention_dense_reference(q, k, v, bias).float()
+            ).abs().max().item() <= tol
+    assert torch.equal(out, attention._launch(q, k, v, bias))
+    assert torch.equal(fused_attention_dense(q, k, v, bias), out)  # no atomics
+
+
+def test_dense_d32_transformer1d_matches_cpu_with_its_launches(cuda, monkeypatch):
+    """A small Transformer1d whose two stages pack ((64, 2), (32, 4)) with
+    ECG_ATTN_DENSE=1: the card's forward within 1e-4 of the CPU's, with one
+    B5 launch a block and no B1."""
+    from ecg_denoise_tpu_torch.models import Transformer1d
+    from ecg_denoise_tpu_torch.train import create_train_state
+
+    monkeypatch.setenv("ECG_ATTN_DENSE", "1")
+    torch.manual_seed(2)
+    cpu = Transformer1d(num_class=3, in_channels=4, embed_dim=64, depths=(1, 1),
+                        num_heads=(2, 4)).eval()
+    x = torch.randn(8, 4, 64)
+    gpu = create_train_state(copy.deepcopy(cpu)).model.eval()
+    before = (fused_attention.launches, fused_attention_dense.launches)
+    with torch.no_grad():
+        y = gpu(x.to(cuda))
+        torch.cuda.synchronize()
+        assert (fused_attention.launches - before[0],
+                fused_attention_dense.launches - before[1]) == (0, 2)
+        assert (y.cpu() - cpu(x)).abs().max().item() <= 1e-4
+
+
+# B1 and B2 at head_dim 32 past 256 keys: 10-second PTB-XL records at
+# 100 Hz through Transformer1d's four stages (L = 250 and 125 are ragged
+# against the 64-row tiles and 32-key chunks, as is 1000 against the
+# chunks), and another ragged length.
+D32_LONG = [(2, 1000, 4), (2, 500, 8), (2, 250, 16), (2, 125, 32), (1, 300, 2)]
+
+
+@pytest.mark.parametrize("B,L,H", D32_LONG)
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b1_and_b2_at_d32_past_256(cuda, B, L, H, with_bias, dtype):
+    """B1 with its lse and B2 through the autograd Function against their
+    plain versions at the bars of the stage-shape tests."""
+    full_float32()
+    q, k, v, bias = _operands(B, H, L, with_bias, dtype, cuda, seed=L + H, D=32)
+    out, lse = attention._launch(q, k, v, bias, with_lse=True)
+    ref, ref_lse = attention_reference(q, k, v, bias, return_lse=True)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL_OF_MAX_V * v.float().abs().max().item()
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    assert (lse - ref_lse).abs().max().item() <= LSE_TOL * max(1.0, ref_lse.abs().max().item())
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)).to(cuda, dtype)
+    before = fused_attention.bwd_launches
+    out, grads = _grads(q, k, v, bias, g)
+    torch.cuda.synchronize()
+    assert fused_attention.bwd_launches == before + 1
+    _, lse = attention_reference(q, k, v, bias, return_lse=True)
+    flash = attention_backward_reference(q, k, v, bias, out.detach(), lse, g)
+    for name, a, b in zip("q k v bias".split(), grads, flash):
+        scale = b.float().abs().max().item()
+        tol = (BF16_GRAD_TOL_OF_MAX if dtype == torch.bfloat16 else D32_GRAD_TOL_OF_MAX) * scale
+        assert (a.float() - b.float()).abs().max().item() <= tol, name
 
 
 def test_transformer1d_matches_cpu_with_its_launches(cuda):

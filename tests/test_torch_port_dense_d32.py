@@ -1,0 +1,113 @@
+"""The port's dense forward (B5) at head_dim 32 against the JAX package's,
+on the CPU.
+
+`attention_dense_reference` (B5's plain version, which `fused_attention_dense`
+runs for CPU tensors) at D = 32, q pre-scaled by 32^-1/2 as Transformer1d
+scales it, against JAX's `_fwd_dense` run through `fused_attention` in
+interpret mode with ECG_ATTN_DENSE=1 (a counter on `_fwd_dense` shows the
+call went through it), at Transformer1d's two packable stages, (L, H) =
+(64, 16) and (32, 32), with and without a bias, within 1e-5: both sides
+compute float32 logits and softmax. JAX subtracts one max over the packed
+row of P heads and the port each head's own; with these logits the two are
+equal to rounding.
+
+Then a small Transformer1d (embed 64, depths (1, 1), heads (2, 4): every
+head 32 wide and both stages packable) with ECG_ATTN_DENSE=1 against JAX's
+with `use_pallas=True`: on the port's side the attention takes the card's
+dispatch (`dense_route`, then B5's or B1's wrapper), whose CPU versions are
+the plain ones, within 1e-4; both sides take the dense forward at both
+stages.
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+import ecg_denoise_tpu.kernels.attention_pallas as ap
+import ecg_denoise_tpu_torch.ops.attention as port_ops
+from ecg_denoise_tpu.models import Transformer1d as JaxTransformer1d
+from ecg_denoise_tpu_torch.interop.jax_weights import transformer1d_state_dict
+from ecg_denoise_tpu_torch.kernels.attention import attention_reference, fused_attention
+from ecg_denoise_tpu_torch.kernels.attention_dense import (
+    attention_dense_reference,
+    dense_route,
+    fused_attention_dense,
+)
+from ecg_denoise_tpu_torch.models import Transformer1d
+from test_torch_port_layers import random_variables
+
+D = 32
+ATOL = 1e-5
+MODEL_ATOL = 1e-4
+STAGES = [(64, 16), (32, 32)]  # Transformer1d's packable (L, H) at 256 samples
+DENSE_SMALL = dict(num_class=9, in_channels=32, embed_dim=64, depths=(1, 1), num_heads=(2, 4))
+
+
+@pytest.fixture
+def jax_dense_calls(monkeypatch):
+    """JAX's attention in interpret mode with ECG_ATTN_DENSE=1; the list
+    grows by one for every call into `_fwd_dense`."""
+    monkeypatch.setattr(ap, "_INTERPRET", True)
+    monkeypatch.setenv("ECG_ATTN_DENSE", "1")
+    calls = []
+    real = ap._fwd_dense
+
+    def counted(*args, **kwargs):
+        calls.append(args[0].shape)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(ap, "_fwd_dense", counted)
+    return calls
+
+
+def _operands(B, H, L, with_bias, seed=0):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((B, H, L, D)).astype(np.float32) for _ in range(3))
+    bias = rng.standard_normal((1, H, L, L)).astype(np.float32) if with_bias else None
+    return (q * D ** -0.5).astype(np.float32), k, v, bias
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(a)
+
+
+@pytest.mark.parametrize("L,H", STAGES)
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_reference_matches_jax_dense_kernel_at_d32(jax_dense_calls, L, H, with_bias):
+    q, k, v, bias = _operands(3, H, L, with_bias, seed=L + with_bias)
+    ref = ap.fused_attention(q, k, v, bias)
+    assert jax_dense_calls == [(3, H, L, D)]
+    out = attention_dense_reference(*map(_t, (q, k, v, bias)))
+    assert out.shape == (3, H, L, D) and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+    torch.testing.assert_close(out, attention_reference(*map(_t, (q, k, v, bias))),
+                               atol=ATOL, rtol=0)
+
+
+def test_small_transformer1d_dense_forward_matches_jax(jax_dense_calls, monkeypatch):
+    jm = JaxTransformer1d(**DENSE_SMALL, use_pallas=True)
+    v = random_variables(jm, jnp.zeros((2, DENSE_SMALL["in_channels"], 64)), seed=21)
+    pm = Transformer1d(**DENSE_SMALL).eval()
+    pm.load_state_dict(transformer1d_state_dict(v))
+    x = np.random.default_rng(22).standard_normal(
+        (2, DENSE_SMALL["in_channels"], 64)).astype(np.float32)
+    ref = np.asarray(jm.apply(v, jnp.asarray(x)))
+    # Each stage's call traced through `_fwd_dense` (a trace may visit it twice).
+    assert set(jax_dense_calls) == {(2, 2, 64, D), (2, 4, 32, D)}
+
+    routes = []
+
+    def card_dispatch(q, k, v, bias=None):
+        """The card's no-grad dispatch of `fused_attention`, with the CPU
+        versions of its kernels."""
+        dense = dense_route(q.shape)
+        routes.append((tuple(q.shape), dense))
+        return (fused_attention_dense if dense else fused_attention)(q, k, v, bias)
+
+    monkeypatch.setattr(port_ops, "fused_attention", card_dispatch)
+    with torch.no_grad():
+        y = pm(torch.from_numpy(x))
+    assert routes == [((2, 2, 64, D), True), ((2, 4, 32, D), True)]
+    np.testing.assert_allclose(y.numpy(), ref, atol=MODEL_ATOL, rtol=0)

@@ -1,8 +1,10 @@
 """The port imports nothing of JAX and nothing of the JAX package.
 
 Every module of `ecg_denoise_tpu_torch` is imported in a fresh interpreter
-in which `jax`, `flax`, `optax` and `ecg_denoise_tpu` (and their
-submodules, should the interpreter have loaded any) are blocked: their
+in which `jax`, `flax`, `optax`, `msgpack` (the card's machine has none of
+them; the port decodes the JAX package's checkpoints itself) and
+`ecg_denoise_tpu` (and their submodules, should the interpreter have
+loaded any) are blocked: their
 entries in `sys.modules` are None, so importing them raises ImportError.
 The module list is read from the file tree, so every worker collects the
 same tests.
@@ -17,7 +19,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "ecg_denoise_tpu_torch"
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "ecg_denoise_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "ecg_denoise_tpu")
 
 
 def _modules():
@@ -66,7 +68,8 @@ def test_the_package_has_its_modules():
                  "ecg_denoise_tpu_torch.models.resnet_cls",
                  "ecg_denoise_tpu_torch.models.transformer1d",
                  "ecg_denoise_tpu_torch.metrics.cls", "ecg_denoise_tpu_torch.train.cls_steps",
-                 "ecg_denoise_tpu_torch.cli.train_cls", "ecg_denoise_tpu_torch.cli.test_cls"):
+                 "ecg_denoise_tpu_torch.cli.train_cls", "ecg_denoise_tpu_torch.cli.test_cls",
+                 "ecg_denoise_tpu_torch.interop.flax_msgpack"):
         assert name in MODULES
 
 

@@ -1,0 +1,103 @@
+"""Attention at head_dim 32 past 256 keys, and Transformer1d past 256
+samples, against the JAX package, on the CPU.
+
+B1 and B2 at D = 32 take any L (the D = 4 kernels keep their cap of 256,
+which RA-LENet, built for 256 samples, never passes). Their plain versions
+at L = 300 and 520, q pre-scaled by 32^-1/2, against JAX's `fused_attention`
+with its Pallas pair run in interpret mode (as tests/test_pallas_attention.py
+runs it), with and without a bias: the forward within 1e-5, the gradients
+within 1e-4 (the JAX package's kernel bars). Then the small Transformer1d of
+test_torch_port_transformer1d.py (embed 32, depths (1, 1), heads (1, 2))
+on 520-sample inputs, where the port raised before: the forward within
+1e-4 of JAX's with `use_pallas=True` and every parameter's gradient within
+1e-4 of its tensor's largest. A D = 4 call at L = 257 still raises.
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+import ecg_denoise_tpu.kernels.attention_pallas as ap
+from ecg_denoise_tpu.models import Transformer1d as JaxTransformer1d
+from ecg_denoise_tpu_torch.interop.jax_weights import transformer1d_state_dict
+from ecg_denoise_tpu_torch.kernels.attention import (
+    attention_backward_reference,
+    attention_reference,
+    fused_attention,
+)
+from ecg_denoise_tpu_torch.models import Transformer1d
+from test_torch_port_layers import random_variables
+
+D = 32
+FWD_ATOL = 1e-5
+GRAD_ATOL = 1e-4
+MODEL_ATOL = 1e-4
+GRAD_TOL_OF_MAX = 1e-4
+SMALL = dict(num_class=9, in_channels=32, embed_dim=32, depths=(1, 1), num_heads=(1, 2))
+LONG = 520
+
+
+@pytest.fixture(autouse=True)
+def _interpret_mode(monkeypatch):
+    monkeypatch.setattr(ap, "_INTERPRET", True)
+
+
+@pytest.mark.parametrize("L", [300, LONG])
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_plain_attention_past_256_matches_pallas_interpret(L, with_bias):
+    rng = np.random.default_rng(L + with_bias)
+    B, H = 1, 2
+    q, k, v, g = (rng.standard_normal((B, H, L, D)).astype(np.float32) for _ in range(4))
+    q = (q * D ** -0.5).astype(np.float32)
+    bias = rng.standard_normal((1, H, L, L)).astype(np.float32) if with_bias else None
+    args = tuple(map(jnp.asarray, (q, k, v) + ((bias,) if with_bias else ())))
+    f = ((lambda q, k, v, b: ap.fused_attention(q, k, v, b)) if with_bias
+         else (lambda q, k, v: ap.fused_attention(q, k, v)))
+    ref_out, vjp = jax.vjp(f, *args)
+    ref_grads = vjp(jnp.asarray(g))
+
+    t = [torch.from_numpy(a) for a in (q, k, v)] + (
+        [torch.from_numpy(bias)] if with_bias else [None])
+    out = fused_attention(*t)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_out), atol=FWD_ATOL, rtol=0)
+    out, lse = attention_reference(*t, return_lse=True)
+    grads = attention_backward_reference(*t, out, lse, torch.from_numpy(g))
+    for name, ref, got in zip("q k v bias".split(), ref_grads, grads):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=GRAD_ATOL, rtol=0,
+                                   err_msg=name)
+
+
+def test_transformer1d_past_256_matches_jax():
+    jm = JaxTransformer1d(**SMALL, use_pallas=True)
+    v = random_variables(jm, jnp.zeros((2, SMALL["in_channels"], LONG)), seed=23)
+    pm = Transformer1d(**SMALL)
+    pm.load_state_dict(transformer1d_state_dict(v))
+    rng = np.random.default_rng(24)
+    x = rng.standard_normal((2, SMALL["in_channels"], LONG)).astype(np.float32)
+    w = rng.standard_normal((2, SMALL["num_class"])).astype(np.float32)
+
+    def loss(params):
+        y = jm.apply({"params": params}, jnp.asarray(x))
+        return jnp.sum(y * w), y
+
+    (_, ref), ref_grads = jax.value_and_grad(loss, has_aux=True)(v["params"])
+    y = pm(torch.from_numpy(x))
+    assert y.shape == (2, SMALL["num_class"])
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(ref), atol=MODEL_ATOL, rtol=0)
+    (y * torch.from_numpy(w)).sum().backward()
+    ref_grads = transformer1d_state_dict({"params": ref_grads})
+    params = dict(pm.named_parameters())
+    assert params.keys() == ref_grads.keys()
+    for name, p in params.items():
+        bar = GRAD_TOL_OF_MAX * ref_grads[name].abs().max().item()
+        err = (p.grad - ref_grads[name]).abs().max().item()
+        assert err <= bar, (name, err, bar)
+
+
+def test_d4_keeps_its_length_cap():
+    q = torch.zeros(1, 2, 257, 4)
+    with pytest.raises(ValueError, match="sequence length"):
+        fused_attention(q, q, q)
+    assert fused_attention(*(torch.zeros(1, 2, 257, D),) * 3).shape == (1, 2, 257, D)

@@ -14,8 +14,8 @@ wide, the slice's shape), L = 64, with random variables through
 `transformer1d_state_dict`: the forward within 1e-4 of JAX's with
 `use_pallas=True` (interpret mode) and `False`, every parameter's gradient
 within 1e-4 of its tensor's largest, and an odd L through PatchMerging's
-pad. With ECG_ATTN_DENSE=1 a D = 32 call stays on B1's path, where JAX's
-`_fwd` would pack it.
+pad. With ECG_ATTN_DENSE=1 a D = 32 call takes the dense route (B5) where
+the stage packs, as JAX's `_fwd` packs it, and B1 elsewhere.
 """
 
 import numpy as np
@@ -130,13 +130,17 @@ def test_odd_length_goes_through_patch_merging_pad():
     np.testing.assert_allclose(y.numpy(), ref, atol=MODEL_ATOL, rtol=0)
 
 
-def test_dense_route_leaves_d32_calls_to_b1(monkeypatch):
-    """With ECG_ATTN_DENSE=1, B5 takes the D = 4 call of a packable stage
-    and not the D = 32 call of the same stage, which JAX's `_fwd` packs."""
+def test_dense_route_takes_d32_at_packable_stages(monkeypatch):
+    """With ECG_ATTN_DENSE=1 the dense route takes a D = 32 call where the
+    stage packs, as JAX's `_fwd` packs it (Transformer1d's (64, 16) and
+    (32, 32)), and leaves the calls of the stages that do not pack, (256,
+    4) and (128, 8), to B1, as JAX leaves them to `_fwd_raw`; with the
+    switch off every call stays on B1."""
     monkeypatch.setenv("ECG_ATTN_DENSE", "1")
-    B, H, L = 8, 16, 64  # Transformer1d's third stage
-    assert ap._dense_wanted() and ap._pack_factor(B, H, L) > 1
-    assert dense_route((B, H, L, 4))
-    assert not dense_route((B, H, L, D))
+    B = 8
+    for (L, H), packs in (((256, 4), False), ((128, 8), False), ((64, 16), True),
+                          ((32, 32), True)):
+        assert ap._dense_wanted() and (ap._pack_factor(B, H, L) > 1) == packs
+        assert dense_route((B, H, L, D)) == packs == dense_route((B, H, L, 4))
     monkeypatch.setenv("ECG_ATTN_DENSE", "0")
-    assert not dense_route((B, H, L, 4))
+    assert not dense_route((B, 16, 64, D)) and not dense_route((B, 16, 64, 4))
