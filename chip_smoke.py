@@ -25,14 +25,16 @@ and nothing falls back to the CPU):
    attention_reference's (LSE_TOL) and a second call bit-identical; and,
    where the parent's tree is there, every case's output equal to the
    parent's B1 bit for bit (the D = 4 kernel is unchanged beside D = 32).
-2b. Within phase 2's loop, B1 at head_dim 32 (Transformer1d's heads)
-   against its plain version, at Transformer1d's four stage shapes
-   (L, H) = (256, 4), (128, 8), (64, 16), (32, 32) at B = 256 (the served
-   batch of phase 24) and B = 64 (its training batch) and a ragged
-   (B, L) = (3, 203), with and without bias, f32 and bf16, q scaled by
-   32^-1/2 as the model scales it, at phase 2's bars, with the lse and a
-   second call bit-identical; then the first stage at B = 64 with q
-   unscaled (logits up to about 35) at LARGE_LOGIT_TOL.
+2b. Within phase 2's loop, B1 on its mma template: at head_dim 32
+   (Transformer1d's heads) against its plain version, at Transformer1d's
+   four stage shapes (L, H) = (256, 4), (128, 8), (64, 16), (32, 32) at
+   B = 256 (the served batch of phase 24) and B = 64 (its training batch)
+   and a ragged (B, L) = (3, 203), with and without bias, f32 and bf16, q
+   scaled by 32^-1/2 as the model scales it, at phase 2's bars, with the
+   lse and a second call bit-identical; then the first stage at B = 64
+   with q unscaled (logits up to about 35) at LARGE_LOGIT_TOL; then at
+   head_dim 8, 16, 24 (padded to 32) and 64 at shapes that cut across its
+   tiles and packed heads, and at D = 4 past 256 keys (MMA_D_CASES).
 3. Model: RA-LENet 'full' at full width and depth, seeded weights with
    random nonzero rel-pos tables and BN stats; the card's forward against
    the same model on the CPU (float32, 1e-4) and 18 kernel launches per
@@ -60,8 +62,8 @@ and nothing falls back to the CPU):
    bf16); two calls give bit-identical gradients; and, where the parent's
    tree is there, dq, dk, dv and the float32 dbias equal the parent's B2
    bit for bit on the same o, lse and g.
-6b. Within phase 6's loop, B2 at head_dim 32 at phase 2b's B = 64 and
-   ragged cases through the autograd Function,
+6b. Within phase 6's loop, B2 at phase 2b's B = 64, ragged and
+   MMA_D_CASES cases through the autograd Function,
    against the plain flash backward on B1's own o and lse and, in f32,
    autograd through the plain forward: each gradient within 1e-4 of its
    max (f32; bf16 2^-7 of it), dbias too; a second call bit-identical.
@@ -239,8 +241,9 @@ and nothing falls back to the CPU):
 
 23. The beat classifier: ResNetCls (seeded, nonzero BN stats) on the card
    against the CPU (1e-4); `python -m ecg_denoise_tpu_torch.cli.train_cls`
-   trains 3 epochs on phase 21's cls cache (train accuracy rises, the
-   checkpoint loads, no port kernel: train_cls); `python -m
+   trains 3 epochs on phase 21's cls cache (the last epoch's train loss
+   below the untrained classifier's on the same split, the checkpoint
+   loads, no port kernel: train_cls); `python -m
    ecg_denoise_tpu_torch.cli.test_cls` with that classifier and phase 7b's
    RA-LENet checkpoint prints every condition (clean, noisy, the six
    denoisers, five skipped, dwt, fft), the ralenet condition with 18 B1
@@ -254,31 +257,39 @@ and nothing falls back to the CPU):
    with 12 B1 and 12 B2; served at 256 (serve_transformer1d: 12 B1) and
    two steps at 64 through `make_cls_epoch_fns` (train_transformer1d: 24 +
    24), windows/s served and step ms, f32 and bf16, the f32 step's
-   breakdown; per stage shape B1 (B = 256) and B2 (B = 64) from CUDA graph
-   replays beside their bounds, plain versions and
-   scaled_dot_product_attention (no mask).
+   breakdown; B1's and B2's mma kernels' registers, spills and HMMA
+   instructions by instantiation (cuobjdump; a kernel without HMMA fails
+   the run); per stage shape B1 (B = 256) and B2 (B = 64) from CUDA graph
+   replays, in turns with the parent's where its tree is there, beside
+   their bounds (3xTF32 on the tensor cores, and the CUDA cores' of the
+   first design), plain versions and scaled_dot_product_attention (no
+   mask); Transformer1d's served windows/s and step ms, f32 and bf16, with
+   this tree's B1 and B2 and the parent's in turns.
 25. B5 at head_dim 32 (attention_dense_fwd.cu's second kernel): its
    registers and spills by instantiation (cuobjdump; a spill fails the
    run) and its shared memory a block; against its plain version and B1 at
    D = 32 without lse at Transformer1d's packable stages (L, H) = (64, 16)
    and (32, 32), B = 256 and 37, with and without bias, f32 (1e-5) and bf16
    (3 * 2^-8 of max|v|), q scaled by 32^-1/2, a second call
-   bit-identical, and equal to B1 without lse bit for bit; Transformer1d at its
+   bit-identical, within those bars of B1 without lse, and, where its tree
+   is there, equal to the parent's B5 bit for bit; Transformer1d at its
    defaults served at 256 with ECG_ATTN_DENSE=1 (serve_transformer1d_dense:
    4 B1 and 8 B5), its first 8 windows within 1e-4 of the CPU; the 8 dense
    calls' times, B5 in turns with B1 from CUDA graph replays, beside the
    bound, the plain version and SDPA; served windows/s dense and default,
    in turns.
-26. B1 and B2 at head_dim 32 past 256 keys, (B, L, H) = (4, 1000, 4) and
-   (4, 500, 8), with and without bias, f32 and bf16, at the bars of phases
+26. B1 and B2 at head_dim 32 past 256 keys, at the four stages of a
+   1,000-sample record and B = 2, 4, 32 (D32_LONG), with and without
+   bias, f32 and bf16, at the bars of phases
    2b and 6b (the lse too; B2 against the plain flash backward and, in f32,
    autograd through the plain forward); Transformer1d at its defaults on
    1,000-sample inputs (stages at L = 1000, 500, 250, 125): the forward at
    4 within 1e-4 of the CPU with 12 B1, one step at 2 against the CPU's at
    `step_bars` (train_transformer1d_long: 12 + 12), served at 32
    (serve_transformer1d_long: 12 B1), windows/s f32 and bf16; per stage B1
-   and B2 at B = 32 from CUDA graph replays beside their bounds, plain
-   versions and SDPA.
+   and B2 at B = 32 from CUDA graph replays, in turns with the parent's,
+   beside their bounds, plain versions and SDPA, and the served and
+   trained rates against the parent's, as in phase 24.
 27. A JAX checkpoint: the UNet TrainState the JAX package wrote
    (tests/data/jax_ckpt) served by `Denoiser.from_checkpoint` on the card
    within 1e-4 of JAX's committed output, by `cli.serve --model unet
@@ -459,11 +470,18 @@ RAGGED_RPOS = [(1, 256, 32, 2), (17, 128, 16, 4), (37, 64, 8, 8), (1000, 32, 4, 
 # 256-sample input, the calls of one forward by stage (its depths, 2, 2, 6,
 # 2), the training batch (phases 2b and 6b; phase 2b also runs the stages
 # at T1D_SERVE_BATCH, the served batch), and a ragged batch and length that
-# cut across the D = 32 kernels' 64-row tiles and 32-key chunks.
+# cut across the template's 64-row tiles and 64-key stages.
 D32_STAGES = [(256, 4), (128, 8), (64, 16), (32, 32)]
 D32_CALLS = dict(zip(D32_STAGES, (2, 2, 6, 2)))
 D32_BATCH = 64
 D32_RAGGED = [(3, 203, 2)]
+# B1 and B2's mma template at its other head dims (phases 2b and 6b): each
+# instantiated D and one it pads (24), at shapes that cut across its 64-row
+# tiles and 64-key stages (256, 203, 33) and the heads it packs (L <= 32);
+# then D = 4 past the D = 4 kernels' 256 keys (padded to 8): (D, B, L, H).
+MMA_D_CASES = [(D, B, L, H) for D in (8, 16, 24, 64)
+               for B, L, H in ((4, 256, 2), (3, 203, 2), (5, 33, 3), (7, 16, 5))] + [
+    (4, 3, 300, 2)]
 # q arrives scaled by head_dim^-1/2, as MSAttention scales it: logits of
 # unit spread, as at D = 4. Unscaled (logits up to about 35) the f32
 # roundings of the logits reach 1e-5 of the output on both sides: that case
@@ -946,7 +964,7 @@ def phase_kernel_vs_plain():
     saved = tf32_flags()
     full_float32()
     gen = torch.Generator().manual_seed(0)
-    max_err = {4: 0.0, 32: 0.0}
+    max_err = {4: 0.0, 32: 0.0}  # f32, by head dim (others added as met)
     cases = [(BATCH, L, H, b, dt, 4, 1.0) for (L, H) in STAGES
              for b in (True, False) for dt in (torch.float32, torch.bfloat16)]
     cases += [(3, L, H, True, torch.float32, 4, 1.0) for (L, H) in STAGES]
@@ -970,15 +988,15 @@ def phase_kernel_vs_plain():
         tol = (BF16_TOL_OF_MAX_V * v.float().abs().max().item() if dtype == torch.bfloat16
                else LARGE_LOGIT_TOL if wide else F32_TOL)
         parent = ""
-        if D == 4 and parent_libs():
-            # The D = 4 kernel is unchanged beside the D = 32 one.
+        if not on_mma(D, L) and parent_libs():
+            # The D = 4 kernel is unchanged beside the mma template.
             as_parent = torch.equal(out, parent_b1(q, k, v, bias))
             parent = f"; bit-identical to the parent's B1: {as_parent}"
             check(as_parent, "B1 at D = 4 is not the parent's B1 bit for bit")
-        shape = (f"[2] B={B}" if D == 4 else
-                 f"[2b] D=32 B={B}") + f" L={L} H={H} bias={with_bias} {str(dtype)[6:]}"
-        if D == 32:
-            shape += f" q {'unscaled' if wide else 'scaled'}"
+        shape = (f"[2b] D={D} B={B}" if on_mma(D, L) else
+                 f"[2] B={B}") + f" L={L} H={H} bias={with_bias} {str(dtype)[6:]}"
+        if on_mma(D, L):
+            shape += f" q {'unscaled' if q_scale == 1.0 else 'scaled'}"
         log(f"{shape}: max_abs_err={err:.3e} (tol {tol:.3e}), lse {lse_err:.3e} (tol "
             f"{lse_tol:.3e}); a second call, with lse, bit-identical: {same}{parent}")
         check(out.shape == q.shape and out.dtype == dtype, "kernel output shape or dtype")
@@ -987,7 +1005,7 @@ def phase_kernel_vs_plain():
               f"B1's lse at D = {D} disagrees with the plain version's")
         check(same, "two forward calls differ")
         if dtype == torch.float32 and not wide:
-            max_err[D] = max(max_err[D], err)
+            max_err[D] = max(max_err.get(D, 0.0), err)
     if not parent_libs():
         log("[2] the parent's B1 not compared (no tree under _archive/parent)")
     # Trained logits reach 191.5 at the L=16 stage: without the row max,
@@ -1290,7 +1308,7 @@ def phase_backward_vs_plain():
                     tol = BF16_GRAD_TOL_OF_MAX * scale
                 elif shift:
                     tol = LARGE_LOGIT_GRAD_TOL_OF_MAX * scale
-                elif D == 32:
+                elif on_mma(D, L):
                     tol = D32_GRAD_TOL_OF_MAX * scale
                 else:
                     tol = DBIAS_TOL_OF_MAX * scale if name == "dbias" else GRAD_TOL
@@ -1298,11 +1316,11 @@ def phase_backward_vs_plain():
                 check(err <= tol, f"B2 at D = {D}: {name} disagrees with the "
                                   f"plain {ref_name} backward")
                 if dtype == torch.float32 and ref_name == "flash" and not (shift or wide):
-                    max_err[D] = max(max_err[D], err)
+                    max_err[D] = max(max_err.get(D, 0.0), err)
         _, again = kernel_grads(q, k, v, bias, g)
         same = all(torch.equal(a, b) for a, b in zip(grads, again))
         parent = ""
-        if D == 4 and parent_libs():
+        if not on_mma(D, L) and parent_libs():
             # The raw kernels' outputs, dbias in float32 before any cast.
             args = (q, k, v, bias, out, lse, g, with_bias)
             new, old = b2_call(attention._bwd_library(), *args), parent_b2(*args)
@@ -1310,10 +1328,10 @@ def phase_backward_vs_plain():
                      if a is not None and torch.equal(a, b)]
             parent = f"; bit-identical to the parent's B2: {', '.join(equal) or 'none'}"
             check(len(equal) == 3 + with_bias, "B2 is not the parent's B2 bit for bit")
-        shape = (f"[6] B={B}" if D == 4 else
-                 f"[6b] D=32 B={B}") + f" L={L} H={H} bias={with_bias} {str(dtype)[6:]}"
-        if D == 32:
-            shape += f" q {'unscaled' if wide else 'scaled'}"
+        shape = (f"[6b] D={D} B={B}" if on_mma(D, L) else
+                 f"[6] B={B}") + f" L={L} H={H} bias={with_bias} {str(dtype)[6:]}"
+        if on_mma(D, L):
+            shape += f" q {'unscaled' if q_scale == 1.0 else 'scaled'}"
         log(f"{shape}{f' logits+{shift:.0f}' if shift else ''}: " + ", ".join(errs)
             + f"; a second call bit-identical: {same}{parent}")
         check(same, "two backward calls differ")
@@ -3442,11 +3460,23 @@ def phase_baseline(card, paths):
 def d32_cases():
     """Phases 2b and 6b: (B, L, H, with bias, dtype, D, q scale) at
     Transformer1d's stage shapes at the training batch and the ragged
-    ones, then its first stage with q unscaled (wide logits), f32."""
+    ones, then its first stage with q unscaled (wide logits), f32; then
+    the mma template's other head dims (MMA_D_CASES), q scaled by D^-1/2
+    (D = 4 unscaled, as RA-LENet's)."""
     return [(B, L, H, b, dt, 32, D32_Q_SCALE) for B, L, H in
             [(D32_BATCH, L, H) for L, H in D32_STAGES] + D32_RAGGED
             for b in (True, False) for dt in (torch.float32, torch.bfloat16)] + [
-        (D32_BATCH, *D32_STAGES[0], b, torch.float32, 32, 1.0) for b in (True, False)]
+        (D32_BATCH, *D32_STAGES[0], b, torch.float32, 32, 1.0) for b in (True, False)] + [
+        (B, L, H, b, dt, D, 1.0 if D == 4 else D ** -0.5) for D, B, L, H in MMA_D_CASES
+        for b in (True, False) for dt in (torch.float32, torch.bfloat16)]
+
+
+def on_mma(D, L):
+    """Whether B1 and B2 take a (D, L) call on the mma template (not the D
+    = 4 kernels)."""
+    from ecg_denoise_tpu_torch.kernels.attention import HEAD_DIM, kernel_head_dim
+
+    return kernel_head_dim(D, L, torch.float32) != HEAD_DIM
 
 
 def run_module_lines(module, argv, tag):
@@ -3494,12 +3524,22 @@ def phase_classifier(card, cls_cache, core_ckpt):
             "ecg_denoise_tpu_torch.cli.train_cls",
             ["--epochs", str(CLS_EPOCHS), "--data_path", cls_cache, "--save", save], "23")
         launches["train_cls"] = read_launches()
-        accs = [float(m.group(1)) for m in map(re.compile(r".* train_acc=(\S+) ").match, lines)
-                if m]
+        found = [m.groups() for m in map(
+            re.compile(r".* train_loss=(\S+) train_acc=(\S+) ").match, lines) if m]
+        losses, accs = ([float(x[i]) for x in found] for i in (0, 1))
+        # The CLI's untrained classifier (its --seed) on the same split: the
+        # loss training must get below, whatever one epoch's noise (the
+        # first epoch's accuracy is already 0.98-0.99).
+        random_seed(2023)
+        untrained = create_train_state(ResNetCls())
+        _, untrained_eval = make_cls_epoch_fns(untrained.model, untrained.optimizer)
+        tr_x, tr_y = (torch.from_numpy(a).cuda() for a in load_cls_arrays(True, path=cls_cache))
+        loss0 = untrained_eval(tr_x, tr_y)[0]["loss"]
         log(f"[23] {card}: cli.train_cls, {CLS_EPOCHS} epochs in {wall:.1f} s (host clock, "
-            f"start-up included); train accuracy by epoch {accs}; launches "
-            f"{launches['train_cls']}")
-        check(len(accs) == CLS_EPOCHS and accs[-1] > accs[0], "train accuracy did not rise")
+            f"start-up included); train loss by epoch {losses}, accuracy {accs}; the untrained "
+            f"classifier's loss on the split {loss0:.4f}; launches {launches['train_cls']}")
+        check(len(losses) == CLS_EPOCHS and losses[-1] < loss0,
+              "the last epoch's train loss is not below the untrained classifier's")
         check(launches["train_cls"] == expected_launches(), "train_cls launched a kernel")
         state = load_checkpoint(save, create_train_state(ResNetCls()))
         check(state.step > 0, "the classifier checkpoint did not load its training state")
@@ -3528,7 +3568,6 @@ def phase_classifier(card, cls_cache, core_ckpt):
 
     # Rates: training windows/s over one epoch of the cls train split, at
     # batch 32 and 256, f32 and bf16; one f32 step's breakdown; eval at 1024.
-    tr_x, tr_y = (torch.from_numpy(a).cuda() for a in load_cls_arrays(True, path=cls_cache))
     te_x, te_y = (torch.from_numpy(a).cuda() for a in load_cls_arrays(False, path=cls_cache))
     for dtype in (torch.float32, torch.bfloat16):
         dt = str(dtype)[6:]
@@ -3557,34 +3596,60 @@ def phase_classifier(card, cls_cache, core_ckpt):
     return launches
 
 
+def mma_bound_terms(B, H, L, elt, products, D=32):
+    """(operations, bytes) lower bounds in ms for one call on the mma
+    template at f32: `products` (L, L, D) products (2 a forward: q.k and
+    p.v; 5 a backward) at three TF32 passes each (3xTF32) over the dense
+    TF32 peak, and the function's inputs and outputs, each moved once,
+    over HBM bandwidth (`bound_terms`, `bwd_bound_terms`). The exps and
+    elementwise products, on the CUDA cores beside them, are not counted."""
+    flops = 3 * 2 * B * H * L * L * D * products
+    t_bytes = (bound_terms if products == 2 else bwd_bound_terms)(B, H, L, False, elt, D=D)[1]
+    return flops / PEAK_TF32_FLOPS * 1e3, t_bytes
+
+
 def d32_kernel_times(card, stage_calls=D32_CALLS, fwd_batch=T1D_SERVE_BATCH,
                      bwd_batch=T1D_TRAIN_BATCH, tag="24"):
     """Phase 24's kernel rows (and phase 26's, at its length): per
     Transformer1d stage shape, B1 at the served batch and B2 at the
-    training batch, f32, from CUDA graph replays, beside the bound, the
-    plain versions and SDPA (no mask); summed over one forward's and one
-    step's 12 calls."""
+    training batch, f32, from CUDA graph replays, in turns with the
+    parent's where its tree is there (parent, this, this, parent), beside
+    the bound on the tensor cores (`mma_bound_terms`), the first design's
+    bound on the CUDA cores, the plain versions and SDPA (no mask); summed
+    over one forward's and one step's 12 calls."""
     from ecg_denoise_tpu_torch.kernels import attention
     from ecg_denoise_tpu_torch.probes.floor import graph_us
 
     gen = torch.Generator().manual_seed(24)
-    totals = {w: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
-              for w in ("fwd", "bwd")}
+    keys = ("ms", "plain_ms", "bound_ms", "bound_cuda_core_ms", "library_ms", "parent_ms",
+            "bf16_ms", "bf16_parent_ms")
+    totals = {w: dict.fromkeys(keys, 0.0) for w in ("fwd", "bwd")}
     limits = {w: {"operations": 0.0, "bytes": 0.0} for w in ("fwd", "bwd")}
     for (L, H), calls in stage_calls.items():
         for what, B in (("fwd", fwd_batch), ("bwd", bwd_batch)):
             q, k, v, _ = operands(B, H, L, False, torch.float32, gen, D=32,
                                   q_scale=D32_Q_SCALE)
             if what == "fwd":
-                ms = graph_us(lambda: attention.fused_attention(q, k, v), 20) / 1e3
+                def this():
+                    return attention.fused_attention(q, k, v)
+
+                def parent():
+                    return parent_b1(q, k, v, None)
+
                 plain = cuda_ms(lambda: attention.attention_reference(q, k, v), 5)
                 lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0), 20)
-                t_ops, t_bytes = bound_terms(B, H, L, False, 4, D=32)
+                core = bound_terms(B, H, L, False, 4, D=32)
+                t_ops, t_bytes = mma_bound_terms(B, H, L, 4, 2)
             else:
                 g = torch.randn(q.shape, generator=gen).cuda()
                 o, lse = attention._launch(q, k, v, None, with_lse=True)
-                ms = graph_us(lambda: attention._launch_bwd(
-                    q, k, v, None, o, lse, g, want_dbias=False), 20) / 1e3
+
+                def this():
+                    return attention._launch_bwd(q, k, v, None, o, lse, g, want_dbias=False)
+
+                def parent():
+                    return parent_b2(q, k, v, None, o, lse, g, False)
+
                 plain = cuda_ms(lambda: attention.attention_backward_reference(
                     q, k, v, None, o, lse, g), 5)
                 ins = [t.detach().requires_grad_() for t in (q, k, v)]
@@ -3593,25 +3658,162 @@ def d32_kernel_times(card, stage_calls=D32_CALLS, fwd_batch=T1D_SERVE_BATCH,
                     return F.scaled_dot_product_attention(*ins, scale=1.0)
 
                 lib = cuda_ms(lambda: torch.autograd.grad(sdpa(), ins, g), 20) - cuda_ms(sdpa, 20)
-                t_ops, t_bytes = bwd_bound_terms(B, H, L, False, 4, D=32)
-            bnd = max(t_ops, t_bytes)
+                core = bwd_bound_terms(B, H, L, False, 4, D=32)
+                t_ops, t_bytes = mma_bound_terms(B, H, L, 4, 5)
+            if parent_libs():
+                parent_us, this_us = in_turns(parent, this)
+                ms, parent_ms = statistics.mean(this_us) / 1e3, statistics.mean(parent_us) / 1e3
+                turns = (f" in turns with the parent's {parent_ms:.4f} ms (this "
+                         f"{this_us[0]:.1f} / {this_us[1]:.1f} us, parent {parent_us[0]:.1f} / "
+                         f"{parent_us[1]:.1f} us)")
+            else:
+                ms, parent_ms, turns = graph_us(this, 20) / 1e3, None, ""
+            bf16 = bf16_parent = None
+            if parent_libs():
+                # The same call on bf16 operands, this against the parent's.
+                args = [t.bfloat16() for t in (q, k, v)]
+                if what == "fwd":
+                    pair = (lambda: parent_b1(*args, None),
+                            lambda: attention.fused_attention(*args))
+                else:
+                    o16, lse16 = attention._launch(*args, None, with_lse=True)
+                    g16 = g.bfloat16()
+                    pair = (lambda: parent_b2(*args, None, o16, lse16, g16, False),
+                            lambda: attention._launch_bwd(*args, None, o16, lse16, g16,
+                                                          want_dbias=False))
+                bf16_parent, bf16 = (statistics.mean(us) / 1e3 for us in in_turns(*pair))
+            bnd, core_bnd = max(t_ops, t_bytes), max(core)
             log(f"[{tag}] {card}: attention_{what} D=32 float32 B={B} L={L} H={H}: kernel "
-                f"{ms:.4f} ms (graph replays), bound {bnd:.4f} ms (operations {t_ops:.4f} at "
-                f"the f32 CUDA-core peak, bytes {t_bytes:.4f}), plain {plain:.4f} ms, sdpa"
+                f"{ms:.4f} ms (graph replays){turns}, bound {bnd:.4f} ms (operations "
+                f"{t_ops:.4f} at 3xTF32 on the tensor cores, bytes {t_bytes:.4f}), the CUDA "
+                f"cores' bound {core_bnd:.4f} ms, plain {plain:.4f} ms, sdpa"
                 f"{' backward ((fwd+bwd) - fwd)' if what == 'bwd' else ''} {lib:.4f} ms; "
-                f"{calls} calls per {'forward' if what == 'fwd' else 'step'}")
+                f"{calls} calls per {'forward' if what == 'fwd' else 'step'}"
+                + ("" if bf16 is None else f"; on bf16 operands {bf16:.4f} ms, the parent's "
+                   f"{bf16_parent:.4f} (in turns)"))
             for key, t in (("ms", ms), ("plain_ms", plain), ("bound_ms", bnd),
-                           ("library_ms", lib)):
-                totals[what][key] += calls * t
+                           ("bound_cuda_core_ms", core_bnd), ("library_ms", lib),
+                           ("parent_ms", parent_ms), ("bf16_ms", bf16),
+                           ("bf16_parent_ms", bf16_parent)):
+                totals[what][key] = None if t is None else totals[what][key] + calls * t
             limits[what]["operations"] += calls * t_ops
             limits[what]["bytes"] += calls * t_bytes
     for what, t in totals.items():
         t["bound_by"] = max(limits[what], key=limits[what].get)
+        parent = "" if t["parent_ms"] is None else (
+            f" (the parent's, in turns, {t['parent_ms']:.4f}; on bf16 operands "
+            f"{t['bf16_ms']:.4f} against the parent's {t['bf16_parent_ms']:.4f})")
         log(f"[{tag}] {card}: attention_{what} D=32 float32, the 12 calls of one "
-            f"{'forward' if what == 'fwd' else 'step'}: kernel {t['ms']:.4f} ms, bound "
-            f"{t['bound_ms']:.4f} ms ({t['bound_by']}), plain {t['plain_ms']:.4f} ms, sdpa "
-            f"{t['library_ms']:.4f} ms")
+            f"{'forward' if what == 'fwd' else 'step'}: kernel {t['ms']:.4f} ms{parent}, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}; the CUDA cores' "
+            f"{t['bound_cuda_core_ms']:.4f}), "
+            f"plain {t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms")
     return totals
+
+
+@contextlib.contextmanager
+def parent_attention():
+    """B1 and B2 from the parent's libraries for the block: the model's
+    calls go through the same wrappers, with the parent's kernels behind
+    them (a yardstick; the counts move as on any call)."""
+    from ecg_denoise_tpu_torch.kernels import attention
+
+    libs, saved = parent_libs(), (attention._library, attention._bwd_library)
+    attention._library = lambda: libs["attention_fwd"]
+    attention._bwd_library = lambda: libs["attention_bwd"]
+    try:
+        yield
+    finally:
+        attention._library, attention._bwd_library = saved
+
+
+def t1d_rates_in_turns(card, length, serve_batch, train_batch, tag):
+    """Transformer1d at its defaults on `length`-sample inputs, f32 and
+    bf16: windows/s served at serve_batch (median of 5 forwards, host
+    clock ending in a synchronize) and one training step's ms at
+    train_batch (CUDA events, mean of 3), with this tree's B1 and B2 and,
+    where its tree is there, the parent's, in turns (parent, this, this,
+    parent); each the mean of its two turns."""
+    from ecg_denoise_tpu_torch.models import Transformer1d
+    from ecg_denoise_tpu_torch.train import create_train_state, make_cls_epoch_fns
+    from ecg_denoise_tpu_torch.utils.seed import random_seed
+
+    rng = np.random.default_rng(28)
+    xs = torch.from_numpy(rng.standard_normal((serve_batch, 32, length)).astype(
+        np.float32)).cuda()
+    ys = torch.from_numpy(rng.integers(0, 9, serve_batch)).cuda()
+    order = ("parent", "this", "this", "parent") if parent_libs() else ("this",)
+    rates = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype)[6:]
+        random_seed(24)
+        state = create_train_state(Transformer1d(dtype=dtype))
+        train_epoch, _ = make_cls_epoch_fns(state.model, state.optimizer)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        got = {who: {"windows_per_s": [], "step_ms": []} for who in order}
+        for who in order:
+            with parent_attention() if who == "parent" else contextlib.nullcontext():
+                state.model.eval()
+                with torch.no_grad():
+                    state.model(xs)  # warm-up
+                    torch.cuda.synchronize()
+                    walls = []
+                    for _ in range(5):
+                        t1 = time.perf_counter()
+                        state.model(xs)
+                        torch.cuda.synchronize()
+                        walls.append(time.perf_counter() - t1)
+                got[who]["windows_per_s"].append(serve_batch / statistics.median(walls))
+                xb, yb = xs[:train_batch], ys[:train_batch]
+                train_epoch(xb, yb, gen, train_batch)  # warm-up
+                got[who]["step_ms"].append(cuda_ms(lambda: train_epoch(xb, yb, gen, train_batch),
+                                                   3))
+        rates[dt] = {who: {k: statistics.mean(v) for k, v in r.items()} for who, r in got.items()}
+        log(f"[{tag}] {card}: Transformer1d {dt} at {length} samples: served at {serve_batch} "
+            + ", ".join(f"{who} {r['windows_per_s']:.1f} windows/s" for who, r in
+                        rates[dt].items())
+            + f"; training step at {train_batch} "
+            + ", ".join(f"{who} {r['step_ms']:.3f} ms" for who, r in rates[dt].items())
+            + (" (in turns: parent, this, this, parent)" if len(order) > 1 else ""))
+    return rates
+
+
+def log_mma_resources():
+    """B1's and B2's mma kernels as the compiler left them, by
+    instantiation: registers, stack and local memory (cuobjdump
+    -res-usage) and the tensor-core instructions in their SASS (HMMA, from
+    cuobjdump -sass). A kernel of the template with no HMMA fails the run;
+    spills are reported."""
+    from ecg_denoise_tpu_torch.kernels.build import CSRC, _nvcc, _target
+
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    found = {}
+    for name in ("attention_fwd", "attention_bwd"):
+        lib = str(_target(name, CSRC))
+        usage = subprocess.run([tool, "-res-usage", lib], capture_output=True, text=True,
+                               timeout=300, check=True).stdout
+        sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
+                              timeout=300, check=True).stdout
+        hmma = {}
+        for part in sass.split("Function : ")[1:]:
+            fn = part.split(None, 1)[0]
+            if "_mma_kernel" in fn:
+                hmma[fn] = sum("HMMA" in line for line in part.splitlines())
+                kinds = sorted(set(re.findall(r"HMMA\.\S+", part)))
+                found[fn] = {"hmma": hmma[fn], "kinds": kinds}
+        for fn, reg, stack, local in re.findall(
+                r"Function (\S*_mma_kernel\S*):\s*REG:(\d+) STACK:(\d+) SHARED:\d+ "
+                r"LOCAL:(\d+)", usage):
+            if fn in found:
+                found[fn].update(registers=int(reg), stack=int(stack), local=int(local))
+    for fn, r in sorted(found.items()):
+        log(f"[24] {fn}: {r.get('registers')} registers, stack {r.get('stack')} bytes, local "
+            f"{r.get('local')} bytes; {r['hmma']} HMMA instructions ({', '.join(r['kinds'])})")
+    # 16 B1 (D 8-64 f32, 16-64 bf16, with and without a bias: 14), 16 dq,
+    # 16 dk/dv, 8 dbias.
+    check(len(found) == 14 + 16 + 16 + 8, f"{len(found)} mma kernel instantiations found")
+    check(all(r["hmma"] > 0 for r in found.values()), "an mma kernel issues no HMMA")
+    return found
 
 
 def transformer1d_step_vs_cpu(cpu_model, xs, ys, tag, what):
@@ -3657,6 +3859,7 @@ def phase_transformer1d(card):
     from ecg_denoise_tpu_torch.utils.seed import random_seed
 
     t0 = time.perf_counter()
+    log_mma_resources()
     random_seed(24)
     cpu_model = Transformer1d().eval()
     n_params = sum(p.numel() for p in cpu_model.parameters())
@@ -3734,6 +3937,8 @@ def phase_transformer1d(card):
     check(launches["train_transformer1d"] == expected_launches(fwd=24, bwd=24),
           "two training steps did not take 24 B1 and 24 B2 launches")
     times = d32_kernel_times(card)
+    times["transformer1d"] = t1d_rates_in_turns(card, 256, T1D_SERVE_BATCH, T1D_TRAIN_BATCH,
+                                                "24")
     log(f"chip_smoke: phase 24 took {time.perf_counter() - t0:.1f} s")
     return launches, times, cpu_model
 
@@ -3784,7 +3989,8 @@ def phase_dense_d32(card, cpu_model):
     saved = tf32_flags()
     full_float32()
     gen = torch.Generator().manual_seed(25)
-    max_err, b1_equal = 0.0, True
+    parent = parent_libs()
+    max_err, parent_equal = 0.0, True if parent else None
     cases = [(B, L, H, b, dt) for (L, H) in T1D_DENSE_CALLS for B in DENSE_D32_BATCHES
              for b in (True, False) for dt in (torch.float32, torch.bfloat16)]
     for B, L, H, with_bias, dtype in cases:
@@ -3792,6 +3998,7 @@ def phase_dense_d32(card, cpu_model):
         out = fused_attention_dense(q, k, v, bias)
         again = fused_attention_dense(q, k, v, bias)
         b1 = attention._launch(q, k, v, bias)
+        old = None if parent is None else b5_call(parent["attention_dense_fwd"], q, k, v, bias)
         torch.cuda.synchronize()
         err = (out.float() - attention_dense_reference(q, k, v, bias).float()).abs().max().item()
         err_b1 = (out.float() - b1.float()).abs().max().item()
@@ -3799,21 +4006,25 @@ def phase_dense_d32(card, cpu_model):
                else BF16_TOL_OF_MAX_V * v.float().abs().max().item())
         if dtype == torch.float32:
             max_err = max(max_err, err)
-        same, same_b1 = torch.equal(out, again), torch.equal(out, b1)
-        b1_equal &= same_b1
+        same = torch.equal(out, again)
+        as_parent = "" if old is None else f"; equal to the parent's B5 bit for bit: " \
+            f"{torch.equal(out, old)}"
+        if old is not None:
+            parent_equal &= torch.equal(out, old)
         log(f"[25] B5 D=32 B={B} L={L} H={H} bias={with_bias} {str(dtype)[6:]}: max_abs_err "
-            f"vs plain {err:.3e}, vs B1 without lse {err_b1:.3e} (tol {tol:.3e}); equal to B1 "
-            f"bit for bit: {same_b1}; a second call bit-identical: {same}")
+            f"vs plain {err:.3e}, vs B1 without lse {err_b1:.3e} (tol {tol:.3e}); a second "
+            f"call bit-identical: {same}{as_parent}")
         check(out.shape == q.shape and out.dtype == dtype, "B5 D=32 output shape or dtype")
         check(bool(torch.isfinite(out).all()) and err <= tol and err_b1 <= tol,
               "B5 at D = 32 disagrees with its plain version or with B1")
         check(same, "two B5 D=32 calls differ")
+        check(old is None or torch.equal(out, old), "B5 at D = 32 is not the parent's B5")
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
-    log(f"[25] B5 at D = 32 equals B1 at D = 32 without lse bit for bit in every case: "
-        f"{b1_equal}")
-    # The two make the same f32 operations in the same order (B1's 32-key
-    # chunks); the compiler's contraction into FMAs is the only freedom left.
-    check(b1_equal, "B5 at D = 32 differs from B1 at D = 32 without lse")
+    # B5 is unchanged; B1 at D = 32 now runs on the tensor cores (3xTF32),
+    # so the two agree within the bars, no longer bit for bit.
+    log("[25] B5 at D = 32 equals the parent's B5 bit for bit in every case: "
+        + ("not compared (no tree under _archive/parent)" if parent is None
+           else str(parent_equal)))
 
     # Transformer1d at its defaults, served at T1D_SERVE_BATCH with the dense
     # route; the first 8 windows against the CPU (eval: windows independent).
@@ -3859,7 +4070,7 @@ def phase_dense_d32(card, cpu_model):
         f"{statistics.mean(fwd_ms['dense']):.3f} ms, default "
         f"{statistics.mean(fwd_ms['default']):.3f} ms (CUDA events, mean of 2 x 5)")
     log(f"chip_smoke: phase 25 took {time.perf_counter() - t0:.1f} s")
-    return {"serve_transformer1d_dense": launches}, max_err, times, b1_equal
+    return {"serve_transformer1d_dense": launches}, max_err, times, parent_equal
 
 
 def dense_d32_times(card):
@@ -4021,6 +4232,8 @@ def phase_long(card, cpu_model):
           "the long served forward did not take 12 B1 launches")
     times = d32_kernel_times(card, T1D_LONG_CALLS, T1D_LONG_SERVE_BATCH,
                              T1D_LONG_SERVE_BATCH, "26")
+    times["transformer1d"] = t1d_rates_in_turns(card, T1D_LONG, T1D_LONG_SERVE_BATCH,
+                                                T1D_LONG_SERVE_BATCH, "26")
     log(f"chip_smoke: phase 26 took {time.perf_counter() - t0:.1f} s")
     return launches, max_err, times
 
@@ -4130,7 +4343,7 @@ def main():
     launches.update(phase_classifier(card, paths["cls"], core_ckpt))
     t1d_launches, d32_times, t1d_cpu = phase_transformer1d(card)
     launches.update(t1d_launches)
-    dense_launches, dense_d32_err, dense_d32_times, dense_d32_b1_equal = phase_dense_d32(
+    dense_launches, dense_d32_err, dense_d32_times, dense_d32_parent_equal = phase_dense_d32(
         card, t1d_cpu)
     launches.update(dense_launches)
     long_launches, long_err, long_times = phase_long(card, t1d_cpu)
@@ -4168,7 +4381,7 @@ def main():
         **{k: dense_d32_times[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                            "library_ms")},
         "b1_ms_same_calls": dense_d32_times["b1_ms"],
-        "equal_to_b1_bit_for_bit": dense_d32_b1_equal,
+        "equal_to_parent_b5_bit_for_bit": dense_d32_parent_equal,
         "times_are": f"one Transformer1d forward's 8 dense-routed calls, float32, "
                      f"B={T1D_SERVE_BATCH}, no bias; kernel and b1_ms_same_calls (B1 without "
                      "lse) from CUDA graph replays in turns; plain and library "
@@ -4225,9 +4438,12 @@ def main():
             (b2, f"one Transformer1d step's 12 calls, float32, B={T1D_TRAIN_BATCH}",
              bwd_err[32], d32_times["bwd"])):
         e["d32"] = {"head_dim": 32, "max_abs_err": err, **t,
-                    "times_are": f"{what}, no bias, the kernel from CUDA graph replays; plain "
-                                 "and library (scaled_dot_product_attention, no mask) issued "
-                                 "from Python",
+                    "times_are": f"{what}, no bias, the kernel from CUDA graph replays, in "
+                                 "turns with the parent's (parent_ms) where its tree is there; "
+                                 "bound_ms on the tensor cores at 3xTF32, bound_cuda_core_ms "
+                                 "the first design's; bf16_ms and bf16_parent_ms the same calls "
+                                 "on bf16 operands, in turns; plain and library "
+                                 "(scaled_dot_product_attention, no mask) issued from Python",
                     # Transformer1d's paths: every launch on them is at D = 32.
                     "launches_by_path": {path: launches[path][e["name"]] for path in (
                         "serve_transformer1d", "train_transformer1d")}}
@@ -4242,9 +4458,19 @@ def main():
                               "and without bias, against the plain version (B2: the plain "
                               "flash backward)",
             "times_are": f"Transformer1d, {what}, float32, B={T1D_LONG_SERVE_BATCH}, no bias, "
-                         "the kernel from CUDA graph replays; plain and library "
-                         "(scaled_dot_product_attention, no mask) issued from Python",
+                         "the kernel from CUDA graph replays, in turns with the parent's "
+                         "(parent_ms) where its tree is there; bound_ms on the tensor cores "
+                         "at 3xTF32, bound_cuda_core_ms the first design's; bf16_ms and "
+                         "bf16_parent_ms the same calls on bf16 operands, in turns; plain and "
+                         "library (scaled_dot_product_attention, no mask) issued from Python",
             "launches_by_path": {path: launches[path][e["name"]] for path in paths}}
+    b1["transformer1d_rates"] = {
+        "at_256_samples": d32_times["transformer1d"], f"at_{T1D_LONG}_samples":
+            long_times["transformer1d"],
+        "rates_are": f"Transformer1d at its defaults, windows/s served at {T1D_SERVE_BATCH} "
+                     f"(256 samples) and {T1D_LONG_SERVE_BATCH} ({T1D_LONG}), one training "
+                     f"step's ms at {T1D_TRAIN_BATCH} and {T1D_LONG_SERVE_BATCH}, this tree's "
+                     "B1 and B2 against the parent's in turns"}
     b2["frozen_bias"] = {
         "max_abs_err": frozen_err, **frozen_ms,
         "times_are": f"one NewRale step's 14 biased calls, float32, B={TIMING_BATCH}, "

@@ -3,7 +3,7 @@ cli/build_data.py; the reference's missing build steps).
 
 Three caches, the same files as the JAX package's from the same flags:
   (default)    dict_data denoising windows    -> cli.main, cli.dwt_dn
-  --cls        cls_data N/V beat windows      -> the classifier (not ported yet)
+  --cls        cls_data N/V beat windows      -> cli.train_cls, cli.test_cls
   --external   12-lead dict_data (LUDB-like)  -> cli.transfer_learning
 
 Uses real PhysioNet records when present under --data_root (the

@@ -2,13 +2,16 @@
 
 `fused_attention(q, k, v, bias)` computes softmax(q @ k^T + bias) @ v over
 (B, H, L, D) operands, with the contract of the JAX package's
-`fused_attention`: q arrives pre-scaled, bias is (1, H, L, L) or None,
-head_dim D is 4 (RA-LENet's heads) or 32 (Transformer1d's), and the
-output has the operands' dtype. At D = 4 L <= 256: the D = 4 kernels hold a
-row's logits in registers and size their shared memory for it, and RA-LENet,
-the only model with 4-wide heads, is built for 256 samples. At D = 32 L is
-any length (the kernels stream the keys in chunks). The JAX kernels take any
-D and any L their VMEM holds.
+`fused_attention`: q arrives pre-scaled, bias is (1, H, L, L) or None, and
+the output has the operands' dtype. Like JAX's kernels it takes any head
+dim D and any length L on the CPU; on the card the kernels are built for
+some (`kernel_head_dim`): D = 4 at L <= 256 takes the D = 4 kernels (they
+hold a row's logits in registers; RA-LENet, the only model with 4-wide
+heads, is built for 256 samples), and any other D <= 64 the mma template
+at D = 8, 16, 32 or 64 (bf16 from 16), q, k and v zero-padded along D to
+it and the results sliced back (`forward_at`, `backward_at`): exact, since
+zero dims change no logit, output or gradient. D > 64 raises on the card
+(ROADMAP queue B).
 
 It dispatches on the tensors' device, with no switch and no fallback:
 
@@ -19,13 +22,13 @@ It dispatches on the tensors' device, with no switch and no fallback:
   a lane-packable stage (L < 128 a power of two,
   `dense_pack_factor` > 1), to the dense forward
   `csrc/attention_dense_fwd.cu` (the port of `_fwd_dense_kernel`, B5; see
-  `attention_dense.py`), at D = 4 and D = 32 alike, as JAX's `_fwd`
+  `attention_dense.py`), at D = 4 and D = 32, as JAX's `_fwd`
   (attention_pallas.py:621) packs either. When one is needed,
   to `_FusedAttention`, a `torch.autograd.Function`
   whose forward is that kernel with its log-sum-exp residual and whose
   backward is `csrc/attention_bwd.cu` (the port of `_bwd_kernel`). Each
-  source holds the D = 4 kernels and, beside them, the D = 32 ones; its C
-  entry point picks by D;
+  source holds the D = 4 kernels and, beside them, the mma template; its
+  C entry point picks by D;
 * a CPU tensor goes to `attention_reference`, the plain PyTorch version of
   the same function (the math of the JAX package's XLA path,
   ops/attention.py:115-122), and autograd runs through it.
@@ -49,9 +52,11 @@ from typing import Optional
 
 import torch
 
-HEAD_DIM = 4  # RA-LENet's; the only one B3-B5 take
-HEAD_DIMS = (HEAD_DIM, 32)  # what B1 and B2 take; 32 is Transformer1d's
-MAX_LEN = 256  # at HEAD_DIM only; D = 32 takes any L
+HEAD_DIM = 4  # RA-LENet's; the only one B3 and B4 take
+MAX_LEN = 256  # the D = 4 kernels' longest L; the mma template takes any L
+# The head dims of B1's and B2's mma template (bf16 from 16, the depth of
+# its mma); the wrapper pads any other D up to the next one.
+MMA_HEAD_DIMS = (8, 16, 32, 64)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -110,18 +115,14 @@ def attention_backward_reference(q, k, v, bias, o, lse, g):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias
 
 
-def check_operands(q, k, v, bias, head_dims=(HEAD_DIM,)) -> None:
-    """Raise on operands outside the kernels' contract; `head_dims`: the
-    head dims the caller's kernels take."""
+def check_operands(q, k, v, bias) -> None:
+    """Raise on operands outside the contract on every device: one (B, H,
+    L, D) shape, float32 or bfloat16, a (1, H, L, L) bias of their dtype,
+    one device."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must share one (B, H, L, D) shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     B, H, L, D = q.shape
-    if D not in head_dims:
-        raise ValueError(f"head_dim must be one of {head_dims}, got {D}")
-    if D == HEAD_DIM and L > MAX_LEN:
-        raise ValueError(f"sequence length must be <= {MAX_LEN} at head_dim "
-                         f"{HEAD_DIM}, got {L}")
     if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must all be float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
@@ -135,6 +136,67 @@ def check_operands(q, k, v, bias, head_dims=(HEAD_DIM,)) -> None:
         tensors += (bias,)
     if any(t.device != q.device for t in tensors):
         raise ValueError("q, k, v and bias must be on one device")
+
+
+def check_head_dim(q, head_dims) -> None:
+    """Raise unless q's head dim is one of `head_dims`, and L <= MAX_LEN at
+    HEAD_DIM: the shapes a kernel written for fixed head dims takes (B3
+    and B4 at 4, B5 at 4 and 32)."""
+    L, D = q.shape[-2:]
+    if D not in head_dims:
+        raise ValueError(f"head_dim must be one of {head_dims}, got {D}")
+    if D == HEAD_DIM and L > MAX_LEN:
+        raise ValueError(f"sequence length must be <= {MAX_LEN} at head_dim "
+                         f"{HEAD_DIM}, got {L}")
+
+
+def kernel_head_dim(D: int, L: int, dtype: torch.dtype) -> int:
+    """The head dim B1 and B2 run a (D, L) call at on the card: D = 4 at L
+    <= MAX_LEN on the D = 4 kernels, else the smallest of MMA_HEAD_DIMS
+    (16 and up at bfloat16) that holds D. Raises past the largest."""
+    if D == HEAD_DIM and L <= MAX_LEN:
+        return D
+    for d in MMA_HEAD_DIMS:
+        if d >= D and (d >= 16 or dtype != torch.bfloat16):
+            return d
+    raise ValueError(f"head_dim {D} > {MMA_HEAD_DIMS[-1]}: the attention kernels "
+                     f"are built up to head_dim {MMA_HEAD_DIMS[-1]} on the card "
+                     "(ROADMAP queue B)")
+
+
+def _pad(t: torch.Tensor, D: int) -> torch.Tensor:
+    """t zero-padded along its last dim to D."""
+    return torch.nn.functional.pad(t, (0, D - t.shape[-1]))
+
+
+def _narrow(t: torch.Tensor, D: int) -> torch.Tensor:
+    return t[..., :D].contiguous()
+
+
+def forward_at(D_kernel: int, forward, q, k, v, bias, **kw):
+    """`forward(q, k, v, bias, **kw)` (o, or (o, lse)) run at head dim
+    D_kernel: q, k and v zero-padded along D, o sliced back. Exact: q
+    arrives scaled, and zero dims change no logit and add nothing to o."""
+    D = q.shape[-1]
+    if D_kernel == D:
+        return forward(q, k, v, bias, **kw)
+    out = forward(*(_pad(t, D_kernel) for t in (q, k, v)), bias, **kw)
+    if isinstance(out, tuple):
+        return (_narrow(out[0], D), *out[1:])
+    return _narrow(out, D)
+
+
+def backward_at(D_kernel: int, backward, q, k, v, bias, o, lse, g, **kw):
+    """`backward(q, k, v, bias, o, lse, g, **kw)` ((dq, dk, dv, dbias)) run
+    at head dim D_kernel: q, k, v, o and g zero-padded along D, dq, dk and
+    dv sliced back. Exact: g.o, the logits, p and ds are unchanged, and
+    the padded dims' gradients are dropped."""
+    D = q.shape[-1]
+    if D_kernel == D:
+        return backward(q, k, v, bias, o, lse, g, **kw)
+    q, k, v, o, g = (_pad(t, D_kernel) for t in (q, k, v, o, g))
+    dq, dk, dv, dbias = backward(q, k, v, bias, o, lse, g, **kw)
+    return _narrow(dq, D), _narrow(dk, D), _narrow(dv, D), dbias
 
 
 def bind(name: str, fn: str, n_pointers: int, n_ints: int = 6,
@@ -174,7 +236,7 @@ def ptr(t: Optional[torch.Tensor]):
 def check_launchable(*tensors, bias=None) -> None:
     """Raise on what the kernels do not take: strided operands, more than
     2**31 elements, rows not aligned for the kernels' vector loads (a row
-    of 4 values at D = 4, 16 bytes at D = 32)."""
+    of 4 values at D = 4, 16 bytes at the mma template's D)."""
     if not all(t.is_contiguous() for t in tensors) or (
             bias is not None and not bias.is_contiguous()):
         raise ValueError("the attention kernels need contiguous operands")
@@ -191,7 +253,14 @@ def raise_on(lib, err: int, what: str) -> None:
 
 
 def _launch(q, k, v, bias, *, with_lse: bool = False):
-    """The forward kernel: o, plus the float32 (B, H, L) lse if asked."""
+    """The forward kernel: o, plus the float32 (B, H, L) lse if asked; at
+    the head dim `kernel_head_dim` picks, q, k and v padded to it."""
+    B, H, L, D = q.shape
+    return forward_at(kernel_head_dim(D, L, q.dtype), _launch_kernel, q, k, v, bias,
+                      with_lse=with_lse)
+
+
+def _launch_kernel(q, k, v, bias, *, with_lse: bool):
     check_launchable(q, k, v, bias=bias)
     lib = _library()
     B, H, L, D = q.shape
@@ -208,12 +277,19 @@ def _launch(q, k, v, bias, *, with_lse: bool = False):
 
 
 def _launch_bwd(q, k, v, bias, o, lse, g, *, want_dbias: bool):
-    """The backward kernel: (dq, dk, dv, dbias), dbias None unless asked."""
+    """The backward kernel: (dq, dk, dv, dbias), dbias None unless asked;
+    at the forward's head dim, q, k, v, o and g padded to it."""
     if g.shape != q.shape or g.dtype != q.dtype:
         raise ValueError(f"gradient {tuple(g.shape)} {g.dtype} does not match "
                          f"the output {tuple(q.shape)} {q.dtype}")
     # MSAttention's transpose(1, 2).reshape hands back a strided gradient.
     g = g.contiguous()
+    B, H, L, D = q.shape
+    return backward_at(kernel_head_dim(D, L, q.dtype), _launch_bwd_kernel, q, k, v, bias,
+                       o, lse, g, want_dbias=want_dbias)
+
+
+def _launch_bwd_kernel(q, k, v, bias, o, lse, g, *, want_dbias: bool):
     check_launchable(q, k, v, o, g, bias=bias)
     lib = _bwd_library()
     B, H, L, D = q.shape
@@ -255,7 +331,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """softmax(q @ k^T + bias) @ v; the kernels on the card, the plain
     version on the CPU (see the module docstring)."""
-    check_operands(q, k, v, bias, HEAD_DIMS)
+    check_operands(q, k, v, bias)
     if q.device.type == "cuda":
         if torch.is_grad_enabled() and any(
                 t is not None and t.requires_grad for t in (q, k, v, bias)):

@@ -44,8 +44,9 @@ import torch
 
 from ecg_denoise_tpu_torch.kernels.attention import (
     DTYPE_CODES,
-    HEAD_DIMS,
+    HEAD_DIM,
     bind,
+    check_head_dim,
     check_launchable,
     check_operands,
     ptr,
@@ -53,6 +54,7 @@ from ecg_denoise_tpu_torch.kernels.attention import (
 )
 
 LANES = 128  # the width of the TPU's dense row, P·L
+DENSE_HEAD_DIMS = (HEAD_DIM, 32)  # B5's: RA-LENet's heads and Transformer1d's
 
 
 def dense_pack_factor(H: int, L: int) -> int:
@@ -77,9 +79,10 @@ def dense_route(shape) -> bool:
     """Whether `fused_attention` sends a no-grad call of this (B, H, L, D)
     shape on the card to B5: ECG_ATTN_DENSE=1, a lane-packable stage and a
     head dim B5 is written for (4 or 32), the calls JAX's `_fwd`
-    (attention_pallas.py:621) packs."""
+    (attention_pallas.py:621) packs. At any other head dim it declines, and
+    B1 serves the call."""
     _, H, L, D = shape
-    return dense_wanted() and D in HEAD_DIMS and dense_pack_factor(H, L) > 1
+    return dense_wanted() and D in DENSE_HEAD_DIMS and dense_pack_factor(H, L) > 1
 
 
 def attention_dense_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -148,7 +151,8 @@ def fused_attention_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """B5 on the card, the plain version on the CPU (see the module
     docstring); raises on a stage the TPU does not pack and, on the card,
     on operands that need a gradient (B5 has no backward)."""
-    check_operands(q, k, v, bias, HEAD_DIMS)
+    check_operands(q, k, v, bias)
+    check_head_dim(q, DENSE_HEAD_DIMS)
     H, L = q.shape[1], q.shape[2]
     P = dense_pack_factor(H, L)
     if P < 2:

@@ -43,8 +43,10 @@ import torch
 
 from ecg_denoise_tpu_torch.kernels.attention import (
     DTYPE_CODES,
+    HEAD_DIM,
     attention_reference,
     bind,
+    check_head_dim,
     check_launchable,
     check_operands,
     flash_backward_terms,
@@ -95,6 +97,7 @@ def _check(q, k, v, toep, W, offsets) -> None:
     if toep is None:
         raise ValueError("toep is required")
     check_operands(q, k, v, toep)
+    check_head_dim(q, (HEAD_DIM,))
     B = q.shape[0]
     if not isinstance(W, int) or W < 1:
         raise ValueError(f"W must be a positive int, got {W!r}")

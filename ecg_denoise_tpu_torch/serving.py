@@ -207,16 +207,20 @@ class Denoiser:
         """A stateful online denoiser over this Denoiser (live monitors)."""
         return StreamingDenoiser(self, stride=stride, length=length)
 
-    def warmup(self, length: int = WINDOW, limit: Optional[int] = None) -> None:
+    def warmup(self, channels: Optional[int] = None, length: int = WINDOW,
+               limit: Optional[int] = None) -> None:
         """Run every batch bucket up to `limit` (default: max_batch) once
-        at the served channel count and `length`, so the first real request
-        of each size finds the kernels built and the allocator's pools
-        sized. `limit` rounds up to its bucket."""
+        at `channels` (default: the served model's, 12 for NewRale) and
+        `length`, so the first real request of each size finds the kernels
+        built and the allocator's pools sized. `limit` rounds up to its
+        bucket. JAX's signature (serving.py `warmup`); an explicit
+        `channels=0` is honoured, as JAX honours it."""
+        channels = self.channels if channels is None else channels
         limit = min(_bucket(limit or self.max_batch, self.max_batch),
                     self.max_batch)
         b = 1
         while b <= limit:
-            self._fetch(self._forward(torch.zeros(b, self.channels, length)))
+            self._fetch(self._forward(torch.zeros(b, channels, length)))
             b *= 2
 
 

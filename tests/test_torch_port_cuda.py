@@ -58,14 +58,17 @@ B1 is also held at shapes that cut across its row tiles and batch groups
 (L = 203, 7, 1; B = 1, 3, 37, 1000), with its lse within 1e-5 of
 max(1, max|lse|) of the plain log-sum-exp and a second call bit-identical.
 
-B1 and B2 at head_dim 32 (Transformer1d's heads) are held to the same
-bars, the f32 gradients to 1e-4 of their max, at Transformer1d's four stage shapes and at shapes that cut across
-their 64-row tiles and 32-key chunks, with and without a bias, and past
-256 keys (L = 300, 500, 1000); a small Transformer1d on the card equals the
-CPU's within 1e-4 with one B1 launch a block forward and one B2 a block
-backward. With ECG_ATTN_DENSE=1 a D = 32 call at a packable stage goes to
-B5 at D = 32, held to the bars above against its plain version and equal
-to B1 at D = 32 without lse bit for bit, and a small Transformer1d whose
+B1 and B2 on the mma template (head_dim 8, 16, 32, 64; 24 padded to 32;
+D = 4 past 256 keys padded to 8) are held to the same bars, the f32
+gradients to 1e-4 of their max, at Transformer1d's four stage shapes and
+at shapes that cut across its 64-row tiles, 64-key stages and packed heads,
+with and without a bias, and past 256 keys (L = 300, 500, 1000), a second
+call bit-identical; at D = 4 and L <= 256 B1 is the parent commit's bit for
+bit. A small Transformer1d on the card equals the CPU's within 1e-4 with
+one B1 launch a block forward and one B2 a block backward. With
+ECG_ATTN_DENSE=1 a D = 32 call at a packable stage goes to B5 at D = 32,
+held to the bars above against its plain version and B1 at D = 32 without
+lse, and bit for bit to the parent's B5; a small Transformer1d whose
 stages pack makes one B5 launch a block.
 """
 
@@ -164,20 +167,27 @@ RAGGED_B1 = [(1, 256, 2), (37, 128, 4), (1000, 64, 8), (3, 203, 2), (37, 203, 1)
 # kernels' 64-row tiles and 32-key chunks: (B, L, H).
 D32_CASES = ([(8, L, H) for L, H in [(256, 4), (128, 8), (64, 16), (32, 32)]]
              + [(3, 203, 2), (2, 33, 3), (5, 7, 2), (4, 1, 1), (1, 65, 1)])
+# The mma template's other head dims (24 padded to 32) at shapes that cut
+# across its 64-row tiles, 64-key stages and packed heads (L <= 32), then
+# D = 4 past the D = 4 kernels' 256 keys (padded to 8): (D, B, L, H).
+MMA_CASES = ([(D, *c) for D in (8, 16, 24, 64)
+              for c in [(2, 256, 2), (3, 203, 2), (2, 33, 3), (5, 7, 2), (4, 1, 1), (1, 65, 1)]]
+             + [(4, 3, 300, 2), (4, 1, 257, 1)])
 # lse against attention_reference's logsumexp of the same f32 logits: the
 # kernel's row sum uses __expf and another order (1e-6 relative), |lse|
 # stays below about 20.
 LSE_TOL = 1e-5
 
 
-@pytest.mark.parametrize("D,B,L,H", [(4, *c) for c in RAGGED_B1] + [(32, *c) for c in D32_CASES])
+@pytest.mark.parametrize("D,B,L,H", [(4, *c) for c in RAGGED_B1] + [(32, *c) for c in D32_CASES]
+                         + MMA_CASES)
 @pytest.mark.parametrize("with_bias", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_at_ragged_shapes_with_lse(cuda, D, B, L, H, with_bias, dtype):
     """B1 (bf16 operands with a bf16 bias) against its plain version, its
     lse against the plain log-sum-exp, and a second call bit-identical; at
     head_dim 4 at ragged shapes, at head_dim 32 at Transformer1d's stage
-    shapes too."""
+    shapes too, and at the mma template's other head dims."""
     full_float32()
     q, k, v, bias = _operands(B, H, L, with_bias, dtype, cuda, seed=B + L + H, D=D)
     before = fused_attention.launches
@@ -204,13 +214,13 @@ def _grads(q, k, v, bias, g):
     return out, torch.autograd.grad(out, ins, g)
 
 
-# At D = 32 dq, dk and dv sum 32 products a term: each gradient is held to
-# 1e-4 of its max, in f32, dbias too.
+# On the mma template (D = 32 and the other head dims, D = 4 past 256)
+# each gradient is held to 1e-4 of its max, in f32, dbias too.
 D32_GRAD_TOL_OF_MAX = 1e-4
 
 
 @pytest.mark.parametrize("D,B,L,H", [(4, 8, L, H) for L, H in STAGES]
-                         + [(32, *c) for c in D32_CASES])
+                         + [(32, *c) for c in D32_CASES] + MMA_CASES)
 @pytest.mark.parametrize("with_bias", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_backward_kernel_matches_plain_versions(cuda, D, B, L, H, with_bias, dtype):
@@ -243,7 +253,7 @@ def test_backward_kernel_matches_plain_versions(cuda, D, B, L, H, with_bias, dty
             # taken of max|dv| (see test_backward_kernel_at_ragged_shapes).
             scale = (ref[2] if L == 1 and name != "v" else b).float().abs().max().item()
             tol = (BF16_GRAD_TOL_OF_MAX * scale if dtype == torch.bfloat16
-                   else D32_GRAD_TOL_OF_MAX * scale if D == 32
+                   else D32_GRAD_TOL_OF_MAX * scale if D != 4 or L > 256
                    else DBIAS_TOL_OF_MAX * scale if name == "bias" else GRAD_TOL)
             err = (a - b).abs().max().item()
             assert err <= tol, (name, err, tol)
@@ -985,9 +995,9 @@ DENSE_D32_SHAPES = [(64, 16), (32, 32), (64, 2), (16, 8), (8, 16), (2, 64)]
 @pytest.mark.parametrize("with_bias", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dense_d32_kernel_matches_plain_version_and_b1(cuda, B, L, H, with_bias, dtype):
-    """B5 at D = 32 within the bars of its plain version and equal to B1
-    at D = 32 without lse bit for bit (the same f32 operations, B1's chunks
-    of 32 keys in order); a second call bit-identical."""
+    """B5 at D = 32 within the bars of its plain version and of B1 at D =
+    32 without lse (B1 now runs on the tensor cores at 3xTF32: the two no
+    longer make the same operations); a second call bit-identical."""
     full_float32()
     q, k, v, bias = _operands(B, H, L, with_bias, dtype, cuda, seed=L + H, D=32)
     before = fused_attention_dense.launches
@@ -998,8 +1008,59 @@ def test_dense_d32_kernel_matches_plain_version_and_b1(cuda, B, L, H, with_bias,
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL_OF_MAX_V * v.float().abs().max().item()
     assert (out.float() - attention_dense_reference(q, k, v, bias).float()
             ).abs().max().item() <= tol
-    assert torch.equal(out, attention._launch(q, k, v, bias))
+    assert (out.float() - attention._launch(q, k, v, bias).float()).abs().max().item() <= tol
     assert torch.equal(fused_attention_dense(q, k, v, bias), out)  # no atomics
+
+
+def _parent_lib(name, fn, n_pointers, n_ints=6):
+    """The parent commit's library `name` (skips where its tree is not
+    unpacked under _archive/parent)."""
+    if not os.path.isdir(PARENT_CSRC):
+        pytest.skip("the parent commit's tree is not under _archive/parent")
+    from pathlib import Path
+
+    from ecg_denoise_tpu_torch.kernels.attention import bind
+
+    return bind(name, fn, n_pointers, n_ints, csrc=Path(PARENT_CSRC))
+
+
+@pytest.mark.parametrize("B,L,H", [(8, L, H) for (L, H) in STAGES] + RAGGED_B1)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_kernel_at_d4_equals_the_parent_commits(cuda, B, L, H, dtype):
+    """B1 at D = 4 (L <= 256, the D = 4 kernel) bit for bit the parent
+    commit's B1, with its lse: the mma template left it as it was."""
+    from ecg_denoise_tpu_torch.kernels.attention import DTYPE_CODES, ptr, raise_on
+
+    lib = _parent_lib("attention_fwd", "ecg_attention_fwd", 6)
+    q, k, v, bias = _operands(B, H, L, True, dtype, cuda, seed=L + H)
+    o, lse = attention._launch(q, k, v, bias, with_lse=True)
+    o2, lse2 = torch.empty_like(q), torch.empty_like(lse)
+    err = lib.ecg_attention_fwd(ptr(q), ptr(k), ptr(v), ptr(bias), ptr(o2), ptr(lse2), B, H, L,
+                                4, DTYPE_CODES[dtype], cuda.index or 0,
+                                torch.cuda.current_stream().cuda_stream)
+    raise_on(lib, err, "the parent's attention forward")
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.parametrize("B", [1, 5, 37])
+@pytest.mark.parametrize("L,H", DENSE_D32_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_d32_kernel_equals_the_parent_commits(cuda, B, L, H, dtype):
+    """B5 at D = 32 bit for bit the parent commit's B5: it is unchanged."""
+    from ecg_denoise_tpu_torch.kernels.attention import DTYPE_CODES, ptr, raise_on
+    from ecg_denoise_tpu_torch.kernels.attention_dense import dense_pack_factor
+
+    lib = _parent_lib("attention_dense_fwd", "ecg_attention_dense_fwd", 5, 7)
+    q, k, v, bias = _operands(B, H, L, True, dtype, cuda, seed=L + H, D=32)
+    out = fused_attention_dense(q, k, v, bias)
+    old = torch.empty_like(q)
+    err = lib.ecg_attention_dense_fwd(ptr(q), ptr(k), ptr(v), ptr(bias), ptr(old), B, H, L, 32,
+                                      dense_pack_factor(H, L), DTYPE_CODES[dtype],
+                                      cuda.index or 0, torch.cuda.current_stream().cuda_stream)
+    raise_on(lib, err, "the parent's dense attention forward")
+    torch.cuda.synchronize()
+    assert torch.equal(out, old)
 
 
 def test_dense_d32_transformer1d_matches_cpu_with_its_launches(cuda, monkeypatch):

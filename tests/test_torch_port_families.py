@@ -338,7 +338,8 @@ def test_ralenet_refuses_a_length_it_cannot_take():
     from ecg_denoise_tpu_torch.serving import Denoiser
 
     port = Denoiser(build_model("ralenet", device="cpu"), max_batch=2, device="cpu")
-    with pytest.raises(ValueError, match="sequence length"):
+    with pytest.raises(ValueError, match=r"bias must be \(1, 2, 512, 512\), got "
+                                         r"\(1, 2, 256, 256\)"):
         port.denoise_record(_x(2, 600), length=512)
     jm = JaxRaleNet(depth=1)
     with pytest.raises(Exception):

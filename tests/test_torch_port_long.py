@@ -10,7 +10,13 @@ within 1e-4 (the JAX package's kernel bars). Then the small Transformer1d of
 test_torch_port_transformer1d.py (embed 32, depths (1, 1), heads (1, 2))
 on 520-sample inputs, where the port raised before: the forward within
 1e-4 of JAX's with `use_pallas=True` and every parameter's gradient within
-1e-4 of its tensor's largest. A D = 4 call at L = 257 still raises.
+1e-4 of its tensor's largest. The D = 4 kernels keep their cap of 256:
+past it a D = 4 call takes the mma template at D = 8 on the card, and the
+plain version on the CPU. The card's padding of q, k, v (and o, g) along D
+to the template's head dim (`forward_at`, `backward_at`), run here with the
+plain versions at D = 12 and 24, gives the unpadded plain version's
+output, lse and gradients within 1e-6 of each tensor's largest (the
+padded sums run in another order).
 """
 
 import numpy as np
@@ -25,7 +31,10 @@ from ecg_denoise_tpu_torch.interop.jax_weights import transformer1d_state_dict
 from ecg_denoise_tpu_torch.kernels.attention import (
     attention_backward_reference,
     attention_reference,
+    backward_at,
+    forward_at,
     fused_attention,
+    kernel_head_dim,
 )
 from ecg_denoise_tpu_torch.models import Transformer1d
 from test_torch_port_layers import random_variables
@@ -97,7 +106,44 @@ def test_transformer1d_past_256_matches_jax():
 
 
 def test_d4_keeps_its_length_cap():
-    q = torch.zeros(1, 2, 257, 4)
-    with pytest.raises(ValueError, match="sequence length"):
-        fused_attention(q, q, q)
+    """On the card the D = 4 kernels take L <= 256 and the mma template
+    the rest (at D = 8, bf16 at 16, its depth); on the CPU the plain
+    version takes any L; past D = 64 the card refuses, naming ROADMAP."""
+    assert kernel_head_dim(4, 256, torch.float32) == 4 == kernel_head_dim(4, 256, torch.bfloat16)
+    assert kernel_head_dim(4, 257, torch.float32) == 8
+    assert kernel_head_dim(4, 257, torch.bfloat16) == 16
+    assert [kernel_head_dim(d, 64, torch.float32) for d in (8, 12, 24, 32, 40, 64)] == [
+        8, 16, 32, 32, 64, 64]
+    with pytest.raises(ValueError, match="ROADMAP queue B"):
+        kernel_head_dim(65, 64, torch.float32)
+    rng = np.random.default_rng(257)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 257, 4)).astype(np.float32))
+               for _ in range(3))
+    assert torch.equal(fused_attention(q, k, v), attention_reference(q, k, v))
     assert fused_attention(*(torch.zeros(1, 2, 257, D),) * 3).shape == (1, 2, 257, D)
+    assert fused_attention(*(torch.zeros(1, 2, 9, 65),) * 3).shape == (1, 2, 9, 65)
+
+
+@pytest.mark.parametrize("d", [12, 24])
+def test_padding_to_the_kernel_head_dim_is_exact(d):
+    rng = np.random.default_rng(d)
+    B, H, L = 2, 3, 37
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((B, H, L, d)).astype(np.float32))
+                  for _ in range(4))
+    q = q * d ** -0.5
+    bias = torch.from_numpy(rng.standard_normal((1, H, L, L)).astype(np.float32))
+    wide = kernel_head_dim(d, L, torch.float32)
+    assert wide > d
+
+    def forward(*args, **kw):
+        return attention_reference(*args, return_lse=True, **kw)
+
+    out, lse = forward_at(wide, forward, q, k, v, bias)
+    ref, ref_lse = attention_reference(q, k, v, bias, return_lse=True)
+    grads = backward_at(wide, attention_backward_reference, q, k, v, bias, out, lse, g)
+    ref_grads = attention_backward_reference(q, k, v, bias, ref, ref_lse, g)
+    for name, got, want in zip("out lse q k v bias".split(), (out, lse, *grads),
+                               (ref, ref_lse, *ref_grads)):
+        assert got.shape == want.shape and got.is_contiguous(), name
+        bar = 1e-6 * want.abs().max().item()
+        assert (got - want).abs().max().item() <= bar, name

@@ -19,7 +19,11 @@ resume it and take one step against JAX's step from the same state (loss
 1e-5 relative, gradients and parameters at `chip_smoke.step_bars`), serve
 a RA-LENet 'full' TrainState that JAX's `save_checkpoint` writes in
 tmp_path, find a `.msgpack` with `find_model`, and refuse to resume a
-frozen-mask state.
+frozen-mask state. The classifiers too: a ResNetCls and a small
+Transformer1d TrainState that JAX writes in tmp_path, with random BatchNorm
+stats and random Adam moments at count 3, resumed by the port's
+`load_checkpoint` (weights, stats and moments bit for bit, Adam at step 3)
+and its logits within 1e-4 of JAX's eval forward.
 """
 
 import os
@@ -33,14 +37,20 @@ import jax.numpy as jnp
 from flax import serialization
 
 from ecg_denoise_tpu.models import RaleNet as JaxRaleNet
+from ecg_denoise_tpu.models import ResNetCls as JaxResNetCls
+from ecg_denoise_tpu.models import Transformer1d as JaxTransformer1d
 from ecg_denoise_tpu.models import UNet as JaxUNet
 from ecg_denoise_tpu.train import checkpoint as jax_checkpoint
 from ecg_denoise_tpu.train import create_train_state as jax_train_state
 from ecg_denoise_tpu.train import make_epoch_fns as jax_epoch_fns
 from ecg_denoise_tpu_torch import NOISE_INTENSITIES, NOISE_TYPES
 from ecg_denoise_tpu_torch.interop import flax_msgpack
-from ecg_denoise_tpu_torch.interop.jax_weights import unet_state_dict
-from ecg_denoise_tpu_torch.models import build_model
+from ecg_denoise_tpu_torch.interop.jax_weights import (
+    resnet_cls_state_dict,
+    transformer1d_state_dict,
+    unet_state_dict,
+)
+from ecg_denoise_tpu_torch.models import ResNetCls, Transformer1d, build_model
 from ecg_denoise_tpu_torch.serving import Denoiser
 from ecg_denoise_tpu_torch.train import (
     create_train_state,
@@ -255,6 +265,54 @@ def test_port_serves_a_jax_ralenet_state(tmp_path):
     ref = jax.jit(lambda v, x: jm.apply(v, x, train=False))(v, x)
     denoiser = Denoiser.from_checkpoint("ralenet", path, max_batch=4, device="cpu")
     np.testing.assert_allclose(denoiser(x), np.asarray(ref), atol=SERVE_ATOL, rtol=0)
+
+
+# The classifiers a JAX user trains (the cls CLIs): JAX's module and the
+# port's with their arguments, and an input shape. Transformer1d at the
+# small size of test_torch_port_transformer1d.py.
+CLASSIFIERS = {
+    "resnet_cls": (JaxResNetCls, ResNetCls, {}, (3, 2, 256), resnet_cls_state_dict),
+    "transformer1d": (JaxTransformer1d, Transformer1d,
+                      dict(num_class=9, in_channels=32, embed_dim=32, depths=(1, 1),
+                           num_heads=(1, 2)), (2, 32, 64), transformer1d_state_dict),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CLASSIFIERS))
+def test_port_resumes_a_jax_classifier_state(tmp_path, name):
+    jax_cls, port_cls, kw, shape, to_torch = CLASSIFIERS[name]
+    jm = jax_cls(**kw)
+    v = random_variables(jm, jnp.zeros(shape), seed=20)
+    state, _ = jax_train_state(jm, jax.random.PRNGKey(0), jnp.zeros(shape), variables=v)
+    rng = np.random.default_rng(21)
+
+    def moments():
+        return jax.tree.map(lambda a: jnp.asarray(
+            np.abs(rng.standard_normal(a.shape)).astype(np.float32)), state.params)
+
+    adam = state.opt_state[0]._replace(count=jnp.asarray(3, jnp.int32), mu=moments(),
+                                       nu=moments())
+    state = state.replace(opt_state=(adam, *state.opt_state[1:]),
+                          step=jnp.asarray(3, jnp.int32))
+    path = jax_checkpoint.save_checkpoint(
+        jax_checkpoint.checkpoint_path(str(tmp_path), name, 3, "em", 0), state)
+    port = load_checkpoint(path, create_train_state(port_cls(**kw), device="cpu"))
+    assert port.step == 3
+    ref_sd = to_torch({"params": state.params, "batch_stats": state.batch_stats})
+    for key, val in port.model.state_dict().items():
+        if not key.endswith("num_batches_tracked"):
+            torch.testing.assert_close(val, ref_sd[key], atol=0, rtol=0, msg=key)
+    mu, nu = to_torch({"params": adam.mu}), to_torch({"params": adam.nu})
+    for key, p in port.model.named_parameters():
+        st = port.optimizer.state[p]
+        torch.testing.assert_close(st["exp_avg"], mu[key], atol=0, rtol=0, msg=key)
+        torch.testing.assert_close(st["exp_avg_sq"], nu[key], atol=0, rtol=0, msg=key)
+    x = np.random.default_rng(22).standard_normal(shape).astype(np.float32)
+    ref = jax.jit(lambda v, x: jm.apply(v, x, train=False))(
+        {"params": state.params, "batch_stats": state.batch_stats}, x)
+    with torch.no_grad():
+        y = port.model.eval()(torch.from_numpy(x))
+    np.testing.assert_allclose(y.numpy(), np.asarray(ref), atol=SERVE_ATOL, rtol=0)
 
 
 def test_find_model_picks_a_msgpack(tmp_path):

@@ -93,6 +93,18 @@ class _Identity(torch.nn.Module):
         return x
 
 
+@pytest.mark.parametrize("channels", [None, 5])
+def test_warmup_takes_jax_signature(channels):
+    """warmup(channels, length, limit), JAX's order: every bucket up to
+    the limit's at `channels` (default: the served model's, 2 here)."""
+    d = Denoiser(_Identity(), max_batch=4, device="cpu")
+    seen = []
+    d._fetch = lambda y: seen.append(tuple(y.shape))
+    d.warmup(channels, 32, 3)
+    want = 2 if channels is None else channels
+    assert seen == [(1, want, 32), (2, want, 32), (4, want, 32)]
+
+
 def test_denoise_record_identity_model_reproduces_record():
     d = Denoiser(_Identity(), max_batch=16, device="cpu")
     rec = np.random.default_rng(3).standard_normal((2, 1000)).astype(np.float32)

@@ -49,7 +49,7 @@ def _interpret_mode(monkeypatch):
     monkeypatch.setattr(ap, "_INTERPRET", True)
 
 
-def _operands(B, H, L, with_bias, seed=0):
+def _operands(B, H, L, with_bias, seed=0, D=D):
     """q (pre-scaled), k, v, bias and the output gradient g, numpy float32."""
     rng = np.random.default_rng(seed)
     q, k, v, g = (rng.standard_normal((B, H, L, D)).astype(np.float32) for _ in range(4))
@@ -57,10 +57,17 @@ def _operands(B, H, L, with_bias, seed=0):
     return (q * D ** -0.5).astype(np.float32), k, v, bias, g
 
 
-@pytest.mark.parametrize("B,H,L", [(2, 2, 64), (3, 1, 33)])
-@pytest.mark.parametrize("with_bias", [True, False])
-def test_plain_attention_at_d32_matches_pallas_interpret(B, H, L, with_bias):
-    q, k, v, bias, g = _operands(B, H, L, with_bias, seed=L + H)
+# (with_bias, B, H, L, head_dim): Transformer1d's 32 with and without a
+# bias, then the mma template's other head dims, a bias at two of them
+# (the CPU takes any D; JAX's kernels are generic in D).
+@pytest.mark.parametrize("with_bias,B,H,L,d", [
+    *(pytest.param(wb, B, H, L, D, id=f"{wb}-{B}-{H}-{L}")
+      for wb in (True, False) for B, H, L in ((2, 2, 64), (3, 1, 33))),
+    pytest.param(True, 2, 1, 16, 8, id="True-2-1-16-d8"),
+    pytest.param(False, 2, 1, 16, 16, id="False-2-1-16-d16"),
+    pytest.param(True, 2, 1, 16, 64, id="True-2-1-16-d64")])
+def test_plain_attention_at_d32_matches_pallas_interpret(with_bias, B, H, L, d):
+    q, k, v, bias, g = _operands(B, H, L, with_bias, seed=L + H, D=d)
     args = tuple(map(jnp.asarray, (q, k, v) + ((bias,) if with_bias else ())))
     f = ((lambda q, k, v, b: ap.fused_attention(q, k, v, b)) if with_bias
          else (lambda q, k, v: ap.fused_attention(q, k, v)))
@@ -82,11 +89,11 @@ def test_plain_attention_at_d32_matches_pallas_interpret(B, H, L, with_bias):
         np.testing.assert_allclose(auto.numpy(), ref, atol=GRAD_ATOL, rtol=0, err_msg=name)
 
 
-def _pair(use_pallas, seed=0, length=64):
+def _pair(use_pallas, seed=0, length=64, config=SMALL):
     """JAX Transformer1d (SMALL), random variables, and the port's with them."""
-    jm = JaxTransformer1d(**SMALL, use_pallas=use_pallas)
-    v = random_variables(jm, jnp.zeros((2, SMALL["in_channels"], length)), seed=seed)
-    pm = Transformer1d(**SMALL)
+    jm = JaxTransformer1d(**config, use_pallas=use_pallas)
+    v = random_variables(jm, jnp.zeros((2, config["in_channels"], length)), seed=seed)
+    pm = Transformer1d(**config)
     pm.load_state_dict(transformer1d_state_dict(v))
     return jm, v, pm
 
@@ -96,9 +103,17 @@ def _x(B, L, seed=1):
         (B, SMALL["in_channels"], L)).astype(np.float32)
 
 
-@pytest.mark.parametrize("use_pallas", [True, False])
-def test_transformer1d_forward_and_gradients_match_jax(use_pallas):
-    jm, v, pm = _pair(use_pallas)
+# Heads 16 and 64 wide (C1: the mma template's other head dims). JAX's
+# gradients of these are jitted: op by op they take about 12 s a config.
+HEADS_16 = dict(SMALL, embed_dim=32, num_heads=(2, 4))
+HEADS_64 = dict(SMALL, embed_dim=64, num_heads=(1, 2))
+
+
+@pytest.mark.parametrize("use_pallas,config", [
+    pytest.param(True, SMALL, id="True"), pytest.param(False, SMALL, id="False"),
+    pytest.param(False, HEADS_16, id="False-d16"), pytest.param(False, HEADS_64, id="False-d64")])
+def test_transformer1d_forward_and_gradients_match_jax(use_pallas, config):
+    jm, v, pm = _pair(use_pallas, config=config)
     x = _x(2, 64)
     w = np.random.default_rng(2).standard_normal((2, SMALL["num_class"])).astype(np.float32)
 
@@ -106,7 +121,8 @@ def test_transformer1d_forward_and_gradients_match_jax(use_pallas):
         y = jm.apply({"params": params}, jnp.asarray(x))
         return jnp.sum(y * w), y
 
-    (_, ref), ref_grads = jax.value_and_grad(loss, has_aux=True)(v["params"])
+    grad = jax.value_and_grad(loss, has_aux=True)
+    (_, ref), ref_grads = (grad if config is SMALL else jax.jit(grad))(v["params"])
     y = pm(torch.from_numpy(x))
     assert y.shape == (2, SMALL["num_class"]) and y.dtype == torch.float32
     np.testing.assert_allclose(y.detach().numpy(), np.asarray(ref), atol=MODEL_ATOL, rtol=0)
