@@ -265,19 +265,23 @@ and nothing falls back to the CPU):
    first design), plain versions and scaled_dot_product_attention (no
    mask); Transformer1d's served windows/s and step ms, f32 and bf16, with
    this tree's B1 and B2 and the parent's in turns.
-25. B5 at head_dim 32 (attention_dense_fwd.cu's second kernel): its
-   registers and spills by instantiation (cuobjdump; a spill fails the
-   run) and its shared memory a block; against its plain version and B1 at
-   D = 32 without lse at Transformer1d's packable stages (L, H) = (64, 16)
-   and (32, 32), B = 256 and 37, with and without bias, f32 (1e-5) and bf16
-   (3 * 2^-8 of max|v|), q scaled by 32^-1/2, a second call
-   bit-identical, within those bars of B1 without lse, and, where its tree
-   is there, equal to the parent's B5 bit for bit; Transformer1d at its
+25. B5's mma template (attention_dense_fwd.cu, head_dim 8, 16, 32, 64):
+   its registers, spills and HMMA count by instantiation (cuobjdump; a
+   spill or no HMMA fails the run) and its launch (blocks, threads, ring
+   stages, shared memory a block) at Transformer1d's packable stages;
+   against its plain version and B1 without lse at D = 4, 8, 16, 24 (padded
+   to 32), 32 and 64, at those stages, (L, H) = (64, 16) and (32, 32), and
+   at the others of DENSE_OTHER, B = 256 and 37, with and without bias,
+   f32 (1e-5) and bf16 (3 * 2^-8 of max|v|), q scaled by D^-1/2, a second
+   call bit-identical, and, where its tree is there, the parent's B5 (at D
+   = 4 bit for bit, at D = 32 within the bars); Transformer1d at its
    defaults served at 256 with ECG_ATTN_DENSE=1 (serve_transformer1d_dense:
    4 B1 and 8 B5), its first 8 windows within 1e-4 of the CPU; the 8 dense
-   calls' times, B5 in turns with B1 from CUDA graph replays, beside the
-   bound, the plain version and SDPA; served windows/s dense and default,
-   in turns.
+   calls' times, f32 and bf16, B5 in turns with B1 without lse and the
+   parent's B5 from CUDA graph replays, beside the bound (3xTF32 or bf16 on
+   the tensor cores, or the bytes), the plain version and SDPA; B5 at D =
+   8, 16 and 64 at (64, 16) in turns with B1; served windows/s dense and
+   default, in turns.
 26. B1 and B2 at head_dim 32 past 256 keys, at the four stages of a
    1,000-sample record and B = 2, 4, 32 (D32_LONG), with and without
    bias, f32 and bf16, at the bars of phases
@@ -305,8 +309,8 @@ build_train, baseline_dwt, train_cls, test_cls, serve_transformer1d,
 train_transformer1d, serve_transformer1d_dense, train_transformer1d_long,
 serve_transformer1d_long, serve_jax_ckpt, train_jax_ckpt; B1's and B2's
 entries also hold their head_dim 32 case under "d32" and its 1,000-sample
-case under "d32_long", B5's its head_dim 32 case under "d32", B2's its
-frozen-bias case),
+case under "d32_long", B5's its head_dim 32 case under "d32" (with its
+other head dims), B2's its frozen-bias case),
 the card's name and power limit, and `{"ok": true, "device": {...}}`.
 Without a card, or outside a checkout of the repository, it exits nonzero
 and prints no result.
@@ -504,9 +508,19 @@ T1D_CHECK_BATCH = 4
 # Phase 25: Transformer1d's lane-packable stages at 256 samples, (L, H),
 # with their calls in one forward: B5 at D = 32 takes them with
 # ECG_ATTN_DENSE=1 (8 of the 12), B1 the other 4. Its checks at the served
-# batch and a ragged one.
+# batch and a ragged one, at those stages and at others (DENSE_OTHER: L =
+# 2, 8 and 16, an m-tile of 8, 2 and 1 heads; then groups of 4, 48 and 96
+# rows against the 64-row units: one short unit, and two, the second of
+# 32 rows),
+# at every head dim of B5: 4 (the D = 4 kernel, bit for bit the parent's),
+# 8, 16, 32, 64 (the mma template) and 24 (padded to 32). DENSE_TIMED_D:
+# the template's other head dims, timed at Transformer1d's first packable
+# stage.
 T1D_DENSE_CALLS = {(64, 16): 6, (32, 32): 2}
 DENSE_D32_BATCHES = (T1D_SERVE_BATCH, 37)
+DENSE_OTHER = [(2, 64), (8, 16), (16, 8), (2, 2), (8, 6), (32, 3)]
+DENSE_CHECK_DIMS = (4, 8, 16, 24, 32, 64)
+DENSE_TIMED_D = (8, 16, 64)
 # Phase 26: Transformer1d at its defaults on 10-second records at PTB-XL's
 # 100 Hz; its stages run at (L, H) = (1000, 4), (500, 8), (250, 16), (125,
 # 32), three of them ragged against the 64-row tiles and 32-key chunks. The
@@ -870,15 +884,20 @@ def b4_call(lib, q, k, v, toep, W, offsets, o, lse, g):
     return dq, dk, dv, dtoep
 
 
-def in_turns(first, second, calls=20):
-    """µs per call of two functions from CUDA graph replays, in turns
-    (first, second, second, first): the two readings of each."""
+def turns(fns, calls=20):
+    """µs per call of each function from CUDA graph replays, in turns (in
+    order, then in reverse): the two readings of each."""
     from ecg_denoise_tpu_torch.probes.floor import graph_us
 
-    got = {0: [], 1: []}
-    for i in (0, 1, 1, 0):
-        got[i].append(graph_us((first, second)[i], calls))
-    return got[0], got[1]
+    got = [[] for _ in fns]
+    for i in [*range(len(fns)), *reversed(range(len(fns)))]:
+        got[i].append(graph_us(fns[i], calls))
+    return got
+
+
+def in_turns(first, second, calls=20):
+    """`turns` of two functions (first, second, second, first)."""
+    return tuple(turns((first, second), calls))
 
 
 def settle_verdict(first_us, second_us):
@@ -3943,39 +3962,69 @@ def phase_transformer1d(card):
     return launches, times, cpu_model
 
 
-def log_b5_d32_resources():
-    """B5 at D = 32's resources by kernel instantiation as ptxas left them
-    (cuobjdump -res-usage; a spill fails the run) and its dynamic shared
-    memory a block at Transformer1d's two packable stages."""
-    from ecg_denoise_tpu_torch.kernels.attention_dense import dense_pack_factor, smem_bytes
+def log_b5_mma_resources(card):
+    """B5's mma template as the compiler left it, by instantiation:
+    registers, stack, static shared and local memory (cuobjdump
+    -res-usage) and its tensor-core instructions (HMMA, cuobjdump -sass);
+    a spill or a kernel with no HMMA fails the run. Then its launch at
+    Transformer1d's two packable stages, from the library: blocks, threads
+    a block, ring stages and dynamic shared memory a block."""
+    from ecg_denoise_tpu_torch.kernels.attention_dense import (
+        dense_pack_factor,
+        launch_shape,
+        smem_bytes,
+    )
     from ecg_denoise_tpu_torch.kernels.build import CSRC, _nvcc, _target
 
     tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
-    text = subprocess.run([tool, "-res-usage", str(_target("attention_dense_fwd", CSRC))],
-                          capture_output=True, text=True, timeout=120, check=True).stdout
-    found = re.findall(r"Function \S*attention_dense_fwd_d32_kernelI(f|13__nv_bfloat16)"
-                       r"Lb([01])\S*:\s*REG:(\d+) STACK:(\d+) SHARED:(\d+) LOCAL:(\d+)", text)
-    for dt, bias, reg, stack, shared, local in sorted(found):
-        log(f"[25] B5 D=32 ptxas, {'float32' if dt == 'f' else 'bfloat16'} "
-            f"bias={bias == '1'}: {reg} registers, stack {stack} bytes, local {local} bytes, "
-            f"static shared {shared} bytes")
-    check(len(found) == 4, "B5 D=32's 4 kernel instantiations not all found")
-    check(all(f[3] == "0" and f[5] == "0" for f in found), "a B5 D=32 instantiation spills")
+    lib = str(_target("attention_dense_fwd", CSRC))
+    usage = subprocess.run([tool, "-res-usage", lib], capture_output=True, text=True,
+                           timeout=120, check=True).stdout
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    hmma = {part.split(None, 1)[0]: sum("HMMA" in line for line in part.splitlines())
+            for part in sass.split("Function : ")[1:] if "_mma_kernel" in part.split(None, 1)[0]}
+    found = re.findall(r"Function (\S*attention_dense_fwd_mma_kernelI(f|13__nv_bfloat16)Li(\d+)"
+                       r"ELb([01])ELi(\d+)E\S*):\s*REG:(\d+) STACK:(\d+) SHARED:(\d+) "
+                       r"LOCAL:(\d+)", usage)
+    for fn, dt, D, bias, span, reg, stack, shared, local in sorted(
+            found, key=lambda f: (f[1], int(f[2]), f[3], int(f[4]))):
+        log(f"[25] B5 mma template ptxas, {'float32' if dt == 'f' else 'bfloat16'} D={D} "
+            f"bias={bias == '1'} key span {span}: {reg} registers, stack {stack} bytes, local "
+            f"{local} bytes, static shared {shared} bytes; {hmma.get(fn, 0)} HMMA instructions")
+    # D 8-64 at f32, 16-64 at bf16, with and without a bias, at key spans
+    # 16, 32 and 64.
+    check(len(found) == 42, f"{len(found)} of B5's 42 mma kernel instantiations found")
+    check(all(f[6] == "0" and f[8] == "0" for f in found), "a B5 mma instantiation spills")
+    check(all(hmma.get(f[0], 0) > 0 for f in found), "a B5 mma kernel issues no HMMA")
     for L, H in T1D_DENSE_CALLS:
         P = dense_pack_factor(H, L)
-        sizes = {(dt, b): smem_bytes(L, 32, P, dt, b) for dt in (torch.float32, torch.bfloat16)
-                 for b in (False, True)}
-        log(f"[25] B5 D=32 dynamic shared memory a block at L={L} H={H} (P={P}), from the "
-            f"library: float32 {sizes[torch.float32, False]} bytes without a bias, "
-            f"{sizes[torch.float32, True]} with one; bfloat16 {sizes[torch.bfloat16, False]} "
-            f"and {sizes[torch.bfloat16, True]}")
+        for dt in (torch.float32, torch.bfloat16):
+            for b in (False, True):
+                shape = launch_shape(T1D_SERVE_BATCH, H, L, 32, dt, b)
+                log(f"[25] {card}: B5 D=32 {str(dt)[6:]} B={T1D_SERVE_BATCH} L={L} H={H} "
+                    f"(P={P}) bias={b}: {shape['blocks']} blocks of {shape['threads']} threads, "
+                    f"a ring of {shape['stages']} stages, {smem_bytes(L, 32, P, dt, b)} bytes "
+                    "of dynamic shared memory a block (from the library)")
+
+
+def dense_cases():
+    """Phase 25's B5 cases: (B, L, H, with bias, dtype, D) at every head
+    dim of DENSE_CHECK_DIMS, Transformer1d's packable stages and the short
+    ones, the served batch and a ragged one."""
+    return [(B, L, H, b, dt, D) for D in DENSE_CHECK_DIMS
+            for (L, H) in [*T1D_DENSE_CALLS, *DENSE_OTHER] for B in DENSE_D32_BATCHES
+            for b in (True, False) for dt in (torch.float32, torch.bfloat16)]
 
 
 def phase_dense_d32(card, cpu_model):
-    """Phase 25: B5 at head_dim 32 against its plain version and B1 at D =
-    32 without lse; Transformer1d served with ECG_ATTN_DENSE=1 (4 B1 and 8
-    B5 a forward) against the CPU; the 8 dense calls' times in turns with
-    B1's; served windows/s dense and default, in turns."""
+    """Phase 25: B5 at every head dim (DENSE_CHECK_DIMS) against its plain
+    version, B1 without lse and, where its tree is there, the parent's B5
+    (at D = 4 bit for bit, at D = 32 within the bars: the parent's B5
+    takes no other D); Transformer1d served
+    with ECG_ATTN_DENSE=1 (4 B1 and 8 B5 a forward) against the CPU; the 8
+    dense calls' times in turns with the parent's B5 and B1's; served
+    windows/s dense and default, in turns."""
     from ecg_denoise_tpu_torch import full_float32
     from ecg_denoise_tpu_torch.kernels import attention
     from ecg_denoise_tpu_torch.kernels.attention_dense import (
@@ -3985,46 +4034,54 @@ def phase_dense_d32(card, cpu_model):
     from ecg_denoise_tpu_torch.train import create_train_state
 
     t0 = time.perf_counter()
-    log_b5_d32_resources()
+    log_b5_mma_resources(card)
     saved = tf32_flags()
     full_float32()
     gen = torch.Generator().manual_seed(25)
     parent = parent_libs()
-    max_err, parent_equal = 0.0, True if parent else None
-    cases = [(B, L, H, b, dt) for (L, H) in T1D_DENSE_CALLS for B in DENSE_D32_BATCHES
-             for b in (True, False) for dt in (torch.float32, torch.bfloat16)]
-    for B, L, H, with_bias, dtype in cases:
-        q, k, v, bias = operands(B, H, L, with_bias, dtype, gen, D=32, q_scale=D32_Q_SCALE)
+    max_err, max_err_parent, d4_parent_equal = 0.0, 0.0, True if parent else None
+    for B, L, H, with_bias, dtype, D in dense_cases():
+        q, k, v, bias = operands(B, H, L, with_bias, dtype, gen, D=D,
+                                 q_scale=1.0 if D == 4 else D ** -0.5)
         out = fused_attention_dense(q, k, v, bias)
         again = fused_attention_dense(q, k, v, bias)
         b1 = attention._launch(q, k, v, bias)
-        old = None if parent is None else b5_call(parent["attention_dense_fwd"], q, k, v, bias)
+        # The parent's B5 takes D = 4 and 32 only.
+        old = (None if parent is None or D not in (4, 32)
+               else b5_call(parent["attention_dense_fwd"], q, k, v, bias))
         torch.cuda.synchronize()
         err = (out.float() - attention_dense_reference(q, k, v, bias).float()).abs().max().item()
         err_b1 = (out.float() - b1.float()).abs().max().item()
+        err_old = None if old is None else (out.float() - old.float()).abs().max().item()
         tol = (F32_TOL if dtype == torch.float32
                else BF16_TOL_OF_MAX_V * v.float().abs().max().item())
         if dtype == torch.float32:
             max_err = max(max_err, err)
+            max_err_parent = max(max_err_parent, err_old or 0.0)
         same = torch.equal(out, again)
-        as_parent = "" if old is None else f"; equal to the parent's B5 bit for bit: " \
-            f"{torch.equal(out, old)}"
-        if old is not None:
-            parent_equal &= torch.equal(out, old)
-        log(f"[25] B5 D=32 B={B} L={L} H={H} bias={with_bias} {str(dtype)[6:]}: max_abs_err "
-            f"vs plain {err:.3e}, vs B1 without lse {err_b1:.3e} (tol {tol:.3e}); a second "
-            f"call bit-identical: {same}{as_parent}")
-        check(out.shape == q.shape and out.dtype == dtype, "B5 D=32 output shape or dtype")
+        as_parent = "" if old is None else (
+            f"; vs the parent's B5 {err_old:.3e}"
+            + (f", bit for bit: {torch.equal(out, old)}" if D == 4 else ""))
+        if old is not None and D == 4:
+            d4_parent_equal &= torch.equal(out, old)
+        log(f"[25] B5 D={D} B={B} L={L} H={H} bias={with_bias} {str(dtype)[6:]}: max_abs_err "
+            f"vs plain {err:.3e}, vs B1 without lse {err_b1:.3e}{as_parent} (tol {tol:.3e}); "
+            f"a second call bit-identical: {same}")
+        check(out.shape == q.shape and out.dtype == dtype, f"B5 D={D} output shape or dtype")
         check(bool(torch.isfinite(out).all()) and err <= tol and err_b1 <= tol,
-              "B5 at D = 32 disagrees with its plain version or with B1")
-        check(same, "two B5 D=32 calls differ")
-        check(old is None or torch.equal(out, old), "B5 at D = 32 is not the parent's B5")
+              f"B5 at D = {D} disagrees with its plain version or with B1")
+        check(same, f"two B5 D={D} calls differ")
+        # The D = 4 kernel is unchanged; the mma template computes D = 32
+        # with other arithmetic than the parent's B5 (3xTF32 on the tensor
+        # cores, one softmax pass), so within the bars.
+        check(old is None or (torch.equal(out, old) if D == 4 else err_old <= tol),
+              f"B5 at D = {D} is not the parent's B5"
+              + (" bit for bit" if D == 4 else " within the bars"))
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
-    # B5 is unchanged; B1 at D = 32 now runs on the tensor cores (3xTF32),
-    # so the two agree within the bars, no longer bit for bit.
-    log("[25] B5 at D = 32 equals the parent's B5 bit for bit in every case: "
+    log("[25] B5 against the parent's B5: "
         + ("not compared (no tree under _archive/parent)" if parent is None
-           else str(parent_equal)))
+           else f"D = 4 bit for bit in every case: {d4_parent_equal}; D = 32 within the bars, "
+                f"largest float32 difference {max_err_parent:.3e}"))
 
     # Transformer1d at its defaults, served at T1D_SERVE_BATCH with the dense
     # route; the first 8 windows against the CPU (eval: windows independent).
@@ -4049,6 +4106,7 @@ def phase_dense_d32(card, cpu_model):
           "the dense Transformer1d forward did not make 4 B1 and 8 B5 launches")
 
     times = dense_d32_times(card)
+    times["other_head_dims"] = dense_other_d_times(card)
     # Served windows/s, in turns: default, dense, dense, default.
     walls = {"default": [], "dense": []}
     fwd_ms = {}
@@ -4070,14 +4128,25 @@ def phase_dense_d32(card, cpu_model):
         f"{statistics.mean(fwd_ms['dense']):.3f} ms, default "
         f"{statistics.mean(fwd_ms['default']):.3f} ms (CUDA events, mean of 2 x 5)")
     log(f"chip_smoke: phase 25 took {time.perf_counter() - t0:.1f} s")
-    return {"serve_transformer1d_dense": launches}, max_err, times, parent_equal
+    return {"serve_transformer1d_dense": launches}, max_err, times, d4_parent_equal
+
+
+def dense_bound_terms(B, H, L, D, dtype):
+    """(operations, bytes) lower bounds in ms for one B5 call on the mma
+    template, no bias: the products at 3xTF32 on the tensor cores (f32,
+    `mma_bound_terms`) or one bf16 pass, and q, k, v and o moved once."""
+    if dtype == torch.float32:
+        return mma_bound_terms(B, H, L, 4, 2, D=D)
+    return (2 * 2 * B * H * L * L * D / PEAK_BF16_FLOPS * 1e3,
+            bound_terms(B, H, L, False, 2, D=D)[1])
 
 
 def dense_d32_times(card):
     """Phase 25's kernel rows: per packable Transformer1d stage, B5 at D =
-    32 (B = T1D_SERVE_BATCH, f32, no bias) in turns with B1 without lse
-    (CUDA graph replays), its bound, plain version and SDPA; summed over a
-    forward's 8 dense calls."""
+    32 (B = T1D_SERVE_BATCH, no bias), f32 and bf16, from CUDA graph
+    replays in turns with the parent's B5 (where its tree is there) and B1
+    without lse, beside its bound (`dense_bound_terms`), the plain version
+    and SDPA; summed over a forward's 8 dense calls."""
     from ecg_denoise_tpu_torch.kernels import attention
     from ecg_denoise_tpu_torch.kernels.attention_dense import (
         attention_dense_reference,
@@ -4086,33 +4155,82 @@ def dense_d32_times(card):
 
     gen = torch.Generator().manual_seed(26)
     B = T1D_SERVE_BATCH
-    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "b1_ms": 0.0}
-    limits = {"operations": 0.0, "bytes": 0.0}
-    for (L, H), calls in T1D_DENSE_CALLS.items():
-        q, k, v, _ = operands(B, H, L, False, torch.float32, gen, D=32, q_scale=D32_Q_SCALE)
-        b1_us, b5_us = in_turns(lambda: attention._launch(q, k, v, None),
-                                lambda: fused_attention_dense(q, k, v))
-        ms, b1_ms = statistics.mean(b5_us) / 1e3, statistics.mean(b1_us) / 1e3
-        plain = cuda_ms(lambda: attention_dense_reference(q, k, v), 5)
-        lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0), 20)
-        t_ops, t_bytes = bound_terms(B, H, L, False, 4, D=32)
-        bnd = max(t_ops, t_bytes)
-        log(f"[25] {card}: B5 attention_dense_fwd D=32 float32 B={B} L={L} H={H}: kernel "
-            f"{ms:.4f} ms, B1 without lse {b1_ms:.4f} ms (graph replays in turns, B1 "
-            f"{b1_us[0]:.1f} / {b1_us[1]:.1f} us, B5 {b5_us[0]:.1f} / {b5_us[1]:.1f} us), bound "
-            f"{bnd:.4f} ms (operations {t_ops:.4f} at the f32 CUDA-core peak, bytes "
-            f"{t_bytes:.4f}), plain {plain:.4f} ms, sdpa {lib:.4f} ms; {calls} calls per forward")
-        for key, t in (("ms", ms), ("plain_ms", plain), ("bound_ms", bnd),
-                       ("library_ms", lib), ("b1_ms", b1_ms)):
-            totals[key] += calls * t
-        limits["operations"] += calls * t_ops
-        limits["bytes"] += calls * t_bytes
-    totals["bound_by"] = max(limits, key=limits.get)
-    log(f"[25] {card}: B5 D=32 float32, the 8 dense calls of one Transformer1d forward at "
-        f"B={B}: kernel {totals['ms']:.4f} ms (B1 on the same calls {totals['b1_ms']:.4f} ms), "
-        f"bound {totals['bound_ms']:.4f} ms ({totals['bound_by']}), plain "
-        f"{totals['plain_ms']:.4f} ms, sdpa {totals['library_ms']:.4f} ms")
-    return totals
+    parent = parent_libs()
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms", "b1_ms", "parent_ms")
+    totals, limits = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype)[6:]
+        tot = totals[dt] = dict.fromkeys(keys, 0.0)
+        lim = limits[dt] = {"operations": 0.0, "bytes": 0.0}
+        for (L, H), calls in T1D_DENSE_CALLS.items():
+            q, k, v, _ = operands(B, H, L, False, dtype, gen, D=32, q_scale=D32_Q_SCALE)
+            fns = [lambda: fused_attention_dense(q, k, v), lambda: attention._launch(q, k, v, None)]
+            if parent:
+                fns.append(lambda: b5_call(parent["attention_dense_fwd"], q, k, v, None))
+            got = turns(fns)
+            ms, b1_ms = (statistics.mean(us) / 1e3 for us in got[:2])
+            parent_ms = statistics.mean(got[2]) / 1e3 if parent else None
+            plain = cuda_ms(lambda: attention_dense_reference(q, k, v), 5)
+            lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0), 20)
+            t_ops, t_bytes = dense_bound_terms(B, H, L, 32, dtype)
+            bnd = max(t_ops, t_bytes)
+            readings = "; ".join(f"{who} {us[0]:.1f} / {us[1]:.1f} us" for who, us in zip(
+                ("B5", "B1", "the parent's B5"), got))
+            log(f"[25] {card}: B5 attention_dense_fwd D=32 {dt} B={B} L={L} H={H}: kernel "
+                f"{ms:.4f} ms, B1 without lse {b1_ms:.4f} ms, the parent's B5 "
+                + ("not measured" if parent_ms is None else f"{parent_ms:.4f} ms")
+                + f" (graph replays in turns: {readings}), bound {bnd:.4f} ms (operations "
+                f"{t_ops:.4f} {'at 3xTF32' if dtype == torch.float32 else 'in bf16'} on the "
+                f"tensor cores, bytes {t_bytes:.4f}), plain {plain:.4f} ms, sdpa {lib:.4f} ms; "
+                f"{calls} calls per forward")
+            for key, t in (("ms", ms), ("plain_ms", plain), ("bound_ms", bnd),
+                           ("library_ms", lib), ("b1_ms", b1_ms), ("parent_ms", parent_ms)):
+                tot[key] = None if t is None or tot[key] is None else tot[key] + calls * t
+            lim["operations"] += calls * t_ops
+            lim["bytes"] += calls * t_bytes
+        tot["bound_by"] = max(lim, key=lim.get)
+        log(f"[25] {card}: B5 D=32 {dt}, the 8 dense calls of one Transformer1d forward at "
+            f"B={B}: kernel {tot['ms']:.4f} ms (B1 on the same calls {tot['b1_ms']:.4f} ms, the "
+            "parent's B5 " + ("not measured" if tot["parent_ms"] is None
+                              else f"{tot['parent_ms']:.4f} ms")
+            + f"), bound {tot['bound_ms']:.4f} ms ({tot['bound_by']}), plain "
+            f"{tot['plain_ms']:.4f} ms, sdpa {tot['library_ms']:.4f} ms")
+    return {**totals["float32"], "bf16": totals["bfloat16"]}
+
+
+def dense_other_d_times(card):
+    """B5's mma template at its other head dims (DENSE_TIMED_D) at
+    Transformer1d's first packable stage, (L, H) = (64, 16), B =
+    T1D_SERVE_BATCH, f32, no bias: in turns with B1 without lse, beside the
+    bound, the plain version and SDPA; one call each."""
+    from ecg_denoise_tpu_torch.kernels import attention
+    from ecg_denoise_tpu_torch.kernels.attention_dense import (
+        attention_dense_reference,
+        fused_attention_dense,
+    )
+
+    gen = torch.Generator().manual_seed(27)
+    B, (L, H) = T1D_SERVE_BATCH, next(iter(T1D_DENSE_CALLS))
+    rows = {}
+    for D in DENSE_TIMED_D:
+        q, k, v, _ = operands(B, H, L, False, torch.float32, gen, D=D, q_scale=D ** -0.5)
+        b5_us, b1_us = in_turns(lambda: fused_attention_dense(q, k, v),
+                                lambda: attention._launch(q, k, v, None))
+        t_ops, t_bytes = dense_bound_terms(B, H, L, D, torch.float32)
+        row = rows[D] = {
+            "ms": statistics.mean(b5_us) / 1e3, "b1_ms": statistics.mean(b1_us) / 1e3,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "plain_ms": cuda_ms(lambda: attention_dense_reference(q, k, v), 5),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0),
+                                  20)}
+        log(f"[25] {card}: B5 attention_dense_fwd D={D} float32 B={B} L={L} H={H}: kernel "
+            f"{row['ms']:.4f} ms, B1 without lse {row['b1_ms']:.4f} ms (graph replays in turns, "
+            f"B5 {b5_us[0]:.1f} / {b5_us[1]:.1f} us, B1 {b1_us[0]:.1f} / {b1_us[1]:.1f} us), "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}: operations {t_ops:.4f} at "
+            f"3xTF32, bytes {t_bytes:.4f}), plain {row['plain_ms']:.4f} ms, sdpa "
+            f"{row['library_ms']:.4f} ms")
+    return rows
 
 
 def phase_long(card, cpu_model):
@@ -4343,7 +4461,7 @@ def main():
     launches.update(phase_classifier(card, paths["cls"], core_ckpt))
     t1d_launches, d32_times, t1d_cpu = phase_transformer1d(card)
     launches.update(t1d_launches)
-    dense_launches, dense_d32_err, dense_d32_times, dense_d32_parent_equal = phase_dense_d32(
+    dense_launches, dense_d32_err, dense_d32_times, dense_d4_parent_equal = phase_dense_d32(
         card, t1d_cpu)
     launches.update(dense_launches)
     long_launches, long_err, long_times = phase_long(card, t1d_cpu)
@@ -4376,16 +4494,24 @@ def main():
                   "parent's where its tree is there; plain and library issued from Python")
     dense["b1_ms_same_calls"] = dense_totals["b1_ms"]
     dense["parent_ms_same_calls"] = dense_totals["parent_ms"]
+    dense["d4_equal_to_parent_b5_bit_for_bit"] = dense_d4_parent_equal
     dense["d32"] = {
         "head_dim": 32, "max_abs_err": dense_d32_err,
         **{k: dense_d32_times[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                           "library_ms")},
+                                           "library_ms", "bf16")},
         "b1_ms_same_calls": dense_d32_times["b1_ms"],
-        "equal_to_parent_b5_bit_for_bit": dense_d32_parent_equal,
-        "times_are": f"one Transformer1d forward's 8 dense-routed calls, float32, "
-                     f"B={T1D_SERVE_BATCH}, no bias; kernel and b1_ms_same_calls (B1 without "
-                     "lse) from CUDA graph replays in turns; plain and library "
-                     "(scaled_dot_product_attention, no mask) issued from Python",
+        "parent_ms_same_calls": dense_d32_times["parent_ms"],
+        "other_head_dims": dense_d32_times["other_head_dims"],
+        "max_abs_err_is": "float32, the largest against the plain version over phase 25's "
+                          "cases at every head dim (DENSE_CHECK_DIMS)",
+        "times_are": f"one Transformer1d forward's 8 dense-routed calls, B={T1D_SERVE_BATCH}, "
+                     "no bias, float32 (bf16: the same calls on bf16 operands); the mma "
+                     "template from CUDA graph replays in turns with B1 without lse "
+                     "(b1_ms_same_calls) and the parent's B5 (parent_ms_same_calls) where its "
+                     "tree is there; bound_ms on the tensor cores at 3xTF32 (bf16: one pass) "
+                     "or the bytes; plain and library (scaled_dot_product_attention, no mask) "
+                     "issued from Python; other_head_dims one call at (64, 16) each, in turns "
+                     "with B1",
         # The dense Transformer1d path: every B5 launch on it is at D = 32.
         "launches_by_path": {"serve_transformer1d_dense":
                              launches["serve_transformer1d_dense"]["attention_dense_fwd"]}}

@@ -22,8 +22,8 @@ It dispatches on the tensors' device, with no switch and no fallback:
   a lane-packable stage (L < 128 a power of two,
   `dense_pack_factor` > 1), to the dense forward
   `csrc/attention_dense_fwd.cu` (the port of `_fwd_dense_kernel`, B5; see
-  `attention_dense.py`), at D = 4 and D = 32, as JAX's `_fwd`
-  (attention_pallas.py:621) packs either. When one is needed,
+  `attention_dense.py`), at any D <= 64, as JAX's `_fwd`
+  (attention_pallas.py:621) packs any. When one is needed,
   to `_FusedAttention`, a `torch.autograd.Function`
   whose forward is that kernel with its log-sum-exp residual and whose
   backward is `csrc/attention_bwd.cu` (the port of `_bwd_kernel`). Each
@@ -141,7 +141,7 @@ def check_operands(q, k, v, bias) -> None:
 def check_head_dim(q, head_dims) -> None:
     """Raise unless q's head dim is one of `head_dims`, and L <= MAX_LEN at
     HEAD_DIM: the shapes a kernel written for fixed head dims takes (B3
-    and B4 at 4, B5 at 4 and 32)."""
+    and B4 at 4)."""
     L, D = q.shape[-2:]
     if D not in head_dims:
         raise ValueError(f"head_dim must be one of {head_dims}, got {D}")

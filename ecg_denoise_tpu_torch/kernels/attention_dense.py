@@ -3,23 +3,25 @@ kernels/attention_pallas.py `_fwd_dense`, `_dense_wanted`, `_pack_factor`).
 
 `fused_attention_dense(q, k, v, bias)` computes `fused_attention`'s
 function, softmax(q @ k^T + bias) @ v over (B, H, L, D) operands with q
-pre-scaled, D = 4 (RA-LENet's heads) or 32 (Transformer1d's) and bias (1,
-H, L, L) or None, as an eval forward: no log-sum-exp is written and no
-gradient flows. It takes only the stages the TPU packs, L < 128 a power of
-two with `dense_pack_factor(H, L)` > 1, and dispatches on the tensors'
-device with no switch and no fallback:
+pre-scaled and bias (1, H, L, L) or None, as an eval forward: no
+log-sum-exp is written and no gradient flows. It takes only the stages the
+TPU packs, L < 128 a power of two with `dense_pack_factor(H, L)` > 1, and
+dispatches on the tensors' device with no switch and no fallback:
 
 * a CUDA tensor goes to the hand-written Hopper kernel
   `csrc/attention_dense_fwd.cu` (the port of the TPU kernel
-  `_fwd_dense_kernel`; its C entry point picks the D = 4 or the D = 32
-  kernel) or the call raises;
-* a CPU tensor goes to `attention_dense_reference`, the plain version.
+  `_fwd_dense_kernel`) or the call raises. It runs at the head dim
+  `kernel_head_dim` picks, as B1 does: D = 4 (RA-LENet's heads) on the D
+  = 4 kernel, any other D <= 64 on the mma template at D = 8, 16, 32 or
+  64 (bf16 from 16), q, k and v zero-padded along D to it and the output
+  sliced back (`forward_at`: exact). D > 64 raises;
+* a CPU tensor goes to `attention_dense_reference`, the plain version, at
+  any D.
 
 `fused_attention` routes a no-grad call on the card here when
 `dense_route` says so: `dense_wanted()` (ECG_ATTN_DENSE=1, read at every
-call, as JAX reads it at every trace) and the stage packs, at either head
-dim, as JAX's `_fwd` (attention_pallas.py:621) packs; otherwise it keeps
-B1.
+call, as JAX reads it at every trace), the stage packs, as JAX's `_fwd`
+(attention_pallas.py:621) packs, and D <= 64; otherwise it keeps B1.
 
 `attention_dense_reference` is written in the TPU kernel's own form, so
 that the CPU tests hold its layout against JAX's kernel: q packed to
@@ -44,17 +46,17 @@ import torch
 
 from ecg_denoise_tpu_torch.kernels.attention import (
     DTYPE_CODES,
-    HEAD_DIM,
+    MMA_HEAD_DIMS,
     bind,
-    check_head_dim,
     check_launchable,
     check_operands,
+    forward_at,
+    kernel_head_dim,
     ptr,
     raise_on,
 )
 
 LANES = 128  # the width of the TPU's dense row, P·L
-DENSE_HEAD_DIMS = (HEAD_DIM, 32)  # B5's: RA-LENet's heads and Transformer1d's
 
 
 def dense_pack_factor(H: int, L: int) -> int:
@@ -77,12 +79,12 @@ def dense_wanted() -> bool:
 
 def dense_route(shape) -> bool:
     """Whether `fused_attention` sends a no-grad call of this (B, H, L, D)
-    shape on the card to B5: ECG_ATTN_DENSE=1, a lane-packable stage and a
-    head dim B5 is written for (4 or 32), the calls JAX's `_fwd`
-    (attention_pallas.py:621) packs. At any other head dim it declines, and
-    B1 serves the call."""
+    shape on the card to B5: ECG_ATTN_DENSE=1, a lane-packable stage (the
+    calls JAX's `_fwd`, attention_pallas.py:621, packs) and D <= 64, the
+    head dims B5 takes on the card. Past 64 it declines, and B1 raises
+    with its own message."""
     _, H, L, D = shape
-    return dense_wanted() and D in DENSE_HEAD_DIMS and dense_pack_factor(H, L) > 1
+    return dense_wanted() and D <= MMA_HEAD_DIMS[-1] and dense_pack_factor(H, L) > 1
 
 
 def attention_dense_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -132,7 +134,28 @@ def smem_bytes(L: int, D: int, P: int, dtype: torch.dtype, with_bias: bool) -> i
     return n
 
 
+def launch_shape(B: int, H: int, L: int, D: int, dtype: torch.dtype, with_bias: bool) -> dict:
+    """The mma template's launch at this call shape (D = 8-64), as the
+    library computes it: blocks, threads a block and ring stages (builds
+    the library; for logging; launches nothing)."""
+    lib = _library()
+    f = lib.ecg_attention_dense_launch_shape
+    f.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    f.restype = ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    raise_on(lib, f(B, H, L, D, dense_pack_factor(H, L), DTYPE_CODES[dtype], int(with_bias),
+                    torch.cuda.current_device(), ctypes.addressof(out)),
+             "dense attention launch shape")
+    return dict(zip(("blocks", "threads", "stages"), out))
+
+
 def _launch(q, k, v, bias, P: int):
+    """B5 at the head dim `kernel_head_dim` picks, q, k and v padded to it."""
+    B, H, L, D = q.shape
+    return forward_at(kernel_head_dim(D, L, q.dtype), _launch_kernel, q, k, v, bias, P=P)
+
+
+def _launch_kernel(q, k, v, bias, *, P: int):
     check_launchable(q, k, v, bias=bias)
     lib = _library()
     B, H, L, D = q.shape
@@ -150,9 +173,8 @@ def fused_attention_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """B5 on the card, the plain version on the CPU (see the module
     docstring); raises on a stage the TPU does not pack and, on the card,
-    on operands that need a gradient (B5 has no backward)."""
+    on operands that need a gradient (B5 has no backward) and at D > 64."""
     check_operands(q, k, v, bias)
-    check_head_dim(q, DENSE_HEAD_DIMS)
     H, L = q.shape[1], q.shape[2]
     P = dense_pack_factor(H, L)
     if P < 2:

@@ -1,7 +1,7 @@
 // Dense-packed attention forward (B5) — RA-LENet's short-sequence attention
 // stages on Hopper (sm_90a), the eval forward with ECG_ATTN_DENSE=1; and, at
-// head_dim 32, Transformer1d's (the second kernel, at the end of this file,
-// behind the same C entry point).
+// head_dim 8 to 64, Transformer1d's (the mma template at the end of this
+// file, behind the same C entry point).
 //
 // Replaces the TPU kernel ecg_denoise_tpu/kernels/attention_pallas.py
 // _fwd_dense_kernel (:449), launched through _fwd_dense (:524-559, the
@@ -87,6 +87,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -386,306 +387,648 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// head_dim 32: Transformer1d's lane-packable stages. At its defaults on 256
-// samples those are (L, H) = (64, 16), P = 2, and (32, 32), P = 4: 6 and 2
-// of the 12 attention calls of one forward. The D = 4 kernel above is left
-// as it is, bit for bit.
+// head_dim 8, 16, 32 and 64: one template on D, on Hopper's tensor cores.
+// Transformer1d's lane-packable stages at its defaults on 256 samples are
+// (L, H) = (64, 16), P = 2, and (32, 32), P = 4, at D = 32: 6 and 2 of the
+// 12 attention calls of one forward. The wrapper (kernels/attention_dense.py)
+// zero-pads any other D <= 64 to the next instantiated one. The D = 4 kernel
+// above is left as it is, bit for bit.
 //
-// Computes the same function at D = 32: softmax(q.k^T + bias).v over
-// contiguous (B, H, L, 32) operands, q pre-scaled, bias (1, H, L, L) or
-// absent, f32 or bf16, no lse. Every head subtracts its own row max, where
-// the TPU kernel subtracts one max over the packed row of P heads (see
-// above).
+// Computes the same function: softmax(q.k^T + bias).v over contiguous (B,
+// H, L, D) operands, q pre-scaled, bias (1, H, L, L) or absent, f32 or
+// bf16, no lse, at every power-of-two L < 128 the route packs (L = 1 ...
+// 64). Every head subtracts its own row max, where the TPU kernel subtracts
+// one max over the packed row of P heads (see above).
 //
-// What bounds it. Per (b, h) the work is 2*(2*L*L*D + L*L) flops against
-// 4*L*D operand elements: at the two stages and B = 256, f32, 2.18 and
-// 1.09 GFLOP a call, 33 and 16 us at 67 TFLOP/s, against 134 MB of q, k, v
-// and o, 40 us at 3.35 TB/s: the bytes bound it, by a little at (64, 16).
-// This first version stays in f32 on the CUDA cores, as B1 at D = 32 does.
+// What bounds it. Per (b, h) the work is 4*L*L*D flops (q.k and p.v)
+// against 4*L*D operand elements. At (L, H) = (64, 16), B = 256, f32, q, k,
+// v and o are 134 MB, 40.1 us at 3.35 TB/s, against 2.15 GFLOP, 13 us at
+// three TF32 passes (3xTF32) and 495 TFLOP/s: the bytes bound it, and the
+// design is about keeping device memory busy. wgmma is not needed: at
+// 3xTF32 the products take about a third of the bytes' time, and mma.sync's
+// small tiles fit a unit of 64 rows of one head or a few.
 //
-// Design, simple first: the TPU packs P heads into one (L, P*L) row of
-// logits; here a block owns the same P heads (a head group g) of one
-// element and has one thread per (head, query row), P*L threads (128 at
-// both Transformer1d stages). The block's P heads are contiguous in the
-// (B, H, L, D) layout, so their K and V rows, P*L rows of 32 (16 KB each
-// as f32), are staged once per element into shared memory with 16-byte
-// loads (bf16 converted as it lands) and read by a warp as broadcasts.
-// Each thread keeps its q row and its f32 output accumulator in registers
-// and makes B1 at D = 32's pass over its head's L keys, in chunks of 32
-// keys with an online softmax, with the same operations in the same order:
-// the output equals attention_fwd.cu's D = 32 kernel without lse, given the
-// same contraction into FMAs by the compiler (chip_smoke.py phase 25
-// checks it). With a bias, the group's (P*L x L) tile is staged once per
-// block as f32 (row stride L | 1, odd: the lanes' reads at one key fall in
-// distinct banks), and the block walks `elems` elements so that it is
-// reused; without one, a block is one element. No atomics: a call gives
-// bit-identical results every time.
+// Design:
+// * Units. A unit is 64 consecutive rows of one batch element's head group
+//   (the P heads the TPU packs into one 128-lane row; a group of 128 rows
+//   is two units). Its rows of q, K and V are contiguous in the (B, H, L,
+//   D) layout (24 KB at D = 32, f32), and its boundaries are head
+//   boundaries (L divides 64). A block is 4 warps, a warp one 16-row
+//   m-tile.
+// * A persistent grid: one wave of blocks (the occupancy calculator times
+//   the SM count), each walking units blockIdx.x, + gridDim.x, ... With a
+//   bias the grid is a multiple of the (group, chunk) pairs, so that a
+//   block keeps one group's rows while it walks the batch and stages their
+//   (64 x L) bias tile into shared memory once, as f32.
+// * A ring of two buffers of q, K and V, filled by cp.async (16-byte
+//   copies; rows padded to D + 4 floats or D + 8 bf16 values, so that the
+//   fragment loads and ldmatrix's 8 rows fall in 32 banks; rows past the
+//   unit zero-filled): the next unit's rows are in flight while this one
+//   computes, four blocks an SM at D = 32 (96 KB of loads in flight an SM
+//   at f32).
+// * A warp's keys: at L >= 16 its rows are one head's and its keys that
+//   head's L; at L < 16 the m-tile holds 16 / L heads and its 16 keys are
+//   theirs, a query's keys of another head masked to -inf (the TPU's
+//   block-diagonal idea): a query never sees another head's keys. The
+//   kernel is templated on that span, max(L, 16), so that every loop over
+//   its n-tiles unrolls whole.
+// * One pass, no online softmax: a row has at most 64 keys, so S = q.k^T
+//   is held whole in C fragments (at most 8 n-tiles of 4 floats). Bias;
+//   the row max across the quad by two shuffles; one exp of values <= 0;
+//   the row sum of the f32 exps (as B1 and attention_reference: not of the
+//   bf16-rounded values, which JAX's ones row sums); p.v; the output times
+//   the sum's reciprocal, rounded once to the operand dtype.
+// * Products on mma.sync, with B1's fragment code (attention_fwd.cu). f32:
+//   m16n8k8 TF32 at 3xTF32, the tensor core's f32 sums not rounding to
+//   nearest, so each k-step's three products of q.k^T are summed in a
+//   fresh fragment and added on the CUDA cores, and p.v's products over
+//   the row's keys (B1's key tile of 64) in one fresh fragment; P goes from
+//   the C fragment to the A fragment by B1's key permutation. bf16:
+//   m16n8k16 with P rounded to bf16 before p.v, as JAX's kernel rounds en
+//   (attention_pallas.py:466), B1's template and attention_reference; the
+//   C pairs of two n-tiles are the A pairs of one 16-key k-step, and V's
+//   B fragments come by ldmatrix.trans.
+// * No atomics: a call gives bit-identical results every time.
 //
 // Measured (chip_smoke.py phase 25, NVIDIA H100 80GB HBM3, 700.00 W power
-// limit; CUDA graph replays at B = 256, f32, no bias, in turns with B1 at
-// D = 32 without lse): 166.8 us at (64, 16) (B1 165.9), 123.3 us at (32,
-// 32) (B1 128.2); 1.248 ms over a forward's 8 calls against B1's 1.251, 3.9
-// times the bound. Equal to B1 bit for bit at every case checked. 151-154
-// registers, no spills.
+// limit; CUDA graph replays at B = 256, no bias, in turns with B1 without
+// lse and this kernel's previous design, a thread a (head, query row)):
+// f32 58.3 us at (L, H) = (64, 16) (B1 87.6, previous 167.2) and 51.5 at
+// (32, 32) (66.6, 123.4), against a byte bound of 40.1; bf16 30.7 and
+// 28.7 (33.2, 30.3; 144.8, 102.5) against 20.0; at (64, 16) f32, D = 8
+// 21.9 us, D = 16 33.6, D = 64 120.5 (B1 32.2, 50.8, 206.4).
+// probes/dense_bound.py times it with its loads removed and with its
+// products removed: at (64, 16) f32 52.2 and 47.7 us, a copy's rate 47.4;
+// the instructions and the bytes hold it together there, the bytes alone
+// at (32, 32) and at bf16. Its f32 instructions were cut to get there:
+// loops unrolled on the key span, the split into TF32 halves in two
+// integer instructions and a subtraction, one reciprocal a row, 32-bit
+// unit arithmetic. Tried and dropped, each level or slower: three or four
+// ring stages, 128-row units of 8 warps, p.v in two interleaved fragments,
+// q.k^T's k-steps in one fragment (over the bar with unscaled q at D =
+// 64), the f32 output staged through shared memory, one unit a block
+// (faster at bf16, slower at f32 D = 16-64).
 
-constexpr int kD32 = 32;
-constexpr int kChunk32 = 32;  // keys of one online-softmax step
+constexpr int kDenseRows = 64;                        // a unit's rows
+constexpr int kDenseThreads = 32 * kDenseRows / 16;   // a warp an m-tile
+constexpr int kDenseStages = 2;                       // the ring of q, K and V buffers
 
-// Dynamic shared memory, in bytes: K and V of the group as f32, then the
-// bias tile.
-__host__ __device__ inline int smem_bytes_d32(int L, int P, bool with_bias) {
-  return 2 * P * L * kD32 * 4 + (with_bias ? P * L * (L | 1) * 4 : 0);
+// A staged row's stride in elements: D + 4 floats, D + 8 bf16 values.
+template <typename T, int D>
+__host__ __device__ constexpr int dense_stride() { return sizeof(T) == 4 ? D + 4 : D + 8; }
+
+// One buffer of the ring: q, K and V of one unit.
+template <typename T, int D>
+__host__ __device__ constexpr int dense_stage_elems() {
+  return 3 * kDenseRows * dense_stride<T, D>();
 }
 
-// stage_f32, load_row32, store_row32 and dot32 below are copies of the
-// helpers of the same names in attention_fwd.cu (each library is built from
-// one source). Keep them identical: this kernel equals B1 at D = 32 bit for
-// bit only while they do the same operations in the same order.
+// The bias tile's row stride in floats: even, and at L >= 16 the float2
+// reads of a half warp fall in distinct banks.
+__host__ __device__ inline int dense_bias_stride(int L) { return L + 8; }
 
-// n contiguous operand values (n a multiple of 8, src 16-byte aligned)
-// into shared memory as f32, 16 bytes a load.
-__device__ __forceinline__ void stage_f32(float* dst, const float* src, int n) {
-  for (int i = threadIdx.x * 4; i < n; i += blockDim.x * 4) {
-    *reinterpret_cast<float4*>(dst + i) = *reinterpret_cast<const float4*>(src + i);
+// Dynamic shared memory, in bytes: the ring, then the bias tile.
+template <typename T, int D>
+__host__ __device__ int dense_smem_bytes(int L, bool with_bias) {
+  return kDenseStages * dense_stage_elems<T, D>() * static_cast<int>(sizeof(T)) +
+         (with_bias ? kDenseRows * dense_bias_stride(L) * 4 : 0);
+}
+
+// mma_tf32, mma_bf16, mma_3xtf32, bf16x2, ldmatrix_x4_trans, cp_async16 and
+// store2 are copies of the helpers of the same names in attention_fwd.cu
+// (each library is built from one source); split_tf32 is cheaper than B1's.
+
+// x = hi + lo: hi is x rounded to TF32 (half away from zero, by adding half
+// a TF32 ulp to the bits and clearing the 13 dropped ones), lo = x - hi
+// exactly, |lo| <= 2^-11 |x|, passed whole: the tensor core reads its TF32
+// bits and drops the rest, an error of at most 2^-21 |x|. Two instructions
+// and a subtraction, where rounding lo too (B1's split_tf32, cvt.rna twice)
+// takes twice as many and changed no reading of the 1e-5 bar (PERF.md).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// Fragments of the mma.sync tiles (PTX ISA), g = lane / 4, t = lane % 4:
+//   tf32 m16n8k8  A: a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
+//                 B: b0 (t, g), b1 (t+4, g)
+//   bf16 m16n8k16 A: a0 (g, 2t..2t+1), a1 (g+8, ..), a2 (g, 2t+8..), a3 (g+8, 2t+8..)
+//                 B: b0 (2t..2t+1, g), b1 (2t+8..2t+9, g), lower k in the low half
+//   C: c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1)
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a.b over one 8-deep k-step at 3xTF32, the small terms first.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], float b0, float b1) {
+  uint32_t h0, l0, h1, l1;
+  split_tf32(b0, h0, l0);
+  split_tf32(b1, h1, l1);
+  mma_tf32(c, al, h0, h1);
+  mma_tf32(c, ah, l0, l1);
+  mma_tf32(c, ah, h0, h1);
+}
+
+// Two f32 values rounded RNE to bf16, the first in the low half.
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+         static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16;
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// 16 bytes by cp.async, zero-filled where `in` is false.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(in ? 16 : 0));
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// The units of one call, the same on host and device. A head group has
+// P * L <= 128 rows: one unit, or two (shift 1). Unit u is chunk
+// u & ((1 << shift) - 1) of head group u >> shift (batch element, then
+// group). `total` fits an int: the wrapper refuses operands of 2**31
+// elements or more.
+struct DenseUnits {
+  int rows;   // a head group's rows: P * L
+  int shift;  // log2 of a head group's units
+  int pairs;  // (group, chunk) pairs: groups << shift
+  long long total;
+  __host__ __device__ DenseUnits(int B, int H, int L, int P) {
+    rows = P * L;
+    shift = rows > kDenseRows ? 1 : 0;
+    pairs = H / P << shift;
+    total = static_cast<long long>(B) * pairs;
+  }
+};
+
+// Start the cp.async copies of a unit's q, K and V rows [0, n16) into
+// buffer `buf` (q, then K, then V, each kRows rows of stride kS); rows at
+// and past `n` are zero-filled.
+template <typename T, int D>
+__device__ __forceinline__ void stage_unit(T* buf, const T* __restrict__ q,
+                                           const T* __restrict__ k, const T* __restrict__ v,
+                                           size_t row0, int n, int n16) {
+  constexpr int kPer = 16 / sizeof(T);  // values a copy
+  constexpr int kChunks = D / kPer;     // copies a row
+  constexpr int kS = dense_stride<T, D>();
+  constexpr int kPlane = kDenseRows * kS;
+  for (int i = threadIdx.x; i < n16 * kChunks; i += kDenseThreads) {
+    const int row = i / kChunks, c = i - row * kChunks;
+    const bool in = row < n;
+    const size_t at = in ? (row0 + row) * D + c * kPer : 0;
+    T* dst = buf + row * kS + c * kPer;
+    cp_async16(dst, q + at, in);
+    cp_async16(dst + kPlane, k + at, in);
+    cp_async16(dst + 2 * kPlane, v + at, in);
   }
 }
 
-__device__ __forceinline__ void stage_f32(float* dst, const __nv_bfloat16* src, int n) {
-  for (int i = threadIdx.x * 8; i < n; i += blockDim.x * 8) {
-    float vals[8];
-    unpack(*reinterpret_cast<const uint4*>(src + i), vals);
-    float4* d = reinterpret_cast<float4*>(dst + i);
-    d[0] = make_float4(vals[0], vals[1], vals[2], vals[3]);
-    d[1] = make_float4(vals[4], vals[5], vals[6], vals[7]);
-  }
-}
-
-// One 32-value operand row into registers as f32.
-__device__ __forceinline__ void load_row32(const float* p, float (&r)[kD32]) {
-#pragma unroll
-  for (int i = 0; i < kD32 / 4; ++i) {
-    const float4 x = reinterpret_cast<const float4*>(p)[i];
-    r[4 * i] = x.x; r[4 * i + 1] = x.y; r[4 * i + 2] = x.z; r[4 * i + 3] = x.w;
-  }
-}
-
-__device__ __forceinline__ void load_row32(const __nv_bfloat16* p, float (&r)[kD32]) {
-#pragma unroll
-  for (int i = 0; i < kD32 / 8; ++i) {
-    float vals[8];
-    unpack(reinterpret_cast<const uint4*>(p)[i], vals);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) r[8 * i + j] = vals[j];
-  }
-}
-
-// r / div, rounded once to the operand dtype.
-__device__ __forceinline__ void store_row32(float* p, const float (&r)[kD32], float div) {
-#pragma unroll
-  for (int i = 0; i < kD32 / 4; ++i) {
-    reinterpret_cast<float4*>(p)[i] = make_float4(r[4 * i] / div, r[4 * i + 1] / div,
-                                                  r[4 * i + 2] / div, r[4 * i + 3] / div);
-  }
-}
-
-__device__ __forceinline__ void store_row32(__nv_bfloat16* p, const float (&r)[kD32],
-                                            float div) {
-  __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(p);
-#pragma unroll
-  for (int i = 0; i < kD32 / 2; ++i) {
-    p2[i] = __floats2bfloat162_rn(r[2 * i] / div, r[2 * i + 1] / div);
-  }
-}
-
-// a . b for a row in registers and one in shared memory (a broadcast), in
-// four interleaved chains: B1 at D = 32's order.
-__device__ __forceinline__ float dot32(const float (&a)[kD32], const float* b) {
-  const float4* b4 = reinterpret_cast<const float4*>(b);
-  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-#pragma unroll
-  for (int i = 0; i < kD32 / 4; ++i) {
-    const float4 x = b4[i];
-    s0 = fmaf(a[4 * i], x.x, s0);
-    s1 = fmaf(a[4 * i + 1], x.y, s1);
-    s2 = fmaf(a[4 * i + 2], x.z, s2);
-    s3 = fmaf(a[4 * i + 3], x.w, s3);
-  }
-  return (s0 + s1) + (s2 + s3);
-}
-
-template <typename T, bool kBias>
-__global__ void __launch_bounds__(kMaxPairs)
-attention_dense_fwd_d32_kernel(const T* __restrict__ q, const T* __restrict__ k,
+template <typename T, int D, bool kBias, int kSpan>
+__global__ void __launch_bounds__(kDenseThreads, 4)
+attention_dense_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                const T* __restrict__ v, const T* __restrict__ bias,
-                               T* __restrict__ o, int B, int H, int L, int P, int elems) {
+                               T* __restrict__ o, int B, int H, int L, int P) {
+  constexpr bool kF32 = sizeof(T) == 4;
+  constexpr int kRows = kDenseRows;
+  constexpr int kStages = kDenseStages;
+  constexpr int kS = dense_stride<T, D>();
+  constexpr int kPlane = kRows * kS;
+  constexpr int kStage = dense_stage_elems<T, D>();
+  constexpr int kNT = kSpan / 8;  // n-tiles of S
   extern __shared__ __align__(16) unsigned char smem[];
-  const int rows = P * L;  // the group's (head, query row) pairs: blockDim.x
-  const int groups = H / P;
-  const int g = blockIdx.x % groups;
-  const int b0 = (blockIdx.x / groups) * elems;
-  const int n_elems = min(elems, B - b0);
-  const int stride = L | 1;
-  float* ks = reinterpret_cast<float*>(smem);
-  float* vs = ks + rows * kD32;
-  float* bs = vs + rows * kD32;
-  const int r = threadIdx.x;  // p * L + l
-  const float* kh = ks + (r / L) * L * kD32;  // this thread's head's L keys
-  const float* vh = vs + (r / L) * L * kD32;
+  T* ring = reinterpret_cast<T*>(smem);  // [stage][q, K, V][kRows][kS]
+  float* btile = reinterpret_cast<float*>(ring + kStages * kStage);
+  const DenseUnits units(B, H, L, P);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int first = blockIdx.x, step = gridDim.x;
+  const int total = static_cast<int>(units.total);
+  const int n_mine = first < total ? (total - 1 - first) / step + 1 : 0;
+  const int bs = dense_bias_stride(L);
 
-  if constexpr (kBias) {  // the group's rows, contiguous in (1, H, L, L)
-    const T* src = bias + static_cast<size_t>(g) * rows * L;
-    for (int i = threadIdx.x; i < rows * L; i += blockDim.x) {
-      const int rr = i / L, m = i - rr * L;
-      bs[rr * stride + m] = to_float(src[i]);
+  // This warp's m-tile is the unit's rows 16 * warp ..; its key span is its
+  // head's L keys at L >= 16, else the tile's own 16 rows' keys: kSpan =
+  // max(L, 16), a template parameter, so that every loop over the span's
+  // n-tiles unrolls whole and its products interleave.
+  const int key0 = (16 * warp / kSpan) * kSpan;
+  const bool one_head = kSpan > 16 || L == 16;  // the tile's rows are one head's
+  const int r0 = 16 * warp + g, r1 = r0 + 8;  // this lane's two rows of the unit
+
+  // Unit `it` of this block: its first row in the (B*H*L) rows, and its
+  // row count.
+  auto unit_at = [&](int it, size_t& row0, int& n) {
+    const int u = first + it * step;
+    const int c = u & ((1 << units.shift) - 1);
+    row0 = static_cast<size_t>(u >> units.shift) * units.rows + c * kRows;
+    n = min(kRows, units.rows - c * kRows);
+  };
+  auto stage = [&](int it) {
+    if (it < n_mine) {
+      size_t row0;
+      int n;
+      unit_at(it, row0, n);
+      stage_unit<T, D>(ring + (it % kStages) * kStage, q, k, v, row0, n, (n + 15) & ~15);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) stage(s);
+  if constexpr (kBias) {
+    // The block's (group, chunk), the same for every unit it walks (the
+    // grid is a multiple of units.pairs): its rows of the bias, as f32.
+    if (n_mine > 0) {
+      const int pair = first % units.pairs;
+      const int grp = pair >> units.shift, c = pair & ((1 << units.shift) - 1);
+      const int n = min(kRows, units.rows - c * kRows);
+      const T* src = bias + (static_cast<size_t>(grp) * units.rows + c * kRows) * L;
+      for (int i = threadIdx.x; i < n * L; i += kDenseThreads) {
+        const int row = i / L, m = i - row * L;
+        btile[row * bs + m] = to_float(src[i]);
+      }
     }
   }
-  const float* brow = bs + r * stride;
 
-  for (int e = 0; e < n_elems; ++e) {
-    // The group's first row: its P heads' rows follow it.
-    const size_t base = (static_cast<size_t>(b0 + e) * H + static_cast<size_t>(g) * P) * L;
-    __syncthreads();  // every thread is done with the last element's K and V
-    stage_f32(ks, k + base * kD32, rows * kD32);
-    stage_f32(vs, v + base * kD32, rows * kD32);
+  for (int it = 0; it < n_mine; ++it) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
+    // Unit it is in for every thread, and every thread is done with the
+    // buffer the next copies overwrite (unit it - 1's).
     __syncthreads();
+    stage(it + kStages - 1);
+    size_t row0;
+    int n;
+    unit_at(it, row0, n);
+    if (16 * warp >= n) continue;
+    const T* qs = ring + (it % kStages) * kStage;
+    const T* ks = qs + kPlane + key0 * kS;
+    const T* vs = ks + kPlane;
 
-    float qr[kD32], acc[kD32];
+    // S = q.k^T over the span, a 16 x span strip in C fragments.
+    float s[kNT][4];
 #pragma unroll
-    for (int d = 0; d < kD32; ++d) acc[d] = 0.f;
-    load_row32(q + (base + r) * kD32, qr);
-    float mx = __int_as_float(0xff800000), sum = 0.f;  // -inf, 0
-
-    for (int m0 = 0; m0 < L; m0 += kChunk32) {
-      const int cn = min(kChunk32, L - m0);
-      float s[kChunk32];
-      float cmax = __int_as_float(0xff800000);
+    for (int j = 0; j < kNT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    if constexpr (kF32) {
 #pragma unroll
-      for (int j = 0; j < kChunk32; ++j) {
-        if (j < cn) {
-          float x = dot32(qr, kh + (m0 + j) * kD32);
-          if constexpr (kBias) x += brow[m0 + j];
-          s[j] = x;
-          cmax = fmaxf(cmax, x);
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const float* qp = reinterpret_cast<const float*>(qs) + r0 * kS + 8 * kk + tq;
+        uint32_t ah[4], al[4];
+        split_tf32(qp[0], ah[0], al[0]);
+        split_tf32(qp[8 * kS], ah[1], al[1]);
+        split_tf32(qp[4], ah[2], al[2]);
+        split_tf32(qp[8 * kS + 4], ah[3], al[3]);
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+          const float* kr = reinterpret_cast<const float*>(ks) + (8 * j + g) * kS + 8 * kk + tq;
+          float t[4] = {0.f, 0.f, 0.f, 0.f};  // this k-step's products, summed apart
+          mma_3xtf32(t, ah, al, kr[0], kr[4]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) s[j][i] += t[i];
         }
       }
-      const float mnew = fmaxf(mx, cmax);
-      const float scale = __expf(mx - mnew);  // 0 at the first chunk, 1 if the max holds
-      mx = mnew;
-      sum *= scale;
+    } else {
 #pragma unroll
-      for (int d = 0; d < kD32; ++d) acc[d] *= scale;
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t* qp = reinterpret_cast<const uint32_t*>(qs + r0 * kS + 16 * kk) + tq;
+        const uint32_t a[4] = {qp[0], qp[4 * kS], qp[4], qp[4 * kS + 4]};  // 8 rows: 4 kS words
 #pragma unroll
-      for (int j = 0; j < kChunk32; ++j) {
-        if (j < cn) {
-          const float ex = __expf(s[j] - mx);
-          const float4* vr = reinterpret_cast<const float4*>(vh + (m0 + j) * kD32);
-          sum += ex;
-#pragma unroll
-          for (int i = 0; i < kD32 / 4; ++i) {
-            const float4 x = vr[i];
-            acc[4 * i] = fmaf(ex, x.x, acc[4 * i]);
-            acc[4 * i + 1] = fmaf(ex, x.y, acc[4 * i + 1]);
-            acc[4 * i + 2] = fmaf(ex, x.z, acc[4 * i + 2]);
-            acc[4 * i + 3] = fmaf(ex, x.w, acc[4 * i + 3]);
-          }
+        for (int j = 0; j < kNT; ++j) {
+          const uint32_t* kr =
+              reinterpret_cast<const uint32_t*>(ks + (8 * j + g) * kS + 16 * kk) + tq;
+          mma_bf16(s[j], a, kr[0], kr[4]);
         }
       }
     }
-    store_row32(o + (base + r) * kD32, acc, sum);
+
+    // The bias; at L < 16 another head's keys to -inf. Span key m = 8j +
+    // 2tq is c0's and c2's, m + 1 c1's and c3's.
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      const int m = 8 * j + 2 * tq;
+      if (one_head) {  // the span is the rows' head: m is the bias column
+        if constexpr (kBias) {
+          const float2 b0 = *reinterpret_cast<const float2*>(btile + r0 * bs + m);
+          const float2 b1 = *reinterpret_cast<const float2*>(btile + r1 * bs + m);
+          s[j][0] += b0.x;
+          s[j][1] += b0.y;
+          s[j][2] += b1.x;
+          s[j][3] += b1.y;
+        }
+      } else {  // the tile's heads: row g's is g / L, key m's m / L
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int mk = m + e;
+          const bool own0 = mk / L == g / L, own1 = mk / L == (g + 8) / L;
+          if constexpr (kBias) {
+            if (own0 && r0 < n) s[j][e] += btile[r0 * bs + mk % L];
+            if (own1 && r1 < n) s[j][2 + e] += btile[r1 * bs + mk % L];
+          }
+          if (!own0) s[j][e] = __int_as_float(0xff800000);
+          if (!own1) s[j][2 + e] = __int_as_float(0xff800000);
+        }
+      }
+    }
+
+    // One softmax pass over the whole row: the max across the quad, one exp
+    // of values <= 0, the sums of the f32 exps.
+    float mx0 = __int_as_float(0xff800000), mx1 = mx0;
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+    }
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      s[j][0] = __expf(s[j][0] - mx0);
+      s[j][1] = __expf(s[j][1] - mx0);
+      s[j][2] = __expf(s[j][2] - mx1);
+      s[j][3] = __expf(s[j][3] - mx1);
+      sum0 += s[j][0] + s[j][1];
+      sum1 += s[j][2] + s[j][3];
+    }
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      sum0 += __shfl_xor_sync(0xffffffffu, sum0, x);
+      sum1 += __shfl_xor_sync(0xffffffffu, sum1, x);
+    }
+
+    // O = P.V in one fresh fragment over the span's keys.
+    float acc[D / 8][4];
+#pragma unroll
+    for (int d = 0; d < D / 8; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+    if constexpr (kF32) {
+      // k-step j: A column tq is key 8j + 2tq (c0, c2), column tq + 4 key
+      // 8j + 2tq + 1 (c1, c3); V's rows in the same order.
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        uint32_t ph[4], pl[4];
+        split_tf32(s[j][0], ph[0], pl[0]);
+        split_tf32(s[j][2], ph[1], pl[1]);
+        split_tf32(s[j][1], ph[2], pl[2]);
+        split_tf32(s[j][3], ph[3], pl[3]);
+        const float* vr = reinterpret_cast<const float*>(vs) + (8 * j + 2 * tq) * kS + g;
+#pragma unroll
+        for (int d = 0; d < D / 8; ++d) mma_3xtf32(acc[d], ph, pl, vr[8 * d], vr[kS + 8 * d]);
+      }
+    } else {
+      // k-step jj: keys 16jj .. 16jj + 15, the C pairs of n-tiles 2jj and
+      // 2jj + 1 rounded to bf16; V's B fragments by ldmatrix.trans, two
+      // 8-dim n-tiles a call.
+#pragma unroll
+      for (int jj = 0; jj < kNT / 2; ++jj) {
+        const uint32_t pa[4] = {bf16x2(s[2 * jj][0], s[2 * jj][1]),
+                                bf16x2(s[2 * jj][2], s[2 * jj][3]),
+                                bf16x2(s[2 * jj + 1][0], s[2 * jj + 1][1]),
+                                bf16x2(s[2 * jj + 1][2], s[2 * jj + 1][3])};
+        const T* vrow = vs + (16 * jj + (lane & 15)) * kS + (lane >> 4) * 8;
+#pragma unroll
+        for (int d = 0; d < D / 16; ++d) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, vrow + 16 * d);
+          mma_bf16(acc[2 * d], pa, b[0], b[1]);
+          mma_bf16(acc[2 * d + 1], pa, b[2], b[3]);
+        }
+      }
+    }
+
+    // Times the row sum's reciprocal, rounded once; rows past the unit
+    // dropped. f32 from the fragments: a lane's float2 and its quad's fill
+    // 32-byte sectors. bf16 through this warp's own q rows of the buffer
+    // (read whole above; no other warp reads them, and the buffer is
+    // refilled only after the next barrier) to 16-byte stores of whole
+    // rows, where the fragments' 4-byte stores fill half sectors.
+    const float inv0 = 1.f / sum0, inv1 = 1.f / sum1;
+    if constexpr (kF32) {
+      T* o0 = o + (row0 + r0) * D + 2 * tq;
+      T* o1 = o0 + 8 * D;
+#pragma unroll
+      for (int d = 0; d < D / 8; ++d) {
+        if (r0 < n) store2(o0 + 8 * d, acc[d][0] * inv0, acc[d][1] * inv0);
+        if (r1 < n) store2(o1 + 8 * d, acc[d][2] * inv1, acc[d][3] * inv1);
+      }
+    } else {
+      T* ot = ring + (it % kStages) * kStage + 16 * warp * kS;
+      __syncwarp();  // every lane is done reading the warp's q rows
+#pragma unroll
+      for (int d = 0; d < D / 8; ++d) {
+        store2(ot + g * kS + 8 * d + 2 * tq, acc[d][0] * inv0, acc[d][1] * inv0);
+        store2(ot + (g + 8) * kS + 8 * d + 2 * tq, acc[d][2] * inv1, acc[d][3] * inv1);
+      }
+      __syncwarp();
+      constexpr int kPer = 8, kChunks = D / kPer;  // a row's 16-byte chunks
+#pragma unroll
+      for (int i = lane; i < 16 * kChunks; i += 32) {
+        const int r = i / kChunks, c = i - r * kChunks;
+        if (16 * warp + r < n) {
+          *reinterpret_cast<uint4*>(o + (row0 + 16 * warp + r) * D + c * kPer) =
+              *reinterpret_cast<const uint4*>(ot + r * kS + c * kPer);
+        }
+      }
+    }
   }
 }
 
-template <typename T, bool kBias>
-cudaError_t launch_d32_one(const T* q, const T* k, const T* v, const T* bias, T* o,
-                           int B, int H, int L, int P, int device, cudaStream_t stream) {
-  // Above 48 KB a block's dynamic shared memory must be allowed once per
-  // instantiation: the most any call takes, P * L = 128 rows at L = 64.
-  static const cudaError_t allowed = cudaFuncSetAttribute(
-      attention_dense_fwd_d32_kernel<T, kBias>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes_d32(64, 2, kBias));
-  if (allowed != cudaSuccess) return allowed;
-  const int groups = H / P;
-  long long elems = 1;
-  if (kBias) {  // enough elements a block that the grid is about kBlocksPerSM an SM
-    int sms = 0;
-    const cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return err;
-    const long long want = static_cast<long long>(kBlocksPerSM) * sms;
-    elems = (static_cast<long long>(B) * groups + want - 1) / want;
-    if (elems < 1) elems = 1;
-    if (elems > kMaxIters) elems = kMaxIters;
+// Calls f(D, kBias, kSpan), each a std::integral_constant, at the template's
+// instantiation for a call at (D, L, with_bias): kSpan = max(L, 16); D =
+// 8 at f32 only (bf16's mma is 16 deep), 16, 32 or 64.
+template <typename T, typename F>
+cudaError_t dense_dispatch(int D, int L, bool with_bias, F&& f) {
+  auto at_d = [&](auto d) -> cudaError_t {
+    auto at_bias = [&](auto b) -> cudaError_t {
+      if (L <= 16) return f(d, b, std::integral_constant<int, 16>{});
+      if (L == 32) return f(d, b, std::integral_constant<int, 32>{});
+      return f(d, b, std::integral_constant<int, 64>{});
+    };
+    return with_bias ? at_bias(std::true_type{}) : at_bias(std::false_type{});
+  };
+  switch (D) {
+    case 8:
+      if constexpr (sizeof(T) == 4) return at_d(std::integral_constant<int, 8>{});
+      return cudaErrorInvalidValue;
+    case 16: return at_d(std::integral_constant<int, 16>{});
+    case 32: return at_d(std::integral_constant<int, 32>{});
+    case 64: return at_d(std::integral_constant<int, 64>{});
+    default: return cudaErrorInvalidValue;
   }
-  const long long blocks = (B + elems - 1) / elems * groups;
+}
+
+// The grid of one call: about one wave (the blocks an SM holds at this
+// call's shared memory, times the SMs), at most one block a unit; with a
+// bias a multiple of the (group, chunk) pairs, so that a block keeps one.
+template <typename T, int D, bool kBias, int kSpan>
+cudaError_t dense_grid(int B, int H, int L, int P, int device, int& grid) {
+  // Above 48 KB a block's dynamic shared memory must be allowed once per
+  // instantiation, before the occupancy calculator reads it: the most any
+  // call takes, the bias tile at L = 64.
+  static const cudaError_t allowed = cudaFuncSetAttribute(
+      attention_dense_fwd_mma_kernel<T, D, kBias, kSpan>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, dense_smem_bytes<T, D>(64, kBias));
+  if (allowed != cudaSuccess) return allowed;
+  int sms = 0, per_sm = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, attention_dense_fwd_mma_kernel<T, D, kBias, kSpan>, kDenseThreads,
+      dense_smem_bytes<T, D>(L, kBias));
+  if (err != cudaSuccess) return err;
+  const DenseUnits units(B, H, L, P);
+  if (units.total > 0x7fffffffLL) return cudaErrorInvalidValue;
+  long long blocks = static_cast<long long>(per_sm > 0 ? per_sm : 1) * sms;
+  if (blocks > units.total) blocks = units.total;
+  if (kBias) blocks = blocks < units.pairs ? units.pairs : blocks / units.pairs * units.pairs;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  attention_dense_fwd_d32_kernel<T, kBias><<<static_cast<int>(blocks), P * L,
-                                             smem_bytes_d32(L, P, kBias), stream>>>(
-      q, k, v, bias, o, B, H, L, P, static_cast<int>(elems));
-  return cudaGetLastError();
+  grid = static_cast<int>(blocks);
+  return cudaSuccess;
 }
 
 template <typename T>
-cudaError_t launch_d32(const void* q, const void* k, const void* v,
-                       const void* bias, void* o, int B, int H, int L, int P,
-                       int device, cudaStream_t stream) {
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* bt = static_cast<const T*>(bias);
-  T* ot = static_cast<T*>(o);
-  if (bias != nullptr) {
-    return launch_d32_one<T, true>(qt, kt, vt, bt, ot, B, H, L, P, device, stream);
+cudaError_t launch_dense_mma(const void* q, const void* k, const void* v, const void* bias,
+                             void* o, int B, int H, int L, int D, int P, int device,
+                             cudaStream_t stream) {
+  return dense_dispatch<T>(D, L, bias != nullptr, [&](auto d, auto b, auto span) {
+    constexpr int kDd = decltype(d)::value;
+    constexpr bool kBias = decltype(b)::value;
+    constexpr int kSpan = decltype(span)::value;
+    int grid = 0;
+    const cudaError_t err = dense_grid<T, kDd, kBias, kSpan>(B, H, L, P, device, grid);
+    if (err != cudaSuccess) return err;
+    attention_dense_fwd_mma_kernel<T, kDd, kBias, kSpan>
+        <<<grid, kDenseThreads, dense_smem_bytes<T, kDd>(L, kBias), stream>>>(
+            static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+            static_cast<const T*>(bias), static_cast<T*>(o), B, H, L, P);
+    return cudaGetLastError();
+  });
+}
+
+// The template's launch at this call shape (launches nothing): its blocks,
+// threads a block and ring stages into out[0..2].
+template <typename T>
+cudaError_t dense_mma_shape(int B, int H, int L, int D, int P, bool with_bias, int device,
+                            int* out) {
+  return dense_dispatch<T>(D, L, with_bias, [&](auto d, auto b, auto span) {
+    constexpr int kDd = decltype(d)::value;
+    out[1] = kDenseThreads;
+    out[2] = kDenseStages;
+    return dense_grid<T, kDd, decltype(b)::value, decltype(span)::value>(B, H, L, P, device,
+                                                                         out[0]);
+  });
+}
+
+template <typename T>
+int dense_mma_smem(int L, int D, bool with_bias) {
+  switch (D) {
+    case 8: return dense_smem_bytes<T, 8>(L, with_bias);
+    case 16: return dense_smem_bytes<T, 16>(L, with_bias);
+    case 32: return dense_smem_bytes<T, 32>(L, with_bias);
+    default: return dense_smem_bytes<T, 64>(L, with_bias);
   }
-  return launch_d32_one<T, false>(qt, kt, vt, bt, ot, B, H, L, P, device, stream);
+}
+
+// Whether the template is instantiated at (D, dtype).
+inline bool dense_mma_takes(int D, int dtype) {
+  return (D == 8 && dtype == 0) || D == 16 || D == 32 || D == 64;
+}
+
+// The shape checks of every entry point: L < 128 a power of two, P > 1
+// dividing H, P*L <= 128, D = 4 or a template D, dtype 0 or 1.
+inline bool dense_call_ok(int H, int L, int D, int P, int dtype) {
+  return H >= 1 && L >= 1 && L < kMaxPairs && (L & (L - 1)) == 0 && P >= 2 && H % P == 0 &&
+         P * L <= kMaxPairs && (dtype == 0 || dtype == 1) &&
+         (D == kD || dense_mma_takes(D, dtype));
 }
 
 }  // namespace
 
-// Plain C interface for ctypes. D: 4 (the first kernel) or 32 (the D = 32
-// kernel). dtype: 0 = float32, 1 = bfloat16. `bias` may be null. P is the
-// route's pack factor (dense_pack_factor in attention_dense.py): the call
-// is refused unless L < 128 is a power of two, P > 1 divides H and P*L <=
-// 128. Launches on `stream` of card `device`, does not synchronise and
-// allocates nothing. Returns the launch's cudaError_t (0 = success).
+// Plain C interface for ctypes. D: 4 (the first kernel) or 8, 16, 32, 64
+// (the mma template; bf16 from 16). dtype: 0 = float32, 1 = bfloat16.
+// `bias` may be null. P is the route's pack factor (dense_pack_factor in
+// attention_dense.py): the call is refused unless L < 128 is a power of
+// two, P > 1 divides H and P*L <= 128. Launches on `stream` of card
+// `device`, does not synchronise and allocates nothing. Returns the launch's
+// cudaError_t (0 = success).
 extern "C" int ecg_attention_dense_fwd(const void* q, const void* k,
                                        const void* v, const void* bias,
                                        void* o, int B, int H, int L, int D,
                                        int P, int dtype, int device,
                                        void* stream) {
-  if (B < 1 || H < 1 || L < 1 || L >= kMaxPairs || (L & (L - 1)) != 0 ||
-      (D != kD && D != kD32) || P < 2 || H % P != 0 || P * L > kMaxPairs) {
+  if (B < 1 || !dense_call_ok(H, L, D, P, dtype)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      err = D == kD ? launch<float>(q, k, v, bias, o, B, H, L, P, device, s)
-                    : launch_d32<float>(q, k, v, bias, o, B, H, L, P, device, s);
-      break;
-    case 1:
-      err = D == kD ? launch<__nv_bfloat16>(q, k, v, bias, o, B, H, L, P, device, s)
-                    : launch_d32<__nv_bfloat16>(q, k, v, bias, o, B, H, L, P, device, s);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
+  if (dtype == 0) {
+    err = D == kD ? launch<float>(q, k, v, bias, o, B, H, L, P, device, s)
+                  : launch_dense_mma<float>(q, k, v, bias, o, B, H, L, D, P, device, s);
+  } else {
+    err = D == kD ? launch<__nv_bfloat16>(q, k, v, bias, o, B, H, L, P, device, s)
+                  : launch_dense_mma<__nv_bfloat16>(q, k, v, bias, o, B, H, L, D, P, device, s);
   }
   return static_cast<int>(err);
 }
 
 // The dynamic shared memory, in bytes, that one block of a call asks for:
-// the first kernel's at D = 4, the D = 32 kernel's at D = 32; -1 for what
+// the first kernel's at D = 4, the template's at D = 8-64; -1 for what
 // ecg_attention_dense_fwd refuses. For logging; launches nothing.
 extern "C" int ecg_attention_dense_smem_bytes(int L, int D, int P, int dtype,
                                               int with_bias) {
-  if (L < 1 || L >= kMaxPairs || (L & (L - 1)) != 0 || P < 2 || P * L > kMaxPairs ||
-      (dtype != 0 && dtype != 1)) {
-    return -1;
+  if (!dense_call_ok(P, L, D, P, dtype)) return -1;
+  if (D == kD) {
+    return dtype == 0 ? smem_bytes<float>(L, P, with_bias != 0)
+                      : smem_bytes<__nv_bfloat16>(L, P, with_bias != 0);
   }
-  if (D == kD32) return smem_bytes_d32(L, P, with_bias != 0);
-  if (D != kD) return -1;
-  return dtype == 0 ? smem_bytes<float>(L, P, with_bias != 0)
-                    : smem_bytes<__nv_bfloat16>(L, P, with_bias != 0);
+  return dtype == 0 ? dense_mma_smem<float>(L, D, with_bias != 0)
+                    : dense_mma_smem<__nv_bfloat16>(L, D, with_bias != 0);
+}
+
+// The template's launch at this call shape, for logging (launches
+// nothing): its blocks, threads a block and ring stages through `out`
+// (three ints). Returns the cudaError_t; D = 4 and what
+// ecg_attention_dense_fwd refuses are cudaErrorInvalidValue.
+extern "C" int ecg_attention_dense_launch_shape(int B, int H, int L, int D, int P, int dtype,
+                                                int with_bias, int device, int* out) {
+  if (B < 1 || D == kD || !dense_call_ok(H, L, D, P, dtype)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = dtype == 0 ? dense_mma_shape<float>(B, H, L, D, P, with_bias != 0, device, out)
+                   : dense_mma_shape<__nv_bfloat16>(B, H, L, D, P, with_bias != 0, device, out);
+  return static_cast<int>(err);
 }
 
 extern "C" const char* ecg_cuda_error_string(int err) {

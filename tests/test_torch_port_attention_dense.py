@@ -115,7 +115,7 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     ((2, 2, 256, 4), ValueError),   # L >= 128: not packed
     ((2, 1, 64, 4), ValueError),    # one head: pack factor 1
     ((2, 2, 48, 4), ValueError),    # L not a power of two
-    ((2, 8, 64, 8), ValueError),    # D != 4
+    ((2, 3, 64, 8), ValueError),    # H = 3 at L = 64: pack factor 1, at D = 8
 ])
 def test_stages_the_route_does_not_take_raise(shape, err):
     q = torch.zeros(shape)

@@ -14,10 +14,14 @@ probabilities to bf16 before the pv product and the kernel does not (up to
 of |out| <= max|v| each).
 
 The dense forward (attention_dense_fwd.cu, B5) is held to the same limits
-against its plain version, and equals B1 without lse bit for bit (it
-computes B1's f32 expressions with the keys in B1's order), at batches
-that cut across its blocks' groups of elements; where the parent commit's
-tree is unpacked, it is within the same limits of the parent's B5.
+against its plain version, and at D = 4 equals B1 without lse bit for bit
+(it computes B1's f32 expressions with the keys in B1's order), at
+batches that cut across its blocks' groups of elements; where the parent
+commit's tree is unpacked, it is the parent's B5 bit for bit at D = 4.
+Its mma template (D = 8, 16, 32, 64; 24 padded to 32) is held to the
+same limits against its plain version and B1 without lse at L = 2 to 64,
+at groups of heads that cut across its 64-row units, and, where the parent's tree
+is unpacked, within them of the parent's B5.
 `null_copy` equals `clone()` bit for bit at ragged sizes, aligned and as a
 view 4 bytes off.
 
@@ -68,8 +72,8 @@ bit. A small Transformer1d on the card equals the CPU's within 1e-4 with
 one B1 launch a block forward and one B2 a block backward. With
 ECG_ATTN_DENSE=1 a D = 32 call at a packable stage goes to B5 at D = 32,
 held to the bars above against its plain version and B1 at D = 32 without
-lse, and bit for bit to the parent's B5; a small Transformer1d whose
-stages pack makes one B5 launch a block.
+lse, and the parent's B5; a small Transformer1d whose stages pack makes
+one B5 launch a block.
 """
 
 import copy
@@ -610,16 +614,26 @@ def test_rpos_model_forward_and_step_match_cpu_with_14_and_4_launches(cuda):
         assert (val.cpu().float() - ref_sd[key].float()).abs().max().item() <= tol, key
 
 
-@pytest.mark.parametrize("B", DENSE_BATCHES)
-@pytest.mark.parametrize("L,H", DENSE_SHAPES)
+# B5's mma template: L = 2 to 64 (an m-tile of 8, 2 and 1 heads at L = 2,
+# 8, 16), Transformer1d's stages, and groups of 4, 48 and 96 rows against
+# its 64-row units (one short unit; two, the second ragged, at (32, 3));
+# at every head dim, 24 padded to 32.
+DENSE_MMA_SHAPES = [(2, 64), (8, 16), (16, 8), (32, 32), (64, 16), (2, 2), (8, 6), (32, 3)]
+DENSE_CASES = ([(4, B, L, H) for L, H in DENSE_SHAPES for B in DENSE_BATCHES]
+               + [(D, B, L, H) for D in (8, 16, 24, 32, 64) for L, H in DENSE_MMA_SHAPES
+                  for B in (1, 37)])
+
+
+@pytest.mark.parametrize("D,B,L,H", DENSE_CASES)
 @pytest.mark.parametrize("with_bias", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_dense_kernel_matches_plain_version_and_b1(cuda, B, L, H, with_bias, dtype):
-    """B5 equals B1 without lse bit for bit (the same f32 expressions, keys
-    in order) and is within the bars of its plain version, at batches that
-    cut across its blocks' groups of elements."""
+def test_dense_kernel_matches_plain_version_and_b1(cuda, D, B, L, H, with_bias, dtype):
+    """B5 within the bars of its plain version, at batches that cut across
+    its blocks' groups of elements or units; at D = 4 it equals B1 without
+    lse bit for bit (the same f32 expressions, keys in order), at D >= 8
+    (the mma template, other arithmetic than B1's) within the bars."""
     full_float32()
-    q, k, v, bias = _operands(B, H, L, with_bias, dtype, cuda, seed=3)
+    q, k, v, bias = _operands(B, H, L, with_bias, dtype, cuda, seed=3, D=D)
     before = fused_attention_dense.launches
     out = fused_attention_dense(q, k, v, bias)
     torch.cuda.synchronize()
@@ -628,7 +642,11 @@ def test_dense_kernel_matches_plain_version_and_b1(cuda, B, L, H, with_bias, dty
     err_plain = (out.float() - attention_dense_reference(q, k, v, bias).float()).abs().max().item()
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL_OF_MAX_V * v.float().abs().max().item()
     assert err_plain <= tol, err_plain
-    assert torch.equal(out, attention._launch(q, k, v, bias))
+    b1 = attention._launch(q, k, v, bias)
+    if D == 4:
+        assert torch.equal(out, b1)
+    else:
+        assert (out.float() - b1.float()).abs().max().item() <= tol
     assert torch.equal(fused_attention_dense(q, k, v, bias), out)  # no atomics
 
 
@@ -636,8 +654,9 @@ def test_dense_kernel_matches_plain_version_and_b1(cuda, B, L, H, with_bias, dty
 @pytest.mark.parametrize("L,H", DENSE_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dense_kernel_matches_the_parent_commits(cuda, B, L, H, dtype):
-    """B5 within the bars of the parent commit's B5 on the same operands
-    (skipped where the parent's tree is not unpacked)."""
+    """B5 at D = 4 bit for bit the parent commit's B5 on the same operands:
+    the D = 4 kernel is unchanged (skipped where the parent's tree is not
+    unpacked)."""
     if not os.path.isdir(PARENT_CSRC):
         pytest.skip("the parent commit's tree is not under _archive/parent")
     from pathlib import Path
@@ -658,8 +677,7 @@ def test_dense_kernel_matches_the_parent_commits(cuda, B, L, H, dtype):
         raise_on(lib, err, "dense attention forward")
         outs.append(o)
     torch.cuda.synchronize()
-    tol = F32_TOL if dtype == torch.float32 else BF16_TOL_OF_MAX_V * v.float().abs().max().item()
-    assert (outs[0].float() - outs[1].float()).abs().max().item() <= tol
+    assert torch.equal(outs[0], outs[1])
 
 
 def test_dense_kernel_heads_far_apart_and_large_logits(cuda):
@@ -668,6 +686,24 @@ def test_dense_kernel_heads_far_apart_and_large_logits(cuda):
     its own max (1e-4: logits near 200 carry roundings of up to 1.5e-5)."""
     full_float32()
     q, k, v, bias = _operands(3, 32, 16, True, torch.float32, cuda, seed=4)
+    far = bias.clone()
+    far[0, 0] += 65.0
+    far[0, 1] -= 65.0
+    for b in (far, bias + 190.0):
+        out = fused_attention_dense(q, k, v, b)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all()
+        assert (out - attention_reference(q, k, v, b)).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("L,H", [(8, 16), (64, 16)])
+def test_dense_mma_heads_far_apart_and_large_logits(cuda, L, H):
+    """B5's mma template at D = 32: head 0 about 130 logits above head 1
+    (in one m-tile at L = 8, in one unit at L = 64), and a bias lifted to
+    about 190: each head takes its own max (1e-4: logits near 200 carry
+    roundings of up to 1.5e-5)."""
+    full_float32()
+    q, k, v, bias = _operands(3, H, L, True, torch.float32, cuda, seed=5, D=32)
     far = bias.clone()
     far[0, 0] += 65.0
     far[0, 1] -= 65.0
@@ -1047,7 +1083,9 @@ def test_forward_kernel_at_d4_equals_the_parent_commits(cuda, B, L, H, dtype):
 @pytest.mark.parametrize("L,H", DENSE_D32_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dense_d32_kernel_equals_the_parent_commits(cuda, B, L, H, dtype):
-    """B5 at D = 32 bit for bit the parent commit's B5: it is unchanged."""
+    """B5 at D = 32 within the bars of the parent commit's B5: the mma
+    template computes it with other arithmetic (3xTF32 on the tensor
+    cores, one softmax pass), so no longer bit for bit."""
     from ecg_denoise_tpu_torch.kernels.attention import DTYPE_CODES, ptr, raise_on
     from ecg_denoise_tpu_torch.kernels.attention_dense import dense_pack_factor
 
@@ -1060,7 +1098,8 @@ def test_dense_d32_kernel_equals_the_parent_commits(cuda, B, L, H, dtype):
                                       cuda.index or 0, torch.cuda.current_stream().cuda_stream)
     raise_on(lib, err, "the parent's dense attention forward")
     torch.cuda.synchronize()
-    assert torch.equal(out, old)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL_OF_MAX_V * v.float().abs().max().item()
+    assert (out.float() - old.float()).abs().max().item() <= tol
 
 
 def test_dense_d32_transformer1d_matches_cpu_with_its_launches(cuda, monkeypatch):

@@ -6,7 +6,8 @@ nothing. `chain_fit` is the JAX probe's two-point fit
 one their `main()` raises and prints no table. chip_smoke.py's `settle`,
 which times two kernels in turns and gives the verdict its phases 17 and 18
 report, reads in turns and is two-sided. On views off a 16-byte boundary
-`null_copy` and `probe_div` take their plain versions too.
+`null_copy` and `probe_div` take their plain versions too. The B5 probe's
+variants are its committed source with one edit each, found exactly once.
 """
 
 import numpy as np
@@ -14,7 +15,7 @@ import pytest
 import torch
 
 from ecg_denoise_tpu_torch.kernels.null_copy import null_copy
-from ecg_denoise_tpu_torch.probes import chain, floor
+from ecg_denoise_tpu_torch.probes import chain, dense_bound, floor
 
 
 def _jax_probe_fit(chains, vals):
@@ -52,7 +53,8 @@ def test_chain_fit_uses_the_extremes_only():
         [2, 8, 32], [60.0, 1e9, 15.0])
 
 
-@pytest.mark.parametrize("run", [floor.main, chain.main], ids=["floor", "chain"])
+@pytest.mark.parametrize("run", [floor.main, chain.main, dense_bound.main],
+                         ids=["floor", "chain", "dense_bound"])
 def test_probes_raise_without_a_card(monkeypatch, capsys, run):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -110,3 +112,14 @@ def test_cpu_views_off_a_16_byte_boundary_take_the_plain_version(kernel):
     got = fn(*args)
     assert np.array_equal(got.numpy().view(np.uint32), want.view(np.uint32))
     assert got.data_ptr() not in (n.data_ptr(), d.data_ptr()) and fn.launches == before
+
+
+@pytest.mark.parametrize("name", sorted(dense_bound.VARIANTS))
+def test_dense_bound_variants_edit_the_source_once(name):
+    from ecg_denoise_tpu_torch.kernels.build import CSRC
+
+    src = (CSRC / "attention_dense_fwd.cu").read_text()
+    old, new = dense_bound.VARIANTS[name]
+    got = dense_bound.variant_source(name)
+    assert src.count(old) == 1 and got != src
+    assert got == src.replace(old, new)
