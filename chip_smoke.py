@@ -301,13 +301,35 @@ and nothing falls back to the CPU):
    and resumed by `load_checkpoint` (Adam at step 1) for one finite step
    on the card (train_jax_ckpt, no launch).
 
+28. Data parallelism (`ecg_denoise_tpu_torch.parallel`). (a) NCCL at
+   world size 1: `python -m ecg_denoise_tpu_torch.cli.main --model_index 4
+   --epochs 1` on phase 21's port-built cache, single process and with
+   `--n_data 1`, each in a directory of its own: one output.txt line and
+   one train_log.jsonl record each, the same launches (train_dp); one f32
+   step at DP_BATCH under `make_mesh(1)` against the single-process step
+   on the card (loss 1e-5 relative, BN stats 1e-5, `step_bars`), 18 + 18
+   launches. (b) Two processes on the one card (NCCL refuses two ranks on
+   one device, so gloo carries their all-reduces), spawned with a file
+   store: RA-LENet 'full' f32, 16 of a global batch of 32 a rank, one step
+   of `make_epoch_fns(mesh=...)` each, without and with `--r_pos detect`,
+   against the single-process step on the card at the same bars, the
+   ranks' states bit for bit alike, each rank 18 B1 + 18 B2 (train_dp) or
+   4 + 4 and 14 B3 + 14 B4 (train_dp_rpos). (c) `Denoiser(n_data=2,
+   devices=["cuda:0", "cuda:0"])` at 1,024 windows within 1e-5 of
+   n_data=1, its path torch+attn-cuda+dp2:cuda, 18 B1 a replica
+   (serve_dp). Then the DP step's ms at world 1 (in turns with the single
+   process's) and at world 2 on one card against the single process's:
+   findings, not claims.
+
 The last lines are one JSON object listing the ten kernels (with their
-launches on each of the twenty-three paths: serve, train, serve_rpos,
+launches on each of the twenty-six paths: serve, train, serve_rpos,
 train_rpos, serve_dense, probes, probes_precision, serve_families,
 train_families, train_newrale, serve_newrale, train_augmented,
 build_train, baseline_dwt, train_cls, test_cls, serve_transformer1d,
 train_transformer1d, serve_transformer1d_dense, train_transformer1d_long,
-serve_transformer1d_long, serve_jax_ckpt, train_jax_ckpt; B1's and B2's
+serve_transformer1d_long, serve_jax_ckpt, train_jax_ckpt, train_dp,
+train_dp_rpos, serve_dp; B2's entry also holds the DP step's ms under
+"data_parallel"; B1's and B2's
 entries also hold their head_dim 32 case under "d32" and its 1,000-sample
 case under "d32_long", B5's its head_dim 32 case under "d32" (with its
 other head dims), B2's its frozen-bias case),
@@ -574,6 +596,12 @@ SDPA_QK_DIM = 8
 # The probe's f32-accurate paths (ieee and tf32x3 dot and fold, the tree)
 # against float64: the port's kernel bar.
 PROBE_F32_TOL_OF_MAX = 1e-5
+# Phase 28: data parallelism. Two ranks share the one card over gloo (NCCL
+# refuses two ranks on one device); the global batch splits 16 a rank.
+DP_WORLD = 2
+DP_BATCH = 32
+DP_TIMED_STEPS = 10
+DP_SERVE_TOL = 1e-5
 
 
 def log(msg):
@@ -4413,6 +4441,253 @@ def phase_jax_checkpoint(card):
     return launches
 
 
+def dp_step_result(state, metrics):
+    """A step's loss, gradients, parameters and state_dict on the host."""
+    params = dict(state.model.named_parameters())
+    return {"loss": metrics["loss"],
+            "grads": {k: p.grad.detach().to("cpu", copy=True) for k, p in params.items()
+                      if p.grad is not None},
+            "params": {k: p.detach().to("cpu", copy=True) for k, p in params.items()},
+            "state": {k: v.to("cpu", copy=True)
+                      for k, v in state.model.state_dict().items()}}
+
+
+def dp_bars(got, ref):
+    """One step's result against another's at phase 7's bars: the loss's
+    relative error, the BN stats' max difference and every parameter's
+    (`all_params`, the elements at the rounding floor too), with the
+    gradients held by `step_bars`. Its rule that only a bias may sit at the
+    floor whole is not applied: every parameter is held here, a whole
+    tensor at the floor too (a partial conv's 3-tap weight deep in the r_pos
+    model has gradients below 1e-6 of the largest, alike in both runs)."""
+    bars = step_bars(got["grads"], ref["grads"], got["params"], ref["params"])
+    bars["loss_rel"] = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+    bars["stats"] = max((got["state"][k] - v).abs().max().item()
+                        for k, v in ref["state"].items()
+                        if k.endswith(("running_mean", "running_var")))
+    bars["all_params"] = max((got["params"][k] - v).abs().max().item()
+                             for k, v in ref["params"].items())
+    bars["ok"] = (bars["grads"] <= 1 and bars["all_params"] <= PARAM_TOL
+                  and bars["loss_rel"] <= LOSS_RTOL and bars["stats"] <= BN_STATS_TOL)
+    return bars
+
+
+def describe_dp_bars(bars):
+    return (f"loss rel {bars['loss_rel']:.2e} (tol {LOSS_RTOL:.0e}), BN stats max diff "
+            f"{bars['stats']:.2e} (tol {BN_STATS_TOL:.0e}), every parameter's max diff "
+            f"{bars['all_params']:.2e}, whole tensors at the floor {bars['whole']}; "
+            f"{describe_bars(bars)}")
+
+
+def dp_step(weights, noisy, clean, r_pos, device, mesh=None):
+    """RA-LENet 'full' f32 from `weights`, one step of `make_epoch_fns` on
+    the whole global batch (a rank's share of it under `mesh`); returns
+    (state, train_epoch, the step's result, its launches)."""
+    from ecg_denoise_tpu_torch.models import build_model
+    from ecg_denoise_tpu_torch.train import create_train_state, make_epoch_fns
+
+    model = build_model("ralenet", device=device)
+    model.load_state_dict(weights)
+    state = create_train_state(model, device=device)
+    train_epoch, _ = make_epoch_fns(state.model, state.optimizer,
+                                    detect_r_pos=r_pos == "detect", mesh=mesh)
+    x, y = torch.from_numpy(noisy).to(device), torch.from_numpy(clean).to(device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    reset_launches()
+    metrics = train_epoch(x, y, gen, noisy.shape[0])
+    launches = read_launches()
+    return state, functools.partial(train_epoch, x, y, gen, noisy.shape[0]), \
+        dp_step_result(state, metrics), launches
+
+
+def dp_batch(r_pos):
+    """Phase 28's global batch: DP_BATCH random windows, or beat windows
+    with r_pos."""
+    if r_pos:
+        return beat_windows(DP_BATCH, seed=41), beat_windows(DP_BATCH, seed=42)
+    rng = np.random.default_rng(40)
+    return tuple(rng.standard_normal((DP_BATCH, 2, 256)).astype(np.float32)
+                 for _ in range(2))
+
+
+def step_ms(step, device, reps=DP_TIMED_STEPS):
+    """Host ms a step on `device`, each ending in a synchronize of the card,
+    after one untimed."""
+    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
+    step()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step()
+        sync()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def dp_rank(rank, store, workdir, device):
+    """A rank of phase 28b: two processes on one card, over gloo. Each
+    steps RA-LENet once on its half of the global batch, without and with
+    r_pos, with its launches counted, then times DP_TIMED_STEPS more."""
+    from ecg_denoise_tpu_torch.parallel import make_mesh
+
+    torch.distributed.init_process_group("gloo", init_method=f"file://{store}",
+                                         world_size=DP_WORLD, rank=rank)
+    try:
+        mesh = make_mesh(DP_WORLD, device=device, backend="gloo")
+        weights = torch.load(os.path.join(workdir, "ralenet.pt"))
+        out = {}
+        for r_pos in (None, "detect"):
+            _, step, result, launches = dp_step(weights, *dp_batch(r_pos), r_pos, device,
+                                                mesh)
+            out[r_pos] = {**result, "launches": launches, "ms": step_ms(step, device)}
+        torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def phase_dp_cli(card, cache, tmp):
+    """Phase 28a's CLI runs: `cli.main --model_index 4 --epochs 1` on the
+    port-built cache, single process and with --n_data 1 (a process group
+    of one, NCCL), each in a directory of its own: one result line each,
+    one train_log.jsonl record, the same B1 and B2 launches."""
+    counts = {}
+    for argv in ([], ["--n_data", "1"]):
+        run_dir = os.path.join(tmp, "dp" if argv else "single")
+        os.makedirs(run_dir)
+        reset_launches()  # the main path
+        with contextlib.chdir(run_dir):
+            wall = run_module("ecg_denoise_tpu_torch.cli.main",
+                              ["--model_index", "4", "--epochs", "1", "--data_path", cache,
+                               *argv], "28a", out=io.StringIO())
+            with open("output.txt") as f:
+                lines = f.read().splitlines()
+            with open("train_log.jsonl") as f:
+                records = [json.loads(line) for line in f]
+        counts[bool(argv)] = read_launches()
+        log(f"[28a] {card}: cli.main --model_index 4 --epochs 1 {' '.join(argv)} in "
+            f"{wall:.1f} s (host clock): output.txt {lines}; train_log.jsonl "
+            f"{[(r['fn'], r['status']) for r in records]}; launches {counts[bool(argv)]}")
+        check(len(lines) == 1 and lines[0].startswith("ralenet_0_bw_intensity-4:snr:"),
+              f"the CLI {argv} did not write its result line once")
+        check(len(records) == 1 and records[0]["status"] == "ok",
+              f"the CLI {argv} did not record its run once")
+        check(not torch.distributed.is_initialized(), "the CLI left its process group")
+    check(counts[True] == counts[False] and counts[True]["attention_fwd"] > 0
+          and counts[True]["attention_bwd"] > 0,
+          "cli.main --n_data 1 launched other kernels than the single process")
+    return counts[True]
+
+
+def phase_data_parallel(card, cpu_model, cache, device="cuda"):
+    """Phase 28: data parallelism. (a) NCCL at world size 1: `cli.main
+    --n_data 1` against the single-process CLI, and one step under
+    make_mesh(1) against the single-process step; (b) two processes on the
+    one card over gloo, each stepping its half of the global batch,
+    without and with r_pos, against the single-process step; (c) serving
+    on two replicas on the one card. The DP step's ms at world 1 and 2
+    against the single process's. (`device` is the card but where the
+    phase is rehearsed on the CPU.)"""
+    from ecg_denoise_tpu_torch.parallel import make_mesh
+    from ecg_denoise_tpu_torch.serving import Denoiser
+
+    t0 = time.perf_counter()
+    weights = cpu_model.state_dict()
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_launches = phase_dp_cli(card, cache, tmp)
+
+        # (a) one step under make_mesh(1) against the single process's.
+        noisy, clean = dp_batch(None)
+        _, single_step, single, single_launches = dp_step(weights, noisy, clean, None,
+                                                          device)
+        mesh = make_mesh(1, device=device)
+        try:
+            _, dp1_step, dp1, dp1_launches = dp_step(weights, noisy, clean, None, device,
+                                                     mesh)
+            bars = dp_bars(dp1, single)
+            times = {"single": [], "dp1": []}
+            for name in ("single", "dp1", "dp1", "single"):
+                times[name].append(step_ms(single_step if name == "single" else dp1_step,
+                                           device))
+        finally:
+            torch.distributed.destroy_process_group()
+        log(f"[28a] {card}: one step at world 1 (NCCL, make_mesh(1)) vs the single "
+            f"process, f32, batch {DP_BATCH}: {describe_dp_bars(bars)}; launches "
+            f"{dp1_launches} (single {single_launches})")
+        check(bars["ok"], "the step under make_mesh(1) disagrees with the single process's")
+        check(dp1_launches == single_launches == expected_launches(fwd=18, bwd=18),
+              "the step under make_mesh(1) did not make 18 + 18 launches")
+
+        # (b) two processes on the one card, over gloo.
+        torch.save(weights, os.path.join(tmp, "ralenet.pt"))
+        singles = {}
+        for r_pos in (None, "detect"):
+            _, step, singles[r_pos], _ = dp_step(weights, *dp_batch(r_pos), r_pos, device)
+            singles[r_pos]["ms"] = step_ms(step, device)
+        t_spawn = time.perf_counter()
+        rank_device = "cuda:0" if device == "cuda" else device  # both ranks on one card
+        torch.multiprocessing.spawn(dp_rank, args=(os.path.join(tmp, "store"), tmp,
+                                                   rank_device), nprocs=DP_WORLD)
+        spawn_s = time.perf_counter() - t_spawn
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(DP_WORLD)]
+        single_after = step_ms(single_step, device)
+    launches = {"train_dp": dict(cli_launches)}
+    world2_ms = {}
+    for r_pos in (None, "detect"):
+        path = "train_dp_rpos" if r_pos else "train_dp"
+        want = (expected_launches(fwd=4, bwd=4, rpos_fwd=14, rpos_bwd=14) if r_pos
+                else expected_launches(fwd=18, bwd=18))
+        counts = launches.setdefault(path, dict.fromkeys(KERNELS, 0))
+        for r, rank in enumerate(ranks):
+            got = rank[r_pos]
+            bars = dp_bars(got, singles[r_pos])
+            log(f"[28b] {card}: rank {r} of {DP_WORLD} on cuda:0 (gloo), r_pos={r_pos!r}, "
+                f"f32, {DP_BATCH // DP_WORLD} of a global batch of {DP_BATCH}: vs the single "
+                f"process's step on the card: {describe_dp_bars(bars)}; launches "
+                f"{got['launches']}")
+            check(bars["ok"], f"rank {r}'s DP step (r_pos={r_pos!r}) disagrees with the "
+                              "single process's")
+            check(got["launches"] == want, f"rank {r}'s DP step (r_pos={r_pos!r}) did not "
+                                           f"launch {want}")
+            check(all(torch.equal(v, ranks[0][r_pos]["state"][k])
+                      for k, v in got["state"].items()),
+                  "the ranks' states differ after the step")
+            for k, n in got["launches"].items():
+                counts[k] += n
+        world2_ms["rpos" if r_pos else "plain"] = [rank[r_pos]["ms"] for rank in ranks]
+    log(f"[28] {card}: RA-LENet 'full' f32 step ms at global batch {DP_BATCH} (host clock "
+        f"to a synchronize, mean of {DP_TIMED_STEPS}): single process "
+        f"{', '.join(f'{v:.3f}' for v in times['single'])} (in turns with) world 1 NCCL "
+        f"{', '.join(f'{v:.3f}' for v in times['dp1'])}; world 2 on one card over gloo "
+        f"({DP_BATCH // DP_WORLD} a rank), rank 0 / 1: "
+        f"{' / '.join(f'{v:.3f}' for v in world2_ms['plain'])} "
+        f"against the single process's {singles[None]['ms']:.3f} before and "
+        f"{single_after:.3f} after; r_pos: world 2 "
+        f"{' / '.join(f'{v:.3f}' for v in world2_ms['rpos'])} against "
+        f"{singles['detect']['ms']:.3f}; the spawn of both ranks {spawn_s:.1f} s")
+
+    # (c) serving on two replicas on the one card.
+    x = np.random.default_rng(43).standard_normal((BATCH, 2, 256)).astype(np.float32)
+    one = Denoiser(copy.deepcopy(cpu_model), max_batch=BATCH, device=device)
+    two = Denoiser(copy.deepcopy(cpu_model), max_batch=BATCH, n_data=DP_WORLD,
+                   devices=[rank_device] * DP_WORLD)
+    ref = one(x)
+    reset_launches()  # the served path
+    got = two(x)  # its fetch synchronises the card
+    launches["serve_dp"] = read_launches()
+    err = float(np.abs(got - ref).max())
+    log(f"[28c] {card}: Denoiser(n_data={DP_WORLD}, devices=['cuda:0'] * {DP_WORLD}) at "
+        f"{BATCH} windows, inference_path {two.inference_path}: max |diff| {err:.2e} "
+        f"against n_data=1 (tol {DP_SERVE_TOL:.0e}); launches {launches['serve_dp']}")
+    check(err <= DP_SERVE_TOL, "two replicas disagree with one")
+    check(two.inference_path == "torch+attn-cuda+dp2:cuda",
+          f"the DP path is named {two.inference_path}")
+    check(launches["serve_dp"] == expected_launches(fwd=18 * DP_WORLD),
+          "the two replicas did not make 18 B1 launches each")
+    log(f"chip_smoke: phase 28 took {time.perf_counter() - t0:.1f} s")
+    return launches, {"world1_ms": times, "world2_ms": world2_ms,
+                      "single_ms": {"plain": singles[None]["ms"], "after": single_after,
+                                    "rpos": singles["detect"]["ms"]}}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs an NVIDIA card",
@@ -4467,6 +4742,8 @@ def main():
     long_launches, long_err, long_times = phase_long(card, t1d_cpu)
     launches.update(long_launches)
     launches.update(phase_jax_checkpoint(card))
+    dp_launches, dp_times = phase_data_parallel(card, cpu_model, paths["synthetic"])
+    launches.update(dp_launches)
     work.cleanup()
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
@@ -4556,6 +4833,13 @@ def main():
                "there; eager_ms the wrapper issued from Python; plain and library "
                "issued from Python; passes_ms by torch.profiler")
     b2["eager_ms"] = bwd_totals["eager_ms"]
+    b2["data_parallel"] = {
+        **dp_times,
+        "times_are": f"RA-LENet 'full' f32 training step ms at a global batch of {DP_BATCH}, "
+                     "host clock to a synchronize, mean of "
+                     f"{DP_TIMED_STEPS} steps: world1_ms single process and make_mesh(1) "
+                     "(NCCL) in turns; world2_ms each rank of two processes on one card over "
+                     "gloo, plain and r_pos, against single_ms before and after the spawn"}
     b2["parent_ms_same_calls"] = bwd_totals["parent_ms"]
     b2["passes_ms"] = bwd_totals["passes_ms"]
     for e, what, err, t in (

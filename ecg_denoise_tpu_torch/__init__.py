@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import torch
 
+from ecg_denoise_tpu_torch.version import __version__  # noqa: F401
+
 MODEL_NAMES = ["unet", "DANet", "ralenet_nra", "ralenet_mlp", "ralenet", "ACDAE"]
 NOISE_INTENSITIES = [-4, -2, 0, 2, 4]  # input SNR (dB); reference main.py:26
 NOISE_TYPES = ["bw", "ma", "em", "emb"]  # reference main.py:27

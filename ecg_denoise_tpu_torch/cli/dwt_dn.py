@@ -24,7 +24,9 @@ def main(argv=None) -> None:
     from ecg_denoise_tpu_torch.config import build_argparser, config_from_args
     from ecg_denoise_tpu_torch.data.dataset import load_split_arrays
     from ecg_denoise_tpu_torch.metrics import RMSE, SNR
+    from ecg_denoise_tpu_torch.utils.compile_cache import enable_compilation_cache
 
+    enable_compilation_cache()
     p = build_argparser(__doc__)
     p.add_argument("--host", action="store_true", help="numpy reference path")
     p.add_argument("--result_file", type=str, default="./dwt_dn_result.txt")

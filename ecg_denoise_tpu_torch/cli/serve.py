@@ -27,7 +27,8 @@ detected R peak):
     print(np.load(io.BytesIO(r.read())).shape)
     PY
 
-`--n_data` of the JAX CLI comes with a later slice; `--use_pallas` has no
+`--n_data k` serves on k cards, one replica each (a power of two; buckets
+round up from k, `Denoiser`'s `n_data`). `--use_pallas` has no
 counterpart, since the kernels always run on the card.
 """
 
@@ -134,6 +135,9 @@ def make_server(denoiser, meta: dict, host: str = "127.0.0.1",
 def build(argv=None):
     """Parse the CLI's flags and build its server (not started) and
     Denoiser: (server, denoiser)."""
+    from ecg_denoise_tpu_torch.utils.compile_cache import enable_compilation_cache
+
+    enable_compilation_cache()
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--model", type=str, default="ralenet")
@@ -148,6 +152,9 @@ def build(argv=None):
                    help="per-window R-peak-centred attention biases "
                         "(RaleNet-family checkpoints with the rel-pos "
                         "tables, i.e. ralenet/ralenet_mlp)")
+    p.add_argument("--n_data", type=int, default=0,
+                   help="data-parallel serving: one replica on each of this many "
+                        "cards (a power of two; batches split across them)")
     args = p.parse_args(argv)
 
     from ecg_denoise_tpu_torch.serving import Denoiser
@@ -157,7 +164,8 @@ def build(argv=None):
         print(f"--r_pos needs a rel-pos-bias model; ignored for {args.model}")
         r_pos = None
     denoiser = Denoiser.from_checkpoint(args.model, args.ckpt,
-                                        max_batch=args.max_batch, r_pos=r_pos)
+                                        max_batch=args.max_batch, r_pos=r_pos,
+                                        n_data=max(args.n_data, 1))
     if args.warmup_max:
         denoiser.warmup(limit=args.warmup_max)
     meta = {"model": args.model, "ckpt": args.ckpt,

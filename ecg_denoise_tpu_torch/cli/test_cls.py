@@ -40,8 +40,10 @@ def main(argv=None, device=None) -> None:
         load_model_weights,
         make_cls_epoch_fns,
     )
+    from ecg_denoise_tpu_torch.utils.compile_cache import enable_compilation_cache
     from ecg_denoise_tpu_torch.utils.seed import random_seed
 
+    enable_compilation_cache()
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--cls_ckpt", type=str, default="./model_save/cls_model.pth")
     p.add_argument("--model_save_dir", type=str, default="./model_save")

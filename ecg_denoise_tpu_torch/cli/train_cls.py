@@ -30,8 +30,10 @@ def main(argv=None, device=None) -> None:
         make_cls_epoch_fns,
         save_checkpoint,
     )
+    from ecg_denoise_tpu_torch.utils.compile_cache import enable_compilation_cache
     from ecg_denoise_tpu_torch.utils.seed import random_seed
 
+    enable_compilation_cache()
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--epochs", type=int, default=20)
     p.add_argument("--batch_size", type=int, default=32)

@@ -32,8 +32,10 @@ def main(argv=None) -> None:
     from ecg_denoise_tpu_torch.data.dataset import EcgDataset
     from ecg_denoise_tpu_torch.models import build_model
     from ecg_denoise_tpu_torch.train import find_model, fit, load_model_weights
+    from ecg_denoise_tpu_torch.utils.compile_cache import enable_compilation_cache
     from ecg_denoise_tpu_torch.utils.seed import random_seed
 
+    enable_compilation_cache()
     p = build_argparser(__doc__)
     p.add_argument("--core_ckpt", type=str, default=None)
     p.add_argument("--external_path", type=str, default="./ExternalData/dict_data")

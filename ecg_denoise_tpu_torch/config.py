@@ -4,9 +4,10 @@ config.py).
 The same flag names and defaults as the JAX package's CLI (reference
 main.py:31-33 plus the framework's extensions), so an invocation of one
 runs on the other. Two differences: there is no --use_pallas, since the
-attention kernels always run on the card, and the flags of paths not
-ported yet (--n_data, --n_model, --multihost) are parsed and raise
-NotImplementedError naming their ROADMAP item, never ignored.
+attention kernels always run on the card, and --n_model (tensor
+parallelism, not ported yet) is parsed and raises NotImplementedError
+naming its ROADMAP item above 1, never ignored. --n_data and --multihost
+run `cli.main` data parallel (`parallel/`).
 """
 
 from __future__ import annotations
@@ -33,6 +34,9 @@ class TrainConfig:
     dtype: str = "bfloat16"  # compute dtype; master weights stay float32
     split_file: str | None = None  # pin/export exact train/test indices
     r_pos: str | None = None  # "detect": per-window R-peak attention bias
+    n_data: int | None = None  # data-parallel ranks (None: single process)
+    n_model: int = 1  # tensor-parallel size: only 1 is ported
+    multihost: bool = False  # the process group from the launcher's environment
 
     @property
     def noise_name(self) -> str:
@@ -69,30 +73,29 @@ def build_argparser(description: str = "") -> argparse.ArgumentParser:
     p.add_argument("--split_file", type=str, default=None,
                    help="JSON {'train': [...], 'test': [...]}; created if "
                         "absent — pins exact indices for parity runs")
-    # Parsed so that a JAX-package invocation is not silently changed;
-    # each raises until its slice lands.
     p.add_argument("--n_data", type=int, default=None,
-                   help="data-parallel size: not ported yet (ROADMAP A16)")
+                   help="data-parallel ranks, one card each: started by cli.main "
+                        "itself, or by torchrun (equal to its WORLD_SIZE, or unset "
+                        "to take it)")
     p.add_argument("--n_model", type=int, default=1,
-                   help="tensor-parallel size: not ported yet (ROADMAP A16)")
+                   help="tensor-parallel size: only 1 is ported (ROADMAP A19)")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-host training: not ported yet (ROADMAP A16)")
+                   help="join the process group the launcher's environment "
+                        "describes (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK, "
+                        "LOCAL_RANK) and keep this process's strided share of the "
+                        "windows; a no-op on a single process")
     p.add_argument("--r_pos", type=str, default=None, choices=["detect"],
                    help="per-window R-peak-centred attention bias: detect "
                         "each batch's R peaks on the card (RaleNet family)")
     return p
 
 
-_NOT_PORTED = {"n_data": (None, "A16"), "n_model": (1, "A16"),
-               "multihost": (False, "A16")}
-
-
 def config_from_args(args: argparse.Namespace) -> TrainConfig:
-    """The TrainConfig of parsed flags; raises NotImplementedError for a
-    flag whose path is not ported yet."""
-    for name, (default, item) in _NOT_PORTED.items():
-        if getattr(args, name) != default:
-            raise NotImplementedError(
-                f"--{name} is not ported yet (ROADMAP.md item {item})")
+    """The TrainConfig of parsed flags; raises NotImplementedError for
+    --n_model > 1 (tensor parallelism is not ported)."""
+    if args.n_model != 1:
+        from ecg_denoise_tpu_torch.parallel.mesh import TENSOR_PARALLEL
+
+        raise NotImplementedError(TENSOR_PARALLEL)
     known = set(TrainConfig.__dataclass_fields__)
     return TrainConfig(**{k: v for k, v in vars(args).items() if k in known})

@@ -22,9 +22,13 @@ dtype, as `jnp.mean` does. `EcaLayer1d` is on no model's path (only
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ecg_denoise_tpu_torch.parallel.mesh import all_reduce_sum
 
 
 class Linear(nn.Linear):
@@ -77,12 +81,44 @@ class BatchNorm1d(nn.BatchNorm1d):
     1) is normalised as the JAX layer does it, with variance 0, where
     torch.nn raises: the output is the bias, the running mean moves toward
     the value and the running variance toward 0.
+
+    With a process `group` (set by `global_batch_stats` for a data-parallel
+    epoch), training statistics are the global batch's, as JAX's BatchNorm
+    computes them on a batch-sharded array: each rank's count and sum, then
+    its sum of squared deviations from the global mean, are all-reduced
+    by `parallel.mesh.all_reduce_sum`, whose backward all-reduces the
+    gradient, so every rank's gradient is the global batch's. The running
+    variance is the unbiased variance of the global count (0 at a global
+    count of 1, as in the one-value case). `torch.nn.SyncBatchNorm` takes
+    only the card's tensors; this takes the CPU's too.
     """
 
+    group = None
+
     def forward(self, x):
+        if self.training and self.group is not None:
+            return self._global_batch(x.float()).to(x.dtype)
         if self.training and x.numel() == x.shape[1]:
             return self._one_value_per_channel(x.float()).to(x.dtype)
         return super().forward(x.float()).to(x.dtype)
+
+    def _global_batch(self, x):
+        dims = (0,) if x.dim() == 2 else (0, 2)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        sums = all_reduce_sum(torch.cat([x.sum(dims),
+                                         x.new_full((1,), x.numel() / x.shape[1])]),
+                              self.group)
+        n = sums[-1]
+        mean = sums[:-1] / n
+        centred = x - mean.reshape(shape)
+        var = all_reduce_sum((centred * centred).sum(dims), self.group) / n
+        with torch.no_grad():
+            unbiased = var * n / torch.clamp(n - 1, min=1)
+            self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
+            self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
+            self.num_batches_tracked += 1
+        y = centred * torch.rsqrt(var + self.eps).reshape(shape)
+        return y * self.weight.reshape(shape) + self.bias.reshape(shape)
 
     def _one_value_per_channel(self, x):
         shape = (1, -1) + (1,) * (x.dim() - 2)
@@ -93,6 +129,20 @@ class BatchNorm1d(nn.BatchNorm1d):
             self.num_batches_tracked += 1
         y = (x - mean.reshape(shape)) * self.eps ** -0.5
         return y * self.weight.reshape(shape) + self.bias.reshape(shape)
+
+
+@contextlib.contextmanager
+def global_batch_stats(model: nn.Module, group):
+    """Within the block, every `BatchNorm1d` of `model` takes its training
+    statistics over the process `group`'s global batch; none does after."""
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm1d)]
+    for m in norms:
+        m.group = group
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.group = None
 
 
 class PartialConv1d(nn.Module):

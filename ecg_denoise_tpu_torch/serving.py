@@ -24,14 +24,21 @@
 * `StreamingDenoiser` (`Denoiser.streaming`) denoises a live sample stream
   with `denoise_record`'s windows and taper, emitting each sample once it
   is final.
-
-Data-parallel serving comes with a later slice.
+* `n_data` > 1 serves data parallel, the counterpart of the JAX
+  Denoiser's `mesh`: one replica of the model on each of `n_data` devices
+  (cuda:0 to cuda:n-1 by default); a bucket splits into contiguous equal
+  slices, one a replica, and the outputs are gathered in order on the
+  first device, then fetched as one. Buckets round up from `n_data` (a
+  power of two, so each divides), and `inference_path` gains `+dp{n}`, as
+  JAX's does.
 """
 
 from __future__ import annotations
 
+import copy
 import threading
 import time
+from collections.abc import Sequence
 from typing import Optional
 
 import numpy as np
@@ -61,19 +68,41 @@ class Denoiser:
     R-peak position to the model (RaleNet's `r_pos`). `channels`, the
     served window's channel count, is the model's `in_channels` (12 for
     newrale; 2 for a module that names none, as in JAX's Denoiser).
+
+    `n_data` replicas (a power of two) serve each bucket's contiguous
+    slices on `devices` (default: cuda:0 to cuda:n_data-1, or the CPU
+    n_data times where `device` is the CPU; `device` is then the first of
+    them). Each replica is a copy of `model`, which serves on the first.
     """
 
     def __init__(self, model: torch.nn.Module, max_batch: int = 1024,
-                 r_pos: Optional[str] = None, device=None):
+                 r_pos: Optional[str] = None, device=None, n_data: int = 1,
+                 devices: Optional[Sequence] = None):
         if r_pos not in (None, "detect"):
             raise ValueError(f"r_pos must be None or 'detect', got {r_pos!r}")
+        if n_data < 1 or n_data & (n_data - 1):
+            raise ValueError(f"mesh 'data' size {n_data} must be a power of two "
+                             "(bucket divisibility)")
+        if n_data > 1 and devices is None:
+            on = resolve_device(device).type  # the card, or raise; the CPU if asked
+            devices = [f"cuda:{i}" if on == "cuda" else on for i in range(n_data)]
+        if devices is not None:
+            if len(devices) != n_data:
+                raise ValueError(f"{len(devices)} devices for {n_data} replicas")
+            device = devices[0]
         self.r_pos = r_pos
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             full_float32()
         self.model = model.to(self.device).eval()
+        # (model, device) of each replica: `model` itself on the first.
+        self.replicas = [(self.model, self.device)] + [
+            (copy.deepcopy(self.model).to(d), d)
+            for d in (torch.device(d) for d in (devices or [])[1:])]
         self.channels = getattr(model, "in_channels", 2)
-        self.max_batch = max_batch
+        self.n_data = n_data
+        # Buckets round up from n_data, so every bucket splits evenly.
+        self.max_batch = max(max_batch, n_data)
         self._staging = {}  # per-bucket persistent padding buffers
         # Shared staging buffers on one card: serialise calls (the HTTP
         # front end is threaded).
@@ -82,22 +111,25 @@ class Denoiser:
         attn = ("" if not any(isinstance(m, MSAttention) for m in model.modules())
                 else "+attn-cuda" if self.device.type == "cuda" else "+attn-plain")
         rpos = "+rpos" if r_pos else ""
-        self.inference_path = f"torch{attn}{rpos}:{self.device.type}"
+        dp = f"+dp{n_data}" if n_data > 1 else ""
+        self.inference_path = f"torch{attn}{rpos}{dp}:{self.device.type}"
 
     @classmethod
     def from_checkpoint(cls, name_or_index, ckpt_path: str,
                         max_batch: int = 1024,
                         dtype: torch.dtype = torch.float32,
-                        r_pos: Optional[str] = None, device=None):
+                        r_pos: Optional[str] = None, device=None, n_data: int = 1,
+                        devices: Optional[Sequence] = None):
         """Serve a `torch.save(model.state_dict())` file of the port's
         model `name_or_index`, a training checkpoint's "model" part, or the
         weights of a JAX `.msgpack` checkpoint (`load_model_weights`)."""
         from ecg_denoise_tpu_torch.train.checkpoint import load_model_weights
 
-        device = resolve_device(device)
+        device = resolve_device(devices[0] if devices else device)
         model = build_model(name_or_index, dtype=dtype, device=device)
         load_model_weights(ckpt_path, model)
-        return cls(model, max_batch, r_pos=r_pos, device=device)
+        return cls(model, max_batch, r_pos=r_pos, device=device, n_data=n_data,
+                   devices=devices)
 
     def __call__(self, x: np.ndarray) -> np.ndarray:
         return self.denoise_timed(x)[0]
@@ -136,10 +168,18 @@ class Denoiser:
         return padded
 
     def _forward(self, batch: torch.Tensor) -> torch.Tensor:
+        """The model's output for `batch`; with replicas, each runs its
+        contiguous slice on its device (all enqueued before any output is
+        waited for), and the outputs are gathered in order on the first."""
+        outs = []
         with torch.inference_mode():
-            x = batch.to(self.device, non_blocking=True)
-            return apply(self.model, x,
-                         detect_r_peaks(x) if self.r_pos == "detect" else None)
+            for (model, device), rows in zip(self.replicas, batch.chunk(self.n_data)):
+                x = rows.to(device, non_blocking=True)
+                outs.append(apply(model, x,
+                                  detect_r_peaks(x) if self.r_pos == "detect" else None))
+            if len(outs) == 1:
+                return outs[0]
+            return torch.cat([y.to(self.device, non_blocking=True) for y in outs])
 
     def _fetch(self, y: torch.Tensor) -> np.ndarray:
         y = y.float().cpu()
@@ -153,7 +193,7 @@ class Denoiser:
         while i < n:
             chunk = x[i:i + self.max_batch]
             m = chunk.shape[0]
-            b = _bucket(m, self.max_batch)
+            b = _bucket(m, self.max_batch, self.n_data)
             t0 = time.perf_counter()
             # A full bucket needs no copy; the staging buffer is reused
             # only after the previous chunk's fetch has synchronised.
@@ -216,9 +256,9 @@ class Denoiser:
         bucket. JAX's signature (serving.py `warmup`); an explicit
         `channels=0` is honoured, as JAX honours it."""
         channels = self.channels if channels is None else channels
-        limit = min(_bucket(limit or self.max_batch, self.max_batch),
+        limit = min(_bucket(limit or self.max_batch, self.max_batch, self.n_data),
                     self.max_batch)
-        b = 1
+        b = self.n_data
         while b <= limit:
             self._fetch(self._forward(torch.zeros(b, channels, length)))
             b *= 2

@@ -17,7 +17,15 @@ and the step count carries on from the checkpoint's.
 and feeds them to the model's R-wave attention bias (`make_epoch_fns`'s
 `detect_r_pos`). `frozen_mask` names parameters that stay frozen (12-lead
 transfer's core, `NewRale.frozen_parameters()`; `create_train_state`'s
-`frozen`). Not here yet: the data-parallel `mesh` (ROADMAP A16).
+`frozen`).
+
+With `mesh` (`parallel.make_mesh`) every rank of a data-parallel group
+runs `fit` in lockstep on the same arguments: each starts from rank 0's
+state (`replicate_state`), trains its share of every global batch
+(`make_epoch_fns`' mesh), and returns the same four lists. Only rank 0
+prints and writes checkpoints and output.txt, as JAX's `is_primary`
+process does. `local_data`: each rank passes only its own windows
+(`multihost.process_shard`), as under `--multihost`.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import numpy as np
 import torch
 
 from ecg_denoise_tpu_torch import resolve_device
+from ecg_denoise_tpu_torch.parallel.mesh import replicate_state
 from ecg_denoise_tpu_torch.train.checkpoint import (
     checkpoint_path,
     load_checkpoint,
@@ -70,23 +79,34 @@ def fit(
     r_pos_mode: Optional[str] = None,
     frozen_mask: Iterable[str] = (),
     device=None,
+    mesh=None,
+    local_data: bool = False,
 ):
     """Train `model` (already initialised, e.g. after `random_seed(seed)`)
-    on `device` (default: the card). `init_variables`: a state_dict loaded
-    into the model first. Returns (state, (train_snr_list, test_snr_list,
-    train_rmse_list, test_rmse_list)).
+    on `device` (default: the card; under a `mesh`, the mesh's device).
+    `init_variables`: a state_dict loaded into the model first. Returns
+    (state, (train_snr_list, test_snr_list, train_rmse_list,
+    test_rmse_list)).
 
     A resume trains `epochs` epochs after the checkpoint, counted from 0, as
     JAX's `fit` does. A training split shorter than one batch takes no step
     in any epoch (its train metrics are NaN)."""
     if r_pos_mode not in (None, "detect"):
         raise ValueError(f"r_pos_mode must be None or 'detect', got {r_pos_mode!r}")
+    if mesh is not None:
+        device = mesh.device
+    # Only rank 0 touches shared storage or prints: the ranks would race on
+    # the same paths and repeat every line.
+    is_primary = mesh is None or mesh.is_primary
+    verbose = verbose and is_primary
     state = create_train_state(model, learning_rate, device, frozen=frozen_mask)
     device = resolve_device(device)
     if init_variables is not None:
         state.model.load_state_dict(init_variables)
     if resume_path:
         load_checkpoint(resume_path, state)
+    if mesh is not None:
+        replicate_state(state, mesh)
 
     def put(a):
         return torch.as_tensor(np.asarray(a, np.float32)).to(device)
@@ -94,7 +114,8 @@ def fit(
     tr_n, tr_c = put(train_noisy), put(train_clean)
     te_n, te_c = put(test_noisy), put(test_clean)
     train_epoch, eval_epoch = make_epoch_fns(
-        state.model, state.optimizer, detect_r_pos=r_pos_mode == "detect")
+        state.model, state.optimizer, detect_r_pos=r_pos_mode == "detect", mesh=mesh,
+        local_data=local_data)
 
     train_snr_list, test_snr_list = [], []
     train_rmse_list, test_rmse_list = [], []
@@ -115,14 +136,14 @@ def fit(
                   f"test_snr={test_metrics['snr']:.3f} "
                   f"test_rmse={test_metrics['rmse']:.4f} ({time.time() - t0:.1f}s)",
                   flush=True)
-        if (epoch + 1) % checkpoint_every == 0:
+        if (epoch + 1) % checkpoint_every == 0 and is_primary:
             path = checkpoint_path(model_save_dir, model_name, epoch, noise_name,
                                    noise_intensity)
             save_checkpoint(path, state)
             if verbose:
                 print(f"saved {path}", flush=True)
 
-    if output_file:
+    if output_file and is_primary:
         os.makedirs(os.path.dirname(os.path.abspath(output_file)), exist_ok=True)
         with open(output_file, "a") as f:
             # Reference format (denoise_train.py:100-101).

@@ -69,7 +69,13 @@ def test_the_package_has_its_modules():
                  "ecg_denoise_tpu_torch.models.transformer1d",
                  "ecg_denoise_tpu_torch.metrics.cls", "ecg_denoise_tpu_torch.train.cls_steps",
                  "ecg_denoise_tpu_torch.cli.train_cls", "ecg_denoise_tpu_torch.cli.test_cls",
-                 "ecg_denoise_tpu_torch.interop.flax_msgpack"):
+                 "ecg_denoise_tpu_torch.interop.flax_msgpack",
+                 "ecg_denoise_tpu_torch.version", "ecg_denoise_tpu_torch.parallel",
+                 "ecg_denoise_tpu_torch.parallel.mesh",
+                 "ecg_denoise_tpu_torch.parallel.multihost",
+                 "ecg_denoise_tpu_torch.utils.run_log",
+                 "ecg_denoise_tpu_torch.utils.profiling",
+                 "ecg_denoise_tpu_torch.utils.compile_cache"):
         assert name in MODULES
 
 

@@ -481,11 +481,14 @@ def test_serving_reads_a_training_checkpoint(tmp_path):
 
 @pytest.mark.parametrize("argv,error,match", [
     ([], RuntimeError, "no CUDA device"),
-    (["--n_data", "2"], NotImplementedError, "A16"),
-    (["--n_model", "2"], NotImplementedError, "A16"),
-    (["--multihost"], NotImplementedError, "A16"),
+    (["--n_data", "2"], RuntimeError, "no CUDA device"),
+    (["--n_model", "2"], NotImplementedError, "tensor parallelism.*A19"),
+    (["--multihost"], RuntimeError, "no CUDA device"),
 ])
-def test_cli_raises_without_a_card_or_on_flags_not_ported(monkeypatch, argv, error, match):
+def test_cli_raises_without_a_card_or_on_tensor_parallelism(monkeypatch, argv, error, match):
+    """Without a card the CLI raises, data parallel or not (no path falls
+    back to the CPU); `--n_model` above 1 names the ROADMAP item of tensor
+    parallelism, which is not ported."""
     from ecg_denoise_tpu_torch.cli.main import main
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
