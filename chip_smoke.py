@@ -320,16 +320,43 @@ and nothing falls back to the CPU):
    (serve_dp). Then the DP step's ms at world 1 (in turns with the single
    process's) and at world 2 on one card against the single process's:
    findings, not claims.
+29. Tensor parallelism (`parallel.shard_state_dp_tp`, Megatron column and
+   row shards of the transformer projections over a model group), every
+   rank a process on the one card over gloo, spawned with a file store.
+   (a) The (n_data, n_model) = (1, 2) grid: RA-LENet 'full' f32 at
+   DP_BATCH, one step of `make_epoch_fns(mesh=...)` with each rank's
+   shard, without and with `--r_pos detect`, gathered to one process's
+   layout (`gather_named`) and held against the single-process step on the
+   card at phase 28's bars (`dp_bars`: loss 1e-5 relative, BN stats 1e-5,
+   every parameter 1e-4, the gradients by `step_bars`), the two ranks'
+   replicated tensors bit for bit alike, each rank 18 B1 + 18 B2
+   (train_tp) or 4 + 4 and 14 B3 + 14 B4 (train_tp_rpos), on its 1 to 16
+   local heads. (b) The (2, 2) grid, four processes, 16 rows a data
+   index: one plain step at the same bars; the ranks of one data index
+   hold the same replicated tensors, those of one model index the same
+   shards (train_tp). (c) (a)'s checkpoint, gathered (`gather_state`) and
+   written by rank 0: `Denoiser.from_checkpoint` holds the gathered
+   state bit for bit and serves TP_SERVE_WINDOWS within 1e-5 of the
+   single-process model after the same step, with 18 B1 (serve_tp_ckpt);
+   `fit(resume_path=...)` under (1, 2) takes one more step, at the same
+   bars as one process resumed from it. (d) The eval epoch over 40
+   windows under (1, 2), with ECG_ATTN_DENSE=1 (12 B5 and 6 B1 a batch on
+   each rank's local heads, eval_tp_dense) and without (18 B1), within
+   1e-5 of the single process's, metrics and the first batch's forward.
+   (e) The step's ms at (1, 2) and (2, 2) against the single process's
+   before and after the spawns: ranks sharing one card and its host
+   measure sharing, not scaling; findings, not claims.
 
 The last lines are one JSON object listing the ten kernels (with their
-launches on each of the twenty-six paths: serve, train, serve_rpos,
+launches on each of the thirty paths: serve, train, serve_rpos,
 train_rpos, serve_dense, probes, probes_precision, serve_families,
 train_families, train_newrale, serve_newrale, train_augmented,
 build_train, baseline_dwt, train_cls, test_cls, serve_transformer1d,
 train_transformer1d, serve_transformer1d_dense, train_transformer1d_long,
 serve_transformer1d_long, serve_jax_ckpt, train_jax_ckpt, train_dp,
-train_dp_rpos, serve_dp; B2's entry also holds the DP step's ms under
-"data_parallel"; B1's and B2's
+train_dp_rpos, serve_dp, train_tp, train_tp_rpos, serve_tp_ckpt,
+eval_tp_dense; B2's entry also holds the DP step's ms under
+"data_parallel" and the TP step's under "tensor_parallel"; B1's and B2's
 entries also hold their head_dim 32 case under "d32" and its 1,000-sample
 case under "d32_long", B5's its head_dim 32 case under "d32" (with its
 other head dims), B2's its frozen-bias case),
@@ -602,6 +629,14 @@ DP_WORLD = 2
 DP_BATCH = 32
 DP_TIMED_STEPS = 10
 DP_SERVE_TOL = 1e-5
+# Phase 29: tensor parallelism on the grids (n_data, n_model) = (1, 2) and
+# JAX's DPxTP test's (2, 2), every rank on the one card over gloo.
+TP_GRIDS = ((1, 2), (2, 2))
+TP_PATHS = ("train_tp", "train_tp_rpos", "eval_tp_dense")
+TP_EVAL_WINDOWS = 40  # two eval batches at DP_BATCH, the last ragged
+TP_SERVE_WINDOWS = 64
+TP_SERVE_TOL = 1e-5
+TP_EVAL_TOL = 1e-5
 
 
 def log(msg):
@@ -4441,15 +4476,23 @@ def phase_jax_checkpoint(card):
     return launches
 
 
-def dp_step_result(state, metrics):
-    """A step's loss, gradients, parameters and state_dict on the host."""
+def dp_step_result(state, metrics, mesh=None):
+    """A step's loss, gradients, parameters and state_dict on the host, in
+    one process's layout (gathered over the model group under tensor
+    parallelism), and this rank's own state_dict ("local")."""
+    from ecg_denoise_tpu_torch.parallel import gather_named
+
+    def host(tensors):
+        if mesh is not None:
+            tensors = gather_named(tensors, state.model, mesh)
+        return {k: v.detach().to("cpu", copy=True) for k, v in tensors.items()}
+
     params = dict(state.model.named_parameters())
+    local = state.model.state_dict()
     return {"loss": metrics["loss"],
-            "grads": {k: p.grad.detach().to("cpu", copy=True) for k, p in params.items()
-                      if p.grad is not None},
-            "params": {k: p.detach().to("cpu", copy=True) for k, p in params.items()},
-            "state": {k: v.to("cpu", copy=True)
-                      for k, v in state.model.state_dict().items()}}
+            "grads": host({k: p.grad for k, p in params.items() if p.grad is not None}),
+            "params": host(params), "state": host(local),
+            "local": {k: v.to("cpu", copy=True) for k, v in local.items()}}
 
 
 def dp_bars(got, ref):
@@ -4461,19 +4504,24 @@ def dp_bars(got, ref):
     tensor at the floor too (a partial conv's 3-tap weight deep in the r_pos
     model has gradients below 1e-6 of the largest, alike in both runs)."""
     bars = step_bars(got["grads"], ref["grads"], got["params"], ref["params"])
-    bars["loss_rel"] = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+    # A run through `fit` reports no loss: then the loss is not held.
+    bars["loss_rel"] = (abs(got["loss"] - ref["loss"]) / abs(ref["loss"]) if "loss" in ref
+                        else None)
     bars["stats"] = max((got["state"][k] - v).abs().max().item()
                         for k, v in ref["state"].items()
                         if k.endswith(("running_mean", "running_var")))
     bars["all_params"] = max((got["params"][k] - v).abs().max().item()
                              for k, v in ref["params"].items())
     bars["ok"] = (bars["grads"] <= 1 and bars["all_params"] <= PARAM_TOL
-                  and bars["loss_rel"] <= LOSS_RTOL and bars["stats"] <= BN_STATS_TOL)
+                  and (bars["loss_rel"] is None or bars["loss_rel"] <= LOSS_RTOL)
+                  and bars["stats"] <= BN_STATS_TOL)
     return bars
 
 
 def describe_dp_bars(bars):
-    return (f"loss rel {bars['loss_rel']:.2e} (tol {LOSS_RTOL:.0e}), BN stats max diff "
+    loss = ("loss not reported" if bars["loss_rel"] is None
+            else f"loss rel {bars['loss_rel']:.2e} (tol {LOSS_RTOL:.0e})")
+    return (f"{loss}, BN stats max diff "
             f"{bars['stats']:.2e} (tol {BN_STATS_TOL:.0e}), every parameter's max diff "
             f"{bars['all_params']:.2e}, whole tensors at the floor {bars['whole']}; "
             f"{describe_bars(bars)}")
@@ -4481,14 +4529,15 @@ def describe_dp_bars(bars):
 
 def dp_step(weights, noisy, clean, r_pos, device, mesh=None):
     """RA-LENet 'full' f32 from `weights`, one step of `make_epoch_fns` on
-    the whole global batch (a rank's share of it under `mesh`); returns
-    (state, train_epoch, the step's result, its launches)."""
-    from ecg_denoise_tpu_torch.models import build_model
+    the whole global batch (a rank's share of it under `mesh`, its shard of
+    the model where the mesh has a model group); returns (state,
+    train_epoch, the step's result, its launches)."""
+    from ecg_denoise_tpu_torch.parallel import shard_state_dp_tp
     from ecg_denoise_tpu_torch.train import create_train_state, make_epoch_fns
 
-    model = build_model("ralenet", device=device)
-    model.load_state_dict(weights)
-    state = create_train_state(model, device=device)
+    state = create_train_state(ralenet_from(weights, device), device=device)
+    if mesh is not None and mesh.n_model > 1:
+        shard_state_dp_tp(state, mesh)
     train_epoch, _ = make_epoch_fns(state.model, state.optimizer,
                                     detect_r_pos=r_pos == "detect", mesh=mesh)
     x, y = torch.from_numpy(noisy).to(device), torch.from_numpy(clean).to(device)
@@ -4497,7 +4546,16 @@ def dp_step(weights, noisy, clean, r_pos, device, mesh=None):
     metrics = train_epoch(x, y, gen, noisy.shape[0])
     launches = read_launches()
     return state, functools.partial(train_epoch, x, y, gen, noisy.shape[0]), \
-        dp_step_result(state, metrics), launches
+        dp_step_result(state, metrics, mesh), launches
+
+
+def ralenet_from(weights, device):
+    """RA-LENet 'full' f32 on `device` holding `weights` (a state_dict)."""
+    from ecg_denoise_tpu_torch.models import build_model
+
+    model = build_model("ralenet", device=device)
+    model.load_state_dict(weights)
+    return model
 
 
 def dp_batch(r_pos):
@@ -4688,6 +4746,242 @@ def phase_data_parallel(card, cpu_model, cache, device="cuda"):
                                     "rpos": singles["detect"]["ms"]}}
 
 
+def tp_eval_windows():
+    """Phase 29d's eval split: TP_EVAL_WINDOWS random windows (the last
+    batch at DP_BATCH ragged)."""
+    rng = np.random.default_rng(44)
+    return tuple(rng.standard_normal((TP_EVAL_WINDOWS, 2, 256)).astype(np.float32)
+                 for _ in range(2))
+
+
+def tp_fit_resume(ckpt, out, device, mesh=None):
+    """`fit(resume_path=ckpt)` for one epoch of one step on phase 28's
+    global batch (the eval on tp_eval_windows), under `mesh` or in one
+    process: the step's result (`dp_step_result`) with its epoch's lists."""
+    from ecg_denoise_tpu_torch.models import build_model
+    from ecg_denoise_tpu_torch.train import fit
+
+    state, lists = fit(build_model("ralenet", device=device), *dp_batch(None),
+                       *tp_eval_windows(), epochs=1, batch_size=DP_BATCH,
+                       model_name="ralenet", model_save_dir=os.path.join(out, "model_save"),
+                       output_file=os.path.join(out, "output.txt"), checkpoint_every=1,
+                       resume_path=ckpt, verbose=False, device=device, mesh=mesh)
+    result = dp_step_result(state, {"loss": None}, mesh)
+    del result["loss"]  # fit returns the epoch's SNR and RMSE, not its loss
+    return {**result, "lists": lists, "step": state.step}
+
+
+def tp_eval(weights, device, mesh=None):
+    """The eval epoch of `weights` over tp_eval_windows at DP_BATCH, with
+    ECG_ATTN_DENSE=1 and without (under `mesh`: on this rank's shard),
+    each with its launches and the first batch's forward."""
+    from ecg_denoise_tpu_torch.parallel import shard_state_dp_tp
+    from ecg_denoise_tpu_torch.train import create_train_state, make_epoch_fns
+
+    state = create_train_state(ralenet_from(weights, device), device=device)
+    if mesh is not None:
+        shard_state_dp_tp(state, mesh)
+    _, eval_epoch = make_epoch_fns(state.model, state.optimizer, mesh=mesh)
+    x, y = (torch.from_numpy(a).to(device) for a in tp_eval_windows())
+    out = {}
+    for dense in (True, False):
+        with dense_route(dense):
+            reset_launches()  # the eval path
+            metrics = eval_epoch(x, y, DP_BATCH)
+            launches = read_launches()
+            with torch.no_grad():
+                pred = state.model.eval()(x[:DP_BATCH]).to("cpu")
+        out[dense] = {"metrics": metrics, "launches": launches, "pred": pred}
+    return out
+
+
+def tp_rank(rank, store, workdir, device, n_data, n_model):
+    """A rank of phase 29: n_data * n_model processes on one card, over
+    gloo, on the (n_data, n_model) grid. Each steps RA-LENet once on its
+    data index's rows with its model rank's shard, with its launches
+    counted (with and without r_pos at n_data = 1), then times
+    DP_TIMED_STEPS more. At n_data = 1 the ranks also write the plain
+    step's gathered checkpoint (rank 0), resume it through `fit`, and run
+    the eval epoch with and without ECG_ATTN_DENSE=1."""
+    from ecg_denoise_tpu_torch.parallel import gather_state, make_mesh
+    from ecg_denoise_tpu_torch.train import save_checkpoint
+
+    torch.distributed.init_process_group("gloo", init_method=f"file://{store}",
+                                         world_size=n_data * n_model, rank=rank)
+    try:
+        mesh = make_mesh(n_data, n_model, device=device, backend="gloo")
+        weights = torch.load(os.path.join(workdir, "ralenet.pt"))
+        out = {}
+        for r_pos in (None, "detect") if n_data == 1 else (None,):
+            state, step, result, launches = dp_step(weights, *dp_batch(r_pos), r_pos, device,
+                                                    mesh)
+            if r_pos is None and n_data == 1:
+                contents = gather_state(state, mesh)  # every rank: the all-gathers
+                if mesh.is_primary:
+                    save_checkpoint(os.path.join(workdir, "tp.pth"), state, contents)
+            out[r_pos] = {**result, "launches": launches, "ms": step_ms(step, device)}
+        if n_data == 1:
+            torch.distributed.barrier()  # rank 0's checkpoint is written
+            out["resume"] = tp_fit_resume(os.path.join(workdir, "tp.pth"),
+                                          os.path.join(workdir, "resume"), device, mesh)
+            out["eval"] = tp_eval(weights, device, mesh)
+        torch.save(out, os.path.join(workdir, f"tp{n_data}x{n_model}_rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def check_tp_replicas(ranks, n_model, key):
+    """The ranks of one data index hold the same replicated tensors, and the
+    ranks of one model index the same shards, bit for bit."""
+    full = ranks[0][key]["state"]
+    for name, val in ranks[0][key]["local"].items():
+        sharded = val.shape != full[name].shape
+        for r, rank in enumerate(ranks):
+            same = ranks[r % n_model] if sharded else ranks[0]
+            check(torch.equal(rank[key]["local"][name], same[key]["local"][name]),
+                  f"rank {r}'s {'shard' if sharded else 'replica'} of {name} differs "
+                  f"({key!r})")
+
+
+def check_tp_step(card, grid, r, got, ref, want, what):
+    """One rank's gathered step against the single process's (`dp_bars`)
+    and its launches against `want`."""
+    bars = dp_bars(got, ref)
+    log(f"[29] {card}: grid {grid}, rank {r} (data {r // grid[1]}, model {r % grid[1]}) on "
+        f"cuda:0 (gloo), {what}, f32, a global batch of {DP_BATCH}: the gathered step vs the "
+        f"single process's on the card: {describe_dp_bars(bars)}; launches {got['launches']}")
+    check(bars["ok"], f"rank {r} of grid {grid} ({what}) disagrees with the single process")
+    check(got["launches"] == want, f"rank {r} of grid {grid} ({what}) did not launch {want}")
+
+
+def phase_tensor_parallel(card, cpu_model, device="cuda"):
+    """Phase 29: tensor parallelism. (a) the (1, 2) grid, two processes on
+    the one card over gloo: one step without and with r_pos against the
+    single process's; (b) the (2, 2) grid, four processes: one step; (c)
+    (a)'s gathered checkpoint served by `Denoiser.from_checkpoint` and
+    resumed by `fit` under (1, 2); (d) the eval epoch under (1, 2), dense
+    and default; (e) the step's ms at (1, 2) and (2, 2) against the single
+    process's. (`device` is the card but where the phase is rehearsed on
+    the CPU.)"""
+    from ecg_denoise_tpu_torch.serving import Denoiser
+
+    t0 = time.perf_counter()
+    weights = cpu_model.state_dict()
+    rank_device = "cuda:0" if device == "cuda" else device  # every rank on one card
+    launches = {path: dict.fromkeys(KERNELS, 0) for path in TP_PATHS}
+
+    def add(path, counts):
+        for k, n in counts.items():
+            launches[path][k] += n
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(weights, os.path.join(tmp, "ralenet.pt"))
+        singles, steps = {}, {}
+        for r_pos in (None, "detect"):
+            _, steps[r_pos], singles[r_pos], _ = dp_step(weights, *dp_batch(r_pos), r_pos,
+                                                         device)
+            singles[r_pos]["ms"] = step_ms(steps[r_pos], device)
+        ranks, spawn_s = {}, {}
+        for grid in TP_GRIDS:
+            t_spawn = time.perf_counter()
+            torch.multiprocessing.spawn(
+                tp_rank, args=(os.path.join(tmp, f"store{grid[0]}x{grid[1]}"), tmp,
+                               rank_device, *grid), nprocs=grid[0] * grid[1])
+            spawn_s[grid] = time.perf_counter() - t_spawn
+            ranks[grid] = [torch.load(os.path.join(tmp, f"tp{grid[0]}x{grid[1]}_rank{r}.pt"))
+                           for r in range(grid[0] * grid[1])]
+        single_after = step_ms(steps[None], device)
+
+        # (a), (b): the steps.
+        for grid, results in ranks.items():
+            for r_pos in (None, "detect") if grid[0] == 1 else (None,):
+                path = "train_tp_rpos" if r_pos else "train_tp"
+                want = (expected_launches(fwd=4, bwd=4, rpos_fwd=14, rpos_bwd=14) if r_pos
+                        else expected_launches(fwd=18, bwd=18))
+                for r, result in enumerate(results):
+                    check_tp_step(card, grid, r, result[r_pos], singles[r_pos], want,
+                                  f"r_pos={r_pos!r}")
+                    add(path, result[r_pos]["launches"])
+                check_tp_replicas(results, grid[1], r_pos)
+
+        # (c) the gathered checkpoint of (1, 2): served, and resumed.
+        ckpt = os.path.join(tmp, "tp.pth")
+        x = np.random.default_rng(45).standard_normal((TP_SERVE_WINDOWS, 2, 256)).astype(
+            np.float32)
+        served = Denoiser.from_checkpoint("ralenet", ckpt, max_batch=TP_SERVE_WINDOWS,
+                                          device=device)
+        one = Denoiser(ralenet_from(singles[None]["state"], device),
+                       max_batch=TP_SERVE_WINDOWS, device=device)
+        ref = one(x)
+        reset_launches()  # the served path
+        got = served(x)  # its fetch synchronises the card
+        launches["serve_tp_ckpt"] = read_launches()
+        err = float(np.abs(got - ref).max())
+        gathered = ranks[(1, 2)][0][None]["state"]
+        same = all(torch.equal(v.cpu(), gathered[k])
+                   for k, v in served.model.state_dict().items())
+        log(f"[29c] {card}: the (1, 2) step's gathered checkpoint served by "
+            f"Denoiser.from_checkpoint at {TP_SERVE_WINDOWS} windows: its weights equal to the "
+            f"gathered state bit for bit {same}; max |diff| {err:.2e} against the single "
+            f"process's model after the same step (tol {TP_SERVE_TOL:.0e}); launches "
+            f"{launches['serve_tp_ckpt']}")
+        check(same, "the served checkpoint is not the gathered state")
+        check(err <= TP_SERVE_TOL, "the served TP checkpoint disagrees with the single process")
+        check(launches["serve_tp_ckpt"] == expected_launches(fwd=18),
+              "serving the TP checkpoint did not make 18 B1 launches")
+        resumed = tp_fit_resume(ckpt, os.path.join(tmp, "single_resume"), device)
+        for r, result in enumerate(ranks[(1, 2)]):
+            got = result["resume"]
+            bars = dp_bars(got, resumed)
+            log(f"[29c] {card}: rank {r} of (1, 2), fit(resume_path=...) one more step (step "
+                f"{got['step']}): vs one process resumed from the same checkpoint: "
+                f"{describe_dp_bars(bars)}; lists {got['lists']} against {resumed['lists']}")
+            check(bars["ok"] and got["step"] == resumed["step"] == 2,
+                  f"rank {r}'s resumed step disagrees with one process's")
+            check(all(abs(a[0] - b[0]) <= TP_EVAL_TOL * max(1.0, abs(b[0]))
+                      for a, b in zip(got["lists"], resumed["lists"])),
+                  f"rank {r}'s resumed epoch's metrics disagree with one process's")
+
+    # (d) the eval epoch under (1, 2), dense and default.
+    single_eval = tp_eval(weights, device)
+    for dense in (True, False):
+        batches = -(-TP_EVAL_WINDOWS // DP_BATCH)
+        want = (expected_launches(fwd=6 * batches, dense=12 * batches) if dense
+                else expected_launches(fwd=18 * batches))
+        for r, result in enumerate(ranks[(1, 2)]):
+            got, ref = result["eval"][dense], single_eval[dense]
+            pred_err = (got["pred"] - ref["pred"]).abs().max().item()
+            metric_err = max(abs(got["metrics"][k] - ref["metrics"][k]) for k in ref["metrics"])
+            log(f"[29d] {card}: rank {r} of (1, 2), eval epoch over {TP_EVAL_WINDOWS} windows at "
+                f"{DP_BATCH}, ECG_ATTN_DENSE={int(dense)}: metrics {got['metrics']} against the "
+                f"single process's {ref['metrics']} (max |diff| {metric_err:.2e}), the first "
+                f"batch's forward max |diff| {pred_err:.2e} (tol {TP_EVAL_TOL:.0e}); launches "
+                f"{got['launches']}")
+            check(pred_err <= TP_EVAL_TOL and metric_err <= TP_EVAL_TOL,
+                  f"rank {r}'s eval (dense={dense}) disagrees with the single process's")
+            check(got["launches"] == want == ref["launches"],
+                  f"rank {r}'s eval (dense={dense}) did not launch {want}")
+            if dense:
+                add("eval_tp_dense", got["launches"])
+
+    tp_ms = {f"{d}x{m}": {"plain": [rank[None]["ms"] for rank in ranks[(d, m)]]}
+             for d, m in TP_GRIDS}
+    tp_ms["1x2"]["rpos"] = [rank["detect"]["ms"] for rank in ranks[(1, 2)]]
+    log(f"[29e] {card}: RA-LENet 'full' f32 step ms at a global batch of {DP_BATCH} (host "
+        f"clock to a synchronize, mean of {DP_TIMED_STEPS}), every rank on cuda:0 over gloo: "
+        f"single process {singles[None]['ms']:.3f} before the spawns and {single_after:.3f} "
+        f"after; (1, 2) ranks {' / '.join(f'{v:.3f}' for v in tp_ms['1x2']['plain'])}; (2, 2) "
+        f"ranks {' / '.join(f'{v:.3f}' for v in tp_ms['2x2']['plain'])}; r_pos: single "
+        f"{singles['detect']['ms']:.3f}, (1, 2) "
+        f"{' / '.join(f'{v:.3f}' for v in tp_ms['1x2']['rpos'])}; the spawns "
+        f"{', '.join(f'{g}: {v:.1f} s' for g, v in spawn_s.items())}. Two or four ranks "
+        "sharing one card and its host measure sharing, not scaling.")
+    log(f"chip_smoke: phase 29 took {time.perf_counter() - t0:.1f} s")
+    return launches, {"ranks_ms": tp_ms,
+                      "single_ms": {"plain": singles[None]["ms"], "after": single_after,
+                                    "rpos": singles["detect"]["ms"]}}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs an NVIDIA card",
@@ -4744,6 +5038,8 @@ def main():
     launches.update(phase_jax_checkpoint(card))
     dp_launches, dp_times = phase_data_parallel(card, cpu_model, paths["synthetic"])
     launches.update(dp_launches)
+    tp_launches, tp_times = phase_tensor_parallel(card, cpu_model)
+    launches.update(tp_launches)
     work.cleanup()
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
@@ -4840,6 +5136,13 @@ def main():
                      f"{DP_TIMED_STEPS} steps: world1_ms single process and make_mesh(1) "
                      "(NCCL) in turns; world2_ms each rank of two processes on one card over "
                      "gloo, plain and r_pos, against single_ms before and after the spawn"}
+    b2["tensor_parallel"] = {
+        **tp_times,
+        "times_are": f"RA-LENet 'full' f32 training step ms at a global batch of {DP_BATCH}, "
+                     f"host clock to a synchronize, mean of {DP_TIMED_STEPS} steps: ranks_ms "
+                     "each rank of the (1, 2) grid (two processes) and the (2, 2) grid (four) "
+                     "on one card over gloo, plain and r_pos, against single_ms before and "
+                     "after the spawns; sharing one card, not scaling"}
     b2["parent_ms_same_calls"] = bwd_totals["parent_ms"]
     b2["passes_ms"] = bwd_totals["passes_ms"]
     for e, what, err, t in (

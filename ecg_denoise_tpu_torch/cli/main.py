@@ -22,11 +22,19 @@ them; `--batch_size` stays the global batch:
     # or by torchrun (--n_data equal to its WORLD_SIZE, or left out):
     torchrun --nproc_per_node k -m ecg_denoise_tpu_torch.cli.main --n_data k ...
     # several hosts: the launcher's environment, and each process keeps its
-    # strided share of the windows (multihost.process_shard):
+    # data index's strided share of the windows (multihost.process_shard):
     torchrun --nnodes N --nproc_per_node k ... -m ecg_denoise_tpu_torch.cli.main --multihost ...
 
-Only rank 0 prints the epochs, writes the checkpoints, output.txt and
-train_log.jsonl. `--n_model` above 1 (tensor parallelism) is not ported.
+Tensor parallel (`parallel.shard_state_dp_tp`): `--n_model m` shards the
+transformer projections over model groups of m ranks, on a ('data',
+'model') grid of n_data * m ranks, one card each (--n_data unset: the
+visible cards // m), as JAX's `make_mesh(n_data, n_model)`:
+
+    python -m ecg_denoise_tpu_torch.cli.main --model_index 4 --n_data 2 --n_model 2 ...
+    torchrun --nproc_per_node 4 -m ecg_denoise_tpu_torch.cli.main --n_model 2 ...
+
+Only rank 0 prints the epochs, writes the checkpoints (one process's
+layout, under any grid), output.txt and train_log.jsonl.
 """
 
 from __future__ import annotations
@@ -59,16 +67,19 @@ def main(argv=None) -> None:
         if cfg.multihost:
             distributed = multihost.initialize()
             print(f"multihost: distributed={'on' if distributed else 'off (single process)'}")
-        elif cfg.n_data and multihost.launched():
+        elif (cfg.n_data or cfg.n_model > 1) and multihost.launched():
             distributed = multihost.initialize()
-        if distributed or cfg.n_data in (None, 1):
+        if distributed or (cfg.n_data in (None, 1) and cfg.n_model == 1):
             _train(cfg, device, mesh=distributed or cfg.n_data == 1,
                    local_data=cfg.multihost and distributed)
             return
-        n = cfg.n_data
-        if n > torch.cuda.device_count():
-            raise RuntimeError(f"--n_data {n} needs {n} cards, but "
-                               f"{torch.cuda.device_count()} are visible")
+        cards = torch.cuda.device_count()
+        n_data = cfg.n_data or max(cards // cfg.n_model, 1)
+        n = n_data * cfg.n_model
+        if n > cards:
+            flags = f"--n_data {n_data}" + (f" --n_model {cfg.n_model}" if cfg.n_model > 1
+                                            else "")
+            raise RuntimeError(f"{flags} needs {n} cards, but {cards} are visible")
         # One worker process a card, joined through a file store.
         with tempfile.TemporaryDirectory() as tmp:
             torch.multiprocessing.spawn(_rank, args=(cfg, n, os.path.join(tmp, "store")),
@@ -79,7 +90,8 @@ def main(argv=None) -> None:
 
 
 def _rank(rank: int, cfg, world_size: int, store: str) -> None:
-    """A worker of `cli.main --n_data k`: rank `rank` on cuda:`rank`."""
+    """A worker of `cli.main --n_data k [--n_model m]`: rank `rank` on
+    cuda:`rank`."""
     torch.distributed.init_process_group("nccl", init_method=f"file://{store}",
                                          world_size=world_size, rank=rank)
     try:
@@ -89,8 +101,9 @@ def _rank(rank: int, cfg, world_size: int, store: str) -> None:
 
 
 def _train(cfg, device, mesh: bool, local_data: bool = False) -> None:
-    """Train as `cfg` says on `device`, data parallel over this process's
-    group (made here for --n_data 1) when `mesh`; rank 0 records the run."""
+    """Train as `cfg` says on `device`, on the ('data', 'model') grid of
+    this process's group (made here for --n_data 1) when `mesh`; rank 0
+    records the run."""
     from ecg_denoise_tpu_torch.data.dataset import load_split_arrays
     from ecg_denoise_tpu_torch.models import build_model
     from ecg_denoise_tpu_torch.parallel import make_mesh, multihost
@@ -104,9 +117,10 @@ def _train(cfg, device, mesh: bool, local_data: bool = False) -> None:
     tr_n, tr_c, te_n, te_c = load_split_arrays(
         cfg.noise_name, cfg.noise_intensity, path=cfg.data_path,
         n_select=cfg.n_select, seed=cfg.seed, split_file=cfg.split_file)
-    if local_data:
-        tr_n, tr_c = multihost.process_shard(tr_n, tr_c)
-        te_n, te_c = multihost.process_shard(te_n, te_c)
+    if local_data:  # the model ranks of one data index hold the same windows
+        shard = {"process_index": mesh.data_rank, "process_count": mesh.n_data}
+        tr_n, tr_c = multihost.process_shard(tr_n, tr_c, **shard)
+        te_n, te_c = multihost.process_shard(te_n, te_c, **shard)
     random_seed(cfg.seed)  # the model's initial weights (rank 0's, under a mesh)
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     model = build_model(cfg.model_index, dtype=dtype, device=device)

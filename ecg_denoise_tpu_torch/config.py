@@ -3,11 +3,9 @@ config.py).
 
 The same flag names and defaults as the JAX package's CLI (reference
 main.py:31-33 plus the framework's extensions), so an invocation of one
-runs on the other. Two differences: there is no --use_pallas, since the
-attention kernels always run on the card, and --n_model (tensor
-parallelism, not ported yet) is parsed and raises NotImplementedError
-naming its ROADMAP item above 1, never ignored. --n_data and --multihost
-run `cli.main` data parallel (`parallel/`).
+runs on the other. One difference: there is no --use_pallas, since the
+attention kernels always run on the card. --n_data and --multihost run
+`cli.main` data parallel, --n_model tensor parallel (`parallel/`).
 """
 
 from __future__ import annotations
@@ -35,7 +33,7 @@ class TrainConfig:
     split_file: str | None = None  # pin/export exact train/test indices
     r_pos: str | None = None  # "detect": per-window R-peak attention bias
     n_data: int | None = None  # data-parallel ranks (None: single process)
-    n_model: int = 1  # tensor-parallel size: only 1 is ported
+    n_model: int = 1  # tensor-parallel ranks a model group
     multihost: bool = False  # the process group from the launcher's environment
 
     @property
@@ -78,7 +76,11 @@ def build_argparser(description: str = "") -> argparse.ArgumentParser:
                         "itself, or by torchrun (equal to its WORLD_SIZE, or unset "
                         "to take it)")
     p.add_argument("--n_model", type=int, default=1,
-                   help="tensor-parallel size: only 1 is ported (ROADMAP A19)")
+                   help="tensor-parallel ranks, one card each: each model group of "
+                        "n_model ranks shards the transformer projections (Megatron "
+                        "column/row) and each of --n_data such groups takes its share "
+                        "of the batch; n_data * n_model cards in all (--n_data unset: "
+                        "the visible cards // n_model)")
     p.add_argument("--multihost", action="store_true",
                    help="join the process group the launcher's environment "
                         "describes (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK, "
@@ -91,11 +93,8 @@ def build_argparser(description: str = "") -> argparse.ArgumentParser:
 
 
 def config_from_args(args: argparse.Namespace) -> TrainConfig:
-    """The TrainConfig of parsed flags; raises NotImplementedError for
-    --n_model > 1 (tensor parallelism is not ported)."""
-    if args.n_model != 1:
-        from ecg_denoise_tpu_torch.parallel.mesh import TENSOR_PARALLEL
-
-        raise NotImplementedError(TENSOR_PARALLEL)
+    """The TrainConfig of parsed flags."""
+    if args.n_model < 1:
+        raise ValueError(f"--n_model {args.n_model} must be at least 1")
     known = set(TrainConfig.__dataclass_fields__)
     return TrainConfig(**{k: v for k, v in vars(args).items() if k in known})

@@ -20,6 +20,11 @@ The attention itself goes through `kernels.attention.fused_attention`, or,
 for a per-window R-peak bias (`RPosBias`), through
 `kernels.attention_rpos.fused_attention_rpos`: the Hopper kernels for CUDA
 tensors, their plain versions on the CPU.
+
+Under tensor parallelism (`parallel.tensor`), an `MSAttention` or `Mlp`
+whose `tp` is set holds its model rank's shard of the projections and runs
+as one Megatron region: attention on its local heads, the row-parallel
+`proj` and `fc2` summed over the model group.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from ecg_denoise_tpu_torch.kernels.attention_rpos import (
     materialize_rpos_bias,
 )
 from ecg_denoise_tpu_torch.ops.layers import LayerNorm, Linear, PartialConv1d
+from ecg_denoise_tpu_torch.parallel.tensor import copy_in, local_heads, row_parallel
 
 
 @dataclass
@@ -104,7 +110,10 @@ class LinearProjection(nn.Module):
 
 class MSAttention(nn.Module):
     """Multi-head self-attention with an optional additive bias
-    (reference MSAttention, transformer.py:250-323)."""
+    (reference MSAttention, transformer.py:250-323). With `tp` set, the
+    projections hold this model rank's heads (`parallel.tensor`)."""
+
+    tp = None
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None):
@@ -117,16 +126,24 @@ class MSAttention(nn.Module):
 
     def forward(self, x, mask=None):
         B, N, _ = x.shape
+        tp = self.tp
+        if tp is not None:
+            x, mask = copy_in(x, tp), local_heads(mask, self.num_heads, tp)
         q, k, v = self.qkv_proj(x)
         out = multi_head_attention(q * self.scale, k, v, mask)
-        return self.proj(out.transpose(1, 2).reshape(B, N, -1))
+        out = out.transpose(1, 2).reshape(B, N, -1)
+        return self.proj(out) if tp is None else row_parallel(self.proj, out, tp)
 
 
 class Mlp(nn.Module):
     """Feed-forward (reference Mlp, transformer.py:118-161): fc1 -> GELU ->
     [LeFF: partial conv over length -> GELU] -> fc2. Dropout is 0 on every
     exercised path. The depthwise-conv and ECA options are not on
-    RA-LENet's path and are not ported."""
+    RA-LENet's path and are not ported. With `tp` set, fc1 and fc2 hold
+    this model rank's hidden units, and only model rank 0, which holds
+    hidden channel 0, applies the partial conv (`parallel.tensor`)."""
+
+    tp = None
 
     def __init__(self, in_features: int, hidden_features: Optional[int] = None,
                  out_features: Optional[int] = None, local_enhence: bool = False):
@@ -137,10 +154,16 @@ class Mlp(nn.Module):
         self.fc2 = Linear(hidden, out_features or in_features)
 
     def forward(self, x):  # (B, L, C)
+        tp = self.tp
+        if tp is not None:
+            x = copy_in(x, tp)
         x = F.gelu(self.fc1(x))
         if self.leconv is not None:
-            x = F.gelu(self.leconv(x.transpose(1, 2))).transpose(1, 2)
-        return self.fc2(x)
+            if tp is None or tp.rank == 0:
+                x = F.gelu(self.leconv(x.transpose(1, 2))).transpose(1, 2)
+            else:  # the channels the conv passes through
+                x = F.gelu(x)
+        return self.fc2(x) if tp is None else row_parallel(self.fc2, x, tp)
 
 
 class TransformerBlock(nn.Module):

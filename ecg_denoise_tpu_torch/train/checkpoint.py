@@ -48,10 +48,13 @@ def checkpoint_path(model_dir: str, model_name: str, epoch: int,
         f"{model_name}_{epoch}_{noise_name}_intensity{noise_intensity}.pth")
 
 
-def save_checkpoint(path: str, state: TrainState) -> str:
+def save_checkpoint(path: str, state: TrainState, contents: Optional[dict] = None) -> str:
+    """Write `state` to `path`; `contents`, where given, is its
+    {"model", "optimizer"} in one process's layout (`parallel.gather_state`
+    of a tensor-parallel state), written in its place."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    torch.save({"model": state.model.state_dict(),
-                "optimizer": state.optimizer.state_dict()}, path)
+    torch.save(contents or {"model": state.model.state_dict(),
+                            "optimizer": state.optimizer.state_dict()}, path)
     return path
 
 

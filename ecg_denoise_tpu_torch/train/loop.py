@@ -19,12 +19,16 @@ and feeds them to the model's R-wave attention bias (`make_epoch_fns`'s
 transfer's core, `NewRale.frozen_parameters()`; `create_train_state`'s
 `frozen`).
 
-With `mesh` (`parallel.make_mesh`) every rank of a data-parallel group
-runs `fit` in lockstep on the same arguments: each starts from rank 0's
-state (`replicate_state`), trains its share of every global batch
+With `mesh` (`parallel.make_mesh`) every rank of the ('data', 'model')
+grid runs `fit` in lockstep on the same arguments: each starts from rank
+0's state, with n_model > 1 sharded over its model group
+(`shard_state_dp_tp`, as JAX's loop.py does; `replicate_state` without
+tensor parallelism), trains its data index's share of every global batch
 (`make_epoch_fns`' mesh), and returns the same four lists. Only rank 0
 prints and writes checkpoints and output.txt, as JAX's `is_primary`
-process does. `local_data`: each rank passes only its own windows
+process does; a checkpoint is one process's layout (`gather_state`), so
+`load_checkpoint`, `Denoiser.from_checkpoint` and a resume under any grid
+read it. `local_data`: each rank passes only its data index's windows
 (`multihost.process_shard`), as under `--multihost`.
 """
 
@@ -39,7 +43,7 @@ import numpy as np
 import torch
 
 from ecg_denoise_tpu_torch import resolve_device
-from ecg_denoise_tpu_torch.parallel.mesh import replicate_state
+from ecg_denoise_tpu_torch.parallel.mesh import gather_state, shard_state_dp_tp
 from ecg_denoise_tpu_torch.train.checkpoint import (
     checkpoint_path,
     load_checkpoint,
@@ -106,7 +110,7 @@ def fit(
     if resume_path:
         load_checkpoint(resume_path, state)
     if mesh is not None:
-        replicate_state(state, mesh)
+        shard_state_dp_tp(state, mesh)
 
     def put(a):
         return torch.as_tensor(np.asarray(a, np.float32)).to(device)
@@ -136,12 +140,15 @@ def fit(
                   f"test_snr={test_metrics['snr']:.3f} "
                   f"test_rmse={test_metrics['rmse']:.4f} ({time.time() - t0:.1f}s)",
                   flush=True)
-        if (epoch + 1) % checkpoint_every == 0 and is_primary:
-            path = checkpoint_path(model_save_dir, model_name, epoch, noise_name,
-                                   noise_intensity)
-            save_checkpoint(path, state)
-            if verbose:
-                print(f"saved {path}", flush=True)
+        if (epoch + 1) % checkpoint_every == 0:
+            # Every rank takes part in gathering a sharded state.
+            contents = gather_state(state, mesh) if mesh is not None else None
+            if is_primary:
+                path = checkpoint_path(model_save_dir, model_name, epoch, noise_name,
+                                       noise_intensity)
+                save_checkpoint(path, state, contents)
+                if verbose:
+                    print(f"saved {path}", flush=True)
 
     if output_file and is_primary:
         os.makedirs(os.path.dirname(os.path.abspath(output_file)), exist_ok=True)

@@ -15,10 +15,13 @@ model's R-wave attention bias, as the JAX package's
 
 With a `mesh` (`parallel.make_mesh`) the epochs are data parallel, as
 JAX's epochs are on a batch-sharded array: `batch_size` stays the global
-batch; each rank runs its share of every batch with the BatchNorm
-statistics of the global batch (`ops.layers.global_batch_stats`), averages
-the gradients over the ranks after each backward, and the returned metrics
-are the global batch's.
+batch; each data index runs its share of every batch with the BatchNorm
+statistics of the global batch (`ops.layers.global_batch_stats` over the
+data group), averages the gradients over the data group after each
+backward, and the returned metrics are the global batch's. Under tensor
+parallelism (a mesh with n_model > 1, the state sharded by
+`parallel.shard_state_dp_tp`) the model ranks of one data index take the
+same rows and each runs its shard of the model.
 
 `make_augmented_epoch_fn` trains on clean windows alone: each step mixes
 its batch with a fresh slice of a long noise record on the card
@@ -45,10 +48,11 @@ def train_step(state: TrainState, noisy: torch.Tensor, clean: torch.Tensor,
                r_pos: Optional[torch.Tensor] = None, mesh=None):
     """One Adam step on a (B, C, L) batch, with the model's `r_pos` if
     given; returns the batch's (loss, mean SNR, mean RMSE) as 0-d tensors
-    on the batch's device. With a `mesh` the batch is this rank's share of
-    a global batch: the gradients are averaged over the ranks before Adam
-    steps (the BatchNorm statistics are global under `global_batch_stats`),
-    and the returned values are this share's."""
+    on the batch's device. With a `mesh` the batch is this data index's
+    share of a global batch: the gradients are averaged over the data group
+    before Adam steps (`all_reduce_gradients`; the BatchNorm statistics are
+    global under `global_batch_stats`), and the returned values are this
+    share's."""
     model, optimizer = state.model, state.optimizer
     model.train()
     pred = apply(model, noisy, r_pos).float()
@@ -63,13 +67,13 @@ def train_step(state: TrainState, noisy: torch.Tensor, clean: torch.Tensor,
 
 
 def _local_rows(batch_size: int, mesh) -> int:
-    """The rows of a global batch of `batch_size` that one rank takes."""
+    """The rows of a global batch of `batch_size` that one data index takes."""
     if mesh is None:
         return batch_size
-    if batch_size % mesh.world_size:
+    if batch_size % mesh.n_data:
         raise ValueError(f"a batch of {batch_size} does not split over "
-                         f"{mesh.world_size} ranks")
-    return batch_size // mesh.world_size
+                         f"{mesh.n_data} ranks")
+    return batch_size // mesh.n_data
 
 
 def make_epoch_fns(model: torch.nn.Module, optimizer: torch.optim.Adam,
@@ -91,16 +95,18 @@ def make_epoch_fns(model: torch.nn.Module, optimizer: torch.optim.Adam,
     With a `mesh`, every rank calls both with the same arguments: the
     global splits and a generator seeded alike, so every rank draws the
     same permutation, and each global batch of `batch_size` rows (which
-    the world size must divide) splits into the ranks' `shard_batch` rows;
+    n_data must divide) splits into the data indices' `shard_batch` rows;
     the eval's padded batches split the same way. With `local_data` each
-    rank passes only its own windows instead (`multihost.process_shard`,
-    the same count on every rank): it permutes them alone and takes
-    batch_size / world of them a step, so a global batch is the ranks'
-    local batches together. Either way the metrics are reduced over the
-    ranks to the global batch's, the same on every rank.
+    rank passes only its data index's windows instead
+    (`multihost.process_shard`, the same count on every rank): it permutes
+    them alone and takes batch_size / n_data of them a step, so a global
+    batch is the data indices' local batches together. Either way the
+    metrics are reduced over the data group to the global batch's, the
+    same on every rank.
     """
     state = TrainState(model, optimizer)
-    world, rank = (mesh.world_size, mesh.rank) if mesh is not None else (1, 0)
+    world, rank = (mesh.n_data, mesh.data_rank) if mesh is not None else (1, 0)
+    group = mesh.data_group if mesh is not None else None
 
     def r_pos_of(x):
         return detect_r_peaks(x) if detect_r_pos else None
@@ -122,14 +128,14 @@ def make_epoch_fns(model: torch.nn.Module, optimizer: torch.optim.Adam,
             # This rank's rows of each global batch (`shard_batch`'s).
             perm = perm.reshape(n_batches, world, rows)[:, rank]
         nb, cb = noisy[perm], clean[perm]
-        with (global_batch_stats(model, mesh.group) if mesh is not None
+        with (global_batch_stats(model, group) if mesh is not None
               else contextlib.nullcontext()):
             per_batch = torch.stack([
                 torch.stack(train_step(state, nb[i], cb[i], r_pos_of(nb[i]), mesh))
                 for i in range(n_batches)])
         means = per_batch.mean(0)
         if mesh is not None:
-            means = all_reduce_sum(means, mesh.group) / world
+            means = all_reduce_sum(means, group) / world
         loss, snr, rmse = means.tolist()  # the one host fetch
         return {"loss": loss, "snr": snr, "rmse": rmse}
 
@@ -156,7 +162,7 @@ def make_epoch_fns(model: torch.nn.Module, optimizer: torch.optim.Adam,
                     torch.sum(RMSE(target, pred) * w),
                     torch.sum(w)])
         if mesh is not None:
-            sums = all_reduce_sum(sums, mesh.group)
+            sums = all_reduce_sum(sums, group)
         loss, snr, rmse, count = sums.tolist()  # the one host fetch
         per_elem = noisy.shape[1] * noisy.shape[2]
         return {"loss": loss / (count * per_elem), "snr": snr / count,

@@ -200,9 +200,11 @@ def test_shard_batch_takes_contiguous_rows_and_refuses_an_uneven_batch():
 
 
 def test_make_mesh_refuses_tensor_parallelism_and_missing_ranks():
+    """Without a process group, a grid of more than one rank, data or model
+    parallel, names the processes it needs."""
     from ecg_denoise_tpu_torch.parallel import make_mesh
 
-    with pytest.raises(NotImplementedError, match="A19"):
+    with pytest.raises(ValueError, match="needs 2 processes"):
         make_mesh(1, n_model=2, device="cpu")
     with pytest.raises(ValueError, match="needs 2 processes"):
         make_mesh(2, device="cpu")

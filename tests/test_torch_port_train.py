@@ -479,20 +479,27 @@ def test_serving_reads_a_training_checkpoint(tmp_path):
     np.testing.assert_allclose(denoiser(x), ref, atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("argv,error,match", [
-    ([], RuntimeError, "no CUDA device"),
-    (["--n_data", "2"], RuntimeError, "no CUDA device"),
-    (["--n_model", "2"], NotImplementedError, "tensor parallelism.*A19"),
-    (["--multihost"], RuntimeError, "no CUDA device"),
+@pytest.mark.parametrize("argv,cards,match", [
+    ([], False, "no CUDA device"),
+    (["--n_data", "2"], False, "no CUDA device"),
+    (["--n_model", "2"], False, "no CUDA device"),
+    (["--multihost"], False, "no CUDA device"),
+    (["--n_data", "2", "--n_model", "2"], True,
+     "--n_data 2 --n_model 2 needs 4 cards, but 0 are visible"),
 ])
-def test_cli_raises_without_a_card_or_on_tensor_parallelism(monkeypatch, argv, error, match):
-    """Without a card the CLI raises, data parallel or not (no path falls
-    back to the CPU); `--n_model` above 1 names the ROADMAP item of tensor
-    parallelism, which is not ported."""
+def test_cli_raises_without_a_card_or_enough_cards(monkeypatch, argv, cards, match):
+    """Without a card the CLI raises, data or tensor parallel or not (no path
+    falls back to the CPU); where the device is there (`default_device`
+    patched) but fewer cards are visible than the ('data', 'model') grid
+    has ranks, it names the count it needs."""
+    import ecg_denoise_tpu_torch
     from ecg_denoise_tpu_torch.cli.main import main
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(error, match=match):
+    if cards:
+        monkeypatch.setattr(ecg_denoise_tpu_torch, "default_device",
+                            lambda: torch.device("cpu"))
+    with pytest.raises(RuntimeError, match=match):
         main(argv)
 
 
