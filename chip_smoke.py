@@ -347,15 +347,38 @@ and nothing falls back to the CPU):
    before and after the spawns: ranks sharing one card and its host
    measure sharing, not scaling; findings, not claims.
 
-The last lines are one JSON object listing the ten kernels (with their
-launches on each of the thirty paths: serve, train, serve_rpos,
+30. B1, B2 and B5 past head_dim 64 (the wide kernels, one design for
+   every D that is a multiple of 64; others zero-padded up to one). (a)
+   Their registers, stack, local memory and HMMA by instantiation
+   (cuobjdump; spills reported). (b) Each against its plain version at
+   head_dim 72, 128, 200, 256, 320 and 512 (WIDE_DIMS), f32 and bf16,
+   with and without a bias, at phase 2's and 6's bars: B1 with its lse
+   and B2 through the autograd Function at (B, L, H) = (2, 32, 3), (3, 64,
+   2), (2, 256, 1), (1, 1000, 1); B5 against its plain version and B1 at
+   (3, 64, 2), (3, 32, 4), (3, 8, 16), (5, 16, 2); every call a launch.
+   (c) Transformer1d at its published widths with num_heads (1, 1, 2, 4)
+   (heads 128 wide at the first stage, 256 after): the forward on the card
+   against the CPU (MODEL_TOL) with 12 B1 launches, one step against the
+   CPU's at `step_bars` with 12 + 12, the dense forward (4 B1 + 8 B5,
+   serve_transformer1d_wide_dense) within 1e-5 of the default route,
+   served at 256 (serve_transformer1d_wide: 12 B1) and trained at 64
+   (train_transformer1d_wide: 24 + 24 over two steps), windows/s and step
+   ms f32 and bf16. (d) Per stage shape, B1, B2 and B5's ms from CUDA
+   graph replays against their bounds, plain versions and SDPA: times,
+   no bar.
+
+The last lines are one JSON object listing the ten kernels and the three
+wide kernels (`attention_fwd_wide`, `attention_bwd_wide`,
+`attention_dense_fwd_wide`, their launches those of phase 30's paths)
+(with their launches on each of the thirty-three paths: serve, train, serve_rpos,
 train_rpos, serve_dense, probes, probes_precision, serve_families,
 train_families, train_newrale, serve_newrale, train_augmented,
 build_train, baseline_dwt, train_cls, test_cls, serve_transformer1d,
 train_transformer1d, serve_transformer1d_dense, train_transformer1d_long,
 serve_transformer1d_long, serve_jax_ckpt, train_jax_ckpt, train_dp,
 train_dp_rpos, serve_dp, train_tp, train_tp_rpos, serve_tp_ckpt,
-eval_tp_dense; B2's entry also holds the DP step's ms under
+eval_tp_dense, serve_transformer1d_wide_dense, serve_transformer1d_wide,
+train_transformer1d_wide; B2's entry also holds the DP step's ms under
 "data_parallel" and the TP step's under "tensor_parallel"; B1's and B2's
 entries also hold their head_dim 32 case under "d32" and its 1,000-sample
 case under "d32_long", B5's its head_dim 32 case under "d32" (with its
@@ -623,6 +646,22 @@ SDPA_QK_DIM = 8
 # The probe's f32-accurate paths (ieee and tf32x3 dot and fold, the tree)
 # against float64: the port's kernel bar.
 PROBE_F32_TOL_OF_MAX = 1e-5
+# Phase 30: B1, B2 and B5 past head_dim 64 (the wide kernels), and
+# Transformer1d at its published widths with num_heads (1, 1, 2, 4): its
+# attention calls on 256 samples by (L, H, head_dim), with their calls in
+# one forward (or one step's backward); with ECG_ATTN_DENSE=1 the last two
+# stages' 8 calls pack (P = 2 and 4) and go to B5.
+WIDE_HEADS = (1, 1, 2, 4)
+WIDE_CALLS = {(256, 1, 128): 2, (128, 1, 256): 2, (64, 2, 256): 6, (32, 4, 256): 2}
+WIDE_DENSE_CALLS = {(64, 2, 256): 6, (32, 4, 256): 2}
+# The checks' head dims: two padded up (72 to 128, 200 to 256), the model's
+# 128 and 256, and 320 and 512, five and eight 64-wide chunks. B1 and B2 at
+# (B, L, H): packed heads (L <= 32), one row tile, four, and 1,000 keys; B5
+# at Transformer1d's two packable shapes, L = 8 (P = 16) and a unit of 32
+# rows (L = 16, P = 2).
+WIDE_DIMS = (72, 128, 200, 256, 320, 512)
+WIDE_B12_SHAPES = [(2, 32, 3), (3, 64, 2), (2, 256, 1), (1, 1000, 1)]
+WIDE_B5_SHAPES = [(3, 64, 2), (3, 32, 4), (3, 8, 16), (5, 16, 2)]
 # Phase 28: data parallelism. Two ranks share the one card over gloo (NCCL
 # refuses two ranks on one device); the global batch splits 16 a rank.
 DP_WORLD = 2
@@ -4982,6 +5021,366 @@ def phase_tensor_parallel(card, cpu_model, device="cuda"):
                                     "rpos": singles["detect"]["ms"]}}
 
 
+def log_wide_resources():
+    """The wide kernels of B1, B2 and B5 (head_dim past 64) as the compiler
+    left them, by instantiation: registers, stack and local memory
+    (cuobjdump -res-usage) and the tensor-core instructions in their SASS
+    (HMMA). A kernel with no HMMA fails the run; spills are reported (a
+    spilling kernel that is right is kept, its numbers in PERF.md)."""
+    from ecg_denoise_tpu_torch.kernels.build import CSRC, _nvcc, _target
+
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    found = {}
+    for name in ("attention_fwd", "attention_bwd", "attention_dense_fwd"):
+        lib = str(_target(name, CSRC))
+        usage = subprocess.run([tool, "-res-usage", lib], capture_output=True, text=True,
+                               timeout=300, check=True).stdout
+        sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
+                              timeout=300, check=True).stdout
+        for part in sass.split("Function : ")[1:]:
+            fn = part.split(None, 1)[0]
+            if "_wide_kernel" in fn:
+                found[fn] = {"library": name,
+                             "hmma": sum("HMMA" in line for line in part.splitlines())}
+        for fn, reg, stack, local in re.findall(
+                r"Function (\S*_wide_kernel\S*):\s*REG:(\d+) STACK:(\d+) SHARED:\d+ "
+                r"LOCAL:(\d+)", usage):
+            if fn in found:
+                found[fn].update(registers=int(reg), stack=int(stack), local=int(local))
+    for fn, r in sorted(found.items()):
+        log(f"[30] {fn}: {r.get('registers')} registers, stack {r.get('stack')} bytes, local "
+            f"{r.get('local')} bytes; {r['hmma']} HMMA instructions")
+    # B1: f32 and bf16, with and without a bias (4); B2: dq and dk/dv 4
+    # each, dbias 2; B5: 4 at each key span 16, 32, 64.
+    check(len(found) == 4 + 10 + 12, f"{len(found)} of the 26 wide kernel instantiations found")
+    check(all(r["hmma"] > 0 for r in found.values()), "a wide kernel issues no HMMA")
+    check(all("registers" in r for r in found.values()), "a wide kernel's resources not read")
+    return {lib: {"registers": max(r["registers"] for r in found.values()
+                                   if r["library"] == lib),
+                  "stack_bytes": max(r["stack"] for r in found.values() if r["library"] == lib),
+                  "spills": any(r["local"] or r["stack"] for r in found.values()
+                                if r["library"] == lib)}
+            for lib in ("attention_fwd", "attention_bwd", "attention_dense_fwd")}
+
+
+def wide_bars(name, got, ref, dtype, L):
+    """(err, tol) of one gradient of B2 against a plain backward: f32 1e-4
+    of its max (dbias too), bf16 2^-7 of it; at L = 1 dq, dk and dbias are
+    0 and their bars are taken of max|dv| (`phase_backward_vs_plain`)."""
+    i = ("dq", "dk", "dv", "dbias").index(name)
+    scale = ref[2 if L == 1 and name != "dv" else i].float().abs().max().item()
+    tol = (BF16_GRAD_TOL_OF_MAX if dtype == torch.bfloat16 else D32_GRAD_TOL_OF_MAX) * scale
+    return (got.float() - ref[i].float()).abs().max().item(), tol
+
+
+def phase_wide_kernels():
+    """Phase 30a: the wide kernels (head_dim past 64) against their plain
+    versions at every WIDE_DIMS, f32 and bf16, with and without a bias: B1
+    (its output and lse, a second call bit-identical) and B2 (through the
+    autograd Function, against the plain flash backward on the kernel's
+    own o and lse and, in f32, autograd through the plain forward) at
+    WIDE_B12_SHAPES; B5 against its plain version and B1 without lse at
+    WIDE_B5_SHAPES. Every call launches its kernel: the counts move by
+    exactly the calls made."""
+    from ecg_denoise_tpu_torch import full_float32
+    from ecg_denoise_tpu_torch.kernels import attention
+    from ecg_denoise_tpu_torch.kernels.attention_dense import (
+        attention_dense_reference,
+        fused_attention_dense,
+    )
+
+    fused = attention.fused_attention
+    saved = tf32_flags()
+    full_float32()
+    gen = torch.Generator().manual_seed(30)
+    max_err = {"fwd": 0.0, "bwd": 0.0, "dense": 0.0}
+    for D in WIDE_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = str(dtype)[6:]
+            for with_bias in (True, False):
+                for B, L, H in WIDE_B12_SHAPES:
+                    q, k, v, bias = operands(B, H, L, with_bias, dtype, gen, D=D,
+                                             q_scale=D ** -0.5)
+                    g = torch.randn(q.shape, generator=gen).to("cuda", dtype)
+                    before = (fused.launches, fused.bwd_launches)
+                    out, lse = attention._launch(q, k, v, bias, with_lse=True)
+                    again = attention._launch(q, k, v, bias)
+                    out2, grads = kernel_grads(q, k, v, bias, g)
+                    ref, ref_lse = attention.attention_reference(q, k, v, bias, return_lse=True)
+                    refs = {"flash": attention.attention_backward_reference(
+                        q, k, v, bias, out2, lse, g)}
+                    if dtype == torch.float32:
+                        refs["autograd"] = plain_autograd_grads(q, k, v, bias, g)
+                    torch.cuda.synchronize()
+                    launched = (fused.launches - before[0], fused.bwd_launches - before[1])
+                    tol = (F32_TOL if dtype == torch.float32
+                           else BF16_TOL_OF_MAX_V * v.float().abs().max().item())
+                    err = (out.float() - ref.float()).abs().max().item()
+                    lse_err = (lse - ref_lse).abs().max().item()
+                    lse_tol = LSE_TOL * max(1.0, ref_lse.abs().max().item())
+                    errs = []
+                    ok = True
+                    for ref_name, r in refs.items():
+                        for name, a in zip(("dq", "dk", "dv", "dbias"), grads):
+                            e, t = wide_bars(name, a, r, dtype, L)
+                            ok &= e <= t
+                            errs.append(f"{name}/{ref_name} {e:.2e}/{t:.2e}")
+                            if dtype == torch.float32 and ref_name == "flash":
+                                max_err["bwd"] = max(max_err["bwd"], e)
+                    if dtype == torch.float32:
+                        max_err["fwd"] = max(max_err["fwd"], err)
+                    same = torch.equal(out, again) and torch.equal(out, out2)
+                    log(f"[30] B1/B2 D={D} B={B} L={L} H={H} bias={with_bias} {dt}: out "
+                        f"{err:.2e}/{tol:.2e}, lse {lse_err:.2e}/{lse_tol:.2e}; "
+                        + ", ".join(errs) + f"; launches {launched}, the forward's three "
+                        f"calls bit-identical: {same}")
+                    check(out.shape == q.shape and out.dtype == dtype
+                          and [t.dtype for t in grads] == [dtype] * len(grads),
+                          f"B1/B2 at D = {D}: output shape or dtype")
+                    check(bool(torch.isfinite(out).all()) and err <= tol and lse_err <= lse_tol,
+                          f"B1 at D = {D} disagrees with its plain version")
+                    check(ok and all(bool(torch.isfinite(t).all()) for t in grads),
+                          f"B2 at D = {D} disagrees with its plain backward")
+                    check(launched == (3, 1), f"B1/B2 at D = {D} made {launched} launches, "
+                                              "not (3, 1)")
+                    check(same, f"B1 at D = {D}: calls differ")
+                for B, L, H in WIDE_B5_SHAPES:
+                    q, k, v, bias = operands(B, H, L, with_bias, dtype, gen, D=D,
+                                             q_scale=D ** -0.5)
+                    before = fused_attention_dense.launches
+                    out = fused_attention_dense(q, k, v, bias)
+                    again = fused_attention_dense(q, k, v, bias)
+                    b1 = attention._launch(q, k, v, bias)
+                    torch.cuda.synchronize()
+                    launched = fused_attention_dense.launches - before
+                    err = (out.float() - attention_dense_reference(
+                        q, k, v, bias).float()).abs().max().item()
+                    err_b1 = (out.float() - b1.float()).abs().max().item()
+                    tol = (F32_TOL if dtype == torch.float32
+                           else BF16_TOL_OF_MAX_V * v.float().abs().max().item())
+                    if dtype == torch.float32:
+                        max_err["dense"] = max(max_err["dense"], err)
+                    same = torch.equal(out, again)
+                    log(f"[30] B5 D={D} B={B} L={L} H={H} bias={with_bias} {dt}: vs plain "
+                        f"{err:.2e}, vs B1 without lse {err_b1:.2e} (tol {tol:.2e}); launches "
+                        f"{launched}; a second call bit-identical: {same}")
+                    check(out.shape == q.shape and out.dtype == dtype, f"B5 D={D} shape or dtype")
+                    check(bool(torch.isfinite(out).all()) and err <= tol and err_b1 <= tol,
+                          f"B5 at D = {D} disagrees with its plain version or with B1")
+                    check(launched == 2, f"B5 at D = {D} made {launched} launches, not 2")
+                    check(same, f"two B5 D={D} calls differ")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    log(f"[30] the wide kernels within their bars at D = {WIDE_DIMS}: largest f32 errors B1 "
+        f"{max_err['fwd']:.3e}, B2 {max_err['bwd']:.3e}, B5 {max_err['dense']:.3e}")
+    return max_err
+
+
+def wide_kernel_times(card):
+    """Phase 30's kernel rows: per Transformer1d (1, 1, 2, 4) stage shape,
+    B1 (no lse) at the served batch, B2 at the training batch and, at the
+    packable stages, B5 at the served batch, f32 and bf16, from CUDA graph
+    replays, beside the bound (`mma_bound_terms`; bf16 one pass at its
+    peak), the plain versions and SDPA (no mask); summed over one
+    forward's and one step's calls. Times only: no bar."""
+    from ecg_denoise_tpu_torch.kernels import attention
+    from ecg_denoise_tpu_torch.kernels.attention_dense import (
+        attention_dense_reference,
+        fused_attention_dense,
+    )
+    from ecg_denoise_tpu_torch.probes.floor import graph_us
+
+    gen = torch.Generator().manual_seed(31)
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms")
+    totals = {(w, dt): dict.fromkeys(keys, 0.0) for w in ("fwd", "bwd", "dense")
+              for dt in ("float32", "bfloat16")}
+    limits = {key: {"operations": 0.0, "bytes": 0.0} for key in totals}
+    rows = []
+    for (L, H, D), calls in WIDE_CALLS.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            dt, elt = str(dtype)[6:], torch.finfo(dtype).bits // 8
+            for what in ("fwd", "bwd", "dense"):
+                if what == "dense" and (L, H, D) not in WIDE_DENSE_CALLS:
+                    continue
+                B = T1D_TRAIN_BATCH if what == "bwd" else T1D_SERVE_BATCH
+                q, k, v, _ = operands(B, H, L, False, dtype, gen, D=D, q_scale=D ** -0.5)
+                if what == "bwd":
+                    g = torch.randn(q.shape, generator=gen).to("cuda", dtype)
+                    o, lse = attention._launch(q, k, v, None, with_lse=True)
+
+                    def this():
+                        return attention._launch_bwd(q, k, v, None, o, lse, g, want_dbias=False)
+
+                    plain = cuda_ms(lambda: attention.attention_backward_reference(
+                        q, k, v, None, o, lse, g), 3)
+                    ins = [t.detach().requires_grad_() for t in (q, k, v)]
+
+                    def sdpa():
+                        return F.scaled_dot_product_attention(*ins, scale=1.0)
+
+                    lib = (cuda_ms(lambda: torch.autograd.grad(sdpa(), ins, g), 10)
+                           - cuda_ms(sdpa, 10))
+                    products, n_bytes = 5, bwd_bound_terms(B, H, L, False, elt, D=D)[1]
+                else:
+                    if what == "fwd":
+                        def this():
+                            return attention._launch(q, k, v, None)
+
+                        plain = cuda_ms(lambda: attention.attention_reference(q, k, v), 3)
+                    else:
+                        def this():
+                            return fused_attention_dense(q, k, v)
+
+                        plain = cuda_ms(lambda: attention_dense_reference(q, k, v), 3)
+                    lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0), 10)
+                    products, n_bytes = 2, bound_terms(B, H, L, False, elt, D=D)[1]
+                ms = graph_us(this, 10) / 1e3
+                t_ops = (mma_bound_terms(B, H, L, 4, products, D=D)[0]
+                         if dtype == torch.float32
+                         else 2 * B * H * L * L * D * products / PEAK_BF16_FLOPS * 1e3)
+                bnd = max(t_ops, n_bytes)
+                n_calls = WIDE_DENSE_CALLS[(L, H, D)] if what == "dense" else calls
+                log(f"[30] {card}: {'B5' if what == 'dense' else 'B1' if what == 'fwd' else 'B2'}"
+                    f" {dt} D={D} B={B} L={L} H={H}: kernel {ms:.4f} ms (graph replays), bound "
+                    f"{bnd:.4f} ms (operations {t_ops:.4f} "
+                    f"{'at 3xTF32' if dtype == torch.float32 else 'in bf16'} on the tensor "
+                    f"cores, bytes {n_bytes:.4f}), plain {plain:.4f} ms, sdpa"
+                    f"{' backward ((fwd+bwd) - fwd)' if what == 'bwd' else ''} {lib:.4f} ms; "
+                    f"{n_calls} calls per {'step' if what == 'bwd' else 'forward'}")
+                rows.append({"what": what, "dtype": dt, "B": B, "L": L, "H": H, "D": D,
+                             "ms": ms, "bound_ms": bnd, "plain_ms": plain, "library_ms": lib,
+                             "calls": n_calls})
+                tot = totals[(what, dt)]
+                for key, t in (("ms", ms), ("plain_ms", plain), ("bound_ms", bnd),
+                               ("library_ms", lib)):
+                    tot[key] += n_calls * t
+                limits[(what, dt)]["operations"] += n_calls * t_ops
+                limits[(what, dt)]["bytes"] += n_calls * n_bytes
+    for (what, dt), t in totals.items():
+        t["bound_by"] = max(limits[(what, dt)], key=limits[(what, dt)].get)
+        log(f"[30] {card}: {'B5' if what == 'dense' else 'B1' if what == 'fwd' else 'B2'} "
+            f"{dt}, the {'8 dense calls of one forward' if what == 'dense' else '12 calls of one '}"
+            f"{'' if what == 'dense' else 'step' if what == 'bwd' else 'forward'}: kernel "
+            f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), plain "
+            f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms")
+    return totals, rows
+
+
+def phase_wide_heads(card):
+    """Phase 30: B1, B2 and B5 past head_dim 64 (the wide kernels), on
+    Transformer1d at its published widths with num_heads (1, 1, 2, 4)
+    (heads 128 and 256 wide): the kernels' registers and HMMA, the kernels
+    against their plain versions (`phase_wide_kernels`); the forward on the
+    card against the CPU with 12 B1 launches, one step against the CPU's
+    at `step_bars` with 12 + 12, the dense forward (ECG_ATTN_DENSE=1, 4 B1
+    + 8 B5) against the default route; served and trained at 256 and 64
+    with the counts of those paths; rates and the kernel rows (times
+    only)."""
+    from ecg_denoise_tpu_torch.models import Transformer1d
+    from ecg_denoise_tpu_torch.train import create_train_state, make_cls_epoch_fns
+    from ecg_denoise_tpu_torch.utils.seed import random_seed
+
+    t0 = time.perf_counter()
+    resources = log_wide_resources()
+    max_err = phase_wide_kernels()
+    t_checks = time.perf_counter() - t0
+    random_seed(30)
+    cpu_model = Transformer1d(num_heads=WIDE_HEADS).eval()
+    n_params = sum(p.numel() for p in cpu_model.parameters())
+    rng = np.random.default_rng(30)
+    x = torch.from_numpy(rng.standard_normal((8, 32, 256)).astype(np.float32))
+    gpu_model = create_train_state(copy.deepcopy(cpu_model)).model.eval()
+    reset_launches()
+    with torch.no_grad():
+        y = gpu_model(x.cuda())
+        torch.cuda.synchronize()
+        fwd_launches = read_launches()
+        err = (y.cpu() - cpu_model(x)).abs().max().item()
+    log(f"[30] Transformer1d num_heads {WIDE_HEADS} ({n_params:,} parameters), batch 8, float32: "
+        f"card vs CPU max_abs_err={err:.3e} (tol {MODEL_TOL:.0e}); launches per forward "
+        f"{ {k: n for k, n in fwd_launches.items() if n} }")
+    check(err <= MODEL_TOL and bool(torch.isfinite(y).all()),
+          "Transformer1d with wide heads on the card disagrees with the CPU")
+    check(fwd_launches == expected_launches(fwd=12), "the forward did not take 12 B1 launches")
+    transformer1d_step_vs_cpu(cpu_model, x[:T1D_CHECK_BATCH],
+                              torch.from_numpy(rng.integers(0, 9, T1D_CHECK_BATCH)), "30",
+                              f" num_heads {WIDE_HEADS}")
+
+    launches = {}
+    xs = torch.from_numpy(rng.standard_normal(
+        (T1D_SERVE_BATCH, 32, 256)).astype(np.float32)).cuda()
+    ys = torch.from_numpy(rng.integers(0, 9, T1D_SERVE_BATCH)).cuda()
+    # The dense route against the default on the same windows.
+    with torch.no_grad():
+        y_default = gpu_model(xs)
+        with dense_route():
+            gpu_model(xs)  # warm-up
+            torch.cuda.synchronize()
+            reset_launches()  # the dense served forward
+            y_dense = gpu_model(xs)
+            torch.cuda.synchronize()
+            launches["serve_transformer1d_wide_dense"] = read_launches()
+        err_dense = (y_dense - y_default).abs().max().item()
+    log(f"[30] Transformer1d num_heads {WIDE_HEADS} served with ECG_ATTN_DENSE=1, batch "
+        f"{T1D_SERVE_BATCH}, float32: vs the default route max_abs_err={err_dense:.3e} (tol "
+        f"{F32_TOL:.0e}); launches per forward "
+        f"{ {k: n for k, n in launches['serve_transformer1d_wide_dense'].items() if n} }")
+    check(bool(torch.isfinite(y_dense).all()) and err_dense <= F32_TOL,
+          "the dense wide-head forward disagrees with the default route")
+    check(launches["serve_transformer1d_wide_dense"] == expected_launches(fwd=4, dense=8),
+          "the dense wide-head forward did not make 4 B1 and 8 B5 launches")
+
+    rates = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype)[6:]
+        random_seed(30)
+        state = create_train_state(Transformer1d(num_heads=WIDE_HEADS, dtype=dtype))
+        model = state.model.eval()
+        with torch.no_grad():
+            model(xs)  # warm-up
+            torch.cuda.synchronize()
+            if dtype == torch.float32:
+                reset_launches()  # the served forward
+                model(xs)
+                torch.cuda.synchronize()
+                launches["serve_transformer1d_wide"] = read_launches()
+            walls = []
+            for _ in range(3):
+                t1 = time.perf_counter()
+                model(xs)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t1)
+            fwd_ms = cuda_ms(lambda: model(xs), 3)
+        train_epoch, _ = make_cls_epoch_fns(state.model, state.optimizer)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        tb = T1D_TRAIN_BATCH
+        train_epoch(xs[:tb], ys[:tb], gen, tb)  # warm-up
+        torch.cuda.synchronize()
+        if dtype == torch.float32:
+            reset_launches()  # two training steps through train_epoch
+            got = train_epoch(xs[:2 * tb], ys[:2 * tb], gen, tb)
+            launches["train_transformer1d_wide"] = read_launches()
+            check(np.isfinite(got["loss"]), "non-finite wide-head Transformer1d training loss")
+        step_ms = cuda_ms(lambda: train_epoch(xs[:tb], ys[:tb], gen, tb), 3)
+        rates[dt] = {"windows_per_s": T1D_SERVE_BATCH / statistics.median(walls),
+                     "forward_ms": fwd_ms, "step_ms": step_ms}
+        log(f"[30] {card}: Transformer1d num_heads {WIDE_HEADS} {dt}: served at batch "
+            f"{T1D_SERVE_BATCH} {rates[dt]['windows_per_s']:.1f} windows/s (median of 3 "
+            f"forwards, host clock ending in a synchronize), forward {fwd_ms:.3f} ms (CUDA "
+            f"events, mean of 3); training step at {tb} {step_ms:.3f} ms (CUDA events, mean "
+            f"of 3)")
+    log(f"[30] launches: serve_transformer1d_wide {launches['serve_transformer1d_wide']}, "
+        f"train_transformer1d_wide {launches['train_transformer1d_wide']}")
+    check(launches["serve_transformer1d_wide"] == expected_launches(fwd=12),
+          "the served wide-head forward did not take 12 B1 launches")
+    check(launches["train_transformer1d_wide"] == expected_launches(fwd=24, bwd=24),
+          "two wide-head training steps did not take 24 B1 and 24 B2 launches")
+    totals, rows = wide_kernel_times(card)
+    log(f"chip_smoke: phase 30 took {time.perf_counter() - t0:.1f} s (the kernel checks "
+        f"{t_checks:.1f} s)")
+    return launches, max_err, {"totals": totals, "rows": rows, "rates": rates,
+                               "resources": resources}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs an NVIDIA card",
@@ -5040,6 +5439,8 @@ def main():
     launches.update(dp_launches)
     tp_launches, tp_times = phase_tensor_parallel(card, cpu_model)
     launches.update(tp_launches)
+    wide_launches, wide_err, wide = phase_wide_heads(card)
+    launches.update(wide_launches)
     work.cleanup()
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
@@ -5202,6 +5603,31 @@ def main():
         e["eager_ms"] = t["eager_ms"]
         e["parent_ms_same_calls"] = t["parent_ms"]
     b4["passes_ms"] = rpos_bwd_totals["passes_ms"]
+    # The wide kernels (head_dim past 64): rows of their own, their
+    # launches those of phase 30's paths.
+    wide_rows = []
+    for kernel, line, what, calls in (
+            ("attention_fwd", 253, "fwd", f"one forward's 12 calls, B={T1D_SERVE_BATCH}"),
+            ("attention_bwd", 333, "bwd", f"one step's 12 calls, B={T1D_TRAIN_BATCH}"),
+            ("attention_dense_fwd", 449, "dense",
+             f"one dense forward's 8 B5 calls, B={T1D_SERVE_BATCH}")):
+        t = wide["totals"][(what, "float32")]
+        e = entry(kernel, line, wide_err[what], t, t["bound_by"],
+                  f"Transformer1d num_heads {WIDE_HEADS} (heads 128 and 256 wide), {calls}, "
+                  "float32, no bias, the kernel from CUDA graph replays; bound_ms on the tensor "
+                  "cores at 3xTF32 or the bytes; plain and library "
+                  "(scaled_dot_product_attention, no mask) issued from Python")
+        paths = [p for p in launches if "_wide" in p]
+        e["name"] = f"{kernel}_wide"
+        e["launches_by_path"] = {p: launches[p][kernel] for p in paths}
+        e["launches"] = sum(e["launches_by_path"].values())
+        e["head_dims"] = "every D > 64: a multiple of 64, others zero-padded up to one"
+        e["max_abs_err_is"] = (f"float32, the largest against the plain version over phase "
+                               f"30's cases at head_dim {WIDE_DIMS}")
+        e["bf16"] = wide["totals"][(what, "bfloat16")]
+        e["resources"] = wide["resources"][kernel]
+        wide_rows.append(e)
+    wide_rows[0]["transformer1d_rates"] = wide["rates"]
     print(json.dumps({"kernels": [
         b1,
         b2,
@@ -5210,6 +5636,7 @@ def main():
         dense,
         null,
         *precision,
+        *wide_rows,
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

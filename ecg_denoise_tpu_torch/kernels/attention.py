@@ -4,14 +4,15 @@
 (B, H, L, D) operands, with the contract of the JAX package's
 `fused_attention`: q arrives pre-scaled, bias is (1, H, L, L) or None, and
 the output has the operands' dtype. Like JAX's kernels it takes any head
-dim D and any length L on the CPU; on the card the kernels are built for
-some (`kernel_head_dim`): D = 4 at L <= 256 takes the D = 4 kernels (they
-hold a row's logits in registers; RA-LENet, the only model with 4-wide
-heads, is built for 256 samples), and any other D <= 64 the mma template
-at D = 8, 16, 32 or 64 (bf16 from 16), q, k and v zero-padded along D to
-it and the results sliced back (`forward_at`, `backward_at`): exact, since
-zero dims change no logit, output or gradient. D > 64 raises on the card
-(ROADMAP queue B).
+dim D and any length L on the CPU, and so do the card's kernels, each
+built for some (`kernel_head_dim`): D = 4 at L <= 256 takes the D = 4
+kernels (they hold a row's logits in registers; RA-LENet, the only model
+with 4-wide heads, is built for 256 samples), any other D <= 64 the mma
+template at D = 8, 16, 32 or 64 (bf16 from 16), and any D > 64 the wide
+kernels at the next multiple of 64 (they cut D into 64-wide chunks; a
+block owns 64 dims of the output). q, k and v are zero-padded along D to
+the kernel's and the results sliced back (`forward_at`, `backward_at`):
+exact, since zero dims change no logit, output or gradient.
 
 It dispatches on the tensors' device, with no switch and no fallback:
 
@@ -22,13 +23,13 @@ It dispatches on the tensors' device, with no switch and no fallback:
   a lane-packable stage (L < 128 a power of two,
   `dense_pack_factor` > 1), to the dense forward
   `csrc/attention_dense_fwd.cu` (the port of `_fwd_dense_kernel`, B5; see
-  `attention_dense.py`), at any D <= 64, as JAX's `_fwd`
+  `attention_dense.py`), at any D, as JAX's `_fwd`
   (attention_pallas.py:621) packs any. When one is needed,
   to `_FusedAttention`, a `torch.autograd.Function`
   whose forward is that kernel with its log-sum-exp residual and whose
   backward is `csrc/attention_bwd.cu` (the port of `_bwd_kernel`). Each
-  source holds the D = 4 kernels and, beside them, the mma template; its
-  C entry point picks by D;
+  source holds the D = 4 kernels and, beside them, the mma template and
+  the wide kernels; its C entry point picks by D;
 * a CPU tensor goes to `attention_reference`, the plain PyTorch version of
   the same function (the math of the JAX package's XLA path,
   ops/attention.py:115-122), and autograd runs through it.
@@ -55,8 +56,11 @@ import torch
 HEAD_DIM = 4  # RA-LENet's; the only one B3 and B4 take
 MAX_LEN = 256  # the D = 4 kernels' longest L; the mma template takes any L
 # The head dims of B1's and B2's mma template (bf16 from 16, the depth of
-# its mma); the wrapper pads any other D up to the next one.
+# its mma); the wrapper pads any other D <= 64 up to the next one.
 MMA_HEAD_DIMS = (8, 16, 32, 64)
+# Past MMA_HEAD_DIMS[-1] the wide kernels take every multiple of this (the
+# width of their chunks of D); the wrapper pads any other D up to the next.
+WIDE_CHUNK = 64
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -151,17 +155,16 @@ def check_head_dim(q, head_dims) -> None:
 
 
 def kernel_head_dim(D: int, L: int, dtype: torch.dtype) -> int:
-    """The head dim B1 and B2 run a (D, L) call at on the card: D = 4 at L
-    <= MAX_LEN on the D = 4 kernels, else the smallest of MMA_HEAD_DIMS
-    (16 and up at bfloat16) that holds D. Raises past the largest."""
+    """The head dim B1, B2 and B5 run a (D, L) call at on the card: D = 4
+    at L <= MAX_LEN on the D = 4 kernels, else the smallest of
+    MMA_HEAD_DIMS (16 and up at bfloat16) that holds D, and past the
+    largest the next multiple of WIDE_CHUNK (the wide kernels)."""
     if D == HEAD_DIM and L <= MAX_LEN:
         return D
     for d in MMA_HEAD_DIMS:
         if d >= D and (d >= 16 or dtype != torch.bfloat16):
             return d
-    raise ValueError(f"head_dim {D} > {MMA_HEAD_DIMS[-1]}: the attention kernels "
-                     f"are built up to head_dim {MMA_HEAD_DIMS[-1]} on the card "
-                     "(ROADMAP queue B)")
+    return -(-D // WIDE_CHUNK) * WIDE_CHUNK
 
 
 def _pad(t: torch.Tensor, D: int) -> torch.Tensor:

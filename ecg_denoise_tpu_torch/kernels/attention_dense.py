@@ -13,15 +13,16 @@ dispatches on the tensors' device with no switch and no fallback:
   `_fwd_dense_kernel`) or the call raises. It runs at the head dim
   `kernel_head_dim` picks, as B1 does: D = 4 (RA-LENet's heads) on the D
   = 4 kernel, any other D <= 64 on the mma template at D = 8, 16, 32 or
-  64 (bf16 from 16), q, k and v zero-padded along D to it and the output
-  sliced back (`forward_at`: exact). D > 64 raises;
+  64 (bf16 from 16), any D > 64 on the wide kernel at the next multiple of
+  64, q, k and v zero-padded along D to it and the output sliced back
+  (`forward_at`: exact);
 * a CPU tensor goes to `attention_dense_reference`, the plain version, at
   any D.
 
 `fused_attention` routes a no-grad call on the card here when
 `dense_route` says so: `dense_wanted()` (ECG_ATTN_DENSE=1, read at every
-call, as JAX reads it at every trace), the stage packs, as JAX's `_fwd`
-(attention_pallas.py:621) packs, and D <= 64; otherwise it keeps B1.
+call, as JAX reads it at every trace) and the stage packs, as JAX's `_fwd`
+(attention_pallas.py:621) packs, at any D; otherwise it keeps B1.
 
 `attention_dense_reference` is written in the TPU kernel's own form, so
 that the CPU tests hold its layout against JAX's kernel: q packed to
@@ -46,7 +47,6 @@ import torch
 
 from ecg_denoise_tpu_torch.kernels.attention import (
     DTYPE_CODES,
-    MMA_HEAD_DIMS,
     bind,
     check_launchable,
     check_operands,
@@ -79,12 +79,10 @@ def dense_wanted() -> bool:
 
 def dense_route(shape) -> bool:
     """Whether `fused_attention` sends a no-grad call of this (B, H, L, D)
-    shape on the card to B5: ECG_ATTN_DENSE=1, a lane-packable stage (the
-    calls JAX's `_fwd`, attention_pallas.py:621, packs) and D <= 64, the
-    head dims B5 takes on the card. Past 64 it declines, and B1 raises
-    with its own message."""
-    _, H, L, D = shape
-    return dense_wanted() and D <= MMA_HEAD_DIMS[-1] and dense_pack_factor(H, L) > 1
+    shape on the card to B5: ECG_ATTN_DENSE=1 and a lane-packable stage
+    (the calls JAX's `_fwd`, attention_pallas.py:621, packs), at any D."""
+    _, H, L, _ = shape
+    return dense_wanted() and dense_pack_factor(H, L) > 1
 
 
 def attention_dense_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -135,9 +133,10 @@ def smem_bytes(L: int, D: int, P: int, dtype: torch.dtype, with_bias: bool) -> i
 
 
 def launch_shape(B: int, H: int, L: int, D: int, dtype: torch.dtype, with_bias: bool) -> dict:
-    """The mma template's launch at this call shape (D = 8-64), as the
-    library computes it: blocks, threads a block and ring stages (builds
-    the library; for logging; launches nothing)."""
+    """The mma template's launch at this call shape (D = 8-64), or the
+    wide kernel's (a multiple of 64 past 64), as the library computes it:
+    blocks, threads a block and ring stages (builds the library; for
+    logging; launches nothing)."""
     lib = _library()
     f = lib.ecg_attention_dense_launch_shape
     f.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
@@ -173,7 +172,7 @@ def fused_attention_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """B5 on the card, the plain version on the CPU (see the module
     docstring); raises on a stage the TPU does not pack and, on the card,
-    on operands that need a gradient (B5 has no backward) and at D > 64."""
+    on operands that need a gradient (B5 has no backward)."""
     check_operands(q, k, v, bias)
     H, L = q.shape[1], q.shape[2]
     P = dense_pack_factor(H, L)

@@ -1,7 +1,8 @@
 // Dense-packed attention forward (B5) — RA-LENet's short-sequence attention
 // stages on Hopper (sm_90a), the eval forward with ECG_ATTN_DENSE=1; and, at
-// head_dim 8 to 64, Transformer1d's (the mma template at the end of this
-// file, behind the same C entry point).
+// head_dim 8 to 64, Transformer1d's (the mma template below), and past 64
+// with wide heads (the wide kernel at the end of this file), behind the
+// same C entry point.
 //
 // Replaces the TPU kernel ecg_denoise_tpu/kernels/attention_pallas.py
 // _fwd_dense_kernel (:449), launched through _fwd_dense (:524-559, the
@@ -862,18 +863,25 @@ attention_dense_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// Calls f(kBias, kSpan), each a std::integral_constant, for a call at (L,
+// with_bias): kSpan = max(L, 16), the template's and the wide kernel's.
+template <typename F>
+cudaError_t span_dispatch(int L, bool with_bias, F&& f) {
+  auto at_bias = [&](auto b) -> cudaError_t {
+    if (L <= 16) return f(b, std::integral_constant<int, 16>{});
+    if (L == 32) return f(b, std::integral_constant<int, 32>{});
+    return f(b, std::integral_constant<int, 64>{});
+  };
+  return with_bias ? at_bias(std::true_type{}) : at_bias(std::false_type{});
+}
+
 // Calls f(D, kBias, kSpan), each a std::integral_constant, at the template's
-// instantiation for a call at (D, L, with_bias): kSpan = max(L, 16); D =
-// 8 at f32 only (bf16's mma is 16 deep), 16, 32 or 64.
+// instantiation for a call at (D, L, with_bias): D = 8 at f32 only (bf16's
+// mma is 16 deep), 16, 32 or 64.
 template <typename T, typename F>
 cudaError_t dense_dispatch(int D, int L, bool with_bias, F&& f) {
   auto at_d = [&](auto d) -> cudaError_t {
-    auto at_bias = [&](auto b) -> cudaError_t {
-      if (L <= 16) return f(d, b, std::integral_constant<int, 16>{});
-      if (L == 32) return f(d, b, std::integral_constant<int, 32>{});
-      return f(d, b, std::integral_constant<int, 64>{});
-    };
-    return with_bias ? at_bias(std::true_type{}) : at_bias(std::false_type{});
+    return span_dispatch(L, with_bias, [&](auto b, auto span) { return f(d, b, span); });
   };
   switch (D) {
     case 8:
@@ -886,9 +894,28 @@ cudaError_t dense_dispatch(int D, int L, bool with_bias, F&& f) {
   }
 }
 
-// The grid of one call: about one wave (the blocks an SM holds at this
-// call's shared memory, times the SMs), at most one block a unit; with a
-// bias a multiple of the (group, chunk) pairs, so that a block keeps one.
+// The grid of one call of `kernel` (the template or the wide kernel, `smem`
+// bytes of dynamic shared memory a block): about one wave (the blocks an SM
+// holds at that, times the SMs), at most one block a unit; with a bias a
+// multiple of the (group, chunk) pairs, so that a block keeps one.
+template <typename K>
+cudaError_t wave_grid(K kernel, int smem, bool with_bias, int B, int H, int L, int P,
+                      int device, int& grid) {
+  int sms = 0, per_sm = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kDenseThreads, smem);
+  if (err != cudaSuccess) return err;
+  const DenseUnits units(B, H, L, P);
+  if (units.total > 0x7fffffffLL) return cudaErrorInvalidValue;
+  long long blocks = static_cast<long long>(per_sm > 0 ? per_sm : 1) * sms;
+  if (blocks > units.total) blocks = units.total;
+  if (with_bias) blocks = blocks < units.pairs ? units.pairs : blocks / units.pairs * units.pairs;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  grid = static_cast<int>(blocks);
+  return cudaSuccess;
+}
+
 template <typename T, int D, bool kBias, int kSpan>
 cudaError_t dense_grid(int B, int H, int L, int P, int device, int& grid) {
   // Above 48 KB a block's dynamic shared memory must be allowed once per
@@ -898,21 +925,8 @@ cudaError_t dense_grid(int B, int H, int L, int P, int device, int& grid) {
       attention_dense_fwd_mma_kernel<T, D, kBias, kSpan>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, dense_smem_bytes<T, D>(64, kBias));
   if (allowed != cudaSuccess) return allowed;
-  int sms = 0, per_sm = 0;
-  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, attention_dense_fwd_mma_kernel<T, D, kBias, kSpan>, kDenseThreads,
-      dense_smem_bytes<T, D>(L, kBias));
-  if (err != cudaSuccess) return err;
-  const DenseUnits units(B, H, L, P);
-  if (units.total > 0x7fffffffLL) return cudaErrorInvalidValue;
-  long long blocks = static_cast<long long>(per_sm > 0 ? per_sm : 1) * sms;
-  if (blocks > units.total) blocks = units.total;
-  if (kBias) blocks = blocks < units.pairs ? units.pairs : blocks / units.pairs * units.pairs;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  grid = static_cast<int>(blocks);
-  return cudaSuccess;
+  return wave_grid(attention_dense_fwd_mma_kernel<T, D, kBias, kSpan>,
+                   dense_smem_bytes<T, D>(L, kBias), kBias, B, H, L, P, device, grid);
 }
 
 template <typename T>
@@ -948,23 +962,357 @@ cudaError_t dense_mma_shape(int B, int H, int L, int D, int P, bool with_bias, i
   });
 }
 
+// ---------------------------------------------------------------------------
+// head_dim past 64: one kernel for every D that is a multiple of 64 (the
+// wrapper zero-pads any other D > 64 up to the next one). Transformer1d at
+// its published widths with num_heads (1, 1, 2, 4) packs its last two
+// stages at D = 256: (L, H) = (64, 2), P = 2, and (32, 4), P = 4, 8 of the
+// 12 calls of a dense forward. The template above is left as it is.
+//
+// What bounds it: the template's work and bytes, 4*L*L*D flops a (b, h)
+// against 4*L*D operand elements; at (64, 2), B = 256, D = 256, f32, q, k,
+// v and o are 134 MB, 40 us at 3.35 TB/s, against 8.6 GFLOP of 3xTF32
+// products, 17 us at 495 TFLOP/s. But the template's ring of q, K and V at
+// D + 4 floats a row is 2*3*64*(D + 4)*4 bytes, 399,360 at D = 256, past the
+// 232,448 a block may have, and its output accumulators take D / 2
+// registers a thread. So nothing here grows with D:
+// * The template's units (64 rows of one batch element's head group), its
+//   persistent grid of one wave, its bias tile staged once a block, and its
+//   warps (a 16-row m-tile each, its key span max(L, 16)).
+// * D is cut into 64-wide chunks, and a unit walks 2 * chunks stages of a
+//   ring of two buffers of two 64 x 68 f32 (64 x 72 bf16) tiles: chunk c
+//   of q and K (c < chunks), then chunk c - chunks of V. The next stage's
+//   copies (cp.async; the next unit's first chunk after a unit's last) are
+//   in flight while one computes.
+// * S = q.k^T over the span is summed over the chunks in C fragments
+//   (at most 8 n-tiles), each f32 k-step's three products in a fresh
+//   fragment; after the last chunk, the template's one softmax pass (the
+//   bias, other heads' keys at -inf at L < 16, each head its own max).
+//   The exps stay in registers, and each V chunk gives its 64 dims of the
+//   output: P.V in one fresh fragment, times the row sum's reciprocal,
+//   rounded once and stored. q.k^T runs once; nothing is recomputed.
+// No atomics: a call gives bit-identical results every time.
+
+constexpr int kWideD = 64;  // dims of a chunk of D
+
+// One buffer of the ring: two 64-row tiles (q and K, or V in the first).
+template <typename T>
+__host__ __device__ constexpr int wide_stage_elems() {
+  return 2 * kDenseRows * dense_stride<T, kWideD>();
+}
+
+template <typename T>
+__host__ __device__ int wide_smem_bytes(int L, bool with_bias) {
+  return kDenseStages * wide_stage_elems<T>() * static_cast<int>(sizeof(T)) +
+         (with_bias ? kDenseRows * dense_bias_stride(L) * 4 : 0);
+}
+
+// Start the copies of a unit's rows [0, n16), dims col0 .. col0 + 63, of x
+// into the tile `dst`; rows at and past `n` are zero-filled.
+template <typename T>
+__device__ __forceinline__ void stage_wide(T* dst, const T* __restrict__ x, size_t row0, int n,
+                                           int n16, int D, int col0) {
+  constexpr int kPer = 16 / sizeof(T);    // values a copy
+  constexpr int kChunks = kWideD / kPer;  // copies a row
+  constexpr int kS = dense_stride<T, kWideD>();
+  for (int i = threadIdx.x; i < n16 * kChunks; i += kDenseThreads) {
+    const int row = i / kChunks, c = i - row * kChunks;
+    const bool in = row < n;
+    const size_t at = in ? (row0 + row) * D + col0 + c * kPer : 0;
+    cp_async16(dst + row * kS + c * kPer, x + at, in);
+  }
+}
+
+template <typename T, bool kBias, int kSpan>
+__global__ void __launch_bounds__(kDenseThreads)
+attention_dense_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                const T* __restrict__ v, const T* __restrict__ bias,
+                                T* __restrict__ o, int B, int H, int L, int D, int P) {
+  constexpr bool kF32 = sizeof(T) == 4;
+  constexpr int kRows = kDenseRows;
+  constexpr int kS = dense_stride<T, kWideD>();
+  constexpr int kPlane = kRows * kS;
+  constexpr int kStage = wide_stage_elems<T>();
+  constexpr int kNT = kSpan / 8;  // n-tiles of S
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ring = reinterpret_cast<T*>(smem);  // [stage][2 tiles][kRows][kS]
+  float* btile = reinterpret_cast<float*>(ring + kDenseStages * kStage);
+  const DenseUnits units(B, H, L, P);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int first = blockIdx.x, step = gridDim.x;
+  const int total = static_cast<int>(units.total);
+  const int n_mine = first < total ? (total - 1 - first) / step + 1 : 0;
+  const int bs = dense_bias_stride(L);
+  const int chunks = D / kWideD;
+  const int per = 2 * chunks;  // stages a unit
+  const int n_stages = n_mine * per;
+
+  // As the template: this warp's m-tile, its key span, its two rows.
+  const int key0 = (16 * warp / kSpan) * kSpan;
+  const bool one_head = kSpan > 16 || L == 16;
+  const int r0 = 16 * warp + g, r1 = r0 + 8;
+
+  auto unit_at = [&](int it, size_t& row0, int& n) {
+    const int u = first + it * step;
+    const int c = u & ((1 << units.shift) - 1);
+    row0 = static_cast<size_t>(u >> units.shift) * units.rows + c * kRows;
+    n = min(kRows, units.rows - c * kRows);
+  };
+  // Stage st: unit st / per, step c = st % per: chunk c of q and K, or
+  // chunk c - chunks of V.
+  auto stage = [&](int st) {
+    const int it = st / per, c = st - it * per;
+    size_t row0;
+    int n;
+    unit_at(it, row0, n);
+    T* buf = ring + (st % kDenseStages) * kStage;
+    const int n16 = (n + 15) & ~15;
+    if (c < chunks) {
+      stage_wide<T>(buf, q, row0, n, n16, D, c * kWideD);
+      stage_wide<T>(buf + kPlane, k, row0, n, n16, D, c * kWideD);
+    } else {
+      stage_wide<T>(buf, v, row0, n, n16, D, (c - chunks) * kWideD);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+
+  if (n_stages > 0) stage(0);
+  if constexpr (kBias) {
+    // The block's (group, chunk), the same for every unit it walks.
+    if (n_mine > 0) {
+      const int pair = first % units.pairs;
+      const int grp = pair >> units.shift, c = pair & ((1 << units.shift) - 1);
+      const int n = min(kRows, units.rows - c * kRows);
+      const T* src = bias + (static_cast<size_t>(grp) * units.rows + c * kRows) * L;
+      for (int i = threadIdx.x; i < n * L; i += kDenseThreads) {
+        const int row = i / L, m = i - row * L;
+        btile[row * bs + m] = to_float(src[i]);
+      }
+    }
+  }
+
+  float s[kNT][4];
+  float inv0 = 0.f, inv1 = 0.f;
+  for (int st = 0; st < n_stages; ++st) {
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    // Stage st is in for every thread, and every thread is done with the
+    // buffer the next copies overwrite (stage st - 1's); the bias tile too.
+    __syncthreads();
+    if (st + 1 < n_stages) stage(st + 1);
+    const int it = st / per, c = st - it * per;
+    size_t row0;
+    int n;
+    unit_at(it, row0, n);
+    if (16 * warp >= n) continue;
+    const T* buf = ring + (st % kDenseStages) * kStage;
+
+    if (c < chunks) {
+      if (c == 0) {
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      }
+      const T* qs = buf;
+      const T* ks = buf + kPlane + key0 * kS;
+      // S += q.k^T over this chunk's 64 dims.
+      if constexpr (kF32) {
+#pragma unroll
+        for (int kk = 0; kk < kWideD / 8; ++kk) {
+          const float* qp = reinterpret_cast<const float*>(qs) + r0 * kS + 8 * kk + tq;
+          uint32_t ah[4], al[4];
+          split_tf32(qp[0], ah[0], al[0]);
+          split_tf32(qp[8 * kS], ah[1], al[1]);
+          split_tf32(qp[4], ah[2], al[2]);
+          split_tf32(qp[8 * kS + 4], ah[3], al[3]);
+#pragma unroll
+          for (int j = 0; j < kNT; ++j) {
+            const float* kr = reinterpret_cast<const float*>(ks) + (8 * j + g) * kS + 8 * kk + tq;
+            float t[4] = {0.f, 0.f, 0.f, 0.f};  // this k-step's products, summed apart
+            mma_3xtf32(t, ah, al, kr[0], kr[4]);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) s[j][i] += t[i];
+          }
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < kWideD / 16; ++kk) {
+          const uint32_t* qp = reinterpret_cast<const uint32_t*>(qs + r0 * kS + 16 * kk) + tq;
+          const uint32_t a[4] = {qp[0], qp[4 * kS], qp[4], qp[4 * kS + 4]};  // 8 rows: 4 kS words
+#pragma unroll
+          for (int j = 0; j < kNT; ++j) {
+            const uint32_t* kr =
+                reinterpret_cast<const uint32_t*>(ks + (8 * j + g) * kS + 16 * kk) + tq;
+            mma_bf16(s[j], a, kr[0], kr[4]);
+          }
+        }
+      }
+      if (c + 1 < chunks) continue;
+
+      // The bias; at L < 16 another head's keys to -inf (as the template).
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        const int m = 8 * j + 2 * tq;
+        if (one_head) {
+          if constexpr (kBias) {
+            const float2 b0 = *reinterpret_cast<const float2*>(btile + r0 * bs + m);
+            const float2 b1 = *reinterpret_cast<const float2*>(btile + r1 * bs + m);
+            s[j][0] += b0.x;
+            s[j][1] += b0.y;
+            s[j][2] += b1.x;
+            s[j][3] += b1.y;
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int mk = m + e;
+            const bool own0 = mk / L == g / L, own1 = mk / L == (g + 8) / L;
+            if constexpr (kBias) {
+              if (own0 && r0 < n) s[j][e] += btile[r0 * bs + mk % L];
+              if (own1 && r1 < n) s[j][2 + e] += btile[r1 * bs + mk % L];
+            }
+            if (!own0) s[j][e] = __int_as_float(0xff800000);
+            if (!own1) s[j][2 + e] = __int_as_float(0xff800000);
+          }
+        }
+      }
+      // One softmax pass over the whole row; the exps stay in s.
+      float mx0 = __int_as_float(0xff800000), mx1 = mx0;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+      }
+#pragma unroll
+      for (int x = 1; x <= 2; x <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+      }
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        s[j][0] = __expf(s[j][0] - mx0);
+        s[j][1] = __expf(s[j][1] - mx0);
+        s[j][2] = __expf(s[j][2] - mx1);
+        s[j][3] = __expf(s[j][3] - mx1);
+        sum0 += s[j][0] + s[j][1];
+        sum1 += s[j][2] + s[j][3];
+      }
+#pragma unroll
+      for (int x = 1; x <= 2; x <<= 1) {
+        sum0 += __shfl_xor_sync(0xffffffffu, sum0, x);
+        sum1 += __shfl_xor_sync(0xffffffffu, sum1, x);
+      }
+      inv0 = 1.f / sum0;
+      inv1 = 1.f / sum1;
+      continue;
+    }
+
+    // V chunk c - chunks: its 64 dims of the output, P.V in a fresh fragment.
+    const T* vs = buf + key0 * kS;
+    float acc[kWideD / 8][4];
+#pragma unroll
+    for (int d = 0; d < kWideD / 8; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+    if constexpr (kF32) {
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        uint32_t ph[4], pl[4];
+        split_tf32(s[j][0], ph[0], pl[0]);
+        split_tf32(s[j][2], ph[1], pl[1]);
+        split_tf32(s[j][1], ph[2], pl[2]);
+        split_tf32(s[j][3], ph[3], pl[3]);
+        const float* vr = reinterpret_cast<const float*>(vs) + (8 * j + 2 * tq) * kS + g;
+#pragma unroll
+        for (int d = 0; d < kWideD / 8; ++d) {
+          mma_3xtf32(acc[d], ph, pl, vr[8 * d], vr[kS + 8 * d]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int jj = 0; jj < kNT / 2; ++jj) {
+        const uint32_t pa[4] = {bf16x2(s[2 * jj][0], s[2 * jj][1]),
+                                bf16x2(s[2 * jj][2], s[2 * jj][3]),
+                                bf16x2(s[2 * jj + 1][0], s[2 * jj + 1][1]),
+                                bf16x2(s[2 * jj + 1][2], s[2 * jj + 1][3])};
+        const T* vrow = vs + (16 * jj + (lane & 15)) * kS + (lane >> 4) * 8;
+#pragma unroll
+        for (int d = 0; d < kWideD / 16; ++d) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, vrow + 16 * d);
+          mma_bf16(acc[2 * d], pa, b[0], b[1]);
+          mma_bf16(acc[2 * d + 1], pa, b[2], b[3]);
+        }
+      }
+    }
+    T* o0 = o + (row0 + r0) * D + (c - chunks) * kWideD + 2 * tq;
+    T* o1 = o0 + 8 * static_cast<size_t>(D);
+#pragma unroll
+    for (int d = 0; d < kWideD / 8; ++d) {
+      if (r0 < n) store2(o0 + 8 * d, acc[d][0] * inv0, acc[d][1] * inv0);
+      if (r1 < n) store2(o1 + 8 * d, acc[d][2] * inv1, acc[d][3] * inv1);
+    }
+  }
+}
+
+// The wide kernel's grid (`wave_grid`), its shared memory allowed once per
+// instantiation as the template's (`dense_grid`).
+template <typename T, bool kBias, int kSpan>
+cudaError_t wide_grid(int B, int H, int L, int P, int device, int& grid) {
+  static const cudaError_t allowed = cudaFuncSetAttribute(
+      attention_dense_fwd_wide_kernel<T, kBias, kSpan>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, wide_smem_bytes<T>(64, kBias));
+  if (allowed != cudaSuccess) return allowed;
+  return wave_grid(attention_dense_fwd_wide_kernel<T, kBias, kSpan>,
+                   wide_smem_bytes<T>(L, kBias), kBias, B, H, L, P, device, grid);
+}
+
+template <typename T>
+cudaError_t launch_dense_wide(const void* q, const void* k, const void* v, const void* bias,
+                              void* o, int B, int H, int L, int D, int P, int device,
+                              cudaStream_t stream) {
+  return span_dispatch(L, bias != nullptr, [&](auto b, auto span) {
+    constexpr bool kBias = decltype(b)::value;
+    constexpr int kSpan = decltype(span)::value;
+    int grid = 0;
+    const cudaError_t err = wide_grid<T, kBias, kSpan>(B, H, L, P, device, grid);
+    if (err != cudaSuccess) return err;
+    attention_dense_fwd_wide_kernel<T, kBias, kSpan>
+        <<<grid, kDenseThreads, wide_smem_bytes<T>(L, kBias), stream>>>(
+            static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+            static_cast<const T*>(bias), static_cast<T*>(o), B, H, L, D, P);
+    return cudaGetLastError();
+  });
+}
+
+template <typename T>
+cudaError_t dense_wide_shape(int B, int H, int L, int P, bool with_bias, int device, int* out) {
+  return span_dispatch(L, with_bias, [&](auto b, auto span) {
+    out[1] = kDenseThreads;
+    out[2] = kDenseStages;
+    return wide_grid<T, decltype(b)::value, decltype(span)::value>(B, H, L, P, device, out[0]);
+  });
+}
+
+// A multiple of 64 past 64: the wide kernel's D.
+inline bool dense_wide_takes(int D) { return D > kWideD && D % kWideD == 0; }
+
 template <typename T>
 int dense_mma_smem(int L, int D, bool with_bias) {
   switch (D) {
     case 8: return dense_smem_bytes<T, 8>(L, with_bias);
     case 16: return dense_smem_bytes<T, 16>(L, with_bias);
     case 32: return dense_smem_bytes<T, 32>(L, with_bias);
-    default: return dense_smem_bytes<T, 64>(L, with_bias);
+    case 64: return dense_smem_bytes<T, 64>(L, with_bias);
+    default: return wide_smem_bytes<T>(L, with_bias);  // dense_call_ok took D
   }
 }
 
-// Whether the template is instantiated at (D, dtype).
+// Whether the template or the wide kernel is built for (D, dtype).
 inline bool dense_mma_takes(int D, int dtype) {
-  return (D == 8 && dtype == 0) || D == 16 || D == 32 || D == 64;
+  return (D == 8 && dtype == 0) || D == 16 || D == 32 || D == 64 || dense_wide_takes(D);
 }
 
 // The shape checks of every entry point: L < 128 a power of two, P > 1
-// dividing H, P*L <= 128, D = 4 or a template D, dtype 0 or 1.
+// dividing H, P*L <= 128, D = 4, a template D or a wide one, dtype 0 or 1.
 inline bool dense_call_ok(int H, int L, int D, int P, int dtype) {
   return H >= 1 && L >= 1 && L < kMaxPairs && (L & (L - 1)) == 0 && P >= 2 && H % P == 0 &&
          P * L <= kMaxPairs && (dtype == 0 || dtype == 1) &&
@@ -973,8 +1321,9 @@ inline bool dense_call_ok(int H, int L, int D, int P, int dtype) {
 
 }  // namespace
 
-// Plain C interface for ctypes. D: 4 (the first kernel) or 8, 16, 32, 64
-// (the mma template; bf16 from 16). dtype: 0 = float32, 1 = bfloat16.
+// Plain C interface for ctypes. D: 4 (the first kernel), 8, 16, 32, 64
+// (the mma template; bf16 from 16) or a multiple of 64 past 64 (the wide
+// kernel). dtype: 0 = float32, 1 = bfloat16.
 // `bias` may be null. P is the route's pack factor (dense_pack_factor in
 // attention_dense.py): the call is refused unless L < 128 is a power of
 // two, P > 1 divides H and P*L <= 128. Launches on `stream` of card
@@ -993,16 +1342,21 @@ extern "C" int ecg_attention_dense_fwd(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     err = D == kD ? launch<float>(q, k, v, bias, o, B, H, L, P, device, s)
-                  : launch_dense_mma<float>(q, k, v, bias, o, B, H, L, D, P, device, s);
+          : dense_wide_takes(D)
+              ? launch_dense_wide<float>(q, k, v, bias, o, B, H, L, D, P, device, s)
+              : launch_dense_mma<float>(q, k, v, bias, o, B, H, L, D, P, device, s);
   } else {
     err = D == kD ? launch<__nv_bfloat16>(q, k, v, bias, o, B, H, L, P, device, s)
-                  : launch_dense_mma<__nv_bfloat16>(q, k, v, bias, o, B, H, L, D, P, device, s);
+          : dense_wide_takes(D)
+              ? launch_dense_wide<__nv_bfloat16>(q, k, v, bias, o, B, H, L, D, P, device, s)
+              : launch_dense_mma<__nv_bfloat16>(q, k, v, bias, o, B, H, L, D, P, device, s);
   }
   return static_cast<int>(err);
 }
 
 // The dynamic shared memory, in bytes, that one block of a call asks for:
-// the first kernel's at D = 4, the template's at D = 8-64; -1 for what
+// the first kernel's at D = 4, the template's at D = 8-64, the wide
+// kernel's past 64; -1 for what
 // ecg_attention_dense_fwd refuses. For logging; launches nothing.
 extern "C" int ecg_attention_dense_smem_bytes(int L, int D, int P, int dtype,
                                               int with_bias) {
@@ -1015,9 +1369,9 @@ extern "C" int ecg_attention_dense_smem_bytes(int L, int D, int P, int dtype,
                     : dense_mma_smem<__nv_bfloat16>(L, D, with_bias != 0);
 }
 
-// The template's launch at this call shape, for logging (launches
-// nothing): its blocks, threads a block and ring stages through `out`
-// (three ints). Returns the cudaError_t; D = 4 and what
+// The template's (or the wide kernel's) launch at this call shape, for
+// logging (launches nothing): its blocks, threads a block and ring stages
+// through `out` (three ints). Returns the cudaError_t; D = 4 and what
 // ecg_attention_dense_fwd refuses are cudaErrorInvalidValue.
 extern "C" int ecg_attention_dense_launch_shape(int B, int H, int L, int D, int P, int dtype,
                                                 int with_bias, int device, int* out) {
@@ -1026,8 +1380,13 @@ extern "C" int ecg_attention_dense_launch_shape(int B, int H, int L, int D, int 
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = dtype == 0 ? dense_mma_shape<float>(B, H, L, D, P, with_bias != 0, device, out)
-                   : dense_mma_shape<__nv_bfloat16>(B, H, L, D, P, with_bias != 0, device, out);
+  if (dense_wide_takes(D)) {
+    err = dtype == 0 ? dense_wide_shape<float>(B, H, L, P, with_bias != 0, device, out)
+                     : dense_wide_shape<__nv_bfloat16>(B, H, L, P, with_bias != 0, device, out);
+  } else {
+    err = dtype == 0 ? dense_mma_shape<float>(B, H, L, D, P, with_bias != 0, device, out)
+                     : dense_mma_shape<__nv_bfloat16>(B, H, L, D, P, with_bias != 0, device, out);
+  }
   return static_cast<int>(err);
 }
 

@@ -9,9 +9,9 @@ defaults, every head 32 wide), a final LayerNorm, the mean over length and
 a Linear head.
 
 There is no `use_pallas` switch: as in RaleNet, the attention goes to the
-Hopper kernels (B1 and B2's mma template, any head width up to 64) on a
-CUDA tensor and to their plain version on a CPU tensor, at any head width
-(`kernels.attention.fused_attention`).
+Hopper kernels (B1 and B2's mma template up to a head width of 64, their
+wide kernels past it) on a CUDA tensor and to their plain version on a
+CPU tensor, at any head width (`kernels.attention.fused_attention`).
 Attribute names are the JAX module names (`embed`, `layer{i}`,
 `merge{i}`, `norm`, `head`), so `interop.jax_weights.transformer1d_state_dict`
 maps JAX variables without renames. Parameters are float32; `dtype` is

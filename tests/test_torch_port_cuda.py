@@ -62,6 +62,12 @@ B1 is also held at shapes that cut across its row tiles and batch groups
 (L = 203, 7, 1; B = 1, 3, 37, 1000), with its lse within 1e-5 of
 max(1, max|lse|) of the plain log-sum-exp and a second call bit-identical.
 
+B1, B2 and B5 past head_dim 64 (the wide kernels; 72 and 200 padded to 128
+and 256, 128, 256 and 320 as they are) are held to the same bars at shapes
+that cut across their 64-row tiles and packed heads and past 256 keys, and
+a small Transformer1d with 128- and 256-wide heads on the card equals the
+CPU's within 1e-4 with the launches of its blocks, dense and default.
+
 B1 and B2 on the mma template (head_dim 8, 16, 32, 64; 24 padded to 32;
 D = 4 past 256 keys padded to 8) are held to the same bars, the f32
 gradients to 1e-4 of their max, at Transformer1d's four stage shapes and
@@ -177,6 +183,11 @@ D32_CASES = ([(8, L, H) for L, H in [(256, 4), (128, 8), (64, 16), (32, 32)]]
 MMA_CASES = ([(D, *c) for D in (8, 16, 24, 64)
               for c in [(2, 256, 2), (3, 203, 2), (2, 33, 3), (5, 7, 2), (4, 1, 1), (1, 65, 1)]]
              + [(4, 3, 300, 2), (4, 1, 257, 1)])
+# The wide kernels (head_dim past 64): padded up (72, 200) and as they are
+# (128, 256, 320), at packed heads (L <= 32), one and four 64-row tiles and
+# past 256 keys: (D, B, L, H).
+WIDE_CASES = [(D, *c) for D in (72, 128, 200, 256, 320)
+              for c in [(2, 32, 3), (3, 64, 2), (2, 256, 1), (1, 300, 1), (3, 7, 2)]]
 # lse against attention_reference's logsumexp of the same f32 logits: the
 # kernel's row sum uses __expf and another order (1e-6 relative), |lse|
 # stays below about 20.
@@ -184,7 +195,7 @@ LSE_TOL = 1e-5
 
 
 @pytest.mark.parametrize("D,B,L,H", [(4, *c) for c in RAGGED_B1] + [(32, *c) for c in D32_CASES]
-                         + MMA_CASES)
+                         + MMA_CASES + WIDE_CASES)
 @pytest.mark.parametrize("with_bias", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_at_ragged_shapes_with_lse(cuda, D, B, L, H, with_bias, dtype):
@@ -224,7 +235,7 @@ D32_GRAD_TOL_OF_MAX = 1e-4
 
 
 @pytest.mark.parametrize("D,B,L,H", [(4, 8, L, H) for L, H in STAGES]
-                         + [(32, *c) for c in D32_CASES] + MMA_CASES)
+                         + [(32, *c) for c in D32_CASES] + MMA_CASES + WIDE_CASES)
 @pytest.mark.parametrize("with_bias", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_backward_kernel_matches_plain_versions(cuda, D, B, L, H, with_bias, dtype):
@@ -621,7 +632,12 @@ def test_rpos_model_forward_and_step_match_cpu_with_14_and_4_launches(cuda):
 DENSE_MMA_SHAPES = [(2, 64), (8, 16), (16, 8), (32, 32), (64, 16), (2, 2), (8, 6), (32, 3)]
 DENSE_CASES = ([(4, B, L, H) for L, H in DENSE_SHAPES for B in DENSE_BATCHES]
                + [(D, B, L, H) for D in (8, 16, 24, 32, 64) for L, H in DENSE_MMA_SHAPES
-                  for B in (1, 37)])
+                  for B in (1, 37)]
+               # The wide kernel: Transformer1d's packable stages with 256-wide
+               # heads, (64, 2) and (32, 4), and other shapes, padded up (72,
+               # 200) and as they are (128, 256, 320).
+               + [(D, B, L, H) for D in (72, 128, 200, 256, 320)
+                  for L, H in [(64, 2), (32, 4), (8, 16), (16, 2), (32, 3)] for B in (1, 5)])
 
 
 @pytest.mark.parametrize("D,B,L,H", DENSE_CASES)
@@ -1189,3 +1205,55 @@ def test_transformer1d_matches_cpu_with_its_launches(cuda):
             assert (fused_attention.launches - counts[0],
                     fused_attention.bwd_launches - counts[1]) == (2, 2)
     assert abs(got[0] - got[1]) <= 1e-5 * abs(got[1])
+
+
+def test_wide_head_transformer1d_matches_cpu_with_its_launches(cuda, monkeypatch):
+    """A small Transformer1d with heads 128 and 256 wide (embed 128, heads
+    (1, 1); the wide kernels) on the card against the CPU within 1e-4, eval
+    and one training step's loss, with one B1 launch a block forward and
+    one B2 a block backward; with ECG_ATTN_DENSE=1, at embed 256 and heads
+    (2, 2) (D = 128 at L = 64, 256 at L = 32: both pack, P = 2), one B5
+    launch a block, within 1e-5 of the default route."""
+    from ecg_denoise_tpu_torch.models import Transformer1d
+    from ecg_denoise_tpu_torch.train import create_train_state, make_cls_epoch_fns
+
+    torch.manual_seed(3)
+    cpu = Transformer1d(num_class=3, in_channels=4, embed_dim=128, depths=(1, 1),
+                        num_heads=(1, 1)).eval()
+    x = torch.randn(8, 4, 64)
+    label = torch.randint(0, 3, (8,))
+    gpu = create_train_state(copy.deepcopy(cpu)).model.eval()
+    before = fused_attention.launches
+    with torch.no_grad():
+        y = gpu(x.to(cuda))
+    torch.cuda.synchronize()
+    assert fused_attention.launches == before + 2
+    with torch.no_grad():
+        assert (y.cpu() - cpu(x)).abs().max().item() <= 1e-4
+    got = []
+    for model, device in ((gpu, cuda), (cpu, torch.device("cpu"))):
+        state = create_train_state(model, device=device)
+        train_epoch, _ = make_cls_epoch_fns(state.model, state.optimizer)
+        counts = (fused_attention.launches, fused_attention.bwd_launches)
+        gen = torch.Generator(device=device).manual_seed(0)
+        got.append(train_epoch(x.to(device), label.to(device), gen, 8)["loss"])
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            assert (fused_attention.launches - counts[0],
+                    fused_attention.bwd_launches - counts[1]) == (2, 2)
+    assert abs(got[0] - got[1]) <= 1e-5 * abs(got[1])
+
+    dense = Transformer1d(num_class=3, in_channels=4, embed_dim=256, depths=(1, 1),
+                          num_heads=(2, 2))
+    dense = create_train_state(dense).model.eval()
+    xd = torch.randn(8, 4, 64).to(cuda)
+    with torch.no_grad():
+        monkeypatch.setenv("ECG_ATTN_DENSE", "0")
+        y_default = dense(xd)
+        monkeypatch.setenv("ECG_ATTN_DENSE", "1")
+        before = (fused_attention.launches, fused_attention_dense.launches)
+        y_dense = dense(xd)
+        torch.cuda.synchronize()
+    assert (fused_attention.launches - before[0],
+            fused_attention_dense.launches - before[1]) == (0, 2)
+    assert (y_dense - y_default).abs().max().item() <= F32_TOL

@@ -19,11 +19,14 @@ the plain ones, within 1e-4; both sides take the dense forward at both
 stages. The same at embed 32, every head 16 wide.
 
 B5 takes every head dim: the plain version against JAX's `_fwd_dense` at
-D = 8, 16 and 64 at both stages and at L = 8 (and D = 32 at L = 8), B =
-2, within 1e-5; `dense_route` takes any D <= 64 at a packable stage and
-declines D > 64 and the stages that do not pack; and the card's wrapper
-runs a D = 24 call at D = 32 (`kernel_head_dim`), zero-padded and sliced
-back (`forward_at`), here with the plain version as its kernel.
+D = 8, 16 and 64 at both stages and at L = 8 (and D = 32 at L = 8), and
+at D = 128 and 256 (Transformer1d's packable stages with 256-wide heads,
+(64, 2) and (32, 4), and D = 128 at (64, 16)), B = 2, within 1e-5;
+`dense_route` takes any D at a packable stage and declines the stages
+that do not pack; and the card's wrapper runs a D = 24 call at D = 32
+(`kernel_head_dim`), and D = 72, 200 at 128, 256 (D = 320 as it is),
+zero-padded and sliced back (`forward_at`), here with the plain version
+as its kernel.
 """
 
 import numpy as np
@@ -54,8 +57,11 @@ STAGES = [(64, 16), (32, 32)]  # Transformer1d's packable (L, H) at 256 samples
 DENSE_SMALL = dict(num_class=9, in_channels=32, embed_dim=64, depths=(1, 1), num_heads=(2, 4))
 # Every head 16 wide: embed 32 over (2, 4) heads.
 DENSE_SMALL_D16 = dict(DENSE_SMALL, embed_dim=32)
-# B5's other head dims at Transformer1d's stages and at L = 8 (P = 16).
-OTHER_D_CASES = [(d, L, H) for d in (8, 16, 64) for L, H in STAGES + [(8, 16)]] + [(D, 8, 16)]
+# B5's other head dims at Transformer1d's stages and at L = 8 (P = 16);
+# then past 64: Transformer1d's packable stages with 256-wide heads (num_heads
+# (1, 1, 2, 4)) and D = 128 at its first default one.
+OTHER_D_CASES = ([(d, L, H) for d in (8, 16, 64) for L, H in STAGES + [(8, 16)]] + [(D, 8, 16)]
+                 + [(256, 64, 2), (256, 32, 4), (128, 64, 16)])
 
 
 @pytest.fixture
@@ -113,16 +119,29 @@ def test_reference_matches_jax_dense_kernel_at_other_head_dims(jax_dense_calls, 
 
 def test_dense_route_takes_every_head_dim_up_to_64(monkeypatch):
     """With ECG_ATTN_DENSE=1 the route takes any D <= 64 where the stage
-    packs, and declines D > 64 (B1 raises there on the card) and the
-    stages that do not pack; with the switch off it takes nothing."""
+    packs, and declines the stages that do not pack; with the switch off
+    it takes nothing."""
     monkeypatch.setenv("ECG_ATTN_DENSE", "1")
     for L, H in STAGES + [(8, 16), (2, 2)]:
         assert all(dense_route((2, H, L, d)) for d in (1, 4, 8, 12, 16, 24, 32, 48, 64))
-        assert not dense_route((2, H, L, 65)) and not dense_route((2, H, L, 128))
     for L, H in [(256, 4), (128, 8), (48, 4), (64, 1), (64, 3)]:
         assert dense_pack_factor(H, L) == 1 and not dense_route((2, H, L, 16))
     monkeypatch.setenv("ECG_ATTN_DENSE", "0")
     assert not dense_route((2, 16, 64, 16))
+
+
+def test_dense_route_takes_head_dims_past_64(monkeypatch):
+    """Past D = 64 the route takes a packable stage too (B5's wide kernel,
+    where it declined and left the call to B1 before), as JAX's `_fwd`
+    packs any D: Transformer1d's (64, 2) and (32, 4) with 256-wide heads;
+    B1 keeps the stages that do not pack."""
+    monkeypatch.setenv("ECG_ATTN_DENSE", "1")
+    for L, H in STAGES + [(64, 2), (32, 4), (8, 16), (2, 2)]:
+        assert all(dense_route((2, H, L, d)) for d in (65, 72, 128, 200, 256, 320, 512))
+    for L, H in [(256, 1), (128, 1), (64, 1)]:
+        assert not dense_route((2, H, L, 128)) and not dense_route((2, H, L, 256))
+    monkeypatch.setenv("ECG_ATTN_DENSE", "0")
+    assert not dense_route((2, 2, 64, 256))
 
 
 @pytest.mark.parametrize("with_bias", [True, False])
@@ -141,6 +160,28 @@ def test_card_wrapper_pads_d24_to_32_and_slices_back(monkeypatch, with_bias):
     out = attention_dense._launch(q, k, v, bias, dense_pack_factor(16, 64))
     assert calls == [((2, 16, 64, 32), 2)]
     assert out.shape == (2, 16, 64, 24) and out.is_contiguous()
+    torch.testing.assert_close(out, attention_dense_reference(q, k, v, bias), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("d,wide", [(72, 128), (200, 256), (320, 320)])
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_card_wrapper_pads_past_64_and_slices_back(monkeypatch, d, wide, with_bias):
+    """Past D = 64 B5's card wrapper calls its kernel at the next multiple
+    of 64 (the wide kernel's; D = 320 as it is) on zero-padded operands and
+    slices the output back; with the plain version as the kernel the result
+    is the unpadded call's."""
+    calls = []
+
+    def plain_kernel(q, k, v, bias, *, P):
+        calls.append((tuple(q.shape), P))
+        return attention_dense_reference(q, k, v, bias)
+
+    monkeypatch.setattr(attention_dense, "_launch_kernel", plain_kernel)
+    q, k, v, bias = map(_t, _operands(2, 4, 32, with_bias, seed=d, d=d))
+    out = attention_dense._launch(q, k, v, bias, dense_pack_factor(4, 32))
+    assert calls == [((2, 4, 32, wide), 4)]
+    # Sliced back into a contiguous tensor; unpadded, the kernel's own.
+    assert out.shape == (2, 4, 32, d) and (out.is_contiguous() or wide == d)
     torch.testing.assert_close(out, attention_dense_reference(q, k, v, bias), atol=1e-6, rtol=0)
 
 

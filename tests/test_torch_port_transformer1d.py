@@ -14,7 +14,13 @@ wide, the slice's shape), L = 64, with random variables through
 `transformer1d_state_dict`: the forward within 1e-4 of JAX's with
 `use_pallas=True` (interpret mode) and `False`, every parameter's gradient
 within 1e-4 of its tensor's largest, and an odd L through PatchMerging's
-pad. With ECG_ATTN_DENSE=1 a D = 32 call takes the dense route (B5) where
+pad; the same at heads 16, 64, and 128 and 256 wide (embed 128, heads (1,
+1)). At its published widths with num_heads (1, 1, 2, 4) (heads 128 and
+256 wide) the model has the default's parameter shapes on both sides, so
+`transformer1d_state_dict` carries JAX's variables across unchanged.
+
+The plain attention is also held to JAX's Pallas pair at D = 128, 256 and
+320, the wide kernels' head dims. With ECG_ATTN_DENSE=1 a D = 32 call takes the dense route (B5) where
 the stage packs, as JAX's `_fwd` packs it, and B1 elsewhere.
 """
 
@@ -65,7 +71,12 @@ def _operands(B, H, L, with_bias, seed=0, D=D):
       for wb in (True, False) for B, H, L in ((2, 2, 64), (3, 1, 33))),
     pytest.param(True, 2, 1, 16, 8, id="True-2-1-16-d8"),
     pytest.param(False, 2, 1, 16, 16, id="False-2-1-16-d16"),
-    pytest.param(True, 2, 1, 16, 64, id="True-2-1-16-d64")])
+    pytest.param(True, 2, 1, 16, 64, id="True-2-1-16-d64"),
+    # Past 64: the wide kernels' head dims (Transformer1d's 128 and 256
+    # with num_heads (1, 1, 2, 4)), and 320, five of their 64-wide chunks.
+    pytest.param(True, 1, 2, 16, 128, id="True-1-2-16-d128"),
+    pytest.param(False, 2, 1, 8, 256, id="False-2-1-8-d256"),
+    pytest.param(True, 1, 1, 8, 320, id="True-1-1-8-d320")])
 def test_plain_attention_at_d32_matches_pallas_interpret(with_bias, B, H, L, d):
     q, k, v, bias, g = _operands(B, H, L, with_bias, seed=L + H, D=d)
     args = tuple(map(jnp.asarray, (q, k, v) + ((bias,) if with_bias else ())))
@@ -103,15 +114,19 @@ def _x(B, L, seed=1):
         (B, SMALL["in_channels"], L)).astype(np.float32)
 
 
-# Heads 16 and 64 wide (C1: the mma template's other head dims). JAX's
-# gradients of these are jitted: op by op they take about 12 s a config.
+# Heads 16 and 64 wide (C1: the mma template's other head dims), then 128
+# and 256 wide (the wide kernels' head dims, as Transformer1d's first two
+# stages with num_heads (1, 1, 2, 4)). JAX's gradients of these are jitted:
+# op by op they take about 12 s a config.
 HEADS_16 = dict(SMALL, embed_dim=32, num_heads=(2, 4))
 HEADS_64 = dict(SMALL, embed_dim=64, num_heads=(1, 2))
+HEADS_128 = dict(SMALL, embed_dim=128, num_heads=(1, 1))
 
 
 @pytest.mark.parametrize("use_pallas,config", [
     pytest.param(True, SMALL, id="True"), pytest.param(False, SMALL, id="False"),
-    pytest.param(False, HEADS_16, id="False-d16"), pytest.param(False, HEADS_64, id="False-d64")])
+    pytest.param(False, HEADS_16, id="False-d16"), pytest.param(False, HEADS_64, id="False-d64"),
+    pytest.param(False, HEADS_128, id="False-d128")])
 def test_transformer1d_forward_and_gradients_match_jax(use_pallas, config):
     jm, v, pm = _pair(use_pallas, config=config)
     x = _x(2, 64)
@@ -160,3 +175,29 @@ def test_dense_route_takes_d32_at_packable_stages(monkeypatch):
         assert dense_route((B, H, L, D)) == packs == dense_route((B, H, L, 4))
     monkeypatch.setenv("ECG_ATTN_DENSE", "0")
     assert not dense_route((B, 16, 64, D)) and not dense_route((B, 16, 64, 4))
+
+
+def test_published_widths_with_wide_heads_keep_the_default_shapes():
+    """Transformer1d at embed 128, depths (2, 2, 6, 2) with num_heads (1, 1,
+    2, 4): JAX's variables (shapes only, `jax.eval_shape`) are the
+    default's, `transformer1d_state_dict` maps them onto the port's model
+    with those heads, and both have 47,478,153 parameters."""
+    wide = dict(num_heads=(1, 1, 2, 4))
+    x = jax.ShapeDtypeStruct((1, 32, 256), jnp.float32)
+
+    def shapes(**kw):
+        m = JaxTransformer1d(**kw)
+        return jax.eval_shape(lambda x: m.init(jax.random.PRNGKey(0), x), x)
+
+    ref, got = shapes(), shapes(**wide)
+    assert jax.tree_util.tree_structure(ref) == jax.tree_util.tree_structure(got)
+    assert jax.tree_util.tree_leaves(jax.tree_util.tree_map(
+        lambda a, b: a.shape == b.shape, ref, got))
+    state = transformer1d_state_dict(jax.tree_util.tree_map(
+        lambda a: np.zeros(a.shape, np.float32), got))
+    pm = Transformer1d(**wide)
+    assert {k: tuple(v.shape) for k, v in state.items()} == {
+        k: tuple(v.shape) for k, v in pm.state_dict().items()}
+    pm.load_state_dict(state)
+    assert sum(p.numel() for p in pm.parameters()) == 47_478_153
+    assert [getattr(pm, f"layer{i}").blocks[0].attn.num_heads for i in range(4)] == [1, 1, 2, 4]
