@@ -367,9 +367,34 @@ and nothing falls back to the CPU):
    graph replays against their bounds, plain versions and SDPA: times,
    no bar.
 
-The last lines are one JSON object listing the ten kernels and the three
+31. B3 and B4 at every head dim and length: D = 4 at L <= 256 stays on
+   their D = 4 kernels (phases 9-13); every other shape runs on B1's and
+   B2's templates and wide kernels in their window mode, the operands
+   zero-padded to the kernel's head dim. (a) The 39 window-mode
+   instantiations' registers, stack, local memory and HMMA (cuobjdump),
+   beside B2's wide dk/dv pass. (b) B3 and B4 against their plain
+   versions at RPOS_ANY_D_CASES (head_dim 8, 16, 32, 64, 128, 256 at L =
+   256, a ragged 203 and packed heads at 32; D = 4 at L = 300 and 1000),
+   B = 8, f32 and bf16, at phase 30's bars for the forward and phase 10's
+   for the gradients, every call a launch, repeated calls bit-identical;
+   and, where the parent's tree is there, B1's and B2's templates bit for
+   bit the parent's (B12_TEMPLATE_PARENT_CASES). (c) The layer path:
+   `RelativePositionEmbedding(W, L, H)` on R peaks detected on the card
+   (equal to the CPU's), then `BasicLayer(H * D, depth 2, H)` as RA-LENet's
+   stages use it, at RPOS_LAYERS, served at 1,024 (f32 within MODEL_TOL of
+   the CPU on the first 32 windows, bf16 finite; 2 B3 launches a forward)
+   and trained at 256 for 3 Adam steps (2 + 2 a step), one step on 32
+   windows against the CPU's at `step_bars`; paths serve_rpos_d32,
+   train_rpos_d32, ... (counted apart). (d) B3 at 1,024 and B4 at 256 per
+   layer, f32 and bf16, from CUDA graph replays, against their bounds,
+   plain versions and SDPA on the materialised mask: times, no bar.
+
+The last lines are one JSON object listing the ten kernels, the three
 wide kernels (`attention_fwd_wide`, `attention_bwd_wide`,
-`attention_dense_fwd_wide`, their launches those of phase 30's paths)
+`attention_dense_fwd_wide`, their launches those of phase 30's paths) and
+B3's and B4's template rows (`attention_rpos_fwd_mma`, `_wide`,
+`attention_rpos_bwd_mma`, `_wide`, their launches those of phase 31's
+paths)
 (with their launches on each of the thirty-three paths: serve, train, serve_rpos,
 train_rpos, serve_dense, probes, probes_precision, serve_families,
 train_families, train_newrale, serve_newrale, train_augmented,
@@ -676,6 +701,34 @@ TP_EVAL_WINDOWS = 40  # two eval batches at DP_BATCH, the last ragged
 TP_SERVE_WINDOWS = 64
 TP_SERVE_TOL = 1e-5
 TP_EVAL_TOL = 1e-5
+# Phase 31: B3 and B4 at every head dim and length (B1's and B2's templates
+# in their window mode). The layer path, by path tag: the per-window
+# RelativePositionEmbedding(W, L, H) on detected R peaks, then
+# BasicLayer(H * D, depth 2, H) as RA-LENet's stages use it, at (L, W, H,
+# D) with RA-LENet's W = L / 8: its first stage with 32-wide heads,
+# Transformer1d's published head widths (128 and 256), and D = 4 past 256
+# keys (PTB-XL's 10 s at 100 Hz, padded to 8). Served at BATCH, trained at
+# TIMING_BATCH for RPOS_TRAIN_STEPS Adam steps; each held against the CPU on
+# its first RPOS_CHECK_WINDOWS windows (a (B, H, L, L) bias at B = 1,024
+# and L = 1,000 would take 8 GB there).
+RPOS_LAYERS = {"rpos_d32": (256, 32, 2, 32), "rpos_d128": (256, 32, 1, 128),
+               "rpos_d256": (128, 16, 1, 256), "rpos_long": (1000, 125, 2, 4)}
+RPOS_LAYER_DEPTH = 2
+RPOS_TRAIN_STEPS = 3
+RPOS_CHECK_WINDOWS = 32
+RPOS_LR = 1e-3
+# The kernel checks, at B = RPOS_CHECK_BATCH: every head dim class at (L, W,
+# H) = a row tile of four, a ragged L and packed heads (L <= 32, five heads,
+# so that one block holds heads of two batch elements), then D = 4 past the
+# D = 4 kernels' 256 keys.
+RPOS_CHECK_BATCH = 8
+RPOS_ANY_D_CASES = [(D, L, W, H) for D in (8, 16, 32, 64, 128, 256)
+                    for (L, W, H) in ((256, 32, 2), (203, 25, 3), (32, 4, 5))] + [
+    (4, 300, 37, 2), (4, 1000, 125, 2)]
+# B1 and B2 on their templates against the parent's, bit for bit, at every
+# width class: (D, B, L, H).
+B12_TEMPLATE_PARENT_CASES = [(D, B, L, H) for D in (8, 16, 32, 64, 128, 256)
+                             for (B, L, H) in ((3, 203, 2), (5, 32, 3))]
 
 
 def log(msg):
@@ -1679,7 +1732,7 @@ def pass_ms(fn, iters=5):
         return {}
     got = {}
     for ms, _, name in kernels:
-        key = next((p for p in ("dq", "dkdv", "dbias", "dtoep") if f"_bwd_{p}_kernel" in name),
+        key = next((p for p in ("dq", "dkdv", "dbias", "dtoep") if f"_bwd_{p}_" in name),
                    name[:60])
         got[key] = got.get(key, 0.0) + ms
     return got
@@ -1795,11 +1848,13 @@ def phase_train_times(cpu_model, card):
     return totals, by
 
 
-def rpos_operands(B, L, W, H, dtype, gen):
-    """q, k, v, toep (the Toeplitz expansion of a random (2W-1, H) table)
-    on the card in `dtype`, and float32 window starts of R peaks at 0, 5,
-    L/2, L - 1 and random positions, so that windows hang off both ends."""
-    q, k, v = (torch.randn(B, H, L, 4, generator=gen) for _ in range(3))
+def rpos_operands(B, L, W, H, dtype, gen, D=4, q_scale=1.0):
+    """q (times q_scale), k, v, toep (the Toeplitz expansion of a random
+    (2W-1, H) table) on the card in `dtype`, and float32 window starts of R
+    peaks at 0, 5, L/2, L - 1 and random positions, so that windows hang
+    off both ends."""
+    q, k, v = (torch.randn(B, H, L, D, generator=gen) for _ in range(3))
+    q = q * q_scale
     table = torch.randn(2 * W - 1, H, generator=gen)
     pos = torch.arange(L)
     rel = pos[:, None] - pos[None, :]
@@ -1820,22 +1875,22 @@ def toep_reach(offsets, W, L):
     return int(((m.T @ m) > 0).sum().item())
 
 
-def rpos_bound_terms(B, H, L, W, elt, offsets):
+def rpos_bound_terms(B, H, L, W, elt, offsets, D=4):
     """(operations, bytes) lower bounds in ms for one B3 call: B1's flops
     over the f32 peak, and q, k, v, o, the toep entries the windows reach
     and the offsets, each moved once, over HBM bandwidth."""
-    flops = 2 * B * H * (2 * L * L * 4 + L * L)
-    nbytes = 4 * B * H * L * 4 * elt + H * toep_reach(offsets, W, L) * elt + B * 4
+    flops = 2 * B * H * (2 * L * L * D + L * L)
+    nbytes = 4 * B * H * L * D * elt + H * toep_reach(offsets, W, L) * elt + B * 4
     return flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
-def rpos_bwd_bound_terms(B, H, L, W, elt, offsets):
+def rpos_bwd_bound_terms(B, H, L, W, elt, offsets, D=4):
     """(operations, bytes) lower bounds in ms for one B4 call: B2's flops
     over the f32 peak, and q, k, v, g, o, dq, dk, dv, lse, the toep entries
     the windows reach, the offsets and the whole dtoep, each moved once."""
-    flops = 2 * B * H * (5 * L * L * 4 + 3 * L * L)
+    flops = 2 * B * H * (5 * L * L * D + 3 * L * L)
     rows = B * H * L
-    nbytes = (8 * rows * 4 * elt + rows * 4 + H * toep_reach(offsets, W, L) * elt
+    nbytes = (8 * rows * D * elt + rows * 4 + H * toep_reach(offsets, W, L) * elt
               + B * 4 + H * L * L * elt)
     return flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
 
@@ -1978,15 +2033,15 @@ def phase_rpos_backward_vs_plain():
     return max_err
 
 
-def beat_windows(n, seed):
-    """(n, 2, 256) float32 windows, each holding one QRS-like beat at a
+def beat_windows(n, seed, length=256):
+    """(n, 2, length) float32 windows, each holding one QRS-like beat at a
     seeded position, with noise and baseline wander."""
     rng = np.random.default_rng(seed)
-    t = np.arange(256)
-    centres = rng.integers(0, 256, (n, 1, 1))
+    t = np.arange(length)
+    centres = rng.integers(0, length, (n, 1, 1))
     x = (1.5 * np.exp(-0.5 * ((t - centres) / 4.0) ** 2)
-         + 0.2 * rng.standard_normal((n, 2, 256))
-         + np.linspace(-1, 1, 256) * rng.standard_normal((n, 2, 1)))
+         + 0.2 * rng.standard_normal((n, 2, length))
+         + np.linspace(-1, 1, length) * rng.standard_normal((n, 2, 1)))
     return x.astype(np.float32)
 
 
@@ -5381,6 +5436,445 @@ def phase_wide_heads(card):
                                "resources": resources}
 
 
+def log_rpos_resources():
+    """B3's and B4's template instantiations (the window mode, in
+    attention_rpos_fwd.cu and attention_rpos_bwd.cu) as the compiler left
+    them: registers, stack and local memory (cuobjdump -res-usage) and the
+    HMMA count of their SASS, beside B2's wide dk/dv pass without the
+    window (attention_bwd.cu), the pass nearest the register limit. A
+    kernel with no HMMA fails the run; spills are reported."""
+    from ecg_denoise_tpu_torch.kernels.build import CSRC, _nvcc, _target
+
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    found = {}
+    for name, pick in (("attention_rpos_fwd", ("_mma_kernel", "_wide_kernel")),
+                       ("attention_rpos_bwd", ("_mma_kernel", "_wide_kernel")),
+                       ("attention_bwd", ("dkdv_wide_kernel",))):
+        lib = str(_target(name, CSRC))
+        usage = subprocess.run([tool, "-res-usage", lib], capture_output=True, text=True,
+                               timeout=300, check=True).stdout
+        sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
+                              timeout=300, check=True).stdout
+        for part in sass.split("Function : ")[1:]:
+            fn = part.split(None, 1)[0]
+            if any(p in fn for p in pick):
+                found[fn] = {"library": name,
+                             "hmma": sum("HMMA" in line for line in part.splitlines())}
+        for fn, reg, stack, local in re.findall(
+                r"Function (\S+):\s*REG:(\d+) STACK:(\d+) SHARED:\d+ LOCAL:(\d+)", usage):
+            if fn in found:
+                found[fn].update(registers=int(reg), stack=int(stack), local=int(local))
+    for fn, r in sorted(found.items()):
+        log(f"[31] {r['library']} {fn}: {r.get('registers')} registers, stack "
+            f"{r.get('stack')} bytes, local {r.get('local')} bytes; {r['hmma']} HMMA instructions")
+    mine = {fn: r for fn, r in found.items() if r["library"] != "attention_bwd"}
+    # B3: the template at f32 D 8-64 and bf16 16-64 (7), the wide kernel
+    # f32 and bf16 (2); B4: dq, dk/dv and dtoep at 4 D in 2 dtypes (24), the
+    # three wide passes in 2 dtypes (6).
+    check(len(mine) == 9 + 30, f"{len(mine)} of the 39 r-pos template instantiations found")
+    check(all(r["hmma"] > 0 for r in found.values()), "an r-pos template kernel issues no HMMA")
+    check(all("registers" in r for r in found.values()), "a kernel's resources not read")
+    out = {}
+    for lib, kind in (("attention_rpos_fwd", "_mma_kernel"), ("attention_rpos_fwd", "_wide_kernel"),
+                      ("attention_rpos_bwd", "_mma_kernel"), ("attention_rpos_bwd", "_wide_kernel"),
+                      ("attention_bwd", "_wide_kernel")):
+        rs = [r for fn, r in found.items() if r["library"] == lib and kind in fn]
+        out[f"{lib}{kind[:-7]}"] = {
+            "registers": max(r["registers"] for r in rs),
+            "spill_bytes": max(r["local"] + r["stack"] for r in rs)}
+    # The wide dk/dv pass, the one at the register limit: with the window
+    # (B4) against B2's with a bias, by dtype.
+    wide = {(r["library"], "bf16" if "bfloat16" in fn else "f32"): r["stack"] + r["local"]
+            for fn, r in found.items() if "dkdv_wide" in fn and "Lb1ELb" in fn}
+    out["dkdv_wide_stack_bytes"] = {f"{lib}_{dt}": n for (lib, dt), n in sorted(wide.items())}
+    log(f"[31] registers and spills (most over the instantiations): {out}")
+    return out
+
+
+def rpos_kernel_grads(ops, W, offsets, g):
+    """fused_attention_rpos's output and gradients on the card, through its
+    autograd Function."""
+    from ecg_denoise_tpu_torch.kernels.attention_rpos import fused_attention_rpos
+
+    ins = [t.detach().requires_grad_() for t in ops]
+    out = fused_attention_rpos(*ins, W, offsets)
+    return out.detach(), torch.autograd.grad(out, ins, g)
+
+
+def phase_rpos_any_d_kernels():
+    """Phase 31a: B3 and B4 at every head dim class and past 256 keys
+    (RPOS_ANY_D_CASES), f32 and bf16: B3's output and lse against its plain
+    version (f32 1e-5, bf16 3 * 2^-8 of max|v|) with a second call
+    bit-identical; B4 through the autograd Function against the plain
+    flash backward on B3's own o and lse and, in f32, autograd through the
+    plain forward (dq, dk, dv 1e-4, dtoep 1e-4 of its max; bf16 2^-7 of
+    each max), a second call bit-identical. Every call launches its kernel:
+    the counts move by exactly the calls made. Then B1 and B2 on their
+    templates against the parent's, bit for bit, where its tree is there."""
+    from ecg_denoise_tpu_torch import full_float32
+    from ecg_denoise_tpu_torch.kernels import attention
+    from ecg_denoise_tpu_torch.kernels import attention_rpos as ar
+
+    fused = ar.fused_attention_rpos
+    saved = tf32_flags()
+    full_float32()
+    gen = torch.Generator().manual_seed(31)
+    max_err = {"fwd": 0.0, "bwd": 0.0}
+    for D, L, W, H in RPOS_ANY_D_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            ops, offsets = rpos_operands(RPOS_CHECK_BATCH, L, W, H, dtype, gen, D=D,
+                                         q_scale=D ** -0.5)
+            g = torch.randn(ops[0].shape, generator=gen).to("cuda", dtype)
+            before = (fused.launches, fused.bwd_launches)
+            out, lse = ar._launch(*ops, W, offsets, with_lse=True)
+            again = ar._launch(*ops, W, offsets)
+            out2, got = rpos_kernel_grads(ops, W, offsets, g)
+            _, again_grads = rpos_kernel_grads(ops, W, offsets, g)
+            torch.cuda.synchronize()
+            launched = (fused.launches - before[0], fused.bwd_launches - before[1])
+            ref, ref_lse = ar.attention_rpos_reference(*ops, W, offsets, return_lse=True)
+            refs = {"flash": ar.attention_rpos_backward_reference(*ops, W, offsets, out2, lse, g)}
+            if dtype == torch.float32:
+                ins = [t.detach().requires_grad_() for t in ops]
+                refs["autograd"] = torch.autograd.grad(
+                    ar.attention_rpos_reference(*ins, W, offsets), ins, g)
+            f32 = dtype == torch.float32
+            tol = F32_TOL if f32 else BF16_TOL_OF_MAX_V * ops[2].float().abs().max().item()
+            err = (out.float() - ref.float()).abs().max().item()
+            lse_err = (lse - ref_lse).abs().max().item()
+            lse_tol = LSE_TOL * max(1.0, ref_lse.abs().max().item())
+            errs, ok = [], True
+            for ref_name, r in refs.items():
+                for name, a, b in zip(("dq", "dk", "dv", "dtoep"), got, r):
+                    scale = b.float().abs().max().item()
+                    t = (DBIAS_TOL_OF_MAX * scale if name == "dtoep" else GRAD_TOL) if f32 else (
+                        BF16_GRAD_TOL_OF_MAX * scale)
+                    e = (a.float() - b.float()).abs().max().item()
+                    ok &= e <= t
+                    errs.append(f"{name}/{ref_name} {e:.2e}/{t:.2e}")
+                    if f32 and ref_name == "flash":
+                        max_err["bwd"] = max(max_err["bwd"], e)
+            if f32:
+                max_err["fwd"] = max(max_err["fwd"], err)
+            same = (torch.equal(out, again) and torch.equal(out, out2)
+                    and all(torch.equal(a, b) for a, b in zip(got, again_grads)))
+            log(f"[31] B3/B4 D={D} (kernel {attention.kernel_head_dim(D, L, dtype)}) "
+                f"B={RPOS_CHECK_BATCH} L={L} W={W} H={H} {str(dtype)[6:]}: out {err:.2e}/{tol:.2e}, "
+                f"lse {lse_err:.2e}/{lse_tol:.2e}; " + ", ".join(errs)
+                + f"; launches {launched}; repeated calls bit-identical: {same}")
+            check(out.shape == ops[0].shape and out.dtype == dtype
+                  and [t.dtype for t in got] == [dtype] * 4
+                  and [t.shape for t in got] == [t.shape for t in ops],
+                  f"B3/B4 at D = {D}, L = {L}: output shape or dtype")
+            check(bool(torch.isfinite(out).all()) and err <= tol and lse_err <= lse_tol,
+                  f"B3 at D = {D}, L = {L} disagrees with its plain version")
+            check(ok and all(bool(torch.isfinite(t).all()) for t in got),
+                  f"B4 at D = {D}, L = {L} disagrees with its plain backward")
+            check(launched == (4, 2), f"B3/B4 at D = {D}, L = {L} made {launched} launches, "
+                                      "not (4, 2)")
+            check(same, f"B3/B4 at D = {D}, L = {L}: calls differ")
+    log(f"[31] B3 and B4 within their bars at every head dim class and past 256 keys: largest "
+        f"f32 errors B3 {max_err['fwd']:.3e}, B4 {max_err['bwd']:.3e}")
+    if parent_libs():
+        for D, B, L, H in B12_TEMPLATE_PARENT_CASES:
+            for dtype in (torch.float32, torch.bfloat16):
+                Dk = attention.kernel_head_dim(D, L, dtype)
+                for with_bias in (True, False):
+                    q, k, v, bias = operands(B, H, L, with_bias, dtype, gen, D=Dk,
+                                             q_scale=Dk ** -0.5)
+                    g = torch.randn(q.shape, generator=gen).to("cuda", dtype)
+                    new, old = (b1_call(lib, q, k, v, bias) for lib in (
+                        attention._library(), parent_libs()["attention_fwd"]))
+                    args = (q, k, v, bias, new[0], new[1], g, with_bias)
+                    new_b, old_b = (b2_call(lib, *args) for lib in (
+                        attention._bwd_library(), parent_libs()["attention_bwd"]))
+                    equal = [n for n, a, b in zip(("o", "lse", "dq", "dk", "dv", "dbias"),
+                                                  (*new, *new_b), (*old, *old_b))
+                             if (a is None and b is None) or torch.equal(a, b)]
+                    log(f"[31] B1/B2 template D={Dk} B={B} L={L} H={H} bias={with_bias} "
+                        f"{str(dtype)[6:]}: bit-identical to the parent's: {', '.join(equal)}")
+                    check(len(equal) == 6, f"B1/B2 at D = {Dk} is not the parent's bit for bit")
+    else:
+        log("[31] the parent's B1/B2 templates not compared (no tree under _archive/parent)")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    return max_err
+
+
+def b1_call(lib, q, k, v, bias):
+    """One B1 library's kernel on the same operands: (o, float32 lse). No
+    count moves."""
+    from ecg_denoise_tpu_torch.kernels.attention import DTYPE_CODES, ptr, raise_on
+
+    B, H, L, D = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty(B, H, L, dtype=torch.float32, device=q.device)
+    err = lib.ecg_attention_fwd(ptr(q), ptr(k), ptr(v), ptr(bias), ptr(o), ptr(lse), B, H, L, D,
+                                DTYPE_CODES[q.dtype], q.device.index,
+                                torch.cuda.current_stream().cuda_stream)
+    raise_on(lib, err, "attention forward (yardstick call)")
+    return o, lse
+
+
+class RposStage(torch.nn.Module):
+    """The slice's layer path: the per-window RelativePositionEmbedding on
+    R peaks, then BasicLayer(H * D, depth, H) as RA-LENet's stages use it
+    (`local_enhence`, RA-LENet 'full')."""
+
+    def __init__(self, L, W, H, D, depth=RPOS_LAYER_DEPTH):
+        super().__init__()
+        from ecg_denoise_tpu_torch.ops.attention import BasicLayer, RelativePositionEmbedding
+
+        self.rpe = RelativePositionEmbedding(W, L, H)
+        self.layer = BasicLayer(H * D, depth, H, local_enhence=True)
+
+    def forward(self, x, r_pos):
+        self.rpe.dtype = x.dtype  # toep in the compute dtype, as RA-LENet builds it
+        return self.layer(x, self.rpe(r_pos))
+
+
+def rpos_stage_step(stage, x, r_pos, target):
+    """One f32 Adam step (lr RPOS_LR) of `stage` on an MSE loss: the loss,
+    and the gradients and parameters after the step, by name, on the host."""
+    opt = torch.optim.Adam(stage.parameters(), lr=RPOS_LR)
+    loss = F.mse_loss(stage(x, r_pos), target)
+    opt.zero_grad()
+    loss.backward()
+    opt.step()
+    params = dict(stage.named_parameters())
+    return (loss.item(), {k: p.grad.detach().cpu() for k, p in params.items()},
+            {k: p.detach().cpu() for k, p in params.items()})
+
+
+def phase_rpos_layers(card):
+    """Phase 31b: the layer path of RPOS_LAYERS. For each: R peaks detected
+    on the card equal the CPU's; the stage served at BATCH windows, f32 (its
+    first RPOS_CHECK_WINDOWS within MODEL_TOL of the CPU's) and bf16
+    (finite), 2 B3 launches a forward and nothing else; one f32 Adam step on
+    RPOS_CHECK_WINDOWS windows against the CPU's (loss LOSS_RTOL,
+    `step_bars`); RPOS_TRAIN_STEPS steps at TIMING_BATCH on the card (2 + 2
+    a step). The counts of the served forward (serve_<tag>) and of the
+    training steps (train_<tag>) are set to 0 just before and read just
+    after."""
+    from ecg_denoise_tpu_torch import full_float32
+    from ecg_denoise_tpu_torch.data.rpeaks import detect_r_peaks
+
+    saved = tf32_flags()
+    full_float32()
+    launches = {}
+    for tag, (L, W, H, D) in RPOS_LAYERS.items():
+        torch.manual_seed(31)
+        cpu_stage = RposStage(L, W, H, D)
+        seed_module(cpu_stage, torch.Generator().manual_seed(31))
+        gpu_stage = copy.deepcopy(cpu_stage).cuda()
+        rng = np.random.default_rng(L + D)
+        windows = torch.from_numpy(beat_windows(BATCH, seed=L + D, length=L))
+        x = torch.from_numpy(rng.standard_normal((BATCH, L, H * D)).astype(np.float32))
+        n = RPOS_CHECK_WINDOWS
+        r_pos_cpu = detect_r_peaks(windows[:n])
+        r_pos = detect_r_peaks(windows.cuda())
+        check(torch.equal(r_pos[:n].cpu(), r_pos_cpu),
+              f"{tag}: R peaks detected on the card differ from the CPU's")
+        xg = x.cuda()
+        with torch.no_grad():
+            gpu_stage(xg, r_pos)  # warm-up
+            torch.cuda.synchronize()
+            reset_launches()  # the served forward
+            t0 = time.perf_counter()
+            y = gpu_stage(xg, r_pos)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches[f"serve_{tag}"] = read_launches()
+            err = (y[:n].cpu() - cpu_stage(x[:n], r_pos_cpu)).abs().max().item()
+            reset_launches()
+            y16 = gpu_stage(xg.bfloat16(), r_pos)
+            torch.cuda.synchronize()
+            bf16_launches = read_launches()
+        log(f"[31] {tag}: RelativePositionEmbedding({W}, {L}, {H}) + BasicLayer({H * D}, depth "
+            f"{RPOS_LAYER_DEPTH}, {H} heads of {D}) served at {BATCH}, float32: card vs CPU on the "
+            f"first {n} max_abs_err={err:.3e} (tol {MODEL_TOL:.0e}), {wall * 1e3:.2f} ms (host "
+            f"clock to a synchronize); bfloat16 finite: {bool(torch.isfinite(y16).all())}; "
+            f"launches {launches[f'serve_{tag}']} / bf16 {bf16_launches}")
+        want = expected_launches(rpos_fwd=RPOS_LAYER_DEPTH)
+        check(bool(torch.isfinite(y).all()) and err <= MODEL_TOL,
+              f"{tag}: the served stage disagrees with the CPU")
+        check(bool(torch.isfinite(y16).all()) and y16.dtype == torch.bfloat16,
+              f"{tag}: the bf16 stage is not finite")
+        check(launches[f"serve_{tag}"] == want and bf16_launches == want,
+              f"{tag}: the served forward did not take {RPOS_LAYER_DEPTH} B3 launches alone")
+
+        target = torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32))
+        got = rpos_stage_step(copy.deepcopy(gpu_stage), xg[:n], r_pos[:n], target[:n].cuda())
+        ref = rpos_stage_step(copy.deepcopy(cpu_stage), x[:n], r_pos_cpu, target[:n])
+        bars = step_bars(got[1], ref[1], got[2], ref[2])
+        rel = abs(got[0] - ref[0]) / abs(ref[0])
+        log(f"[31] {tag}: one f32 Adam step on {n} windows on the card vs the CPU: loss "
+            f"{got[0]:.7f} vs {ref[0]:.7f} (rel {rel:.2e}, tol {LOSS_RTOL:.0e}), gradients "
+            f"against the CPU's: {describe_bars(bars)}")
+        check(rel <= LOSS_RTOL and bars["ok"], f"{tag}: the step disagrees with the CPU's")
+
+        b = TIMING_BATCH
+        opt = torch.optim.Adam(gpu_stage.parameters(), lr=RPOS_LR)
+        reset_launches()  # the training steps
+        losses = []
+        for i in range(RPOS_TRAIN_STEPS):
+            sl = slice(i * b % BATCH, i * b % BATCH + b)
+            loss = F.mse_loss(gpu_stage(xg[sl], r_pos[sl]), target[sl].cuda())
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+            losses.append(loss.item())
+        launches[f"train_{tag}"] = read_launches()
+        log(f"[31] {tag}: {RPOS_TRAIN_STEPS} f32 Adam steps at {b} on the card, losses "
+            f"{', '.join(f'{v:.6f}' for v in losses)}; launches {launches[f'train_{tag}']}")
+        check(all(np.isfinite(losses)), f"{tag}: non-finite training loss")
+        check(launches[f"train_{tag}"] == expected_launches(
+            rpos_fwd=RPOS_TRAIN_STEPS * RPOS_LAYER_DEPTH,
+            rpos_bwd=RPOS_TRAIN_STEPS * RPOS_LAYER_DEPTH),
+            f"{tag}: the training steps did not take {RPOS_LAYER_DEPTH} + {RPOS_LAYER_DEPTH} "
+            "r-pos launches a step alone")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    return launches
+
+
+def rpos_any_d_times(card):
+    """Phase 31c: per RPOS_LAYERS geometry, B3 (no lse) at BATCH and B4 at
+    TIMING_BATCH, f32 and bf16, from CUDA graph replays of the kernels on
+    operands padded once to the kernel's head dim, beside the bound (the
+    operations at 3xTF32 on the tensor cores, bf16 one pass at its peak, or
+    the bytes, of the unpadded call), the plain versions and SDPA with the
+    materialised (B, H, L, L) mask (forward, and backward with the mask
+    requiring grad: (fwd + bwd) - fwd); B4's passes' device ms
+    (torch.profiler, f32). Times only: no bar."""
+    from ecg_denoise_tpu_torch.kernels import attention_rpos as ar
+    from ecg_denoise_tpu_torch.kernels.attention import _pad, kernel_head_dim
+    from ecg_denoise_tpu_torch.probes.floor import graph_us
+
+    gen = torch.Generator().manual_seed(32)
+    rows = []
+    for tag, (L, W, H, D) in RPOS_LAYERS.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            dt, elt = str(dtype)[6:], torch.finfo(dtype).bits // 8
+            Dk = kernel_head_dim(D, L, dtype)
+            for what in ("fwd", "bwd"):
+                B = BATCH if what == "fwd" else TIMING_BATCH
+                ops, offsets = rpos_operands(B, L, W, H, dtype, gen, D=D, q_scale=D ** -0.5)
+                padded = [_pad(t, Dk) for t in ops[:3]] + [ops[3]]
+                passes = {}
+                if what == "fwd":
+                    this = functools.partial(b3_call, ar._library(), *padded, W, offsets,
+                                             with_lse=False)
+                    plain = cuda_ms(lambda: ar.attention_rpos_reference(*ops, W, offsets), 2)
+                    mask = ar.materialize_rpos_bias(ops[3], W, offsets)
+                    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+                        *ops[:3], attn_mask=mask, scale=1.0), 5)
+                    t_ops, t_bytes = rpos_bound_terms(B, H, L, W, elt, offsets, D=D)
+                else:
+                    g = torch.randn(ops[0].shape, generator=gen).to("cuda", dtype)
+                    o, lse = b3_call(ar._library(), *padded, W, offsets)
+                    this = functools.partial(b4_call, ar._bwd_library(), *padded, W, offsets, o,
+                                             lse, _pad(g, Dk))
+                    o_u = o[..., :D].contiguous()
+                    plain = cuda_ms(lambda: ar.attention_rpos_backward_reference(
+                        *ops, W, offsets, o_u, lse, g), 2)
+                    qkv = [t.detach().requires_grad_() for t in ops[:3]]
+                    mask = ar.materialize_rpos_bias(ops[3], W, offsets).requires_grad_()
+
+                    def sdpa():
+                        return F.scaled_dot_product_attention(*qkv, attn_mask=mask, scale=1.0)
+
+                    lib = cuda_ms(lambda: torch.autograd.grad(sdpa(), qkv + [mask], g), 5) - (
+                        cuda_ms(sdpa, 5))
+                    t_ops, t_bytes = rpos_bwd_bound_terms(B, H, L, W, elt, offsets, D=D)
+                    if dtype == torch.float32:
+                        passes = pass_ms(this)
+                del mask
+                products = 2 if what == "fwd" else 5
+                t_ops = (mma_bound_terms(B, H, L, 4, products, D=D)[0] if dtype == torch.float32
+                         else 2 * B * H * L * L * D * products / PEAK_BF16_FLOPS * 1e3)
+                ms = graph_us(this, 10) / 1e3
+                bnd = max(t_ops, t_bytes)
+                route = "wide" if Dk > 64 else "mma"
+                log(f"[31] {card}: {'B3' if what == 'fwd' else 'B4'} {dt} {tag} D={D} (kernel "
+                    f"{Dk}, {route}) B={B} L={L} W={W} H={H}: kernel {ms:.4f} ms (graph replays), "
+                    f"bound {bnd:.4f} ms (operations {t_ops:.4f} "
+                    f"{'at 3xTF32' if dtype == torch.float32 else 'in bf16'} on the tensor cores, "
+                    f"bytes {t_bytes:.4f}), plain {plain:.4f} ms, sdpa with the (B, H, L, L) mask"
+                    f"{' backward ((fwd+bwd) - fwd)' if what == 'bwd' else ''} {lib:.4f} ms"
+                    + (f"; by pass " + ", ".join(f"{k} {v:.4f}" for k, v in passes.items())
+                       if passes else "") + f"; {RPOS_LAYER_DEPTH} calls per "
+                    f"{'step' if what == 'bwd' else 'forward'}")
+                rows.append({"what": what, "route": route, "tag": tag, "dtype": dt, "B": B,
+                             "L": L, "W": W, "H": H, "D": D, "kernel_head_dim": Dk, "ms": ms,
+                             "bound_ms": bnd, "operations_ms": t_ops, "bytes_ms": t_bytes,
+                             "plain_ms": plain, "library_ms": lib, "passes_ms": passes,
+                             "calls": RPOS_LAYER_DEPTH})
+                del ops, padded
+    return rows
+
+
+def phase_rpos_any_d(card):
+    """Phase 31: B3 and B4 at every head dim and length, on the tensor
+    cores (B1's and B2's templates in their window mode): their registers
+    and HMMA (`log_rpos_resources`), the kernels against their plain
+    versions and B1/B2's templates against the parent's
+    (`phase_rpos_any_d_kernels`), the layer path served and trained
+    (`phase_rpos_layers`) and the kernel times (`rpos_any_d_times`)."""
+    t0 = time.perf_counter()
+    resources = log_rpos_resources()
+    max_err = phase_rpos_any_d_kernels()
+    t_checks = time.perf_counter() - t0
+    launches = phase_rpos_layers(card)
+    t_layers = time.perf_counter() - t0 - t_checks
+    rows = rpos_any_d_times(card)
+    log(f"chip_smoke: phase 31 took {time.perf_counter() - t0:.1f} s (the kernel checks "
+        f"{t_checks:.1f} s, the layer path {t_layers:.1f} s)")
+    return launches, max_err, rows, resources
+
+
+def rpos_any_kernel_rows(launches, max_err, rows, resources):
+    """The `kernels` line's rows of B3 and B4 on the templates in their
+    window mode (phase 31): a row per kernel and route, its launches those
+    of phase 31's paths on that route, its times summed over one forward's
+    (B3, at BATCH) or one step's (B4, at TIMING_BATCH) calls of those
+    paths' layers."""
+    csrc = "ecg_denoise_tpu_torch/kernels/csrc"
+    pallas = "ecg_denoise_tpu/kernels/attention_pallas.py"
+    out = []
+    for kernel, line, what in (("attention_rpos_fwd", 827, "fwd"),
+                               ("attention_rpos_bwd", 859, "bwd")):
+        for route in ("mma", "wide"):
+            picked = [r for r in rows if r["what"] == what and r["route"] == route]
+            tags = sorted({r["tag"] for r in picked})
+            totals = {dt: {key: sum(r["calls"] * r[key] for r in picked if r["dtype"] == dt)
+                           for key in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                       "operations_ms", "bytes_ms")}
+                      for dt in ("float32", "bfloat16")}
+            for t in totals.values():
+                t["bound_by"] = "operations" if t["operations_ms"] >= t["bytes_ms"] else "bytes"
+            f32 = totals["float32"]
+            by_path = {f"{kind}_{tag}": launches[f"{kind}_{tag}"][kernel]
+                       for tag in tags for kind in ("serve", "train")}
+            calls = (f"{RPOS_LAYER_DEPTH} calls each a forward at {BATCH}" if what == "fwd"
+                     else f"{RPOS_LAYER_DEPTH} calls each a step at {TIMING_BATCH}")
+            out.append({
+                "name": f"{kernel}_{route}", "route": "cuda", "source": f"{csrc}/{kernel}.cu",
+                "also_source": f"{csrc}/attention_{what}_mma.cuh",
+                "replaces": f"{pallas}:{line}", "launches": sum(by_path.values()),
+                "launches_by_path": by_path, "max_abs_err": max_err[what],
+                "ms": f32["ms"], "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
+                "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
+                "bf16": totals["bfloat16"], "by_case": picked,
+                "resources": resources[f"{kernel}_{route}"],
+                "max_abs_err_is": "float32, the largest against the plain version over phase "
+                                  "31's cases (RPOS_ANY_D_CASES, every route)",
+                "times_are": f"the layers {', '.join(tags)} (RPOS_LAYERS), {calls}, float32, "
+                             "the kernel from CUDA graph replays on operands padded to its head "
+                             "dim; bound_ms on the tensor cores at 3xTF32 or the bytes; plain "
+                             "and library (scaled_dot_product_attention with the materialised "
+                             "(B, H, L, L) mask) issued from Python"})
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs an NVIDIA card",
@@ -5441,6 +5935,9 @@ def main():
     launches.update(tp_launches)
     wide_launches, wide_err, wide = phase_wide_heads(card)
     launches.update(wide_launches)
+    # Phase 31's paths are counted apart: their launches are the new
+    # kernels' (B3's and B4's templates), not the D = 4 kernels'.
+    rpos_launches, rpos_any_err, rpos_rows, rpos_resources = phase_rpos_any_d(card)
     work.cleanup()
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
@@ -5628,6 +6125,8 @@ def main():
         e["resources"] = wide["resources"][kernel]
         wide_rows.append(e)
     wide_rows[0]["transformer1d_rates"] = wide["rates"]
+    rpos_any_rows = rpos_any_kernel_rows(rpos_launches, rpos_any_err, rpos_rows,
+                                         rpos_resources)
     print(json.dumps({"kernels": [
         b1,
         b2,
@@ -5637,6 +6136,7 @@ def main():
         null,
         *precision,
         *wide_rows,
+        *rpos_any_rows,
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

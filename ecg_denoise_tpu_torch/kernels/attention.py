@@ -53,7 +53,7 @@ from typing import Optional
 
 import torch
 
-HEAD_DIM = 4  # RA-LENet's; the only one B3 and B4 take
+HEAD_DIM = 4  # RA-LENet's: the head dim of the D = 4 kernels of B1-B5
 MAX_LEN = 256  # the D = 4 kernels' longest L; the mma template takes any L
 # The head dims of B1's and B2's mma template (bf16 from 16, the depth of
 # its mma); the wrapper pads any other D <= 64 up to the next one.
@@ -142,20 +142,8 @@ def check_operands(q, k, v, bias) -> None:
         raise ValueError("q, k, v and bias must be on one device")
 
 
-def check_head_dim(q, head_dims) -> None:
-    """Raise unless q's head dim is one of `head_dims`, and L <= MAX_LEN at
-    HEAD_DIM: the shapes a kernel written for fixed head dims takes (B3
-    and B4 at 4)."""
-    L, D = q.shape[-2:]
-    if D not in head_dims:
-        raise ValueError(f"head_dim must be one of {head_dims}, got {D}")
-    if D == HEAD_DIM and L > MAX_LEN:
-        raise ValueError(f"sequence length must be <= {MAX_LEN} at head_dim "
-                         f"{HEAD_DIM}, got {L}")
-
-
 def kernel_head_dim(D: int, L: int, dtype: torch.dtype) -> int:
-    """The head dim B1, B2 and B5 run a (D, L) call at on the card: D = 4
+    """The head dim B1-B5 run a (D, L) call at on the card: D = 4
     at L <= MAX_LEN on the D = 4 kernels, else the smallest of
     MMA_HEAD_DIMS (16 and up at bfloat16) that holds D, and past the
     largest the next multiple of WIDE_CHUNK (the wide kernels)."""

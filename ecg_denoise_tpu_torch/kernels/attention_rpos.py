@@ -7,12 +7,12 @@ window b of the batch,
 
     softmax(q·kᵀ + toep ⊙ (in_b in_bᵀ))·v,  in_b[l] = [off_b <= l < off_b + W],
 
-over (B, H, L, D) operands with q pre-scaled and D = 4. `toep` is the
-(1, H, L, L) Toeplitz expansion of the rel-pos table in the operands'
-dtype, `offsets` the (B,) float32 window starts (r_pos − W//2, whole
-numbers, possibly negative or past L − W: the window is cut at the edges)
-and `W` the window width. The (B, H, L, L) bias is built only by the plain
-versions, never on the card.
+over (B, H, L, D) operands with q pre-scaled, at any head dim D and
+length L, as JAX's kernels take them. `toep` is the (1, H, L, L) Toeplitz
+expansion of the rel-pos table in the operands' dtype, `offsets` the (B,)
+float32 window starts (r_pos − W//2, whole numbers, possibly negative or
+past L − W: the window is cut at the edges) and `W` the window width. The
+(B, H, L, L) bias is built only by the plain versions, never on the card.
 
 It dispatches on the tensors' device, as `fused_attention` does, with no
 switch and no fallback:
@@ -23,9 +23,15 @@ switch and no fallback:
   `_fwd_rpos_kernel`); with one, to `_FusedAttentionRpos`, a
   `torch.autograd.Function` whose forward is that kernel with its
   log-sum-exp residual and whose backward is `csrc/attention_rpos_bwd.cu`
-  (the port of `_bwd_rpos_kernel`). The offsets get no gradient (JAX gives
-  them a zero cotangent); the table's gradient comes from autograd's
-  gather backward outside the kernels, from dtoep;
+  (the port of `_bwd_rpos_kernel`). Each source picks its kernels by the
+  head dim, as B1's and B2's do (`attention.kernel_head_dim`): D = 4 at
+  L <= 256 (RA-LENet's path) on the D = 4 kernels, any other D <= 64 on B1's
+  and B2's mma template in its window mode at D = 8, 16, 32 or 64 (bf16
+  from 16), any D > 64 on their wide kernels at the next multiple of 64;
+  q, k, v (and o, g) are zero-padded along D to the kernel's and the
+  results sliced back (`forward_at`, `backward_at`). The offsets get no
+  gradient (JAX gives them a zero cotangent); the table's gradient comes
+  from autograd's gather backward outside the kernels, from dtoep;
 * a CPU tensor goes to `attention_rpos_reference`, the plain PyTorch
   version, and autograd runs through it.
 
@@ -43,13 +49,14 @@ import torch
 
 from ecg_denoise_tpu_torch.kernels.attention import (
     DTYPE_CODES,
-    HEAD_DIM,
     attention_reference,
+    backward_at,
     bind,
-    check_head_dim,
     check_launchable,
     check_operands,
     flash_backward_terms,
+    forward_at,
+    kernel_head_dim,
     ptr,
     raise_on,
 )
@@ -97,7 +104,6 @@ def _check(q, k, v, toep, W, offsets) -> None:
     if toep is None:
         raise ValueError("toep is required")
     check_operands(q, k, v, toep)
-    check_head_dim(q, (HEAD_DIM,))
     B = q.shape[0]
     if not isinstance(W, int) or W < 1:
         raise ValueError(f"W must be a positive int, got {W!r}")
@@ -121,7 +127,14 @@ def _bwd_library():
 
 
 def _launch(q, k, v, toep, W, offsets, *, with_lse: bool = False):
-    """The forward kernel: o, plus the float32 (B, H, L) lse if asked."""
+    """The forward kernel: o, plus the float32 (B, H, L) lse if asked; at
+    the head dim `kernel_head_dim` picks, q, k and v padded to it."""
+    B, H, L, D = q.shape
+    return forward_at(kernel_head_dim(D, L, q.dtype), _launch_kernel, q, k, v, toep,
+                      W=W, offsets=offsets, with_lse=with_lse)
+
+
+def _launch_kernel(q, k, v, toep, *, W, offsets, with_lse: bool):
     check_launchable(q, k, v, bias=toep)
     if not offsets.is_contiguous():
         raise ValueError("offsets must be contiguous")
@@ -140,11 +153,18 @@ def _launch(q, k, v, toep, W, offsets, *, with_lse: bool = False):
 
 
 def _launch_bwd(q, k, v, toep, W, offsets, o, lse, g):
-    """The backward kernel: (dq, dk, dv, dtoep), dtoep in toep's dtype."""
+    """The backward kernel: (dq, dk, dv, dtoep), dtoep in toep's dtype; at
+    the forward's head dim, q, k, v, o and g padded to it."""
     if g.shape != q.shape or g.dtype != q.dtype:
         raise ValueError(f"gradient {tuple(g.shape)} {g.dtype} does not match "
                          f"the output {tuple(q.shape)} {q.dtype}")
     g = g.contiguous()  # MSAttention's transpose(1, 2).reshape is strided
+    B, H, L, D = q.shape
+    return backward_at(kernel_head_dim(D, L, q.dtype), _launch_bwd_kernel, q, k, v, toep,
+                       o, lse, g, W=W, offsets=offsets)
+
+
+def _launch_bwd_kernel(q, k, v, toep, o, lse, g, *, W, offsets):
     check_launchable(q, k, v, o, g, bias=toep)
     lib = _bwd_library()
     B, H, L, D = q.shape

@@ -3,8 +3,10 @@
 Each `csrc/<name>.cu` has a plain C interface and compiles on its own with
 `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC`
 into `_build/<name>-<hash>.so` (the directory is git-ignored). The hash
-covers the source and the flags, so an edited source never loads a stale
-library. Only the sources in this checkout are built; nothing is fetched.
+covers the source, every header it includes from `csrc/` (`#include
+"<name>.cuh"`, followed through the headers) and the flags, so an edited
+source or header never loads a stale library. Only the sources in this
+checkout are built; nothing is fetched.
 Each build prints nvcc's `-Xptxas -v` report (registers, shared memory,
 spills) once. Each library (source and flags, by their hash) has its own
 lock, so loads of different sources from different threads build at once,
@@ -20,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import threading
 from pathlib import Path
@@ -29,6 +32,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.MULTILINE)
 _lock = threading.Lock()  # guards _locks
 _locks: dict[Path, threading.Lock] = {}  # by built library path
 _libs: dict[Path, ctypes.CDLL] = {}
@@ -43,9 +47,21 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def sources(name: str, csrc: Path) -> list[Path]:
+    """`<csrc>/<name>.cu` and every file it includes by a quoted name, the
+    includes of those too, each once, in the order they are found."""
+    found, todo = [], [csrc / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path not in found:
+            found.append(path)
+            todo += [path.parent / m.decode() for m in _INCLUDE.findall(path.read_bytes())]
+    return found
+
+
 def _target(name: str, csrc: Path) -> Path:
-    src = (csrc / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    text = b"".join(path.read_bytes() for path in sources(name, csrc))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

@@ -17,7 +17,12 @@
 //   dv[m]   = sum_l p[l,m] * g[l]
 //   dtoep[h,l,m] = sum_b ds[b,h,l,m] * in_b[l] * in_b[m]   (float32)
 // The offsets get no gradient. q arrives pre-scaled. Operands are
-// contiguous (B, H, L, D) with D = 4 and L <= 256; toep is a contiguous
+// contiguous (B, H, L, D) with D = 4 and L <= 256 for the passes below
+// (RA-LENet's `--r_pos detect` path); every other shape goes to B2's
+// tensor-core passes in their window mode (attention_bwd_mma.cuh, kWin):
+// D = 8, 16, 32, 64 on the mma template and any multiple of 64 past 64 on
+// the wide passes, at any L, the wrapper zero-padding D up
+// (kernels/attention_rpos.py). toep is a contiguous
 // (1, H, L, L) array in the operand dtype and offsets a contiguous (B,)
 // float32 array. float32 and bfloat16 operands; every product, exp and sum
 // is float32, dq, dk and dv are rounded once to the operand dtype, and
@@ -88,6 +93,8 @@
 
 #include <cstdint>
 #include <type_traits>
+
+#include "attention_bwd_mma.cuh"
 
 namespace {
 
@@ -233,15 +240,6 @@ __host__ __device__ __forceinline__ int head_capacity(int L, int R) {
   return ((kThreads * R - 1 + L - 1) / L + 1) * L;
 }
 
-// The integer positions i in [0, L) with off <= i < off + W, as [lo, hi)
-// (the same test as attention_rpos_fwd.cu).
-__device__ __forceinline__ void window(float off, int W, int L, int& lo, int& hi) {
-  const float fl = static_cast<float>(L);
-  lo = static_cast<int>(ceilf(fminf(fmaxf(off, 0.f), fl)));
-  hi = static_cast<int>(ceilf(fminf(fmaxf(off + static_cast<float>(W), 0.f), fl)));
-  if (hi < lo) hi = lo;
-}
-
 using Plain = std::false_type;
 using Biased = std::true_type;
 
@@ -277,8 +275,8 @@ attention_rpos_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = bh - b * H;
   const float4* kh = ks + (bh * L - key0);
   const float4* vh = vs + (bh * L - key0);
-  int lo, hi;
-  window(offsets[b], W, L, lo, hi);
+  const Window win = window_of(offsets[b], W, L);  // attention_window.cuh
+  const int lo = win.lo, hi = win.hi;
   float4 qr[R], gr[R], acc[R];
   float cr[R], lr[R];
   bool in[R];
@@ -364,8 +362,8 @@ attention_rpos_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = bh / H;
   const int h = bh - b * H;
   const int off = bh * L - first_q;
-  int lo, hi;
-  window(offsets[b], W, L, lo, hi);
+  const Window win = window_of(offsets[b], W, L);  // attention_window.cuh
+  const int lo = win.lo, hi = win.hi;
   float4 kr[R], vr[R], dk_acc[R], dv_acc[R];
   bool in[R];
   const T* tcol[R];  // toep[h, l, m] is tcol[l * L]
@@ -512,8 +510,8 @@ attention_rpos_bwd_dtoep_kernel(const T* __restrict__ q, const T* __restrict__ k
 #pragma unroll
     for (int r = 0; r < kScanRounds; ++r) {
       const int b = base + r * kThreads + threadIdx.x;
-      int lo = 0, hi = 0;
-      if (b < B) window(offsets[b], W, L, lo, hi);
+      const Window w = b < B ? window_of(offsets[b], W, L) : Window{0, 0};
+      const int lo = w.lo, hi = w.hi;
       hit[r] = lo < hi && lo < l0 + n_rows && hi > l0 && lo < m0 + n_cols && hi > m0;
       win[r] = lo | hi << 16;
       const unsigned ballot = __ballot_sync(0xffffffffu, hit[r]);
@@ -671,9 +669,12 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// Plain C interface for ctypes. dtype: 0 = float32, 1 = bfloat16. `lse` is
-// the forward's float32 (B, H, L) residual, `c` a float32 (B, H, L)
-// scratch the call fills and `dtoep` a float32 (1, H, L, L) output.
+// Plain C interface for ctypes. D: 4 (the passes above, L <= kMaxL), 8,
+// 16, 32, 64 (the mma template in its window mode, any L whose grids fit
+// an int) or a multiple of 64 past 64 (the wide passes, any L). dtype: 0 =
+// float32, 1 = bfloat16. `lse` is the forward's float32 (B, H, L)
+// residual, `c` a float32 (B, H, L) scratch the call fills and `dtoep` a
+// float32 (1, H, L, L) output.
 // Launches on `stream` of card `device`, does not synchronise and
 // allocates nothing. Returns the first failing launch's cudaError_t
 // (0 = success).
@@ -685,7 +686,7 @@ extern "C" int ecg_attention_rpos_bwd(const void* q, const void* k,
                                       void* dtoep, int B, int H, int L, int D,
                                       int W, int dtype, int device,
                                       void* stream) {
-  if (B < 1 || H < 1 || L < 1 || L > kMaxL || D != kD || W < 1 ||
+  if (B < 1 || H < 1 || L < 1 || (D == kD && L > kMaxL) || W < 1 ||
       toep == nullptr || offsets == nullptr || dtoep == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -698,12 +699,23 @@ extern "C" int ecg_attention_rpos_bwd(const void* q, const void* k,
   float* dtoep_f = static_cast<float*>(dtoep);
   switch (dtype) {
     case 0:
-      err = launch<float>(q, k, v, toep, off, g, o, lse_f, c_f, dq, dk, dv,
-                          dtoep_f, B, H, L, W, s);
+      err = D == kD ? launch<float>(q, k, v, toep, off, g, o, lse_f, c_f, dq, dk, dv, dtoep_f,
+                                    B, H, L, W, s)
+            : D <= mma_bwd::kWideD
+                ? mma_bwd::launch_mma<float, true>(q, k, v, toep, g, o, lse_f, c_f, dq, dk, dv,
+                                                   dtoep_f, B, H, L, D, off, W, s)
+                : mma_bwd::launch_wide<float, true>(q, k, v, toep, g, o, lse_f, c_f, dq, dk, dv,
+                                                    dtoep_f, B, H, L, D, off, W, s);
       break;
     case 1:
-      err = launch<__nv_bfloat16>(q, k, v, toep, off, g, o, lse_f, c_f, dq,
-                                  dk, dv, dtoep_f, B, H, L, W, s);
+      err = D == kD ? launch<__nv_bfloat16>(q, k, v, toep, off, g, o, lse_f, c_f, dq, dk, dv,
+                                            dtoep_f, B, H, L, W, s)
+            : D <= mma_bwd::kWideD
+                ? mma_bwd::launch_mma<__nv_bfloat16, true>(q, k, v, toep, g, o, lse_f, c_f, dq,
+                                                           dk, dv, dtoep_f, B, H, L, D, off, W, s)
+                : mma_bwd::launch_wide<__nv_bfloat16, true>(q, k, v, toep, g, o, lse_f, c_f, dq,
+                                                            dk, dv, dtoep_f, B, H, L, D, off, W,
+                                                            s);
       break;
     default:
       err = cudaErrorInvalidValue;

@@ -11,7 +11,12 @@
 //   bias_b[h,l,m] = toep[0,h,l,m] * in_b[l] * in_b[m],
 //   in_b[i]      = (off_b <= i < off_b + W)   (compared in float32)
 // q arrives pre-scaled. Operands are contiguous (B, H, L, D) with D = 4 and
-// L <= 256; toep is a contiguous (1, H, L, L) array in the operand dtype
+// L <= 256 for the kernel below (RA-LENet's `--r_pos detect` path); every
+// other shape goes to B1's tensor-core templates in their window mode
+// (attention_fwd_mma.cuh, kWin): D = 8, 16, 32, 64 (bf16 from 16) on the
+// mma template and any multiple of 64 past 64 on the wide kernel, at any
+// L, the wrapper zero-padding D up (kernels/attention_rpos.py). toep is a
+// contiguous (1, H, L, L) array in the operand dtype
 // (the Toeplitz expansion of the rel-pos table, zero where |l - m| >= W);
 // offsets is a contiguous (B,) float32 array of window starts, which may
 // be negative or run past L - W (the window is cut at the edges, not
@@ -61,6 +66,8 @@
 
 #include <type_traits>
 
+#include "attention_fwd_mma.cuh"
+
 namespace {
 
 constexpr int kD = 4;
@@ -108,16 +115,6 @@ __host__ __device__ __forceinline__ int key_capacity(int L, int R) {
   return ((kThreads * R - 1 + L - 1) / L + 1) * L;
 }
 
-// The integer positions i in [0, L) with off <= i < off + W, as [lo, hi):
-// i >= off iff i >= ceil(off), and i < x iff i < ceil(x), for integer i.
-__device__ __forceinline__ void window(float off, int W, int L, int& lo,
-                                       int& hi) {
-  const float fl = static_cast<float>(L);
-  lo = static_cast<int>(ceilf(fminf(fmaxf(off, 0.f), fl)));
-  hi = static_cast<int>(ceilf(fminf(fmaxf(off + static_cast<float>(W), 0.f), fl)));
-  if (hi < lo) hi = lo;
-}
-
 using Plain = std::false_type;
 using Biased = std::true_type;
 
@@ -151,8 +148,8 @@ attention_rpos_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = bh - b * H;
   const float4* kh = ks + (bh * L - key0);
   const float4* vh = vs + (bh * L - key0);
-  int lo, hi;
-  window(offsets[b], W, L, lo, hi);
+  const Window win = window_of(offsets[b], W, L);  // attention_window.cuh
+  const int lo = win.lo, hi = win.hi;
   float4 qr[R], acc[R];
   float mx[R], sum[R];
   bool in[R];
@@ -256,17 +253,19 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// Plain C interface for ctypes. dtype: 0 = float32, 1 = bfloat16. `toep`
-// and `offsets` are required; `lse` is null, or a float32 (B, H, L) output
-// for the backward. Launches on `stream` of card `device`, does not
-// synchronise and allocates nothing. Returns the launch's cudaError_t
-// (0 = success).
+// Plain C interface for ctypes. D: 4 (the kernel above, L <= kMaxL), 8,
+// 16, 32, 64 (the mma template in its window mode, any L whose grid fits
+// an int; bf16 from 16) or a multiple of 64 past 64 (the wide kernel, any
+// L). dtype: 0 = float32, 1 = bfloat16. `toep` and `offsets` are required;
+// `lse` is null, or a float32 (B, H, L) output for the backward. Launches
+// on `stream` of card `device`, does not synchronise and allocates
+// nothing. Returns the launch's cudaError_t (0 = success).
 extern "C" int ecg_attention_rpos_fwd(const void* q, const void* k,
                                       const void* v, const void* toep,
                                       const void* offsets, void* o, void* lse,
                                       int B, int H, int L, int D, int W,
                                       int dtype, int device, void* stream) {
-  if (B < 1 || H < 1 || L < 1 || L > kMaxL || D != kD || W < 1 ||
+  if (B < 1 || H < 1 || L < 1 || (D == kD && L > kMaxL) || W < 1 ||
       toep == nullptr || offsets == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -277,10 +276,19 @@ extern "C" int ecg_attention_rpos_fwd(const void* q, const void* k,
   float* lse_f = static_cast<float*>(lse);
   switch (dtype) {
     case 0:
-      err = launch<float>(q, k, v, toep, off, o, lse_f, B, H, L, W, s);
+      err = D == kD ? launch<float>(q, k, v, toep, off, o, lse_f, B, H, L, W, s)
+            : D <= mma_fwd::kWideD
+                ? mma_fwd::launch_mma<float, true>(q, k, v, toep, o, lse_f, B, H, L, D, off, W, s)
+                : mma_fwd::launch_wide<float, true>(q, k, v, toep, o, lse_f, B, H, L, D, off, W,
+                                                    s);
       break;
     case 1:
-      err = launch<__nv_bfloat16>(q, k, v, toep, off, o, lse_f, B, H, L, W, s);
+      err = D == kD ? launch<__nv_bfloat16>(q, k, v, toep, off, o, lse_f, B, H, L, W, s)
+            : D <= mma_fwd::kWideD
+                ? mma_fwd::launch_mma<__nv_bfloat16, true>(q, k, v, toep, o, lse_f, B, H, L, D,
+                                                           off, W, s)
+                : mma_fwd::launch_wide<__nv_bfloat16, true>(q, k, v, toep, o, lse_f, B, H, L, D,
+                                                            off, W, s);
       break;
     default:
       err = cudaErrorInvalidValue;

@@ -30,7 +30,11 @@ to the same limits against their plain versions, dtoep like dbias, at the
 four biased stage shapes (L, W, H) and at ragged batches and lengths
 (RPOS_CASES), with R peaks at 0, 5, L/2, L - 1 and random ones, so that
 windows hang off both ends; and, where the parent commit's tree is
-unpacked under _archive/parent, bit for bit to the parent's kernels.
+unpacked under _archive/parent, bit for bit to the parent's kernels. At
+every other head dim and length (B1's and B2's templates in their window
+mode: D = 8, 24 padded to 32, 64, 128 and 200 padded to 256, at a ragged
+L and at packed heads, and D = 4 past 256 keys) they are held to the bars
+of the templates (RPOS_ANY_D_CASES), a second call bit-identical.
 
 Backward: dq, dk, dv to 1e-4 in float32 (the JAX package's gradient bar,
 tests/test_pallas_attention.py:125); dbias, a sum over the batch of terms
@@ -451,11 +455,14 @@ def test_model_forward_matches_cpu_with_18_launches(cuda):
         assert (y.cpu() - cpu(x)).abs().max().item() <= 1e-4
 
 
-def _rpos_operands(B, L, W, H, dtype, device, seed=0):
-    """q, k, v, a Toeplitz toep from a random table, and float32 offsets of
-    R peaks at 0, 5, L/2, L - 1 and random positions."""
+def _rpos_operands(B, L, W, H, dtype, device, seed=0, D=4):
+    """q (scaled by D^-1/2 past D = 4), k, v, a Toeplitz toep from a random
+    table, and float32 offsets of R peaks at 0, 5, L/2, L - 1 and random
+    positions."""
     g = torch.Generator().manual_seed(seed)
-    q, k, v = (torch.randn(B, H, L, 4, generator=g) for _ in range(3))
+    q, k, v = (torch.randn(B, H, L, D, generator=g) for _ in range(3))
+    if D != 4:
+        q = q * D ** -0.5
     table = torch.randn(2 * W - 1, H, generator=g)
     pos = torch.arange(L)
     rel = pos[:, None] - pos[None, :]
@@ -484,6 +491,51 @@ def _rpos_grad_scale(name, ref, L):
     if L == 1 and name != "dv":
         return ref[2].float().abs().max().item()
     return ref[("dq", "dk", "dv", "dtoep").index(name)].float().abs().max().item()
+
+
+# B3 and B4 on the templates in their window mode, (D, B, L, W, H): a
+# ragged L and packed heads (L <= 32, five heads: one block holds heads of
+# two batch elements) at every width class, and D = 4 past 256 keys.
+RPOS_ANY_D_CASES = [(D, B, L, W, H) for D in (8, 24, 64, 128, 200)
+                    for (B, L, W, H) in ((8, 203, 25, 3), (5, 32, 4, 5))] + [(4, 8, 300, 37, 2)]
+
+
+@pytest.mark.parametrize("D,B,L,W,H", RPOS_ANY_D_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rpos_kernels_at_any_head_dim_match_plain_versions(cuda, D, B, L, W, H, dtype):
+    full_float32()
+    ops, W, offsets = _rpos_operands(B, L, W, H, dtype, cuda, seed=D + L, D=D)
+    g = torch.randn(ops[0].shape, generator=torch.Generator().manual_seed(3)).to(cuda, dtype)
+
+    def grads():
+        ins = [t.detach().requires_grad_() for t in ops]
+        out = fused_attention_rpos(*ins, W, offsets)
+        return out.detach(), torch.autograd.grad(out, ins, g)
+
+    before = (fused_attention_rpos.launches, fused_attention_rpos.bwd_launches)
+    out, got = grads()
+    torch.cuda.synchronize()
+    assert (fused_attention_rpos.launches, fused_attention_rpos.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert out.shape == ops[0].shape and [t.dtype for t in got] == [dtype] * 4
+    ref, lse = attention_rpos_reference(*ops, W, offsets, return_lse=True)
+    tol = (F32_TOL if dtype == torch.float32
+           else BF16_TOL_OF_MAX_V * ops[2].float().abs().max().item())
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    refs = [attention_rpos_backward_reference(*ops, W, offsets, out, lse, g)]
+    if dtype == torch.float32:
+        ins = [t.detach().requires_grad_() for t in ops]
+        refs.append(torch.autograd.grad(attention_rpos_reference(*ins, W, offsets), ins, g))
+    for ref in refs:
+        for name, a, b in zip(("dq", "dk", "dv", "dtoep"), got, ref):
+            scale = _rpos_grad_scale(name, ref, L)
+            tol = (BF16_GRAD_TOL_OF_MAX * scale if dtype == torch.bfloat16
+                   else DBIAS_TOL_OF_MAX * scale if name == "dtoep" else GRAD_TOL)
+            err = (a.float() - b.float()).abs().max().item()
+            assert err <= tol, (name, err, tol)
+    again, again_grads = grads()
+    assert torch.equal(out, again)
+    assert all(torch.equal(a, b) for a, b in zip(got, again_grads))
 
 
 @pytest.mark.parametrize("B,L,W,H", RPOS_CASES)
