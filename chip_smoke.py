@@ -348,10 +348,14 @@ and nothing falls back to the CPU):
    measure sharing, not scaling; findings, not claims.
 
 30. B1, B2 and B5 past head_dim 64 (the wide kernels, one design for
-   every D that is a multiple of 64; others zero-padded up to one). (a)
-   Their registers, stack, local memory and HMMA by instantiation
-   (cuobjdump; spills reported). (b) Each against its plain version at
-   head_dim 72, 128, 200, 256, 320 and 512 (WIDE_DIMS), f32 and bf16,
+   every D that is a multiple of 64; others zero-padded up to one; B1's and
+   B2's on thread-block clusters along D). (a) Their
+   registers, stack, local memory and HMMA by instantiation (cuobjdump;
+   spills reported), B1's and B2's stack against the parent's where its
+   tree is there (none may be larger), and their clusters: size and the
+   clusters the card holds at once (cudaOccupancyMaxActiveClusters) at D =
+   128, 256, 320, 576. (b) Each against its plain version at head_dim 72,
+   128, 200, 256, 320, 512 and 576 (WIDE_DIMS), f32 and bf16,
    with and without a bias, at phase 2's and 6's bars: B1 with its lse
    and B2 through the autograd Function at (B, L, H) = (2, 32, 3), (3, 64,
    2), (2, 256, 1), (1, 1000, 1); B5 against its plain version and B1 at
@@ -364,21 +368,27 @@ and nothing falls back to the CPU):
    served at 256 (serve_transformer1d_wide: 12 B1) and trained at 64
    (train_transformer1d_wide: 24 + 24 over two steps), windows/s and step
    ms f32 and bf16. (d) Per stage shape, B1, B2 and B5's ms from CUDA
-   graph replays against their bounds, plain versions and SDPA: times,
-   no bar.
+   graph replays against their bounds, plain versions and SDPA, B1 and B2
+   in turns with the parent's where its tree is there (`against_parent`:
+   close pairs settled): times, no bar.
 
 31. B3 and B4 at every head dim and length: D = 4 at L <= 256 stays on
    their D = 4 kernels (phases 9-13); every other shape runs on B1's and
    B2's templates and wide kernels in their window mode, the operands
-   zero-padded to the kernel's head dim. (a) The 39 window-mode
-   instantiations' registers, stack, local memory and HMMA (cuobjdump),
-   beside B2's wide dk/dv pass. (b) B3 and B4 against their plain
-   versions at RPOS_ANY_D_CASES (head_dim 8, 16, 32, 64, 128, 256 at L =
-   256, a ragged 203 and packed heads at 32; D = 4 at L = 300 and 1000),
-   B = 8, f32 and bf16, at phase 30's bars for the forward and phase 10's
-   for the gradients, every call a launch, repeated calls bit-identical;
-   and, where the parent's tree is there, B1's and B2's templates bit for
-   bit the parent's (B12_TEMPLATE_PARENT_CASES). (c) The layer path:
+   zero-padded to the kernel's head dim; past D = 4 the dq pass leaves
+   the windowed ds in a scratch that a second kernel sums into dtoep.
+   (a) The 29 window-mode instantiations' registers, stack,
+   local memory and HMMA (cuobjdump), beside B2's wide dk/dv pass; the
+   wide ones' stack against the parent's and their clusters. (b) B3 and
+   B4 against their plain versions at RPOS_ANY_D_CASES (head_dim 8, 16,
+   32, 64, 128, 256, 320, 576 at L = 256, a ragged 203 and packed heads at
+   32; D = 4 at L = 300 and 1000), B = 8, f32 and bf16, at phase 30's bars
+   for the forward and phase 10's for the gradients (f32 also against
+   float64 gradients, past D = 512 against those alone), every call a
+   launch, repeated calls bit-identical; and, where the parent's tree is
+   there, B1's and B2's templates (B12_TEMPLATE_PARENT_CASES) and B3's
+   and B4's (o, lse, dq, dk, dv; RPOS_PARENT_CASES) bit for bit the
+   parent's. (c) The layer path:
    `RelativePositionEmbedding(W, L, H)` on R peaks detected on the card
    (equal to the CPU's), then `BasicLayer(H * D, depth 2, H)` as RA-LENet's
    stages use it, at RPOS_LAYERS, served at 1,024 (f32 within MODEL_TOL of
@@ -387,7 +397,9 @@ and nothing falls back to the CPU):
    windows against the CPU's at `step_bars`; paths serve_rpos_d32,
    train_rpos_d32, ... (counted apart). (d) B3 at 1,024 and B4 at 256 per
    layer, f32 and bf16, from CUDA graph replays, against their bounds,
-   plain versions and SDPA on the materialised mask: times, no bar.
+   plain versions and SDPA on the materialised mask, each in turns with
+   the parent's where its tree is there, B4's passes by torch.profiler
+   (the dtoep sum beside the parent's dtoep pass): times, no bar.
 
 The last lines are one JSON object listing the ten kernels, the three
 wide kernels (`attention_fwd_wide`, `attention_bwd_wide`,
@@ -680,11 +692,13 @@ WIDE_HEADS = (1, 1, 2, 4)
 WIDE_CALLS = {(256, 1, 128): 2, (128, 1, 256): 2, (64, 2, 256): 6, (32, 4, 256): 2}
 WIDE_DENSE_CALLS = {(64, 2, 256): 6, (32, 4, 256): 2}
 # The checks' head dims: two padded up (72 to 128, 200 to 256), the model's
-# 128 and 256, and 320 and 512, five and eight 64-wide chunks. B1 and B2 at
+# 128 and 256, and 320, 512 and 576: clusters of five and eight blocks, and
+# nine 64-wide chunks on a cluster of five blocks, two chunks a block (all
+# but the last). B1 and B2 at
 # (B, L, H): packed heads (L <= 32), one row tile, four, and 1,000 keys; B5
 # at Transformer1d's two packable shapes, L = 8 (P = 16) and a unit of 32
 # rows (L = 16, P = 2).
-WIDE_DIMS = (72, 128, 200, 256, 320, 512)
+WIDE_DIMS = (72, 128, 200, 256, 320, 512, 576)
 WIDE_B12_SHAPES = [(2, 32, 3), (3, 64, 2), (2, 256, 1), (1, 1000, 1)]
 WIDE_B5_SHAPES = [(3, 64, 2), (3, 32, 4), (3, 8, 16), (5, 16, 2)]
 # Phase 28: data parallelism. Two ranks share the one card over gloo (NCCL
@@ -722,13 +736,29 @@ RPOS_LR = 1e-3
 # so that one block holds heads of two batch elements), then D = 4 past the
 # D = 4 kernels' 256 keys.
 RPOS_CHECK_BATCH = 8
-RPOS_ANY_D_CASES = [(D, L, W, H) for D in (8, 16, 32, 64, 128, 256)
+RPOS_ANY_D_CASES = [(D, L, W, H) for D in (8, 16, 32, 64, 128, 256, 320, 576)
                     for (L, W, H) in ((256, 32, 2), (203, 25, 3), (32, 4, 5))] + [
     (4, 300, 37, 2), (4, 1000, 125, 2)]
+# Past this head dim the float32 plain versions' own rounding nears the
+# f32 gradient bar (at D = 576 the flash form's dq lies 9.5e-05 and
+# autograd's 5.6e-05 from float64, the kernel's 2.1e-05, on an H100), so
+# B4's f32 gradients are held there to float64 gradients alone, at
+# the same bar; below it to those as well as to both float32 versions.
+RPOS_F64_ONLY_PAST = 512
 # B1 and B2 on their templates against the parent's, bit for bit, at every
-# width class: (D, B, L, H).
-B12_TEMPLATE_PARENT_CASES = [(D, B, L, H) for D in (8, 16, 32, 64, 128, 256)
+# head dim of the template: (D, B, L, H). B3 and B4 on the template (D = 8
+# to 64, and D = 4 past 256 keys) against the parent's the same way, B4's
+# dq, dk and dv (its dtoep is formed anew), at RPOS_PARENT_CASES: (D, B, L,
+# W, H), windows cut at both ends.
+B12_TEMPLATE_PARENT_CASES = [(D, B, L, H) for D in (8, 16, 32, 64)
                              for (B, L, H) in ((3, 203, 2), (5, 32, 3))]
+RPOS_PARENT_CASES = [(D, 5, L, W, H) for D in (8, 16, 32, 64)
+                     for (L, W, H) in ((203, 25, 3), (32, 4, 5))] + [(4, 3, 300, 37, 2)]
+# Phases 30 and 31 time each redesigned kernel against the parent's in
+# turns; a pair whose means lie within this share of each other is settled
+# (`settle`, SETTLE_CLOSE_ROUNDS rounds) to tell level from slower.
+SETTLE_CLOSE = 0.1
+SETTLE_CLOSE_ROUNDS = 5
 
 
 def log(msg):
@@ -1023,19 +1053,29 @@ def b5_call(lib, q, k, v, bias):
 
 def b4_call(lib, q, k, v, toep, W, offsets, o, lse, g):
     """One B4 library's kernels on the same operands, allocated as
-    `attention_rpos._launch_bwd` allocates: (dq, dk, dv, dtoep), dtoep
-    float32 (not cast to toep's dtype). No count moves."""
+    `attention_rpos._launch_bwd_kernel` allocates: (dq, dk, dv, dtoep),
+    dtoep float32 (not cast to toep's dtype). This tree's library fills the
+    ds scratch past D = 4 and sums it with its second kernel; the parent
+    commit's (no scratch, one pointer fewer) forms dtoep in its
+    passes. No count moves."""
     from ecg_denoise_tpu_torch.kernels.attention import DTYPE_CODES, ptr, raise_on
 
     B, H, L, D = q.shape
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     c = torch.empty(B, H, L, dtype=torch.float32, device=q.device)
     dtoep = torch.empty(1, H, L, L, dtype=torch.float32, device=q.device)
-    err = lib.ecg_attention_rpos_bwd(ptr(q), ptr(k), ptr(v), ptr(toep), ptr(offsets), ptr(g),
-                                     ptr(o), ptr(lse), ptr(c), ptr(dq), ptr(dk), ptr(dv),
-                                     ptr(dtoep), B, H, L, D, W, DTYPE_CODES[q.dtype],
-                                     q.device.index, torch.cuda.current_stream().cuda_stream)
+    stream = torch.cuda.current_stream().cuda_stream
+    scratch = hasattr(lib, "ecg_attention_rpos_dtoep_sum")
+    ds = (torch.empty(B, H, min(W, L), min(W, L), dtype=torch.float32, device=q.device)
+          if scratch and D != 4 else None)
+    ptrs = [q, k, v, toep, offsets, g, o, lse, c, dq, dk, dv, dtoep] + ([ds] if scratch else [])
+    err = lib.ecg_attention_rpos_bwd(*map(ptr, ptrs), B, H, L, D, W, DTYPE_CODES[q.dtype],
+                                     q.device.index, stream)
     raise_on(lib, err, "attention r-pos backward (yardstick call)")
+    if ds is not None:
+        err = lib.ecg_attention_rpos_dtoep_sum(ptr(ds), ptr(offsets), ptr(dtoep), B, H, L, W,
+                                               q.device.index, stream)
+        raise_on(lib, err, "attention r-pos dtoep sum (yardstick call)")
     return dq, dk, dv, dtoep
 
 
@@ -1081,6 +1121,24 @@ def settle(first, second, reading, rounds=SETTLE_ROUNDS):
             runs[i].append(reading((first, second)[i][1]))
     return {"names": [first[0], second[0]], "rounds": rounds,
             **settle_verdict(runs[0], runs[1])}
+
+
+def against_parent(this, parent, calls=10):
+    """This kernel's and the parent's ms per call from CUDA graph replays in
+    turns (parent, this, this, parent; means of the two readings each) and,
+    where the two lie within SETTLE_CLOSE of each other, `settle`'s verdict
+    over SETTLE_CLOSE_ROUNDS rounds (this against the parent); else the
+    verdict the turns give (faster or slower)."""
+    from ecg_denoise_tpu_torch.probes.floor import graph_us
+
+    parent_us, this_us = in_turns(parent, this, calls)
+    ms, parent_ms = statistics.mean(this_us) / 1e3, statistics.mean(parent_us) / 1e3
+    if abs(ms - parent_ms) <= SETTLE_CLOSE * parent_ms:
+        verdict = settle(("this", this), ("parent", parent), lambda fn: graph_us(fn, calls),
+                         rounds=SETTLE_CLOSE_ROUNDS)["verdict"]
+    else:
+        verdict = "faster" if ms < parent_ms else "slower"
+    return ms, parent_ms, verdict
 
 
 def settled_text(got, what):
@@ -1709,7 +1767,8 @@ def profile_step(step, card, step_ms, iters=3, tag="8", what="float32 training s
 
 def pass_ms(fn, iters=5):
     """Device ms per call of each kernel that fn() launches, by B2's or
-    B4's pass name (dq, dkdv, dbias, dtoep) or kernel name (torch.profiler). A reading in
+    B4's pass name (dq, dkdv, dbias, dtoep, and dtoep_sum, B4's second
+    kernel past D = 4) or kernel name (torch.profiler). A reading in
     which some kernel was not recorded `iters` times is taken again, up to
     three readings (on an H100 some readings recorded one call in five);
     empty (not measured) if all three are short."""
@@ -1732,8 +1791,9 @@ def pass_ms(fn, iters=5):
         return {}
     got = {}
     for ms, _, name in kernels:
-        key = next((p for p in ("dq", "dkdv", "dbias", "dtoep") if f"_bwd_{p}_" in name),
-                   name[:60])
+        key = ("dtoep_sum" if "dtoep_sum" in name else
+               next((p for p in ("dq", "dkdv", "dbias", "dtoep") if f"_bwd_{p}_" in name),
+                    name[:60]))
         got[key] = got.get(key, 0.0) + ms
     return got
 
@@ -5076,32 +5136,114 @@ def phase_tensor_parallel(card, cpu_model, device="cuda"):
                                     "rpos": singles["detect"]["ms"]}}
 
 
+def kernel_resources(name, pick, csrc=None):
+    """The kernels of library `name` whose mangled names hold one of `pick`,
+    as the compiler left them: {function: {library, registers, stack, local,
+    hmma}} (cuobjdump -res-usage, and the HMMA instructions of -sass). This
+    tree's library, or the one built from `csrc` (the parent's)."""
+    from pathlib import Path
+
+    from ecg_denoise_tpu_torch.kernels.build import CSRC, _nvcc, _target
+
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    lib = str(_target(name, Path(csrc) if csrc else CSRC))
+    usage = subprocess.run([tool, "-res-usage", lib], capture_output=True, text=True,
+                           timeout=300, check=True).stdout
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    found = {}
+    for part in sass.split("Function : ")[1:]:
+        fn = part.split(None, 1)[0]
+        if any(p in fn for p in pick):
+            found[fn] = {"library": name,
+                         "hmma": sum("HMMA" in line for line in part.splitlines())}
+    for fn, reg, stack, local in re.findall(
+            r"Function (\S+):\s*REG:(\d+) STACK:(\d+) SHARED:\d+ LOCAL:(\d+)", usage):
+        if fn in found:
+            found[fn].update(registers=int(reg), stack=int(stack), local=int(local))
+    return found
+
+
+def kernel_key(fn):
+    """A kernel instantiation's family, from its mangled name: (kernel name,
+    element type, the template's flags), alike in this tree and the
+    parent's where the template is (B2's dbias passes lost their window
+    flag: their flags are left out)."""
+    m = re.search(r"\d+(attention_\w+?_kernel)I(.*?)EEv", fn)
+    if m is None:
+        return fn, "", ""
+    flags = "" if "dbias" in m.group(1) else "".join(re.findall(r"Lb[01]E", m.group(2)))
+    return m.group(1), "bf16" if "bfloat16" in m.group(2) else "f32", flags
+
+
+def stack_against_parent(found, pick, tag):
+    """Each wide instantiation's stack here against the parent's same family
+    (`kernel_key`), where the parent's tree is there: logged, and none may be
+    larger. {family: [this, parent]}; empty without the parent's tree."""
+    if not parent_libs():
+        log(f"[{tag}] the parent's stack not compared (no tree under _archive/parent)")
+        return {}
+    theirs = {}
+    for name in sorted({r["library"] for r in found.values()}):
+        for fn, r in kernel_resources(name, pick, csrc=PARENT_CSRC).items():
+            key = (name, *kernel_key(fn))
+            theirs[key] = max(theirs.get(key, 0), r.get("stack", 0) + r.get("local", 0))
+    out = {}
+    for fn, r in sorted(found.items()):
+        if "_wide_kernel" not in fn:
+            continue
+        key = (r["library"], *kernel_key(fn))
+        mine = r.get("stack", 0) + r.get("local", 0)
+        out[" ".join(k for k in key if k)] = [mine, theirs.get(key)]
+        log(f"[{tag}] {' '.join(k for k in key if k)}: stack {mine} bytes, the parent's "
+            f"{theirs.get(key)}")
+        check(key in theirs and mine <= theirs[key],
+              f"{' '.join(key)}: more stack than the parent's ({mine} > {theirs.get(key)})")
+    return out
+
+
+def log_wide_clusters(tag, name, dims):
+    """The wide kernels' clusters of library `name` at each head dim: the
+    size in blocks and the clusters the card holds at once
+    (cudaOccupancyMaxActiveClusters) by instantiation (f32 and bf16, with
+    and without a bias where the library has both), for the forward's
+    kernel, or the backward's dq and dk/dv passes in turn. {D:
+    {instantiation: [size, clusters, ...]}}."""
+    import ctypes
+
+    from ecg_denoise_tpu_torch.kernels.build import load
+
+    f = load(name).ecg_wide_clusters
+    f.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    f.restype = ctypes.c_int
+    window = "rpos" in name
+    got = {}
+    for D in dims:
+        for dtype, dt in ((0, "f32"), (1, "bf16")):
+            for bias in ((1,) if window else (0, 1)):
+                out = (ctypes.c_int * 4)()
+                err = f(D, dtype, bias, torch.cuda.current_device(), out)
+                check(err == 0, f"{name}: cudaOccupancyMaxActiveClusters failed ({err}) at D={D}")
+                n = 2 if name.endswith("fwd") else 4
+                got.setdefault(D, {})[f"{dt}{'' if window else f' bias={bias}'}"] = list(out)[:n]
+    log(f"[{tag}] {name} wide clusters by D (size in blocks, then the clusters the card holds "
+        f"at once{'; the dq pass, then the dk/dv pass' if not name.endswith('fwd') else ''}): "
+        f"{got}")
+    return got
+
+
 def log_wide_resources():
     """The wide kernels of B1, B2 and B5 (head_dim past 64) as the compiler
     left them, by instantiation: registers, stack and local memory
     (cuobjdump -res-usage) and the tensor-core instructions in their SASS
-    (HMMA). A kernel with no HMMA fails the run; spills are reported (a
-    spilling kernel that is right is kept, its numbers in PERF.md)."""
-    from ecg_denoise_tpu_torch.kernels.build import CSRC, _nvcc, _target
-
-    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    (HMMA); B1's and B2's stack against the parent's where its tree is there
+    (none may be larger), and their clusters (size, and the clusters the card
+    holds at once, at D = 128, 256, 320, 576). A kernel with no HMMA fails
+    the run; spills are reported (a spilling kernel that is right is kept,
+    its numbers in PERF.md)."""
     found = {}
     for name in ("attention_fwd", "attention_bwd", "attention_dense_fwd"):
-        lib = str(_target(name, CSRC))
-        usage = subprocess.run([tool, "-res-usage", lib], capture_output=True, text=True,
-                               timeout=300, check=True).stdout
-        sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
-                              timeout=300, check=True).stdout
-        for part in sass.split("Function : ")[1:]:
-            fn = part.split(None, 1)[0]
-            if "_wide_kernel" in fn:
-                found[fn] = {"library": name,
-                             "hmma": sum("HMMA" in line for line in part.splitlines())}
-        for fn, reg, stack, local in re.findall(
-                r"Function (\S*_wide_kernel\S*):\s*REG:(\d+) STACK:(\d+) SHARED:\d+ "
-                r"LOCAL:(\d+)", usage):
-            if fn in found:
-                found[fn].update(registers=int(reg), stack=int(stack), local=int(local))
+        found.update(kernel_resources(name, ("_wide_kernel",)))
     for fn, r in sorted(found.items()):
         log(f"[30] {fn}: {r.get('registers')} registers, stack {r.get('stack')} bytes, local "
             f"{r.get('local')} bytes; {r['hmma']} HMMA instructions")
@@ -5110,12 +5252,18 @@ def log_wide_resources():
     check(len(found) == 4 + 10 + 12, f"{len(found)} of the 26 wide kernel instantiations found")
     check(all(r["hmma"] > 0 for r in found.values()), "a wide kernel issues no HMMA")
     check(all("registers" in r for r in found.values()), "a wide kernel's resources not read")
-    return {lib: {"registers": max(r["registers"] for r in found.values()
-                                   if r["library"] == lib),
-                  "stack_bytes": max(r["stack"] for r in found.values() if r["library"] == lib),
-                  "spills": any(r["local"] or r["stack"] for r in found.values()
-                                if r["library"] == lib)}
-            for lib in ("attention_fwd", "attention_bwd", "attention_dense_fwd")}
+    out = {lib: {"registers": max(r["registers"] for r in found.values()
+                                  if r["library"] == lib),
+                 "stack_bytes": max(r["stack"] for r in found.values() if r["library"] == lib),
+                 "spills": any(r["local"] or r["stack"] for r in found.values()
+                               if r["library"] == lib)}
+           for lib in ("attention_fwd", "attention_bwd", "attention_dense_fwd")}
+    mine = {fn: r for fn, r in found.items() if r["library"] != "attention_dense_fwd"}
+    stacks = stack_against_parent(mine, ("_wide_kernel",), "30")
+    for lib in ("attention_fwd", "attention_bwd"):
+        out[lib]["stack_against_parent"] = {k: v for k, v in stacks.items() if k.startswith(lib)}
+        out[lib]["clusters"] = log_wide_clusters("30", lib, (128, 256, 320, 576))
+    return out
 
 
 def wide_bars(name, got, ref, dtype, L):
@@ -5234,8 +5382,9 @@ def wide_kernel_times(card):
     """Phase 30's kernel rows: per Transformer1d (1, 1, 2, 4) stage shape,
     B1 (no lse) at the served batch, B2 at the training batch and, at the
     packable stages, B5 at the served batch, f32 and bf16, from CUDA graph
-    replays, beside the bound (`mma_bound_terms`; bf16 one pass at its
-    peak), the plain versions and SDPA (no mask); summed over one
+    replays (B1 and B2 in turns with the parent's where its tree is there,
+    `against_parent`), beside the bound (`mma_bound_terms`; bf16 one pass
+    at its peak), the plain versions and SDPA (no mask); summed over one
     forward's and one step's calls. Times only: no bar."""
     from ecg_denoise_tpu_torch.kernels import attention
     from ecg_denoise_tpu_torch.kernels.attention_dense import (
@@ -5245,9 +5394,11 @@ def wide_kernel_times(card):
     from ecg_denoise_tpu_torch.probes.floor import graph_us
 
     gen = torch.Generator().manual_seed(31)
-    keys = ("ms", "plain_ms", "bound_ms", "library_ms")
-    totals = {(w, dt): dict.fromkeys(keys, 0.0) for w in ("fwd", "bwd", "dense")
-              for dt in ("float32", "bfloat16")}
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms", "parent_ms")
+    totals = {(w, dt): dict.fromkeys(keys, 0.0 if parent_libs() and w != "dense" else None)
+              for w in ("fwd", "bwd", "dense") for dt in ("float32", "bfloat16")}
+    for t in totals.values():
+        t.update(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
     limits = {key: {"operations": 0.0, "bytes": 0.0} for key in totals}
     rows = []
     for (L, H, D), calls in WIDE_CALLS.items():
@@ -5265,6 +5416,9 @@ def wide_kernel_times(card):
                     def this():
                         return attention._launch_bwd(q, k, v, None, o, lse, g, want_dbias=False)
 
+                    def parent():
+                        return parent_b2(q, k, v, None, o, lse, g, False)
+
                     plain = cuda_ms(lambda: attention.attention_backward_reference(
                         q, k, v, None, o, lse, g), 3)
                     ins = [t.detach().requires_grad_() for t in (q, k, v)]
@@ -5276,9 +5430,13 @@ def wide_kernel_times(card):
                            - cuda_ms(sdpa, 10))
                     products, n_bytes = 5, bwd_bound_terms(B, H, L, False, elt, D=D)[1]
                 else:
+                    parent = None  # B5's wide kernel is the parent's
                     if what == "fwd":
                         def this():
                             return attention._launch(q, k, v, None)
+
+                        def parent():
+                            return parent_b1(q, k, v, None)
 
                         plain = cuda_ms(lambda: attention.attention_reference(q, k, v), 3)
                     else:
@@ -5288,14 +5446,18 @@ def wide_kernel_times(card):
                         plain = cuda_ms(lambda: attention_dense_reference(q, k, v), 3)
                     lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0), 10)
                     products, n_bytes = 2, bound_terms(B, H, L, False, elt, D=D)[1]
-                ms = graph_us(this, 10) / 1e3
+                if parent is not None and parent_libs():
+                    ms, parent_ms, verdict = against_parent(this, parent)
+                    turns = (f" in turns with the parent's {parent_ms:.4f} ms: {verdict}")
+                else:
+                    ms, parent_ms, verdict, turns = graph_us(this, 10) / 1e3, None, None, ""
                 t_ops = (mma_bound_terms(B, H, L, 4, products, D=D)[0]
                          if dtype == torch.float32
                          else 2 * B * H * L * L * D * products / PEAK_BF16_FLOPS * 1e3)
                 bnd = max(t_ops, n_bytes)
                 n_calls = WIDE_DENSE_CALLS[(L, H, D)] if what == "dense" else calls
                 log(f"[30] {card}: {'B5' if what == 'dense' else 'B1' if what == 'fwd' else 'B2'}"
-                    f" {dt} D={D} B={B} L={L} H={H}: kernel {ms:.4f} ms (graph replays), bound "
+                    f" {dt} D={D} B={B} L={L} H={H}: kernel {ms:.4f} ms (graph replays){turns}, bound "
                     f"{bnd:.4f} ms (operations {t_ops:.4f} "
                     f"{'at 3xTF32' if dtype == torch.float32 else 'in bf16'} on the tensor "
                     f"cores, bytes {n_bytes:.4f}), plain {plain:.4f} ms, sdpa"
@@ -5303,11 +5465,13 @@ def wide_kernel_times(card):
                     f"{n_calls} calls per {'step' if what == 'bwd' else 'forward'}")
                 rows.append({"what": what, "dtype": dt, "B": B, "L": L, "H": H, "D": D,
                              "ms": ms, "bound_ms": bnd, "plain_ms": plain, "library_ms": lib,
+                             "parent_ms": parent_ms, "against_parent": verdict,
                              "calls": n_calls})
                 tot = totals[(what, dt)]
                 for key, t in (("ms", ms), ("plain_ms", plain), ("bound_ms", bnd),
-                               ("library_ms", lib)):
-                    tot[key] += n_calls * t
+                               ("library_ms", lib), ("parent_ms", parent_ms)):
+                    if tot[key] is not None and t is not None:
+                        tot[key] += n_calls * t
                 limits[(what, dt)]["operations"] += n_calls * t_ops
                 limits[(what, dt)]["bytes"] += n_calls * n_bytes
     for (what, dt), t in totals.items():
@@ -5316,7 +5480,8 @@ def wide_kernel_times(card):
             f"{dt}, the {'8 dense calls of one forward' if what == 'dense' else '12 calls of one '}"
             f"{'' if what == 'dense' else 'step' if what == 'bwd' else 'forward'}: kernel "
             f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), plain "
-            f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms")
+            f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms"
+            + ("" if not t["parent_ms"] else f", the parent's in turns {t['parent_ms']:.4f} ms"))
     return totals, rows
 
 
@@ -5441,37 +5606,22 @@ def log_rpos_resources():
     attention_rpos_fwd.cu and attention_rpos_bwd.cu) as the compiler left
     them: registers, stack and local memory (cuobjdump -res-usage) and the
     HMMA count of their SASS, beside B2's wide dk/dv pass without the
-    window (attention_bwd.cu), the pass nearest the register limit. A
+    window (attention_bwd.cu); the wide ones' stack against the parent's
+    where its tree is there (none may be larger) and their clusters. A
     kernel with no HMMA fails the run; spills are reported."""
-    from ecg_denoise_tpu_torch.kernels.build import CSRC, _nvcc, _target
-
-    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
     found = {}
     for name, pick in (("attention_rpos_fwd", ("_mma_kernel", "_wide_kernel")),
                        ("attention_rpos_bwd", ("_mma_kernel", "_wide_kernel")),
                        ("attention_bwd", ("dkdv_wide_kernel",))):
-        lib = str(_target(name, CSRC))
-        usage = subprocess.run([tool, "-res-usage", lib], capture_output=True, text=True,
-                               timeout=300, check=True).stdout
-        sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
-                              timeout=300, check=True).stdout
-        for part in sass.split("Function : ")[1:]:
-            fn = part.split(None, 1)[0]
-            if any(p in fn for p in pick):
-                found[fn] = {"library": name,
-                             "hmma": sum("HMMA" in line for line in part.splitlines())}
-        for fn, reg, stack, local in re.findall(
-                r"Function (\S+):\s*REG:(\d+) STACK:(\d+) SHARED:\d+ LOCAL:(\d+)", usage):
-            if fn in found:
-                found[fn].update(registers=int(reg), stack=int(stack), local=int(local))
+        found.update(kernel_resources(name, pick))
     for fn, r in sorted(found.items()):
         log(f"[31] {r['library']} {fn}: {r.get('registers')} registers, stack "
             f"{r.get('stack')} bytes, local {r.get('local')} bytes; {r['hmma']} HMMA instructions")
     mine = {fn: r for fn, r in found.items() if r["library"] != "attention_bwd"}
     # B3: the template at f32 D 8-64 and bf16 16-64 (7), the wide kernel
-    # f32 and bf16 (2); B4: dq, dk/dv and dtoep at 4 D in 2 dtypes (24), the
-    # three wide passes in 2 dtypes (6).
-    check(len(mine) == 9 + 30, f"{len(mine)} of the 39 r-pos template instantiations found")
+    # f32 and bf16 (2); B4: dq and dk/dv at 4 D in 2 dtypes (16), the two
+    # wide passes in 2 dtypes (4). The dtoep sum is no mma kernel.
+    check(len(mine) == 9 + 20, f"{len(mine)} of the 29 r-pos template instantiations found")
     check(all(r["hmma"] > 0 for r in found.values()), "an r-pos template kernel issues no HMMA")
     check(all("registers" in r for r in found.values()), "a kernel's resources not read")
     out = {}
@@ -5482,13 +5632,32 @@ def log_rpos_resources():
         out[f"{lib}{kind[:-7]}"] = {
             "registers": max(r["registers"] for r in rs),
             "spill_bytes": max(r["local"] + r["stack"] for r in rs)}
-    # The wide dk/dv pass, the one at the register limit: with the window
-    # (B4) against B2's with a bias, by dtype.
+    # The wide dk/dv pass, the one nearest the register limit: with the
+    # window (B4) against B2's with a bias, by dtype.
     wide = {(r["library"], "bf16" if "bfloat16" in fn else "f32"): r["stack"] + r["local"]
             for fn, r in found.items() if "dkdv_wide" in fn and "Lb1ELb" in fn}
     out["dkdv_wide_stack_bytes"] = {f"{lib}_{dt}": n for (lib, dt), n in sorted(wide.items())}
-    log(f"[31] registers and spills (most over the instantiations): {out}")
+    out["stack_against_parent"] = stack_against_parent(mine, ("_mma_kernel", "_wide_kernel"),
+                                                       "31")
+    out["clusters"] = {lib: log_wide_clusters("31", lib, (128, 256, 320, 576))
+                       for lib in ("attention_rpos_fwd", "attention_rpos_bwd")}
+    log(f"[31] registers and spills (most over the instantiations): "
+        f"{ {k: v for k, v in out.items() if k != 'clusters'} }")
     return out
+
+
+def rpos_exact_grads(ops, W, offsets, g):
+    """Float64 gradients of the r-pos attention (the materialised bias,
+    softmax and products in float64 on the card, through autograd): the
+    yardstick where the float32 plain versions' own rounding nears the
+    gradient bar (past D = 512, RPOS_F64_ONLY_PAST)."""
+    from ecg_denoise_tpu_torch.kernels import attention_rpos as ar
+
+    ins = [t.detach().double().requires_grad_() for t in ops]
+    logits = (torch.einsum("bhld,bhmd->bhlm", ins[0], ins[1])
+              + ar.materialize_rpos_bias(ins[3], W, offsets))
+    out = torch.einsum("bhlm,bhmd->bhld", torch.softmax(logits, -1), ins[2])
+    return torch.autograd.grad(out, ins, g.double())
 
 
 def rpos_kernel_grads(ops, W, offsets, g):
@@ -5507,10 +5676,13 @@ def phase_rpos_any_d_kernels():
     version (f32 1e-5, bf16 3 * 2^-8 of max|v|) with a second call
     bit-identical; B4 through the autograd Function against the plain
     flash backward on B3's own o and lse and, in f32, autograd through the
-    plain forward (dq, dk, dv 1e-4, dtoep 1e-4 of its max; bf16 2^-7 of
-    each max), a second call bit-identical. Every call launches its kernel:
-    the counts move by exactly the calls made. Then B1 and B2 on their
-    templates against the parent's, bit for bit, where its tree is there."""
+    plain forward and float64 gradients (`rpos_exact_grads`; past
+    RPOS_F64_ONLY_PAST those alone) (dq, dk, dv 1e-4, dtoep 1e-4 of its max;
+    bf16 2^-7 of each max), a second call bit-identical. Every call launches its kernel:
+    the counts move by exactly the calls made. Then, where the parent's
+    tree is there, B1 and B2 on their templates against the parent's, bit
+    for bit, and B3 (o, lse) and B4 (dq, dk, dv) on theirs, bit for bit: the
+    window mode added only the ds stores."""
     from ecg_denoise_tpu_torch import full_float32
     from ecg_denoise_tpu_torch.kernels import attention
     from ecg_denoise_tpu_torch.kernels import attention_rpos as ar
@@ -5538,6 +5710,9 @@ def phase_rpos_any_d_kernels():
                 ins = [t.detach().requires_grad_() for t in ops]
                 refs["autograd"] = torch.autograd.grad(
                     ar.attention_rpos_reference(*ins, W, offsets), ins, g)
+                refs["float64"] = rpos_exact_grads(ops, W, offsets, g)
+                if D > RPOS_F64_ONLY_PAST:
+                    del refs["flash"], refs["autograd"]
             f32 = dtype == torch.float32
             tol = F32_TOL if f32 else BF16_TOL_OF_MAX_V * ops[2].float().abs().max().item()
             err = (out.float() - ref.float()).abs().max().item()
@@ -5552,7 +5727,7 @@ def phase_rpos_any_d_kernels():
                     e = (a.float() - b.float()).abs().max().item()
                     ok &= e <= t
                     errs.append(f"{name}/{ref_name} {e:.2e}/{t:.2e}")
-                    if f32 and ref_name == "flash":
+                    if f32 and ref_name == ("flash" if "flash" in refs else "float64"):
                         max_err["bwd"] = max(max_err["bwd"], e)
             if f32:
                 max_err["fwd"] = max(max_err["fwd"], err)
@@ -5594,8 +5769,22 @@ def phase_rpos_any_d_kernels():
                     log(f"[31] B1/B2 template D={Dk} B={B} L={L} H={H} bias={with_bias} "
                         f"{str(dtype)[6:]}: bit-identical to the parent's: {', '.join(equal)}")
                     check(len(equal) == 6, f"B1/B2 at D = {Dk} is not the parent's bit for bit")
+        for D, B, L, W, H in RPOS_PARENT_CASES:
+            for dtype in (torch.float32, torch.bfloat16):
+                Dk = attention.kernel_head_dim(D, L, dtype)
+                ops, offsets = rpos_operands(B, L, W, H, dtype, gen, D=Dk, q_scale=Dk ** -0.5)
+                g = torch.randn(ops[0].shape, generator=gen).to("cuda", dtype)
+                new, old = (b3_call(lib, *ops, W, offsets) for lib in (
+                    ar._library(), parent_libs()["attention_rpos_fwd"]))
+                new_b, old_b = (b4_call(lib, *ops, W, offsets, *new, g)[:3] for lib in (
+                    ar._bwd_library(), parent_libs()["attention_rpos_bwd"]))
+                equal = [n for n, a, b in zip(("o", "lse", "dq", "dk", "dv"),
+                                              (*new, *new_b), (*old, *old_b)) if torch.equal(a, b)]
+                log(f"[31] B3/B4 template D={Dk} B={B} L={L} W={W} H={H} {str(dtype)[6:]}: "
+                    f"bit-identical to the parent's: {', '.join(equal)}")
+                check(len(equal) == 5, f"B3/B4 at D = {Dk} is not the parent's bit for bit")
     else:
-        log("[31] the parent's B1/B2 templates not compared (no tree under _archive/parent)")
+        log("[31] the parent's B1-B4 templates not compared (no tree under _archive/parent)")
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
     return max_err
 
@@ -5744,7 +5933,9 @@ def rpos_any_d_times(card):
     the bytes, of the unpadded call), the plain versions and SDPA with the
     materialised (B, H, L, L) mask (forward, and backward with the mask
     requiring grad: (fwd + bwd) - fwd); B4's passes' device ms
-    (torch.profiler, f32). Times only: no bar."""
+    (torch.profiler, f32: dq, dkdv and the dtoep sum; the parent's dq, dkdv
+    and dtoep pass). Where the parent's tree is there, each kernel in turns
+    with the parent's (`against_parent`). Times only: no bar."""
     from ecg_denoise_tpu_torch.kernels import attention_rpos as ar
     from ecg_denoise_tpu_torch.kernels.attention import _pad, kernel_head_dim
     from ecg_denoise_tpu_torch.probes.floor import graph_us
@@ -5760,9 +5951,14 @@ def rpos_any_d_times(card):
                 ops, offsets = rpos_operands(B, L, W, H, dtype, gen, D=D, q_scale=D ** -0.5)
                 padded = [_pad(t, Dk) for t in ops[:3]] + [ops[3]]
                 passes = {}
+                parent_lib = parent_libs() and parent_libs()[f"attention_rpos_{what}"]
+                parent = parent_passes = None
                 if what == "fwd":
                     this = functools.partial(b3_call, ar._library(), *padded, W, offsets,
                                              with_lse=False)
+                    if parent_lib:
+                        parent = functools.partial(b3_call, parent_lib, *padded, W, offsets,
+                                                   with_lse=False)
                     plain = cuda_ms(lambda: ar.attention_rpos_reference(*ops, W, offsets), 2)
                     mask = ar.materialize_rpos_bias(ops[3], W, offsets)
                     lib = cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -5773,6 +5969,9 @@ def rpos_any_d_times(card):
                     o, lse = b3_call(ar._library(), *padded, W, offsets)
                     this = functools.partial(b4_call, ar._bwd_library(), *padded, W, offsets, o,
                                              lse, _pad(g, Dk))
+                    if parent_lib:
+                        parent = functools.partial(b4_call, parent_lib, *padded, W, offsets, o,
+                                                   lse, _pad(g, Dk))
                     o_u = o[..., :D].contiguous()
                     plain = cuda_ms(lambda: ar.attention_rpos_backward_reference(
                         *ops, W, offsets, o_u, lse, g), 2)
@@ -5787,28 +5986,49 @@ def rpos_any_d_times(card):
                     t_ops, t_bytes = rpos_bwd_bound_terms(B, H, L, W, elt, offsets, D=D)
                     if dtype == torch.float32:
                         passes = pass_ms(this)
+                        if parent is not None:
+                            parent_passes = pass_ms(parent)
                 del mask
                 products = 2 if what == "fwd" else 5
                 t_ops = (mma_bound_terms(B, H, L, 4, products, D=D)[0] if dtype == torch.float32
                          else 2 * B * H * L * L * D * products / PEAK_BF16_FLOPS * 1e3)
-                ms = graph_us(this, 10) / 1e3
+                if parent is not None:
+                    ms, parent_ms, verdict = against_parent(this, parent)
+                    turns = f" in turns with the parent's {parent_ms:.4f} ms: {verdict}"
+                else:
+                    ms, parent_ms, verdict, turns = graph_us(this, 10) / 1e3, None, None, ""
                 bnd = max(t_ops, t_bytes)
                 route = "wide" if Dk > 64 else "mma"
                 log(f"[31] {card}: {'B3' if what == 'fwd' else 'B4'} {dt} {tag} D={D} (kernel "
-                    f"{Dk}, {route}) B={B} L={L} W={W} H={H}: kernel {ms:.4f} ms (graph replays), "
+                    f"{Dk}, {route}) B={B} L={L} W={W} H={H}: kernel {ms:.4f} ms (graph replays)"
+                    f"{turns}, "
                     f"bound {bnd:.4f} ms (operations {t_ops:.4f} "
                     f"{'at 3xTF32' if dtype == torch.float32 else 'in bf16'} on the tensor cores, "
                     f"bytes {t_bytes:.4f}), plain {plain:.4f} ms, sdpa with the (B, H, L, L) mask"
                     f"{' backward ((fwd+bwd) - fwd)' if what == 'bwd' else ''} {lib:.4f} ms"
                     + (f"; by pass " + ", ".join(f"{k} {v:.4f}" for k, v in passes.items())
-                       if passes else "") + f"; {RPOS_LAYER_DEPTH} calls per "
+                       if passes else "")
+                    + (f"; the parent's by pass " + ", ".join(
+                        f"{k} {v:.4f}" for k, v in parent_passes.items())
+                       if parent_passes else "") + f"; {RPOS_LAYER_DEPTH} calls per "
                     f"{'step' if what == 'bwd' else 'forward'}")
                 rows.append({"what": what, "route": route, "tag": tag, "dtype": dt, "B": B,
                              "L": L, "W": W, "H": H, "D": D, "kernel_head_dim": Dk, "ms": ms,
                              "bound_ms": bnd, "operations_ms": t_ops, "bytes_ms": t_bytes,
                              "plain_ms": plain, "library_ms": lib, "passes_ms": passes,
-                             "calls": RPOS_LAYER_DEPTH})
+                             "parent_ms": parent_ms, "against_parent": verdict,
+                             "parent_passes_ms": parent_passes, "calls": RPOS_LAYER_DEPTH})
                 del ops, padded
+    for what, route in (("fwd", "mma"), ("fwd", "wide"), ("bwd", "mma"), ("bwd", "wide")):
+        for dt in ("float32", "bfloat16"):
+            mine = [r for r in rows if (r["what"], r["route"], r["dtype"]) == (what, route, dt)]
+            if mine and all(r["parent_ms"] is not None for r in mine):
+                log(f"[31] {card}: {'B3' if what == 'fwd' else 'B4'} on the {route} route {dt}, "
+                    f"the {sum(r['calls'] for r in mine)} calls of "
+                    f"{', '.join(r['tag'] for r in mine)}: "
+                    f"{sum(r['calls'] * r['ms'] for r in mine):.4f} ms against the parent's "
+                    f"{sum(r['calls'] * r['parent_ms'] for r in mine):.4f} ms (in turns, "
+                    f"by call: {', '.join(r['against_parent'] for r in mine)})")
     return rows
 
 
@@ -5849,8 +6069,12 @@ def rpos_any_kernel_rows(launches, max_err, rows, resources):
                            for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                                        "operations_ms", "bytes_ms")}
                       for dt in ("float32", "bfloat16")}
-            for t in totals.values():
+            for dt, t in totals.items():
                 t["bound_by"] = "operations" if t["operations_ms"] >= t["bytes_ms"] else "bytes"
+                mine = [r for r in picked if r["dtype"] == dt]
+                t["parent_ms"] = (sum(r["calls"] * r["parent_ms"] for r in mine)
+                                  if mine and all(r["parent_ms"] is not None for r in mine)
+                                  else None)
             f32 = totals["float32"]
             by_path = {f"{kind}_{tag}": launches[f"{kind}_{tag}"][kernel]
                        for tag in tags for kind in ("serve", "train")}

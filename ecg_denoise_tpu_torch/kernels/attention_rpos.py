@@ -29,7 +29,11 @@ switch and no fallback:
   and B2's mma template in its window mode at D = 8, 16, 32 or 64 (bf16
   from 16), any D > 64 on their wide kernels at the next multiple of 64;
   q, k, v (and o, g) are zero-padded along D to the kernel's and the
-  results sliced back (`forward_at`, `backward_at`). The offsets get no
+  results sliced back (`forward_at`, `backward_at`). Past the D = 4
+  kernels the backward's dq pass leaves each head's ds inside its
+  element's window in a float32 (B, H, W', W') scratch, W' = min(W, L),
+  and a second kernel sums it over the batch into dtoep (`window_ds`,
+  `dtoep_from_window_ds`: their plain versions). The offsets get no
   gradient (JAX gives them a zero cotangent); the table's gradient comes
   from autograd's gather backward outside the kernels, from dtoep;
 * a CPU tensor goes to `attention_rpos_reference`, the plain PyTorch
@@ -43,12 +47,14 @@ kernels. `fused_attention_rpos.launches` counts forward-kernel launches and
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
 
 from ecg_denoise_tpu_torch.kernels.attention import (
     DTYPE_CODES,
+    HEAD_DIM,
     attention_reference,
     backward_at,
     bind,
@@ -100,6 +106,45 @@ def attention_rpos_backward_reference(q, k, v, toep, W: int, offsets, o, lse, g)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dtoep
 
 
+def window_bounds(offsets: torch.Tensor, W: int, L: int):
+    """Each element's window as (first position, length), int64 (B,): the
+    run of `window_mask`, cut to [0, L) (length 0 where it is empty)."""
+    m = window_mask(offsets, W, L)
+    return m.to(torch.int64).argmax(1), m.sum(1)
+
+
+def window_ds(ds: torch.Tensor, offsets: torch.Tensor, W: int) -> torch.Tensor:
+    """Plain version of what the card's dq pass leaves in its scratch past
+    the D = 4 kernels: from ds (B, H, L, L) the float32 (B, H, W', W'),
+    W' = min(W, L), entry (i, j) of element b the ds at (s_b + i, s_b + j)
+    for i, j below its window's length n_b, s_b its first position. The
+    kernel leaves the rest unwritten; here it is 0."""
+    B, H, L, _ = ds.shape
+    Wp = min(W, L)
+    lo, n = window_bounds(offsets, W, L)
+    i = torch.arange(Wp, device=ds.device)
+    idx = (lo[:, None] + i).clamp(max=L - 1)  # (B, W')
+    inside = i[None, :] < n[:, None]
+    got = ds.float()[torch.arange(B, device=ds.device)[:, None, None], :,
+                     idx[:, :, None], idx[:, None, :]]  # (B, W', W', H)
+    got = got.permute(0, 3, 1, 2)
+    return got * (inside[:, None, :, None] & inside[:, None, None, :])
+
+
+def dtoep_from_window_ds(ds_win: torch.Tensor, offsets: torch.Tensor, W: int,
+                         L: int) -> torch.Tensor:
+    """Plain version of the dtoep sum past the D = 4 kernels: the float32
+    (1, H, L, L) dtoep[h, l, m] = Σ_b ds_win[b, h, l - s_b, m - s_b] over
+    the elements whose window holds l and m, b ascending (the kernel's
+    order: one f32 sum per (h, l, m))."""
+    B, H = ds_win.shape[:2]
+    lo, n = window_bounds(offsets, W, L)
+    out = torch.zeros(1, H, L, L, dtype=torch.float32, device=ds_win.device)
+    for b, (s, w) in enumerate(zip(lo.tolist(), n.tolist())):
+        out[0, :, s:s + w, s:s + w] += ds_win[b, :, :w, :w]
+    return out
+
+
 def _check(q, k, v, toep, W, offsets) -> None:
     if toep is None:
         raise ValueError("toep is required")
@@ -123,7 +168,11 @@ def _library():
 @functools.cache
 def _bwd_library():
     """The backward kernel's library, built at first use."""
-    return bind("attention_rpos_bwd", "ecg_attention_rpos_bwd", 13, 7)
+    lib = bind("attention_rpos_bwd", "ecg_attention_rpos_bwd", 14, 7)
+    f = lib.ecg_attention_rpos_dtoep_sum
+    f.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    f.restype = ctypes.c_int
+    return lib
 
 
 def _launch(q, k, v, toep, W, offsets, *, with_lse: bool = False):
@@ -165,7 +214,23 @@ def _launch_bwd(q, k, v, toep, W, offsets, o, lse, g):
 
 
 def _launch_bwd_kernel(q, k, v, toep, o, lse, g, *, W, offsets):
+    """The backward at the kernel's head dim: (dq, dk, dv, dtoep), dtoep
+    summed in float32 and cast once to toep's dtype. Past the D = 4
+    kernels the passes fill the ds scratch and `_dtoep_sum` forms dtoep."""
     check_launchable(q, k, v, o, g, bias=toep)
+    B, H, L, D = q.shape
+    ds = (None if D == HEAD_DIM else
+          torch.empty(B, H, min(W, L), min(W, L), dtype=torch.float32, device=q.device))
+    dq, dk, dv, dtoep = _bwd_passes(q, k, v, toep, o, lse, g, W, offsets, ds)
+    if ds is not None:
+        _dtoep_sum(ds, offsets, W, dtoep)
+    fused_attention_rpos.bwd_launches += 1
+    return dq, dk, dv, dtoep.to(toep.dtype)  # summed in float32, cast once
+
+
+def _bwd_passes(q, k, v, toep, o, lse, g, W, offsets, ds):
+    """The backward kernel's passes: dq, dk, dv, and at D = 4 dtoep (float32,
+    else left unwritten: the passes fill `ds`)."""
     lib = _bwd_library()
     B, H, L, D = q.shape
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
@@ -174,11 +239,22 @@ def _launch_bwd_kernel(q, k, v, toep, o, lse, g, *, W, offsets):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.ecg_attention_rpos_bwd(
         ptr(q), ptr(k), ptr(v), ptr(toep), ptr(offsets), ptr(g), ptr(o),
-        ptr(lse), ptr(c), ptr(dq), ptr(dk), ptr(dv), ptr(dtoep),
+        ptr(lse), ptr(c), ptr(dq), ptr(dk), ptr(dv), ptr(dtoep), ptr(ds),
         B, H, L, D, W, DTYPE_CODES[q.dtype], q.device.index, stream)
     raise_on(lib, err, "attention r-pos backward")
-    fused_attention_rpos.bwd_launches += 1
-    return dq, dk, dv, dtoep.to(toep.dtype)  # summed in float32, cast once
+    return dq, dk, dv, dtoep
+
+
+def _dtoep_sum(ds, offsets, W, dtoep):
+    """The second kernel past the D = 4 kernels: dtoep (float32 (1, H, L,
+    L), written in place) from the scratch the dq pass filled."""
+    lib = _bwd_library()
+    B, H = ds.shape[:2]
+    L = dtoep.shape[-1]
+    err = lib.ecg_attention_rpos_dtoep_sum(
+        ptr(ds), ptr(offsets), ptr(dtoep), B, H, L, W, ds.device.index,
+        torch.cuda.current_stream(ds.device).cuda_stream)
+    raise_on(lib, err, "attention r-pos dtoep sum")
 
 
 class _FusedAttentionRpos(torch.autograd.Function):

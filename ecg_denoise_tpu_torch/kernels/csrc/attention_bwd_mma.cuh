@@ -10,15 +10,17 @@
 // ecg_denoise_tpu/kernels/attention_pallas.py _bwd_rpos_kernel (:859) at
 // every head_dim and length but D = 4 at L <= 256). The bias is toep (1,
 // H, L, L) times in_b[l] * in_b[m] (attention_window.cuh), formed where
-// the dq and dk/dv passes recompute p, as attention_fwd_mma.cuh forms it;
-// and the dbias pass becomes the dtoep pass,
-//   dtoep[h,l,m] = sum_b ds[b,h,l,m] * in_b[l] * in_b[m],
-// summed in f32 in b order by one lane each, with no atomics. A block of
-// that pass owns a 64 x 64 (l, m) tile and walks only the elements whose
-// window holds one of its rows and one of its keys (`next_element`): the
-// others add exactly 0 there, so the pass's work follows the windows, not
-// B. Its accumulation skips every (b, l, m) outside the window the same
-// way. dtoep is written in f32; the caller casts it once to toep's dtype.
+// the dq and dk/dv passes recompute p, as attention_fwd_mma.cuh forms it.
+// The toep gradient
+//   dtoep[h,l,m] = sum_b ds[b,h,l,m] * in_b[l] * in_b[m]
+// is built from the ds the dq pass computes anyway: in the window mode
+// that pass also writes each head's ds inside its element's window, (l -
+// s_b, m - s_b) with s_b the window's first position, to an f32 (B, H, W',
+// W') scratch (W' = min(W, L)), and a second small kernel
+// (attention_rpos_bwd.cu) sums it over b in order. The first design
+// recomputed S and dP a third time for dtoep, in a pass whose grid
+// (H x 64 x 64 tiles) was 4 blocks at (L, H) = (128, 1); it took 6.08 of
+// B4's 8.76 ms a call at D = 256 on an H100.
 
 #pragma once
 
@@ -341,15 +343,38 @@ struct MmaRows {
   }
 };
 
-// kWin (B4): `bias` is toep, and `offsets` and W give each batch element's
-// window; B2 passes neither.
+// kWin (B4): the dq pass's ds of this lane's rows r0 (v[0] at key m,
+// v[1] at m + 1) and r0 + 8 (v[2], v[3]) where the window holds both the
+// row and the key, into head bh's (W', W') block of the scratch `ds`,
+// window-relative. ok0, ok1: the rows are the head's (heads past the
+// batch hold none).
+__device__ __forceinline__ void store_window_ds(float* __restrict__ ds, Window win, long long bh,
+                                                int Wp, int r0, bool ok0, bool ok1, int m,
+                                                const float (&v)[4]) {
+  const size_t head = static_cast<size_t>(bh) * Wp;
+  const int k0 = m - win.lo;  // the keys' place in the window
+  if (ok0 && win.has(r0)) {
+    float* row = ds + (head + (r0 - win.lo)) * Wp;
+    if (win.has(m)) row[k0] = v[0];
+    if (win.has(m + 1)) row[k0 + 1] = v[1];
+  }
+  if (ok1 && win.has(r0 + 8)) {
+    float* row = ds + (head + (r0 + 8 - win.lo)) * Wp;
+    if (win.has(m)) row[k0] = v[2];
+    if (win.has(m + 1)) row[k0 + 1] = v[3];
+  }
+}
+
+// kWin (B4): `bias` is toep, `offsets` and W give each batch element's
+// window, and `ds` takes the windowed ds (`store_window_ds`); B2 passes
+// none of them.
 template <typename T, int D, bool kBias, bool kWin>
 __global__ void __launch_bounds__(kMmaThreads)
 attention_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v, const T* __restrict__ bias,
                             const T* __restrict__ g, const T* __restrict__ o,
                             const float* __restrict__ lse, float* __restrict__ c,
-                            T* __restrict__ dq, int B, int H, int L,
+                            T* __restrict__ dq, float* __restrict__ ds, int B, int H, int L,
                             const float* __restrict__ offsets, int W) {
   constexpr bool kExact = sizeof(T) == 2;
   constexpr int kS = mma_stride<D>();
@@ -438,6 +463,10 @@ attention_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
         s[i][1] = m + 1 < L ? __expf(s[i][1] - lse0) * (dp[i][1] - c0) : 0.f;
         s[i][2] = m < L ? __expf(s[i][2] - lse1) * (dp[i][2] - c1) : 0.f;
         s[i][3] = m + 1 < L ? __expf(s[i][3] - lse1) * (dp[i][3] - c1) : 0.f;
+        if constexpr (kWin) {
+          store_window_ds(ds, bias_window<kWin, kMmaWarps, sizeof(T) == 4>(warp, L), w.bh,
+                          W < L ? W : L, w.r0, w.ok0, w.ok1, m, s[i]);
+        }
       }
 #pragma unroll
       for (int i = 0; i < kChunkTiles; ++i) {
@@ -557,26 +586,14 @@ attention_bwd_dkdv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_rows<T, D>(dv, row0, w.ok0, w.ok1, dv_acc, tq);
 }
 
-// The first element from b on (B where there is none) whose window holds
-// a row of the (l, m) tile at (l0, m0) and a key of it (kWin: the dtoep
-// pass visits only those); without a window, b itself.
-template <bool kWin>
-__device__ __forceinline__ int next_element(int b, int B, const float* __restrict__ offsets, int W,
-                                            int L, int l0, int m0) {
-  if constexpr (kWin) {
-    while (b < B && !window_of(offsets[b], W, L).meets(l0, m0, kTile)) ++b;
-  }
-  return b;
-}
-
-// kWin (B4): the dtoep pass, dbias = sum_b ds * in_b[l] * in_b[m].
-template <typename T, int D, bool kWin>
+// B2's dbias pass, dbias = sum_b ds.
+template <typename T, int D>
 __global__ void __launch_bounds__(kMmaThreads)
 attention_bwd_dbias_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                const T* __restrict__ v, const T* __restrict__ bias,
                                const T* __restrict__ g, const float* __restrict__ lse,
                                const float* __restrict__ c, float* __restrict__ dbias, int B,
-                               int H, int L, const float* __restrict__ offsets, int W) {
+                               int H, int L) {
   constexpr bool kExact = sizeof(T) == 2;
   constexpr int kS = mma_stride<D>();
   constexpr int kNT = kTile / 8;
@@ -596,22 +613,17 @@ attention_bwd_dbias_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int j = 0; j < kNT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
   constexpr int kStage = 2 * kTile * kS;
-  // Element b is the i-th the block visits (buffer i & 1 of the ring).
-  int b = next_element<kWin>(0, B, offsets, W, L, l0, m0);
-  if (b < B) {
-    stage_pair<T, D>(ring, ring + kTile * kS, k, v, 1, kTile, static_cast<long long>(b) * H + h,
-                     n_heads, L, m0);
-  }
-  for (int i = 0; b < B; ++i) {
-    const int next = next_element<kWin>(b + 1, B, offsets, W, L, l0, m0);
+  // Element b in buffer b & 1 of the ring.
+  stage_pair<T, D>(ring, ring + kTile * kS, k, v, 1, kTile, h, n_heads, L, m0);
+  for (int b = 0; b < B; ++b) {
     asm volatile("cp.async.wait_group 0;\n" ::);
     __syncthreads();
-    if (next < B) {
-      float* nb = ring + ((i + 1) & 1) * kStage;
+    if (b + 1 < B) {
+      float* nb = ring + ((b + 1) & 1) * kStage;
       stage_pair<T, D>(nb, nb + kTile * kS, k, v, 1, kTile,
-                       static_cast<long long>(next) * H + h, n_heads, L, m0);
+                       static_cast<long long>(b + 1) * H + h, n_heads, L, m0);
     }
-    const float* ks = ring + (i & 1) * kStage;
+    const float* ks = ring + (b & 1) * kStage;
     const float* vs = ks + kTile * kS;
     const size_t row0 = (static_cast<size_t>(b) * H + h) * L + r0;
     Frag<D> qf, gf;
@@ -619,29 +631,22 @@ attention_bwd_dbias_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     load_frag<T, D>(gf, g, row0, ok0, ok1, tq);
     const float lse0 = ok0 ? lse[row0] : 0.f, lse1 = ok1 ? lse[row0 + 8] : 0.f;
     const float c0 = ok0 ? c[row0] : 0.f, c1 = ok1 ? c[row0 + 8] : 0.f;
-    // The (l, m) this element adds to: B2's in L; B4's inside its window,
-    // where its bias is toep itself.
-    const Window win = kWin ? window_of(offsets[b], W, L) : Window{0, L};
-    const bool r_in0 = kWin ? ok0 && win.has(r0) : ok0;
-    const bool r_in1 = kWin ? ok1 && win.has(r0 + 8) : ok1;
 #pragma unroll
     for (int j = 0; j < kNT; ++j) {
       float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
       strip_dot<D, kExact>(s, qf, ks + (8 * j + gq) * kS + tq);
       strip_dot<D, kExact>(dp, gf, vs + (8 * j + gq) * kS + tq);
       const int m = m0 + 8 * j + 2 * tq;
-      const bool in0 = in_bias<kWin>(win, m, L), in1 = in_bias<kWin>(win, m + 1, L);
       // ds = exp(s + bias - lse) (dP - c), summed over b in order.
-      if (in0) {
-        acc[j][0] += r_in0 ? __expf(s[0] + to_float(brow0[m]) - lse0) * (dp[0] - c0) : 0.f;
-        acc[j][2] += r_in1 ? __expf(s[2] + to_float(brow1[m]) - lse1) * (dp[2] - c1) : 0.f;
+      if (m < L) {
+        acc[j][0] += ok0 ? __expf(s[0] + to_float(brow0[m]) - lse0) * (dp[0] - c0) : 0.f;
+        acc[j][2] += ok1 ? __expf(s[2] + to_float(brow1[m]) - lse1) * (dp[2] - c1) : 0.f;
       }
-      if (in1) {
-        acc[j][1] += r_in0 ? __expf(s[1] + to_float(brow0[m + 1]) - lse0) * (dp[1] - c0) : 0.f;
-        acc[j][3] += r_in1 ? __expf(s[3] + to_float(brow1[m + 1]) - lse1) * (dp[3] - c1) : 0.f;
+      if (m + 1 < L) {
+        acc[j][1] += ok0 ? __expf(s[1] + to_float(brow0[m + 1]) - lse0) * (dp[1] - c0) : 0.f;
+        acc[j][3] += ok1 ? __expf(s[3] + to_float(brow1[m + 1]) - lse1) * (dp[3] - c1) : 0.f;
       }
     }
-    b = next;
   }
 #pragma unroll
   for (int j = 0; j < kNT; ++j) {
@@ -657,7 +662,7 @@ attention_bwd_dbias_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D, bool kBias, bool kWin>
 cudaError_t launch_mma_passes(const T* q, const T* k, const T* v, const T* bias, const T* g,
                               const T* o, const float* lse, float* c, T* dq, T* dk, T* dv,
-                              int B, int H, int L, const float* offsets, int W,
+                              float* ds, int B, int H, int L, const float* offsets, int W,
                               cudaStream_t stream) {
   static const cudaError_t allowed_dq =
       allow_smem(attention_bwd_dq_mma_kernel<T, D, kBias, kWin>, mma_smem_bytes<D>(false));
@@ -671,12 +676,36 @@ cudaError_t launch_mma_passes(const T* q, const T* k, const T* v, const T* bias,
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   attention_bwd_dq_mma_kernel<T, D, kBias, kWin>
       <<<static_cast<int>(blocks), kMmaThreads, mma_smem_bytes<D>(false), stream>>>(
-          q, k, v, bias, g, o, lse, c, dq, B, H, L, offsets, W);
+          q, k, v, bias, g, o, lse, c, dq, ds, B, H, L, offsets, W);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   attention_bwd_dkdv_mma_kernel<T, D, kBias, kWin>
       <<<static_cast<int>(blocks), kMmaThreads, mma_smem_bytes<D>(true), stream>>>(
           q, k, v, bias, g, lse, c, dk, dv, B, H, L, offsets, W);
+  return cudaGetLastError();
+}
+
+// B2's passes on the template, and its dbias pass where dbias is asked for.
+template <typename T, int D>
+cudaError_t launch_mma_b2(const T* qt, const T* kt, const T* vt, const T* bt, const T* gt,
+                          const T* ot, const float* lse, float* c, T* dqt, T* dkt, T* dvt,
+                          float* dbias, int B, int H, int L, cudaStream_t stream) {
+  const cudaError_t err =
+      bt != nullptr
+          ? launch_mma_passes<T, D, true, false>(qt, kt, vt, bt, gt, ot, lse, c, dqt, dkt, dvt,
+                                                 nullptr, B, H, L, nullptr, 0, stream)
+          : launch_mma_passes<T, D, false, false>(qt, kt, vt, bt, gt, ot, lse, c, dqt, dkt, dvt,
+                                                  nullptr, B, H, L, nullptr, 0, stream);
+  if (err != cudaSuccess || dbias == nullptr) return err;
+  static const cudaError_t allowed =
+      allow_smem(attention_bwd_dbias_mma_kernel<T, D>, mma_smem_bytes<D>(false));
+  if (allowed != cudaSuccess) return allowed;
+  const long long tiles = (L + kTile - 1) / kTile;
+  const long long blocks = H * tiles * tiles;  // then tiles * tiles fits an int too
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  attention_bwd_dbias_mma_kernel<T, D>
+      <<<static_cast<int>(blocks), kMmaThreads, mma_smem_bytes<D>(false), stream>>>(
+          qt, kt, vt, bt, gt, lse, c, dbias, B, H, L);
   return cudaGetLastError();
 }
 
@@ -694,33 +723,20 @@ cudaError_t launch_mma_d(const void* q, const void* k, const void* v, const void
   T* dqt = static_cast<T*>(dq);
   T* dkt = static_cast<T*>(dk);
   T* dvt = static_cast<T*>(dv);
-  cudaError_t err;
-  if constexpr (kWin) {
-    err = launch_mma_passes<T, D, true, true>(qt, kt, vt, bt, gt, ot, lse, c, dqt, dkt, dvt, B,
-                                              H, L, offsets, W, stream);
+  if constexpr (kWin) {  // `dbias` is the ds scratch
+    return launch_mma_passes<T, D, true, true>(qt, kt, vt, bt, gt, ot, lse, c, dqt, dkt, dvt,
+                                               dbias, B, H, L, offsets, W, stream);
   } else {
-    err = bias != nullptr
-              ? launch_mma_passes<T, D, true, false>(qt, kt, vt, bt, gt, ot, lse, c, dqt, dkt,
-                                                     dvt, B, H, L, nullptr, 0, stream)
-              : launch_mma_passes<T, D, false, false>(qt, kt, vt, bt, gt, ot, lse, c, dqt, dkt,
-                                                      dvt, B, H, L, nullptr, 0, stream);
+    return launch_mma_b2<T, D>(qt, kt, vt, bt, gt, ot, lse, c, dqt, dkt, dvt, dbias, B, H, L,
+                               stream);
   }
-  if (err != cudaSuccess || dbias == nullptr) return err;
-  static const cudaError_t allowed =
-      allow_smem(attention_bwd_dbias_mma_kernel<T, D, kWin>, mma_smem_bytes<D>(false));
-  if (allowed != cudaSuccess) return allowed;
-  const long long tiles = (L + kTile - 1) / kTile;
-  const long long blocks = H * tiles * tiles;  // then tiles * tiles fits an int too
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  attention_bwd_dbias_mma_kernel<T, D, kWin>
-      <<<static_cast<int>(blocks), kMmaThreads, mma_smem_bytes<D>(false), stream>>>(
-          qt, kt, vt, bt, gt, lse, c, dbias, B, H, L, offsets, W);
-  return cudaGetLastError();
 }
 
 // The template at head dim D = 8, 16, 32 or 64; any other D is refused.
-// kWin: B4, `bias` the toep, `dbias` dtoep and `offsets` and W the windows
-// (all required); else B2, offsets unused.
+// kWin: B4, `bias` the toep, `dbias` the f32 (B, H, W', W') scratch the dq
+// pass fills with the windowed ds, and `offsets` and W the windows (all
+// required; attention_rpos_bwd.cu sums the scratch into dtoep); else B2,
+// `dbias` null or the dbias output, offsets unused.
 template <typename T, bool kWin>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* bias,
                        const void* g, const void* o, const float* lse, float* c, void* dq,
@@ -744,48 +760,209 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
   }
 }
 
+
 // ---------------------------------------------------------------------------
 // head_dim past 64: the three passes for every D that is a multiple of 64
 // (the wrapper zero-pads any other D > 64 up to the next one), for
-// Transformer1d with 128- and 256-wide heads. The mma template above is
-// left as it is.
+// Transformer1d with 128- and 256-wide heads and B4 past 64. The mma
+// template above is left as it is.
 //
-// What bounds it: the template's work, 10*L*L*D flops a (b, h). What the
-// template keeps per thread grows with D (the dq pass holds q's and g's
-// fragments, 2*D registers at f32; the dk/dv pass two accumulators of D /
-// 2), and its ring of two tiles of 64 x (D + 4) floats a stage passes the
-// per-block limit at D = 256. So nothing here grows with D, as in B1's
-// wide kernel (attention_fwd.cu):
-// * D is cut into 64-wide chunks, and a block of the dq and dk/dv passes
-//   owns one 64-wide part of its outputs (blockIdx.y): it contracts S =
-//   q.k^T and dP = g.v^T over the whole D, chunk by chunk, and recomputes
-//   them for its part (D / 64 times over at the widest).
-// * The ring is two stages of two 64 x 68 f32 tiles (bf16 widened to f32
-//   as it lands), 69,632 bytes for every D (the dk/dv pass adds its rows'
-//   lse and c). Per tile of the other side a block walks 2 * chunks + 1
-//   stages: chunk c of (q, K), then of (g, V), then the part's operand of
-//   the last product (dq: K; dk/dv: q and g with the rows' lse and c).
-// * dq pass: a warp's 16 query rows read their A fragments from the
-//   staged q (g) rows, one 8-dim k-step at a time; S and dP over the tile's
-//   64 keys are summed over the chunks in C fragments (each k-step's
-//   products in a fresh fragment); then p = exp(S + bias - lse), ds = p
-//   (dP - c) and dq += ds.k over the part, by the template's permutation.
-//   c = g.o is summed over the whole D by every part, alike; part 0
-//   writes it for the later passes.
-// * dk/dv pass, its transpose: a warp's 16 keys, S^T = k.q^T and dP^T =
-//   v.g^T over the chunks, then dv += p^T.g and dk += ds^T.q over the part.
-// * dbias pass: a block owns one head and a 64 x 64 (l, m) tile, as the
-//   template's, and walks the batch in order; per element 2 * chunks
-//   stages of (q, K) and (g, V) chunks, S and dP summed over them, then ds
-//   into the tile's f32 accumulators in b order. dbias is not split by D.
-// No atomics: a call gives bit-identical results every time.
+// What bounds it on this card: the template's work, 10*L*L*D flops a (b,
+// h) on mma.sync at 3xTF32, but what the template keeps per thread grows
+// with D, and its ring passes the per-block limit at D = 256, so D is cut
+// into 64-wide chunks, as in B1's wide kernel (attention_fwd_mma.cuh). The
+// first design gave a block one 64-wide part of its outputs and had
+// it contract S = q.k^T and dP = g.v^T over the whole D: at D = 256 the dq
+// pass did about 9 L^2 D products where 3 are needed, the dk/dv pass 10
+// where 4 are, and the dk/dv pass sat at 255 registers with 64-88 bytes of
+// stack. Here, as in B1's, the blocks of one tile form a thread-block
+// cluster along gridDim.y, each owning consecutive chunks and their output
+// parts (WideSplit, DkdvSplit):
+// * dq pass: per key tile a block contracts the partial dP over its (g, V)
+//   chunks and S over its (q, K) chunks (stages of two 64 x 68 f32 planes,
+//   bf16 widened as it lands), exchanges both with the cluster (one
+//   64 x 64 f32 tile each, 32 KB) and sums every block's partials in rank
+//   order through distributed shared memory; every block then holds the
+//   same S and dP, forms p = exp(S + bias - lse) and ds = p (dP - c), and
+//   adds dq_part += ds.K_part: the K chunk it staged for S where it owns
+//   one chunk, else the part's K staged again. c = g.o is summed over the
+//   whole D by every block alike; rank 0 writes it. In the window mode
+//   rank 0 also writes the head's windowed ds to the dtoep scratch
+//   (`store_window_ds`).
+// * dk/dv pass, its transpose (a warp's 16 keys against the tile's query
+//   rows), with one role a block: of a cluster of 2 * half blocks
+//   (DkdvSplit), the first half contract the partial S^T = k.q^T over
+//   their chunks and add dv_part += p^T.g, the second half contract dP^T =
+//   v.g^T and add dk_part += ds^T.q. After the exchange (one 64 x 64 f32
+//   partial a block) a dv block sums the first half's partials into S^T, a
+//   dk block both halves' into S^T and dP^T; a stage of the tile's g (or
+//   q) over the part, with the rows' lse and c, then gives p^T (and ds^T)
+//   and the product. Each product is computed once, and a block holds one
+//   part's accumulator and at most two strips (S^T, dP^T), not the four
+//   strips and two accumulators on which the first design spilled at 255
+//   registers.
+// * Where a block owns several chunks (D > 512 in the dq pass, D > 256 in
+//   the dk/dv pass) it walks the tiles once a part, the cluster re-forming
+//   S and dP from its chunks each time: a block's state stays one part's,
+//   so every D runs in the same shared memory (102,400 bytes the dq pass,
+//   87,040 the dk/dv pass). A block holds one part's accumulator at bf16
+//   too: with two, as B1's bf16 blocks hold, these passes spill.
+// * dbias (B2 only): a block owns one head and a 64 x 64 (l, m) tile and
+//   walks the batch in order; per element 2 * chunks stages of (q, K) and
+//   (g, V) chunks, S and dP summed over them, then ds into the tile's f32
+//   accumulators in b order. dbias is not split by D.
+// No atomics, and the exchanges sum in rank order: a call gives
+// bit-identical results every time.
 
-constexpr int kWideD = 64;  // dims of a chunk of D, and of a block's output part
+constexpr int kWideD = 64;      // dims of a chunk of D, and of a block's output part
+constexpr int kMaxCluster = 8;  // blocks of a portable cluster
 
-// A ring of two stages of two (kTile x 68) f32 tiles; the dk/dv pass adds
-// the tiles' lse and c.
-__host__ __device__ constexpr int wide_smem_bytes(bool with_scalars) {
-  return mma_smem_bytes<kWideD>(with_scalars);
+// How the dq pass cuts D, the same on host and device: `chunks` 64-wide
+// chunks, `per` consecutive chunks (and output parts) a block, clusters of
+// `size` blocks (B1's cut at f32).
+struct WideSplit {
+  int chunks, per, size;
+  __host__ __device__ explicit WideSplit(int D) {
+    chunks = D / kWideD;
+    per = (chunks + kMaxCluster - 1) / kMaxCluster;
+    size = (chunks + per - 1) / per;
+  }
+};
+
+// Thread-block clusters (sm_90), as in attention_fwd_mma.cuh: the block's
+// rank, the cluster barrier (arrive releases, wait acquires) and a block's
+// shared memory.
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The shared::cluster address of `p`, in this block's shared memory, in
+// the block of rank `rank`.
+__device__ __forceinline__ uint32_t cluster_map(const void* p, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))), "r"(rank));
+  return out;
+}
+
+// x += the four floats at shared::cluster address `at`, the load and the
+// adds in one asm statement: the compiler cannot hoist a strip's loads
+// ahead of their adds and hold them all at once (64 registers in the
+// backward's exchange).
+__device__ __forceinline__ void add_cluster(float (&x)[4], uint32_t at) {
+  asm volatile(
+      "{\n"
+      " .reg .f32 a, b, c, d;\n"
+      " ld.shared::cluster.v4.f32 {a, b, c, d}, [%4];\n"
+      " add.f32 %0, %0, a;\n"
+      " add.f32 %1, %1, b;\n"
+      " add.f32 %2, %2, c;\n"
+      " add.f32 %3, %3, d;\n"
+      "}\n"
+      : "+f"(x[0]), "+f"(x[1]), "+f"(x[2]), "+f"(x[3])
+      : "r"(at)
+      : "memory");
+}
+
+constexpr int kNT = kTile / 8;  // 8-wide n-tiles of a 64-key strip
+
+// The fragments [lo, hi) of a 64-key strip that block `r` of `n` sums for
+// the others in a reduce-scatter.
+__device__ __forceinline__ int share_lo(int r, int n) { return r * kNT / n; }
+
+// y[j] = 0 + the fragment j of `buf` (2 kNT * kMmaThreads float4, at strip
+// `strip`) in the blocks `r0 + r`, r in [0, n), in rank order, for the
+// fragments j of [lo, hi); the others are left as they are.
+__device__ __forceinline__ void range_sum(float (&y)[kNT][4], const float4* buf, int strip, int r0,
+                                          int n, int lo, int hi) {
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) {
+    if (j >= lo && j < hi) y[j][0] = y[j][1] = y[j][2] = y[j][3] = 0.f;
+  }
+  for (int r = 0; r < n; ++r) {
+    const uint32_t at = cluster_map(buf + threadIdx.x, r0 + r);
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      if (j >= lo && j < hi) add_cluster(y[j], at + (strip * kNT + j) * kMmaThreads * 16);
+    }
+  }
+}
+
+// y[j] = the fragment j of block `r`'s `buf` at strip `strip`, for j in
+// [lo, hi).
+__device__ __forceinline__ void gather(float (&y)[kNT][4], const float4* buf, int strip, int r,
+                                       int lo, int hi) {
+  const uint32_t at = cluster_map(buf + threadIdx.x, r);
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) {
+    if (j >= lo && j < hi) {
+      y[j][0] = y[j][1] = y[j][2] = y[j][3] = 0.f;
+      add_cluster(y[j], at + (strip * kNT + j) * kMmaThreads * 16);
+    }
+  }
+}
+
+__device__ __forceinline__ void put(float4* buf, int strip, const float (&y)[kNT][4], int lo,
+                                    int hi) {
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) {
+    if (j >= lo && j < hi) {
+      buf[(strip * kNT + j) * kMmaThreads + threadIdx.x] =
+          make_float4(y[j][0], y[j][1], y[j][2], y[j][3]);
+    }
+  }
+}
+
+// a and b = the sums of the cluster's `size` blocks' a and b, in rank order
+// from 0 (0 + a_0 + a_1 + ...), so that every block gets the same bits.
+// Each thread holds the same (row, key) fragments in every block; `buf` (2
+// * kNT * kMmaThreads float4 of this block's shared memory: strips a, b)
+// takes this block's, a fragment's threads contiguous. A reduce-scatter,
+// then an all-gather: block r sums fragments [share_lo(r), share_lo(r + 1))
+// of every block's a and b and leaves the sums in its `buf` in place of its
+// own (no other block reads those there), from where every block gathers
+// them: a block reads about 4 kNT fragments' worth of the cluster's shared
+// memory, not 2 size kNT. Every thread calls it after a cluster_arrive
+// that frees `buf`: it waits until every block is done with the last
+// exchange, and arrives again once it has gathered.
+__device__ __forceinline__ void cluster_sum(float (&a)[kNT][4], float (&b)[kNT][4], float4* buf,
+                                            int rank, int size) {
+  cluster_wait();
+  put(buf, 0, a, 0, kNT);
+  put(buf, 1, b, 0, kNT);
+  cluster_arrive();
+  cluster_wait();
+  const int lo = share_lo(rank, size), hi = share_lo(rank + 1, size);
+  range_sum(a, buf, 0, 0, size, lo, hi);
+  range_sum(b, buf, 1, 0, size, lo, hi);
+  put(buf, 0, a, lo, hi);
+  put(buf, 1, b, lo, hi);
+  cluster_arrive();
+  cluster_wait();
+  for (int r = 0; r < size; ++r) {
+    if (r == rank) continue;
+    gather(a, buf, 0, r, share_lo(r, size), share_lo(r + 1, size));
+    gather(b, buf, 1, r, share_lo(r, size), share_lo(r + 1, size));
+  }
+  cluster_arrive();
+}
+
+// The ring of two stages of two (kTile x 68) f32 planes, then the exchange:
+// the dq pass's S and dP (2 x 64 x 64 f32); the dk/dv pass's one partial,
+// after the tiles' lse and c.
+__host__ __device__ constexpr int wide_smem_bytes(bool dkdv) {
+  return mma_smem_bytes<kWideD>(dkdv) + (dkdv ? 1 : 2) * kTile * kTile * 4;
 }
 
 // Start staging 64 dims (col0 ..) of `slots` heads of `rows` rows each of
@@ -879,28 +1056,33 @@ __device__ __forceinline__ void store_part(T* __restrict__ out, size_t row0, int
   }
 }
 
+// kWin: `ds` takes the windowed ds (rank 0); else null.
 template <typename T, bool kBias, bool kWin>
 __global__ void __launch_bounds__(kMmaThreads)
 attention_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                              const T* __restrict__ v, const T* __restrict__ bias,
                              const T* __restrict__ g, const T* __restrict__ o,
                              const float* __restrict__ lse, float* __restrict__ c,
-                             T* __restrict__ dq, int B, int H, int L, int D,
-                             const float* __restrict__ offsets, int W) {
+                             T* __restrict__ dq, float* __restrict__ ds, int B, int H, int L,
+                             int D, const float* __restrict__ offsets, int W) {
   constexpr bool kExact = sizeof(T) == 2;
   constexpr int kS = mma_stride<kWideD>();
   constexpr int kPlane = kTile * kS;
-  extern __shared__ __align__(16) float ring[];  // [stage][2 tiles][kTile][kS]
+  extern __shared__ __align__(16) float ring[];  // [stage][2 planes][kPlane], then the exchange
+  float4* xchg = reinterpret_cast<float4*>(ring + 4 * kPlane);
+  const WideSplit sp(D);
+  const int rank = cluster_rank();
+  const int ch0 = rank * sp.per;                // this block's chunks ch0 ..
+  const int nc = min(sp.per, sp.chunks - ch0);  // .. ch0 + nc - 1
   const MmaTiling t(L);
   const long long n_heads = static_cast<long long>(B) * H;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
   const MmaRows w(t, H, n_heads, L, warp, gq);
   const size_t row0 = w.base + w.r0;
   const int first = (blockIdx.x % t.tiles) * t.rows;  // the block's query rows
-  const int part = blockIdx.y, chunks = D / kWideD;
 
   // c = g.o of both rows over the whole D: dims tq, tq + 4, ... a lane,
-  // summed across the quad; every part alike, part 0 writes it.
+  // summed across the quad; every block alike, rank 0 writes it.
   float c0 = 0.f, c1 = 0.f;
   for (int d = tq; d < D; d += 4) {
     if (w.ok0) c0 = fmaf(to_float(g[row0 * D + d]), to_float(o[row0 * D + d]), c0);
@@ -911,7 +1093,7 @@ attention_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
     c0 += __shfl_xor_sync(0xffffffffu, c0, x);
     c1 += __shfl_xor_sync(0xffffffffu, c1, x);
   }
-  if (tq == 0 && part == 0) {
+  if (tq == 0 && rank == 0) {
     if (w.ok0) c[row0] = c0;
     if (w.ok1) c[row0 + 8] = c1;
   }
@@ -930,50 +1112,59 @@ attention_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int n = 0; n < kWideD / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
   const int nj = t.rows / 8;
-  // Key tile st / per, step cs = st % per: chunk cs of (q, K) (cs <
-  // chunks), chunk cs - chunks of (g, V) (cs < 2 chunks), then the part of K.
-  const int per = 2 * chunks + 1, n_stages = t.tiles * per;
+  // sp.per passes over the key tiles, pass p for part ch0 + p where p < nc
+  // (the cluster's last block may own fewer chunks: its extra passes only
+  // contract, for the others). Per key tile: nc stages of (g, V) chunks, nc
+  // of (q, K) chunks, then, where the block owns several, the part's K.
+  const bool reuse = nc == 1;  // the (q, K) stage's K is the part's
+  const int per_tile = 2 * nc + (reuse ? 0 : 1);
+  const int n_stages = sp.per * t.tiles * per_tile;
   auto stage = [&](int st) {
     float* buf = ring + (st & 1) * 2 * kPlane;
-    const int kt = st / per, cs = st - kt * per;
-    if (cs < 2 * chunks) {
-      const bool second = cs >= chunks;
-      const int col = (second ? cs - chunks : cs) * kWideD;
-      stage_wide<T>(buf, second ? g : q, t.heads, t.rows, w.head0, n_heads, L, D, first, col);
-      stage_wide<T>(buf + kPlane, second ? v : k, t.heads, t.rows, w.head0, n_heads, L, D,
+    const int tc = st / per_tile, ix = st - tc * per_tile;
+    const int kt = tc % t.tiles, part = tc / t.tiles;
+    if (ix < 2 * nc) {
+      const bool qk = ix >= nc;
+      const int col = (ch0 + (qk ? ix - nc : ix)) * kWideD;
+      stage_wide<T>(buf, qk ? q : g, t.heads, t.rows, w.head0, n_heads, L, D, first, col);
+      stage_wide<T>(buf + kPlane, qk ? k : v, t.heads, t.rows, w.head0, n_heads, L, D,
                     kt * t.rows, col);
-    } else {
-      stage_wide<T>(buf, k, t.heads, t.rows, w.head0, n_heads, L, D, kt * t.rows,
-                    part * kWideD);
+    } else if (part < nc) {
+      stage_wide<T>(buf + kPlane, k, t.heads, t.rows, w.head0, n_heads, L, D, kt * t.rows,
+                    (ch0 + part) * kWideD);
     }
     asm volatile("cp.async.commit_group;\n" ::);
   };
 
-  float s[kTile / 8][4], dp[kTile / 8][4];
+  float s[kNT][4], dp[kNT][4];
   stage(0);
+  cluster_arrive();  // this block's exchange buffer is free
   for (int st = 0; st < n_stages; ++st) {
     asm volatile("cp.async.wait_group 0;\n" ::);
     __syncthreads();  // stage st is in; every thread is done with stage st - 1's buffer
     if (st + 1 < n_stages) stage(st + 1);
     const float* buf = ring + (st & 1) * 2 * kPlane;
-    const int kt = st / per, cs = st - kt * per;
-    if (cs < 2 * chunks) {
-      if (cs == 0) {
+    const int tc = st / per_tile, ix = st - tc * per_tile;
+    const int kt = tc % t.tiles, pass = tc / t.tiles;
+    if (ix < 2 * nc) {
+      if (ix == 0) {
         zero_tiles(s);
         zero_tiles(dp);
       }
-      const float* as = buf + 16 * warp * kS;                 // this warp's rows of q (g)
-      const float* bs = buf + kPlane + w.slot * t.rows * kS;  // its head's keys of K (V)
-      if (cs < chunks) {
-        chunk_dot<kExact>(s, as, bs, nj, gq, tq);
-      } else {
+      const float* as = buf + 16 * warp * kS;                 // this warp's rows of g (q)
+      const float* bs = buf + kPlane + w.slot * t.rows * kS;  // its head's keys of V (K)
+      if (ix < nc) {
         chunk_dot<kExact>(dp, as, bs, nj, gq, tq);
+      } else {
+        chunk_dot<kExact>(s, as, bs, nj, gq, tq);
       }
-      if (cs + 1 < 2 * chunks) continue;
-      // ds = p (dP - c), p = exp(s + bias - lse); 0 at keys past L.
+      if (ix + 1 < 2 * nc) continue;
+      // S and dP over the whole D from the cluster; ds = p (dP - c), p =
+      // exp(s + bias - lse); 0 at keys past L.
+      cluster_sum(s, dp, xchg, rank, sp.size);
       const int key0 = kt * t.rows;
 #pragma unroll
-      for (int j = 0; j < kTile / 8; ++j) {
+      for (int j = 0; j < kNT; ++j) {
         if (j >= nj) break;
         const int m = key0 + 8 * j + 2 * tq;  // key of c0, c2; m + 1 of c1, c3
         if constexpr (kBias) {
@@ -994,18 +1185,43 @@ attention_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
         s[j][1] = m + 1 < L ? __expf(s[j][1] - lse0) * (dp[j][1] - c0) : 0.f;
         s[j][2] = m < L ? __expf(s[j][2] - lse1) * (dp[j][2] - c1) : 0.f;
         s[j][3] = m + 1 < L ? __expf(s[j][3] - lse1) * (dp[j][3] - c1) : 0.f;
+        if constexpr (kWin) {
+          if (rank == 0 && pass == 0) {
+            store_window_ds(ds, bias_window<kWin, kMmaWarps, sizeof(T) == 4>(warp, L), w.bh,
+                            W < L ? W : L, w.r0, w.ok0, w.ok1, m, s[j]);
+          }
+        }
       }
-      continue;
+      if (!reuse) continue;
     }
-    const float* ks = buf + w.slot * t.rows * kS;  // the part of the head's keys
+    if (pass >= nc) continue;  // no part of its own this pass
+    const float* ks = buf + kPlane + w.slot * t.rows * kS;  // the part of the head's keys
 #pragma unroll
-    for (int j = 0; j < kTile / 8; ++j) {
+    for (int j = 0; j < kNT; ++j) {
       if (j >= nj) break;
       strip_acc<kWideD, kExact>(acc, s[j], ks + (8 * j + 2 * tq) * kS + gq);  // dq += ds.k
     }
+    if (kt + 1 < t.tiles) continue;
+    store_part<T>(dq, row0, D, ch0 + pass, w.ok0, w.ok1, acc, tq);
+#pragma unroll
+    for (int n = 0; n < kWideD / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
   }
-  store_part<T>(dq, row0, D, part, w.ok0, w.ok1, acc, tq);
+  cluster_wait();  // pairs the last exchange's arrive: no block leaves while its buffer is read
 }
+
+// The dk/dv pass gives every block one role: a dv block contracts S^T =
+// k.q^T over its chunks and adds dv over their parts; a dk block contracts
+// dP^T = v.g^T and adds dk. `half` blocks of each role, `per` consecutive
+// chunks a block (ceil(chunks / 4)), clusters of 2 * half <= 8 blocks.
+struct DkdvSplit {
+  int chunks, per, half, size;
+  __host__ __device__ explicit DkdvSplit(int D) {
+    chunks = D / kWideD;
+    per = (chunks + kMaxCluster / 2 - 1) / (kMaxCluster / 2);
+    half = (chunks + per - 1) / per;
+    size = 2 * half;
+  }
+};
 
 template <typename T, bool kBias, bool kWin>
 __global__ void __launch_bounds__(kMmaThreads)
@@ -1018,15 +1234,21 @@ attention_bwd_dkdv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr bool kExact = sizeof(T) == 2;
   constexpr int kS = mma_stride<kWideD>();
   constexpr int kPlane = kTile * kS;
-  // [stage][2 tiles][kTile][kS], then [stage][lse, c][kTile]
+  // [stage][2 planes][kPlane], then [stage][lse, c][kTile], then the exchange
   extern __shared__ __align__(16) float ring[];
+  float* scal = ring + 4 * kPlane;
+  float4* xchg = reinterpret_cast<float4*>(scal + 4 * kTile);
+  const DkdvSplit sp(D);
+  const int rank = cluster_rank();
+  const bool dk_role = rank >= sp.half;
+  const int ch0 = (dk_role ? rank - sp.half : rank) * sp.per;  // this block's chunks ch0 ..
+  const int nc = min(sp.per, sp.chunks - ch0);                 // .. ch0 + nc - 1
   const MmaTiling t(L);
   const long long n_heads = static_cast<long long>(B) * H;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
   const MmaRows w(t, H, n_heads, L, warp, gq);  // here the rows are keys
   const size_t row0 = w.base + w.r0;
   const int first = (blockIdx.x % t.tiles) * t.rows;  // the block's keys
-  const int part = blockIdx.y, chunks = D / kWideD;
   // bias[h, l, key]: this warp's keys r0 and r0 + 8 are columns.
   const T* bcol0 = kBias ? bias + static_cast<size_t>(w.h) * L * L + (w.ok0 ? w.r0 : 0) : nullptr;
   const T* bcol1 = kBias ? bias + static_cast<size_t>(w.h) * L * L + (w.ok1 ? w.r0 + 8 : 0)
@@ -1037,31 +1259,28 @@ attention_bwd_dkdv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
           window_of(w.bh < n_heads ? offsets[static_cast<int>(w.bh) / H] : 0.f, W, L);
     }
   }
-  float dk_acc[kWideD / 8][4], dv_acc[kWideD / 8][4];
+  float acc[kWideD / 8][4];  // dk's or dv's part
 #pragma unroll
-  for (int n = 0; n < kWideD / 8; ++n) {
-    dk_acc[n][0] = dk_acc[n][1] = dk_acc[n][2] = dk_acc[n][3] = 0.f;
-    dv_acc[n][0] = dv_acc[n][1] = dv_acc[n][2] = dv_acc[n][3] = 0.f;
-  }
+  for (int n = 0; n < kWideD / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
   const int nj = t.rows / 8;
-  float* scal = ring + 2 * 2 * kPlane;  // [stage][lse, c][kTile]
-  // Query tile st / per, step c = st % per: chunk c of (K, q), chunk c -
-  // chunks of (V, g), then the part of q and g with the rows' lse and c.
-  const int per = 2 * chunks + 1, n_stages = t.tiles * per;
+  // sp.per passes over the query tiles, as the dq pass's. Per query tile:
+  // nc stages of this block's keys' chunk (k, or v) and the tile rows' (q,
+  // or g), then the part of the product's other operand (g, or q) with the
+  // rows' lse and c.
+  const int per_tile = nc + 1;
+  const int n_stages = sp.per * t.tiles * per_tile;
   auto stage = [&](int st) {
     float* buf = ring + (st & 1) * 2 * kPlane;
-    const int lt = st / per, cs = st - lt * per;
-    if (cs < 2 * chunks) {
-      const bool second = cs >= chunks;
-      const int col = (second ? cs - chunks : cs) * kWideD;
-      stage_wide<T>(buf, second ? v : k, t.heads, t.rows, w.head0, n_heads, L, D, first, col);
-      stage_wide<T>(buf + kPlane, second ? g : q, t.heads, t.rows, w.head0, n_heads, L, D,
+    const int tc = st / per_tile, ix = st - tc * per_tile;
+    const int lt = tc % t.tiles, part = tc / t.tiles;
+    if (ix < nc) {
+      const int col = (ch0 + ix) * kWideD;
+      stage_wide<T>(buf, dk_role ? v : k, t.heads, t.rows, w.head0, n_heads, L, D, first, col);
+      stage_wide<T>(buf + kPlane, dk_role ? g : q, t.heads, t.rows, w.head0, n_heads, L, D,
                     lt * t.rows, col);
-    } else {
-      stage_wide<T>(buf, q, t.heads, t.rows, w.head0, n_heads, L, D, lt * t.rows,
-                    part * kWideD);
-      stage_wide<T>(buf + kPlane, g, t.heads, t.rows, w.head0, n_heads, L, D, lt * t.rows,
-                    part * kWideD);
+    } else if (part < nc) {
+      stage_wide<T>(buf, dk_role ? q : g, t.heads, t.rows, w.head0, n_heads, L, D, lt * t.rows,
+                    (ch0 + part) * kWideD);
       float* ls = scal + (st & 1) * 2 * kTile;
       for (int row = threadIdx.x; row < t.heads * t.rows; row += kMmaThreads) {
         const int slot = row / t.rows, r = lt * t.rows + row - slot * t.rows;
@@ -1075,36 +1294,58 @@ attention_bwd_dkdv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
     asm volatile("cp.async.commit_group;\n" ::);
   };
 
-  float p[kTile / 8][4], ds[kTile / 8][4];
+  // x: this block's partial (S^T, or dP^T), then S^T (dv) or dP^T (dk)
+  // over the whole D; p: a dk block's S^T over the whole D, then p^T.
+  float x[kNT][4], p[kNT][4];
   stage(0);
+  cluster_arrive();  // this block's exchange buffer is free (a cluster has two blocks or more)
   for (int st = 0; st < n_stages; ++st) {
     asm volatile("cp.async.wait_group 0;\n" ::);
     __syncthreads();
     if (st + 1 < n_stages) stage(st + 1);
     const float* buf = ring + (st & 1) * 2 * kPlane;
-    const int lt = st / per, cs = st - lt * per;
-    if (cs < 2 * chunks) {
-      if (cs == 0) {
-        zero_tiles(p);
-        zero_tiles(ds);
+    const int tc = st / per_tile, ix = st - tc * per_tile;
+    const int lt = tc % t.tiles, pass = tc / t.tiles;
+    if (ix < nc) {
+      if (ix == 0) zero_tiles(x);
+      // S^T = k.q^T, or dP^T = v.g^T, over this chunk: this warp's keys
+      // against its head's tile rows.
+      chunk_dot<kExact>(x, buf + 16 * warp * kS, buf + kPlane + w.slot * t.rows * kS, nj, gq,
+                        tq);
+      if (ix + 1 < nc) continue;
+      // The cluster's S^T (the dv blocks' partials) and, for a dk block,
+      // dP^T (the dk blocks'), by a reduce-scatter within each role (block
+      // i of a role sums that role's fragments [share_lo(i), share_lo(i +
+      // 1)) and leaves them in place of its own), then an all-gather.
+      cluster_wait();  // every block is done with the last exchange
+      put(xchg, 0, x, 0, kNT);
+      cluster_arrive();
+      cluster_wait();
+      const int idx = dk_role ? rank - sp.half : rank, g0 = dk_role ? sp.half : 0;
+      const int lo = share_lo(idx, sp.half), hi = share_lo(idx + 1, sp.half);
+      range_sum(x, xchg, 0, g0, sp.half, lo, hi);
+      put(xchg, 0, x, lo, hi);
+      cluster_arrive();
+      cluster_wait();
+      for (int r = 0; r < sp.half; ++r) {
+        const int rlo = share_lo(r, sp.half), rhi = share_lo(r + 1, sp.half);
+        if (dk_role) {
+          gather(p, xchg, 0, r, rlo, rhi);  // S^T from the dv blocks
+          if (r != idx) gather(x, xchg, 0, sp.half + r, rlo, rhi);  // dP^T
+        } else if (r != idx) {
+          gather(x, xchg, 0, r, rlo, rhi);
+        }
       }
-      const float* as = buf + 16 * warp * kS;                 // this warp's keys of K (V)
-      const float* bs = buf + kPlane + w.slot * t.rows * kS;  // its head's rows of q (g)
-      if (cs < chunks) {
-        chunk_dot<kExact>(p, as, bs, nj, gq, tq);   // S^T = k.q^T
-      } else {
-        chunk_dot<kExact>(ds, as, bs, nj, gq, tq);  // dP^T = v.g^T
-      }
+      cluster_arrive();
       continue;
     }
-    const float* qs = buf + w.slot * t.rows * kS;
-    const float* gs = qs + kPlane;
+    if (pass >= nc) continue;  // no part of its own this pass
+    const float* os = buf + w.slot * t.rows * kS;  // the part of g (dv) or q (dk)
     const float* ls = scal + (st & 1) * 2 * kTile + w.slot * t.rows;
     const float* css = ls + kTile;
     const int l0 = lt * t.rows;
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j) {
-      if (j >= nj) break;
+    // p^T = exp(s^T + bias - lse[l]) in place (lse +inf past L: 0).
+    auto to_p = [&](float (&sj)[4], int j) {
       const int li = 8 * j + 2 * tq;  // query of c0, c2 in the tile; li + 1 of c1, c3
       const int l = l0 + li;
       if constexpr (kBias) {
@@ -1113,44 +1354,61 @@ attention_bwd_dkdv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const bool in0 = kWin ? w.ok0 && win.has(w.r0) : w.ok0;
         const bool in1 = kWin ? w.ok1 && win.has(w.r0 + 8) : w.ok1;
         if (in_bias<kWin>(win, l, L)) {
-          p[j][0] += in0 ? to_float(bcol0[static_cast<size_t>(l) * L]) : 0.f;
-          p[j][2] += in1 ? to_float(bcol1[static_cast<size_t>(l) * L]) : 0.f;
+          sj[0] += in0 ? to_float(bcol0[static_cast<size_t>(l) * L]) : 0.f;
+          sj[2] += in1 ? to_float(bcol1[static_cast<size_t>(l) * L]) : 0.f;
         }
         if (in_bias<kWin>(win, l + 1, L)) {
-          p[j][1] += in0 ? to_float(bcol0[static_cast<size_t>(l + 1) * L]) : 0.f;
-          p[j][3] += in1 ? to_float(bcol1[static_cast<size_t>(l + 1) * L]) : 0.f;
+          sj[1] += in0 ? to_float(bcol0[static_cast<size_t>(l + 1) * L]) : 0.f;
+          sj[3] += in1 ? to_float(bcol1[static_cast<size_t>(l + 1) * L]) : 0.f;
         }
       }
-      // p^T = exp(s^T - lse[l]) (lse +inf past L: 0), ds^T = p^T (dP^T - c[l]).
-      const float la = ls[li], lb = ls[li + 1], ca = css[li], cb = css[li + 1];
-      p[j][0] = __expf(p[j][0] - la);
-      p[j][1] = __expf(p[j][1] - lb);
-      p[j][2] = __expf(p[j][2] - la);
-      p[j][3] = __expf(p[j][3] - lb);
-      ds[j][0] = p[j][0] * (ds[j][0] - ca);
-      ds[j][1] = p[j][1] * (ds[j][1] - cb);
-      ds[j][2] = p[j][2] * (ds[j][2] - ca);
-      ds[j][3] = p[j][3] * (ds[j][3] - cb);
-      strip_acc<kWideD, kExact>(dv_acc, p[j], gs + (8 * j + 2 * tq) * kS + gq);   // dv += p^T.g
-      strip_acc<kWideD, kExact>(dk_acc, ds[j], qs + (8 * j + 2 * tq) * kS + gq);  // dk += ds^T.q
+      const float la = ls[li], lb = ls[li + 1];
+      sj[0] = __expf(sj[0] - la);
+      sj[1] = __expf(sj[1] - lb);
+      sj[2] = __expf(sj[2] - la);
+      sj[3] = __expf(sj[3] - lb);
+    };
+    if (dk_role) {
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        if (j >= nj) break;
+        to_p(p[j], j);
+        // ds^T = p^T (dP^T - c[l]); dk += ds^T.q
+        const int li = 8 * j + 2 * tq;
+        const float ca = css[li], cb = css[li + 1];
+        x[j][0] = p[j][0] * (x[j][0] - ca);
+        x[j][1] = p[j][1] * (x[j][1] - cb);
+        x[j][2] = p[j][2] * (x[j][2] - ca);
+        x[j][3] = p[j][3] * (x[j][3] - cb);
+        strip_acc<kWideD, kExact>(acc, x[j], os + (8 * j + 2 * tq) * kS + gq);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        if (j >= nj) break;
+        to_p(x[j], j);
+        strip_acc<kWideD, kExact>(acc, x[j], os + (8 * j + 2 * tq) * kS + gq);  // dv += p^T.g
+      }
     }
+    if (lt + 1 < t.tiles) continue;
+    store_part<T>(dk_role ? dk : dv, row0, D, ch0 + pass, w.ok0, w.ok1, acc, tq);
+#pragma unroll
+    for (int n = 0; n < kWideD / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
   }
-  store_part<T>(dk, row0, D, part, w.ok0, w.ok1, dk_acc, tq);
-  store_part<T>(dv, row0, D, part, w.ok0, w.ok1, dv_acc, tq);
+  cluster_wait();  // pairs the last exchange's arrive: no block leaves while its buffer is read
 }
 
-// kWin (B4): the dtoep pass, as the template's.
-template <typename T, bool kWin>
+// B2's dbias pass at D past 64, as the template's.
+template <typename T>
 __global__ void __launch_bounds__(kMmaThreads)
 attention_bwd_dbias_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                 const T* __restrict__ v, const T* __restrict__ bias,
                                 const T* __restrict__ g, const float* __restrict__ lse,
                                 const float* __restrict__ c, float* __restrict__ dbias, int B,
-                                int H, int L, int D, const float* __restrict__ offsets, int W) {
+                                int H, int L, int D) {
   constexpr bool kExact = sizeof(T) == 2;
   constexpr int kS = mma_stride<kWideD>();
   constexpr int kPlane = kTile * kS;
-  constexpr int kNT = kTile / 8;
   extern __shared__ __align__(16) float ring[];  // [stage][2 tiles][kTile][kS]
   const int tiles = (L + kTile - 1) / kTile;
   const int h = blockIdx.x / (tiles * tiles);
@@ -1166,33 +1424,28 @@ attention_bwd_dbias_wide_kernel(const T* __restrict__ q, const T* __restrict__ k
 
   float acc[kNT][4];
   zero_tiles(acc);
-  // Stage st is step cs = st % per of an element the block visits
-  // (`next_element`): chunk cs of (q, K), then chunk cs - chunks of (g, V).
+  // Stage st: element st / per, step cs = st % per: chunk cs of (q, K),
+  // then chunk cs - chunks of (g, V).
   const int per = 2 * chunks;
-  auto stage = [&](long long st, int b) {
+  const long long n_stages = static_cast<long long>(B) * per;
+  auto stage = [&](long long st) {
     float* buf = ring + (st & 1) * 2 * kPlane;
     const int cs = static_cast<int>(st % per);
     const bool second = cs >= chunks;
     const int col = (second ? cs - chunks : cs) * kWideD;
-    const long long bh = static_cast<long long>(b) * H + h;
+    const long long bh = st / per * H + h;
     stage_wide<T>(buf, second ? g : q, 1, kTile, bh, n_heads, L, D, l0, col);
     stage_wide<T>(buf + kPlane, second ? v : k, 1, kTile, bh, n_heads, L, D, m0, col);
     asm volatile("cp.async.commit_group;\n" ::);
   };
 
   float s[kNT][4], dp[kNT][4];
-  int b = next_element<kWin>(0, B, offsets, W, L, l0, m0);
-  int next = next_element<kWin>(b + 1, B, offsets, W, L, l0, m0);
-  if (b < B) stage(0, b);
-  for (long long st = 0; b < B; ++st) {
+  stage(0);
+  for (long long st = 0; st < n_stages; ++st) {
     asm volatile("cp.async.wait_group 0;\n" ::);
     __syncthreads();
+    if (st + 1 < n_stages) stage(st + 1);
     const int cs = static_cast<int>(st % per);
-    if (cs + 1 < per) {
-      stage(st + 1, b);
-    } else if (next < B) {
-      stage(st + 1, next);
-    }
     const float* buf = ring + (st & 1) * 2 * kPlane;
     if (cs == 0) {
       zero_tiles(s);
@@ -1205,32 +1458,24 @@ attention_bwd_dbias_wide_kernel(const T* __restrict__ q, const T* __restrict__ k
       chunk_dot<kExact>(dp, as, buf + kPlane, kNT, gq, tq);
     }
     if (cs + 1 < per) continue;
-    const size_t row0 = (static_cast<size_t>(b) * H + h) * L + r0;
+    const size_t row0 = (static_cast<size_t>(st / per) * H + h) * L + r0;
     const float lse0 = ok0 ? lse[row0] : 0.f, lse1 = ok1 ? lse[row0 + 8] : 0.f;
     const float c0 = ok0 ? c[row0] : 0.f, c1 = ok1 ? c[row0 + 8] : 0.f;
-    // The (l, m) this element adds to (the template's).
-    const Window win = kWin ? window_of(offsets[b], W, L) : Window{0, L};
-    const bool r_in0 = kWin ? ok0 && win.has(r0) : ok0;
-    const bool r_in1 = kWin ? ok1 && win.has(r0 + 8) : ok1;
 #pragma unroll
     for (int j = 0; j < kNT; ++j) {
       const int m = m0 + 8 * j + 2 * tq;
       // ds = exp(s + bias - lse) (dP - c), summed over b in order.
-      if (in_bias<kWin>(win, m, L)) {
-        acc[j][0] +=
-            r_in0 ? __expf(s[j][0] + to_float(brow0[m]) - lse0) * (dp[j][0] - c0) : 0.f;
-        acc[j][2] +=
-            r_in1 ? __expf(s[j][2] + to_float(brow1[m]) - lse1) * (dp[j][2] - c1) : 0.f;
+      if (m < L) {
+        acc[j][0] += ok0 ? __expf(s[j][0] + to_float(brow0[m]) - lse0) * (dp[j][0] - c0) : 0.f;
+        acc[j][2] += ok1 ? __expf(s[j][2] + to_float(brow1[m]) - lse1) * (dp[j][2] - c1) : 0.f;
       }
-      if (in_bias<kWin>(win, m + 1, L)) {
+      if (m + 1 < L) {
         acc[j][1] +=
-            r_in0 ? __expf(s[j][1] + to_float(brow0[m + 1]) - lse0) * (dp[j][1] - c0) : 0.f;
+            ok0 ? __expf(s[j][1] + to_float(brow0[m + 1]) - lse0) * (dp[j][1] - c0) : 0.f;
         acc[j][3] +=
-            r_in1 ? __expf(s[j][3] + to_float(brow1[m + 1]) - lse1) * (dp[j][3] - c1) : 0.f;
+            ok1 ? __expf(s[j][3] + to_float(brow1[m + 1]) - lse1) * (dp[j][3] - c1) : 0.f;
       }
     }
-    b = next;
-    next = next_element<kWin>(b + 1, B, offsets, W, L, l0, m0);
   }
 #pragma unroll
   for (int j = 0; j < kNT; ++j) {
@@ -1243,35 +1488,90 @@ attention_bwd_dbias_wide_kernel(const T* __restrict__ q, const T* __restrict__ k
   }
 }
 
+// A launch on grid (blocks, size) in clusters of (1, size, 1) blocks. Used
+// in place: cfg points at attr.
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  ClusterLaunch(unsigned blocks, int size, int smem, cudaStream_t stream) : cfg{}, attr{} {
+    cfg.gridDim = dim3(blocks, static_cast<unsigned>(size), 1);
+    cfg.blockDim = dim3(kMmaThreads, 1, 1);
+    cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = static_cast<unsigned>(size);
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  ClusterLaunch(const ClusterLaunch&) = delete;
+};
+
 template <typename T, bool kBias, bool kWin>
-cudaError_t launch_wide_passes(const T* q, const T* k, const T* v, const T* bias, const T* g,
-                               const T* o, const float* lse, float* c, T* dq, T* dk, T* dv,
-                               int B, int H, int L, int D, const float* offsets, int W,
-                               cudaStream_t stream) {
+cudaError_t allow_wide() {
   static const cudaError_t allowed_dq =
       allow_smem(attention_bwd_dq_wide_kernel<T, kBias, kWin>, wide_smem_bytes(false));
   static const cudaError_t allowed_dkdv =
       allow_smem(attention_bwd_dkdv_wide_kernel<T, kBias, kWin>, wide_smem_bytes(true));
-  if (allowed_dq != cudaSuccess) return allowed_dq;
-  if (allowed_dkdv != cudaSuccess) return allowed_dkdv;
+  return allowed_dq != cudaSuccess ? allowed_dq : allowed_dkdv;
+}
+
+template <typename T, bool kBias, bool kWin>
+cudaError_t launch_wide_passes(const T* q, const T* k, const T* v, const T* bias, const T* g,
+                               const T* o, const float* lse, float* c, T* dq, T* dk, T* dv,
+                               float* ds, int B, int H, int L, int D, const float* offsets, int W,
+                               cudaStream_t stream) {
+  const cudaError_t allowed = allow_wide<T, kBias, kWin>();
+  if (allowed != cudaSuccess) return allowed;
   const MmaTiling t(L);
+  const WideSplit sp(D);
   const long long groups = (static_cast<long long>(B) * H + t.heads - 1) / t.heads;
   const long long blocks = groups * t.tiles;
-  if (blocks > 0x7fffffffLL || D / kWideD > 65535) return cudaErrorInvalidValue;
-  const dim3 grid(static_cast<unsigned>(blocks), D / kWideD);
-  attention_bwd_dq_wide_kernel<T, kBias, kWin>
-      <<<grid, kMmaThreads, wide_smem_bytes(false), stream>>>(q, k, v, bias, g, o, lse, c, dq,
-                                                               B, H, L, D, offsets, W);
-  const cudaError_t err = cudaGetLastError();
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  cudaError_t err;
+  {
+    ClusterLaunch launch(static_cast<unsigned>(blocks), sp.size, wide_smem_bytes(false), stream);
+    err = cudaLaunchKernelEx(&launch.cfg, attention_bwd_dq_wide_kernel<T, kBias, kWin>, q, k, v,
+                             bias, g, o, lse, c, dq, ds, B, H, L, D, offsets, W);
+  }
+  if (err == cudaSuccess) err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attention_bwd_dkdv_wide_kernel<T, kBias, kWin>
-      <<<grid, kMmaThreads, wide_smem_bytes(true), stream>>>(q, k, v, bias, g, lse, c, dk, dv,
-                                                              B, H, L, D, offsets, W);
+  {
+    ClusterLaunch launch(static_cast<unsigned>(blocks), DkdvSplit(D).size, wide_smem_bytes(true),
+                         stream);
+    err = cudaLaunchKernelEx(&launch.cfg, attention_bwd_dkdv_wide_kernel<T, kBias, kWin>, q, k,
+                             v, bias, g, lse, c, dk, dv, B, H, L, D, offsets, W);
+  }
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// B2's wide passes, and its dbias pass where dbias is asked for.
+template <typename T>
+cudaError_t launch_wide_b2(const T* qt, const T* kt, const T* vt, const T* bt, const T* gt,
+                           const T* ot, const float* lse, float* c, T* dqt, T* dkt, T* dvt,
+                           float* dbias, int B, int H, int L, int D, cudaStream_t stream) {
+  const cudaError_t err =
+      bt != nullptr
+          ? launch_wide_passes<T, true, false>(qt, kt, vt, bt, gt, ot, lse, c, dqt, dkt, dvt,
+                                               nullptr, B, H, L, D, nullptr, 0, stream)
+          : launch_wide_passes<T, false, false>(qt, kt, vt, bt, gt, ot, lse, c, dqt, dkt, dvt,
+                                                nullptr, B, H, L, D, nullptr, 0, stream);
+  if (err != cudaSuccess || dbias == nullptr) return err;
+  static const cudaError_t allowed =
+      allow_smem(attention_bwd_dbias_wide_kernel<T>, mma_smem_bytes<kWideD>(false));
+  if (allowed != cudaSuccess) return allowed;
+  const long long tiles = (L + kTile - 1) / kTile;
+  const long long blocks = H * tiles * tiles;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  attention_bwd_dbias_wide_kernel<T>
+      <<<static_cast<int>(blocks), kMmaThreads, mma_smem_bytes<kWideD>(false), stream>>>(
+          qt, kt, vt, bt, gt, lse, c, dbias, B, H, L, D);
   return cudaGetLastError();
 }
 
 // The wide passes at D, a multiple of 64 past 64; any other D is refused.
-// kWin as for launch_mma.
+// kWin and `dbias` as for launch_mma.
 template <typename T, bool kWin>
 cudaError_t launch_wide(const void* q, const void* k, const void* v, const void* bias,
                         const void* g, const void* o, const float* lse, float* c, void* dq,
@@ -1287,28 +1587,44 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v, const void*
   T* dqt = static_cast<T*>(dq);
   T* dkt = static_cast<T*>(dk);
   T* dvt = static_cast<T*>(dv);
-  cudaError_t err;
-  if constexpr (kWin) {
-    err = launch_wide_passes<T, true, true>(qt, kt, vt, bt, gt, ot, lse, c, dqt, dkt, dvt, B, H,
-                                            L, D, offsets, W, stream);
+  if constexpr (kWin) {  // `dbias` is the ds scratch
+    return launch_wide_passes<T, true, true>(qt, kt, vt, bt, gt, ot, lse, c, dqt, dkt, dvt,
+                                             dbias, B, H, L, D, offsets, W, stream);
   } else {
-    err = bias != nullptr
-              ? launch_wide_passes<T, true, false>(qt, kt, vt, bt, gt, ot, lse, c, dqt, dkt, dvt,
-                                                   B, H, L, D, nullptr, 0, stream)
-              : launch_wide_passes<T, false, false>(qt, kt, vt, bt, gt, ot, lse, c, dqt, dkt,
-                                                    dvt, B, H, L, D, nullptr, 0, stream);
+    return launch_wide_b2<T>(qt, kt, vt, bt, gt, ot, lse, c, dqt, dkt, dvt, dbias, B, H, L, D,
+                             stream);
   }
-  if (err != cudaSuccess || dbias == nullptr) return err;
-  static const cudaError_t allowed =
-      allow_smem(attention_bwd_dbias_wide_kernel<T, kWin>, wide_smem_bytes(false));
+}
+
+template <typename T, bool kBias, bool kWin>
+cudaError_t wide_clusters_one(int D, int* out) {
+  const cudaError_t allowed = allow_wide<T, kBias, kWin>();
   if (allowed != cudaSuccess) return allowed;
-  const long long tiles = (L + kTile - 1) / kTile;
-  const long long blocks = H * tiles * tiles;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  attention_bwd_dbias_wide_kernel<T, kWin>
-      <<<static_cast<int>(blocks), kMmaThreads, wide_smem_bytes(false), stream>>>(
-          qt, kt, vt, bt, gt, lse, c, dbias, B, H, L, D, offsets, W);
-  return cudaGetLastError();
+  out[0] = WideSplit(D).size;
+  ClusterLaunch dq(1, out[0], wide_smem_bytes(false), nullptr);
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(
+      out + 1, reinterpret_cast<const void*>(attention_bwd_dq_wide_kernel<T, kBias, kWin>),
+      &dq.cfg);
+  if (err != cudaSuccess) return err;
+  out[2] = DkdvSplit(D).size;
+  ClusterLaunch dkdv(1, out[2], wide_smem_bytes(true), nullptr);
+  return cudaOccupancyMaxActiveClusters(
+      out + 3, reinterpret_cast<const void*>(attention_bwd_dkdv_wide_kernel<T, kBias, kWin>),
+      &dkdv.cfg);
+}
+
+// The wide passes' clusters at D: out[0] the dq pass's size in blocks, out[1]
+// the clusters of it the card holds at once (cudaOccupancyMaxActiveClusters),
+// out[2] and out[3] the dk/dv pass's.
+template <typename T, bool kWin>
+cudaError_t wide_clusters(int D, bool with_bias, int* out) {
+  if (D <= kWideD || D % kWideD) return cudaErrorInvalidValue;
+  if constexpr (kWin) {
+    return wide_clusters_one<T, true, true>(D, out);
+  } else {
+    return with_bias ? wide_clusters_one<T, true, false>(D, out)
+                     : wide_clusters_one<T, false, false>(D, out);
+  }
 }
 
 }  // namespace mma_bwd

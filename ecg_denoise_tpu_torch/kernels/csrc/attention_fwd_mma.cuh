@@ -174,6 +174,13 @@ __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
          static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16;
 }
 
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -506,44 +513,169 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
 // head_dim past 64: one kernel for every D that is a multiple of 64 (the
 // wrapper zero-pads any other D > 64 up to the next one: 72 to 128, 200 to
 // 256). Transformer1d at its published widths with num_heads (1, 1, 2, 4)
-// calls it at D = 128 and 256. The mma template above is left as it is.
+// calls it at D = 128 and 256, B3 at any D past 64. The mma template above
+// is left as it is.
 //
-// What bounds it. The work is the template's, 4*L*L*D flops a (b, h), but
-// what a D-templated kernel keeps per thread grows with D: q's fragments
-// (D registers at f32, hi and lo), the output's accumulators (D / 2) and a
-// two-stage ring of K and V tiles (2*2*64*(D + 4) floats, 266,240 bytes
-// at D = 256, past the 232,448 a block may have). So nothing here grows
-// with D:
-// * D is cut into 64-wide chunks. A block is the template's (4 warps, 64
-//   query rows of one (b, h), or 2 or 4 packed heads at L <= 32) and owns
-//   one 64-wide part of the output: blockIdx.y. Each block contracts
-//   q.k^T over the whole D and recomputes it for its part, so at D = 256
-//   the q.k^T products run four times over; p.v runs once. A simple design
-//   that is right first: recomputing q.k^T costs (D / 64 - 1) times the
-//   q.k^T products, which a later design may avoid (wgmma with the output
-//   in a warpgroup's registers).
-// * The ring is the template's at D = 64, two stages of two 64 x 68 f32 (64
-//   x 72 bf16) tiles, 69,632 bytes at f32 for every D. Per key tile the
-//   block walks chunks + 1 stages: chunk c of its q rows and of the tile's
-//   K rows (c < chunks), then its part of the tile's V rows; each stage's
-//   copies (cp.async, 16 bytes, rows past L zero-filled) are in flight
-//   while the stage before it computes. q is staged again for every key
-//   tile, from L2, instead of held: registers are what runs out.
-// * A warp reads q's A fragments for one 8-dim k-step at a time from
-//   shared memory (f32 split hi / lo there). S = q.k^T sums over the
-//   chunks in C fragments (64 keys: 32 registers), each f32 k-step's three
-//   products in a fresh fragment, as the template does. After the last
-//   chunk: the bias from global memory, keys past L to -inf, the online
-//   softmax of the template; at the V stage P.V for the part's 64 dims.
-// * The output part is divided by the row sum and rounded once; part 0
-//   writes the lse. No atomics: a call gives bit-identical results.
-// Registers a thread: S 32, the output part 32, P.V's fresh fragment 32 at
-// f32, whatever D is (chip_smoke.py logs them by instantiation).
+// What bounds it on this card. The work is the template's, 4*L*L*D flops a
+// (b, h), on mma.sync at 3xTF32 (f32) or bf16, but a kernel templated on D
+// keeps state that grows with D (q's fragments, the output's
+// accumulators, a ring of K and V tiles: 266,240 bytes at D = 256, past the
+// 232,448 a block may have), so D is cut into 64-wide chunks. The first
+// design gave each block one 64-wide output part and had every
+// block contract S = q.k^T over the whole D: at D = 256 the q.k^T products
+// ran four times over, q and K were read four times and q was staged again
+// for every key tile, and the kernel ran at 2.4 times SDPA. This design
+// computes S once per (row tile, key tile) across a thread-block cluster:
+// * The blocks of one row tile (4 warps, 64 query rows of one (b, h), or 2
+//   or 4 packed heads at L <= 32: the template's tiling) form a cluster
+//   along gridDim.y. Block `rank` owns `per` consecutive chunks of D and
+//   those chunks' output parts (WideSplit): at f32 one chunk a block, D /
+//   64 blocks, up to D = 512; at bf16, whose products are cheap beside the
+//   exchange, two chunks a block, their two parts held at once (D / 128
+//   blocks, one at D = 128); past that at most 8 blocks.
+// * Per key tile a block contracts the partial S over its own chunks only,
+//   writes it to its shared memory (one 64 x 64 f32 tile, 16 KB), and after
+//   a cluster barrier reads every block's partial through distributed
+//   shared memory (mapa, ld.shared::cluster), summing them in rank order,
+//   so that every block of the cluster holds the same S, bit for bit. Each
+//   then runs the template's bias, mask and online softmax on it, and O +=
+//   P.V over its own parts (a plane of V a part). No chunk of q or K is
+//   contracted by two blocks; each is read once a key tile, and q's chunks
+//   are staged once and held (per <= hold).
+// * Where a block owns more chunks than it holds parts (f32 past D = 512)
+//   it walks the key tiles once for each part it holds, the cluster forming
+//   S again each time (its chunks' products only), so a block's state stays
+//   bounded and every D runs in the same shared memory; its (q, K) chunks
+//   are then staged together, key tile by key tile.
+// * Registers: at f32 168 a thread (three blocks an SM) without spills,
+//   P.V taken a quarter of the part at a time into a fresh fragment; at
+//   bf16 q's and K's fragments come by ldmatrix, which keeps its place
+//   between the mma, so the compiler does not hold a chunk's fragments at
+//   once beside the two parts' accumulators. Shared memory: 68,608 bytes a
+//   block at f32 (two one-plane stages, q's chunk, the exchange), 71,680 at
+//   bf16 (two two-plane stages, q's two chunks, the exchange).
+// * Each block divides its parts by the row sum and rounds them once; rank
+//   0 writes the lse. No atomics, and the rank-order sum fixes every add: a
+//   call gives bit-identical results.
 
-constexpr int kWideD = 64;  // dims of a chunk of D, and of a block's output part
+constexpr int kWideD = 64;      // dims of a chunk of D, and of a block's output part
+constexpr int kMaxCluster = 8;  // blocks of a portable cluster
 
+// Output parts a block holds in registers at once: 1 at f32, 2 at bf16
+// (whose products are cheap beside the cluster's exchange: fewer blocks,
+// each contracting two chunks, halve the exchange's traffic).
 template <typename T>
-__host__ __device__ constexpr int wide_smem_bytes() { return mma_smem_bytes<T, kWideD>(); }
+__host__ __device__ constexpr int wide_hold() { return sizeof(T) == 2 ? 2 : 1; }
+
+// How a wide call cuts D, the same on host and device: `chunks` 64-wide
+// chunks, `per` consecutive chunks (and output parts) a block (a multiple
+// of `hold`, at least ceil(chunks / 8)), clusters of `size` blocks, and
+// `passes` walks over the key tiles, one for each `hold` of a block's parts.
+struct WideSplit {
+  int chunks, per, size, passes;
+  __host__ __device__ WideSplit(int D, int hold) {
+    chunks = D / kWideD;
+    const int least = (chunks + kMaxCluster - 1) / kMaxCluster;
+    per = (least + hold - 1) / hold * hold;
+    size = (chunks + per - 1) / per;
+    passes = per / hold;
+  }
+};
+
+// Thread-block clusters (sm_90): the block's rank; the cluster barrier,
+// whose arrive releases and whose wait acquires, so that shared-memory
+// writes before a block's arrive are seen by every block after its wait;
+// and the shared memory of a block of the cluster.
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The shared::cluster address of `p`, in this block's shared memory, in
+// the block of rank `rank`.
+__device__ __forceinline__ uint32_t cluster_map(const void* p, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))), "r"(rank));
+  return out;
+}
+
+// x += the four floats at shared::cluster address `at`, the load and the
+// adds in one asm statement: the compiler cannot hoist a strip's loads
+// ahead of their adds and hold them all at once (64 registers in the
+// backward's exchange).
+__device__ __forceinline__ void add_cluster(float (&x)[4], uint32_t at) {
+  asm volatile(
+      "{\n"
+      " .reg .f32 a, b, c, d;\n"
+      " ld.shared::cluster.v4.f32 {a, b, c, d}, [%4];\n"
+      " add.f32 %0, %0, a;\n"
+      " add.f32 %1, %1, b;\n"
+      " add.f32 %2, %2, c;\n"
+      " add.f32 %3, %3, d;\n"
+      "}\n"
+      : "+f"(x[0]), "+f"(x[1]), "+f"(x[2]), "+f"(x[3])
+      : "r"(at)
+      : "memory");
+}
+
+// x = the sum of the cluster's `size` blocks' x, in rank order from 0 (0 +
+// x_0 + x_1 + ...), so that every block gets the same bits. Each thread
+// holds kN C fragments, at the same (row, key) in every block; `buf` (kN *
+// kMmaThreads float4 of this block's shared memory) takes this block's, a
+// fragment's threads contiguous (a warp reads 512 contiguous bytes). Every
+// thread calls it after a cluster_arrive that frees `buf`: it waits until
+// every block is done with the last exchange, and arrives again once it
+// has read. (A reduce-scatter and all-gather, as the backward's, reads
+// less at four blocks but costs a third barrier: slower here.)
+template <int kN>
+__device__ __forceinline__ void cluster_sum(float (&x)[kN][4], float4* buf, int size) {
+  cluster_wait();
+#pragma unroll
+  for (int j = 0; j < kN; ++j) {
+    buf[j * kMmaThreads + threadIdx.x] = make_float4(x[j][0], x[j][1], x[j][2], x[j][3]);
+    x[j][0] = x[j][1] = x[j][2] = x[j][3] = 0.f;
+  }
+  cluster_arrive();
+  cluster_wait();
+  for (int r = 0; r < size; ++r) {
+    const uint32_t at = cluster_map(buf + threadIdx.x, r);
+#pragma unroll
+    for (int j = 0; j < kN; ++j) add_cluster(x[j], at + j * kMmaThreads * 16);
+  }
+  cluster_arrive();
+}
+
+// A ring plane: 64 rows x 64 dims, rows padded (mma_stride).
+template <typename T>
+__host__ __device__ constexpr int wide_plane() { return kKeyTile * mma_stride<T, kWideD>(); }
+
+// Planes a ring stage holds: the V parts a block holds at once, and, where
+// q's chunks are not resident, a K and a q chunk (hold <= 2).
+template <typename T>
+__host__ __device__ constexpr int wide_stage_planes(bool resident) {
+  return resident ? wide_hold<T>() : 2;
+}
+
+// Dynamic shared memory of a block at `per` chunks a block: the ring (two
+// stages), q's `per` resident chunks where the block holds all its parts at
+// once (per <= hold), then the exchange buffer (64 x 64 f32).
+template <typename T>
+__host__ __device__ constexpr int wide_smem_bytes(int per) {
+  return (2 * wide_stage_planes<T>(per <= wide_hold<T>()) + (per <= wide_hold<T>() ? per : 0)) *
+             wide_plane<T>() * static_cast<int>(sizeof(T)) +
+         kKeyTile * kKeyTile * 4;
+}
 
 // Start the copies of 64 rows x 64 dims (dims col0 ..) of x into `dst`
 // (stride mma_stride<T, kWideD>()): the block's heads' rows of tile
@@ -566,6 +698,72 @@ __device__ __forceinline__ void stage_wide(T* dst, const T* __restrict__ x, cons
   }
 }
 
+// A block's part: O = O * exp(old max - new max) + P.V over the part's 64
+// dims at one key tile, V's rows at `vs` (stride kS). f32: P from the C
+// fragments `s`; bf16: P's A fragments `pp`, rounded once. sc0 and sc1 are
+// the rows' rescales.
+template <typename T>
+__device__ __forceinline__ void add_pv(float (&a)[kWideD / 8][4], const float (&s)[kKeyTile / 8][4],
+                                       const uint32_t (&pp)[kKeyTile / 16][4], const T* vs,
+                                       float sc0, float sc1, int nj, int lane) {
+  constexpr int kS = mma_stride<T, kWideD>();
+  constexpr int kNT = kKeyTile / 8;
+  const int g = lane >> 2, tq = lane & 3;
+  if constexpr (sizeof(T) == 4) {
+    // The tile's P.V in a fresh fragment, a quarter of the part's dims at
+    // a time (8 registers, not 32: the kernel keeps to 168 registers, three
+    // blocks an SM, without spills), added by the rescale's FMA.
+#pragma unroll
+    for (int quarter = 0; quarter < 4; ++quarter) {
+      constexpr int kN = kWideD / 32;  // n-tiles of a quarter
+      float pv[kN][4];
+#pragma unroll
+      for (int n = 0; n < kN; ++n) pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0.f;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        if (j >= nj) break;
+        uint32_t ph[4], pl[4];
+        split_tf32(s[j][0], ph[0], pl[0]);
+        split_tf32(s[j][2], ph[1], pl[1]);
+        split_tf32(s[j][1], ph[2], pl[2]);
+        split_tf32(s[j][3], ph[3], pl[3]);
+        const float* vr =
+            reinterpret_cast<const float*>(vs) + (8 * j + 2 * tq) * kS + 16 * quarter + g;
+#pragma unroll
+        for (int n = 0; n < kN; ++n) mma_3xtf32(pv[n], ph, pl, vr[8 * n], vr[kS + 8 * n]);
+      }
+#pragma unroll
+      for (int n = 0; n < kN; ++n) {
+        float (&an)[4] = a[kN * quarter + n];
+        an[0] = fmaf(an[0], sc0, pv[n][0]);
+        an[1] = fmaf(an[1], sc0, pv[n][1]);
+        an[2] = fmaf(an[2], sc1, pv[n][2]);
+        an[3] = fmaf(an[3], sc1, pv[n][3]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int n = 0; n < kWideD / 8; ++n) {
+      a[n][0] *= sc0;
+      a[n][1] *= sc0;
+      a[n][2] *= sc1;
+      a[n][3] *= sc1;
+    }
+#pragma unroll
+    for (int jj = 0; jj < kNT / 2; ++jj) {
+      if (2 * jj >= nj) break;
+      const T* vrow = vs + (16 * jj + (lane & 15)) * kS + (lane >> 4) * 8;
+#pragma unroll
+      for (int n = 0; n < kWideD / 16; ++n) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, vrow + 16 * n);
+        mma_bf16(a[2 * n], pp[jj], b[0], b[1]);
+        mma_bf16(a[2 * n + 1], pp[jj], b[2], b[3]);
+      }
+    }
+  }
+}
+
 template <typename T, bool kBias, bool kWin>
 __global__ void __launch_bounds__(kMmaThreads)
 attention_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -574,18 +772,29 @@ attention_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           int D, const float* __restrict__ offsets, int W) {
   constexpr bool kF32 = sizeof(T) == 4;
   constexpr int kS = mma_stride<T, kWideD>();
-  constexpr int kPlane = kKeyTile * kS;
+  constexpr int kPlane = wide_plane<T>();
   constexpr int kNT = kKeyTile / 8;  // n-tiles of S at the widest stage
+  constexpr int kHold = wide_hold<T>();
   extern __shared__ __align__(16) unsigned char smem[];
-  T* ring = reinterpret_cast<T*>(smem);  // [stage][2 tiles][kKeyTile][kS]
+  const WideSplit sp(D, kHold);
+  const bool resident = sp.per <= kHold;  // q's chunks held; else staged with K
+  const int planes = wide_stage_planes<T>(resident);
+  T* ring = reinterpret_cast<T*>(smem);  // [stage][planes][kPlane]
+  T* qres = ring + 2 * planes * kPlane;  // resident: q's chunks
+  float4* xchg = reinterpret_cast<float4*>(qres + (resident ? sp.per : 0) * kPlane);
+  // A block of its own (bf16 at D = 128) exchanges nothing. (At f32 a
+  // cluster has two blocks or more, and the test, known true, costs the
+  // kernel no registers.)
+  const bool clustered = kHold == 1 || sp.size > 1;
+  const int rank = cluster_rank();
+  const int c0 = rank * sp.per;                  // this block's chunks c0 ..
+  const int nc = min(sp.per, sp.chunks - c0);    // .. c0 + nc - 1
   const MmaTiling t(L);
   const long long n_heads = static_cast<long long>(B) * H;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
   const int qtile = blockIdx.x % t.tiles;
   const long long head0 = static_cast<long long>(blockIdx.x / t.tiles) * t.heads;
-  const int part = blockIdx.y;  // this block's output dims: 64 * part ..
-  const int chunks = D / kWideD;
   const int slot = warp / t.warps;
   const long long bh = head0 + slot;
   const bool head_ok = bh < n_heads;
@@ -595,26 +804,40 @@ attention_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t base = static_cast<size_t>(head_ok ? bh : 0) * L;  // the head's first row
   const int nj = t.rows / 8;  // n-tiles of S a key tile
 
-  // The block's stages: key tile st / per, then within it step c = st %
-  // per: chunk c of q and K (c < chunks), or the part of V (c == chunks).
-  const int per = chunks + 1;
-  const int n_stages = t.tiles * per;
+  // The block walks the key tiles once a pass: pass p outputs the kHold
+  // parts c0 + p * kHold .., those it owns (the cluster's last block may
+  // own fewer chunks: its extra passes and parts only contract, for the
+  // others). Per key tile: nc stages of its K (and q) chunks, then one
+  // stage of the held parts' V.
+  const int per_tile = nc + 1;
+  const int n_stages = sp.passes * t.tiles * per_tile;
   auto stage = [&](int st) {
-    T* buf = ring + (st & 1) * 2 * kPlane;
-    const int kt = st / per, c = st - kt * per;
-    if (c < chunks) {
-      stage_wide<T>(buf, q, t, head0, n_heads, L, D, qtile, c * kWideD);
-      stage_wide<T>(buf + kPlane, k, t, head0, n_heads, L, D, kt, c * kWideD);
+    T* buf = ring + (st & 1) * planes * kPlane;
+    const int tc = st / per_tile, ix = st - tc * per_tile;
+    const int kt = tc % t.tiles, first = tc / t.tiles * kHold;
+    if (ix < nc) {
+      stage_wide<T>(buf, k, t, head0, n_heads, L, D, kt, (c0 + ix) * kWideD);
+      if (!resident) stage_wide<T>(buf + kPlane, q, t, head0, n_heads, L, D, qtile, (c0 + ix) * kWideD);
     } else {
-      stage_wide<T>(buf, v, t, head0, n_heads, L, D, kt, part * kWideD);
+#pragma unroll
+      for (int hh = 0; hh < kHold; ++hh) {
+        if (first + hh < nc) {
+          stage_wide<T>(buf + hh * kPlane, v, t, head0, n_heads, L, D, kt,
+                        (c0 + first + hh) * kWideD);
+        }
+      }
     }
     asm volatile("cp.async.commit_group;\n" ::);
   };
 
-  float acc[kWideD / 8][4];
+  float acc[kHold][kWideD / 8][4];
 #pragma unroll
-  for (int n = 0; n < kWideD / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int hh = 0; hh < kHold; ++hh) {
+#pragma unroll
+    for (int n = 0; n < kWideD / 8; ++n) acc[hh][n][0] = acc[hh][n][1] = acc[hh][n][2] = acc[hh][n][3] = 0.f;
+  }
   float s[kNT][4];
+  uint32_t pp[kNT / 2][4];  // bf16: P's A fragments, rounded once for the held parts
   float mx0 = __int_as_float(0xff800000), mx1 = mx0;  // running row maxima, -inf
   float sum0 = 0.f, sum1 = 0.f;                       // this lane's partial row sums
   float sc0 = 0.f, sc1 = 0.f;                         // this key tile's rescale
@@ -627,22 +850,31 @@ attention_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
+  if (resident) {  // joins stage 0's group
+    for (int i = 0; i < nc; ++i) {
+      stage_wide<T>(qres + i * kPlane, q, t, head0, n_heads, L, D, qtile, (c0 + i) * kWideD);
+    }
+  }
   stage(0);
+  if (clustered) cluster_arrive();  // this block's exchange buffer is free
   for (int st = 0; st < n_stages; ++st) {
     asm volatile("cp.async.wait_group 0;\n" ::);
     // Stage st is in for every thread, and every thread is done with the
     // buffer stage st + 1 overwrites (used for stage st - 1).
     __syncthreads();
     if (st + 1 < n_stages) stage(st + 1);
-    const T* buf = ring + (st & 1) * 2 * kPlane;
-    const int kt = st / per, c = st - kt * per;
-    if (c < chunks) {
-      if (c == 0) {
+    const T* buf = ring + (st & 1) * planes * kPlane;
+    const int tc = st / per_tile, ix = st - tc * per_tile;
+    const int kt = tc % t.tiles, pass = tc / t.tiles;
+    if (ix < nc) {
+      if (ix == 0) {
 #pragma unroll
         for (int j = 0; j < kNT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
       }
-      const T* qs = buf + 16 * warp * kS;              // this warp's 16 query rows
-      const T* ks = buf + kPlane + slot * t.rows * kS;  // its head's keys
+      // This warp's q rows: chunk ix of the resident ones (at f32 the one),
+      // or the stage's.
+      const T* qs = (resident ? qres + (kHold > 1 ? ix * kPlane : 0) : buf + kPlane) + 16 * warp * kS;
+      const T* ks = buf + slot * t.rows * kS;  // its head's keys
       // S += q.k^T over this chunk's 64 dims.
       if constexpr (kF32) {
 #pragma unroll
@@ -664,22 +896,31 @@ attention_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
           }
         }
       } else {
+        // q's A fragments and K's B fragments by ldmatrix (four 8 x 8
+        // matrices a load): an asm that keeps its place between the mma,
+        // so the compiler holds one k-step's fragments, not all of them (at
+        // the two parts' 64 accumulators it spilled otherwise).
+        const T* qrow = qs + (lane & 15) * kS + (lane >> 4) * 8;
+        const T* krow = ks + ((lane & 7) + ((lane >> 4) << 3)) * kS + ((lane >> 3) & 1) * 8;
 #pragma unroll
         for (int kk = 0; kk < kWideD / 16; ++kk) {
-          const uint32_t* qp = reinterpret_cast<const uint32_t*>(qs + g * kS + 16 * kk) + tq;
-          const uint32_t a[4] = {qp[0], qp[4 * kS], qp[4], qp[4 * kS + 4]};  // 8 rows: 4 kS words
+          uint32_t a[4];
+          ldmatrix_x4(a, qrow + 16 * kk);
 #pragma unroll
-          for (int j = 0; j < kNT; ++j) {
+          for (int j = 0; j < kNT; j += 2) {
             if (j >= nj) break;
-            const uint32_t* kr =
-                reinterpret_cast<const uint32_t*>(ks + (8 * j + g) * kS + 16 * kk) + tq;
-            mma_bf16(s[j], a, kr[0], kr[4]);
+            uint32_t b[4];  // n-tile j's b0, b1, then n-tile j + 1's
+            ldmatrix_x4(b, krow + 8 * j * kS + 16 * kk);
+            mma_bf16(s[j], a, b[0], b[1]);
+            mma_bf16(s[j + 1], a, b[2], b[3]);
           }
         }
       }
-      if (c + 1 < chunks) continue;
+      if (ix + 1 < nc) continue;
 
-      // The whole D is in: bias, keys past L to -inf, the online softmax.
+      // This block's chunks are in: S over the whole D from the cluster,
+      // then bias, keys past L to -inf, the online softmax.
+      if (clustered) cluster_sum<kNT>(s, xchg, sp.size);
       const int key0 = kt * t.rows;
 #pragma unroll
       for (int j = 0; j < kNT; ++j) {
@@ -730,97 +971,111 @@ attention_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
         sum0 += s[j][0] + s[j][1];
         sum1 += s[j][2] + s[j][3];
       }
+      if constexpr (!kF32) {
+        // k-step jj of P.V: keys 16jj .. 16jj + 15, the C pairs of n-tiles
+        // 2jj and 2jj + 1 rounded to bf16 (the template's).
+#pragma unroll
+        for (int jj = 0; jj < kNT / 2; ++jj) {
+          if (2 * jj >= nj) break;
+          pp[jj][0] = bf16x2(s[2 * jj][0], s[2 * jj][1]);
+          pp[jj][1] = bf16x2(s[2 * jj][2], s[2 * jj][3]);
+          pp[jj][2] = bf16x2(s[2 * jj + 1][0], s[2 * jj + 1][1]);
+          pp[jj][3] = bf16x2(s[2 * jj + 1][2], s[2 * jj + 1][3]);
+        }
+      }
       continue;
     }
 
-    // The V stage: O = O * exp(old max - new max) + P.V over the part's dims.
-    const T* vs = buf + slot * t.rows * kS;
-    if constexpr (kF32) {
-      float pv[kWideD / 8][4];
+    // The V stage: the held parts' V, a plane each.
+    const int first = pass * kHold;  // the pass's first part of c0 ..
 #pragma unroll
-      for (int n = 0; n < kWideD / 8; ++n) pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0.f;
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        if (j >= nj) break;
-        uint32_t ph[4], pl[4];
-        split_tf32(s[j][0], ph[0], pl[0]);
-        split_tf32(s[j][2], ph[1], pl[1]);
-        split_tf32(s[j][1], ph[2], pl[2]);
-        split_tf32(s[j][3], ph[3], pl[3]);
-        const float* vr = reinterpret_cast<const float*>(vs) + (8 * j + 2 * tq) * kS + g;
-#pragma unroll
-        for (int n = 0; n < kWideD / 8; ++n) {
-          mma_3xtf32(pv[n], ph, pl, vr[8 * n], vr[kS + 8 * n]);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < kWideD / 8; ++n) {
-        acc[n][0] = fmaf(acc[n][0], sc0, pv[n][0]);
-        acc[n][1] = fmaf(acc[n][1], sc0, pv[n][1]);
-        acc[n][2] = fmaf(acc[n][2], sc1, pv[n][2]);
-        acc[n][3] = fmaf(acc[n][3], sc1, pv[n][3]);
-      }
-    } else {
-#pragma unroll
-      for (int n = 0; n < kWideD / 8; ++n) {
-        acc[n][0] *= sc0;
-        acc[n][1] *= sc0;
-        acc[n][2] *= sc1;
-        acc[n][3] *= sc1;
-      }
-#pragma unroll
-      for (int jj = 0; jj < kNT / 2; ++jj) {
-        if (2 * jj >= nj) break;
-        const uint32_t pa[4] = {bf16x2(s[2 * jj][0], s[2 * jj][1]),
-                                bf16x2(s[2 * jj][2], s[2 * jj][3]),
-                                bf16x2(s[2 * jj + 1][0], s[2 * jj + 1][1]),
-                                bf16x2(s[2 * jj + 1][2], s[2 * jj + 1][3])};
-        const T* vrow = vs + (16 * jj + (lane & 15)) * kS + (lane >> 4) * 8;
-#pragma unroll
-        for (int n = 0; n < kWideD / 16; ++n) {
-          uint32_t b[4];
-          ldmatrix_x4_trans(b, vrow + 16 * n);
-          mma_bf16(acc[2 * n], pa, b[0], b[1]);
-          mma_bf16(acc[2 * n + 1], pa, b[2], b[3]);
-        }
+    for (int hh = 0; hh < kHold; ++hh) {
+      if (first + hh < nc) {
+        add_pv<T>(acc[hh], s, pp, buf + hh * kPlane + slot * t.rows * kS, sc0, sc1, nj, lane);
       }
     }
-  }
+    if (kt + 1 < t.tiles) continue;
 
+    // The pass's last key tile: its parts are done.
+    float tot0 = sum0, tot1 = sum1;
 #pragma unroll
-  for (int x = 1; x <= 2; x <<= 1) {
-    sum0 += __shfl_xor_sync(0xffffffffu, sum0, x);
-    sum1 += __shfl_xor_sync(0xffffffffu, sum1, x);
-  }
-  T* o0 = o + (base + r0) * D + part * kWideD + 2 * tq;
-  T* o1 = o0 + 8 * static_cast<size_t>(D);
+    for (int x = 1; x <= 2; x <<= 1) {
+      tot0 += __shfl_xor_sync(0xffffffffu, tot0, x);
+      tot1 += __shfl_xor_sync(0xffffffffu, tot1, x);
+    }
 #pragma unroll
-  for (int n = 0; n < kWideD / 8; ++n) {
-    if (ok0) store2(o0 + 8 * n, acc[n][0] / sum0, acc[n][1] / sum0);
-    if (ok1) store2(o1 + 8 * n, acc[n][2] / sum1, acc[n][3] / sum1);
+    for (int hh = 0; hh < kHold; ++hh) {
+      if (first + hh < nc) {
+        T* o0 = o + (base + r0) * D + (c0 + first + hh) * kWideD + 2 * tq;
+        T* o1 = o0 + 8 * static_cast<size_t>(D);
+#pragma unroll
+        for (int n = 0; n < kWideD / 8; ++n) {
+          if (ok0) store2(o0 + 8 * n, acc[hh][n][0] / tot0, acc[hh][n][1] / tot0);
+          if (ok1) store2(o1 + 8 * n, acc[hh][n][2] / tot1, acc[hh][n][3] / tot1);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < kWideD / 8; ++n) {
+        acc[hh][n][0] = acc[hh][n][1] = acc[hh][n][2] = acc[hh][n][3] = 0.f;
+      }
+    }
+    if (lse != nullptr && rank == 0 && pass == 0 && tq == 0) {
+      if (ok0) lse[base + r0] = mx0 + logf(tot0);
+      if (ok1) lse[base + r1] = mx1 + logf(tot1);
+    }
+    mx0 = mx1 = __int_as_float(0xff800000);
+    sum0 = sum1 = 0.f;
   }
-  if (lse != nullptr && part == 0 && tq == 0) {
-    if (ok0) lse[base + r0] = mx0 + logf(sum0);
-    if (ok1) lse[base + r1] = mx1 + logf(sum1);
+  // Pairs the last exchange's arrive: no block leaves while its buffer is read.
+  if (clustered) cluster_wait();
+}
+
+// A launch on grid (blocks, size) in clusters of (1, size, 1) blocks. Used
+// in place: cfg points at attr.
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  ClusterLaunch(unsigned blocks, int size, int smem, cudaStream_t stream) : cfg{}, attr{} {
+    cfg.gridDim = dim3(blocks, static_cast<unsigned>(size), 1);
+    cfg.blockDim = dim3(kMmaThreads, 1, 1);
+    cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = static_cast<unsigned>(size);
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
   }
+  ClusterLaunch(const ClusterLaunch&) = delete;
+};
+
+// Above 48 KB a block's dynamic shared memory must be allowed once per
+// instantiation: the larger layout's.
+template <typename T, bool kBias, bool kWin>
+cudaError_t allow_wide() {
+  static const cudaError_t allowed = cudaFuncSetAttribute(
+      attention_fwd_wide_kernel<T, kBias, kWin>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wide_smem_bytes<T>(2));
+  return allowed;
 }
 
 template <typename T, bool kBias, bool kWin>
 cudaError_t launch_wide_one(const T* q, const T* k, const T* v, const T* bias, T* o,
                             float* lse, int B, int H, int L, int D, const float* offsets, int W,
                             cudaStream_t stream) {
-  static const cudaError_t allowed = cudaFuncSetAttribute(
-      attention_fwd_wide_kernel<T, kBias, kWin>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      wide_smem_bytes<T>());
+  const cudaError_t allowed = allow_wide<T, kBias, kWin>();
   if (allowed != cudaSuccess) return allowed;
   const MmaTiling t(L);
+  const WideSplit sp(D, wide_hold<T>());
   const long long groups = (static_cast<long long>(B) * H + t.heads - 1) / t.heads;
   const long long blocks = groups * t.tiles;
-  if (blocks > 0x7fffffffLL || D / kWideD > 65535) return cudaErrorInvalidValue;
-  attention_fwd_wide_kernel<T, kBias, kWin>
-      <<<dim3(static_cast<unsigned>(blocks), D / kWideD), kMmaThreads, wide_smem_bytes<T>(),
-         stream>>>(q, k, v, bias, o, lse, B, H, L, D, offsets, W);
-  return cudaGetLastError();
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  ClusterLaunch launch(static_cast<unsigned>(blocks), sp.size, wide_smem_bytes<T>(sp.per),
+                       stream);
+  const cudaError_t err = cudaLaunchKernelEx(&launch.cfg, attention_fwd_wide_kernel<T, kBias, kWin>,
+                                             q, k, v, bias, o, lse, B, H, L, D, offsets, W);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 // The wide kernel at D, a multiple of 64 past 64; any other D is refused.
@@ -845,6 +1100,31 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v, const void*
     }
     return launch_wide_one<T, false, false>(qt, kt, vt, bt, ot, lse, B, H, L, D, nullptr, 0,
                                             stream);
+  }
+}
+
+template <typename T, bool kBias, bool kWin>
+cudaError_t wide_clusters_one(int D, int* clusters) {
+  const cudaError_t allowed = allow_wide<T, kBias, kWin>();
+  if (allowed != cudaSuccess) return allowed;
+  const WideSplit sp(D, wide_hold<T>());
+  ClusterLaunch launch(1, sp.size, wide_smem_bytes<T>(sp.per), nullptr);
+  return cudaOccupancyMaxActiveClusters(
+      clusters, reinterpret_cast<const void*>(attention_fwd_wide_kernel<T, kBias, kWin>),
+      &launch.cfg);
+}
+
+// The wide kernel's clusters at D that the card holds at once
+// (cudaOccupancyMaxActiveClusters), and their size.
+template <typename T, bool kWin>
+cudaError_t wide_clusters(int D, bool with_bias, int* clusters, int* size) {
+  if (D <= kWideD || D % kWideD) return cudaErrorInvalidValue;
+  *size = WideSplit(D, wide_hold<T>()).size;
+  if constexpr (kWin) {
+    return wide_clusters_one<T, true, true>(D, clusters);
+  } else {
+    return with_bias ? wide_clusters_one<T, true, false>(D, clusters)
+                     : wide_clusters_one<T, false, false>(D, clusters);
   }
 }
 

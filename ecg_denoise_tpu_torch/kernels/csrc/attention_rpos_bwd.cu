@@ -22,7 +22,9 @@
 // tensor-core passes in their window mode (attention_bwd_mma.cuh, kWin):
 // D = 8, 16, 32, 64 on the mma template and any multiple of 64 past 64 on
 // the wide passes, at any L, the wrapper zero-padding D up
-// (kernels/attention_rpos.py). toep is a contiguous
+// (kernels/attention_rpos.py); there the dq pass leaves the windowed ds in
+// a scratch and `attention_rpos_dtoep_sum_kernel` below, a launch of its
+// own, sums it into dtoep. toep is a contiguous
 // (1, H, L, L) array in the operand dtype and offsets a contiguous (B,)
 // float32 array. float32 and bfloat16 operands; every product, exp and sum
 // is float32, dq, dk and dv are rounded once to the operand dtype, and
@@ -667,14 +669,84 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                                         B, H, L, W, stream);
 }
 
+// dtoep past the D = 4 kernels (the templates' window mode). Their dq pass
+// leaves each head's ds inside its element's window in `ds`, an f32 (B, H,
+// W', W') scratch, W' = min(W, L), entry (l, m) at (l - s_b, m - s_b) with
+// s_b the window's first position (attention_bwd_mma.cuh
+// store_window_ds); this kernel forms
+//   dtoep[h, l, m] = sum_b ds_b[l - s_b, m - s_b] over the b whose window
+//                    holds both l and m,
+// one thread an (h, l, m), b ascending: one ordered f32 sum per output, no
+// atomics. It replaces the first design's dtoep pass, which formed S and dP
+// a third time on a grid of H x 64 x 64 tiles (4 blocks at (L, H) = (128,
+// 1)).
+// What bounds it: bytes, the scratch's windowed entries read once and
+// dtoep (H, L, L) written once. A block is kSumThreads consecutive keys of
+// one (h, l), H * L * L / 64 blocks (256 at (128, 1): every SM busy). Per
+// kSumThreads elements the block lists, in order, those whose window holds
+// its row (a ballot and a prefix over its two warps), then every thread
+// walks the list, adding the entries whose window also holds its key
+// (neighbouring threads, neighbouring addresses). A block whose keys all
+// lie W' or more from its row, where no window holds both, writes zeros.
+constexpr int kSumThreads = 64;
+
+__global__ void __launch_bounds__(kSumThreads)
+attention_rpos_dtoep_sum_kernel(const float* __restrict__ ds, const float* __restrict__ offsets,
+                                float* __restrict__ dtoep, int B, int H, int L, int W) {
+  __shared__ int4 list[kSumThreads];  // (b, window lo, window hi) of the listed elements
+  __shared__ int counts[kSumThreads / 32];
+  const int Wp = W < L ? W : L;
+  const int m0 = blockIdx.x * kSumThreads, m = m0 + threadIdx.x;
+  const int l = blockIdx.y, h = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float acc = 0.f;
+  if (m0 < l + Wp && m0 + kSumThreads > l - Wp + 1) {  // a key of the block within the band
+    for (int b0 = 0; b0 < B; b0 += kSumThreads) {
+      const int b = b0 + threadIdx.x;
+      const Window win = window_of(b < B ? offsets[b] : 0.f, W, L);
+      const bool holds = b < B && win.has(l);
+      const unsigned mask = __ballot_sync(0xffffffffu, holds);
+      if (lane == 0) counts[warp] = __popc(mask);
+      __syncthreads();
+      int at = __popc(mask & ((1u << lane) - 1u)), n = 0;
+#pragma unroll
+      for (int i = 0; i < kSumThreads / 32; ++i) {
+        at += i < warp ? counts[i] : 0;
+        n += counts[i];
+      }
+      if (holds) list[at] = make_int4(b, win.lo, win.hi, 0);
+      __syncthreads();
+      for (int i = 0; i < n; ++i) {
+        const int4 e = list[i];
+        if (m >= e.y && m < e.z) {
+          acc += ds[((static_cast<size_t>(e.x) * H + h) * Wp + (l - e.y)) * Wp + (m - e.y)];
+        }
+      }
+      __syncthreads();  // the list is read before the next chunk overwrites it
+    }
+  }
+  if (m < L) dtoep[(static_cast<size_t>(h) * L + l) * L + m] = acc;
+}
+
+cudaError_t launch_dtoep_sum(const float* ds, const float* offsets, float* dtoep, int B, int H,
+                             int L, int W, cudaStream_t stream) {
+  if (L > 65535 || H > 65535) return cudaErrorInvalidValue;
+  const dim3 grid((L + kSumThreads - 1) / kSumThreads, L, H);
+  attention_rpos_dtoep_sum_kernel<<<grid, kSumThreads, 0, stream>>>(ds, offsets, dtoep, B, H, L,
+                                                                    W);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C interface for ctypes. D: 4 (the passes above, L <= kMaxL), 8,
 // 16, 32, 64 (the mma template in its window mode, any L whose grids fit
 // an int) or a multiple of 64 past 64 (the wide passes, any L). dtype: 0 =
 // float32, 1 = bfloat16. `lse` is the forward's float32 (B, H, L)
-// residual, `c` a float32 (B, H, L) scratch the call fills and `dtoep` a
-// float32 (1, H, L, L) output.
+// residual, `c` a float32 (B, H, L) scratch the call fills; at D = 4
+// `dtoep` is the float32 (1, H, L, L) output (`ds` may be null), at every
+// other D `ds` the float32 (B, H, W', W') scratch, W' = min(W, L), that
+// ecg_attention_rpos_dtoep_sum then sums into dtoep (`dtoep` not written).
 // Launches on `stream` of card `device`, does not synchronise and
 // allocates nothing. Returns the first failing launch's cudaError_t
 // (0 = success).
@@ -683,11 +755,11 @@ extern "C" int ecg_attention_rpos_bwd(const void* q, const void* k,
                                       const void* offsets, const void* g,
                                       const void* o, const void* lse, void* c,
                                       void* dq, void* dk, void* dv,
-                                      void* dtoep, int B, int H, int L, int D,
-                                      int W, int dtype, int device,
+                                      void* dtoep, void* ds, int B, int H, int L,
+                                      int D, int W, int dtype, int device,
                                       void* stream) {
   if (B < 1 || H < 1 || L < 1 || (D == kD && L > kMaxL) || W < 1 ||
-      toep == nullptr || offsets == nullptr || dtoep == nullptr) {
+      toep == nullptr || offsets == nullptr || (D == kD ? dtoep : ds) == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
@@ -697,28 +769,66 @@ extern "C" int ecg_attention_rpos_bwd(const void* q, const void* k,
   const float* lse_f = static_cast<const float*>(lse);
   float* c_f = static_cast<float*>(c);
   float* dtoep_f = static_cast<float*>(dtoep);
+  float* ds_f = static_cast<float*>(ds);
   switch (dtype) {
     case 0:
       err = D == kD ? launch<float>(q, k, v, toep, off, g, o, lse_f, c_f, dq, dk, dv, dtoep_f,
                                     B, H, L, W, s)
             : D <= mma_bwd::kWideD
                 ? mma_bwd::launch_mma<float, true>(q, k, v, toep, g, o, lse_f, c_f, dq, dk, dv,
-                                                   dtoep_f, B, H, L, D, off, W, s)
+                                                   ds_f, B, H, L, D, off, W, s)
                 : mma_bwd::launch_wide<float, true>(q, k, v, toep, g, o, lse_f, c_f, dq, dk, dv,
-                                                    dtoep_f, B, H, L, D, off, W, s);
+                                                    ds_f, B, H, L, D, off, W, s);
       break;
     case 1:
       err = D == kD ? launch<__nv_bfloat16>(q, k, v, toep, off, g, o, lse_f, c_f, dq, dk, dv,
                                             dtoep_f, B, H, L, W, s)
             : D <= mma_bwd::kWideD
                 ? mma_bwd::launch_mma<__nv_bfloat16, true>(q, k, v, toep, g, o, lse_f, c_f, dq,
-                                                           dk, dv, dtoep_f, B, H, L, D, off, W, s)
+                                                           dk, dv, ds_f, B, H, L, D, off, W, s)
                 : mma_bwd::launch_wide<__nv_bfloat16, true>(q, k, v, toep, g, o, lse_f, c_f, dq,
-                                                            dk, dv, dtoep_f, B, H, L, D, off, W,
+                                                            dk, dv, ds_f, B, H, L, D, off, W,
                                                             s);
       break;
     default:
       err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// The dtoep sum (attention_rpos_dtoep_sum_kernel) for a call past the D = 4
+// kernels, after ecg_attention_rpos_bwd has filled `ds`: `dtoep` the
+// float32 (1, H, L, L) output, `offsets` and W the call's. Launches on
+// `stream` of card `device`, does not synchronise and allocates nothing.
+// Returns the launch's cudaError_t (0 = success).
+extern "C" int ecg_attention_rpos_dtoep_sum(const void* ds, const void* offsets, void* dtoep,
+                                            int B, int H, int L, int W, int device,
+                                            void* stream) {
+  if (B < 1 || H < 1 || L < 1 || W < 1 || ds == nullptr || offsets == nullptr ||
+      dtoep == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_dtoep_sum(static_cast<const float*>(ds),
+                                           static_cast<const float*>(offsets),
+                                           static_cast<float*>(dtoep), B, H, L, W,
+                                           static_cast<cudaStream_t>(stream)));
+}
+
+// The wide passes' clusters at head dim D (a multiple of 64 past 64):
+// out[0] the dq pass's size in blocks, out[1] the clusters of it card
+// `device` holds at once (cudaOccupancyMaxActiveClusters), out[2] and out[3]
+// the dk/dv pass's.
+// dtype as above; with_bias is not read (the window mode has its bias).
+// Returns a cudaError_t (0 = success).
+extern "C" int ecg_wide_clusters(int D, int dtype, int with_bias, int device, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  switch (dtype) {
+    case 0: err = mma_bwd::wide_clusters<float, true>(D, with_bias != 0, out); break;
+    case 1: err = mma_bwd::wide_clusters<__nv_bfloat16, true>(D, with_bias != 0, out); break;
+    default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }

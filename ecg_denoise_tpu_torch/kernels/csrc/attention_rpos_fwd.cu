@@ -296,6 +296,23 @@ extern "C" int ecg_attention_rpos_fwd(const void* q, const void* k,
   return static_cast<int>(err);
 }
 
+// The wide kernel's cluster at head dim D (a multiple of 64 past 64):
+// out[0] its size in blocks, out[1] the clusters card `device` holds at once
+// (cudaOccupancyMaxActiveClusters). dtype as above; with_bias is not read
+// (the window mode has its bias). Returns a cudaError_t (0 = success).
+extern "C" int ecg_wide_clusters(int D, int dtype, int with_bias, int device, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  switch (dtype) {
+    case 0: err = mma_fwd::wide_clusters<float, true>(D, with_bias != 0, out + 1, out); break;
+    case 1:
+      err = mma_fwd::wide_clusters<__nv_bfloat16, true>(D, with_bias != 0, out + 1, out);
+      break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
 extern "C" const char* ecg_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -66,11 +66,19 @@ B1 is also held at shapes that cut across its row tiles and batch groups
 (L = 203, 7, 1; B = 1, 3, 37, 1000), with its lse within 1e-5 of
 max(1, max|lse|) of the plain log-sum-exp and a second call bit-identical.
 
-B1, B2 and B5 past head_dim 64 (the wide kernels; 72 and 200 padded to 128
-and 256, 128, 256 and 320 as they are) are held to the same bars at shapes
-that cut across their 64-row tiles and packed heads and past 256 keys, and
-a small Transformer1d with 128- and 256-wide heads on the card equals the
-CPU's within 1e-4 with the launches of its blocks, dense and default.
+B1, B2 and B5 past head_dim 64 (the wide kernels; 72, 96 and 200 padded
+to 128 and 256, 128, 192, 256, 320, 512 and 576 as they are: B1's and B2's
+clusters of 2 to 8 blocks, and nine chunks on five) are held to the same
+bars at shapes that cut across their 64-row tiles and packed heads and
+past 256 keys, and a small Transformer1d with 128- and 256-wide heads on
+the card equals the CPU's within 1e-4 with the launches of its blocks,
+dense and default. B3 and B4 past D = 4 are held at 320 and 576 too, and
+at dtoep's routes with B = 1 and W >= L; their f32 gradients also against
+float64 gradients, and past D = 512 against those alone (there the
+float32 plain versions' own rounding nears the 1e-4 bar). Where the parent commit's tree is
+unpacked, what this tree left as it was equals the parent's bit for bit:
+B1 and B2 on the mma template, B3 on it and B4's dq, dk and dv on it (its
+dtoep is formed anew from the dq pass's ds), and B5 at every head dim.
 
 B1 and B2 on the mma template (head_dim 8, 16, 32, 64; 24 padded to 32;
 D = 4 past 256 keys padded to 8) are held to the same bars, the f32
@@ -187,10 +195,12 @@ D32_CASES = ([(8, L, H) for L, H in [(256, 4), (128, 8), (64, 16), (32, 32)]]
 MMA_CASES = ([(D, *c) for D in (8, 16, 24, 64)
               for c in [(2, 256, 2), (3, 203, 2), (2, 33, 3), (5, 7, 2), (4, 1, 1), (1, 65, 1)]]
              + [(4, 3, 300, 2), (4, 1, 257, 1)])
-# The wide kernels (head_dim past 64): padded up (72, 200) and as they are
-# (128, 256, 320), at packed heads (L <= 32), one and four 64-row tiles and
-# past 256 keys: (D, B, L, H).
-WIDE_CASES = [(D, *c) for D in (72, 128, 200, 256, 320)
+# The wide kernels (head_dim past 64): padded up (72, 96, 200) and as they
+# are (128, 192, 256, 320, 512, 576: clusters of 2, 3, 4, 5 and 8 blocks,
+# and nine chunks on a cluster of five, two a block but the last), at
+# packed heads (L <= 32), one and four 64-row tiles and past 256 keys:
+# (D, B, L, H).
+WIDE_CASES = [(D, *c) for D in (72, 96, 128, 192, 200, 256, 320, 512, 576)
               for c in [(2, 32, 3), (3, 64, 2), (2, 256, 1), (1, 300, 1), (3, 7, 2)]]
 # lse against attention_reference's logsumexp of the same f32 logits: the
 # kernel's row sum uses __expf and another order (1e-6 relative), |lse|
@@ -495,9 +505,31 @@ def _rpos_grad_scale(name, ref, L):
 
 # B3 and B4 on the templates in their window mode, (D, B, L, W, H): a
 # ragged L and packed heads (L <= 32, five heads: one block holds heads of
-# two batch elements) at every width class, and D = 4 past 256 keys.
-RPOS_ANY_D_CASES = [(D, B, L, W, H) for D in (8, 24, 64, 128, 200)
-                    for (B, L, W, H) in ((8, 203, 25, 3), (5, 32, 4, 5))] + [(4, 8, 300, 37, 2)]
+# two batch elements) at every width class, D = 4 past 256 keys, and
+# dtoep's routes at B = 1 and with W >= L (the whole length a window).
+RPOS_ANY_D_CASES = [(D, B, L, W, H) for D in (8, 24, 64, 128, 200, 320, 576)
+                    for (B, L, W, H) in ((8, 203, 25, 3), (5, 32, 4, 5))] + [
+    (4, 8, 300, 37, 2), (4, 1, 300, 37, 1), (8, 1, 64, 16, 2), (576, 2, 70, 9, 1),
+    (320, 3, 40, 48, 2), (16, 3, 24, 32, 2)]
+
+
+# Past this head dim the float32 plain versions' own rounding nears the
+# f32 gradient bar (at D = 576 the flash form's dq lies 9.5e-05 and
+# autograd's 5.6e-05 from float64, the kernel's 2.1e-05), so B4's f32
+# gradients are held there to float64 gradients alone, at the same bar.
+RPOS_F64_ONLY_PAST = 512
+
+
+def _rpos_exact_grads(ops, W, offsets, g):
+    """Float64 gradients of the r-pos attention through autograd (the
+    materialised bias, softmax and products in float64)."""
+    from ecg_denoise_tpu_torch.kernels.attention_rpos import materialize_rpos_bias
+
+    ins = [t.detach().double().requires_grad_() for t in ops]
+    logits = (torch.einsum("bhld,bhmd->bhlm", ins[0], ins[1])
+              + materialize_rpos_bias(ins[3], W, offsets))
+    out = torch.einsum("bhlm,bhmd->bhld", torch.softmax(logits, -1), ins[2])
+    return torch.autograd.grad(out, ins, g.double())
 
 
 @pytest.mark.parametrize("D,B,L,W,H", RPOS_ANY_D_CASES)
@@ -526,12 +558,15 @@ def test_rpos_kernels_at_any_head_dim_match_plain_versions(cuda, D, B, L, W, H, 
     if dtype == torch.float32:
         ins = [t.detach().requires_grad_() for t in ops]
         refs.append(torch.autograd.grad(attention_rpos_reference(*ins, W, offsets), ins, g))
+        if D > RPOS_F64_ONLY_PAST:
+            refs = []
+        refs.append(_rpos_exact_grads(ops, W, offsets, g))
     for ref in refs:
         for name, a, b in zip(("dq", "dk", "dv", "dtoep"), got, ref):
             scale = _rpos_grad_scale(name, ref, L)
             tol = (BF16_GRAD_TOL_OF_MAX * scale if dtype == torch.bfloat16
                    else DBIAS_TOL_OF_MAX * scale if name == "dtoep" else GRAD_TOL)
-            err = (a.float() - b.float()).abs().max().item()
+            err = (a.double() - b.double()).abs().max().item()
             assert err <= tol, (name, err, tol)
     again, again_grads = grads()
     assert torch.equal(out, again)
@@ -614,6 +649,9 @@ def test_rpos_kernels_equal_the_parent_commits(cuda, B, L, W, H, dtype):
     bwd_libs = (attention_rpos._bwd_library(),
                 bind("attention_rpos_bwd", "ecg_attention_rpos_bwd", 13, 7,
                      csrc=Path(PARENT_CSRC)))
+    # At D = 4 this tree's backward takes no ds scratch (a null pointer);
+    # the parent's has no such argument.
+    scratch = ([None], [])
     outs = []
     for fwd, bwd in zip(fwd_libs, bwd_libs):
         o = torch.empty_like(q)
@@ -629,7 +667,8 @@ def test_rpos_kernels_equal_the_parent_commits(cuda, B, L, W, H, dtype):
         o_in, lse_in = (o, lse) if not outs else outs[0][:2]
         err = bwd.ecg_attention_rpos_bwd(ptr(q), ptr(k), ptr(v), ptr(toep), ptr(offsets),
                                          ptr(g), ptr(o_in), ptr(lse_in), ptr(c), ptr(dq),
-                                         ptr(dk), ptr(dv), ptr(dtoep), B, H, L, 4, W,
+                                         ptr(dk), ptr(dv), ptr(dtoep),
+                                         *scratch[len(outs)], B, H, L, 4, W,
                                          DTYPE_CODES[dtype], cuda.index or 0, stream)
         raise_on(bwd, err, "attention r-pos backward")
         outs.append((o, lse, dq, dk, dv, dtoep))
@@ -1309,3 +1348,93 @@ def test_wide_head_transformer1d_matches_cpu_with_its_launches(cuda, monkeypatch
     assert (fused_attention.launches - before[0],
             fused_attention_dense.launches - before[1]) == (0, 2)
     assert (y_dense - y_default).abs().max().item() <= F32_TOL
+
+
+# Kernels this tree leaves as the parent commit had them, on the same
+# operands bit for bit (skipped where the parent's tree is not unpacked):
+# B1 and B2 on the mma template (head_dim 8, 16, 32, 64; D = 4 past 256
+# keys on it), B3 on it (o, lse) and B4's dq, dk and dv on it (its dtoep
+# is formed anew, from the dq pass's ds), and B5 on its template and its
+# wide kernel.
+TEMPLATE_PARENT_CASES = [(D, B, L, H) for D in (8, 16, 32, 64)
+                         for (B, L, H) in ((3, 203, 2), (5, 32, 3))] + [(4, 2, 300, 2)]
+DENSE_PARENT_CASES = [(D, 3, L, H) for D in (8, 16, 32, 64, 128, 256)
+                      for (L, H) in ((64, 2), (32, 4), (8, 16))]
+
+
+@pytest.mark.parametrize("D,B,L,H", TEMPLATE_PARENT_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_templates_equal_the_parent_commits(cuda, D, B, L, H, dtype):
+    from ecg_denoise_tpu_torch.kernels import attention_rpos
+    from ecg_denoise_tpu_torch.kernels.attention import (
+        DTYPE_CODES,
+        kernel_head_dim,
+        ptr,
+        raise_on,
+    )
+
+    Dk = kernel_head_dim(D, L, dtype)
+    code, dev, stream = DTYPE_CODES[dtype], cuda.index or 0, torch.cuda.current_stream().cuda_stream
+    libs = [(attention._library(), attention._bwd_library(), attention_rpos._library(),
+             attention_rpos._bwd_library()),
+            (_parent_lib("attention_fwd", "ecg_attention_fwd", 6),
+             _parent_lib("attention_bwd", "ecg_attention_bwd", 12),
+             _parent_lib("attention_rpos_fwd", "ecg_attention_rpos_fwd", 7, 7),
+             _parent_lib("attention_rpos_bwd", "ecg_attention_rpos_bwd", 13, 7))]
+    q, k, v, bias = _operands(B, H, L, True, dtype, cuda, seed=D + L, D=Dk)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(4)).to(cuda, dtype)
+    (rq, rk, rv, toep), W, offsets = _rpos_operands(B, L, max(1, L // 8), H, dtype, cuda,
+                                                    seed=D + L, D=Dk)
+    outs = []
+    for mine, (b1, b2, b3, b4) in enumerate(libs):
+        o, ro = torch.empty_like(q), torch.empty_like(rq)
+        lse, rlse = (torch.empty(B, H, L, device=cuda) for _ in range(2))
+        raise_on(b1, b1.ecg_attention_fwd(ptr(q), ptr(k), ptr(v), ptr(bias), ptr(o), ptr(lse),
+                                          B, H, L, Dk, code, dev, stream), "B1")
+        raise_on(b3, b3.ecg_attention_rpos_fwd(ptr(rq), ptr(rk), ptr(rv), ptr(toep),
+                                               ptr(offsets), ptr(ro), ptr(rlse), B, H, L, Dk,
+                                               W, code, dev, stream), "B3")
+        if outs:  # both backwards on this tree's forward
+            o, lse, ro, rlse = (outs[0][i] for i in (0, 1, 6, 7))
+        grads = [torch.empty_like(q) for _ in range(3)] + [torch.empty_like(rq)
+                                                           for _ in range(3)]
+        c = torch.empty(B, H, L, device=cuda)
+        dbias, dtoep = (torch.empty(1, H, L, L, device=cuda) for _ in range(2))
+        raise_on(b2, b2.ecg_attention_bwd(ptr(q), ptr(k), ptr(v), ptr(bias), ptr(g), ptr(o),
+                                          ptr(lse), ptr(c), *map(ptr, grads[:3]), ptr(dbias),
+                                          B, H, L, Dk, code, dev, stream), "B2")
+        ds = torch.empty(B, H, min(W, L), min(W, L), device=cuda)
+        raise_on(b4, b4.ecg_attention_rpos_bwd(ptr(rq), ptr(rk), ptr(rv), ptr(toep),
+                                               ptr(offsets), ptr(g), ptr(ro), ptr(rlse), ptr(c),
+                                               *map(ptr, grads[3:]), ptr(dtoep),
+                                               *([ptr(ds)] if mine == 0 else []), B, H, L, Dk,
+                                               W, code, dev, stream), "B4")
+        outs.append((o, lse, *grads[:3], dbias, ro, rlse, *grads[3:]))
+    torch.cuda.synchronize()
+    names = ("o", "lse", "dq", "dk", "dv", "dbias", "B3 o", "B3 lse", "B4 dq", "B4 dk", "B4 dv")
+    for name, a, b in zip(names, *outs):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("D,B,L,H", DENSE_PARENT_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_kernels_equal_the_parent_commits(cuda, D, B, L, H, dtype):
+    from ecg_denoise_tpu_torch.kernels.attention import (
+        DTYPE_CODES,
+        kernel_head_dim,
+        ptr,
+        raise_on,
+    )
+    from ecg_denoise_tpu_torch.kernels.attention_dense import dense_pack_factor
+
+    lib = _parent_lib("attention_dense_fwd", "ecg_attention_dense_fwd", 5, 7)
+    D = kernel_head_dim(D, L, dtype)  # bf16 from 16
+    q, k, v, bias = _operands(B, H, L, True, dtype, cuda, seed=L + H, D=D)
+    out = fused_attention_dense(q, k, v, bias)
+    old = torch.empty_like(q)
+    err = lib.ecg_attention_dense_fwd(ptr(q), ptr(k), ptr(v), ptr(bias), ptr(old), B, H, L, D,
+                                      dense_pack_factor(H, L), DTYPE_CODES[dtype],
+                                      cuda.index or 0, torch.cuda.current_stream().cuda_stream)
+    raise_on(lib, err, "the parent's dense attention forward")
+    torch.cuda.synchronize()
+    assert torch.equal(out, old)
