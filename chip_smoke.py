@@ -373,22 +373,27 @@ and nothing falls back to the CPU):
    close pairs settled): times, no bar.
 
 31. B3 and B4 at every head dim and length: D = 4 at L <= 256 stays on
-   their D = 4 kernels (phases 9-13); every other shape runs on B1's and
-   B2's templates and wide kernels in their window mode, the operands
-   zero-padded to the kernel's head dim; past D = 4 the dq pass leaves
-   the windowed ds in a scratch that a second kernel sums into dtoep.
-   (a) The 29 window-mode instantiations' registers, stack,
-   local memory and HMMA (cuobjdump), beside B2's wide dk/dv pass; the
-   wide ones' stack against the parent's and their clusters. (b) B3 and
+   their D = 4 kernels (phases 9-13). B3 takes D = 4 past 256 keys
+   unpadded and D = 8-64 on its window kernel
+   (`csrc/attention_rpos_fwd_mma.cuh`), past 64 B1's wide kernel in its
+   window mode; B4 every other shape on B2's template and wide kernels in
+   their window mode, the operands zero-padded to the kernel's head dim
+   (D = 4 past 256 keys to 8); past D = 4 the dq pass leaves the windowed
+   ds in a scratch that a second kernel sums into dtoep. (a) The 31
+   r-pos instantiations' registers, stack, local memory and HMMA
+   (cuobjdump; B3's window kernel must not spill), beside B2's wide dk/dv
+   pass; each one's stack against the parent's (none may be larger) and
+   the wide ones' clusters. (b) B3 and
    B4 against their plain versions at RPOS_ANY_D_CASES (head_dim 8, 16,
    32, 64, 128, 256, 320, 576 at L = 256, a ragged 203 and packed heads at
    32; D = 4 at L = 300 and 1000), B = 8, f32 and bf16, at phase 30's bars
    for the forward and phase 10's for the gradients (f32 also against
    float64 gradients, past D = 512 against those alone), every call a
    launch, repeated calls bit-identical; and, where the parent's tree is
-   there, B1's and B2's templates (B12_TEMPLATE_PARENT_CASES) and B3's
-   and B4's (o, lse, dq, dk, dv; RPOS_PARENT_CASES) bit for bit the
-   parent's. (c) The layer path:
+   there, B1's and B2's templates and wide kernels
+   (B12_TEMPLATE_PARENT_CASES), B3 on the wide kernel (o, lse) and B4 (dq,
+   dk, dv from this tree's forward; RPOS_PARENT_CASES) bit for bit the
+   parent's, B3's window kernel within its bars there. (c) The layer path:
    `RelativePositionEmbedding(W, L, H)` on R peaks detected on the card
    (equal to the CPU's), then `BasicLayer(H * D, depth 2, H)` as RA-LENet's
    stages use it, at RPOS_LAYERS, served at 1,024 (f32 within MODEL_TOL of
@@ -396,17 +401,22 @@ and nothing falls back to the CPU):
    and trained at 256 for 3 Adam steps (2 + 2 a step), one step on 32
    windows against the CPU's at `step_bars`; paths serve_rpos_d32,
    train_rpos_d32, ... (counted apart). (d) B3 at 1,024 and B4 at 256 per
-   layer, f32 and bf16, from CUDA graph replays, against their bounds,
+   layer, f32 and bf16, from CUDA graph replays, against their bounds (the
+   largest of the products, one exp a (row, key) on the special-function
+   units, and the bytes: the exps set it at D = 4),
    plain versions and SDPA on the materialised mask, each in turns with
-   the parent's where its tree is there, B4's passes by torch.profiler
-   (the dtoep sum beside the parent's dtoep pass): times, no bar.
+   the parent's where its tree is there (B3 at D = 4 past 256 keys on its
+   unpadded operands, the parent's padded to 8 or 16), B4's passes by
+   torch.profiler (the dtoep sum beside the parent's dtoep pass), and B3
+   at head dims 8, 16, 64 in turns with the parent's; B3's output at 1,024
+   held there to its plain version at its bars.
 
 The last lines are one JSON object listing the ten kernels, the three
 wide kernels (`attention_fwd_wide`, `attention_bwd_wide`,
 `attention_dense_fwd_wide`, their launches those of phase 30's paths) and
-B3's and B4's template rows (`attention_rpos_fwd_mma`, `_wide`,
-`attention_rpos_bwd_mma`, `_wide`, their launches those of phase 31's
-paths)
+B3's window kernel and B4's template rows (`attention_rpos_fwd_mma`,
+`_wide`, `attention_rpos_bwd_mma`, `_wide`, their launches those of phase
+31's paths)
 (with their launches on each of the thirty-three paths: serve, train, serve_rpos,
 train_rpos, serve_dense, probes, probes_precision, serve_families,
 train_families, train_newrale, serve_newrale, train_augmented,
@@ -427,6 +437,7 @@ and prints no result.
 
 import contextlib
 import copy
+import ctypes
 import functools
 import io
 import json
@@ -546,6 +557,10 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
+# The exps' floor of a softmax (phase 31's bounds): ex2 on the special-function
+# units, 16 a clock an SM (NVIDIA's throughput table for compute capability 9.0),
+# 132 SMs, at the H100 SXM's 1.98 GHz boost clock.
+SFU_EXPS_PER_S = 16 * 132 * 1.98e9
 # The precision probes (phase 18): (M, K, N) of the dot, (L, D) of the
 # softmax probes and the divide's shape; the probe's own, then ragged ones
 # that fit no mma tile.
@@ -715,19 +730,25 @@ TP_EVAL_WINDOWS = 40  # two eval batches at DP_BATCH, the last ragged
 TP_SERVE_WINDOWS = 64
 TP_SERVE_TOL = 1e-5
 TP_EVAL_TOL = 1e-5
-# Phase 31: B3 and B4 at every head dim and length (B1's and B2's templates
-# in their window mode). The layer path, by path tag: the per-window
+# Phase 31: B3 and B4 at every head dim and length (B3's window kernel, B1's
+# wide kernel and B2's kernels in their window mode). The layer path, by
+# path tag: the per-window
 # RelativePositionEmbedding(W, L, H) on detected R peaks, then
 # BasicLayer(H * D, depth 2, H) as RA-LENet's stages use it, at (L, W, H,
 # D) with RA-LENet's W = L / 8: its first stage with 32-wide heads,
 # Transformer1d's published head widths (128 and 256), and D = 4 past 256
-# keys (PTB-XL's 10 s at 100 Hz, padded to 8). Served at BATCH, trained at
+# keys (PTB-XL's 10 s at 100 Hz; B4 pads it to 8). Served at BATCH, trained at
 # TIMING_BATCH for RPOS_TRAIN_STEPS Adam steps; each held against the CPU on
 # its first RPOS_CHECK_WINDOWS windows (a (B, H, L, L) bias at B = 1,024
 # and L = 1,000 would take 8 GB there).
 RPOS_LAYERS = {"rpos_d32": (256, 32, 2, 32), "rpos_d128": (256, 32, 1, 128),
                "rpos_d256": (128, 16, 1, 256), "rpos_long": (1000, 125, 2, 4)}
 RPOS_LAYER_DEPTH = 2
+# B3's window kernel at the head dims no layer of RPOS_LAYERS reaches, timed
+# in turns with the parent's at (L, W, H) = RPOS_CHECKED_SHAPE and BATCH
+# (phase 31c): the redesign may be no slower there.
+RPOS_CHECKED_DIMS = (8, 16, 64)
+RPOS_CHECKED_SHAPE = (256, 32, 2)
 RPOS_TRAIN_STEPS = 3
 RPOS_CHECK_WINDOWS = 32
 RPOS_LR = 1e-3
@@ -745,14 +766,16 @@ RPOS_ANY_D_CASES = [(D, L, W, H) for D in (8, 16, 32, 64, 128, 256, 320, 576)
 # B4's f32 gradients are held there to float64 gradients alone, at
 # the same bar; below it to those as well as to both float32 versions.
 RPOS_F64_ONLY_PAST = 512
-# B1 and B2 on their templates against the parent's, bit for bit, at every
-# head dim of the template: (D, B, L, H). B3 and B4 on the template (D = 8
-# to 64, and D = 4 past 256 keys) against the parent's the same way, B4's
-# dq, dk and dv (its dtoep is formed anew), at RPOS_PARENT_CASES: (D, B, L,
-# W, H), windows cut at both ends.
-B12_TEMPLATE_PARENT_CASES = [(D, B, L, H) for D in (8, 16, 32, 64)
+# B1 and B2 on their templates and wide kernels against the parent's, bit
+# for bit, at every head dim of the template and two of the wide kernel's:
+# (D, B, L, H). B4 (D = 8 to 64, D = 4 past 256 keys at 8, and past 64) the
+# same way, its dq, dk and dv from this tree's forward (its dtoep is formed
+# anew), and B3 on the wide kernel, at RPOS_PARENT_CASES: (D, B, L, W, H),
+# windows cut at both ends. B3's window kernel (D <= 64) is new arithmetic:
+# held there to its bars.
+B12_TEMPLATE_PARENT_CASES = [(D, B, L, H) for D in (8, 16, 32, 64, 128, 320)
                              for (B, L, H) in ((3, 203, 2), (5, 32, 3))]
-RPOS_PARENT_CASES = [(D, 5, L, W, H) for D in (8, 16, 32, 64)
+RPOS_PARENT_CASES = [(D, 5, L, W, H) for D in (8, 16, 32, 64, 128, 320)
                      for (L, W, H) in ((203, 25, 3), (32, 4, 5))] + [(4, 3, 300, 37, 2)]
 # Phases 30 and 31 time each redesigned kernel against the parent's in
 # turns; a pair whose means lie within this share of each other is settled
@@ -893,13 +916,16 @@ def parent_libs():
     libs = {"attention_fwd": ("ecg_attention_fwd", 6, 6),
             "attention_bwd": ("ecg_attention_bwd", 12, 6),
             "attention_rpos_fwd": ("ecg_attention_rpos_fwd", 7, 7),
-            "attention_rpos_bwd": ("ecg_attention_rpos_bwd", 13, 7),
+            "attention_rpos_bwd": ("ecg_attention_rpos_bwd", 14, 7),  # with the ds scratch
             "attention_dense_fwd": ("ecg_attention_dense_fwd", 5, 7),
             "precision_probe": ("ecg_probe_dot", 3, 5),
             "null_copy": ("ecg_null_copy", 2, 2)}
     with ThreadPoolExecutor(len(libs)) as pool:
         futures = {name: pool.submit(bind, name, *sig, csrc=csrc) for name, sig in libs.items()}
         built = {name: future.result() for name, future in futures.items()}
+    dtoep_sum = built["attention_rpos_bwd"].ecg_attention_rpos_dtoep_sum  # as _bwd_library
+    dtoep_sum.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    dtoep_sum.restype = ctypes.c_int
     bind("precision_probe", "ecg_probe_fold", 3, 4, csrc=csrc)  # L, D, precision, device
     bind("precision_probe", "ecg_probe_tree", 3, 3, csrc=csrc)  # L, D, device
     bind("precision_probe", "ecg_probe_div", 3, 2, csrc=csrc)  # count, device
@@ -1054,10 +1080,9 @@ def b5_call(lib, q, k, v, bias):
 def b4_call(lib, q, k, v, toep, W, offsets, o, lse, g):
     """One B4 library's kernels on the same operands, allocated as
     `attention_rpos._launch_bwd_kernel` allocates: (dq, dk, dv, dtoep),
-    dtoep float32 (not cast to toep's dtype). This tree's library fills the
-    ds scratch past D = 4 and sums it with its second kernel; the parent
-    commit's (no scratch, one pointer fewer) forms dtoep in its
-    passes. No count moves."""
+    dtoep float32 (not cast to toep's dtype). Past D = 4 the dq pass fills
+    the ds scratch and the library's second kernel sums it into dtoep (this
+    tree's and the parent's alike). No count moves."""
     from ecg_denoise_tpu_torch.kernels.attention import DTYPE_CODES, ptr, raise_on
 
     B, H, L, D = q.shape
@@ -1065,10 +1090,9 @@ def b4_call(lib, q, k, v, toep, W, offsets, o, lse, g):
     c = torch.empty(B, H, L, dtype=torch.float32, device=q.device)
     dtoep = torch.empty(1, H, L, L, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream().cuda_stream
-    scratch = hasattr(lib, "ecg_attention_rpos_dtoep_sum")
     ds = (torch.empty(B, H, min(W, L), min(W, L), dtype=torch.float32, device=q.device)
-          if scratch and D != 4 else None)
-    ptrs = [q, k, v, toep, offsets, g, o, lse, c, dq, dk, dv, dtoep] + ([ds] if scratch else [])
+          if D != 4 else None)
+    ptrs = [q, k, v, toep, offsets, g, o, lse, c, dq, dk, dv, dtoep, ds]
     err = lib.ecg_attention_rpos_bwd(*map(ptr, ptrs), B, H, L, D, W, DTYPE_CODES[q.dtype],
                                      q.device.index, stream)
     raise_on(lib, err, "attention r-pos backward (yardstick call)")
@@ -1680,7 +1704,9 @@ def phase_train_cli(card, r_pos=None, tag="7b", name="ralenet", keep=None, data=
     from ecg_denoise_tpu_torch.serving import Denoiser
     from ecg_denoise_tpu_torch.utils.seed import random_seed
 
-    epochs, n_select, seed = 10, 1280, 2023  # one checkpoint, at the last epoch
+    # Ten epochs: the CLI checkpoints every 10th. 512 training windows an
+    # epoch (16 steps) keep the test loss falling well clear of its start.
+    epochs, n_select, seed = 10, 640, 2023
     with tempfile.TemporaryDirectory() as tmp:
         if data is None:
             data = os.path.join(tmp, "dict_data")
@@ -5166,20 +5192,23 @@ def kernel_resources(name, pick, csrc=None):
 
 def kernel_key(fn):
     """A kernel instantiation's family, from its mangled name: (kernel name,
-    element type, the template's flags), alike in this tree and the
-    parent's where the template is (B2's dbias passes lost their window
-    flag: their flags are left out)."""
+    element type, the template's flags, and the head dim of a D-templated
+    mma kernel), alike in this tree and the parent's where the template is
+    (B2's dbias passes lost their window flag: their flags are left out)."""
     m = re.search(r"\d+(attention_\w+?_kernel)I(.*?)EEv", fn)
     if m is None:
         return fn, "", ""
-    flags = "" if "dbias" in m.group(1) else "".join(re.findall(r"Lb[01]E", m.group(2)))
+    flags = "" if "dbias" in m.group(1) else "".join(re.findall(
+        r"Li\d+E|Lb[01]E" if "_mma_kernel" in m.group(1) else r"Lb[01]E", m.group(2)))
     return m.group(1), "bf16" if "bfloat16" in m.group(2) else "f32", flags
 
 
 def stack_against_parent(found, pick, tag):
-    """Each wide instantiation's stack here against the parent's same family
-    (`kernel_key`), where the parent's tree is there: logged, and none may be
-    larger. {family: [this, parent]}; empty without the parent's tree."""
+    """Each instantiation's stack here (those of `pick`; in phase 30 the
+    wide ones) against the parent's same family (`kernel_key`), where the
+    parent's tree is there: logged, and none may be larger; a family the
+    parent has not may have none. {family: [this, parent]}; empty without
+    the parent's tree."""
     if not parent_libs():
         log(f"[{tag}] the parent's stack not compared (no tree under _archive/parent)")
         return {}
@@ -5190,14 +5219,12 @@ def stack_against_parent(found, pick, tag):
             theirs[key] = max(theirs.get(key, 0), r.get("stack", 0) + r.get("local", 0))
     out = {}
     for fn, r in sorted(found.items()):
-        if "_wide_kernel" not in fn:
-            continue
         key = (r["library"], *kernel_key(fn))
         mine = r.get("stack", 0) + r.get("local", 0)
         out[" ".join(k for k in key if k)] = [mine, theirs.get(key)]
         log(f"[{tag}] {' '.join(k for k in key if k)}: stack {mine} bytes, the parent's "
             f"{theirs.get(key)}")
-        check(key in theirs and mine <= theirs[key],
+        check(mine <= theirs.get(key, 0),
               f"{' '.join(key)}: more stack than the parent's ({mine} > {theirs.get(key)})")
     return out
 
@@ -5602,13 +5629,15 @@ def phase_wide_heads(card):
 
 
 def log_rpos_resources():
-    """B3's and B4's template instantiations (the window mode, in
-    attention_rpos_fwd.cu and attention_rpos_bwd.cu) as the compiler left
+    """B3's window kernel and wide kernel and B4's template instantiations
+    (attention_rpos_fwd.cu, attention_rpos_bwd.cu) as the compiler left
     them: registers, stack and local memory (cuobjdump -res-usage) and the
     HMMA count of their SASS, beside B2's wide dk/dv pass without the
-    window (attention_bwd.cu); the wide ones' stack against the parent's
-    where its tree is there (none may be larger) and their clusters. A
-    kernel with no HMMA fails the run; spills are reported."""
+    window (attention_bwd.cu); each one's stack against the parent's where
+    its tree is there (`stack_against_parent`: none may be larger) and the
+    wide ones' clusters. A kernel with no HMMA, or a spill in B3's window
+    kernel, fails the run; B4's template spills as the parent's did
+    (its f32 D = 64 dk/dv pass 104 bytes), and is reported."""
     found = {}
     for name, pick in (("attention_rpos_fwd", ("_mma_kernel", "_wide_kernel")),
                        ("attention_rpos_bwd", ("_mma_kernel", "_wide_kernel")),
@@ -5618,12 +5647,15 @@ def log_rpos_resources():
         log(f"[31] {r['library']} {fn}: {r.get('registers')} registers, stack "
             f"{r.get('stack')} bytes, local {r.get('local')} bytes; {r['hmma']} HMMA instructions")
     mine = {fn: r for fn, r in found.items() if r["library"] != "attention_bwd"}
-    # B3: the template at f32 D 8-64 and bf16 16-64 (7), the wide kernel
-    # f32 and bf16 (2); B4: dq and dk/dv at 4 D in 2 dtypes (16), the two
-    # wide passes in 2 dtypes (4). The dtoep sum is no mma kernel.
-    check(len(mine) == 9 + 20, f"{len(mine)} of the 29 r-pos template instantiations found")
+    # B3: the window kernel at f32 D 4-64 and bf16 4, 16-64 (9), the wide
+    # kernel f32 and bf16 (2); B4: dq and dk/dv at 4 D in 2 dtypes (16), the
+    # two wide passes in 2 dtypes (4). The dtoep sum is no mma kernel.
+    check(len(mine) == 11 + 20, f"{len(mine)} of the 31 r-pos instantiations found")
     check(all(r["hmma"] > 0 for r in found.values()), "an r-pos template kernel issues no HMMA")
     check(all("registers" in r for r in found.values()), "a kernel's resources not read")
+    window = [fn for fn in mine if "rpos_fwd_mma_kernel" in fn]
+    check(len(window) == 9 and all(mine[fn]["stack"] + mine[fn]["local"] == 0 for fn in window),
+          "B3's window kernel spills (or an instantiation is missing)")
     out = {}
     for lib, kind in (("attention_rpos_fwd", "_mma_kernel"), ("attention_rpos_fwd", "_wide_kernel"),
                       ("attention_rpos_bwd", "_mma_kernel"), ("attention_rpos_bwd", "_wide_kernel"),
@@ -5680,9 +5712,10 @@ def phase_rpos_any_d_kernels():
     RPOS_F64_ONLY_PAST those alone) (dq, dk, dv 1e-4, dtoep 1e-4 of its max;
     bf16 2^-7 of each max), a second call bit-identical. Every call launches its kernel:
     the counts move by exactly the calls made. Then, where the parent's
-    tree is there, B1 and B2 on their templates against the parent's, bit
-    for bit, and B3 (o, lse) and B4 (dq, dk, dv) on theirs, bit for bit: the
-    window mode added only the ds stores."""
+    tree is there, B1 and B2 on their templates and wide kernels against
+    the parent's, bit for bit, B3 on the wide kernel (o, lse) and B4 (dq,
+    dk, dv, from this tree's forward) bit for bit, and B3's window kernel
+    (new arithmetic) within its bars of its plain version."""
     from ecg_denoise_tpu_torch import full_float32
     from ecg_denoise_tpu_torch.kernels import attention
     from ecg_denoise_tpu_torch.kernels import attention_rpos as ar
@@ -5733,7 +5766,8 @@ def phase_rpos_any_d_kernels():
                 max_err["fwd"] = max(max_err["fwd"], err)
             same = (torch.equal(out, again) and torch.equal(out, out2)
                     and all(torch.equal(a, b) for a, b in zip(got, again_grads)))
-            log(f"[31] B3/B4 D={D} (kernel {attention.kernel_head_dim(D, L, dtype)}) "
+            log(f"[31] B3/B4 D={D} (kernels {ar.forward_head_dim(D, L, dtype)} and "
+                f"{attention.kernel_head_dim(D, L, dtype)}) "
                 f"B={RPOS_CHECK_BATCH} L={L} W={W} H={H} {str(dtype)[6:]}: out {err:.2e}/{tol:.2e}, "
                 f"lse {lse_err:.2e}/{lse_tol:.2e}; " + ", ".join(errs)
                 + f"; launches {launched}; repeated calls bit-identical: {same}")
@@ -5780,9 +5814,24 @@ def phase_rpos_any_d_kernels():
                     ar._bwd_library(), parent_libs()["attention_rpos_bwd"]))
                 equal = [n for n, a, b in zip(("o", "lse", "dq", "dk", "dv"),
                                               (*new, *new_b), (*old, *old_b)) if torch.equal(a, b)]
-                log(f"[31] B3/B4 template D={Dk} B={B} L={L} W={W} H={H} {str(dtype)[6:]}: "
-                    f"bit-identical to the parent's: {', '.join(equal)}")
-                check(len(equal) == 5, f"B3/B4 at D = {Dk} is not the parent's bit for bit")
+                want = ["dq", "dk", "dv"] if Dk <= 64 else ["o", "lse", "dq", "dk", "dv"]
+                bars = ""
+                if Dk <= 64:  # B3's window kernel: its bars against its plain version
+                    ref, ref_lse = ar.attention_rpos_reference(*ops, W, offsets, return_lse=True)
+                    tol = (F32_TOL if dtype == torch.float32
+                           else BF16_TOL_OF_MAX_V * ops[2].float().abs().max().item())
+                    err = (new[0].float() - ref.float()).abs().max().item()
+                    lse_err = (new[1] - ref_lse).abs().max().item()
+                    lse_tol = LSE_TOL * max(1.0, ref_lse.abs().max().item())
+                    bars = (f"; B3's window kernel out {err:.2e}/{tol:.2e}, lse "
+                            f"{lse_err:.2e}/{lse_tol:.2e}")
+                    check(err <= tol and lse_err <= lse_tol,
+                          f"B3's window kernel at D = {Dk}, L = {L} disagrees with its plain "
+                          "version")
+                log(f"[31] B3/B4 D={Dk} B={B} L={L} W={W} H={H} {str(dtype)[6:]}: "
+                    f"bit-identical to the parent's: {', '.join(equal)}{bars}")
+                check(all(n in equal for n in want),
+                      f"B3/B4 at D = {Dk}: {', '.join(want)} not the parent's bit for bit")
     else:
         log("[31] the parent's B1-B4 templates not compared (no tree under _archive/parent)")
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
@@ -5928,14 +5977,20 @@ def phase_rpos_layers(card):
 def rpos_any_d_times(card):
     """Phase 31c: per RPOS_LAYERS geometry, B3 (no lse) at BATCH and B4 at
     TIMING_BATCH, f32 and bf16, from CUDA graph replays of the kernels on
-    operands padded once to the kernel's head dim, beside the bound (the
-    operations at 3xTF32 on the tensor cores, bf16 one pass at its peak, or
-    the bytes, of the unpadded call), the plain versions and SDPA with the
-    materialised (B, H, L, L) mask (forward, and backward with the mask
-    requiring grad: (fwd + bwd) - fwd); B4's passes' device ms
-    (torch.profiler, f32: dq, dkdv and the dtoep sum; the parent's dq, dkdv
-    and dtoep pass). Where the parent's tree is there, each kernel in turns
-    with the parent's (`against_parent`). Times only: no bar."""
+    operands padded once to the kernel's head dim (B3's `forward_head_dim`:
+    D = 4 unpadded; B4's `kernel_head_dim`), beside the bound of the
+    unpadded call (the largest of the products at 3xTF32 on the tensor
+    cores, bf16 one pass at its peak; one exp a (row, key) on the
+    special-function units, `SFU_EXPS_PER_S`; the bytes), the plain versions
+    and SDPA with the materialised (B, H, L, L) mask (forward, and backward
+    with the mask requiring grad: (fwd + bwd) - fwd); B4's passes' device
+    ms (torch.profiler, f32: dq, dkdv and the dtoep sum; the parent's dq,
+    dkdv and dtoep pass). Where the parent's tree is there, each kernel in
+    turns with the parent's (`against_parent`; the parent's B3 on operands
+    padded to `kernel_head_dim`, as its wrapper padded them), and B3 at
+    RPOS_CHECKED_DIMS in turns with the parent's at RPOS_CHECKED_SHAPE. B3's
+    output at BATCH is held to its plain version at its bars (f32 1e-5,
+    bf16 3 * 2^-8 of max|v|): the phase's one check."""
     from ecg_denoise_tpu_torch.kernels import attention_rpos as ar
     from ecg_denoise_tpu_torch.kernels.attention import _pad, kernel_head_dim
     from ecg_denoise_tpu_torch.probes.floor import graph_us
@@ -5945,8 +6000,8 @@ def rpos_any_d_times(card):
     for tag, (L, W, H, D) in RPOS_LAYERS.items():
         for dtype in (torch.float32, torch.bfloat16):
             dt, elt = str(dtype)[6:], torch.finfo(dtype).bits // 8
-            Dk = kernel_head_dim(D, L, dtype)
             for what in ("fwd", "bwd"):
+                Dk = (ar.forward_head_dim if what == "fwd" else kernel_head_dim)(D, L, dtype)
                 B = BATCH if what == "fwd" else TIMING_BATCH
                 ops, offsets = rpos_operands(B, L, W, H, dtype, gen, D=D, q_scale=D ** -0.5)
                 padded = [_pad(t, Dk) for t in ops[:3]] + [ops[3]]
@@ -5957,8 +6012,18 @@ def rpos_any_d_times(card):
                     this = functools.partial(b3_call, ar._library(), *padded, W, offsets,
                                              with_lse=False)
                     if parent_lib:
-                        parent = functools.partial(b3_call, parent_lib, *padded, W, offsets,
-                                                   with_lse=False)
+                        theirs = [_pad(t, kernel_head_dim(D, L, dtype)) for t in ops[:3]]
+                        parent = functools.partial(b3_call, parent_lib, *theirs, ops[3], W,
+                                                   offsets, with_lse=False)
+                    ref = ar.attention_rpos_reference(*ops, W, offsets)
+                    err = (this()[0][..., :D].float() - ref.float()).abs().max().item()
+                    tol = (F32_TOL if dtype == torch.float32
+                           else BF16_TOL_OF_MAX_V * ops[2].float().abs().max().item())
+                    log(f"[31] B3 {dt} {tag} at B={B} against its plain version: "
+                        f"max_abs_err={err:.3e} (tol {tol:.2e})")
+                    check(err <= tol, f"B3 at {tag} {dt}, B = {B}, disagrees with its plain "
+                                      "version")
+                    del ref
                     plain = cuda_ms(lambda: ar.attention_rpos_reference(*ops, W, offsets), 2)
                     mask = ar.materialize_rpos_bias(ops[3], W, offsets)
                     lib = cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -5997,14 +6062,18 @@ def rpos_any_d_times(card):
                     turns = f" in turns with the parent's {parent_ms:.4f} ms: {verdict}"
                 else:
                     ms, parent_ms, verdict, turns = graph_us(this, 10) / 1e3, None, None, ""
-                bnd = max(t_ops, t_bytes)
+                # One exp a (row, key): the forward's softmax, the backward's P.
+                t_exps = B * H * L * L / SFU_EXPS_PER_S * 1e3
+                bnd = max(t_ops, t_exps, t_bytes)
+                by = "bytes" if t_bytes >= max(t_ops, t_exps) else "operations"
                 route = "wide" if Dk > 64 else "mma"
                 log(f"[31] {card}: {'B3' if what == 'fwd' else 'B4'} {dt} {tag} D={D} (kernel "
                     f"{Dk}, {route}) B={B} L={L} W={W} H={H}: kernel {ms:.4f} ms (graph replays)"
                     f"{turns}, "
-                    f"bound {bnd:.4f} ms (operations {t_ops:.4f} "
+                    f"bound {bnd:.4f} ms ({by}: the products {t_ops:.4f} "
                     f"{'at 3xTF32' if dtype == torch.float32 else 'in bf16'} on the tensor cores, "
-                    f"bytes {t_bytes:.4f}), plain {plain:.4f} ms, sdpa with the (B, H, L, L) mask"
+                    f"the exps {t_exps:.4f} on the SFUs, bytes {t_bytes:.4f}), "
+                    f"plain {plain:.4f} ms, sdpa with the (B, H, L, L) mask"
                     f"{' backward ((fwd+bwd) - fwd)' if what == 'bwd' else ''} {lib:.4f} ms"
                     + (f"; by pass " + ", ".join(f"{k} {v:.4f}" for k, v in passes.items())
                        if passes else "")
@@ -6014,11 +6083,29 @@ def rpos_any_d_times(card):
                     f"{'step' if what == 'bwd' else 'forward'}")
                 rows.append({"what": what, "route": route, "tag": tag, "dtype": dt, "B": B,
                              "L": L, "W": W, "H": H, "D": D, "kernel_head_dim": Dk, "ms": ms,
-                             "bound_ms": bnd, "operations_ms": t_ops, "bytes_ms": t_bytes,
-                             "plain_ms": plain, "library_ms": lib, "passes_ms": passes,
+                             "bound_ms": bnd, "bound_by": by, "plain_ms": plain,
+                             "library_ms": lib, "passes_ms": passes,
                              "parent_ms": parent_ms, "against_parent": verdict,
                              "parent_passes_ms": parent_passes, "calls": RPOS_LAYER_DEPTH})
                 del ops, padded
+    L, W, H = RPOS_CHECKED_SHAPE
+    for D in RPOS_CHECKED_DIMS if parent_libs() else ():
+        for dtype in (torch.float32, torch.bfloat16):
+            ops, offsets = rpos_operands(BATCH, L, W, H, dtype, gen, D=D, q_scale=D ** -0.5)
+            Dk = ar.forward_head_dim(D, L, dtype)  # the parent's and this tree's alike
+            padded = [_pad(t, Dk) for t in ops[:3]] + [ops[3]]
+            ms, parent_ms, verdict = against_parent(
+                functools.partial(b3_call, ar._library(), *padded, W, offsets, with_lse=False),
+                functools.partial(b3_call, parent_libs()["attention_rpos_fwd"], *padded, W,
+                                  offsets, with_lse=False))
+            log(f"[31] {card}: B3 {str(dtype)[6:]} D={D} (kernel {Dk}) B={BATCH} L={L} W={W} "
+                f"H={H}: kernel {ms:.4f} ms (graph replays) in turns with the parent's "
+                f"{parent_ms:.4f} ms: {verdict}")
+            rows.append({"what": "fwd_checked", "route": "mma", "tag": f"d{D}",
+                         "dtype": str(dtype)[6:], "B": BATCH, "L": L, "W": W, "H": H, "D": D,
+                         "kernel_head_dim": Dk, "ms": ms, "parent_ms": parent_ms,
+                         "against_parent": verdict, "calls": 0})
+            del ops, padded
     for what, route in (("fwd", "mma"), ("fwd", "wide"), ("bwd", "mma"), ("bwd", "wide")):
         for dt in ("float32", "bfloat16"):
             mine = [r for r in rows if (r["what"], r["route"], r["dtype"]) == (what, route, dt)]
@@ -6034,9 +6121,10 @@ def rpos_any_d_times(card):
 
 def phase_rpos_any_d(card):
     """Phase 31: B3 and B4 at every head dim and length, on the tensor
-    cores (B1's and B2's templates in their window mode): their registers
-    and HMMA (`log_rpos_resources`), the kernels against their plain
-    versions and B1/B2's templates against the parent's
+    cores (B3's window kernel and B1's wide kernel in its window mode, B2's
+    kernels in theirs): their registers, spills and HMMA
+    (`log_rpos_resources`), the kernels against their plain versions and
+    what this tree left as it was against the parent's
     (`phase_rpos_any_d_kernels`), the layer path served and trained
     (`phase_rpos_layers`) and the kernel times (`rpos_any_d_times`)."""
     t0 = time.perf_counter()
@@ -6052,11 +6140,12 @@ def phase_rpos_any_d(card):
 
 
 def rpos_any_kernel_rows(launches, max_err, rows, resources):
-    """The `kernels` line's rows of B3 and B4 on the templates in their
-    window mode (phase 31): a row per kernel and route, its launches those
-    of phase 31's paths on that route, its times summed over one forward's
-    (B3, at BATCH) or one step's (B4, at TIMING_BATCH) calls of those
-    paths' layers."""
+    """The `kernels` line's rows of B3 (its window kernel, `mma`, and B1's
+    wide kernel in its window mode) and B4 (B2's template and wide kernels
+    in their window mode) past the D = 4 kernels (phase 31): a row per
+    kernel and route, its launches those of phase 31's paths on that route,
+    its times summed over one forward's (B3, at BATCH) or one step's (B4,
+    at TIMING_BATCH) calls of those paths' layers."""
     csrc = "ecg_denoise_tpu_torch/kernels/csrc"
     pallas = "ecg_denoise_tpu/kernels/attention_pallas.py"
     out = []
@@ -6066,12 +6155,14 @@ def rpos_any_kernel_rows(launches, max_err, rows, resources):
             picked = [r for r in rows if r["what"] == what and r["route"] == route]
             tags = sorted({r["tag"] for r in picked})
             totals = {dt: {key: sum(r["calls"] * r[key] for r in picked if r["dtype"] == dt)
-                           for key in ("ms", "plain_ms", "bound_ms", "library_ms",
-                                       "operations_ms", "bytes_ms")}
+                           for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
                       for dt in ("float32", "bfloat16")}
             for dt, t in totals.items():
-                t["bound_by"] = "operations" if t["operations_ms"] >= t["bytes_ms"] else "bytes"
                 mine = [r for r in picked if r["dtype"] == dt]
+                share = {}
+                for r in mine:
+                    share[r["bound_by"]] = share.get(r["bound_by"], 0.0) + r["calls"] * r["bound_ms"]
+                t["bound_by"] = max(share, key=share.get)
                 t["parent_ms"] = (sum(r["calls"] * r["parent_ms"] for r in mine)
                                   if mine and all(r["parent_ms"] is not None for r in mine)
                                   else None)
@@ -6082,20 +6173,26 @@ def rpos_any_kernel_rows(launches, max_err, rows, resources):
                      else f"{RPOS_LAYER_DEPTH} calls each a step at {TIMING_BATCH}")
             out.append({
                 "name": f"{kernel}_{route}", "route": "cuda", "source": f"{csrc}/{kernel}.cu",
-                "also_source": f"{csrc}/attention_{what}_mma.cuh",
+                "also_source": f"{csrc}/" + ("attention_rpos_fwd_mma.cuh"
+                                             if (what, route) == ("fwd", "mma")
+                                             else f"attention_{what}_mma.cuh"),
                 "replaces": f"{pallas}:{line}", "launches": sum(by_path.values()),
                 "launches_by_path": by_path, "max_abs_err": max_err[what],
                 "ms": f32["ms"], "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
                 "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
+                "checked_dims": [r for r in rows if r["what"] == f"{what}_checked"
+                                 and r["route"] == route],
                 "bf16": totals["bfloat16"], "by_case": picked,
                 "resources": resources[f"{kernel}_{route}"],
                 "max_abs_err_is": "float32, the largest against the plain version over phase "
                                   "31's cases (RPOS_ANY_D_CASES, every route)",
                 "times_are": f"the layers {', '.join(tags)} (RPOS_LAYERS), {calls}, float32, "
                              "the kernel from CUDA graph replays on operands padded to its head "
-                             "dim; bound_ms on the tensor cores at 3xTF32 or the bytes; plain "
-                             "and library (scaled_dot_product_attention with the materialised "
-                             "(B, H, L, L) mask) issued from Python"})
+                             "dim (B3's D = 4 unpadded); bound_ms the largest of the products "
+                             "on the tensor cores at 3xTF32, one exp a (row, key) on the "
+                             "special-function units, and the bytes; plain and library "
+                             "(scaled_dot_product_attention with the materialised (B, H, L, L) "
+                             "mask) called from Python"})
     return out
 
 

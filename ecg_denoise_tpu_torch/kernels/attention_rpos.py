@@ -24,18 +24,25 @@ switch and no fallback:
   `torch.autograd.Function` whose forward is that kernel with its
   log-sum-exp residual and whose backward is `csrc/attention_rpos_bwd.cu`
   (the port of `_bwd_rpos_kernel`). Each source picks its kernels by the
-  head dim, as B1's and B2's do (`attention.kernel_head_dim`): D = 4 at
-  L <= 256 (RA-LENet's path) on the D = 4 kernels, any other D <= 64 on B1's
-  and B2's mma template in its window mode at D = 8, 16, 32 or 64 (bf16
-  from 16), any D > 64 on their wide kernels at the next multiple of 64;
-  q, k, v (and o, g) are zero-padded along D to the kernel's and the
-  results sliced back (`forward_at`, `backward_at`). Past the D = 4
-  kernels the backward's dq pass leaves each head's ds inside its
-  element's window in a float32 (B, H, W', W') scratch, W' = min(W, L),
-  and a second kernel sums it over the batch into dtoep (`window_ds`,
-  `dtoep_from_window_ds`: their plain versions). The offsets get no
-  gradient (JAX gives them a zero cotangent); the table's gradient comes
-  from autograd's gather backward outside the kernels, from dtoep;
+  head dim its wrapper passes, and the wrapper zero-pads q, k, v (and o,
+  g) along D up to it and slices the results back (`forward_at`,
+  `backward_at`). The forward (`forward_head_dim`): D = 4 as it is at any
+  L, on the D = 4 kernel to 256 keys (RA-LENet's path, whose keys fit a
+  block's shared memory) and on B3's window kernel past them
+  (`csrc/attention_rpos_fwd_mma.cuh`: the products of padded zeros were
+  half its work at D = 8); D = 8, 16, 32 or 64 (bf16 from 16) on the
+  window kernel too, other D <= 64 padded up; past 64 the wide kernel in
+  its window mode at the next multiple of 64. The backward takes B2's
+  rule (`attention.kernel_head_dim`): D = 4 at L <= 256 on its D = 4
+  kernel, any other D <= 64 on B2's mma template in its window mode at 8,
+  16, 32 or 64 (bf16 from 16; D = 4 past 256 keys padded to 8), past 64
+  its wide kernels. Past the D = 4 kernel the backward's dq pass leaves
+  each head's ds inside its element's window in a float32 (B, H, W', W')
+  scratch, W' = min(W, L), and a second kernel sums it over the batch
+  into dtoep (`window_ds`, `dtoep_from_window_ds`: their plain versions).
+  The offsets get no gradient (JAX gives them a zero cotangent); the
+  table's gradient comes from autograd's gather backward outside the
+  kernels, from dtoep;
 * a CPU tensor goes to `attention_rpos_reference`, the plain PyTorch
   version, and autograd runs through it.
 
@@ -175,11 +182,18 @@ def _bwd_library():
     return lib
 
 
+def forward_head_dim(D: int, L: int, dtype: torch.dtype) -> int:
+    """The head dim B3 runs a (D, L) call at on the card: D = 4 as it is
+    at any L (the D = 4 kernel to 256 keys, the window kernel past them),
+    else `kernel_head_dim`'s."""
+    return D if D == HEAD_DIM else kernel_head_dim(D, L, dtype)
+
+
 def _launch(q, k, v, toep, W, offsets, *, with_lse: bool = False):
     """The forward kernel: o, plus the float32 (B, H, L) lse if asked; at
-    the head dim `kernel_head_dim` picks, q, k and v padded to it."""
+    the head dim `forward_head_dim` picks, q, k and v padded to it."""
     B, H, L, D = q.shape
-    return forward_at(kernel_head_dim(D, L, q.dtype), _launch_kernel, q, k, v, toep,
+    return forward_at(forward_head_dim(D, L, q.dtype), _launch_kernel, q, k, v, toep,
                       W=W, offsets=offsets, with_lse=with_lse)
 
 
@@ -203,7 +217,7 @@ def _launch_kernel(q, k, v, toep, *, W, offsets, with_lse: bool):
 
 def _launch_bwd(q, k, v, toep, W, offsets, o, lse, g):
     """The backward kernel: (dq, dk, dv, dtoep), dtoep in toep's dtype; at
-    the forward's head dim, q, k, v, o and g padded to it."""
+    the head dim `kernel_head_dim` picks, q, k, v, o and g padded to it."""
     if g.shape != q.shape or g.dtype != q.dtype:
         raise ValueError(f"gradient {tuple(g.shape)} {g.dtype} does not match "
                          f"the output {tuple(q.shape)} {q.dtype}")

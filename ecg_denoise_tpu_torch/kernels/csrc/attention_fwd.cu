@@ -415,16 +415,14 @@ extern "C" int ecg_attention_fwd(const void* q, const void* k, const void* v,
     case 0:
       err = D == kD ? launch<float>(q, k, v, bias, o, lse_f, B, H, L, s)
             : D <= mma_fwd::kWideD
-                ? mma_fwd::launch_mma<float, false>(q, k, v, bias, o, lse_f, B, H, L, D,
-                                                    nullptr, 0, s)
+                ? mma_fwd::launch_mma<float>(q, k, v, bias, o, lse_f, B, H, L, D, s)
                 : mma_fwd::launch_wide<float, false>(q, k, v, bias, o, lse_f, B, H, L, D,
                                                      nullptr, 0, s);
       break;
     case 1:
       err = D == kD ? launch<__nv_bfloat16>(q, k, v, bias, o, lse_f, B, H, L, s)
             : D <= mma_fwd::kWideD
-                ? mma_fwd::launch_mma<__nv_bfloat16, false>(q, k, v, bias, o, lse_f, B, H, L, D,
-                                                            nullptr, 0, s)
+                ? mma_fwd::launch_mma<__nv_bfloat16>(q, k, v, bias, o, lse_f, B, H, L, D, s)
                 : mma_fwd::launch_wide<__nv_bfloat16, false>(q, k, v, bias, o, lse_f, B, H, L,
                                                              D, nullptr, 0, s);
       break;

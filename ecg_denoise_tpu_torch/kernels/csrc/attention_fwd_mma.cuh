@@ -1,21 +1,21 @@
-// The tensor-core templates of the fused attention forward, for B1
-// (attention_fwd.cu, no window) and B3 (attention_rpos_fwd.cu, kWin): one
-// template on D for head_dim 8, 16, 32 and 64, and the wide kernel for
-// every multiple of 64 past 64. Each source instantiates only its own mode,
-// so B1's kernels compile in attention_fwd.cu and B3's in
+// The tensor-core kernels of the fused attention forward: B1's template on
+// D for head_dim 8, 16, 32 and 64 (attention_fwd.cu), and the wide kernel
+// for every multiple of 64 past 64, for B1 (attention_fwd.cu, no window)
+// and B3 (attention_rpos_fwd.cu, kWin). Each source instantiates only its
+// own mode, so B1's kernels compile in attention_fwd.cu and B3's in
 // attention_rpos_fwd.cu, in parallel, and B1's are the same code with or
-// without B3's beside them.
+// without B3's beside them. B3 at D <= 64 has its own kernel
+// (attention_rpos_fwd_mma.cuh), which uses this file's fragment helpers.
 //
-// The window mode (kWin, B3: R-peak attention, replacing the TPU kernel
-// ecg_denoise_tpu/kernels/attention_pallas.py _fwd_rpos_kernel (:827) at
-// every head_dim and length but D = 4 at L <= 256). The bias is toep (1,
-// H, L, L), shared by the batch as B1's bias is, times in_b[l] * in_b[m]
-// for the head's batch element b (attention_window.cuh). A row outside its
-// window, or a key outside the row's window, adds no bias: the toep entry
-// is not read and the logit is left as it is, where JAX adds exactly 0.0
-// (the same logit). Everything else is B1's arithmetic: the window costs
-// two compares per (row, key), and it skips the bias loads that B1 makes
-// outside it.
+// The wide kernel's window mode (kWin, B3: R-peak attention, replacing the
+// TPU kernel ecg_denoise_tpu/kernels/attention_pallas.py _fwd_rpos_kernel
+// (:827) past D = 64). The bias is toep (1, H, L, L), shared by the batch
+// as B1's bias is, times in_b[l] * in_b[m] for the head's batch element b
+// (attention_window.cuh). A row outside its window, or a key outside the
+// row's window, adds no bias: the toep entry is not read and the logit is
+// left as it is, where JAX adds exactly 0.0 (the same logit). Everything
+// else is B1's arithmetic: the window costs two compares per (row, key),
+// and it skips the bias loads that B1 makes outside it.
 
 #pragma once
 
@@ -36,8 +36,8 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162f
 // head_dim 8, 16, 32 and 64: one template on D, on Hopper's tensor cores.
 // Transformer1d's heads are 32 wide; the wrapper (kernels/attention.py)
 // zero-pads any other D <= 64 to the next instantiated one, and a D = 4
-// call past 256 keys to 8. The D = 4 kernels of attention_fwd.cu and
-// attention_rpos_fwd.cu are left as they are, bit for bit.
+// call past 256 keys to 8. The D = 4 kernel of attention_fwd.cu is left as
+// it is, bit for bit.
 //
 // What bounds it. Per (b, h) the work is 4*L*L*D flops (q.k and p.v)
 // against 4*L*D operand elements. On the CUDA cores in f32 (the first
@@ -71,9 +71,9 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162f
 //   D + 8 bf16 values: the f32 fragment loads, K at (key g, dim t) and V at
 //   (key 2t, dim g), fall in 32 banks, and so do ldmatrix's 8 rows.
 // * S = q.k^T by mma into C fragments; the bias (no model of the repo
-//   passes one at these head dims: Transformer1d's calls have none; B3's
-//   toep inside the window) is added from global memory, where the batch
-//   finds it in L2; keys past L are masked to -inf.
+//   passes one at these head dims: Transformer1d's calls have none) is
+//   added from global memory, where the batch finds it in L2; keys past L
+//   are masked to -inf.
 // * The online softmax runs in f32 on the C fragments: each row's tile max
 //   reduced across its quad by two shuffles, the running max kept (logits
 //   reach 191.5 in RA-LENet; every exp is of a value <= 0), sum and output
@@ -227,14 +227,11 @@ __device__ __forceinline__ void stage_kv(T* buf, const T* __restrict__ k,
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-// kWin (B3): `bias` is toep, and `offsets` and W give each batch element's
-// window; B1 passes neither.
-template <typename T, int D, bool kBias, bool kWin>
+template <typename T, int D, bool kBias>
 __global__ void __launch_bounds__(kMmaThreads)
 attention_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ bias,
-                         T* __restrict__ o, float* __restrict__ lse, int B, int H, int L,
-                         const float* __restrict__ offsets, int W) {
+                         T* __restrict__ o, float* __restrict__ lse, int B, int H, int L) {
   constexpr bool kF32 = sizeof(T) == 4;
   constexpr int kS = mma_stride<T, D>();
   constexpr int kNT = kKeyTile / 8;  // n-tiles of S at the widest stage
@@ -285,12 +282,6 @@ attention_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float sum0 = 0.f, sum1 = 0.f;                       // this lane's partial row sums
   const T* brow0 = kBias ? bias + (static_cast<size_t>(h) * L + (ok0 ? r0 : 0)) * L : nullptr;
   const T* brow1 = kBias ? bias + (static_cast<size_t>(h) * L + (ok1 ? r1 : 0)) * L : nullptr;
-  if constexpr (kWin) {  // the window of the head's batch element
-    if (lane == 0) {
-      warp_windows<kMmaWarps>()[warp] =
-          window_of(head_ok ? offsets[static_cast<int>(bh) / H] : 0.f, W, L);
-    }
-  }
 
   stage_kv<T, D>(ring, k, v, t, head0, n_heads, L, 0);
   for (int kt = 0; kt < t.tiles; ++kt) {
@@ -328,17 +319,13 @@ attention_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       const int m = key0 + 8 * j + 2 * tq;  // the key of c0 and c2; m + 1 of c1 and c3
       if constexpr (kBias) {
-        // The rows that take a bias, and the keys: B1's in L; B3's inside
-        // the window of the head's batch element.
-        const Window win = bias_window<kWin, kMmaWarps, sizeof(T) == 4>(warp, L);
-        const bool in0 = kWin ? ok0 && win.has(r0) : ok0, in1 = kWin ? ok1 && win.has(r1) : ok1;
-        if (in_bias<kWin>(win, m, L)) {
-          s[j][0] += in0 ? to_float(brow0[m]) : 0.f;
-          s[j][2] += in1 ? to_float(brow1[m]) : 0.f;
+        if (m < L) {
+          s[j][0] += ok0 ? to_float(brow0[m]) : 0.f;
+          s[j][2] += ok1 ? to_float(brow1[m]) : 0.f;
         }
-        if (in_bias<kWin>(win, m + 1, L)) {
-          s[j][1] += in0 ? to_float(brow0[m + 1]) : 0.f;
-          s[j][3] += in1 ? to_float(brow1[m + 1]) : 0.f;
+        if (m + 1 < L) {
+          s[j][1] += ok0 ? to_float(brow0[m + 1]) : 0.f;
+          s[j][3] += ok1 ? to_float(brow1[m + 1]) : 0.f;
         }
       }
       if (m >= L) s[j][0] = s[j][2] = __int_as_float(0xff800000);
@@ -448,63 +435,53 @@ attention_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D, bool kBias, bool kWin>
+template <typename T, int D, bool kBias>
 cudaError_t launch_mma_one(const T* q, const T* k, const T* v, const T* bias, T* o,
-                           float* lse, int B, int H, int L, const float* offsets, int W,
-                           cudaStream_t stream) {
+                           float* lse, int B, int H, int L, cudaStream_t stream) {
   // Above 48 KB a block's dynamic shared memory must be allowed once per
   // instantiation.
   static const cudaError_t allowed = cudaFuncSetAttribute(
-      attention_fwd_mma_kernel<T, D, kBias, kWin>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attention_fwd_mma_kernel<T, D, kBias>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       mma_smem_bytes<T, D>());
   if (allowed != cudaSuccess) return allowed;
   const MmaTiling t(L);
   const long long groups = (static_cast<long long>(B) * H + t.heads - 1) / t.heads;
   const long long blocks = groups * t.tiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  attention_fwd_mma_kernel<T, D, kBias, kWin>
+  attention_fwd_mma_kernel<T, D, kBias>
       <<<static_cast<int>(blocks), kMmaThreads, mma_smem_bytes<T, D>(), stream>>>(
-          q, k, v, bias, o, lse, B, H, L, offsets, W);
+          q, k, v, bias, o, lse, B, H, L);
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool kWin>
+template <typename T, int D>
 cudaError_t launch_mma_d(const void* q, const void* k, const void* v, const void* bias,
-                         void* o, float* lse, int B, int H, int L, const float* offsets, int W,
-                         cudaStream_t stream) {
+                         void* o, float* lse, int B, int H, int L, cudaStream_t stream) {
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* bt = static_cast<const T*>(bias);
   T* ot = static_cast<T*>(o);
-  if constexpr (kWin) {
-    return launch_mma_one<T, D, true, true>(qt, kt, vt, bt, ot, lse, B, H, L, offsets, W, stream);
-  } else {
-    if (bias != nullptr) {
-      return launch_mma_one<T, D, true, false>(qt, kt, vt, bt, ot, lse, B, H, L, nullptr, 0,
-                                               stream);
-    }
-    return launch_mma_one<T, D, false, false>(qt, kt, vt, bt, ot, lse, B, H, L, nullptr, 0,
-                                              stream);
+  if (bias != nullptr) {
+    return launch_mma_one<T, D, true>(qt, kt, vt, bt, ot, lse, B, H, L, stream);
   }
+  return launch_mma_one<T, D, false>(qt, kt, vt, bt, ot, lse, B, H, L, stream);
 }
 
-// The template at head dim D: 8 (f32 only: bf16's mma is 16 deep), 16, 32
-// or 64; any other D is refused. kWin: B3, `bias` the toep and `offsets`
-// and W the windows (both required); else B1, offsets unused.
-template <typename T, bool kWin>
+// B1's template at head dim D: 8 (f32 only: bf16's mma is 16 deep), 16, 32
+// or 64; any other D is refused.
+template <typename T>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* bias, void* o,
-                       float* lse, int B, int H, int L, int D, const float* offsets, int W,
-                       cudaStream_t stream) {
+                       float* lse, int B, int H, int L, int D, cudaStream_t stream) {
   switch (D) {
     case 8:
       if constexpr (sizeof(T) == 4) {
-        return launch_mma_d<T, 8, kWin>(q, k, v, bias, o, lse, B, H, L, offsets, W, stream);
+        return launch_mma_d<T, 8>(q, k, v, bias, o, lse, B, H, L, stream);
       }
       return cudaErrorInvalidValue;
-    case 16: return launch_mma_d<T, 16, kWin>(q, k, v, bias, o, lse, B, H, L, offsets, W, stream);
-    case 32: return launch_mma_d<T, 32, kWin>(q, k, v, bias, o, lse, B, H, L, offsets, W, stream);
-    case 64: return launch_mma_d<T, 64, kWin>(q, k, v, bias, o, lse, B, H, L, offsets, W, stream);
+    case 16: return launch_mma_d<T, 16>(q, k, v, bias, o, lse, B, H, L, stream);
+    case 32: return launch_mma_d<T, 32>(q, k, v, bias, o, lse, B, H, L, stream);
+    case 64: return launch_mma_d<T, 64>(q, k, v, bias, o, lse, B, H, L, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1079,7 +1056,8 @@ cudaError_t launch_wide_one(const T* q, const T* k, const T* v, const T* bias, T
 }
 
 // The wide kernel at D, a multiple of 64 past 64; any other D is refused.
-// kWin as for launch_mma.
+// kWin: B3, `bias` the toep and `offsets` and W the windows (both
+// required); else B1, offsets unused.
 template <typename T, bool kWin>
 cudaError_t launch_wide(const void* q, const void* k, const void* v, const void* bias, void* o,
                         float* lse, int B, int H, int L, int D, const float* offsets, int W,

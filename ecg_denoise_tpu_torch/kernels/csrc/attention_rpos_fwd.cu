@@ -10,26 +10,37 @@
 //   p[l,:]       = softmax_m(q[b,h,l,:] . k[b,h,m,:] + bias_b[h,l,m])
 //   bias_b[h,l,m] = toep[0,h,l,m] * in_b[l] * in_b[m],
 //   in_b[i]      = (off_b <= i < off_b + W)   (compared in float32)
-// q arrives pre-scaled. Operands are contiguous (B, H, L, D) with D = 4 and
-// L <= 256 for the kernel below (RA-LENet's `--r_pos detect` path); every
-// other shape goes to B1's tensor-core templates in their window mode
-// (attention_fwd_mma.cuh, kWin): D = 8, 16, 32, 64 (bf16 from 16) on the
-// mma template and any multiple of 64 past 64 on the wide kernel, at any
-// L, the wrapper zero-padding D up (kernels/attention_rpos.py). toep is a
-// contiguous (1, H, L, L) array in the operand dtype
-// (the Toeplitz expansion of the rel-pos table, zero where |l - m| >= W);
-// offsets is a contiguous (B,) float32 array of window starts, which may
-// be negative or run past L - W (the window is cut at the edges, not
-// shifted). float32 and bfloat16 operands; logits, the row max, exp, the
-// sums and the weighted sum are float32, and the output is rounded once to
-// the operand dtype. When `lse` is given, each row's float32 log-sum-exp
-// is written for the backward kernel (attention_rpos_bwd.cu).
+// q arrives pre-scaled. Operands are contiguous (B, H, L, D); toep is a
+// contiguous (1, H, L, L) array in the operand dtype (the Toeplitz
+// expansion of the rel-pos table, zero where |l - m| >= W); offsets is a
+// contiguous (B,) float32 array of window starts, which may be negative or
+// run past L - W (the window is cut at the edges, not shifted). float32
+// and bfloat16 operands; logits, the row max, exp, the sums and the
+// weighted sum are float32, and the output is rounded once to the operand
+// dtype. When `lse` is given, each row's float32 log-sum-exp is written
+// for the backward kernel (attention_rpos_bwd.cu).
 //
-// What bounds it: as for attention_fwd.cu, per (b, h) the work is
-// 2*(2*L*L*D + L*L) flops and L*L exps against 4*L*D operand elements,
-// with D = 4 below every tensor-core shape: CUDA-core f32 arithmetic at
-// L >= 128 and HBM below, by that count. The (B, H, L, L) bias is never
-// built in any memory: the kernel forms it from toep and offsets[b].
+// Which kernel takes which (D, L), and why:
+// * D = 4 at L <= 256 (RA-LENet's path, every stage): the kernel below, a
+//   thread two rows, K and V of the block's heads in shared memory. At
+//   L <= 256 a head's keys fit a block's shared memory at once, and the
+//   arithmetic of the first version is kept bit for bit.
+// * D = 4 past 256 keys (PTB-XL's 10 s records at 100 Hz, L = 1,000), and
+//   D = 8, 16, 32, 64 at any L (bf16 from 16; the wrapper pads other D <=
+//   64 up): B3's window kernel on the tensor cores
+//   (attention_rpos_fwd_mma.cuh). D = 4 runs there unpadded (m16n8k4 TF32,
+//   m16n8k8 bf16), the window is tested once a (warp, key tile), and f32 K
+//   and V are split into TF32 halves once a tile.
+// * D > 64, a multiple of 64 (the wrapper pads other D up): B1's wide
+//   kernel in its window mode (attention_fwd_mma.cuh, kWin), thread-block
+//   clusters along D.
+//
+// The D = 4 kernel. What bounds it: as for attention_fwd.cu, per (b, h)
+// the work is 2*(2*L*L*D + L*L) flops and L*L exps against 4*L*D operand
+// elements, with D = 4 below every tensor-core shape: CUDA-core f32
+// arithmetic at L >= 128 and HBM below, by that count. The (B, H, L, L)
+// bias is never built in any memory: the kernel forms it from toep and
+// offsets[b].
 //
 // The first version (a thread a row, 128 consecutive rows of the
 // flattened (B*H*L) row space a block, K and V of the block's heads in
@@ -67,6 +78,7 @@
 #include <type_traits>
 
 #include "attention_fwd_mma.cuh"
+#include "attention_rpos_fwd_mma.cuh"
 
 namespace {
 
@@ -253,20 +265,19 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// Plain C interface for ctypes. D: 4 (the kernel above, L <= kMaxL), 8,
-// 16, 32, 64 (the mma template in its window mode, any L whose grid fits
-// an int; bf16 from 16) or a multiple of 64 past 64 (the wide kernel, any
-// L). dtype: 0 = float32, 1 = bfloat16. `toep` and `offsets` are required;
-// `lse` is null, or a float32 (B, H, L) output for the backward. Launches
-// on `stream` of card `device`, does not synchronise and allocates
-// nothing. Returns the launch's cudaError_t (0 = success).
+// Plain C interface for ctypes. D: 4 (the kernel above at L <= kMaxL, the
+// window kernel past it), 8, 16, 32, 64 (the window kernel, any L whose
+// grid fits an int; bf16 from 16) or a multiple of 64 past 64 (the wide
+// kernel, any L). dtype: 0 = float32, 1 = bfloat16. `toep` and `offsets`
+// are required; `lse` is null, or a float32 (B, H, L) output for the
+// backward. Launches on `stream` of card `device`, does not synchronise
+// and allocates nothing. Returns the launch's cudaError_t (0 = success).
 extern "C" int ecg_attention_rpos_fwd(const void* q, const void* k,
                                       const void* v, const void* toep,
                                       const void* offsets, void* o, void* lse,
                                       int B, int H, int L, int D, int W,
                                       int dtype, int device, void* stream) {
-  if (B < 1 || H < 1 || L < 1 || (D == kD && L > kMaxL) || W < 1 ||
-      toep == nullptr || offsets == nullptr) {
+  if (B < 1 || H < 1 || L < 1 || W < 1 || toep == nullptr || offsets == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
@@ -274,19 +285,20 @@ extern "C" int ecg_attention_rpos_fwd(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* off = static_cast<const float*>(offsets);
   float* lse_f = static_cast<float*>(lse);
+  const bool small = D == kD && L <= kMaxL;
   switch (dtype) {
     case 0:
-      err = D == kD ? launch<float>(q, k, v, toep, off, o, lse_f, B, H, L, W, s)
+      err = small ? launch<float>(q, k, v, toep, off, o, lse_f, B, H, L, W, s)
             : D <= mma_fwd::kWideD
-                ? mma_fwd::launch_mma<float, true>(q, k, v, toep, o, lse_f, B, H, L, D, off, W, s)
+                ? rpos_fwd::launch<float>(q, k, v, toep, off, o, lse_f, B, H, L, D, W, s)
                 : mma_fwd::launch_wide<float, true>(q, k, v, toep, o, lse_f, B, H, L, D, off, W,
                                                     s);
       break;
     case 1:
-      err = D == kD ? launch<__nv_bfloat16>(q, k, v, toep, off, o, lse_f, B, H, L, W, s)
+      err = small ? launch<__nv_bfloat16>(q, k, v, toep, off, o, lse_f, B, H, L, W, s)
             : D <= mma_fwd::kWideD
-                ? mma_fwd::launch_mma<__nv_bfloat16, true>(q, k, v, toep, o, lse_f, B, H, L, D,
-                                                           off, W, s)
+                ? rpos_fwd::launch<__nv_bfloat16>(q, k, v, toep, off, o, lse_f, B, H, L, D, W,
+                                                  s)
                 : mma_fwd::launch_wide<__nv_bfloat16, true>(q, k, v, toep, o, lse_f, B, H, L, D,
                                                             off, W, s);
       break;

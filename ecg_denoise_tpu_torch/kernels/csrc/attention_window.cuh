@@ -1,6 +1,7 @@
 // The per-window mask of R-peak attention (B3, B4), for their D = 4
-// kernels (attention_rpos_fwd.cu, attention_rpos_bwd.cu) and the window
-// mode of the templates (attention_fwd_mma.cuh, attention_bwd_mma.cuh).
+// kernels (attention_rpos_fwd.cu, attention_rpos_bwd.cu), B3's window
+// kernel (attention_rpos_fwd_mma.cuh) and the window mode of the wide
+// kernels and B4's passes (attention_fwd_mma.cuh, attention_bwd_mma.cuh).
 //
 // Batch element b's bias is toep[h, l, m] * in_b[l] * in_b[m] with
 // in_b[i] = (off_b <= i < off_b + W), compared in float32 as the JAX
@@ -19,9 +20,9 @@ namespace {
 struct Window {
   int lo, hi;  // [lo, hi) within [0, L)
   __device__ __forceinline__ bool has(int i) const { return i >= lo && i < hi; }
-  // Whether the window holds a row of [r0, r0 + n) and a key of [m0, m0 + n).
-  __device__ __forceinline__ bool meets(int r0, int m0, int n) const {
-    return lo < hi && lo < r0 + n && hi > r0 && lo < m0 + n && hi > m0;
+  // Whether the window holds a row of [r0, r0 + nr) and a key of [m0, m0 + nm).
+  __device__ __forceinline__ bool meets(int r0, int nr, int m0, int nm) const {
+    return lo < hi && lo < r0 + nr && hi > r0 && lo < m0 + nm && hi > m0;
   }
 };
 

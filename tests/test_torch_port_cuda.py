@@ -77,8 +77,16 @@ at dtoep's routes with B = 1 and W >= L; their f32 gradients also against
 float64 gradients, and past D = 512 against those alone (there the
 float32 plain versions' own rounding nears the 1e-4 bar). Where the parent commit's tree is
 unpacked, what this tree left as it was equals the parent's bit for bit:
-B1 and B2 on the mma template, B3 on it and B4's dq, dk and dv on it (its
-dtoep is formed anew from the dq pass's ds), and B5 at every head dim.
+B1 and B2 on the mma template and the wide kernels, B3 on the wide kernel
+and B4's dq, dk and dv (its dtoep is formed anew from the dq pass's ds),
+and B5 at every head dim.
+
+B3's window kernel (head_dim 4 past 256 keys, unpadded, and 8, 16, 32,
+64: RPOS_WINDOW_CASES) is held to B3's bars against its plain version,
+its lse to LSE_TOL, with windows whose edges fall on every multiple of 16
+(every warp's, block's and key tile's boundary) and one either side, a
+negative start, one past L - W and a NaN; B4's gradients from its o and
+lse to B4's bars.
 
 B1 and B2 on the mma template (head_dim 8, 16, 32, 64; 24 padded to 32;
 D = 4 past 256 keys padded to 8) are held to the same bars, the f32
@@ -573,6 +581,72 @@ def test_rpos_kernels_at_any_head_dim_match_plain_versions(cuda, D, B, L, W, H, 
     assert all(torch.equal(a, b) for a, b in zip(got, again_grads))
 
 
+# B3's window kernel (csrc/attention_rpos_fwd_mma.cuh), (D, L): D = 4 past
+# 256 keys, unpadded, and D = 8-64 at one key tile, at four and past them.
+RPOS_WINDOW_CASES = ([(4, L) for L in (257, 300, 1000)]
+                     + [(D, L) for D in (8, 16, 32, 64) for L in (64, 256, 300)])
+
+
+def _edge_offsets(L):
+    """W = 64 and window starts whose two edges fall on every multiple of
+    16 (every warp's rows, block's rows and key tile start at one) and one
+    either side of it, then a negative start, one past L - W, a
+    fractional one and a NaN (an empty window)."""
+    offs = [float(b + d) for b in range(-16, L + 16, 16) for d in (-1, 0, 1)]
+    return 64, torch.tensor(offs + [-40.0, L - 20.0, 100.5 % L, float("nan")])
+
+
+@pytest.mark.parametrize("D,L", RPOS_WINDOW_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rpos_window_kernel_at_tile_edges(cuda, D, L, dtype):
+    """B3 on its window kernel against its plain version (f32 1e-5, bf16
+    3 * 2^-8 of max|v|), its lse against the plain log-sum-exp, with the
+    windows' edges on every tile boundary and one either side; B4 through
+    the autograd Function from the kernel's o and lse: f32 within 1e-4
+    (dtoep 1e-4 of its max) of autograd through the plain forward and of
+    the flash form on the plain o and lse, bf16 within 2^-7 of each max of
+    the flash form on the kernel's own o and lse."""
+    from ecg_denoise_tpu_torch.kernels import attention_rpos
+
+    full_float32()
+    W, offsets = _edge_offsets(L)
+    ops, W, _ = _rpos_operands(len(offsets), L, W, 2, dtype, cuda, seed=D + L, D=D)
+    offsets = offsets.to(cuda)
+    g = torch.randn(ops[0].shape, generator=torch.Generator().manual_seed(9)).to(cuda, dtype)
+    ins = [t.detach().requires_grad_() for t in ops]
+    before = (fused_attention_rpos.launches, fused_attention_rpos.bwd_launches)
+    out = fused_attention_rpos(*ins, W, offsets)
+    got = torch.autograd.grad(out, ins, g)
+    again, lse = attention_rpos._launch(*ops, W, offsets, with_lse=True)
+    torch.cuda.synchronize()
+    assert (fused_attention_rpos.launches, fused_attention_rpos.bwd_launches) == (
+        before[0] + 2, before[1] + 1)
+    # unpadded, but bf16's D = 8, which its mma (16 deep) takes padded to 16
+    assert attention_rpos.forward_head_dim(D, L, dtype) == (
+        16 if (D, dtype) == (8, torch.bfloat16) else D)
+    ref, ref_lse = attention_rpos_reference(*ops, W, offsets, return_lse=True)
+    tol = (F32_TOL if dtype == torch.float32
+           else BF16_TOL_OF_MAX_V * ops[2].float().abs().max().item())
+    assert out.shape == ops[0].shape and out.dtype == dtype
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    assert torch.equal(out.detach(), again)
+    lse_err = (lse - ref_lse).abs().max().item()
+    assert lse_err <= LSE_TOL * max(1.0, ref_lse.abs().max().item()), lse_err
+    if dtype == torch.float32:
+        plain = [t.detach().requires_grad_() for t in ops]
+        refs = [torch.autograd.grad(attention_rpos_reference(*plain, W, offsets), plain, g),
+                attention_rpos_backward_reference(*ops, W, offsets, ref, ref_lse, g)]
+    else:
+        refs = [attention_rpos_backward_reference(*ops, W, offsets, out.detach(), lse, g)]
+    for want in refs:
+        for name, a, b in zip(("dq", "dk", "dv", "dtoep"), got, want):
+            scale = b.float().abs().max().item()
+            bar = (BF16_GRAD_TOL_OF_MAX * scale if dtype == torch.bfloat16
+                   else DBIAS_TOL_OF_MAX * scale if name == "dtoep" else GRAD_TOL)
+            err = (a.float() - b.float()).abs().max().item()
+            assert bool(torch.isfinite(a).all()) and err <= bar, (name, err, bar)
+
+
 @pytest.mark.parametrize("B,L,W,H", RPOS_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rpos_kernel_matches_plain_version(cuda, B, L, W, H, dtype):
@@ -647,11 +721,10 @@ def test_rpos_kernels_equal_the_parent_commits(cuda, B, L, W, H, dtype):
                 bind("attention_rpos_fwd", "ecg_attention_rpos_fwd", 7, 7,
                      csrc=Path(PARENT_CSRC)))
     bwd_libs = (attention_rpos._bwd_library(),
-                bind("attention_rpos_bwd", "ecg_attention_rpos_bwd", 13, 7,
+                bind("attention_rpos_bwd", "ecg_attention_rpos_bwd", 14, 7,
                      csrc=Path(PARENT_CSRC)))
-    # At D = 4 this tree's backward takes no ds scratch (a null pointer);
-    # the parent's has no such argument.
-    scratch = ([None], [])
+    # At D = 4 both backwards take no ds scratch (a null 14th pointer).
+    scratch = ([None], [None])
     outs = []
     for fwd, bwd in zip(fwd_libs, bwd_libs):
         o = torch.empty_like(q)
@@ -1353,10 +1426,12 @@ def test_wide_head_transformer1d_matches_cpu_with_its_launches(cuda, monkeypatch
 # Kernels this tree leaves as the parent commit had them, on the same
 # operands bit for bit (skipped where the parent's tree is not unpacked):
 # B1 and B2 on the mma template (head_dim 8, 16, 32, 64; D = 4 past 256
-# keys on it), B3 on it (o, lse) and B4's dq, dk and dv on it (its dtoep
-# is formed anew, from the dq pass's ds), and B5 on its template and its
-# wide kernel.
-TEMPLATE_PARENT_CASES = [(D, B, L, H) for D in (8, 16, 32, 64)
+# keys on it) and on the wide kernels (128, 320), B3 on the wide kernel (o,
+# lse) and B4's dq, dk and dv on B2's (its dtoep is formed anew, from the
+# dq pass's ds), and B5 on its template and its wide kernel. B3 at D <= 64
+# runs on its own window kernel, whose arithmetic is new: held there to
+# its bars against its plain version.
+TEMPLATE_PARENT_CASES = [(D, B, L, H) for D in (8, 16, 32, 64, 128, 320)
                          for (B, L, H) in ((3, 203, 2), (5, 32, 3))] + [(4, 2, 300, 2)]
 DENSE_PARENT_CASES = [(D, 3, L, H) for D in (8, 16, 32, 64, 128, 256)
                       for (L, H) in ((64, 2), (32, 4), (8, 16))]
@@ -1380,7 +1455,7 @@ def test_templates_equal_the_parent_commits(cuda, D, B, L, H, dtype):
             (_parent_lib("attention_fwd", "ecg_attention_fwd", 6),
              _parent_lib("attention_bwd", "ecg_attention_bwd", 12),
              _parent_lib("attention_rpos_fwd", "ecg_attention_rpos_fwd", 7, 7),
-             _parent_lib("attention_rpos_bwd", "ecg_attention_rpos_bwd", 13, 7))]
+             _parent_lib("attention_rpos_bwd", "ecg_attention_rpos_bwd", 14, 7))]
     q, k, v, bias = _operands(B, H, L, True, dtype, cuda, seed=D + L, D=Dk)
     g = torch.randn(q.shape, generator=torch.Generator().manual_seed(4)).to(cuda, dtype)
     (rq, rk, rv, toep), W, offsets = _rpos_operands(B, L, max(1, L // 8), H, dtype, cuda,
@@ -1406,14 +1481,22 @@ def test_templates_equal_the_parent_commits(cuda, D, B, L, H, dtype):
         ds = torch.empty(B, H, min(W, L), min(W, L), device=cuda)
         raise_on(b4, b4.ecg_attention_rpos_bwd(ptr(rq), ptr(rk), ptr(rv), ptr(toep),
                                                ptr(offsets), ptr(g), ptr(ro), ptr(rlse), ptr(c),
-                                               *map(ptr, grads[3:]), ptr(dtoep),
-                                               *([ptr(ds)] if mine == 0 else []), B, H, L, Dk,
-                                               W, code, dev, stream), "B4")
+                                               *map(ptr, grads[3:]), ptr(dtoep), ptr(ds), B, H,
+                                               L, Dk, W, code, dev, stream), "B4")
         outs.append((o, lse, *grads[:3], dbias, ro, rlse, *grads[3:]))
     torch.cuda.synchronize()
     names = ("o", "lse", "dq", "dk", "dv", "dbias", "B3 o", "B3 lse", "B4 dq", "B4 dk", "B4 dv")
+    window_kernel = Dk <= 64  # B3's own kernel: held to its bars, not to the parent's bits
     for name, a, b in zip(names, *outs):
-        assert torch.equal(a, b), name
+        if not (window_kernel and name in ("B3 o", "B3 lse")):
+            assert torch.equal(a, b), name
+    if window_kernel:
+        ref, ref_lse = attention_rpos_reference(rq, rk, rv, toep, W, offsets, return_lse=True)
+        tol = (F32_TOL if dtype == torch.float32
+               else BF16_TOL_OF_MAX_V * rv.float().abs().max().item())
+        assert (outs[0][6].float() - ref.float()).abs().max().item() <= tol
+        lse_err = (outs[0][7] - ref_lse).abs().max().item()
+        assert lse_err <= LSE_TOL * max(1.0, ref_lse.abs().max().item()), lse_err
 
 
 @pytest.mark.parametrize("D,B,L,H", DENSE_PARENT_CASES)

@@ -8,6 +8,9 @@ which times two kernels in turns and gives the verdict its phases 17 and 18
 report, reads in turns and is two-sided. On views off a 16-byte boundary
 `null_copy` and `probe_div` take their plain versions too. The B5 probe's
 variants are its committed source with one edit each, found exactly once.
+The SASS probe's reading of B3's tile loop is held on a listing made by
+hand: the body from the first HMMA to the back edge, less a forward branch
+that skips a global load.
 """
 
 import numpy as np
@@ -15,7 +18,7 @@ import pytest
 import torch
 
 from ecg_denoise_tpu_torch.kernels.null_copy import null_copy
-from ecg_denoise_tpu_torch.probes import chain, dense_bound, floor
+from ecg_denoise_tpu_torch.probes import chain, dense_bound, floor, sass_mix
 
 
 def _jax_probe_fit(chains, vals):
@@ -123,3 +126,31 @@ def test_dense_bound_variants_edit_the_source_once(name):
     got = dense_bound.variant_source(name)
     assert src.count(old) == 1 and got != src
     assert got == src.replace(old, new)
+
+
+SASS = """
+        Function : _ZN4mma_fwd28attention_rpos_fwd_mma_kernelIfLi4EEEvPKT_
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   LDS R2, [R3] ;
+        /*0020*/                   HMMA.1684.F32.TF32 R4, R8, R12, R4 ;
+        /*0030*/                   HMMA.1684.F32.TF32 R4, R8, R12, R4 ;
+        /*0040*/                   HMMA.1684.F32.TF32 R4, R8, R12, R4 ;
+        /*0050*/              @P0 BRA 0x80 ;
+        /*0060*/                   LDG.E R5, desc[UR4][R6.64] ;
+        /*0070*/                   FADD R5, R5, R5 ;
+        /*0080*/                   MUFU.EX2 R7, R7 ;
+        /*0090*/              @P1 BRA 0x10 ;
+        /*00a0*/                   EXIT ;
+"""
+
+
+def test_sass_mix_reads_the_loop_body_and_refuses_an_unknown_shape():
+    mix = sass_mix.loop_mix(SASS)
+    assert mix["pairs_a_tile"] == 2  # 3 HMMA, 2/3 of a pair each
+    assert mix["per_pair"] == {"HMMA": 1.5, "BRA": 1.0, "MUFU": 0.5}
+    assert mix["total_per_pair"] == 3.0
+    assert mix["tile_staging"] == 1
+    with pytest.raises(RuntimeError, match="no backward branch"):
+        sass_mix.loop_mix(SASS.replace("@P1 BRA 0x10", "@P1 BRA 0xa0"))
+    with pytest.raises(RuntimeError, match="0 functions"):
+        sass_mix.loop_mix(SASS.replace("IfLi4E", "IfLi8E"))

@@ -5,8 +5,9 @@ JAX's `fused_attention_rpos` takes any head dim D and length L (its
 kernels take a whole packed row), and so does the port: on the CPU
 `fused_attention_rpos` runs its plain version at every shape, and on the
 card D = 4 at L <= 256 keeps the D = 4 kernels while every other shape
-goes to B1's and B2's templates in their window mode, the operands
-zero-padded along D (`kernel_head_dim`, `forward_at`, `backward_at`).
+goes to B3's window kernel (D <= 64, D = 4 unpadded) or B1's wide kernel
+and B2's kernels in their window mode, the operands zero-padded along D
+(`forward_head_dim`, `kernel_head_dim`, `forward_at`, `backward_at`).
 
 * The port's `multi_head_attention` with an `RPosBias` at (L, D) = (64, 8)
   and (512, 4), B = 2, H = 2, W = 16, offsets (3, 10), against JAX's
@@ -25,8 +26,13 @@ zero-padded along D (`kernel_head_dim`, `forward_at`, `backward_at`).
   gradient).
 * The card's routing: `kernel_head_dim` keeps (D, L) = (4, 256) on the D = 4
   kernels and pads (4, 300), (8, 64) stays, (128, 64) stays on the wide
-  kernels; the card wrappers, their launches replaced by the plain
-  versions, call them at the padded D and slice the results back.
+  kernels; B3's forward (`forward_head_dim`) keeps D = 4 unpadded at any L
+  (past 256 keys on its window kernel), f32 and bf16, while B4 still pads
+  it to `kernel_head_dim`'s; the card wrappers, their launches replaced by
+  the plain versions, call them at those head dims and slice the results
+  back. At (B, H, L, D, W) = (2, 2, 300, 4, 40), with an offset negative,
+  one past L - W or one NaN, the unpadded forward's o and lse, and B4's
+  gradients from them, equal the padded route's within 1e-6.
 * The kernel build's hash covers the headers a source includes (the
   templates B1-B4 share live in `csrc/*.cuh`), so an edited header never
   loads a stale library.
@@ -42,10 +48,11 @@ import ecg_denoise_tpu.kernels.attention_pallas as ap
 import ecg_denoise_tpu.ops.attention as jatt
 from ecg_denoise_tpu_torch.interop.jax_weights import state_dict_from_variables
 from ecg_denoise_tpu_torch.kernels import attention_rpos, build
-from ecg_denoise_tpu_torch.kernels.attention import kernel_head_dim
+from ecg_denoise_tpu_torch.kernels.attention import forward_at, kernel_head_dim
 from ecg_denoise_tpu_torch.kernels.attention_rpos import (
     attention_rpos_backward_reference,
     attention_rpos_reference,
+    forward_head_dim,
     fused_attention_rpos,
 )
 from ecg_denoise_tpu_torch.ops import attention as patt
@@ -200,13 +207,21 @@ def test_kernel_head_dim_routes_rpos_calls():
     assert kernel_head_dim(128, 64, torch.float32) == 128
 
 
-@pytest.mark.parametrize("L,d,padded", [(256, 4, 4), (300, 4, 8), (40, 12, 16), (24, 72, 128)])
-def test_card_wrappers_pad_and_slice_back(monkeypatch, L, d, padded):
-    """The r-pos card wrappers call their kernels at `kernel_head_dim`'s D
-    on zero-padded operands and slice the results back; with the plain
-    versions as the kernels the results are the unpadded calls', within
-    1e-6 of each tensor's largest."""
-    calls = []
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_head_dim_keeps_d4_unpadded_past_256_keys(dtype):
+    """B3's forward takes D = 4 as it is at any L (the D = 4 kernel to 256
+    keys, the window kernel past them) and every other D at
+    `kernel_head_dim`'s; B4 still pads D = 4 past 256 keys."""
+    for L in (1, 256, 257, 300, 1000):
+        assert forward_head_dim(4, L, dtype) == 4
+    assert kernel_head_dim(4, 300, dtype) == (8 if dtype == torch.float32 else 16)
+    for D, L in ((3, 300), (8, 64), (24, 300), (64, 1000), (72, 64), (128, 64)):
+        assert forward_head_dim(D, L, dtype) == kernel_head_dim(D, L, dtype)
+
+
+def _plain_kernels(monkeypatch, calls):
+    """The card wrappers' launches replaced by the plain versions, each
+    call's kernel and head dim recorded in `calls`."""
 
     def plain_fwd(q, k, v, toep, *, W, offsets, with_lse):
         calls.append(("fwd", q.shape[-1], with_lse))
@@ -218,12 +233,66 @@ def test_card_wrappers_pad_and_slice_back(monkeypatch, L, d, padded):
 
     monkeypatch.setattr(attention_rpos, "_launch_kernel", plain_fwd)
     monkeypatch.setattr(attention_rpos, "_launch_bwd_kernel", plain_bwd)
+    return plain_fwd
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b3_runs_d4_unpadded_past_256_keys_while_b4_pads(monkeypatch, dtype):
+    """Through the autograd Function's wrappers at (L, D) = (300, 4): the
+    forward kernel is called at D = 4, the backward at 8 (bf16 16)."""
+    calls = []
+    _plain_kernels(monkeypatch, calls)
+    W, offsets = _windows(300)
+    q, k, v, g, toep, offsets = (torch.from_numpy(a) for a in
+                                 _operands(4, 2, 300, 4, W, offsets, seed=7))
+    q, k, v, g, toep = (t.to(dtype) for t in (q, k, v, g, toep))
+    out, lse = attention_rpos._launch(q, k, v, toep, W, offsets, with_lse=True)
+    grads = attention_rpos._launch_bwd(q, k, v, toep, W, offsets, out, lse, g)
+    assert calls == [("fwd", 4, True), ("bwd", kernel_head_dim(4, 300, dtype))]
+    assert out.shape == q.shape and out.dtype == dtype
+    assert [t.shape for t in grads] == [q.shape, k.shape, v.shape, toep.shape]
+
+
+@pytest.mark.parametrize("offsets", [(-17.0, 150.0), (100.0, 280.0), (float("nan"), 5.0)],
+                         ids=["negative", "past_L_minus_W", "nan"])
+def test_unpadded_forward_equals_the_padded_route(monkeypatch, offsets):
+    """At (B, H, L, D, W) = (2, 2, 300, 4, 40) with the plain versions as the
+    kernels: B3's unpadded forward (o, lse) and B4's gradients from it equal
+    the padded route's (the forward at `kernel_head_dim`, as before) within
+    1e-6 of each tensor's largest (1 where that is below 1)."""
+    calls = []
+    plain_fwd = _plain_kernels(monkeypatch, calls)
+    W = 40
+    q, k, v, g, toep, offsets = (torch.from_numpy(a) for a in
+                                 _operands(2, 2, 300, 4, W, offsets, seed=23))
+    got = attention_rpos._launch(q, k, v, toep, W, offsets, with_lse=True)
+    want = forward_at(kernel_head_dim(4, 300, q.dtype), plain_fwd, q, k, v, toep, W=W,
+                      offsets=offsets, with_lse=True)
+    assert [c[1] for c in calls] == [4, 8]
+    got_grads = attention_rpos._launch_bwd(q, k, v, toep, W, offsets, *got, g)
+    want_grads = attention_rpos._launch_bwd(q, k, v, toep, W, offsets, *want, g)
+    for name, a, b in zip("out lse q k v toep".split(), (*got, *got_grads),
+                          (*want, *want_grads)):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all()), name
+        bar = 1e-6 * max(1.0, b.abs().max().item())
+        assert (a - b).abs().max().item() <= bar, name
+
+
+@pytest.mark.parametrize("L,d,padded", [(256, 4, 4), (300, 4, 8), (40, 12, 16), (24, 72, 128)])
+def test_card_wrappers_pad_and_slice_back(monkeypatch, L, d, padded):
+    """The r-pos card wrappers call their kernels at their head dims (B3
+    `forward_head_dim`'s, B4 `kernel_head_dim`'s: `padded`) on zero-padded
+    operands and slice the results back; with the plain versions as the
+    kernels the results are the unpadded calls', within 1e-6 of each
+    tensor's largest."""
+    calls = []
+    _plain_kernels(monkeypatch, calls)
     W, offsets = _windows(L)
     q, k, v, g, toep, offsets = map(torch.from_numpy,
                                     _operands(4, 2, L, d, W, offsets, seed=L + d))
     out, lse = attention_rpos._launch(q, k, v, toep, W, offsets, with_lse=True)
     grads = attention_rpos._launch_bwd(q, k, v, toep, W, offsets, out, lse, g)
-    assert calls == [("fwd", padded, True), ("bwd", padded)]
+    assert calls == [("fwd", forward_head_dim(d, L, q.dtype), True), ("bwd", padded)]
     ref, ref_lse = attention_rpos_reference(q, k, v, toep, W, offsets, return_lse=True)
     ref_grads = attention_rpos_backward_reference(q, k, v, toep, W, offsets, ref, ref_lse, g)
     for name, got, want in zip("out lse q k v toep".split(), (out, lse, *grads),
@@ -247,3 +316,6 @@ def test_build_hash_covers_included_headers(tmp_path):
     assert build._target("k", tmp_path) != before
     names = [p.name for p in build.sources("attention_rpos_bwd", build.CSRC)]
     assert names == ["attention_rpos_bwd.cu", "attention_bwd_mma.cuh", "attention_window.cuh"]
+    names = [p.name for p in build.sources("attention_rpos_fwd", build.CSRC)]
+    assert names == ["attention_rpos_fwd.cu", "attention_fwd_mma.cuh",
+                     "attention_rpos_fwd_mma.cuh", "attention_window.cuh"]
