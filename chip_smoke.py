@@ -376,14 +376,15 @@ and nothing falls back to the CPU):
    their D = 4 kernels (phases 9-13). B3 takes D = 4 past 256 keys
    unpadded and D = 8-64 on its window kernel
    (`csrc/attention_rpos_fwd_mma.cuh`), past 64 B1's wide kernel in its
-   window mode; B4 every other shape on B2's template and wide kernels in
-   their window mode, the operands zero-padded to the kernel's head dim
-   (D = 4 past 256 keys to 8); past D = 4 the dq pass leaves the windowed
-   ds in a scratch that a second kernel sums into dtoep. (a) The 31
-   r-pos instantiations' registers, stack, local memory and HMMA
-   (cuobjdump; B3's window kernel must not spill), beside B2's wide dk/dv
-   pass; each one's stack against the parent's (none may be larger) and
-   the wide ones' clusters. (b) B3 and
+   window mode; B4 the same way, D = 4 past 256 keys unpadded and D = 8-64
+   on its window kernel (`csrc/attention_rpos_bwd_mma.cuh`), past 64 B2's
+   wide passes in their window mode, the operands zero-padded to the
+   kernel's head dim; past its D = 4 kernel B4's dq pass leaves the
+   windowed ds in a scratch that a second kernel sums into dtoep. (a) The
+   33 r-pos instantiations' registers, stack, local memory and HMMA
+   (cuobjdump; neither window kernel may spill, and every one must issue
+   HMMA), beside B2's wide dk/dv pass; each one's stack against the
+   parent's (none may be larger) and the wide ones' clusters. (b) B3 and
    B4 against their plain versions at RPOS_ANY_D_CASES (head_dim 8, 16,
    32, 64, 128, 256, 320, 576 at L = 256, a ragged 203 and packed heads at
    32; D = 4 at L = 300 and 1000), B = 8, f32 and bf16, at phase 30's bars
@@ -391,9 +392,9 @@ and nothing falls back to the CPU):
    float64 gradients, past D = 512 against those alone), every call a
    launch, repeated calls bit-identical; and, where the parent's tree is
    there, B1's and B2's templates and wide kernels
-   (B12_TEMPLATE_PARENT_CASES), B3 on the wide kernel (o, lse) and B4 (dq,
+   (B12_TEMPLATE_PARENT_CASES), B3 and B4 on the wide kernels (o, lse; dq,
    dk, dv from this tree's forward; RPOS_PARENT_CASES) bit for bit the
-   parent's, B3's window kernel within its bars there. (c) The layer path:
+   parent's, the two window kernels within their bars there. (c) The layer path:
    `RelativePositionEmbedding(W, L, H)` on R peaks detected on the card
    (equal to the CPU's), then `BasicLayer(H * D, depth 2, H)` as RA-LENet's
    stages use it, at RPOS_LAYERS, served at 1,024 (f32 within MODEL_TOL of
@@ -403,18 +404,18 @@ and nothing falls back to the CPU):
    train_rpos_d32, ... (counted apart). (d) B3 at 1,024 and B4 at 256 per
    layer, f32 and bf16, from CUDA graph replays, against their bounds (the
    largest of the products, one exp a (row, key) on the special-function
-   units, and the bytes: the exps set it at D = 4),
-   plain versions and SDPA on the materialised mask, each in turns with
-   the parent's where its tree is there (B3 at D = 4 past 256 keys on its
+   units, and the bytes: the exps set it at D = 4), plain versions and SDPA on the materialised mask, each in
+   turns with the parent's where its tree is there (D = 4 past 256 keys on
    unpadded operands, the parent's padded to 8 or 16), B4's passes by
-   torch.profiler (the dtoep sum beside the parent's dtoep pass), and B3
-   at head dims 8, 16, 64 in turns with the parent's; B3's output at 1,024
-   held there to its plain version at its bars.
+   torch.profiler (dq, dk/dv and the dtoep sum, f32 and bf16), and B3 at
+   1,024 and B4 at 256 at head dims 8, 16, 64 in turns with the parent's;
+   B3's output at 1,024 and B4's gradients at 256 held there to their
+   plain versions at their bars (the parent's B4 errors beside them).
 
 The last lines are one JSON object listing the ten kernels, the three
 wide kernels (`attention_fwd_wide`, `attention_bwd_wide`,
 `attention_dense_fwd_wide`, their launches those of phase 30's paths) and
-B3's window kernel and B4's template rows (`attention_rpos_fwd_mma`,
+B3's and B4's window kernel rows (`attention_rpos_fwd_mma`,
 `_wide`, `attention_rpos_bwd_mma`, `_wide`, their launches those of phase
 31's paths)
 (with their launches on each of the thirty-three paths: serve, train, serve_rpos,
@@ -730,23 +731,25 @@ TP_EVAL_WINDOWS = 40  # two eval batches at DP_BATCH, the last ragged
 TP_SERVE_WINDOWS = 64
 TP_SERVE_TOL = 1e-5
 TP_EVAL_TOL = 1e-5
-# Phase 31: B3 and B4 at every head dim and length (B3's window kernel, B1's
-# wide kernel and B2's kernels in their window mode). The layer path, by
+# Phase 31: B3 and B4 at every head dim and length (their window kernels,
+# B1's and B2's wide kernels in their window mode). The layer path, by
 # path tag: the per-window
 # RelativePositionEmbedding(W, L, H) on detected R peaks, then
 # BasicLayer(H * D, depth 2, H) as RA-LENet's stages use it, at (L, W, H,
 # D) with RA-LENet's W = L / 8: its first stage with 32-wide heads,
 # Transformer1d's published head widths (128 and 256), and D = 4 past 256
-# keys (PTB-XL's 10 s at 100 Hz; B4 pads it to 8). Served at BATCH, trained at
+# keys (PTB-XL's 10 s at 100 Hz; both window kernels take it unpadded).
+# Served at BATCH, trained at
 # TIMING_BATCH for RPOS_TRAIN_STEPS Adam steps; each held against the CPU on
 # its first RPOS_CHECK_WINDOWS windows (a (B, H, L, L) bias at B = 1,024
 # and L = 1,000 would take 8 GB there).
 RPOS_LAYERS = {"rpos_d32": (256, 32, 2, 32), "rpos_d128": (256, 32, 1, 128),
                "rpos_d256": (128, 16, 1, 256), "rpos_long": (1000, 125, 2, 4)}
 RPOS_LAYER_DEPTH = 2
-# B3's window kernel at the head dims no layer of RPOS_LAYERS reaches, timed
-# in turns with the parent's at (L, W, H) = RPOS_CHECKED_SHAPE and BATCH
-# (phase 31c): the redesign may be no slower there.
+# The window kernels at the head dims no layer of RPOS_LAYERS reaches,
+# timed in turns with the parent's at (L, W, H) = RPOS_CHECKED_SHAPE, B3 at
+# BATCH and B4 at TIMING_BATCH (phase 31d): the redesigns may be no slower
+# there.
 RPOS_CHECKED_DIMS = (8, 16, 64)
 RPOS_CHECKED_SHAPE = (256, 32, 2)
 RPOS_TRAIN_STEPS = 3
@@ -768,11 +771,11 @@ RPOS_ANY_D_CASES = [(D, L, W, H) for D in (8, 16, 32, 64, 128, 256, 320, 576)
 RPOS_F64_ONLY_PAST = 512
 # B1 and B2 on their templates and wide kernels against the parent's, bit
 # for bit, at every head dim of the template and two of the wide kernel's:
-# (D, B, L, H). B4 (D = 8 to 64, D = 4 past 256 keys at 8, and past 64) the
-# same way, its dq, dk and dv from this tree's forward (its dtoep is formed
-# anew), and B3 on the wide kernel, at RPOS_PARENT_CASES: (D, B, L, W, H),
-# windows cut at both ends. B3's window kernel (D <= 64) is new arithmetic:
-# held there to its bars.
+# (D, B, L, H). B3 and B4 on the wide kernels the same way, B4's dq, dk and
+# dv from this tree's forward (its dtoep is formed anew), at
+# RPOS_PARENT_CASES: (D, B, L, W, H), windows cut at both ends. The window
+# kernels (D <= 64; D = 4 past 256 keys on the parent's padded operands)
+# are new arithmetic: held there to their bars.
 B12_TEMPLATE_PARENT_CASES = [(D, B, L, H) for D in (8, 16, 32, 64, 128, 320)
                              for (B, L, H) in ((3, 203, 2), (5, 32, 3))]
 RPOS_PARENT_CASES = [(D, 5, L, W, H) for D in (8, 16, 32, 64, 128, 320)
@@ -1080,10 +1083,11 @@ def b5_call(lib, q, k, v, bias):
 def b4_call(lib, q, k, v, toep, W, offsets, o, lse, g):
     """One B4 library's kernels on the same operands, allocated as
     `attention_rpos._launch_bwd_kernel` allocates: (dq, dk, dv, dtoep),
-    dtoep float32 (not cast to toep's dtype). Past D = 4 the dq pass fills
-    the ds scratch and the library's second kernel sums it into dtoep (this
-    tree's and the parent's alike). No count moves."""
-    from ecg_denoise_tpu_torch.kernels.attention import DTYPE_CODES, ptr, raise_on
+    dtoep float32 (not cast to toep's dtype). Past the D = 4 kernel (L <=
+    256) the dq pass fills the ds scratch and the library's second kernel
+    sums it into dtoep (this tree's and the parent's alike). No count
+    moves."""
+    from ecg_denoise_tpu_torch.kernels.attention import DTYPE_CODES, MAX_LEN, ptr, raise_on
 
     B, H, L, D = q.shape
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
@@ -1091,7 +1095,7 @@ def b4_call(lib, q, k, v, toep, W, offsets, o, lse, g):
     dtoep = torch.empty(1, H, L, L, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream().cuda_stream
     ds = (torch.empty(B, H, min(W, L), min(W, L), dtype=torch.float32, device=q.device)
-          if D != 4 else None)
+          if not (D == 4 and L <= MAX_LEN) else None)
     ptrs = [q, k, v, toep, offsets, g, o, lse, c, dq, dk, dv, dtoep, ds]
     err = lib.ecg_attention_rpos_bwd(*map(ptr, ptrs), B, H, L, D, W, DTYPE_CODES[q.dtype],
                                      q.device.index, stream)
@@ -1831,7 +1835,9 @@ def phase_train_times(cpu_model, card):
     from ecg_denoise_tpu_torch.train import create_train_state, make_epoch_fns, train_step
 
     # Whole epochs of the CLI's default length: the training split of
-    # n_select = 10,000 windows, 250 steps at batch 32 and 31 at 256.
+    # n_select = 10,000 windows, 250 steps at batch 32 and 31 at 256. One
+    # epoch at 32: its three had differed by under 6 % on an H100 and took
+    # about 190 s of the script's 1,200 s on a slow host.
     rng = np.random.default_rng(8)
     noisy, clean = (torch.from_numpy(rng.standard_normal(
         (EPOCH_WINDOWS, 2, 256)).astype(np.float32)).cuda() for _ in range(2))
@@ -1844,14 +1850,14 @@ def phase_train_times(cpu_model, card):
             gen = torch.Generator(device="cuda").manual_seed(0)
             train_epoch(noisy[:4 * batch], clean[:4 * batch], gen, batch)  # warm-up
             n = EPOCH_WINDOWS // batch * batch
-            walls = [_timed(train_epoch, noisy, clean, gen, batch)
-                     for _ in range(EPOCH_REPEATS)]
+            repeats = EPOCH_REPEATS if batch == TIMING_BATCH else 1
+            walls = [_timed(train_epoch, noisy, clean, gen, batch) for _ in range(repeats)]
             rates = ", ".join(f"{n / w:.1f}" for w in walls)
             nb, cb = noisy[:batch], clean[:batch]
             step_ms = cuda_ms(lambda: train_step(state, nb, cb), 5)
             log(f"[8] {card}: train_epoch {str(dtype)[6:]} batch {batch}: "
                 f"{n / statistics.median(walls):.1f} windows/s (median of "
-                f"{EPOCH_REPEATS} epochs of {n // batch} steps, host clock ending in "
+                f"{repeats} epochs of {n // batch} steps, host clock ending in "
                 f"the epoch's one fetch; each epoch: {rates}); one step "
                 f"{step_ms:.3f} ms on the card's clock (CUDA events, mean of 5)")
             if dtype == torch.float32 and batch == TIMING_BATCH:
@@ -5629,15 +5635,14 @@ def phase_wide_heads(card):
 
 
 def log_rpos_resources():
-    """B3's window kernel and wide kernel and B4's template instantiations
-    (attention_rpos_fwd.cu, attention_rpos_bwd.cu) as the compiler left
-    them: registers, stack and local memory (cuobjdump -res-usage) and the
-    HMMA count of their SASS, beside B2's wide dk/dv pass without the
-    window (attention_bwd.cu); each one's stack against the parent's where
-    its tree is there (`stack_against_parent`: none may be larger) and the
-    wide ones' clusters. A kernel with no HMMA, or a spill in B3's window
-    kernel, fails the run; B4's template spills as the parent's did
-    (its f32 D = 64 dk/dv pass 104 bytes), and is reported."""
+    """B3's and B4's window kernels and wide kernels (attention_rpos_fwd.cu,
+    attention_rpos_bwd.cu) as the compiler left them, by instantiation:
+    registers, stack and local memory (cuobjdump -res-usage) and the HMMA
+    count of their SASS, beside B2's wide dk/dv pass without the window
+    (attention_bwd.cu); each one's stack against the parent's where its
+    tree is there (`stack_against_parent`: none may be larger, and a family
+    the parent has not may have none) and the wide ones' clusters. A kernel
+    with no HMMA, or a spill in either window kernel, fails the run."""
     found = {}
     for name, pick in (("attention_rpos_fwd", ("_mma_kernel", "_wide_kernel")),
                        ("attention_rpos_bwd", ("_mma_kernel", "_wide_kernel")),
@@ -5648,14 +5653,19 @@ def log_rpos_resources():
             f"{r.get('stack')} bytes, local {r.get('local')} bytes; {r['hmma']} HMMA instructions")
     mine = {fn: r for fn, r in found.items() if r["library"] != "attention_bwd"}
     # B3: the window kernel at f32 D 4-64 and bf16 4, 16-64 (9), the wide
-    # kernel f32 and bf16 (2); B4: dq and dk/dv at 4 D in 2 dtypes (16), the
-    # two wide passes in 2 dtypes (4). The dtoep sum is no mma kernel.
-    check(len(mine) == 11 + 20, f"{len(mine)} of the 31 r-pos instantiations found")
+    # kernel f32 and bf16 (2); B4: the window kernel's dq and dk/dv passes at
+    # the same 9 (18), the two wide passes in 2 dtypes (4). The dtoep sum is
+    # no mma kernel.
+    check(len(mine) == 11 + 22, f"{len(mine)} of the 33 r-pos instantiations found")
     check(all(r["hmma"] > 0 for r in found.values()), "an r-pos template kernel issues no HMMA")
     check(all("registers" in r for r in found.values()), "a kernel's resources not read")
-    window = [fn for fn in mine if "rpos_fwd_mma_kernel" in fn]
-    check(len(window) == 9 and all(mine[fn]["stack"] + mine[fn]["local"] == 0 for fn in window),
-          "B3's window kernel spills (or an instantiation is missing)")
+    for what, pick, n in (("B3", "rpos_fwd_mma_kernel", 9), ("B4", "rpos_bwd_d", 18)):
+        window = [fn for fn in mine if pick in fn and "_mma_kernel" in fn]
+        spills = {fn: mine[fn]["stack"] + mine[fn]["local"] for fn in window
+                  if mine[fn]["stack"] + mine[fn]["local"]}
+        check(len(window) == n and not spills,
+              f"{what}'s window kernel spills ({spills}) or an instantiation is missing "
+              f"({len(window)} of {n})")
     out = {}
     for lib, kind in (("attention_rpos_fwd", "_mma_kernel"), ("attention_rpos_fwd", "_wide_kernel"),
                       ("attention_rpos_bwd", "_mma_kernel"), ("attention_rpos_bwd", "_wide_kernel"),
@@ -5713,9 +5723,9 @@ def phase_rpos_any_d_kernels():
     bf16 2^-7 of each max), a second call bit-identical. Every call launches its kernel:
     the counts move by exactly the calls made. Then, where the parent's
     tree is there, B1 and B2 on their templates and wide kernels against
-    the parent's, bit for bit, B3 on the wide kernel (o, lse) and B4 (dq,
-    dk, dv, from this tree's forward) bit for bit, and B3's window kernel
-    (new arithmetic) within its bars of its plain version."""
+    the parent's, bit for bit, B3 and B4 on the wide kernels (o, lse; dq,
+    dk, dv from this tree's forward) bit for bit, and the two window
+    kernels (new arithmetic) within their bars of their plain versions."""
     from ecg_denoise_tpu_torch import full_float32
     from ecg_denoise_tpu_torch.kernels import attention
     from ecg_denoise_tpu_torch.kernels import attention_rpos as ar
@@ -5766,8 +5776,7 @@ def phase_rpos_any_d_kernels():
                 max_err["fwd"] = max(max_err["fwd"], err)
             same = (torch.equal(out, again) and torch.equal(out, out2)
                     and all(torch.equal(a, b) for a, b in zip(got, again_grads)))
-            log(f"[31] B3/B4 D={D} (kernels {ar.forward_head_dim(D, L, dtype)} and "
-                f"{attention.kernel_head_dim(D, L, dtype)}) "
+            log(f"[31] B3/B4 D={D} (kernel head dim {ar.rpos_head_dim(D, L, dtype)}) "
                 f"B={RPOS_CHECK_BATCH} L={L} W={W} H={H} {str(dtype)[6:]}: out {err:.2e}/{tol:.2e}, "
                 f"lse {lse_err:.2e}/{lse_tol:.2e}; " + ", ".join(errs)
                 + f"; launches {launched}; repeated calls bit-identical: {same}")
@@ -5814,20 +5823,32 @@ def phase_rpos_any_d_kernels():
                     ar._bwd_library(), parent_libs()["attention_rpos_bwd"]))
                 equal = [n for n, a, b in zip(("o", "lse", "dq", "dk", "dv"),
                                               (*new, *new_b), (*old, *old_b)) if torch.equal(a, b)]
-                want = ["dq", "dk", "dv"] if Dk <= 64 else ["o", "lse", "dq", "dk", "dv"]
+                want = [] if Dk <= 64 else ["o", "lse", "dq", "dk", "dv"]
                 bars = ""
-                if Dk <= 64:  # B3's window kernel: its bars against its plain version
+                if Dk <= 64:  # the window kernels: their bars against their plain versions
                     ref, ref_lse = ar.attention_rpos_reference(*ops, W, offsets, return_lse=True)
                     tol = (F32_TOL if dtype == torch.float32
                            else BF16_TOL_OF_MAX_V * ops[2].float().abs().max().item())
                     err = (new[0].float() - ref.float()).abs().max().item()
                     lse_err = (new[1] - ref_lse).abs().max().item()
                     lse_tol = LSE_TOL * max(1.0, ref_lse.abs().max().item())
+                    ref_b = ar.attention_rpos_backward_reference(*ops, W, offsets, *new, g)
+                    errs, theirs = [], []
+                    for name, a, a_old, b in zip(("dq", "dk", "dv"), new_b, old_b, ref_b):
+                        scale = b.float().abs().max().item()
+                        t = GRAD_TOL if dtype == torch.float32 else BF16_GRAD_TOL_OF_MAX * scale
+                        errs.append(((a.float() - b.float()).abs().max().item(), t))
+                        theirs.append((a_old.float() - b.float()).abs().max().item())
                     bars = (f"; B3's window kernel out {err:.2e}/{tol:.2e}, lse "
-                            f"{lse_err:.2e}/{lse_tol:.2e}")
+                            f"{lse_err:.2e}/{lse_tol:.2e}; B4's window kernel dq, dk, dv "
+                            + ", ".join(f"{e:.2e}/{t:.2e}" for e, t in errs)
+                            + " (the parent's " + ", ".join(f"{e:.2e}" for e in theirs) + ")")
                     check(err <= tol and lse_err <= lse_tol,
                           f"B3's window kernel at D = {Dk}, L = {L} disagrees with its plain "
                           "version")
+                    check(all(e <= t for e, t in errs),
+                          f"B4's window kernel at D = {Dk}, L = {L} disagrees with its plain "
+                          "backward")
                 log(f"[31] B3/B4 D={Dk} B={B} L={L} W={W} H={H} {str(dtype)[6:]}: "
                     f"bit-identical to the parent's: {', '.join(equal)}{bars}")
                 check(all(n in equal for n in want),
@@ -5975,22 +5996,26 @@ def phase_rpos_layers(card):
 
 
 def rpos_any_d_times(card):
-    """Phase 31c: per RPOS_LAYERS geometry, B3 (no lse) at BATCH and B4 at
+    """Phase 31d: per RPOS_LAYERS geometry, B3 (no lse) at BATCH and B4 at
     TIMING_BATCH, f32 and bf16, from CUDA graph replays of the kernels on
-    operands padded once to the kernel's head dim (B3's `forward_head_dim`:
-    D = 4 unpadded; B4's `kernel_head_dim`), beside the bound of the
-    unpadded call (the largest of the products at 3xTF32 on the tensor
-    cores, bf16 one pass at its peak; one exp a (row, key) on the
-    special-function units, `SFU_EXPS_PER_S`; the bytes), the plain versions
-    and SDPA with the materialised (B, H, L, L) mask (forward, and backward
-    with the mask requiring grad: (fwd + bwd) - fwd); B4's passes' device
-    ms (torch.profiler, f32: dq, dkdv and the dtoep sum; the parent's dq,
-    dkdv and dtoep pass). Where the parent's tree is there, each kernel in
-    turns with the parent's (`against_parent`; the parent's B3 on operands
-    padded to `kernel_head_dim`, as its wrapper padded them), and B3 at
-    RPOS_CHECKED_DIMS in turns with the parent's at RPOS_CHECKED_SHAPE. B3's
-    output at BATCH is held to its plain version at its bars (f32 1e-5,
-    bf16 3 * 2^-8 of max|v|): the phase's one check."""
+    operands padded once to the kernel's head dim (`rpos_head_dim`: D = 4
+    unpadded), beside the bound of the unpadded
+    call (the largest of the products at 3xTF32 on the tensor cores, bf16
+    one pass at its peak; the exps on the special-function units,
+    `SFU_EXPS_PER_S`, one a (row, key), what the function needs: B4's two
+    passes pay two, a cost of its deterministic design and not of the
+    work; the bytes), the plain versions and SDPA with the
+    materialised (B, H, L, L) mask (forward, and backward with the mask
+    requiring grad: (fwd + bwd) - fwd); B4's passes' device ms
+    (torch.profiler: dq, dkdv and the dtoep sum, this tree's and the
+    parent's). Where the parent's tree is there, each kernel in turns with
+    the parent's (`against_parent`; the parent's on operands padded to
+    `kernel_head_dim`, as its wrappers padded them), and B3 and B4 at
+    RPOS_CHECKED_DIMS in turns with the parent's at RPOS_CHECKED_SHAPE.
+    B3's output at BATCH and B4's gradients at TIMING_BATCH are held to
+    their plain versions at their bars (f32 1e-5 and 1e-4, dtoep 1e-4 of
+    its max; bf16 3 * 2^-8 of max|v| and 2^-7 of each max); the parent's
+    B4 errors against the same plain backward are logged beside them."""
     from ecg_denoise_tpu_torch.kernels import attention_rpos as ar
     from ecg_denoise_tpu_torch.kernels.attention import _pad, kernel_head_dim
     from ecg_denoise_tpu_torch.probes.floor import graph_us
@@ -6001,7 +6026,7 @@ def rpos_any_d_times(card):
         for dtype in (torch.float32, torch.bfloat16):
             dt, elt = str(dtype)[6:], torch.finfo(dtype).bits // 8
             for what in ("fwd", "bwd"):
-                Dk = (ar.forward_head_dim if what == "fwd" else kernel_head_dim)(D, L, dtype)
+                Dk = ar.rpos_head_dim(D, L, dtype)
                 B = BATCH if what == "fwd" else TIMING_BATCH
                 ops, offsets = rpos_operands(B, L, W, H, dtype, gen, D=D, q_scale=D ** -0.5)
                 padded = [_pad(t, Dk) for t in ops[:3]] + [ops[3]]
@@ -6034,10 +6059,32 @@ def rpos_any_d_times(card):
                     o, lse = b3_call(ar._library(), *padded, W, offsets)
                     this = functools.partial(b4_call, ar._bwd_library(), *padded, W, offsets, o,
                                              lse, _pad(g, Dk))
-                    if parent_lib:
-                        parent = functools.partial(b4_call, parent_lib, *padded, W, offsets, o,
-                                                   lse, _pad(g, Dk))
                     o_u = o[..., :D].contiguous()
+                    if parent_lib:
+                        Dp = kernel_head_dim(D, L, dtype)
+                        theirs = [_pad(t, Dp) for t in (*ops[:3], o_u, g)]
+                        parent = functools.partial(b4_call, parent_lib, *theirs[:3], ops[3], W,
+                                                   offsets, theirs[3], lse, theirs[4])
+                    want = ar.attention_rpos_backward_reference(*ops, W, offsets, o_u, lse, g)
+
+                    def errors(got):
+                        out = []
+                        for name, a, b in zip(("dq", "dk", "dv", "dtoep"), got, want):
+                            scale = b.float().abs().max().item()
+                            t = (BF16_GRAD_TOL_OF_MAX * scale if dtype == torch.bfloat16
+                                 else DBIAS_TOL_OF_MAX * scale if name == "dtoep" else GRAD_TOL)
+                            a = a if name == "dtoep" else a[..., :D]
+                            out.append((name, (a.float() - b.float()).abs().max().item(), t))
+                        return out
+
+                    errs = errors(this())
+                    theirs = (f"; the parent's: " + ", ".join(
+                        f"{n} {e:.3e}" for n, e, _ in errors(parent())) if parent else "")
+                    log(f"[31] B4 {dt} {tag} at B={B} against its plain backward: "
+                        + ", ".join(f"{n} {e:.3e} (tol {t:.2e})" for n, e, t in errs) + theirs)
+                    check(all(e <= t for _, e, t in errs),
+                          f"B4 at {tag} {dt}, B = {B}, disagrees with its plain backward")
+                    del want
                     plain = cuda_ms(lambda: ar.attention_rpos_backward_reference(
                         *ops, W, offsets, o_u, lse, g), 2)
                     qkv = [t.detach().requires_grad_() for t in ops[:3]]
@@ -6049,10 +6096,9 @@ def rpos_any_d_times(card):
                     lib = cuda_ms(lambda: torch.autograd.grad(sdpa(), qkv + [mask], g), 5) - (
                         cuda_ms(sdpa, 5))
                     t_ops, t_bytes = rpos_bwd_bound_terms(B, H, L, W, elt, offsets, D=D)
-                    if dtype == torch.float32:
-                        passes = pass_ms(this)
-                        if parent is not None:
-                            parent_passes = pass_ms(parent)
+                    passes = pass_ms(this)
+                    if parent is not None:
+                        parent_passes = pass_ms(parent)
                 del mask
                 products = 2 if what == "fwd" else 5
                 t_ops = (mma_bound_terms(B, H, L, 4, products, D=D)[0] if dtype == torch.float32
@@ -6062,7 +6108,8 @@ def rpos_any_d_times(card):
                     turns = f" in turns with the parent's {parent_ms:.4f} ms: {verdict}"
                 else:
                     ms, parent_ms, verdict, turns = graph_us(this, 10) / 1e3, None, None, ""
-                # One exp a (row, key): the forward's softmax, the backward's P.
+                # One exp a (row, key): the function's P. B4's dq and dk/dv
+                # passes each form P again, which the bound does not count.
                 t_exps = B * H * L * L / SFU_EXPS_PER_S * 1e3
                 bnd = max(t_ops, t_exps, t_bytes)
                 by = "bytes" if t_bytes >= max(t_ops, t_exps) else "operations"
@@ -6091,21 +6138,31 @@ def rpos_any_d_times(card):
     L, W, H = RPOS_CHECKED_SHAPE
     for D in RPOS_CHECKED_DIMS if parent_libs() else ():
         for dtype in (torch.float32, torch.bfloat16):
-            ops, offsets = rpos_operands(BATCH, L, W, H, dtype, gen, D=D, q_scale=D ** -0.5)
-            Dk = ar.forward_head_dim(D, L, dtype)  # the parent's and this tree's alike
-            padded = [_pad(t, Dk) for t in ops[:3]] + [ops[3]]
-            ms, parent_ms, verdict = against_parent(
-                functools.partial(b3_call, ar._library(), *padded, W, offsets, with_lse=False),
-                functools.partial(b3_call, parent_libs()["attention_rpos_fwd"], *padded, W,
-                                  offsets, with_lse=False))
-            log(f"[31] {card}: B3 {str(dtype)[6:]} D={D} (kernel {Dk}) B={BATCH} L={L} W={W} "
-                f"H={H}: kernel {ms:.4f} ms (graph replays) in turns with the parent's "
-                f"{parent_ms:.4f} ms: {verdict}")
-            rows.append({"what": "fwd_checked", "route": "mma", "tag": f"d{D}",
-                         "dtype": str(dtype)[6:], "B": BATCH, "L": L, "W": W, "H": H, "D": D,
-                         "kernel_head_dim": Dk, "ms": ms, "parent_ms": parent_ms,
-                         "against_parent": verdict, "calls": 0})
-            del ops, padded
+            for what, B in (("fwd", BATCH), ("bwd", TIMING_BATCH)):
+                ops, offsets = rpos_operands(B, L, W, H, dtype, gen, D=D, q_scale=D ** -0.5)
+                Dk = ar.rpos_head_dim(D, L, dtype)  # the parent's and this tree's alike
+                padded = [_pad(t, Dk) for t in ops[:3]] + [ops[3]]
+                if what == "fwd":
+                    this, parent = (functools.partial(b3_call, lib, *padded, W, offsets,
+                                                      with_lse=False)
+                                    for lib in (ar._library(),
+                                                parent_libs()["attention_rpos_fwd"]))
+                else:
+                    o, lse = b3_call(ar._library(), *padded, W, offsets)
+                    g = _pad(torch.randn(ops[0].shape, generator=gen).to("cuda", dtype), Dk)
+                    this, parent = (functools.partial(b4_call, lib, *padded, W, offsets, o, lse,
+                                                      g)
+                                    for lib in (ar._bwd_library(),
+                                                parent_libs()["attention_rpos_bwd"]))
+                ms, parent_ms, verdict = against_parent(this, parent)
+                log(f"[31] {card}: {'B3' if what == 'fwd' else 'B4'} {str(dtype)[6:]} D={D} "
+                    f"(kernel {Dk}) B={B} L={L} W={W} H={H}: kernel {ms:.4f} ms (graph "
+                    f"replays) in turns with the parent's {parent_ms:.4f} ms: {verdict}")
+                rows.append({"what": f"{what}_checked", "route": "mma", "tag": f"d{D}",
+                             "dtype": str(dtype)[6:], "B": B, "L": L, "W": W, "H": H, "D": D,
+                             "kernel_head_dim": Dk, "ms": ms, "parent_ms": parent_ms,
+                             "against_parent": verdict, "calls": 0})
+                del ops, padded
     for what, route in (("fwd", "mma"), ("fwd", "wide"), ("bwd", "mma"), ("bwd", "wide")):
         for dt in ("float32", "bfloat16"):
             mine = [r for r in rows if (r["what"], r["route"], r["dtype"]) == (what, route, dt)]
@@ -6121,12 +6178,12 @@ def rpos_any_d_times(card):
 
 def phase_rpos_any_d(card):
     """Phase 31: B3 and B4 at every head dim and length, on the tensor
-    cores (B3's window kernel and B1's wide kernel in its window mode, B2's
-    kernels in theirs): their registers, spills and HMMA
-    (`log_rpos_resources`), the kernels against their plain versions and
-    what this tree left as it was against the parent's
-    (`phase_rpos_any_d_kernels`), the layer path served and trained
-    (`phase_rpos_layers`) and the kernel times (`rpos_any_d_times`)."""
+    cores (their window kernels, and B1's and B2's wide kernels in their
+    window mode): their registers, spills and HMMA (`log_rpos_resources`),
+    the kernels against their plain versions and what this tree left as it
+    was against the parent's (`phase_rpos_any_d_kernels`), the layer path
+    served and trained (`phase_rpos_layers`) and the kernel times
+    (`rpos_any_d_times`)."""
     t0 = time.perf_counter()
     resources = log_rpos_resources()
     max_err = phase_rpos_any_d_kernels()
@@ -6140,12 +6197,12 @@ def phase_rpos_any_d(card):
 
 
 def rpos_any_kernel_rows(launches, max_err, rows, resources):
-    """The `kernels` line's rows of B3 (its window kernel, `mma`, and B1's
-    wide kernel in its window mode) and B4 (B2's template and wide kernels
-    in their window mode) past the D = 4 kernels (phase 31): a row per
-    kernel and route, its launches those of phase 31's paths on that route,
-    its times summed over one forward's (B3, at BATCH) or one step's (B4,
-    at TIMING_BATCH) calls of those paths' layers."""
+    """The `kernels` line's rows of B3 and B4 past the D = 4 kernels (phase
+    31): their window kernels (`mma`) and B1's and B2's wide kernels in
+    their window mode (`wide`), a row per kernel and route, its launches
+    those of phase 31's paths on that route, its times summed over one
+    forward's (B3, at BATCH) or one step's (B4, at TIMING_BATCH) calls of
+    those paths' layers."""
     csrc = "ecg_denoise_tpu_torch/kernels/csrc"
     pallas = "ecg_denoise_tpu/kernels/attention_pallas.py"
     out = []
@@ -6173,8 +6230,7 @@ def rpos_any_kernel_rows(launches, max_err, rows, resources):
                      else f"{RPOS_LAYER_DEPTH} calls each a step at {TIMING_BATCH}")
             out.append({
                 "name": f"{kernel}_{route}", "route": "cuda", "source": f"{csrc}/{kernel}.cu",
-                "also_source": f"{csrc}/" + ("attention_rpos_fwd_mma.cuh"
-                                             if (what, route) == ("fwd", "mma")
+                "also_source": f"{csrc}/" + (f"attention_rpos_{what}_mma.cuh" if route == "mma"
                                              else f"attention_{what}_mma.cuh"),
                 "replaces": f"{pallas}:{line}", "launches": sum(by_path.values()),
                 "launches_by_path": by_path, "max_abs_err": max_err[what],
@@ -6188,9 +6244,9 @@ def rpos_any_kernel_rows(launches, max_err, rows, resources):
                                   "31's cases (RPOS_ANY_D_CASES, every route)",
                 "times_are": f"the layers {', '.join(tags)} (RPOS_LAYERS), {calls}, float32, "
                              "the kernel from CUDA graph replays on operands padded to its head "
-                             "dim (B3's D = 4 unpadded); bound_ms the largest of the products "
-                             "on the tensor cores at 3xTF32, one exp a (row, key) on the "
-                             "special-function units, and the bytes; plain and library "
+                             "dim (D = 4 unpadded); bound_ms the largest of the products on the "
+                             "tensor cores at 3xTF32, the exps on the special-function units "
+                             "(one a (row, key)), and the bytes; plain and library "
                              "(scaled_dot_product_attention with the materialised (B, H, L, L) "
                              "mask) called from Python"})
     return out

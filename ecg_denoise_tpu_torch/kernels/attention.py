@@ -143,11 +143,10 @@ def check_operands(q, k, v, bias) -> None:
 
 
 def kernel_head_dim(D: int, L: int, dtype: torch.dtype) -> int:
-    """The head dim B1, B2, B4 and B5 run a (D, L) call at on the card (B3
-    too but at D = 4, `attention_rpos.forward_head_dim`): D = 4 at L <=
-    MAX_LEN on the D = 4 kernels, else the smallest of MMA_HEAD_DIMS (16
-    and up at bfloat16) that holds D, and past the largest the next
-    multiple of WIDE_CHUNK (the wide kernels)."""
+    """The head dim B1, B2 and B5 run a (D, L) call at on the card (B3 and
+    B4 too but at D = 4, `attention_rpos.rpos_head_dim`): D = 4 at L <= MAX_LEN on the D = 4 kernels, else
+    the smallest of MMA_HEAD_DIMS (16 and up at bfloat16) that holds D, and
+    past the largest the next multiple of WIDE_CHUNK (the wide kernels)."""
     if D == HEAD_DIM and L <= MAX_LEN:
         return D
     for d in MMA_HEAD_DIMS:

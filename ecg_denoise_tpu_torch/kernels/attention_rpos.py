@@ -26,17 +26,17 @@ switch and no fallback:
   (the port of `_bwd_rpos_kernel`). Each source picks its kernels by the
   head dim its wrapper passes, and the wrapper zero-pads q, k, v (and o,
   g) along D up to it and slices the results back (`forward_at`,
-  `backward_at`). The forward (`forward_head_dim`): D = 4 as it is at any
+  `backward_at`), at `rpos_head_dim`'s. The forward: D = 4 as it is at any
   L, on the D = 4 kernel to 256 keys (RA-LENet's path, whose keys fit a
   block's shared memory) and on B3's window kernel past them
   (`csrc/attention_rpos_fwd_mma.cuh`: the products of padded zeros were
   half its work at D = 8); D = 8, 16, 32 or 64 (bf16 from 16) on the
   window kernel too, other D <= 64 padded up; past 64 the wide kernel in
-  its window mode at the next multiple of 64. The backward takes B2's
-  rule (`attention.kernel_head_dim`): D = 4 at L <= 256 on its D = 4
-  kernel, any other D <= 64 on B2's mma template in its window mode at 8,
-  16, 32 or 64 (bf16 from 16; D = 4 past 256 keys padded to 8), past 64
-  its wide kernels. Past the D = 4 kernel the backward's dq pass leaves
+  its window mode at the next multiple of 64. The backward the same way:
+  D = 4 as it is, on its D = 4 kernel to 256 keys and on B4's window
+  kernel past them (`csrc/attention_rpos_bwd_mma.cuh`), D = 8, 16, 32 or
+  64 (bf16 from 16) on the window kernel too, past 64 B2's wide passes in
+  their window mode. Past the D = 4 kernel the backward's dq pass leaves
   each head's ds inside its element's window in a float32 (B, H, W', W')
   scratch, W' = min(W, L), and a second kernel sums it over the batch
   into dtoep (`window_ds`, `dtoep_from_window_ds`: their plain versions).
@@ -62,6 +62,7 @@ import torch
 from ecg_denoise_tpu_torch.kernels.attention import (
     DTYPE_CODES,
     HEAD_DIM,
+    MAX_LEN,
     attention_reference,
     backward_at,
     bind,
@@ -182,18 +183,18 @@ def _bwd_library():
     return lib
 
 
-def forward_head_dim(D: int, L: int, dtype: torch.dtype) -> int:
-    """The head dim B3 runs a (D, L) call at on the card: D = 4 as it is
-    at any L (the D = 4 kernel to 256 keys, the window kernel past them),
-    else `kernel_head_dim`'s."""
+def rpos_head_dim(D: int, L: int, dtype: torch.dtype) -> int:
+    """The head dim B3 and B4 run a (D, L) call at on the card: D = 4 as it
+    is at any L (the D = 4 kernels to 256 keys, the window kernels past
+    them), else `kernel_head_dim`'s."""
     return D if D == HEAD_DIM else kernel_head_dim(D, L, dtype)
 
 
 def _launch(q, k, v, toep, W, offsets, *, with_lse: bool = False):
     """The forward kernel: o, plus the float32 (B, H, L) lse if asked; at
-    the head dim `forward_head_dim` picks, q, k and v padded to it."""
+    the head dim `rpos_head_dim` picks, q, k and v padded to it."""
     B, H, L, D = q.shape
-    return forward_at(forward_head_dim(D, L, q.dtype), _launch_kernel, q, k, v, toep,
+    return forward_at(rpos_head_dim(D, L, q.dtype), _launch_kernel, q, k, v, toep,
                       W=W, offsets=offsets, with_lse=with_lse)
 
 
@@ -217,23 +218,23 @@ def _launch_kernel(q, k, v, toep, *, W, offsets, with_lse: bool):
 
 def _launch_bwd(q, k, v, toep, W, offsets, o, lse, g):
     """The backward kernel: (dq, dk, dv, dtoep), dtoep in toep's dtype; at
-    the head dim `kernel_head_dim` picks, q, k, v, o and g padded to it."""
+    the head dim `rpos_head_dim` picks, q, k, v, o and g padded to it."""
     if g.shape != q.shape or g.dtype != q.dtype:
         raise ValueError(f"gradient {tuple(g.shape)} {g.dtype} does not match "
                          f"the output {tuple(q.shape)} {q.dtype}")
     g = g.contiguous()  # MSAttention's transpose(1, 2).reshape is strided
     B, H, L, D = q.shape
-    return backward_at(kernel_head_dim(D, L, q.dtype), _launch_bwd_kernel, q, k, v, toep,
+    return backward_at(rpos_head_dim(D, L, q.dtype), _launch_bwd_kernel, q, k, v, toep,
                        o, lse, g, W=W, offsets=offsets)
 
 
 def _launch_bwd_kernel(q, k, v, toep, o, lse, g, *, W, offsets):
     """The backward at the kernel's head dim: (dq, dk, dv, dtoep), dtoep
     summed in float32 and cast once to toep's dtype. Past the D = 4
-    kernels the passes fill the ds scratch and `_dtoep_sum` forms dtoep."""
+    kernel the passes fill the ds scratch and `_dtoep_sum` forms dtoep."""
     check_launchable(q, k, v, o, g, bias=toep)
     B, H, L, D = q.shape
-    ds = (None if D == HEAD_DIM else
+    ds = (None if D == HEAD_DIM and L <= MAX_LEN else
           torch.empty(B, H, min(W, L), min(W, L), dtype=torch.float32, device=q.device))
     dq, dk, dv, dtoep = _bwd_passes(q, k, v, toep, o, lse, g, W, offsets, ds)
     if ds is not None:
@@ -243,8 +244,8 @@ def _launch_bwd_kernel(q, k, v, toep, o, lse, g, *, W, offsets):
 
 
 def _bwd_passes(q, k, v, toep, o, lse, g, W, offsets, ds):
-    """The backward kernel's passes: dq, dk, dv, and at D = 4 dtoep (float32,
-    else left unwritten: the passes fill `ds`)."""
+    """The backward kernel's passes: dq, dk, dv, and on the D = 4 kernel
+    dtoep (float32; else left unwritten: the passes fill `ds`)."""
     lib = _bwd_library()
     B, H, L, D = q.shape
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
@@ -260,7 +261,7 @@ def _bwd_passes(q, k, v, toep, o, lse, g, W, offsets, ds):
 
 
 def _dtoep_sum(ds, offsets, W, dtoep):
-    """The second kernel past the D = 4 kernels: dtoep (float32 (1, H, L,
+    """The second kernel past the D = 4 kernel: dtoep (float32 (1, H, L,
     L), written in place) from the scratch the dq pass filled."""
     lib = _bwd_library()
     B, H = ds.shape[:2]

@@ -733,8 +733,8 @@ extern "C" int ecg_attention_bwd(const void* q, const void* k, const void* v,
       err = D == kD ? launch<float>(q, k, v, bias, g, o, lse_f, c_f, dq, dk, dv, dbias_f,
                                     B, H, L, s)
             : D <= mma_bwd::kWideD
-                ? mma_bwd::launch_mma<float, false>(q, k, v, bias, g, o, lse_f, c_f, dq, dk, dv,
-                                                    dbias_f, B, H, L, D, nullptr, 0, s)
+                ? mma_bwd::launch_mma<float>(q, k, v, bias, g, o, lse_f, c_f, dq, dk, dv, dbias_f,
+                                             B, H, L, D, s)
                 : mma_bwd::launch_wide<float, false>(q, k, v, bias, g, o, lse_f, c_f, dq, dk, dv,
                                                      dbias_f, B, H, L, D, nullptr, 0, s);
       break;
@@ -742,9 +742,8 @@ extern "C" int ecg_attention_bwd(const void* q, const void* k, const void* v,
       err = D == kD ? launch<__nv_bfloat16>(q, k, v, bias, g, o, lse_f, c_f, dq, dk, dv,
                                             dbias_f, B, H, L, s)
             : D <= mma_bwd::kWideD
-                ? mma_bwd::launch_mma<__nv_bfloat16, false>(q, k, v, bias, g, o, lse_f, c_f, dq,
-                                                            dk, dv, dbias_f, B, H, L, D, nullptr,
-                                                            0, s)
+                ? mma_bwd::launch_mma<__nv_bfloat16>(q, k, v, bias, g, o, lse_f, c_f, dq, dk, dv,
+                                                     dbias_f, B, H, L, D, s)
                 : mma_bwd::launch_wide<__nv_bfloat16, false>(q, k, v, bias, g, o, lse_f, c_f, dq,
                                                              dk, dv, dbias_f, B, H, L, D,
                                                              nullptr, 0, s);

@@ -1,17 +1,18 @@
-// The tensor-core templates of the fused attention backward, for B2
-// (attention_bwd.cu, no window) and B4 (attention_rpos_bwd.cu, kWin): the
-// three passes on one template on D for head_dim 8, 16, 32 and 64, and the
-// wide passes for every multiple of 64 past 64. Each source instantiates
-// only its own mode, so B2's kernels compile in attention_bwd.cu and B4's
-// in attention_rpos_bwd.cu, in parallel, and B2's are the same code with
-// or without B4's beside them.
+// The tensor-core kernels of the fused attention backward: B2's three
+// passes on one template on D for head_dim 8, 16, 32 and 64
+// (attention_bwd.cu), and the wide passes for every multiple of 64 past 64,
+// for B2 (attention_bwd.cu, no window) and B4 (attention_rpos_bwd.cu,
+// kWin). Each source instantiates only its own mode, so B2's kernels
+// compile in attention_bwd.cu and B4's in attention_rpos_bwd.cu, in
+// parallel, and B2's are the same code with or without B4's beside them.
+// B4 at D <= 64 has its own kernel (attention_rpos_bwd_mma.cuh), which
+// uses `store_window_ds` below.
 //
-// The window mode (kWin, B4: replacing the TPU kernel
-// ecg_denoise_tpu/kernels/attention_pallas.py _bwd_rpos_kernel (:859) at
-// every head_dim and length but D = 4 at L <= 256). The bias is toep (1,
-// H, L, L) times in_b[l] * in_b[m] (attention_window.cuh), formed where
-// the dq and dk/dv passes recompute p, as attention_fwd_mma.cuh forms it.
-// The toep gradient
+// The wide passes' window mode (kWin, B4: replacing the TPU kernel
+// ecg_denoise_tpu/kernels/attention_pallas.py _bwd_rpos_kernel (:859) past
+// D = 64). The bias is toep (1, H, L, L) times in_b[l] * in_b[m]
+// (attention_window.cuh), formed where the dq and dk/dv passes recompute p,
+// as attention_fwd_mma.cuh forms it. The toep gradient
 //   dtoep[h,l,m] = sum_b ds[b,h,l,m] * in_b[l] * in_b[m]
 // is built from the ds the dq pass computes anyway: in the window mode
 // that pass also writes each head's ds inside its element's window, (l -
@@ -58,8 +59,8 @@ cudaError_t allow_smem(K kernel, int bytes) {
 // head_dim 8, 16, 32 and 64: one template on D, on Hopper's tensor cores.
 // Transformer1d's heads are 32 wide; the wrapper (kernels/attention.py)
 // zero-pads any other D <= 64 to the next instantiated one, and a D = 4
-// call past 256 keys to 8. The D = 4 kernels of attention_bwd.cu and
-// attention_rpos_bwd.cu are left as they are, bit for bit.
+// call past 256 keys to 8. The D = 4 kernel of attention_bwd.cu is left as
+// it is, bit for bit.
 //
 // What bounds it. Per (b, h) the work is 10*L*L*D flops (the five
 // products q.k^T, g.v^T, ds.k, ds^T.q and p^T.g) against 8*L*D operand
@@ -97,9 +98,8 @@ cudaError_t allow_smem(K kernel, int bytes) {
 //   as fragments: per element S, dP, p and ds as in the dq pass, summed
 //   into the tile's f32 accumulators in b order, so each dbias element is
 //   one lane's ordered sum.
-// The bias (no model of the repo passes one at these head dims; B4's toep
-// inside the window) is read from global memory, where the batch finds it
-// in L2.
+// The bias (no model of the repo passes one at these head dims) is read
+// from global memory, where the batch finds it in L2.
 
 constexpr int kMmaWarps = 4;
 constexpr int kMmaThreads = 32 * kMmaWarps;
@@ -343,7 +343,8 @@ struct MmaRows {
   }
 };
 
-// kWin (B4): the dq pass's ds of this lane's rows r0 (v[0] at key m,
+// B4 (the wide dq pass's kWin, and attention_rpos_bwd_mma.cuh): the dq
+// pass's ds of this lane's rows r0 (v[0] at key m,
 // v[1] at m + 1) and r0 + 8 (v[2], v[3]) where the window holds both the
 // row and the key, into head bh's (W', W') block of the scratch `ds`,
 // window-relative. ok0, ok1: the rows are the head's (heads past the
@@ -365,17 +366,13 @@ __device__ __forceinline__ void store_window_ds(float* __restrict__ ds, Window w
   }
 }
 
-// kWin (B4): `bias` is toep, `offsets` and W give each batch element's
-// window, and `ds` takes the windowed ds (`store_window_ds`); B2 passes
-// none of them.
-template <typename T, int D, bool kBias, bool kWin>
+template <typename T, int D, bool kBias>
 __global__ void __launch_bounds__(kMmaThreads)
 attention_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v, const T* __restrict__ bias,
                             const T* __restrict__ g, const T* __restrict__ o,
                             const float* __restrict__ lse, float* __restrict__ c,
-                            T* __restrict__ dq, float* __restrict__ ds, int B, int H, int L,
-                            const float* __restrict__ offsets, int W) {
+                            T* __restrict__ dq, int B, int H, int L) {
   constexpr bool kExact = sizeof(T) == 2;
   constexpr int kS = mma_stride<D>();
   extern __shared__ __align__(16) float ring[];  // [stage][K, V][kTile][kS]
@@ -408,12 +405,6 @@ attention_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* brow0 = kBias ? bias + (static_cast<size_t>(w.h) * L + (w.ok0 ? w.r0 : 0)) * L : nullptr;
   const T* brow1 = kBias ? bias + (static_cast<size_t>(w.h) * L + (w.ok1 ? w.r0 + 8 : 0)) * L
                          : nullptr;
-  if constexpr (kWin) {  // the window of the head's batch element
-    if (lane == 0) {
-      warp_windows<kMmaWarps>()[warp] =
-          window_of(w.bh < n_heads ? offsets[static_cast<int>(w.bh) / H] : 0.f, W, L);
-    }
-  }
 
   float acc[D / 8][4];
 #pragma unroll
@@ -444,18 +435,13 @@ attention_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
         strip_dot<D, kExact>(dp[i], gf, vs + (8 * j + gq) * kS + tq);
         const int m = key0 + 8 * j + 2 * tq;  // key of c0, c2; m + 1 of c1, c3
         if constexpr (kBias) {
-          // The rows that take a bias, and the keys: B2's in L; B4's
-          // inside the window of the head's batch element.
-          const Window win = bias_window<kWin, kMmaWarps, sizeof(T) == 4>(warp, L);
-          const bool in0 = kWin ? w.ok0 && win.has(w.r0) : w.ok0;
-          const bool in1 = kWin ? w.ok1 && win.has(w.r0 + 8) : w.ok1;
-          if (in_bias<kWin>(win, m, L)) {
-            s[i][0] += in0 ? to_float(brow0[m]) : 0.f;
-            s[i][2] += in1 ? to_float(brow1[m]) : 0.f;
+          if (m < L) {
+            s[i][0] += w.ok0 ? to_float(brow0[m]) : 0.f;
+            s[i][2] += w.ok1 ? to_float(brow1[m]) : 0.f;
           }
-          if (in_bias<kWin>(win, m + 1, L)) {
-            s[i][1] += in0 ? to_float(brow0[m + 1]) : 0.f;
-            s[i][3] += in1 ? to_float(brow1[m + 1]) : 0.f;
+          if (m + 1 < L) {
+            s[i][1] += w.ok0 ? to_float(brow0[m + 1]) : 0.f;
+            s[i][3] += w.ok1 ? to_float(brow1[m + 1]) : 0.f;
           }
         }
         // ds = p (dP - c), p = exp(s - lse); 0 at keys past L.
@@ -463,10 +449,6 @@ attention_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
         s[i][1] = m + 1 < L ? __expf(s[i][1] - lse0) * (dp[i][1] - c0) : 0.f;
         s[i][2] = m < L ? __expf(s[i][2] - lse1) * (dp[i][2] - c1) : 0.f;
         s[i][3] = m + 1 < L ? __expf(s[i][3] - lse1) * (dp[i][3] - c1) : 0.f;
-        if constexpr (kWin) {
-          store_window_ds(ds, bias_window<kWin, kMmaWarps, sizeof(T) == 4>(warp, L), w.bh,
-                          W < L ? W : L, w.r0, w.ok0, w.ok1, m, s[i]);
-        }
       }
 #pragma unroll
       for (int i = 0; i < kChunkTiles; ++i) {
@@ -479,14 +461,13 @@ attention_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_rows<T, D>(dq, row0, w.ok0, w.ok1, acc, tq);
 }
 
-template <typename T, int D, bool kBias, bool kWin>
+template <typename T, int D, bool kBias>
 __global__ void __launch_bounds__(kMmaThreads)
 attention_bwd_dkdv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               const T* __restrict__ v, const T* __restrict__ bias,
                               const T* __restrict__ g, const float* __restrict__ lse,
                               const float* __restrict__ c, T* __restrict__ dk,
-                              T* __restrict__ dv, int B, int H, int L,
-                              const float* __restrict__ offsets, int W) {
+                              T* __restrict__ dv, int B, int H, int L) {
   constexpr bool kExact = sizeof(T) == 2;
   constexpr int kS = mma_stride<D>();
   extern __shared__ __align__(16) float ring[];  // [stage][Q, G][kTile][kS], then [stage][lse, c][kTile]
@@ -503,12 +484,6 @@ attention_bwd_dkdv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* bcol0 = kBias ? bias + static_cast<size_t>(w.h) * L * L + (w.ok0 ? w.r0 : 0) : nullptr;
   const T* bcol1 = kBias ? bias + static_cast<size_t>(w.h) * L * L + (w.ok1 ? w.r0 + 8 : 0)
                          : nullptr;
-  if constexpr (kWin) {  // the window of the head's batch element
-    if (lane == 0) {
-      warp_windows<kMmaWarps>()[warp] =
-          window_of(w.bh < n_heads ? offsets[static_cast<int>(w.bh) / H] : 0.f, W, L);
-    }
-  }
   float dk_acc[D / 8][4], dv_acc[D / 8][4];
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
@@ -548,18 +523,13 @@ attention_bwd_dkdv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int li = 8 * j + 2 * tq;  // query of c0, c2 in the tile; li + 1 of c1, c3
         const int l = l0 + li;
         if constexpr (kBias) {
-          // The keys that take a bias, and the query rows: B2's in L; B4's
-          // inside the window of the head's batch element.
-          const Window win = bias_window<kWin, kMmaWarps, sizeof(T) == 4>(warp, L);
-          const bool in0 = kWin ? w.ok0 && win.has(w.r0) : w.ok0;
-          const bool in1 = kWin ? w.ok1 && win.has(w.r0 + 8) : w.ok1;
-          if (in_bias<kWin>(win, l, L)) {
-            p[i][0] += in0 ? to_float(bcol0[static_cast<size_t>(l) * L]) : 0.f;
-            p[i][2] += in1 ? to_float(bcol1[static_cast<size_t>(l) * L]) : 0.f;
+          if (l < L) {
+            p[i][0] += w.ok0 ? to_float(bcol0[static_cast<size_t>(l) * L]) : 0.f;
+            p[i][2] += w.ok1 ? to_float(bcol1[static_cast<size_t>(l) * L]) : 0.f;
           }
-          if (in_bias<kWin>(win, l + 1, L)) {
-            p[i][1] += in0 ? to_float(bcol0[static_cast<size_t>(l + 1) * L]) : 0.f;
-            p[i][3] += in1 ? to_float(bcol1[static_cast<size_t>(l + 1) * L]) : 0.f;
+          if (l + 1 < L) {
+            p[i][1] += w.ok0 ? to_float(bcol0[static_cast<size_t>(l + 1) * L]) : 0.f;
+            p[i][3] += w.ok1 ? to_float(bcol1[static_cast<size_t>(l + 1) * L]) : 0.f;
           }
         }
         // p^T = exp(s^T - lse[l]) (lse +inf past L: 0), ds^T = p^T (dP^T - c[l]).
@@ -659,43 +629,52 @@ attention_bwd_dbias_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D, bool kBias, bool kWin>
+template <typename T, int D, bool kBias>
 cudaError_t launch_mma_passes(const T* q, const T* k, const T* v, const T* bias, const T* g,
-                              const T* o, const float* lse, float* c, T* dq, T* dk, T* dv,
-                              float* ds, int B, int H, int L, const float* offsets, int W,
-                              cudaStream_t stream) {
+                              const T* o, const float* lse, float* c, T* dq, T* dk, T* dv, int B,
+                              int H, int L, cudaStream_t stream) {
   static const cudaError_t allowed_dq =
-      allow_smem(attention_bwd_dq_mma_kernel<T, D, kBias, kWin>, mma_smem_bytes<D>(false));
+      allow_smem(attention_bwd_dq_mma_kernel<T, D, kBias>, mma_smem_bytes<D>(false));
   static const cudaError_t allowed_dkdv =
-      allow_smem(attention_bwd_dkdv_mma_kernel<T, D, kBias, kWin>, mma_smem_bytes<D>(true));
+      allow_smem(attention_bwd_dkdv_mma_kernel<T, D, kBias>, mma_smem_bytes<D>(true));
   if (allowed_dq != cudaSuccess) return allowed_dq;
   if (allowed_dkdv != cudaSuccess) return allowed_dkdv;
   const MmaTiling t(L);
   const long long groups = (static_cast<long long>(B) * H + t.heads - 1) / t.heads;
   const long long blocks = groups * t.tiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  attention_bwd_dq_mma_kernel<T, D, kBias, kWin>
+  attention_bwd_dq_mma_kernel<T, D, kBias>
       <<<static_cast<int>(blocks), kMmaThreads, mma_smem_bytes<D>(false), stream>>>(
-          q, k, v, bias, g, o, lse, c, dq, ds, B, H, L, offsets, W);
+          q, k, v, bias, g, o, lse, c, dq, B, H, L);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attention_bwd_dkdv_mma_kernel<T, D, kBias, kWin>
+  attention_bwd_dkdv_mma_kernel<T, D, kBias>
       <<<static_cast<int>(blocks), kMmaThreads, mma_smem_bytes<D>(true), stream>>>(
-          q, k, v, bias, g, lse, c, dk, dv, B, H, L, offsets, W);
+          q, k, v, bias, g, lse, c, dk, dv, B, H, L);
   return cudaGetLastError();
 }
 
 // B2's passes on the template, and its dbias pass where dbias is asked for.
 template <typename T, int D>
-cudaError_t launch_mma_b2(const T* qt, const T* kt, const T* vt, const T* bt, const T* gt,
-                          const T* ot, const float* lse, float* c, T* dqt, T* dkt, T* dvt,
-                          float* dbias, int B, int H, int L, cudaStream_t stream) {
+cudaError_t launch_mma_d(const void* q, const void* k, const void* v, const void* bias,
+                         const void* g, const void* o, const float* lse, float* c, void* dq,
+                         void* dk, void* dv, float* dbias, int B, int H, int L,
+                         cudaStream_t stream) {
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* bt = static_cast<const T*>(bias);
+  const T* gt = static_cast<const T*>(g);
+  const T* ot = static_cast<const T*>(o);
+  T* dqt = static_cast<T*>(dq);
+  T* dkt = static_cast<T*>(dk);
+  T* dvt = static_cast<T*>(dv);
   const cudaError_t err =
       bt != nullptr
-          ? launch_mma_passes<T, D, true, false>(qt, kt, vt, bt, gt, ot, lse, c, dqt, dkt, dvt,
-                                                 nullptr, B, H, L, nullptr, 0, stream)
-          : launch_mma_passes<T, D, false, false>(qt, kt, vt, bt, gt, ot, lse, c, dqt, dkt, dvt,
-                                                  nullptr, B, H, L, nullptr, 0, stream);
+          ? launch_mma_passes<T, D, true>(qt, kt, vt, bt, gt, ot, lse, c, dqt, dkt, dvt, B, H, L,
+                                          stream)
+          : launch_mma_passes<T, D, false>(qt, kt, vt, bt, gt, ot, lse, c, dqt, dkt, dvt, B, H, L,
+                                           stream);
   if (err != cudaSuccess || dbias == nullptr) return err;
   static const cudaError_t allowed =
       allow_smem(attention_bwd_dbias_mma_kernel<T, D>, mma_smem_bytes<D>(false));
@@ -709,52 +688,22 @@ cudaError_t launch_mma_b2(const T* qt, const T* kt, const T* vt, const T* bt, co
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool kWin>
-cudaError_t launch_mma_d(const void* q, const void* k, const void* v, const void* bias,
-                         const void* g, const void* o, const float* lse, float* c, void* dq,
-                         void* dk, void* dv, float* dbias, int B, int H, int L,
-                         const float* offsets, int W, cudaStream_t stream) {
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* bt = static_cast<const T*>(bias);
-  const T* gt = static_cast<const T*>(g);
-  const T* ot = static_cast<const T*>(o);
-  T* dqt = static_cast<T*>(dq);
-  T* dkt = static_cast<T*>(dk);
-  T* dvt = static_cast<T*>(dv);
-  if constexpr (kWin) {  // `dbias` is the ds scratch
-    return launch_mma_passes<T, D, true, true>(qt, kt, vt, bt, gt, ot, lse, c, dqt, dkt, dvt,
-                                               dbias, B, H, L, offsets, W, stream);
-  } else {
-    return launch_mma_b2<T, D>(qt, kt, vt, bt, gt, ot, lse, c, dqt, dkt, dvt, dbias, B, H, L,
-                               stream);
-  }
-}
-
-// The template at head dim D = 8, 16, 32 or 64; any other D is refused.
-// kWin: B4, `bias` the toep, `dbias` the f32 (B, H, W', W') scratch the dq
-// pass fills with the windowed ds, and `offsets` and W the windows (all
-// required; attention_rpos_bwd.cu sums the scratch into dtoep); else B2,
-// `dbias` null or the dbias output, offsets unused.
-template <typename T, bool kWin>
+// B2's template at head dim D = 8, 16, 32 or 64; any other D is refused.
+// `dbias` null or the dbias output.
+template <typename T>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* bias,
                        const void* g, const void* o, const float* lse, float* c, void* dq,
                        void* dk, void* dv, float* dbias, int B, int H, int L, int D,
-                       const float* offsets, int W, cudaStream_t stream) {
+                       cudaStream_t stream) {
   switch (D) {
     case 8:
-      return launch_mma_d<T, 8, kWin>(q, k, v, bias, g, o, lse, c, dq, dk, dv, dbias, B, H, L,
-                                      offsets, W, stream);
+      return launch_mma_d<T, 8>(q, k, v, bias, g, o, lse, c, dq, dk, dv, dbias, B, H, L, stream);
     case 16:
-      return launch_mma_d<T, 16, kWin>(q, k, v, bias, g, o, lse, c, dq, dk, dv, dbias, B, H, L,
-                                       offsets, W, stream);
+      return launch_mma_d<T, 16>(q, k, v, bias, g, o, lse, c, dq, dk, dv, dbias, B, H, L, stream);
     case 32:
-      return launch_mma_d<T, 32, kWin>(q, k, v, bias, g, o, lse, c, dq, dk, dv, dbias, B, H, L,
-                                       offsets, W, stream);
+      return launch_mma_d<T, 32>(q, k, v, bias, g, o, lse, c, dq, dk, dv, dbias, B, H, L, stream);
     case 64:
-      return launch_mma_d<T, 64, kWin>(q, k, v, bias, g, o, lse, c, dq, dk, dv, dbias, B, H, L,
-                                       offsets, W, stream);
+      return launch_mma_d<T, 64>(q, k, v, bias, g, o, lse, c, dq, dk, dv, dbias, B, H, L, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1571,7 +1520,10 @@ cudaError_t launch_wide_b2(const T* qt, const T* kt, const T* vt, const T* bt, c
 }
 
 // The wide passes at D, a multiple of 64 past 64; any other D is refused.
-// kWin and `dbias` as for launch_mma.
+// kWin: B4, `bias` the toep, `dbias` the f32 (B, H, W', W') scratch the dq
+// pass fills with the windowed ds, and `offsets` and W the windows (all
+// required; attention_rpos_bwd.cu sums the scratch into dtoep); else B2,
+// `dbias` null or the dbias output, offsets unused.
 template <typename T, bool kWin>
 cudaError_t launch_wide(const void* q, const void* k, const void* v, const void* bias,
                         const void* g, const void* o, const float* lse, float* c, void* dq,

@@ -17,23 +17,35 @@
 //   dv[m]   = sum_l p[l,m] * g[l]
 //   dtoep[h,l,m] = sum_b ds[b,h,l,m] * in_b[l] * in_b[m]   (float32)
 // The offsets get no gradient. q arrives pre-scaled. Operands are
-// contiguous (B, H, L, D) with D = 4 and L <= 256 for the passes below
-// (RA-LENet's `--r_pos detect` path); every other shape goes to B2's
-// tensor-core passes in their window mode (attention_bwd_mma.cuh, kWin):
-// D = 8, 16, 32, 64 on the mma template and any multiple of 64 past 64 on
-// the wide passes, at any L, the wrapper zero-padding D up
-// (kernels/attention_rpos.py); there the dq pass leaves the windowed ds in
-// a scratch and `attention_rpos_dtoep_sum_kernel` below, a launch of its
-// own, sums it into dtoep. toep is a contiguous
-// (1, H, L, L) array in the operand dtype and offsets a contiguous (B,)
-// float32 array. float32 and bfloat16 operands; every product, exp and sum
-// is float32, dq, dk and dv are rounded once to the operand dtype, and
-// dtoep is written in float32 (the caller casts it to toep's dtype). The
-// TPU kernel rounds e and ds to bf16 before its products; this one does not.
+// contiguous (B, H, L, D); toep is a contiguous (1, H, L, L) array in the
+// operand dtype and offsets a contiguous (B,) float32 array. float32 and
+// bfloat16 operands; every exp and sum is float32, dq, dk and dv are
+// rounded once to the operand dtype, and dtoep is written in float32 (the
+// caller casts it to toep's dtype).
 //
-// What bounds it: as for attention_bwd.cu, per (b, h) the work is
-// 2*(5*L*L*D + 3*L*L) flops and L*L exps, with D = 4 below every
-// tensor-core shape, so the products run on the CUDA cores in f32; by
+// Which kernel takes which (D, L), and why:
+// * D = 4 at L <= 256 (RA-LENet's `--r_pos detect` path, every stage): the
+//   passes below, a thread two rows, K and V (q and g) of the block's heads
+//   in shared memory at once, and dtoep by a pass of its own. The TPU
+//   kernel rounds e and ds to bf16 before its products; these do not.
+// * D = 4 past 256 keys (PTB-XL's 10 s records at 100 Hz, L = 1,000), and
+//   D = 8, 16, 32, 64 at any L (bf16 from 16; the wrapper pads other D <= 64
+//   up): B4's window kernel on the tensor cores
+//   (attention_rpos_bwd_mma.cuh). D = 4 runs there unpadded, the window is
+//   tested once a (warp, tile), and f32 operands are split into TF32
+//   halves once a tile. At bf16 it rounds p and ds to bf16 before their
+//   products (ds.K, ds^T.q, p^T.g), as the TPU kernel does; B2's template,
+//   which took these shapes before, split them into TF32 halves.
+// * D > 64, a multiple of 64 (the wrapper pads other D up): B2's wide
+//   passes in their window mode (attention_bwd_mma.cuh, kWin), thread-block
+//   clusters along D.
+// Past the D = 4 kernel the dq pass leaves the windowed ds in a scratch
+// and `attention_rpos_dtoep_sum_kernel` below, a launch of its own, sums
+// it into dtoep.
+//
+// The D = 4 kernel. What bounds it: as for attention_bwd.cu, per (b, h)
+// the work is 2*(5*L*L*D + 3*L*L) flops and L*L exps, with D = 4 below
+// every tensor-core shape, so the products run on the CUDA cores in f32; by
 // bytes it moves q, k, v, g, o, dq, dk, dv, lse, the toep entries the
 // windows reach, offsets and dtoep once. Operations bound it at L >= 128
 // and bytes below. The per-window bias is never built in memory.
@@ -97,6 +109,7 @@
 #include <type_traits>
 
 #include "attention_bwd_mma.cuh"
+#include "attention_rpos_bwd_mma.cuh"
 
 namespace {
 
@@ -669,10 +682,10 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                                         B, H, L, W, stream);
 }
 
-// dtoep past the D = 4 kernels (the templates' window mode). Their dq pass
-// leaves each head's ds inside its element's window in `ds`, an f32 (B, H,
-// W', W') scratch, W' = min(W, L), entry (l, m) at (l - s_b, m - s_b) with
-// s_b the window's first position (attention_bwd_mma.cuh
+// dtoep past the D = 4 kernel (the window kernel and the wide passes). Their
+// dq pass leaves each head's ds inside its element's window in `ds`, an f32
+// (B, H, W', W') scratch, W' = min(W, L), entry (l, m) at (l - s_b, m - s_b)
+// with s_b the window's first position (attention_bwd_mma.cuh
 // store_window_ds); this kernel forms
 //   dtoep[h, l, m] = sum_b ds_b[l - s_b, m - s_b] over the b whose window
 //                    holds both l and m,
@@ -739,17 +752,17 @@ cudaError_t launch_dtoep_sum(const float* ds, const float* offsets, float* dtoep
 
 }  // namespace
 
-// Plain C interface for ctypes. D: 4 (the passes above, L <= kMaxL), 8,
-// 16, 32, 64 (the mma template in its window mode, any L whose grids fit
-// an int) or a multiple of 64 past 64 (the wide passes, any L). dtype: 0 =
-// float32, 1 = bfloat16. `lse` is the forward's float32 (B, H, L)
-// residual, `c` a float32 (B, H, L) scratch the call fills; at D = 4
-// `dtoep` is the float32 (1, H, L, L) output (`ds` may be null), at every
-// other D `ds` the float32 (B, H, W', W') scratch, W' = min(W, L), that
-// ecg_attention_rpos_dtoep_sum then sums into dtoep (`dtoep` not written).
-// Launches on `stream` of card `device`, does not synchronise and
-// allocates nothing. Returns the first failing launch's cudaError_t
-// (0 = success).
+// Plain C interface for ctypes. D: 4 (the passes above at L <= kMaxL, the
+// window kernel past it), 8, 16, 32, 64 (the window kernel, any L whose
+// grids fit an int; bf16 from 16) or a multiple of 64 past 64 (the wide
+// passes, any L). dtype: 0 = float32, 1 = bfloat16. `lse` is the forward's
+// float32 (B, H, L) residual, `c` a float32 (B, H, L) scratch the call
+// fills; with the D = 4 passes `dtoep` is the float32 (1, H, L, L) output
+// (`ds` may be null), with every other kernel `ds` the float32 (B, H, W',
+// W') scratch, W' = min(W, L), that ecg_attention_rpos_dtoep_sum then sums
+// into dtoep (`dtoep` not written). Launches on `stream` of card `device`,
+// does not synchronise and allocates nothing. Returns the first failing
+// launch's cudaError_t (0 = success).
 extern "C" int ecg_attention_rpos_bwd(const void* q, const void* k,
                                       const void* v, const void* toep,
                                       const void* offsets, const void* g,
@@ -758,8 +771,9 @@ extern "C" int ecg_attention_rpos_bwd(const void* q, const void* k,
                                       void* dtoep, void* ds, int B, int H, int L,
                                       int D, int W, int dtype, int device,
                                       void* stream) {
-  if (B < 1 || H < 1 || L < 1 || (D == kD && L > kMaxL) || W < 1 ||
-      toep == nullptr || offsets == nullptr || (D == kD ? dtoep : ds) == nullptr) {
+  const bool small = D == kD && L <= kMaxL;
+  if (B < 1 || H < 1 || L < 1 || W < 1 || toep == nullptr || offsets == nullptr ||
+      (small ? dtoep : ds) == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
@@ -772,20 +786,20 @@ extern "C" int ecg_attention_rpos_bwd(const void* q, const void* k,
   float* ds_f = static_cast<float*>(ds);
   switch (dtype) {
     case 0:
-      err = D == kD ? launch<float>(q, k, v, toep, off, g, o, lse_f, c_f, dq, dk, dv, dtoep_f,
-                                    B, H, L, W, s)
+      err = small ? launch<float>(q, k, v, toep, off, g, o, lse_f, c_f, dq, dk, dv, dtoep_f,
+                                  B, H, L, W, s)
             : D <= mma_bwd::kWideD
-                ? mma_bwd::launch_mma<float, true>(q, k, v, toep, g, o, lse_f, c_f, dq, dk, dv,
-                                                   ds_f, B, H, L, D, off, W, s)
+                ? rpos_bwd::launch<float>(q, k, v, toep, off, g, o, lse_f, c_f, dq, dk, dv, ds_f,
+                                          B, H, L, D, W, s)
                 : mma_bwd::launch_wide<float, true>(q, k, v, toep, g, o, lse_f, c_f, dq, dk, dv,
                                                     ds_f, B, H, L, D, off, W, s);
       break;
     case 1:
-      err = D == kD ? launch<__nv_bfloat16>(q, k, v, toep, off, g, o, lse_f, c_f, dq, dk, dv,
-                                            dtoep_f, B, H, L, W, s)
+      err = small ? launch<__nv_bfloat16>(q, k, v, toep, off, g, o, lse_f, c_f, dq, dk, dv,
+                                          dtoep_f, B, H, L, W, s)
             : D <= mma_bwd::kWideD
-                ? mma_bwd::launch_mma<__nv_bfloat16, true>(q, k, v, toep, g, o, lse_f, c_f, dq,
-                                                           dk, dv, ds_f, B, H, L, D, off, W, s)
+                ? rpos_bwd::launch<__nv_bfloat16>(q, k, v, toep, off, g, o, lse_f, c_f, dq, dk,
+                                                  dv, ds_f, B, H, L, D, W, s)
                 : mma_bwd::launch_wide<__nv_bfloat16, true>(q, k, v, toep, g, o, lse_f, c_f, dq,
                                                             dk, dv, ds_f, B, H, L, D, off, W,
                                                             s);
@@ -797,7 +811,7 @@ extern "C" int ecg_attention_rpos_bwd(const void* q, const void* k,
 }
 
 // The dtoep sum (attention_rpos_dtoep_sum_kernel) for a call past the D = 4
-// kernels, after ecg_attention_rpos_bwd has filled `ds`: `dtoep` the
+// kernel, after ecg_attention_rpos_bwd has filled `ds`: `dtoep` the
 // float32 (1, H, L, L) output, `offsets` and W the call's. Launches on
 // `stream` of card `device`, does not synchronise and allocates nothing.
 // Returns the launch's cudaError_t (0 = success).

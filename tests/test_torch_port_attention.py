@@ -11,6 +11,7 @@ at float32: all three compute float32 logits and softmax.
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
 import jax
 
 import ecg_denoise_tpu.kernels.attention_pallas as ap

@@ -18,6 +18,7 @@ sit far below another's.
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
 
 import ecg_denoise_tpu.kernels.attention_pallas as ap
 from ecg_denoise_tpu_torch.kernels.attention import attention_reference, fused_attention

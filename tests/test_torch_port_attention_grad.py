@@ -16,6 +16,7 @@ five RA-LENet stage shapes (L, H), D = 4, with and without the bias: atol
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
 import jax
 import jax.numpy as jnp
 

@@ -20,6 +20,7 @@ R peaks at 0, 5, L/2 and L - 1 so that windows hang off both ends.
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
 import jax
 import jax.numpy as jnp
 

@@ -19,6 +19,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
 import jax.numpy as jnp
 
 from ecg_denoise_tpu.baselines import dwt as jdwt

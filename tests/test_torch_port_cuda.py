@@ -78,15 +78,19 @@ float64 gradients, and past D = 512 against those alone (there the
 float32 plain versions' own rounding nears the 1e-4 bar). Where the parent commit's tree is
 unpacked, what this tree left as it was equals the parent's bit for bit:
 B1 and B2 on the mma template and the wide kernels, B3 on the wide kernel
-and B4's dq, dk and dv (its dtoep is formed anew from the dq pass's ds),
-and B5 at every head dim.
+and B4's dq, dk and dv on B2's wide passes, B3 and B4 at D = 4 and L <= 256
+(their D = 4 kernels), and B5 at every head dim.
 
 B3's window kernel (head_dim 4 past 256 keys, unpadded, and 8, 16, 32,
 64: RPOS_WINDOW_CASES) is held to B3's bars against its plain version,
 its lse to LSE_TOL, with windows whose edges fall on every multiple of 16
 (every warp's, block's and key tile's boundary) and one either side, a
 negative start, one past L - W and a NaN; B4's gradients from its o and
-lse to B4's bars.
+lse to B4's bars. B4's window kernel (csrc/attention_rpos_bwd_mma.cuh: head_dim 4
+past 256 keys, unpadded, and 8, 16, 32, 64: RPOS_BWD_WINDOW_CASES) is held
+on the same windows to B4's bars against the flash form on its o and lse
+(f32 also against autograd through the plain forward), with its launch
+counted and a second call bit-identical.
 
 B1 and B2 on the mma template (head_dim 8, 16, 32, 64; 24 padded to 32;
 D = 4 past 256 keys padded to 8) are held to the same bars, the f32
@@ -108,6 +112,7 @@ import os
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
 
 from ecg_denoise_tpu_torch import full_float32
 from ecg_denoise_tpu_torch.kernels import attention, attention_dense
@@ -622,7 +627,7 @@ def test_rpos_window_kernel_at_tile_edges(cuda, D, L, dtype):
     assert (fused_attention_rpos.launches, fused_attention_rpos.bwd_launches) == (
         before[0] + 2, before[1] + 1)
     # unpadded, but bf16's D = 8, which its mma (16 deep) takes padded to 16
-    assert attention_rpos.forward_head_dim(D, L, dtype) == (
+    assert attention_rpos.rpos_head_dim(D, L, dtype) == (
         16 if (D, dtype) == (8, torch.bfloat16) else D)
     ref, ref_lse = attention_rpos_reference(*ops, W, offsets, return_lse=True)
     tol = (F32_TOL if dtype == torch.float32
@@ -645,6 +650,53 @@ def test_rpos_window_kernel_at_tile_edges(cuda, D, L, dtype):
                    else DBIAS_TOL_OF_MAX * scale if name == "dtoep" else GRAD_TOL)
             err = (a.float() - b.float()).abs().max().item()
             assert bool(torch.isfinite(a).all()) and err <= bar, (name, err, bar)
+
+
+# B4's window kernel (csrc/attention_rpos_bwd_mma.cuh), (D, L): D = 4 past
+# 256 keys, unpadded, and D = 8-64 at a length past one block's 64 rows
+# and its tiles' 64 (f32 D = 64: 32 and 16) rows.
+RPOS_BWD_WINDOW_CASES = ([(4, 257), (4, 1000)]
+                         + [(D, L) for D in (8, 16, 32, 64) for L in (203, 300)])
+
+
+@pytest.mark.parametrize("D,L", RPOS_BWD_WINDOW_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rpos_backward_window_kernel_matches_plain_and_repeats(cuda, D, L, dtype):
+    """B4 on its window kernel, through `_launch_bwd` on the forward
+    kernel's o and lse, with the windows' edges on every tile boundary and
+    one either side: dq, dk, dv within 1e-4 and dtoep within 1e-4 of its
+    max of the flash form on the same o and lse (f32; also of autograd
+    through the plain forward), bf16 within 2^-7 of each max; one backward
+    launch a call, and a second call bit-identical."""
+    from ecg_denoise_tpu_torch.kernels import attention_rpos
+
+    full_float32()
+    W, offsets = _edge_offsets(L)
+    ops, W, _ = _rpos_operands(len(offsets), L, W, 2, dtype, cuda, seed=3 * D + L, D=D)
+    offsets = offsets.to(cuda)
+    g = torch.randn(ops[0].shape, generator=torch.Generator().manual_seed(11)).to(cuda, dtype)
+    assert attention_rpos.rpos_head_dim(D, L, dtype) == (
+        16 if (D, dtype) == (8, torch.bfloat16) else D)
+    o, lse = attention_rpos._launch(*ops, W, offsets, with_lse=True)
+    before = fused_attention_rpos.bwd_launches
+    got = attention_rpos._launch_bwd(*ops, W, offsets, o, lse, g)
+    again = attention_rpos._launch_bwd(*ops, W, offsets, o, lse, g)
+    torch.cuda.synchronize()
+    assert fused_attention_rpos.bwd_launches == before + 2
+    assert [t.dtype for t in got] == [dtype] * 4
+    assert [t.shape for t in got] == [t.shape for t in ops]
+    refs = [attention_rpos_backward_reference(*ops, W, offsets, o, lse, g)]
+    if dtype == torch.float32:
+        plain = [t.detach().requires_grad_() for t in ops]
+        refs.append(torch.autograd.grad(attention_rpos_reference(*plain, W, offsets), plain, g))
+    for want in refs:
+        for name, a, b in zip(("dq", "dk", "dv", "dtoep"), got, want):
+            scale = b.float().abs().max().item()
+            bar = (BF16_GRAD_TOL_OF_MAX * scale if dtype == torch.bfloat16
+                   else DBIAS_TOL_OF_MAX * scale if name == "dtoep" else GRAD_TOL)
+            err = (a.float() - b.float()).abs().max().item()
+            assert bool(torch.isfinite(a).all()) and err <= bar, (name, err, bar)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.parametrize("B,L,W,H", RPOS_CASES)
@@ -1427,10 +1479,11 @@ def test_wide_head_transformer1d_matches_cpu_with_its_launches(cuda, monkeypatch
 # operands bit for bit (skipped where the parent's tree is not unpacked):
 # B1 and B2 on the mma template (head_dim 8, 16, 32, 64; D = 4 past 256
 # keys on it) and on the wide kernels (128, 320), B3 on the wide kernel (o,
-# lse) and B4's dq, dk and dv on B2's (its dtoep is formed anew, from the
-# dq pass's ds), and B5 on its template and its wide kernel. B3 at D <= 64
-# runs on its own window kernel, whose arithmetic is new: held there to
-# its bars against its plain version.
+# lse) and B4's dq, dk and dv on B2's wide passes (its dtoep is formed
+# anew, from the dq pass's ds), and B5 on its template and its wide
+# kernel. B3 and B4 at D <= 64 run on their own window kernels, whose
+# arithmetic is new: held there to their bars against their plain
+# versions.
 TEMPLATE_PARENT_CASES = [(D, B, L, H) for D in (8, 16, 32, 64, 128, 320)
                          for (B, L, H) in ((3, 203, 2), (5, 32, 3))] + [(4, 2, 300, 2)]
 DENSE_PARENT_CASES = [(D, 3, L, H) for D in (8, 16, 32, 64, 128, 256)
@@ -1486,11 +1539,18 @@ def test_templates_equal_the_parent_commits(cuda, D, B, L, H, dtype):
         outs.append((o, lse, *grads[:3], dbias, ro, rlse, *grads[3:]))
     torch.cuda.synchronize()
     names = ("o", "lse", "dq", "dk", "dv", "dbias", "B3 o", "B3 lse", "B4 dq", "B4 dk", "B4 dv")
-    window_kernel = Dk <= 64  # B3's own kernel: held to its bars, not to the parent's bits
+    window_kernel = Dk <= 64  # B3's and B4's own kernels: their bars, not the parent's bits
     for name, a, b in zip(names, *outs):
-        if not (window_kernel and name in ("B3 o", "B3 lse")):
+        if not (window_kernel and name.startswith(("B3", "B4"))):
             assert torch.equal(a, b), name
     if window_kernel:
+        want = attention_rpos_backward_reference(rq, rk, rv, toep, W, offsets, outs[0][6],
+                                                 outs[0][7], g)
+        for name, a, b in zip(("dq", "dk", "dv"), outs[0][8:], want):
+            scale = b.float().abs().max().item()
+            bar = BF16_GRAD_TOL_OF_MAX * scale if dtype == torch.bfloat16 else GRAD_TOL
+            err = (a.float() - b.float()).abs().max().item()
+            assert err <= bar, (name, err, bar)
         ref, ref_lse = attention_rpos_reference(rq, rk, rv, toep, W, offsets, return_lse=True)
         tol = (F32_TOL if dtype == torch.float32
                else BF16_TOL_OF_MAX_V * rv.float().abs().max().item())

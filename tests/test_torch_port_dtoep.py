@@ -1,8 +1,9 @@
 """B4's dtoep past the D = 4 kernels, built from the dq pass's ds, against
 the JAX package on the CPU.
 
-On the card every r-pos backward but D = 4 at L <= 256 runs B2's passes in
-their window mode; their dq pass leaves each head's ds inside its batch
+On the card every r-pos backward but D = 4 at L <= 256 runs B4's window
+kernel (D <= 64) or B2's wide passes in their window mode; their dq pass
+leaves each head's ds inside its batch
 element's window in a float32 (B, H, W', W') scratch, W' = min(W, L), and a
 second kernel sums it over the batch, b ascending, into dtoep. The plain
 versions of the two steps, `window_ds` and `dtoep_from_window_ds`
@@ -24,6 +25,7 @@ versions of the two steps, `window_ds` and `dtoep_from_window_ds`
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
 import jax
 import jax.numpy as jnp
 
@@ -154,7 +156,7 @@ def test_card_wrapper_fills_the_scratch_and_reaches_the_sum(monkeypatch, L, d, W
     got = attention_rpos._launch_bwd(q, k, v, toep, W, off, o, lse, g)
     assert attention_rpos.fused_attention_rpos.bwd_launches == before + 1
     Wp = min(W, L)
-    Dk = attention_rpos.kernel_head_dim(d, L, q.dtype)
+    Dk = attention_rpos.rpos_head_dim(d, L, q.dtype)
     if scratch:
         assert calls == [("passes", Dk, ((B, H, Wp, Wp), torch.float32)), ("sum", (B, H, Wp, Wp))]
     else:

@@ -16,6 +16,8 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
 
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "ecg_denoise_tpu_torch"

@@ -26,6 +26,7 @@ and slice the results back (D = 320, a multiple of 64, unpadded).
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
 import jax
 import jax.numpy as jnp
 

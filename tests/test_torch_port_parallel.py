@@ -34,6 +34,7 @@ import json
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
 import torch.distributed as dist
 import jax
 import jax.numpy as jnp

@@ -15,6 +15,7 @@ import os
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
 import torch.distributed as dist
 
 WORLD = 2

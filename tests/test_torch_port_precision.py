@@ -35,6 +35,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
 from jax.experimental import pallas as pl
 
 from ecg_denoise_tpu_torch.kernels import precision as probes

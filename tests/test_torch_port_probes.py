@@ -16,6 +16,7 @@ that skips a global load.
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
 
 from ecg_denoise_tpu_torch.kernels.null_copy import null_copy
 from ecg_denoise_tpu_torch.probes import chain, dense_bound, floor, sass_mix

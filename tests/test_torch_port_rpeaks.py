@@ -10,6 +10,7 @@ Windows are made from a seed with numpy and handed to both.
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
 import jax.numpy as jnp
 
 from ecg_denoise_tpu.data.rpeaks import detect_r_peaks as jax_detect

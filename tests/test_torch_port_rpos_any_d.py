@@ -5,9 +5,9 @@ JAX's `fused_attention_rpos` takes any head dim D and length L (its
 kernels take a whole packed row), and so does the port: on the CPU
 `fused_attention_rpos` runs its plain version at every shape, and on the
 card D = 4 at L <= 256 keeps the D = 4 kernels while every other shape
-goes to B3's window kernel (D <= 64, D = 4 unpadded) or B1's wide kernel
-and B2's kernels in their window mode, the operands zero-padded along D
-(`forward_head_dim`, `kernel_head_dim`, `forward_at`, `backward_at`).
+goes to B3's and B4's window kernels (D <= 64, D = 4 unpadded) or B1's and
+B2's wide kernels in their window mode, the operands zero-padded along D
+(`rpos_head_dim`, `forward_at`, `backward_at`).
 
 * The port's `multi_head_attention` with an `RPosBias` at (L, D) = (64, 8)
   and (512, 4), B = 2, H = 2, W = 16, offsets (3, 10), against JAX's
@@ -26,13 +26,13 @@ and B2's kernels in their window mode, the operands zero-padded along D
   gradient).
 * The card's routing: `kernel_head_dim` keeps (D, L) = (4, 256) on the D = 4
   kernels and pads (4, 300), (8, 64) stays, (128, 64) stays on the wide
-  kernels; B3's forward (`forward_head_dim`) keeps D = 4 unpadded at any L
-  (past 256 keys on its window kernel), f32 and bf16, while B4 still pads
-  it to `kernel_head_dim`'s; the card wrappers, their launches replaced by
-  the plain versions, call them at those head dims and slice the results
-  back. At (B, H, L, D, W) = (2, 2, 300, 4, 40), with an offset negative,
-  one past L - W or one NaN, the unpadded forward's o and lse, and B4's
-  gradients from them, equal the padded route's within 1e-6.
+  kernels; B3 and B4 (`rpos_head_dim`) keep D = 4 unpadded at any L (past 256 keys on their window kernels),
+  f32 and bf16, and take `kernel_head_dim`'s at every other D; the card
+  wrappers, their launches replaced by the plain versions, call them at
+  those head dims and slice the results back. At (B, H, L, D, W) = (2, 2,
+  300, 4, 40), with an offset negative, one past L - W or one NaN, the
+  unpadded forward's o and lse, and B4's unpadded gradients from them,
+  equal the padded route's within 1e-6.
 * The kernel build's hash covers the headers a source includes (the
   templates B1-B4 share live in `csrc/*.cuh`), so an edited header never
   loads a stale library.
@@ -41,6 +41,7 @@ and B2's kernels in their window mode, the operands zero-padded along D
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
 import jax
 import jax.numpy as jnp
 
@@ -48,12 +49,12 @@ import ecg_denoise_tpu.kernels.attention_pallas as ap
 import ecg_denoise_tpu.ops.attention as jatt
 from ecg_denoise_tpu_torch.interop.jax_weights import state_dict_from_variables
 from ecg_denoise_tpu_torch.kernels import attention_rpos, build
-from ecg_denoise_tpu_torch.kernels.attention import forward_at, kernel_head_dim
+from ecg_denoise_tpu_torch.kernels.attention import backward_at, forward_at, kernel_head_dim
 from ecg_denoise_tpu_torch.kernels.attention_rpos import (
     attention_rpos_backward_reference,
     attention_rpos_reference,
-    forward_head_dim,
     fused_attention_rpos,
+    rpos_head_dim,
 )
 from ecg_denoise_tpu_torch.ops import attention as patt
 from test_torch_port_layers import random_variables
@@ -209,19 +210,36 @@ def test_kernel_head_dim_routes_rpos_calls():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_forward_head_dim_keeps_d4_unpadded_past_256_keys(dtype):
-    """B3's forward takes D = 4 as it is at any L (the D = 4 kernel to 256
-    keys, the window kernel past them) and every other D at
-    `kernel_head_dim`'s; B4 still pads D = 4 past 256 keys."""
+    """B3 (and B4) take D = 4 as it is at any L (the D = 4 kernels to 256
+    keys, the window kernels past them) and every other D at
+    `kernel_head_dim`'s, which pads D = 4 past 256 keys for B1 and B2."""
     for L in (1, 256, 257, 300, 1000):
-        assert forward_head_dim(4, L, dtype) == 4
+        assert rpos_head_dim(4, L, dtype) == 4
     assert kernel_head_dim(4, 300, dtype) == (8 if dtype == torch.float32 else 16)
     for D, L in ((3, 300), (8, 64), (24, 300), (64, 1000), (72, 64), (128, 64)):
-        assert forward_head_dim(D, L, dtype) == kernel_head_dim(D, L, dtype)
+        assert rpos_head_dim(D, L, dtype) == kernel_head_dim(D, L, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,L", [(4, 1), (4, 256), (4, 257), (4, 300), (4, 1000), (3, 300),
+                                 (8, 64), (12, 1000), (24, 300), (64, 1000), (72, 64),
+                                 (128, 64)])
+def test_rpos_head_dim_at_each_shape(D, L, dtype):
+    """The head dim of a (D, L) call on the card, case by case: D = 4 as it
+    is at every L, 8/16/32/64 (bf16 from 16) or the next multiple of 64
+    otherwise (4 at L = 300 would be 8, bf16 16, under `kernel_head_dim`)."""
+    want = {(4, 1): 4, (4, 256): 4, (4, 257): 4, (4, 300): 4, (4, 1000): 4, (3, 300): 8,
+            (8, 64): 8, (12, 1000): 16, (24, 300): 32, (64, 1000): 64, (72, 64): 128,
+            (128, 64): 128}[D, L]
+    if dtype == torch.bfloat16 and want < 16:
+        want = 4 if D == 4 else 16
+    assert rpos_head_dim(D, L, dtype) == want
 
 
 def _plain_kernels(monkeypatch, calls):
     """The card wrappers' launches replaced by the plain versions, each
-    call's kernel and head dim recorded in `calls`."""
+    call's kernel and head dim recorded in `calls`: the two plain
+    launches."""
 
     def plain_fwd(q, k, v, toep, *, W, offsets, with_lse):
         calls.append(("fwd", q.shape[-1], with_lse))
@@ -233,13 +251,15 @@ def _plain_kernels(monkeypatch, calls):
 
     monkeypatch.setattr(attention_rpos, "_launch_kernel", plain_fwd)
     monkeypatch.setattr(attention_rpos, "_launch_bwd_kernel", plain_bwd)
-    return plain_fwd
+    return plain_fwd, plain_bwd
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_b3_runs_d4_unpadded_past_256_keys_while_b4_pads(monkeypatch, dtype):
     """Through the autograd Function's wrappers at (L, D) = (300, 4): the
-    forward kernel is called at D = 4, the backward at 8 (bf16 16)."""
+    forward kernel and, since B4 has a window kernel of its own, the
+    backward are called at D = 4 (`kernel_head_dim`, B1's and B2's rule,
+    would pad it to 8, bf16 16)."""
     calls = []
     _plain_kernels(monkeypatch, calls)
     W, offsets = _windows(300)
@@ -248,7 +268,8 @@ def test_b3_runs_d4_unpadded_past_256_keys_while_b4_pads(monkeypatch, dtype):
     q, k, v, g, toep = (t.to(dtype) for t in (q, k, v, g, toep))
     out, lse = attention_rpos._launch(q, k, v, toep, W, offsets, with_lse=True)
     grads = attention_rpos._launch_bwd(q, k, v, toep, W, offsets, out, lse, g)
-    assert calls == [("fwd", 4, True), ("bwd", kernel_head_dim(4, 300, dtype))]
+    assert calls == [("fwd", 4, True), ("bwd", 4)]
+    assert kernel_head_dim(4, 300, dtype) == (8 if dtype == torch.float32 else 16)
     assert out.shape == q.shape and out.dtype == dtype
     assert [t.shape for t in grads] == [q.shape, k.shape, v.shape, toep.shape]
 
@@ -257,11 +278,11 @@ def test_b3_runs_d4_unpadded_past_256_keys_while_b4_pads(monkeypatch, dtype):
                          ids=["negative", "past_L_minus_W", "nan"])
 def test_unpadded_forward_equals_the_padded_route(monkeypatch, offsets):
     """At (B, H, L, D, W) = (2, 2, 300, 4, 40) with the plain versions as the
-    kernels: B3's unpadded forward (o, lse) and B4's gradients from it equal
-    the padded route's (the forward at `kernel_head_dim`, as before) within
-    1e-6 of each tensor's largest (1 where that is below 1)."""
+    kernels: B3's unpadded forward (o, lse) and B4's unpadded gradients
+    from it equal the padded route's (both kernels at `kernel_head_dim`)
+    within 1e-6 of each tensor's largest (1 where that is below 1)."""
     calls = []
-    plain_fwd = _plain_kernels(monkeypatch, calls)
+    plain_fwd, plain_bwd = _plain_kernels(monkeypatch, calls)
     W = 40
     q, k, v, g, toep, offsets = (torch.from_numpy(a) for a in
                                  _operands(2, 2, 300, 4, W, offsets, seed=23))
@@ -270,7 +291,9 @@ def test_unpadded_forward_equals_the_padded_route(monkeypatch, offsets):
                       offsets=offsets, with_lse=True)
     assert [c[1] for c in calls] == [4, 8]
     got_grads = attention_rpos._launch_bwd(q, k, v, toep, W, offsets, *got, g)
-    want_grads = attention_rpos._launch_bwd(q, k, v, toep, W, offsets, *want, g)
+    want_grads = backward_at(kernel_head_dim(4, 300, q.dtype), plain_bwd, q, k, v, toep,
+                             *want, g, W=W, offsets=offsets)
+    assert [c[1] for c in calls[2:]] == [4, 8]
     for name, a, b in zip("out lse q k v toep".split(), (*got, *got_grads),
                           (*want, *want_grads)):
         assert a.shape == b.shape and bool(torch.isfinite(a).all()), name
@@ -281,7 +304,8 @@ def test_unpadded_forward_equals_the_padded_route(monkeypatch, offsets):
 @pytest.mark.parametrize("L,d,padded", [(256, 4, 4), (300, 4, 8), (40, 12, 16), (24, 72, 128)])
 def test_card_wrappers_pad_and_slice_back(monkeypatch, L, d, padded):
     """The r-pos card wrappers call their kernels at their head dims (B3
-    `forward_head_dim`'s, B4 `kernel_head_dim`'s: `padded`) on zero-padded
+    and B4 at `rpos_head_dim`'s; `padded` is `kernel_head_dim`'s, which
+    both take but at D = 4) on zero-padded
     operands and slice the results back; with the plain versions as the
     kernels the results are the unpadded calls', within 1e-6 of each
     tensor's largest."""
@@ -292,7 +316,11 @@ def test_card_wrappers_pad_and_slice_back(monkeypatch, L, d, padded):
                                     _operands(4, 2, L, d, W, offsets, seed=L + d))
     out, lse = attention_rpos._launch(q, k, v, toep, W, offsets, with_lse=True)
     grads = attention_rpos._launch_bwd(q, k, v, toep, W, offsets, out, lse, g)
-    assert calls == [("fwd", forward_head_dim(d, L, q.dtype), True), ("bwd", padded)]
+    assert calls == [("fwd", rpos_head_dim(d, L, q.dtype), True),
+                     ("bwd", rpos_head_dim(d, L, q.dtype))]
+    assert kernel_head_dim(d, L, q.dtype) == padded
+    if d != 4:
+        assert rpos_head_dim(d, L, q.dtype) == padded
     ref, ref_lse = attention_rpos_reference(q, k, v, toep, W, offsets, return_lse=True)
     ref_grads = attention_rpos_backward_reference(q, k, v, toep, W, offsets, ref, ref_lse, g)
     for name, got, want in zip("out lse q k v toep".split(), (out, lse, *grads),
@@ -315,7 +343,9 @@ def test_build_hash_covers_included_headers(tmp_path):
     (tmp_path / "b.cuh").write_text("#pragma once\n// edited\n")
     assert build._target("k", tmp_path) != before
     names = [p.name for p in build.sources("attention_rpos_bwd", build.CSRC)]
-    assert names == ["attention_rpos_bwd.cu", "attention_bwd_mma.cuh", "attention_window.cuh"]
+    assert names == ["attention_rpos_bwd.cu", "attention_bwd_mma.cuh",
+                     "attention_rpos_bwd_mma.cuh", "attention_window.cuh",
+                     "attention_rpos_fwd_mma.cuh", "attention_fwd_mma.cuh"]
     names = [p.name for p in build.sources("attention_rpos_fwd", build.CSRC)]
     assert names == ["attention_rpos_fwd.cu", "attention_fwd_mma.cuh",
                      "attention_rpos_fwd_mma.cuh", "attention_window.cuh"]

@@ -18,6 +18,7 @@ import urllib.request
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
 
 from ecg_denoise_tpu_torch.cli.serve import make_server
 from ecg_denoise_tpu_torch.models.ralenet import RaleNet

@@ -27,6 +27,7 @@ the stage packs, as JAX's `_fwd` packs it, and B1 elsewhere.
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
 import jax
 import jax.numpy as jnp
 

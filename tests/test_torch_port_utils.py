@@ -9,6 +9,7 @@ import time
 
 import pytest
 import torch
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
 
 import ecg_denoise_tpu
 import ecg_denoise_tpu_torch
